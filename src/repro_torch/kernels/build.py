@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Sequence
 
@@ -110,3 +111,10 @@ def load_library(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     _LOADED[name] = lib
     return lib
+
+
+def load_libraries(specs: Sequence[tuple]) -> list:
+    """``load_library(name, sources)`` for each ``(name, sources)`` at once:
+    the ``nvcc`` processes of all of them start together."""
+    with ThreadPoolExecutor(max(1, len(specs))) as pool:
+        return list(pool.map(lambda spec: load_library(*spec), specs))

@@ -1,5 +1,5 @@
-"""Shared neural-net layers (PyTorch): the train subset of the dense GQA
-transformer block.  Counterpart of ``repro.models.layers``.
+"""Shared neural-net layers (PyTorch): the dense GQA transformer block and
+the decode-attention oracle.  Counterpart of ``repro.models.layers``.
 
 Pure functions over explicit parameter dicts, weights kept ``[d_in, d_out]``
 (``x @ w``) as the reference keeps them.
@@ -161,6 +161,36 @@ def attention(
             f"sequence length {max(Sq, Skv)} > {_DIRECT_ATTN_MAX_SEQ} needs "
             "_flash_attention/_block_attention, which are not ported yet")
     return out.reshape(B, Sq, H, dv)
+
+
+def decode_attention(
+    q: Tensor,              # [B, 1, H, dh]
+    k_cache: Tensor,        # [B, W, K, dh]  (ring buffer or linear cache)
+    v_cache: Tensor,
+    *,
+    kv_pos: Tensor,         # [B, W] int absolute positions, -1 = empty
+    q_pos: Tensor,          # [B] int
+    scale: Optional[float] = None,
+    window: Optional[int] = None,
+) -> Tensor:
+    """Single-token decode attention over a KV cache, the dense oracle of
+    the decode kernels: fp32 scores, a ``NEG_INF`` mask, softmax.  A row
+    with no valid position softmaxes to uniform (mean of V), where the
+    kernels return 0."""
+    B, _, H, dh = q.shape
+    K = k_cache.shape[2]
+    G = H // K
+    scale = scale if scale is not None else dh ** -0.5
+    qg = q.reshape(B, 1, K, G, dh)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.to(torch.float32),
+                          k_cache.to(torch.float32)) * scale
+    valid = (kv_pos >= 0) & (kv_pos <= q_pos[:, None])
+    if window is not None:
+        valid = valid & (q_pos[:, None] - kv_pos < window)
+    logits = torch.where(valid[:, None, None, None, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v_cache.dtype), v_cache)
+    return out.reshape(B, 1, H, dh)
 
 
 # --------------------------------------------------------------------------

@@ -74,6 +74,48 @@ class Arch:
             out["labels"] = ((batch, seq_len), torch.int32)
         return out
 
+    # ---- legacy serve (ring-buffer cache) -----------------------------------
+    def _legacy_serve(self, what: str):
+        raise NotImplementedError(
+            f"Arch.{what}: the legacy ring-cache serving path (Engine, K4 "
+            "decode_attention) is the next slice of the port; serve with "
+            "repro_torch.serve.engine.PagedEngine")
+
+    def make_prefill_step(self, **kw):
+        self._legacy_serve("make_prefill_step")
+
+    def make_decode_step(self):
+        self._legacy_serve("make_decode_step")
+
+    def init_cache(self, batch: int, max_len: int):
+        self._legacy_serve("init_cache")
+
+    # ---- paged serving (continuous batching; transformer GQA only) --------
+    def supports_paged_serving(self) -> bool:
+        return (self.family == "transformer"
+                and getattr(self.cfg, "mla", None) is None
+                and not getattr(self.cfg, "prefix_lm", False))
+
+    def _paged(self):
+        if not self.supports_paged_serving():
+            raise ValueError(f"{self.arch_id}: paged serving supports GQA "
+                             "transformers only")
+        return self._family_mod()
+
+    def make_prefill_kv_step(self):
+        return self._paged().make_prefill_kv_step(self.cfg)
+
+    def make_paged_decode_step(self, *, use_kernel=None):
+        """``use_kernel``: None = the CUDA kernel for CUDA tensors and the
+        plain version for CPU tensors; False = the plain version."""
+        return self._paged().make_paged_decode_step(self.cfg,
+                                                    use_kernel=use_kernel)
+
+    def init_page_pool(self, num_pages: int, page_size: int, *,
+                       device="cuda"):
+        return self._paged().init_page_pool(self.cfg, num_pages, page_size,
+                                            device=device)
+
 
 def get_arch(arch_id: str, *, smoke: bool = False) -> Arch:
     if arch_id not in _CONFIG_MODULES:

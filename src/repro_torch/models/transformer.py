@@ -1,10 +1,15 @@
-"""Decoder-only LM family (PyTorch), train half, dense GQA.
+"""Decoder-only LM family (PyTorch), dense GQA: the train half and the
+paged-serving half.
 
 Counterpart of ``repro.models.transformer``: scan-over-layers layout with
 stacked ``[L, ...]`` params so the fused AdaLomo backward (``core/fused.py``)
 applies.  Ported: dense GQA blocks with ``qk_norm``, sliding ``window``,
-``tie_embeddings`` and ``z_loss``.  MoE, MLA, MTP and prefix-LM configs raise
-``NotImplementedError``; serving is a later slice.
+``tie_embeddings`` and ``z_loss``; for serving, ``make_prefill_kv_step``,
+``make_paged_decode_step`` and ``init_page_pool`` (the page pool is updated
+in place).  MoE, MLA, MTP and prefix-LM configs raise
+``NotImplementedError``; the legacy ring-cache serving path
+(``make_prefill_step``, ``make_decode_step``, ``init_cache``) is a later
+slice.
 """
 from __future__ import annotations
 
@@ -150,7 +155,15 @@ def init_params(seed: int, cfg: LMConfig, *, device="cuda") -> dict:
 # Attention path
 # --------------------------------------------------------------------------
 
-def _gqa_attn(p: dict, cfg: LMConfig, h: Tensor, pos: Tensor) -> Tensor:
+def _rope_tables(cfg: LMConfig, pos: Tensor) -> tuple:
+    d_rot = int(cfg.head_dim * cfg.rope_pct) // 2 * 2
+    return L.rope_sincos(pos, d_rot, cfg.rope_theta)
+
+
+def _qkv(p: dict, cfg: LMConfig, h: Tensor, sin: Tensor, cos: Tensor
+         ) -> tuple:
+    """Projections of ``h [B,S,d]`` with RoPE on q and k: q ``[B,S,H,dh]``,
+    k and v ``[B,S,K,dh]`` (k and v are what a KV cache holds)."""
     B, S, _ = h.shape
     H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = L.dense(h, p["wq"]).reshape(B, S, H, dh)
@@ -159,13 +172,25 @@ def _gqa_attn(p: dict, cfg: LMConfig, h: Tensor, pos: Tensor) -> Tensor:
     if cfg.qk_norm:
         q = L.rmsnorm(q, p["q_norm"]["scale"])
         k = L.rmsnorm(k, p["k_norm"]["scale"])
-    d_rot = int(dh * cfg.rope_pct) // 2 * 2
-    sin, cos = L.rope_sincos(pos, d_rot, cfg.rope_theta)
     q = L.apply_rope(q, sin, cos, cfg.rope_pct)
     k = L.apply_rope(k, sin, cos, cfg.rope_pct)
+    return q, k, v
+
+
+def _gqa_attn_kv(p: dict, cfg: LMConfig, h: Tensor, pos: Tensor) -> tuple:
+    """Causal (SWA) self-attention over the sequence; returns the block's
+    attention output and this layer's roped k and v."""
+    B, S, _ = h.shape
+    sin, cos = _rope_tables(cfg, pos)
+    q, k, v = _qkv(p, cfg, h, sin, cos)
     spec = L.MaskSpec(causal=True, window=cfg.window)
     o = L.attention(q, k, v, spec=spec, q_pos=pos, kv_pos=pos)
-    return L.dense(o.reshape(B, S, H * dh), p["wo"])
+    return L.dense(o.reshape(B, S, -1), p["wo"]), k, v
+
+
+def _mlp_residual(p: dict, cfg: LMConfig, x: Tensor) -> Tensor:
+    h = L.norm_apply(p["ln2"], x, kind=cfg.norm)
+    return x + L.glu_mlp(p["mlp"], h, cfg.act)
 
 
 # --------------------------------------------------------------------------
@@ -179,10 +204,8 @@ def make_block_body(cfg: LMConfig):
         x, aux_loss = carry
         pos = ctx_act["pos"]        # int positions; never differentiated
         h = L.norm_apply(p["ln1"], x, kind=cfg.norm)
-        x = x + _gqa_attn(p["attn"], cfg, h, pos)
-        h = L.norm_apply(p["ln2"], x, kind=cfg.norm)
-        x = x + L.glu_mlp(p["mlp"], h, cfg.act)
-        return (x, aux_loss)
+        x = x + _gqa_attn_kv(p["attn"], cfg, h, pos)[0]
+        return (_mlp_residual(p, cfg, x), aux_loss)
 
     return body
 
@@ -270,3 +293,115 @@ def make_fused_spec(cfg: LMConfig):
         epilogue=make_epilogue(cfg),
         pro_ctx=make_pro_ctx(cfg),
     )
+
+
+# --------------------------------------------------------------------------
+# Paged serving: prefill emits full per-layer K/V; decode reads/writes a
+# shared page pool through per-sequence block tables (serve/paging.py).
+# --------------------------------------------------------------------------
+
+def _layer(blocks: dict, i: int) -> dict:
+    """Layer ``i`` of the stacked ``[L, ...]`` block params (views)."""
+    return tree_map(lambda t: t[i], blocks)
+
+
+def make_prefill_kv_step(cfg: LMConfig):
+    """prefill(params, batch{'tokens': [B,S], 'length': [B]}) ->
+    (logits [B,vocab] at position length-1, k [L,B,S,K,dh], v [L,B,S,K,dh]).
+
+    Keeps the *full* per-layer K/V (no ring truncation) so the engine can
+    scatter it into KV pages; SWA is enforced by the decode-attention mask.
+    Right-padding is harmless: with a causal mask, K/V at positions < length
+    never see the pad tail, and logits are gathered at length-1.  Goes
+    through the direct attention branch, so S is at most 2048."""
+    check_supported(cfg)
+
+    @torch.no_grad()
+    def prefill(params, batch):
+        outer = params["outer"]
+        tokens = batch["tokens"]
+        length = batch["length"].to(torch.int64)
+        B, S = tokens.shape
+        x = _embed(outer, cfg, tokens)
+        pos = torch.arange(S, dtype=torch.int32, device=tokens.device)
+        blocks = params["stacks"]["blocks"]
+        ks, vs = [], []
+        for i in range(cfg.n_layers):
+            p = _layer(blocks, i)
+            h = L.norm_apply(p["ln1"], x, kind=cfg.norm)
+            a, k, v = _gqa_attn_kv(p["attn"], cfg, h, pos)
+            ks.append(k)
+            vs.append(v)
+            x = _mlp_residual(p, cfg, x + a)
+        last = torch.clamp_min(length - 1, 0)[:, None, None].expand(
+            B, 1, x.shape[-1])
+        h = L.norm_apply(outer["final_norm"], torch.gather(x, 1, last),
+                         kind=cfg.norm)
+        logits = _logits(outer, cfg, h)[:, 0]
+        return logits, torch.stack(ks), torch.stack(vs)
+
+    return prefill
+
+
+def make_paged_decode_step(cfg: LMConfig, *, use_kernel=None):
+    """decode(params, pages, batch) -> (logits [B,vocab], pages).
+
+    pages: {'k','v': [L, N, ps, K, dh]} — the shared page pool, **updated in
+    place** (this token's K/V is written into ``pages[l]`` and the attention
+    reads that same slice; the pool is never copied).
+    batch: tokens [B,1]; block_tables [B,P] int32 (page ids, logical order,
+    unallocated tail = scratch page 0); seq_lens [B] int32 tokens already
+    cached (== position of the incoming token); emit [B] bool — rows that
+    are live this step.  Frozen rows write their K/V to the scratch page and
+    their logits are garbage by construction; the engine masks them.
+    ``use_kernel`` as in ``kernels.decode_attention.ops``: None = the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    check_supported(cfg)
+    from repro_torch.kernels.decode_attention.ops import paged_decode_attention
+
+    @torch.no_grad()
+    def decode(params, pages, batch):
+        outer = params["outer"]
+        tokens = batch["tokens"]
+        bt = batch["block_tables"]
+        n = batch["seq_lens"].to(torch.int32)              # [B]
+        emit = batch["emit"]
+        B = tokens.shape[0]
+        ps, P = pages["k"].shape[2], bt.shape[1]
+
+        x = _embed(outer, cfg, tokens)                     # [B,1,d]
+        # page/slot the incoming token lands in; frozen rows -> scratch 0
+        col = torch.clamp(n // ps, max=P - 1).to(torch.int64)[:, None]
+        pidx = torch.where(emit, bt.gather(1, col)[:, 0], 0).to(torch.int64)
+        slot = torch.where(emit, n % ps, 0).to(torch.int64)
+        n_incl = n + 1                                     # incl. this token
+        sin, cos = _rope_tables(cfg, n[:, None])           # [B,1,d_rot/2]
+        blocks = params["stacks"]["blocks"]
+        for i in range(cfg.n_layers):
+            p = _layer(blocks, i)
+            h = L.norm_apply(p["ln1"], x, kind=cfg.norm)
+            q, k, v = _qkv(p["attn"], cfg, h, sin, cos)
+            kp, vp = pages["k"][i], pages["v"][i]
+            kp[pidx, slot] = k[:, 0]
+            vp[pidx, slot] = v[:, 0]
+            o = paged_decode_attention(q, kp, vp, bt, n_incl,
+                                       window=cfg.window,
+                                       use_kernel=use_kernel)
+            a = L.dense(o.reshape(B, 1, -1), p["attn"]["wo"])
+            x = _mlp_residual(p, cfg, x + a)
+        h = L.norm_apply(outer["final_norm"], x, kind=cfg.norm)
+        logits = _logits(outer, cfg, h)[:, 0]
+        return logits, pages
+
+    return decode
+
+
+def init_page_pool(cfg: LMConfig, num_pages: int, page_size: int, *,
+                   device="cuda") -> dict:
+    """Zeroed shared KV page pool (page 0 is the engine's scratch page)."""
+    check_supported(cfg)
+    shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads,
+             cfg.head_dim)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}

@@ -67,6 +67,19 @@ def smoke_archs(**overrides):
     return ref, port
 
 
+def tiny_llama_archs(layers: int = 2, d: int = 64):
+    """``benchmarks.common.tiny_llama`` (fp32) in both packages."""
+    from benchmarks.common import tiny_llama
+    from repro_torch.models.registry import Arch
+    from repro_torch.models.transformer import LMConfig
+    ref = tiny_llama(layers=layers, d=d)
+    fields = {f.name: getattr(ref.cfg, f.name)
+              for f in dataclasses.fields(LMConfig) if f.name != "dtype"}
+    port = Arch(arch_id=ref.arch_id, family=ref.family,
+                cfg=LMConfig(**fields, dtype=torch.float32))
+    return ref, port
+
+
 def ref_params_and_copy(ref_arch, seed: int = 0):
     """Reference params from the reference's init, and the same weights
     converted for the port (independently initialised models are never
@@ -96,6 +109,7 @@ def torch_batch(b: dict) -> dict:
 
 
 __all__ = ["CPU", "ARCH_ID", "np_f32", "jax_flat", "port_flat",
-           "assert_trees_close", "smoke_archs", "ref_params_and_copy",
+           "assert_trees_close", "smoke_archs", "tiny_llama_archs",
+           "ref_params_and_copy",
            "convert_opt_state", "make_batch", "jax_batch", "torch_batch",
            "to_numpy"]
