@@ -19,9 +19,17 @@ printing one JSON line:
            a window, danube serving shapes (8 sequences, 32/8 heads, dh 80,
            pages of 16, up to 2048 tokens), shuffled page tables and garbage
            in the scratch page, fp32 (1e-5) and bf16 (3e-2), a bitwise
-           re-run.  Then times kernel and plain version (CUDA events, after
-           warm-up, inputs rotated so they are not served from the L2 cache)
-           beside the least time the card could take.
+           re-run.  Ring-cache decode attention K4: the reference kernel
+           tests' cases, a dozen ragged rings, danube's shapes (B 8 x W 1024
+           and B 4 x W 4096, windows none, 4096 and 256) over partly filled
+           rings (empty slots hold large garbage) and wrapped ones, fp32
+           (1e-5) and bf16 (3e-2), a bitwise re-run.  Then times kernel and
+           plain version (CUDA events, after warm-up, inputs rotated so they
+           are not served from the L2 cache) beside the least time the card
+           could take, and, for K4, scaled_dot_product_attention on the same
+           inputs (the library call, never used by the port); K4, whose
+           launches take about what its wrapper costs on the host, is timed
+           as replays of a CUDA graph.
   train    ``repro_torch.run.run(spec)``: h2o-danube-1.8b at its published
            width and depth, random weights from a seed, AdaLomo fused into
            the backward pass, batch 4 x 1024 tokens, 3 steps.  Launch counts
@@ -42,6 +50,20 @@ printing one JSON line:
            step's logits through K3 against the plain version over the same
            pool (within 1e-3 fp32, 0.1 bf16), and greedy tokens of the
            engine end to end (asserted equal in fp32, reported in bf16).
+  legacy_serve  ``repro_torch.serve.engine.Engine``: h2o-danube-1.8b at its
+           published width and depth, bf16, random weights from a seed; 4
+           prompts of 6144 tokens (prefill through the sliding-window gather,
+           a ring of the window's 4096 slots that wraps every step), 64
+           greedy tokens.  Asserts: 64 tokens a row inside the vocabulary,
+           K4 launches == 24 x 63 decode steps, synchronising host transfers
+           == 64 (one a step).
+  legacy_parity  at full width and 2 layers, fp32 and bf16, after prefills of
+           1024, 3072 and 6144 tokens (direct, blockwise and window-gather
+           attention): one decode step's logits through K4 against the plain
+           version over the same cache (1e-3 fp32, 0.1 bf16), greedy tokens
+           of Engine (asserted equal in fp32, reported in bf16); then, fp32
+           at danube's heads and 4096 tokens, the flash branch's value and
+           gradients against direct attention's autograd.
 
 Then the card's name and power limit, one JSON line that lists the kernels
 with their measured numbers, and the result line.
@@ -66,6 +88,7 @@ import time
 import warnings
 
 import torch
+import torch.nn.functional as F
 
 if not torch.cuda.is_available():
     sys.stderr.write("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -86,12 +109,14 @@ from repro_torch.kernels.adalomo_update import adalomo_update as K  # noqa: E402
 from repro_torch.kernels.adalomo_update.ops import adalomo_update  # noqa: E402
 from repro_torch.kernels.adalomo_update.ref import adalomo_step_ref  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention as KD  # noqa: E402
-from repro_torch.kernels.decode_attention.ref import \
-    paged_decode_attention_ref  # noqa: E402
+from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
+    paged_decode_attention_ref, ring_decode_attention_ref)
+from repro_torch.models import layers as ML  # noqa: E402
 from repro_torch.models.registry import get_arch  # noqa: E402
 from repro_torch.run import (ModelSpec, OptSpec, RunSpec, StepSpec,  # noqa: E402
                              TimingHook, run)
-from repro_torch.serve.engine import PagedEngine, PagedServeConfig  # noqa: E402
+from repro_torch.serve.engine import (Engine, PagedEngine,  # noqa: E402
+                                      PagedServeConfig, ServeConfig)
 from repro_torch.serve.paging import build_block_tables  # noqa: E402
 
 DEV = torch.device("cuda", 0)
@@ -266,6 +291,31 @@ def time_ms(fn, sets, rounds: int) -> float:
     return t0.elapsed_time(t1) / (rounds * len(sets))
 
 
+def time_graph_ms(fn, sets, rounds: int) -> float:
+    """Mean device time of ``fn(*set)``, from one CUDA graph of ``rounds``
+    passes over ``sets``, replayed: the host's cost per call (the wrapper's
+    checks and allocations, the launch itself) drops out, which matters for
+    calls that take tens of microseconds on the device."""
+    for s in sets:
+        fn(*s)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(rounds):
+            for s in sets:
+                fn(*s)
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    del graph
+    return t0.elapsed_time(t1) / (rounds * len(sets))
+
+
 def time_kernels() -> tuple:
     """Per danube shape, bf16 params and grads (what the train step passes):
     kernel time, plain-version time and bound, in ms."""
@@ -334,24 +384,30 @@ def phase_kernels() -> dict:
         usage[name] = sorted({ln.split(":", 1)[-1].strip() for ln in lines
                               if "registers" in ln or "spill" in ln})
     errs = {"adalomo_stats": 0.0, "adalomo_update": 0.0,
-            "paged_decode_attention": 0.0}
+            "paged_decode_attention": 0.0, "decode_attention": 0.0}
     n_cases = check_kernels(errs)
     variants = check_op_variants()
     k3_cases, k3_bitwise = check_k3(errs)
+    k4_cases, k4_bitwise = check_k4(errs)
     rows, totals = time_kernels()
     k3_rows, totals["paged_decode_attention"] = time_k3()
+    k4_rows, totals["decode_attention"] = time_k4()
     emit("kernels", kernels=["adalomo_stats", "adalomo_update",
-                             "paged_decode_attention"],
+                             "paged_decode_attention", "decode_attention"],
          build_seconds=build_s, ptxas=usage, cases=n_cases,
          max_abs_err=errs, op_variants=variants,
          tolerances={"param_fp32": 1e-5, "param_bf16": 5e-3, "r_c": TOL_RC,
-                     "paged_fp32": 1e-5, "paged_bf16": 3e-2},
+                     "paged_fp32": 1e-5, "paged_bf16": 3e-2,
+                     "ring_fp32": 1e-5, "ring_bf16": 3e-2},
          timing_dtype="bf16 param, bf16 grad", per_shape=rows,
          per_step_of_170_tensors={k: totals[k] for k in
                                   ("adalomo_stats", "adalomo_update")},
          paged_cases=k3_cases, paged_rerun_bitwise=k3_bitwise,
          paged_per_shape_bf16=k3_rows,
-         paged_per_decode_step_B8_n1024=totals["paged_decode_attention"])
+         paged_per_decode_step_B8_n1024=totals["paged_decode_attention"],
+         ring_cases=k4_cases, ring_rerun_bitwise=k4_bitwise,
+         ring_per_shape_bf16=k4_rows,
+         ring_per_decode_step_B4_W4096=totals["decode_attention"])
     return {"errs": errs, "totals": totals}
 
 
@@ -472,6 +528,145 @@ def time_k3() -> tuple:
         torch.cuda.empty_cache()
     step = rows["B8 n1024"]
     total = {k: step[k] * N_LAYERS for k in ("ms", "plain_ms", "bound_ms")}
+    return rows, total
+
+
+# --------------------------------------------------------------------------
+# K4: decode attention over a ring cache
+# --------------------------------------------------------------------------
+
+# (B, W, H, K, dh, window, cur): the reference kernel tests' CASES; a dozen
+# ragged rings and danube's serving shapes are added in check_k4.
+K4_CASES = [
+    (2, 128, 8, 2, 64, None, 100),
+    (1, 300, 4, 4, 128, None, 250),
+    (3, 512, 16, 4, 64, 64, 400),
+    (2, 64, 8, 8, 32, None, 10),
+    (1, 1024, 32, 8, 128, 256, 900),
+]
+
+
+def k4_inputs(B, W, H, Kh, dh, cur, dtype, seed, wrapped=False):
+    """q, k/v caches [B, W, K, dh], kv_pos [W] and q_pos.  A partly filled
+    ring holds positions 0..cur in slots 0..cur and -1 after them, whose
+    slots hold large garbage; a wrapped ring holds the last W positions up
+    to cur, rotated: slot (p - 1) % W holds position p."""
+    g = torch.Generator(device=DEV)
+    g.manual_seed(seed)
+    q = torch.randn((B, H, dh), generator=g, device=DEV).to(dtype)
+    kc = torch.randn((B, W, Kh, dh), generator=g, device=DEV)
+    vc = torch.randn((B, W, Kh, dh), generator=g, device=DEV)
+    slots = torch.arange(W, device=DEV)
+    if wrapped:
+        pos = cur - W + 1 + torch.remainder(slots - cur, W)
+    else:
+        pos = torch.where(slots <= cur, slots, -1)
+        kc[:, pos < 0] = 1e4
+        vc[:, pos < 0] = -1e4
+    q_pos = torch.full((), cur, dtype=torch.int32, device=DEV)
+    return q, kc.to(dtype), vc.to(dtype), pos.to(torch.int32), q_pos
+
+
+def k4_cases() -> list:
+    """(B, W, H, K, dh, window, cur, wrapped) for every K4 check."""
+    rng = np.random.default_rng(4)
+    cases = [c + (False,) for c in K4_CASES]
+    for _ in range(12):
+        W = int(rng.integers(16, 401))
+        Kh, G = (int(x) for x in rng.choice([1, 2, 4], 2))
+        dh = int(rng.choice(KD.HEAD_DIMS))
+        cases.append((2, W, Kh * G, Kh, dh, None, max(W // 2, 1), False))
+    for B, W in ((8, 1024), (4, 4096)):
+        for window in (None, SERVE_WINDOW, 256):
+            cases.append((B, W, 32, 8, 80, window, W - 200, False))
+            cases.append((B, W, 32, 8, 80, window, W + 2047, True))
+    return cases
+
+
+def check_k4(errs: dict) -> tuple:
+    """K4 against its plain version at every case, fp32 and bf16, and a
+    bitwise re-run at danube's deep ring."""
+    n = 0
+    for i, (B, W, H, Kh, dh, window, cur, wrapped) in enumerate(k4_cases()):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kc, vc, pos, q_pos = k4_inputs(B, W, H, Kh, dh, cur, dtype,
+                                              200 + i, wrapped)
+            want = ring_decode_attention_ref(q, kc, vc, pos, q_pos,
+                                             window=window)
+            got = KD.decode_attention(q, kc, vc, pos, q_pos, window=window)
+            tol = K3_TOL[dtype]
+            assert_close(got, want, rtol=tol, atol=tol,
+                         what=f"decode_attention case {i} {dtype}")
+            errs["decode_attention"] = max(errs["decode_attention"],
+                                           max_err(got, want))
+            n += 1
+    args = k4_inputs(4, 4096, 32, 8, 80, 6143, torch.bfloat16, 8, True)
+    a = KD.decode_attention(*args, window=SERVE_WINDOW)
+    b = KD.decode_attention(*args, window=SERVE_WINDOW)
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError("decode_attention: the same inputs did not give "
+                             "bit-identical outputs on a re-run")
+    return n, True
+
+
+def k4_bound_ms(B, H, Kh, dh, W, n_valid, elt) -> float:
+    """Least time for the function: the valid K/V rows read once, q read,
+    out written, kv_pos and q_pos read; or its operations on the fp32
+    units, whichever is larger."""
+    nbytes = (B * n_valid * Kh * dh * 2 * elt + 2 * B * H * dh * elt
+              + 4 * W + 4)
+    ops = B * n_valid * H * (4 * dh + 4)
+    return max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S) * 1e3
+
+
+def time_k4() -> tuple:
+    """bf16, danube's heads (32 query / 8 KV, dh 80) and window, a wrapped
+    ring whose every slot is valid (the legacy engine's steady state):
+    kernel, plain version, bound and the library call per launch, in ms.
+    The library call is scaled_dot_product_attention of q [B, H, 1, dh]
+    against the cache's [B, K, W, dh] views with enable_gqa and a boolean
+    mask made before the timed region.  K4 takes tens of microseconds, about
+    what its wrapper costs on the host, so all three are timed as replays of
+    a CUDA graph; eager_ms is the kernel's time launched one call after
+    another from the host."""
+    H, Kh, dh = 32, 8, 80
+    rows = {}
+    for name, (B, W) in {"B8 W1024": (8, 1024), "B4 W4096": (4, 4096),
+                         "B1 W4096": (1, 4096)}.items():
+        cur = W + 2047
+        set_bytes = 2 * B * W * Kh * dh * 2
+        copies = min(16, max(2, math.ceil(200e6 / set_bytes)))
+        sets = [k4_inputs(B, W, H, Kh, dh, cur, torch.bfloat16, 60 + c, True)
+                for c in range(copies)]
+        rounds = max(2, 64 // copies)
+
+        def kernel(q, kc, vc, pos, qp):
+            return KD.decode_attention(q, kc, vc, pos, qp,
+                                       window=SERVE_WINDOW)
+
+        eager = time_ms(kernel, sets, rounds)
+        ms = time_graph_ms(kernel, sets, rounds)
+        plain = time_graph_ms(
+            lambda q, kc, vc, pos, qp: ring_decode_attention_ref(
+                q, kc, vc, pos, qp, window=SERVE_WINDOW), sets, rounds)
+        valid = (sets[0][3] >= 0) & (sets[0][3] <= cur) & (
+            cur - sets[0][3] < SERVE_WINDOW)
+        lib_sets = [(q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+                     valid.view(1, 1, 1, W)) for q, kc, vc, _, _ in sets]
+        library = time_graph_ms(
+            lambda q, k, v, m: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=m, enable_gqa=True), lib_sets, rounds)
+        n_valid = int(valid.sum())
+        rows[name] = {"B": B, "W": W, "valid_slots": n_valid, "ms": ms,
+                      "eager_ms": eager, "plain_ms": plain,
+                      "library_ms": library,
+                      "bound_ms": k4_bound_ms(B, H, Kh, dh, W, n_valid, 2)}
+        del sets, lib_sets
+        torch.cuda.empty_cache()
+    step = rows["B4 W4096"]
+    total = {k: step[k] * N_LAYERS
+             for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
     return rows, total
 
 
@@ -737,8 +932,187 @@ def phase_serve_parity() -> None:
 
 
 # --------------------------------------------------------------------------
+# legacy serve
+# --------------------------------------------------------------------------
 
-PHASES = ("kernels", "train", "parity", "serve", "serve_parity")
+LEGACY_BATCH = 4
+LEGACY_PROMPT_LEN = 6144
+LEGACY_NEW_TOKENS = 64
+
+
+def _event_timed(fn, log: list):
+    """``fn`` with CUDA events recorded around each call (no host sync)."""
+    def run(*args, **kwargs):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn(*args, **kwargs)
+        e1.record()
+        log.append((e0, e1))
+        return out
+    return run
+
+
+def phase_legacy_serve() -> dict:
+    """Engine on h2o-danube-1.8b at its published width and depth, bf16,
+    random weights from a seed: 4 prompts of 6144 tokens (prefill through
+    the sliding-window gather; a ring of the window's 4096 slots that wraps
+    every step), 64 greedy tokens each."""
+    arch = get_arch(ARCH_ID)
+    params = arch.init_params(0)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, arch.cfg.vocab, LEGACY_PROMPT_LEN).tolist()
+               for _ in range(LEGACY_BATCH)]
+    eng = Engine(arch, params, ServeConfig(max_new_tokens=LEGACY_NEW_TOKENS))
+    prefill_ev, decode_ev = [], []
+    eng._prefill = _event_timed(eng._prefill, prefill_ev)
+    eng._decode = _event_timed(eng._decode, decode_ev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            KD.decode_attention.launches = 0
+            t0 = time.perf_counter()
+            outs = eng.generate(prompts)
+            wall_s = time.perf_counter() - t0
+            launches = KD.decode_attention.launches
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    steps = len(decode_ev)
+    prefill_s = prefill_ev[0][0].elapsed_time(prefill_ev[0][1]) / 1e3
+    decode_s = decode_ev[0][0].elapsed_time(decode_ev[-1][1]) / 1e3
+    emit("legacy_serve", arch=ARCH_ID, n_layers=arch.cfg.n_layers,
+         dtype=str(arch.cfg.dtype), batch=LEGACY_BATCH,
+         prompt_len=LEGACY_PROMPT_LEN, ring_slots=arch.cfg.window,
+         max_new_tokens=LEGACY_NEW_TOKENS, wall_seconds=wall_s,
+         prefill_seconds=prefill_s, decode_steps=steps,
+         decode_seconds=decode_s, ms_per_decode_step=decode_s / steps * 1e3,
+         decode_tokens_per_s=LEGACY_BATCH * steps / decode_s,
+         launches={"decode_attention": launches}, host_syncs=len(syncs),
+         host_sync_sites=sorted({f"{os.path.basename(w.filename)}:{w.lineno}"
+                                 for w in syncs}),
+         tokens_row0=outs[0][:8],
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+    if [len(o) for o in outs] != [LEGACY_NEW_TOKENS] * LEGACY_BATCH:
+        raise AssertionError(f"legacy_serve: rows emitted "
+                             f"{[len(o) for o in outs]} tokens, expected "
+                             f"{LEGACY_NEW_TOKENS} each")
+    if any(not 0 <= t < arch.cfg.vocab for o in outs for t in o):
+        raise AssertionError("legacy_serve: a token id outside the vocabulary")
+    if steps != LEGACY_NEW_TOKENS - 1 or launches != N_LAYERS * steps:
+        raise AssertionError(f"legacy_serve: {launches} decode_attention "
+                             f"launches in {steps} decode steps, expected "
+                             f"{N_LAYERS} x {LEGACY_NEW_TOKENS - 1}")
+    if len(syncs) != LEGACY_NEW_TOKENS:
+        raise AssertionError(
+            f"legacy_serve: {len(syncs)} synchronising host transfers, "
+            f"expected one per emitted step ({LEGACY_NEW_TOKENS})")
+    return {"launches": launches}
+
+
+LEGACY_PARITY_LENS = (1024, 3072, 6144)   # direct, blockwise, window gather
+
+
+def phase_legacy_parity() -> None:
+    """At full width and 2 layers, fp32 and bf16: one decode step's logits
+    through K4 (use_kernel=None) against the plain version (use_kernel=False)
+    over the same cache, and greedy tokens of Engine end to end, after
+    prefills that take each attention branch; then the flash branch's value
+    and gradients against direct attention at danube's heads."""
+    rng = np.random.default_rng(3)
+    report = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        arch = get_arch(ARCH_ID)
+        arch = dataclasses.replace(arch, cfg=dataclasses.replace(
+            arch.cfg, n_layers=2, dtype=dtype))
+        params = arch.init_params(0)
+        for S in LEGACY_PARITY_LENS:
+            toks = torch.from_numpy(rng.integers(
+                1, arch.cfg.vocab, (2, S)).astype(np.int32)).to(DEV)
+            logits0, cache = arch.make_prefill_step()(params,
+                                                      {"tokens": toks})
+            nxt = torch.argmax(logits0, dim=-1).to(torch.int32)[:, None]
+            logits = {}
+            for use_kernel in (None, False):
+                c = {k: v.clone() for k, v in cache.items()}
+                logits[use_kernel] = arch.make_decode_step(
+                    use_kernel=use_kernel)(params, c, {"tokens": nxt})[0]
+            err = max_err(logits[None], logits[False])
+            prompts = toks.cpu().tolist()
+            tokens = {u: Engine(arch, params, ServeConfig(
+                max_new_tokens=16, use_kernel=u)).generate(prompts)
+                for u in (None, False)}
+            torch.cuda.synchronize()
+            report[f"{dtype} S{S}"] = {
+                "ring_slots": int(cache["pos"].shape[0]),
+                "logits_max_abs_err": err,
+                "tolerance": SERVE_PARITY_TOL[dtype],
+                "greedy_tokens_equal": tokens[None] == tokens[False],
+                "tokens_kernel": tokens[None][0][:8],
+                "tokens_plain": tokens[False][0][:8]}
+            if not err <= SERVE_PARITY_TOL[dtype]:
+                raise AssertionError(f"legacy_parity {dtype} S={S}: "
+                                     f"decode-step logits differ by {err}")
+            if dtype == torch.float32 and tokens[None] != tokens[False]:
+                raise AssertionError(f"legacy_parity fp32 S={S}: greedy "
+                                     "tokens differ between the kernel and "
+                                     "the plain version")
+            del cache, c
+        del params
+        torch.cuda.empty_cache()
+    report["flash_vs_direct"] = check_flash_vs_direct()
+    emit("legacy_parity", n_layers=2, d_model=arch.cfg.d_model, batch=2,
+         prompt_lens=list(LEGACY_PARITY_LENS), max_new_tokens=16, **report)
+
+
+FLASH_CHECK = dict(S=4096, Kh=8, G=4, dh=80)    # B = 1, danube's heads
+
+
+def check_flash_vs_direct() -> dict:
+    """fp32, B = 1, S = 4096, danube's heads (8 KV x 4, dh 80) and window:
+    the flash branch's value and gradients against direct attention's
+    autograd, at the reference flash-VJP test's tolerances (the scalar
+    rtol 5e-5; gradients rtol 1e-4, atol 1e-5)."""
+    S, Kh, G, dh = (FLASH_CHECK[k] for k in ("S", "Kh", "G", "dh"))
+    g = torch.Generator(device=DEV)
+    g.manual_seed(9)
+    base = [torch.randn(shape, generator=g, device=DEV)
+            for shape in ((1, S, Kh, G, dh), (1, S, Kh, dh), (1, S, Kh, dh))]
+    pos = torch.arange(S, dtype=torch.int32, device=DEV)
+    spec = ML.MaskSpec(causal=True, window=SERVE_WINDOW)
+    results = []
+    for impl in ("flash", "direct"):
+        q, k, v = (t.clone().requires_grad_(True) for t in base)
+        if impl == "flash":
+            o = ML._flash_attention(q, k, v, pos, pos, spec, dh ** -0.5,
+                                    ML._Q_BLOCK, ML._KV_BLOCK)
+        else:
+            mask = ML._mask_block(pos, pos, spec)[None, None, None]
+            o = ML._direct_attention(q, k, v, mask, dh ** -0.5)
+        val = torch.sum(o * torch.cos(o))
+        results.append((val.detach(), torch.autograd.grad(val, (q, k, v))))
+        del o, val
+        torch.cuda.empty_cache()
+    (v1, g1), (v2, g2) = results
+    out = {"value_flash": float(v1), "value_direct": float(v2)}
+    if not abs(float(v1) - float(v2)) <= 5e-5 * abs(float(v2)):
+        raise AssertionError(f"legacy_parity: flash value {float(v1)} vs "
+                             f"direct {float(v2)}")
+    for a, b, name in zip(g1, g2, "qkv"):
+        assert_close(a, b, rtol=1e-4, atol=1e-5,
+                     what=f"legacy_parity flash d{name}")
+        out[f"d{name}_max_abs_err"] = max_err(a, b)
+    return out
+
+
+# --------------------------------------------------------------------------
+
+PHASES = ("kernels", "train", "parity", "serve", "serve_parity",
+          "legacy_serve", "legacy_parity")
 
 
 def main() -> None:
@@ -746,8 +1120,10 @@ def main() -> None:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-joined subset of " + ",".join(PHASES) +
                          " (the result line is printed only when all ran); "
-                         "kernels,serve is a short call after touching the "
-                         "decode-attention kernel")
+                         "kernels,serve is a short call after touching K3 "
+                         "or the paged engine, kernels,legacy_serve,"
+                         "legacy_parity after touching K4, the legacy "
+                         "engine or the long-sequence attention")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = sorted(set(phases) - set(PHASES))
@@ -773,22 +1149,31 @@ def main() -> None:
     torch.cuda.empty_cache()
     if "serve_parity" in phases:
         phase_serve_parity()
+        torch.cuda.empty_cache()
+    legacy = phase_legacy_serve() if "legacy_serve" in phases else None
+    torch.cuda.empty_cache()
+    if "legacy_parity" in phases:
+        phase_legacy_parity()
     if set(phases) != set(PHASES):
         print("chip_smoke: partial run (--phases); no result line")
         sys.exit(3)
 
     kernels = []
-    for name, src, replaces, launches, unit in (
+    for name, src, replaces, launches, unit, library in (
             ("adalomo_stats", "adalomo_update/csrc/adalomo_stats.cu",
              "adalomo_update/adalomo_update.py:68",
-             train["launches"]["adalomo_stats"], TRAIN_UNIT),
+             train["launches"]["adalomo_stats"], TRAIN_UNIT, None),
             ("adalomo_update", "adalomo_update/csrc/adalomo_update.cu",
              "adalomo_update/adalomo_update.py:137",
-             train["launches"]["adalomo_update"], TRAIN_UNIT),
+             train["launches"]["adalomo_update"], TRAIN_UNIT, None),
             ("paged_decode_attention",
              "decode_attention/csrc/paged_decode_attention.cu",
              "decode_attention/decode_attention.py:109",
-             serve["launches"], DECODE_UNIT)):
+             serve["launches"], DECODE_UNIT, None),
+            ("decode_attention", "decode_attention/csrc/decode_attention.cu",
+             "decode_attention/decode_attention.py:163",
+             legacy["launches"], RING_UNIT,
+             kern["totals"]["decode_attention"]["library_ms"])):
         t = kern["totals"][name]
         kernels.append({
             "name": name, "route": "cuda",
@@ -797,7 +1182,7 @@ def main() -> None:
             "launches": launches, "max_abs_err": kern["errs"][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": "bytes",
-            "library_ms": None, "unit": unit})
+            "library_ms": library, "unit": unit})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -809,6 +1194,8 @@ TRAIN_UNIT = ("one train step: the 170 matrices of h2o-danube-1.8b, bf16 "
               "params and grads")
 DECODE_UNIT = ("one decode step of h2o-danube-1.8b: 24 launches, 8 sequences "
                "of 1024 cached tokens, bf16")
+RING_UNIT = ("one decode step of h2o-danube-1.8b: 24 launches, 4 sequences "
+             "over a wrapped ring of 4096 slots, window 4096, bf16")
 
 
 if __name__ == "__main__":

@@ -1,0 +1,247 @@
+// One-token GQA flash-decoding for one (sequence, KV head): the tile loop
+// shared by the paged kernel K3 (paged_decode_attention.cu) and the ring-cache
+// kernel K4 (decode_attention.cu).  The two differ only in where token t's K/V
+// row lies and whether t is attended to; a Rows object answers both:
+//     bool rows.row(t, &off)   true when token t is valid; off is the offset,
+//                              in elements, of its row for this KV head.
+// For the G = H / K query heads g of the KV head:
+//     s[g,t] = (q[g] . k[t]) * scale                          (fp32)
+//     out[g] = sum_t softmax(s)[g,t] v[t]   (online softmax over t, fp32)
+// stored as acc / max(l, 1e-30) in the inputs' type, so a head with no valid
+// token gets 0.
+//
+// Bound: bytes.  Each valid K/V row must be read once; the work is 4 * dh
+// operations per token and head, far below the card's rate for that traffic.
+// Design: one block of 128 threads walks the tokens in tiles of 32.  A tile's
+// valid rows arrive as 16-byte loads (dh = 80 in bf16 is ten of them) and are
+// widened to fp32 in shared memory; an invalid token is never read and is
+// stored as zeros, so garbage in an unused slot cannot reach the sums.
+// Scores: one thread per (g, token); softmax: one warp per head, shuffles;
+// the weighted sum: one thread per (g, d) output element.  Every sum runs in a
+// fixed order and there are no atomics, so the same inputs give bit-identical
+// outputs.  Load and compute run in series, with nothing of the next tile in
+// flight (overlapped loads are later work, ROADMAP.md).  A kernel may split
+// the tokens over several blocks (kPartial) and combine their states in a
+// fixed order afterwards.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+#include <type_traits>
+
+namespace dtiles {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 32;  // tokens a tile: one per lane in the softmax
+constexpr int kMaxG = 8;
+constexpr float kNegInf = -1e30f;
+
+// dtype codes of the C interfaces
+constexpr int kFloat32 = 0;
+constexpr int kBFloat16 = 1;
+
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  static constexpr int kN = 4;
+  static __device__ __forceinline__ void load(const float* p, float* f) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    f[0] = v.x;
+    f[1] = v.y;
+    f[2] = v.z;
+    f[3] = v.w;
+  }
+};
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float* f) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __bfloat1622float2(h[i]);
+      f[2 * i] = x.x;
+      f[2 * i + 1] = x.y;
+    }
+  }
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Tokens [t_lo, t_hi) of one (sequence, KV head); q_base is the offset of its
+// first query head in q and out ([B, H, DH]).  Called by all kThreads threads
+// of the block.  With kPartial the block writes its unnormalised softmax
+// state for a later combine instead of out: at part (its own slot of a
+// workspace), acc[g][d] (G * DH floats), then m[g], then l[g].
+template <typename T, int DH, class Rows, bool kPartial = false>
+__device__ __forceinline__ void decode_tiles(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ out, size_t q_base, int G, float scale, int t_lo,
+    int t_hi, const Rows& rows, float* __restrict__ part = nullptr) {
+  constexpr int kVec = Vec16<T>::kN;      // elements of one 16-byte load
+  constexpr int kVpr = DH / kVec;         // 16-byte loads a row
+  constexpr int kAcc = (kMaxG * DH + kThreads - 1) / kThreads;
+  static_assert(DH % kVec == 0, "a row must be whole 16-byte loads");
+
+  __shared__ float sq[kMaxG][DH];
+  __shared__ float sk[kTile][DH + 1];     // padded: conflict-free k[t][d]
+  __shared__ float sv[kTile][DH];
+  __shared__ float sp[kMaxG][kTile];      // scores, then probabilities
+  __shared__ float sm[kMaxG], sl[kMaxG], scorr[kMaxG];
+  __shared__ int svalid[kTile];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int e = tid; e < G * DH; e += kThreads)
+    sq[e / DH][e % DH] = to_f32(q[q_base + e]);
+  if (tid < G) {
+    sm[tid] = kNegInf;
+    sl[tid] = 0.f;
+  }
+  float acc[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+
+  for (int t0 = t_lo; t0 < t_hi; t0 += kTile) {
+    __syncthreads();  // the previous tile's shared memory is consumed
+    // K and V rows of the tile, widened to fp32; an invalid token, or one
+    // past t_hi, is stored as zeros and masked.
+    for (int e = tid; e < kTile * kVpr; e += kThreads) {
+      const int t = e / kVpr, c = e - t * kVpr;
+      const int pos = t0 + t;
+      size_t off = 0;
+      const bool live = pos < t_hi && rows.row(pos, &off);
+      float kf[kVec], vf[kVec];
+      if (live) {
+        Vec16<T>::load(k + off + (size_t)c * kVec, kf);
+        Vec16<T>::load(v + off + (size_t)c * kVec, vf);
+      } else {
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) kf[i] = vf[i] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        sk[t][c * kVec + i] = kf[i];
+        sv[t][c * kVec + i] = vf[i];
+      }
+      if (c == 0) svalid[t] = live;
+    }
+    __syncthreads();
+    // scores: one thread per (g, t), t fastest, so a warp shares g
+    for (int e = tid; e < G * kTile; e += kThreads) {
+      const int g = e / kTile, t = e - g * kTile;
+      float s = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < DH; ++d) s += sq[g][d] * sk[t][d];
+      sp[g][t] = s * scale;
+    }
+    __syncthreads();
+    // online softmax: one warp per head, lane = token
+    for (int g = warp; g < G; g += kWarps) {
+      const bool valid = svalid[lane] != 0;
+      const float s = valid ? sp[g][lane] : kNegInf;
+      const float m_old = sm[g];
+      const float m_new = fmaxf(m_old, warp_max(s));
+      const float p = valid ? expf(s - m_new) : 0.f;
+      const float psum = warp_sum(p);
+      sp[g][lane] = p;
+      if (lane == 0) {
+        const float corr = expf(m_old - m_new);
+        scorr[g] = corr;
+        sl[g] = sl[g] * corr + psum;
+        sm[g] = m_new;
+      }
+    }
+    __syncthreads();
+    // acc[g, d] = acc * corr[g] + sum_t p[g, t] v[t, d]
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) {
+      const int e = tid + i * kThreads;
+      if (e < G * DH) {
+        const int g = e / DH, d = e - g * DH;
+        float a = acc[i] * scorr[g];
+#pragma unroll 8
+        for (int t = 0; t < kTile; ++t) a += sp[g][t] * sv[t][d];
+        acc[i] = a;
+      }
+    }
+  }
+  __syncthreads();
+  if constexpr (kPartial) {
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) {
+      const int e = tid + i * kThreads;
+      if (e < G * DH) part[e] = acc[i];
+    }
+    if (tid < G) {
+      part[G * DH + tid] = sm[tid];
+      part[G * DH + G + tid] = sl[tid];
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) {
+      const int e = tid + i * kThreads;
+      if (e < G * DH) {
+        const int g = e / DH;
+        out[q_base + e] = from_f32<T>(acc[i] / fmaxf(sl[g], 1e-30f));
+      }
+    }
+  }
+}
+
+// launch(std::integral_constant<int, DH>()) for a supported head dim; the
+// launch's cudaError_t (cudaErrorInvalidValue for any other dim).
+template <typename Launch>
+inline cudaError_t with_head_dim(int dh, Launch launch) {
+  switch (dh) {
+    case 32:
+      launch(std::integral_constant<int, 32>());
+      break;
+    case 64:
+      launch(std::integral_constant<int, 64>());
+      break;
+    case 80:
+      launch(std::integral_constant<int, 80>());
+      break;
+    case 128:
+      launch(std::integral_constant<int, 128>());
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace dtiles

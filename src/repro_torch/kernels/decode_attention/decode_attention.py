@@ -1,21 +1,27 @@
-"""The hand-written Hopper paged decode-attention kernel, its wrapper and its
-plain PyTorch version.
+"""The hand-written Hopper decode-attention kernels, their wrappers and their
+plain PyTorch versions.
 
-Replaces the TPU kernel K3 of ``repro.kernels.decode_attention.decode_attention``:
-``paged_decode_attention_pallas`` / ``_paged_decode_kernel`` — one-token GQA
-flash-decoding over a shared page pool, online softmax in fp32, optional
-sliding window.  (K4, ``decode_attention_pallas`` over a contiguous ring
-cache, belongs to the legacy engine and is not ported yet.)
+Replace the two TPU kernels of
+``repro.kernels.decode_attention.decode_attention``, both one-token GQA
+flash-decoding with an online softmax in fp32 and an optional sliding
+window:
 
-Source: ``csrc/paged_decode_attention.cu`` (CUDA C++ for sm_90a, plain C
-interface, built at first use by ``kernels/build.py``).  Bound by bytes: the
-live K/V rows must be read once; one block per (sequence, KV head) walks
-only the tokens inside ``seq_lens`` (and the window), so the block table's
-tail is never touched.  No float atomics: the same inputs give bit-identical
-outputs.
+* K3 ``paged_decode_attention`` (``paged_decode_attention_pallas`` /
+  ``_paged_decode_kernel``) over a shared page pool, for ``PagedEngine``;
+* K4 ``decode_attention`` (``decode_attention_pallas`` / ``_decode_kernel``)
+  over a contiguous ring cache with positions shared by the batch, for the
+  legacy ``Engine``.
+
+Sources: ``csrc/paged_decode_attention.cu`` and ``csrc/decode_attention.cu``
+over the tile loop of ``csrc/decode_tiles.cuh`` (CUDA C++ for sm_90a, plain C
+interface, one library built at first use by ``kernels/build.py``, one
+``nvcc`` per source).  Bound by bytes: the valid K/V rows must be read once,
+and only they are read.  K3 runs one block per (sequence, KV head); K4 also
+splits the ring into runs of slots and combines the runs' states in a fixed
+order.  No float atomics: the same inputs give bit-identical outputs.
 
 A CUDA tensor launches the kernel or raises; only a CPU tensor takes the
-plain version.  ``paged_decode_attention.launches`` counts kernel launches.
+plain version.  Each wrapper's ``.launches`` counts its kernel's launches.
 """
 from __future__ import annotations
 
@@ -26,16 +32,29 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.build import load_library
-from repro_torch.kernels.decode_attention.ref import paged_decode_attention_ref
+from repro_torch.kernels.decode_attention.ref import (
+    paged_decode_attention_ref, ring_decode_attention_ref)
 
 Tensor = torch.Tensor
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "paged_decode_attention.cu",)
+SOURCES = (_CSRC / "paged_decode_attention.cu", _CSRC / "decode_attention.cu")
 LIB_NAME = "decode_attention"
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 80, 128)
+_TILE = 32                  # slots a tile of the kernels' loop
+_RING_BLOCKS = 132 * 8      # K4 aims at about eight blocks on each SM
+
+
+def ring_split(B: int, K: int, W: int) -> tuple:
+    """(S, span): K4 splits the W slots into S runs of ``span`` slots (whole
+    tiles), so that B * K * S blocks come near ``_RING_BLOCKS``.  Depends on
+    the shapes only."""
+    tiles = -(-W // _TILE)
+    per_run = max(1, -(-tiles * B * K // _RING_BLOCKS))
+    S = -(-tiles // per_run)
+    return S, per_run * _TILE
 
 
 def _library() -> ctypes.CDLL:
@@ -48,6 +67,10 @@ def _library() -> ctypes.CDLL:
     lib.paged_decode_attention_launch.argtypes = [
         vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cf, ci, vp]
     lib.paged_decode_attention_launch.restype = ci
+    lib.decode_attention_launch.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cf, ci,
+        vp]
+    lib.decode_attention_launch.restype = ci
     lib._pda_bound = True
     return lib
 
@@ -116,3 +139,59 @@ def paged_decode_attention(q: Tensor, k_pages: Tensor, v_pages: Tensor,
 
 
 paged_decode_attention.launches = 0
+
+
+def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
+                     kv_pos: Tensor, q_pos, *, scale: Optional[float] = None,
+                     window: Optional[int] = None) -> Tensor:
+    """Flash-decoding over a ring cache whose slot positions the batch shares.
+
+    q ``[B,H,dh]``; k_cache/v_cache ``[B,W,K,dh]``, all float32 or all
+    bfloat16; kv_pos ``[W]`` int32 absolute position of each slot (-1 =
+    empty); q_pos the query's position, a 0-d int32 tensor on q's device or
+    a Python int (uploaded once, without blocking the host).  Slot t is
+    attended to when ``0 <= kv_pos[t] <= q_pos`` and, with a window,
+    ``q_pos - kv_pos[t] < window``.  Returns ``[B,H,dh]`` in q's dtype; a
+    row with no valid slot gets 0 (the plain version gives mean(V) there).
+    Two launches, counted as one: the slot runs of ``ring_split``, then
+    their fixed-order combine, through an fp32 workspace made here.
+    """
+    if not q.is_cuda:
+        return ring_decode_attention_ref(q, k_cache, v_cache, kv_pos, q_pos,
+                                         window=window, scale=scale)
+    B, H, dh = q.shape
+    W, K = k_cache.shape[1], k_cache.shape[2]
+    dev = q.device
+    if not isinstance(q_pos, Tensor):
+        q_pos = torch.tensor(int(q_pos), dtype=torch.int32).pin_memory().to(
+            dev, non_blocking=True)
+    _check("q", q, (B, H, dh), tuple(_DTYPE_CODE), dev)
+    _check("k_cache", k_cache, (B, W, K, dh), (q.dtype,), dev)
+    _check("v_cache", v_cache, (B, W, K, dh), (q.dtype,), dev)
+    _check("kv_pos", kv_pos, (W,), (torch.int32,), dev)
+    _check("q_pos", q_pos, (), (torch.int32,), dev)
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
+    lib = _library()
+    if H % K or H // K > lib.paged_decode_max_group():
+        raise ValueError(f"{H} query heads over {K} KV heads: the kernel "
+                         f"takes groups of 1..{lib.paged_decode_max_group()}")
+    scale = scale if scale is not None else dh ** -0.5
+    S, span = ring_split(B, K, W)
+    part = torch.empty(B * K * S * (H // K) * (dh + 2), dtype=torch.float32,
+                       device=dev)
+    out = torch.empty_like(q)
+    with torch.cuda.device(dev):
+        err = lib.decode_attention_launch(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            kv_pos.data_ptr(), q_pos.data_ptr(), part.data_ptr(),
+            out.data_ptr(), _DTYPE_CODE[q.dtype], B, H, K, dh, W, S, span,
+            float(scale), int(window or 0),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention: CUDA error {err} at launch")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

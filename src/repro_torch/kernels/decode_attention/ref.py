@@ -17,6 +17,20 @@ def decode_attention_ref(q, k_cache, v_cache, *, kv_pos, q_pos,
     return out[:, 0]
 
 
+def ring_decode_attention_ref(q, k_cache, v_cache, kv_pos, q_pos, *,
+                              window=None, scale=None):
+    """Plain version of K4: ``decode_attention_ref`` with the batch-shared
+    slot positions ``kv_pos [W]`` and query position ``q_pos`` (an int or a
+    0-d int tensor) broadcast over the batch.  q: [B,H,dh]; caches:
+    [B,W,K,dh].  Returns [B,H,dh]."""
+    B, W = q.shape[0], kv_pos.shape[0]
+    q_pos = torch.as_tensor(q_pos, dtype=torch.int32, device=q.device)
+    return decode_attention_ref(q, k_cache, v_cache,
+                                kv_pos=kv_pos[None].expand(B, W),
+                                q_pos=q_pos.expand(B), window=window,
+                                scale=scale)
+
+
 def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, seq_lens,
                                *, window=None, scale=None):
     """Dense oracle for the paged kernel: gather each sequence's pages into

@@ -10,8 +10,12 @@ casts the operands to fp32 and multiplies in fp32: exact products of the
 bf16 values, fp32 sums, fp32 output.  ``torch.matmul`` on bf16 operands
 would round its output to bf16 first.  fp32 inputs are untouched.
 
-Only the direct attention branch (sequences up to 2048) is ported; the
-dispatcher names the missing branch for longer ones.
+The attention dispatcher has the reference's three branches: direct
+attention up to 2048 tokens, the sliding-window gather past ``window + 1024``
+and, between them or without a window, blockwise online-softmax attention
+whose gradient (``_flash_attention``, a ``torch.autograd.Function``)
+recomputes the probabilities blockwise.  Prefix-LM and packed-segment masks
+are not ported (``MaskSpec`` has no fields for them).
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ Tensor = torch.Tensor
 # Sequences at or below this use the direct einsum attention path.
 _DIRECT_ATTN_MAX_SEQ = 2048
 _Q_BLOCK = 1024
+_KV_BLOCK = 1024
 
 NEG_INF = -1e30
 
@@ -112,6 +117,35 @@ def _mask_block(q_pos: Tensor, kv_pos: Tensor, spec: MaskSpec) -> Tensor:
     return m
 
 
+def _scan_block_mask(qp: Tensor, kp: Tensor, spec: MaskSpec) -> Tensor:
+    """Mask for one (query block, KV block) pair of the blockwise loops:
+    qp ``(T, qb)``, kp ``(kb,)`` -> ``(1, T, 1, 1, qb, kb)``, broadcastable
+    against score blocks ``[B, T, K, G, qb, kb]``."""
+    return _mask_block(qp, kp, spec)[None, :, None, None]
+
+
+def _q_meta_blocks(a: Tensor, T: int, Sloc: int, pq: int, qb: int,
+                   fill: int) -> Tensor:
+    """Tile, pad and block query positions: ``(Sq,)`` -> ``[nq, T, qb]``."""
+    a = a.reshape(T, Sloc)
+    if pq:
+        a = F.pad(a, (0, pq), value=fill)
+    return a.reshape(T, (Sloc + pq) // qb, qb).transpose(0, 1)
+
+
+def _kv_meta_blocks(a: Tensor, pk: int, kb: int, fill: int) -> Tensor:
+    """Pad and block KV positions: ``(Skv,)`` -> ``[nk, kb]``."""
+    if pk:
+        a = F.pad(a, (0, pk), value=fill)
+    return a.reshape(-1, kb)
+
+
+# Fill values for padded position slots: a padded query (-1) and a padded
+# KV slot (2**30) can never pass the causal or window terms against a real
+# slot.
+_QPOS_FILL, _KPOS_FILL = -1, 2 ** 30
+
+
 # --------------------------------------------------------------------------
 # Attention
 # --------------------------------------------------------------------------
@@ -125,6 +159,197 @@ def _direct_attention(q, k, v, mask, scale):
     return torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
 
 
+def _block_geometry(Sq: int, Skv: int, q_block: int, kv_block: int,
+                    tiles: int) -> tuple:
+    """(T, Sloc, qb, kb, pq, pk): query tiles, their length, the block
+    sizes and the padding that makes each a whole number of blocks."""
+    T = tiles if (tiles > 1 and Sq % tiles == 0) else 1
+    Sloc = Sq // T
+    qb = min(q_block, Sloc)
+    kb = min(kv_block, Skv)
+    return T, Sloc, qb, kb, (-Sloc) % qb, (-Skv) % kb
+
+
+def _pad_q_tiles(x: Tensor, T: int, Sloc: int, pq: int) -> Tensor:
+    """``[B, Sq, ...]`` -> ``[B, T, Sloc + pq, ...]``, zero-padded in each
+    tile."""
+    x = x.reshape((x.shape[0], T, Sloc) + tuple(x.shape[2:]))
+    if pq:
+        x = F.pad(x, (0, 0) * (x.ndim - 3) + (0, pq))
+    return x
+
+
+def _pad_kv(x: Tensor, pk: int) -> Tensor:
+    return F.pad(x, (0, 0, 0, 0, 0, pk)) if pk else x
+
+
+def _block_attention(q, k, v, q_pos, kv_pos, spec, scale, q_block: int,
+                     kv_block: int, tiles: int = 1,
+                     return_lse: bool = False):
+    """Two-level blockwise attention with an online softmax (flash-style).
+
+    q ``[B,Sq,K,G,dh]``; k/v ``[B,Skv,K,dh]``; positions ``(Sq,)`` and
+    ``(Skv,)``.  Loops over query blocks (outer) and KV blocks (inner);
+    score blocks ``[B,T,K,G,qb,kb]`` are the only O(S·block) intermediates.
+    ``tiles`` > 1 splits the query sequence into T tiles carried as a tensor
+    dim (the reference shards it over a mesh; here it only reshapes)."""
+    B, Sq, K, G, dh = q.shape
+    dv = v.shape[-1]
+    Skv = k.shape[1]
+    T, Sloc, qb, kb, pq, pk = _block_geometry(Sq, Skv, q_block, kv_block,
+                                              tiles)
+    qps = _q_meta_blocks(q_pos, T, Sloc, pq, qb, _QPOS_FILL)
+    kps = _kv_meta_blocks(kv_pos, pk, kb, _KPOS_FILL)
+    Slp = Sloc + pq
+    nq = Slp // qb
+    qs = _pad_q_tiles(q, T, Sloc, pq).reshape(B, T, nq, qb, K, G, dh)
+    ks = _pad_kv(k, pk).reshape(B, -1, kb, K, dh)
+    vs = _pad_kv(v, pk).reshape(B, -1, kb, K, dv)
+    nk = ks.shape[1]
+
+    outs, lses = [], []
+    for i in range(nq):
+        qi = qs[:, :, i].to(torch.float32)           # [B,T,qb,K,G,dh]
+        m_run = q.new_full((B, T, K, G, qb), NEG_INF, dtype=torch.float32)
+        l_run = q.new_zeros((B, T, K, G, qb), dtype=torch.float32)
+        acc = q.new_zeros((B, T, K, G, qb, dv), dtype=torch.float32)
+        for j in range(nk):
+            vj = vs[:, j]
+            logits = torch.einsum("btqkgd,bskd->btkgqs", qi,
+                                  ks[:, j].to(torch.float32)) * scale
+            logits = torch.where(_scan_block_mask(qps[i], kps[j], spec),
+                                 logits, NEG_INF)
+            m_new = torch.maximum(m_run, logits.amax(dim=-1))
+            p = torch.exp(logits - m_new[..., None])
+            corr = torch.exp(m_run - m_new)
+            l_run = l_run * corr + p.sum(dim=-1)
+            pv = torch.einsum("btkgqs,bskd->btkgqd", p.to(vj.dtype), vj)
+            acc = acc * corr[..., None] + pv.to(torch.float32)
+            m_run = m_new
+        l_safe = torch.clamp_min(l_run, 1e-30)
+        out = (acc / l_safe[..., None]).to(v.dtype)
+        outs.append(out.permute(0, 1, 4, 2, 3, 5))    # [B,T,qb,K,G,dv]
+        lses.append((m_run + torch.log(l_safe)).permute(0, 1, 4, 2, 3))
+    out = torch.stack(outs, dim=2).reshape(B, T, Slp, K, G, dv)
+    lse = torch.stack(lses, dim=2).reshape(B, T, Slp, K, G)
+    out = out[:, :, :Sloc].reshape(B, Sq, K, G, dv)
+    if return_lse:
+        return out, lse[:, :, :Sloc].reshape(B, Sq, K, G)
+    return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Blockwise attention whose backward saves only ``(q, k, v, out, lse)``
+    and recomputes the probabilities block by block, as FlashAttention's
+    backward does (the reference's ``jax.custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, spec, scale, q_block, kv_block,
+                tiles):
+        out, lse = _block_attention(q, k, v, q_pos, kv_pos, spec, scale,
+                                    q_block, kv_block, tiles,
+                                    return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.meta = (q_pos, kv_pos, spec, scale, q_block, kv_block, tiles)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        q_pos, kv_pos, spec, scale, q_block, kv_block, tiles = ctx.meta
+        B, Sq, K, G, dh = q.shape
+        dvd = v.shape[-1]
+        Skv = k.shape[1]
+        T, Sloc, qb, kb, pq, pk = _block_geometry(Sq, Skv, q_block,
+                                                  kv_block, tiles)
+        f32 = torch.float32
+        D = torch.sum(dout.to(f32) * out.to(f32), dim=-1)       # [B,Sq,K,G]
+        Slp = Sloc + pq
+        nq = Slp // qb
+
+        def blocks(x):          # [B, Sq, ...] -> [B, T, nq, qb, ...]
+            x = _pad_q_tiles(x, T, Sloc, pq)
+            return x.reshape((B, T, nq, qb) + tuple(x.shape[3:]))
+
+        qs, dos, lses, Ds = blocks(q), blocks(dout), blocks(lse), blocks(D)
+        qps = _q_meta_blocks(q_pos, T, Sloc, pq, qb, _QPOS_FILL)
+        kps = _kv_meta_blocks(kv_pos, pk, kb, _KPOS_FILL)
+        ks = _pad_kv(k, pk).reshape(B, -1, kb, K, dh).to(f32)
+        vs = _pad_kv(v, pk).reshape(B, -1, kb, K, dvd).to(f32)
+        nk = ks.shape[1]
+        dk = torch.zeros_like(ks)
+        dv = torch.zeros_like(vs)
+        dqs = []
+        for i in range(nq):
+            qi = qs[:, :, i].to(f32)                     # [B,T,qb,K,G,dh]
+            doi = dos[:, :, i].to(f32)
+            lse_t = lses[:, :, i].permute(0, 1, 3, 4, 2)  # [B,T,K,G,qb]
+            D_t = Ds[:, :, i].permute(0, 1, 3, 4, 2)
+            dq_i = torch.zeros_like(qi)
+            for j in range(nk):
+                ki, vi = ks[:, j], vs[:, j]
+                logits = torch.einsum("btqkgd,bskd->btkgqs", qi, ki) * scale
+                p = torch.where(_scan_block_mask(qps[i], kps[j], spec),
+                                torch.exp(logits - lse_t[..., None]), 0.0)
+                dv[:, j] += torch.einsum("btkgqs,btqkgv->bskv", p, doi)
+                dp = torch.einsum("btqkgv,bskv->btkgqs", doi, vi)
+                ds = p * (dp - D_t[..., None])
+                dq_i += torch.einsum("btkgqs,bskd->btqkgd", ds, ki) * scale
+                dk[:, j] += torch.einsum("btkgqs,btqkgd->bskd", ds,
+                                         qi) * scale
+            dqs.append(dq_i)
+        dq = torch.stack(dqs, dim=2).reshape(B, T, Slp, K, G, dh)
+        dq = dq[:, :, :Sloc].reshape(B, Sq, K, G, dh)
+        dk = dk.reshape(B, -1, K, dh)[:, :Skv]
+        dv = dv.reshape(B, -1, K, dvd)[:, :Skv]
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None, None, None, None)
+
+
+def _flash_attention(q, k, v, q_pos, kv_pos, spec, scale, q_block: int,
+                     kv_block: int, tiles: int = 1):
+    """Blockwise attention with the recomputing backward of
+    ``_FlashAttention``; where no gradient is asked for (``torch.no_grad``,
+    or inputs that do not require one) only the forward runs."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, q_pos, kv_pos, spec, scale,
+                                     q_block, kv_block, tiles)
+    return _block_attention(q, k, v, q_pos, kv_pos, spec, scale, q_block,
+                            kv_block, tiles)
+
+
+def _swa_gather_attention(q, k, v, q_pos, kv_pos, spec, scale, q_block: int):
+    """Sliding-window path: each query block gathers only its KV window —
+    O(S·(W+qb)) work instead of O(S²)."""
+    B, Sq, K, G, dh = q.shape
+    W = spec.window
+    qb = min(q_block, Sq)
+    pq = (-Sq) % qb
+    if pq:
+        q = F.pad(q, (0, 0, 0, 0, 0, 0, 0, pq))
+        q_pos = F.pad(q_pos, (0, pq), value=-1)
+    nq = q.shape[1] // qb
+    span = W + qb          # window slice length per query block
+    # KV padded on the left by span: padded index p is original p - span
+    k_pad = F.pad(k, (0, 0, 0, 0, span, 0))
+    v_pad = F.pad(v, (0, 0, 0, 0, span, 0))
+    kvp_pad = F.pad(kv_pos, (span, 0), value=-(2 ** 30))
+    outs = []
+    for i in range(nq):
+        # the window covering original [s - W, s + qb) starts at padded
+        # index s + qb; like the reference's dynamic_slice, the start is
+        # clamped so that the slice stays inside the padded KV
+        p0 = min((i + 1) * qb, k_pad.shape[1] - span)
+        qi = q[:, i * qb:(i + 1) * qb]
+        ki = k_pad[:, p0:p0 + span]
+        vi = v_pad[:, p0:p0 + span]
+        mask = _mask_block(q_pos[i * qb:(i + 1) * qb],
+                           kvp_pad[p0:p0 + span], spec)
+        outs.append(_direct_attention(qi, ki, vi, mask[None, None, None],
+                                      scale))
+    return torch.cat(outs, dim=1)[:, :Sq]
+
+
 def attention(
     q: Tensor,              # [B, Sq, H, dh]
     k: Tensor,              # [B, Skv, K, dh]
@@ -134,6 +359,7 @@ def attention(
     q_pos: Tensor,          # (Sq,) int positions
     kv_pos: Tensor,         # (Skv,) int
     scale: Optional[float] = None,
+    force_direct: bool = False,
 ) -> Tensor:
     """GQA attention dispatcher. Returns [B, Sq, H, dv] (dv = v head dim)."""
     B, Sq, H, dh = q.shape
@@ -147,19 +373,17 @@ def attention(
     scale = scale if scale is not None else dh ** -0.5
     Skv = k.shape[1]
 
-    if max(Sq, Skv) <= _DIRECT_ATTN_MAX_SEQ:
+    if force_direct or max(Sq, Skv) <= _DIRECT_ATTN_MAX_SEQ:
         mask = _mask_block(q_pos, kv_pos, spec)
         mask = mask[None, None, None] if mask.ndim == 2 else mask[:, None, None]
         out = _direct_attention(qg, k, v, mask, scale)
     elif spec.window is not None and Skv > spec.window + _Q_BLOCK:
-        raise NotImplementedError(
-            f"sequence length {max(Sq, Skv)} > {_DIRECT_ATTN_MAX_SEQ} with a "
-            "sliding window needs _swa_gather_attention, which is not "
-            "ported yet")
+        out = _swa_gather_attention(qg, k, v, q_pos, kv_pos, spec, scale,
+                                    _Q_BLOCK)
     else:
-        raise NotImplementedError(
-            f"sequence length {max(Sq, Skv)} > {_DIRECT_ATTN_MAX_SEQ} needs "
-            "_flash_attention/_block_attention, which are not ported yet")
+        # one query tile: the reference's seq_tiles() without a mesh
+        out = _flash_attention(qg, k, v, q_pos, kv_pos, spec, scale,
+                               _Q_BLOCK, _KV_BLOCK, tiles=1)
     return out.reshape(B, Sq, H, dv)
 
 

@@ -75,20 +75,18 @@ class Arch:
         return out
 
     # ---- legacy serve (ring-buffer cache) -----------------------------------
-    def _legacy_serve(self, what: str):
-        raise NotImplementedError(
-            f"Arch.{what}: the legacy ring-cache serving path (Engine, K4 "
-            "decode_attention) is the next slice of the port; serve with "
-            "repro_torch.serve.engine.PagedEngine")
-
     def make_prefill_step(self, **kw):
-        self._legacy_serve("make_prefill_step")
+        return self._family_mod().make_prefill_step(self.cfg, **kw)
 
-    def make_decode_step(self):
-        self._legacy_serve("make_decode_step")
+    def make_decode_step(self, *, use_kernel=None):
+        """``use_kernel``: None = the CUDA kernel (K4) for CUDA tensors and
+        the plain version for CPU tensors; False = the plain version."""
+        return self._family_mod().make_decode_step(self.cfg,
+                                                   use_kernel=use_kernel)
 
-    def init_cache(self, batch: int, max_len: int):
-        self._legacy_serve("init_cache")
+    def init_cache(self, batch: int, max_len: int, *, device="cuda"):
+        return self._family_mod().init_cache(self.cfg, batch, max_len,
+                                             device=device)
 
     # ---- paged serving (continuous batching; transformer GQA only) --------
     def supports_paged_serving(self) -> bool:

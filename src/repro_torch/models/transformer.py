@@ -1,15 +1,15 @@
-"""Decoder-only LM family (PyTorch), dense GQA: the train half and the
-paged-serving half.
+"""Decoder-only LM family (PyTorch), dense GQA: the train half and both
+serving halves.
 
 Counterpart of ``repro.models.transformer``: scan-over-layers layout with
 stacked ``[L, ...]`` params so the fused AdaLomo backward (``core/fused.py``)
 applies.  Ported: dense GQA blocks with ``qk_norm``, sliding ``window``,
-``tie_embeddings`` and ``z_loss``; for serving, ``make_prefill_kv_step``,
-``make_paged_decode_step`` and ``init_page_pool`` (the page pool is updated
-in place).  MoE, MLA, MTP and prefix-LM configs raise
-``NotImplementedError``; the legacy ring-cache serving path
-(``make_prefill_step``, ``make_decode_step``, ``init_cache``) is a later
-slice.
+``tie_embeddings`` and ``z_loss``; for paged serving,
+``make_prefill_kv_step``, ``make_paged_decode_step`` and ``init_page_pool``;
+for the legacy engine's ring cache, ``cache_window``, ``init_cache``,
+``make_prefill_step`` and ``make_decode_step``.  Decode steps update the
+page pool or the cache in place.  MoE, MLA, MTP, prefix-LM and
+modality-prefix configs raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -312,8 +312,7 @@ def make_prefill_kv_step(cfg: LMConfig):
     Keeps the *full* per-layer K/V (no ring truncation) so the engine can
     scatter it into KV pages; SWA is enforced by the decode-attention mask.
     Right-padding is harmless: with a causal mask, K/V at positions < length
-    never see the pad tail, and logits are gathered at length-1.  Goes
-    through the direct attention branch, so S is at most 2048."""
+    never see the pad tail, and logits are gathered at length-1."""
     check_supported(cfg)
 
     @torch.no_grad()
@@ -405,3 +404,117 @@ def init_page_pool(cfg: LMConfig, num_pages: int, page_size: int, *,
     dev = resolve_device(device)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+
+
+# --------------------------------------------------------------------------
+# Legacy serving: prefill + single-token decode with a (ring) KV cache
+# --------------------------------------------------------------------------
+
+def cache_window(cfg: LMConfig, max_len: int) -> int:
+    """SWA archs only ever need a window-sized ring cache."""
+    return min(cfg.window, max_len) if cfg.window else max_len
+
+
+def init_cache(cfg: LMConfig, batch: int, max_len: int, *, device="cuda"
+               ) -> dict:
+    """Empty ring cache: k, v ``[L,B,W,K,dh]`` zeros, pos ``[W]`` int32 -1
+    (empty slot), cur a 0-d int32 (position of the next token)."""
+    check_supported(cfg)
+    W = cache_window(cfg, max_len)
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, W, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "pos": torch.full((W,), -1, dtype=torch.int32, device=dev),
+            "cur": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def _decode_gqa(p: dict, cfg: LMConfig, h: Tensor, kc: Tensor, vc: Tensor,
+                pos_tab: Tensor, cur: Tensor, slot: Tensor, rope: tuple,
+                use_kernel) -> Tensor:
+    """One-token GQA decode of ``h [B,1,d]`` at position ``cur`` (``rope``:
+    its sin/cos tables): writes this token's K/V into ring slot ``slot``
+    (``[1]`` int64, cur % W) of this layer's cache ``kc``/``vc [B,W,K,dh]``
+    in place, then attends over it."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    B = h.shape[0]
+    q, k, v = _qkv(p, cfg, h, *rope)
+    kc.index_copy_(1, slot, k)
+    vc.index_copy_(1, slot, v)
+    o = decode_attention(q, kc, vc, pos_tab, cur, window=cfg.window,
+                         use_kernel=use_kernel)
+    return L.dense(o.reshape(B, 1, -1), p["wo"])
+
+
+def make_decode_step(cfg: LMConfig, *, use_kernel=None):
+    """decode_step(params, cache, batch{'tokens': [B,1]}) -> (logits, cache).
+
+    The cache is **updated in place** and returned: this token's position
+    is marked in ``pos`` before attention (so the token sees itself), its
+    K/V go into slot ``cur % W`` of every layer, and ``cur`` advances.
+    Nothing is read back to the host.  ``use_kernel`` as in
+    ``kernels.decode_attention.ops``: None = the CUDA kernel (K4) for CUDA
+    tensors, the plain version for CPU tensors."""
+    check_supported(cfg)
+
+    @torch.no_grad()
+    def decode_step(params, cache, batch):
+        outer = params["outer"]
+        x = _embed(outer, cfg, batch["tokens"])            # [B,1,d]
+        cur = cache["cur"]
+        slot = torch.remainder(cur, cache["pos"].shape[0]).to(
+            torch.int64).reshape(1)
+        cache["pos"].index_copy_(0, slot, cur.reshape(1))
+        rope = _rope_tables(cfg, cur[None])        # shared by the layers
+        blocks = params["stacks"]["blocks"]
+        for i in range(cfg.n_layers):
+            p = _layer(blocks, i)
+            h = L.norm_apply(p["ln1"], x, kind=cfg.norm)
+            x = x + _decode_gqa(p["attn"], cfg, h, cache["k"][i],
+                                cache["v"][i], cache["pos"], cur, slot,
+                                rope, use_kernel)
+            x = _mlp_residual(p, cfg, x)
+        h = L.norm_apply(outer["final_norm"], x, kind=cfg.norm)
+        logits = _logits(outer, cfg, h)[:, 0]
+        cur.add_(1)
+        return logits, cache
+
+    return decode_step
+
+
+def make_prefill_step(cfg: LMConfig):
+    """prefill_step(params, batch{'tokens': [B,S]}) -> (last_logits, cache).
+
+    The full-sequence forward (the attention dispatcher picks direct,
+    blockwise or sliding-window-gather attention by S), keeping each
+    layer's K/V of the last ``W = cache_window(cfg, S)`` positions: the ring
+    is sized to the prompt, slot j holds position S - W + j, and ``cur`` is
+    S.  Logits are those of position S - 1."""
+    check_supported(cfg)
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        outer = params["outer"]
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        dev = tokens.device
+        x = _embed(outer, cfg, tokens)
+        pos = torch.arange(S, dtype=torch.int32, device=dev)
+        W = cache_window(cfg, S)
+        shape = (cfg.n_layers, B, W, cfg.n_kv_heads, cfg.head_dim)
+        cache = {"k": torch.empty(shape, dtype=cfg.dtype, device=dev),
+                 "v": torch.empty(shape, dtype=cfg.dtype, device=dev),
+                 "pos": pos[S - W:].clone(),
+                 "cur": torch.full((), S, dtype=torch.int32, device=dev)}
+        blocks = params["stacks"]["blocks"]
+        for i in range(cfg.n_layers):
+            p = _layer(blocks, i)
+            h = L.norm_apply(p["ln1"], x, kind=cfg.norm)
+            a, k, v = _gqa_attn_kv(p["attn"], cfg, h, pos)
+            cache["k"][i] = k[:, S - W:]
+            cache["v"][i] = v[:, S - W:]
+            x = _mlp_residual(p, cfg, x + a)
+        h = L.norm_apply(outer["final_norm"], x[:, -1:], kind=cfg.norm)
+        return _logits(outer, cfg, h)[:, 0], cache
+
+    return prefill_step

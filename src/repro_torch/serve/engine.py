@@ -1,6 +1,12 @@
-"""Continuous batching over paged KV (PyTorch).  Counterpart of
-``repro.serve.engine``'s ``PagedEngine``; the legacy static-batch ``Engine``
-waits for the slice that ports its ring cache and the K4 kernel.
+"""Serving engines (PyTorch): legacy static batching over a ring cache, and
+continuous batching over paged KV.  Counterpart of ``repro.serve.engine``.
+
+``Engine`` is the static-batch path: one prefill of the right-padded batch
+(its ring cache sized to the prompt, ``models/transformer.make_prefill_step``),
+then one decode step per token through the ring-cache kernel of
+``kernels/decode_attention`` (K4) on a CUDA device, or its plain version on
+the CPU or when ``use_kernel=False``; finished rows are frozen on the device
+and the host syncs once per step (one bundled copy of tokens and done mask).
 
 ``PagedEngine`` is the production-shaped path:
 
@@ -28,9 +34,7 @@ within the warmed bucket set.  Sampling draws from the engine's own
 ``torch.Generator`` (seeded from ``scfg.seed``): greedy is an argmax,
 temperature sampling an argmax over Gumbel-perturbed logits, neither syncs.
 The JAX package draws other random numbers, so only greedy output is
-comparable between the two.  Prefill goes through the direct attention
-branch: prompts (plus tokens generated before a preemption) longer than
-2048 tokens raise.
+comparable between the two.
 """
 from __future__ import annotations
 
@@ -61,6 +65,99 @@ def _sample_tokens(logits: Tensor, temperature: float,
     gumbel = -torch.log(-torch.log(torch.clamp_min(u, 1e-20)))
     return torch.argmax(logits / temperature + gumbel,
                         dim=-1).to(torch.int32)
+
+
+def _engine_device(params, device) -> torch.device:
+    """The engine's device (a CUDA device with its index), checked to hold
+    every parameter."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    on = {leaf.device for leaf in tree_leaves(params)}
+    if on != {dev}:
+        raise ValueError(f"params lie on {sorted(map(str, on))}, the "
+                         f"engine runs on {dev}")
+    return dev
+
+
+def _upload(host: np.ndarray, device: torch.device) -> Tensor:
+    """One int32 host array on ``device``.  On a CUDA device a pinned
+    staging copy goes up non-blocking: the host never waits."""
+    t = torch.from_numpy(np.ascontiguousarray(host, dtype=np.int32))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.clone()
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_new_tokens: int = 32
+    max_len: int = 256            # kept for the reference's signature; the
+    #                               ring is sized to the prompt and the
+    #                               window, as the reference does
+    temperature: float = 0.0      # 0 = greedy
+    eos_id: int = -1              # -1 = never stop early
+    seed: int = 0
+    use_kernel: Optional[bool] = None   # None = CUDA kernel on a CUDA
+    #                                     device; False = plain version
+
+
+class Engine:
+    """Legacy static-batch engine: prefill once, decode one token a step."""
+
+    def __init__(self, arch, params, scfg: ServeConfig, *, device="cuda"):
+        self.device = _engine_device(params, device)
+        self.arch = arch
+        self.params = params
+        self.scfg = scfg
+        self._prefill = arch.make_prefill_step()
+        self._decode = arch.make_decode_step(use_kernel=scfg.use_kernel)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(scfg.seed)
+
+    def _sample_step(self, logits: Tensor, tok_prev: Tensor, done: Tensor
+                     ) -> tuple:
+        tok = _sample_tokens(logits, self.scfg.temperature, self._gen)
+        tok = torch.where(done, tok_prev, tok)      # freeze finished rows
+        if self.scfg.eos_id >= 0:
+            done = done | (tok == self.scfg.eos_id)
+        return tok, done
+
+    def generate(self, prompts: list[list[int]], *,
+                 extras: Optional[dict] = None) -> list[list[int]]:
+        """prompts: batch of token-id lists, right-padded with token 0 to the
+        longest; every row's first token is sampled at that length - 1, as
+        the reference does."""
+        if extras:
+            raise NotImplementedError(
+                "Engine.generate(extras=...): modality-prefix models are not "
+                "ported yet")
+        scfg = self.scfg
+        B = len(prompts)
+        toks = np.zeros((B, max(len(p) for p in prompts)), np.int32)
+        for i, p in enumerate(prompts):
+            toks[i, :len(p)] = p
+        logits, cache = self._prefill(self.params,
+                                      {"tokens": _upload(toks, self.device)})
+        done = torch.zeros(B, dtype=torch.bool, device=self.device)
+        tok, done = self._sample_step(
+            logits, torch.zeros(B, dtype=torch.int32, device=self.device),
+            done)
+        out = [[] for _ in range(B)]
+        emitted_done = np.zeros(B, bool)
+        for t in range(scfg.max_new_tokens):
+            # ONE host sync per decode step: tokens + done mask together.
+            host = torch.stack([tok, done.to(torch.int32)]).cpu().numpy()
+            for i in range(B):
+                if not emitted_done[i]:
+                    out[i].append(int(host[0, i]))
+            emitted_done = host[1].astype(bool)
+            if emitted_done.all() or t == scfg.max_new_tokens - 1:
+                break
+            logits, cache = self._decode(self.params, cache,
+                                         {"tokens": tok[:, None]})
+            tok, done = self._sample_step(logits, tok, done)
+        return out
 
 
 @dataclasses.dataclass
@@ -99,14 +196,7 @@ class PagedEngine:
         if not arch.supports_paged_serving():
             raise ValueError(f"{arch.arch_id}: paged serving supports GQA "
                              "transformers only")
-        dev = resolve_device(device)
-        if dev.type == "cuda" and dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-        on = {leaf.device for leaf in tree_leaves(params)}
-        if on != {dev}:
-            raise ValueError(f"params lie on {sorted(map(str, on))}, the "
-                             f"engine runs on {dev}")
-        self.device = dev
+        self.device = dev = _engine_device(params, device)
         self.arch = arch
         self.params = params
         self.scfg = scfg
@@ -283,21 +373,13 @@ class PagedEngine:
                     if victim is req:
                         break
 
-    def _upload(self, host: np.ndarray) -> Tensor:
-        """One int32 host array on the engine's device.  On a CUDA device a
-        pinned staging copy goes up non-blocking: the host never waits."""
-        t = torch.from_numpy(np.ascontiguousarray(host, dtype=np.int32))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.clone()
-
     def _run_chunk(self) -> np.ndarray:
         """Execute one fixed-shape decode chunk: one upload, one sync."""
         B, P = self.scfg.max_batch, self.scfg.max_pages_per_seq
         tables = build_block_tables(self.scheduler.page_lists(), P)
-        up = self._upload(np.concatenate(
+        up = _upload(np.concatenate(
             [self._tok, self._n, self._budget, self._done.astype(np.int32),
-             tables.ravel()]))
+             tables.ravel()]), self.device)
         tok, n, budget, done, tables_d = torch.split(up, [B, B, B, B, B * P])
         done = done.to(torch.bool)
         tables_d = tables_d.view(B, P)
@@ -356,7 +438,7 @@ class PagedEngine:
         along ``bt_row``, in place; positions >= length land on the
         scratch page.  Returns the logits at position length-1."""
         S, P = toks.shape[0], bt_row.shape[0]
-        up = self._upload(np.concatenate([toks, [length], bt_row]))
+        up = _upload(np.concatenate([toks, [length], bt_row]), self.device)
         tokens, length_t, bt = torch.split(up, [S, 1, P])
         tokens = tokens.view(1, S)
         self._prefill_sigs.add(_signature(tokens, length_t))

@@ -17,8 +17,8 @@ import torch
 from repro.serve.engine import PagedEngine as RefEngine
 from repro.serve.engine import PagedServeConfig as RefConfig
 from repro_torch.serve.engine import PagedEngine, PagedServeConfig
-from torch_parity import (CPU, np_f32, ref_params_and_copy, smoke_archs,
-                          tiny_llama_archs)
+from torch_parity import (CPU, np_f32, patch_attention_thresholds,
+                          ref_params_and_copy, smoke_archs, tiny_llama_archs)
 
 PROMPTS = [[5, 17, 23, 9], [101, 44], [7] * 6, [3, 4, 5, 6, 7, 8, 9, 10, 11],
            [42] * 14]
@@ -173,12 +173,21 @@ def test_use_kernel_true_on_cpu_raises(tiny):
         eng.generate([PROMPTS[0]])
 
 
-def test_legacy_serving_names_the_next_slice(tiny):
-    _, port, _, _ = tiny
-    for call in (port.make_prefill_step, port.make_decode_step,
-                 lambda: port.init_cache(2, 16)):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            call()
+@pytest.mark.parametrize("window", [8, 48])
+def test_prefill_past_direct_threshold_matches_reference(window,
+                                                         monkeypatch):
+    """A prompt whose prefill bucket (64) is past the direct-attention
+    threshold, patched to 16 (blocks of 16) in both packages: window 8 takes
+    the sliding-window gather, window 48 the blockwise (flash) branch, and
+    the port's PagedEngine gives the JAX PagedEngine's greedy tokens."""
+    patch_attention_thresholds(monkeypatch)
+    ref, port = smoke_archs(window=window)
+    rp, pp = ref_params_and_copy(ref, seed=7)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(1, port.cfg.vocab, 37).tolist(), [3, 9, 4]]
+    kw = dict(max_batch=2, max_new_tokens=8)
+    want = _ref_engine(ref, rp, **kw).generate(prompts)
+    assert _port_engine(port, pp, **kw).generate(prompts) == want
 
 
 def test_prefill_and_paged_decode_step_match_reference(tiny):

@@ -139,17 +139,6 @@ def test_logits_are_fp32_from_bf16_params():
                                atol=1e-5)
 
 
-def test_long_sequences_name_the_unported_branch():
-    q = torch.zeros(1, 2049, 2, 4)
-    kv = torch.zeros(1, 2049, 1, 4)
-    pos = torch.arange(2049)
-    with pytest.raises(NotImplementedError, match="_flash_attention"):
-        L.attention(q, kv, kv, spec=L.MaskSpec(), q_pos=pos, kv_pos=pos)
-    with pytest.raises(NotImplementedError, match="_swa_gather_attention"):
-        L.attention(q, kv, kv, spec=L.MaskSpec(window=8), q_pos=pos,
-                    kv_pos=pos)
-
-
 @pytest.mark.parametrize("field,value", [("moe", object()), ("mla", object()),
                                          ("mtp", True), ("prefix_lm", True)])
 def test_unported_model_features_raise(field, value):

@@ -94,6 +94,19 @@ def convert_opt_state(ref_state):
     return opt_state_from_numpy(host.step, host.moments, CPU)
 
 
+def patch_attention_thresholds(monkeypatch, direct: int = 16,
+                               block: int = 16) -> None:
+    """Shrink the direct-attention threshold and the query/KV block sizes in
+    both packages, so that tiny sequences take the long-sequence branches
+    (the reference is patched for the test, never edited)."""
+    from repro.models import layers as ref_layers
+    from repro_torch.models import layers as port_layers
+    for mod in (ref_layers, port_layers):
+        monkeypatch.setattr(mod, "_DIRECT_ATTN_MAX_SEQ", direct)
+        monkeypatch.setattr(mod, "_Q_BLOCK", block)
+        monkeypatch.setattr(mod, "_KV_BLOCK", block)
+
+
 def make_batch(vocab: int, batch: int, seq: int, seed: int = 0) -> dict:
     rng = np.random.default_rng(seed)
     return {"tokens": rng.integers(0, vocab, (batch, seq)).astype(np.int32),
@@ -110,6 +123,6 @@ def torch_batch(b: dict) -> dict:
 
 __all__ = ["CPU", "ARCH_ID", "np_f32", "jax_flat", "port_flat",
            "assert_trees_close", "smoke_archs", "tiny_llama_archs",
-           "ref_params_and_copy",
+           "ref_params_and_copy", "patch_attention_thresholds",
            "convert_opt_state", "make_batch", "jax_batch", "torch_batch",
            "to_numpy"]
