@@ -23,13 +23,16 @@ printing one JSON line:
            tests' cases, a dozen ragged rings, danube's shapes (B 8 x W 1024
            and B 4 x W 4096, windows none, 4096 and 256) over partly filled
            rings (empty slots hold large garbage) and wrapped ones, fp32
-           (1e-5) and bf16 (3e-2), a bitwise re-run.  Then times kernel and
-           plain version (CUDA events, after warm-up, inputs rotated so they
-           are not served from the L2 cache) beside the least time the card
-           could take, and, for K4, scaled_dot_product_attention on the same
-           inputs (the library call, never used by the port); K4, whose
-           launches take about what its wrapper costs on the host, is timed
-           as replays of a CUDA graph.
+           (1e-5) and bf16 (3e-2), a bitwise re-run, and ten launches on the
+           same ticket counters at B 1 and B 4 x W 4096, bit-identical.  Then
+           times kernel and plain version (CUDA events, after warm-up, inputs
+           rotated so they are not served from the L2 cache) beside the least
+           time the card could take, and, for K4,
+           scaled_dot_product_attention on the same inputs (the library call,
+           never used by the port).  K1, K2 and K4, whose launches at
+           danube's smaller shapes take about what their wrappers cost on the
+           host, are timed as replays of a CUDA graph, with the eager time
+           beside; K3 eagerly.
   train    ``repro_torch.run.run(spec)``: h2o-danube-1.8b at its published
            width and depth, random weights from a seed, AdaLomo fused into
            the backward pass, batch 4 x 1024 tokens, 3 steps.  Launch counts
@@ -318,10 +321,27 @@ def time_graph_ms(fn, sets, rounds: int) -> float:
 
 def time_kernels() -> tuple:
     """Per danube shape, bf16 params and grads (what the train step passes):
-    kernel time, plain-version time and bound, in ms."""
+    kernel, plain-version and bound, in ms, and per step (x the shape's
+    count of the 170 tensors).  Kernel and plain version are timed as
+    replays of a CUDA graph, because at danube's smaller shapes an eager
+    launch takes about what the wrapper costs on the host; eager_ms is the
+    kernel launched one call after another from the host."""
     rows = []
     beta_t = torch.full((), 0.999, device=DEV)
     kw2 = dict(eps_div=CFG.eps_div, eps_rms=CFG.eps_rms, literal=False)
+
+    def k1(p, g, r, c, s):
+        K.adalomo_stats(g, r, c, beta_t, eps_stat=CFG.eps_stat)
+
+    def k1_plain(p, g, r, c, s):
+        K.adalomo_stats_ref(g, r, c, beta_t, eps_stat=CFG.eps_stat)
+
+    def k2(p, g, r, c, s):
+        K.adalomo_update(p, g, r, c, s, **kw2)
+
+    def k2_plain(p, g, r, c, s):
+        K.adalomo_update_ref(p, g, r, c, s, **kw2)
+
     for shape, count in DANUBE_SHAPES.items():
         m, n = shape
         set_bytes = 2 * m * n * 2
@@ -333,40 +353,29 @@ def time_kernels() -> tuple:
             K.adalomo_stats(g, r, c, beta_t, eps_stat=CFG.eps_stat)
             sets.append((p, g, r, c, scal_for(r, 5e-4, 5.0, 0.999, 0.0, 1.0)))
         rounds = max(2, min(20, 200 // copies))
-        k1 = time_ms(lambda p, g, r, c, s: K.adalomo_stats(
-            g, r, c, beta_t, eps_stat=CFG.eps_stat), sets, rounds)
-        k1_plain = time_ms(lambda p, g, r, c, s: K.adalomo_stats_ref(
-            g, r, c, beta_t, eps_stat=CFG.eps_stat), sets, rounds)
-        k2 = time_ms(lambda p, g, r, c, s: K.adalomo_update(
-            p, g, r, c, s, **kw2), sets, rounds)
-        k2_plain = time_ms(lambda p, g, r, c, s: K.adalomo_update_ref(
-            p, g, r, c, s, **kw2), sets, rounds)
         state_bytes = 4 * (m + n)
         k1_bytes = m * n * 2 + 2 * state_bytes          # g; r, c in and out
         k2_bytes = 3 * m * n * 2 + state_bytes + 16     # theta in/out, g
-        k1_bound = max(k1_bytes / HBM_BYTES_PER_S,
-                       K1_FLOP_PER_ELEM * m * n / FP32_FLOP_PER_S) * 1e3
-        k2_bound = max(k2_bytes / HBM_BYTES_PER_S,
-                       K2_FLOP_PER_ELEM * m * n / FP32_FLOP_PER_S) * 1e3
-        rows.append({"shape": list(shape), "per_step": count,
-                     "stats_ms": k1, "stats_plain_ms": k1_plain,
-                     "stats_bound_ms": k1_bound,
-                     "update_ms": k2, "update_plain_ms": k2_plain,
-                     "update_bound_ms": k2_bound})
+        row = {"shape": list(shape), "per_step": count}
+        for key, fn, plain, nbytes, flop in (
+                ("stats", k1, k1_plain, k1_bytes, K1_FLOP_PER_ELEM),
+                ("update", k2, k2_plain, k2_bytes, K2_FLOP_PER_ELEM)):
+            row[key + "_ms"] = time_graph_ms(fn, sets, rounds)
+            row[key + "_eager_ms"] = time_ms(fn, sets, rounds)
+            row[key + "_plain_ms"] = time_graph_ms(plain, sets, rounds)
+            row[key + "_bound_ms"] = max(nbytes / HBM_BYTES_PER_S,
+                                         flop * m * n / FP32_FLOP_PER_S) * 1e3
+        rows.append(row)
         del sets
         torch.cuda.empty_cache()
 
     def per_step(key):
         return sum(r[key] * r["per_step"] for r in rows)
 
-    totals = {
-        "adalomo_stats": dict(ms=per_step("stats_ms"),
-                              plain_ms=per_step("stats_plain_ms"),
-                              bound_ms=per_step("stats_bound_ms")),
-        "adalomo_update": dict(ms=per_step("update_ms"),
-                               plain_ms=per_step("update_plain_ms"),
-                               bound_ms=per_step("update_bound_ms")),
-    }
+    totals = {name: {k: per_step(f"{key}_{k}")
+                     for k in ("ms", "eager_ms", "plain_ms", "bound_ms")}
+              for name, key in (("adalomo_stats", "stats"),
+                                ("adalomo_update", "update"))}
     return rows, totals
 
 
@@ -607,6 +616,17 @@ def check_k4(errs: dict) -> tuple:
     if not torch.equal(a, b):
         raise AssertionError("decode_attention: the same inputs did not give "
                              "bit-identical outputs on a re-run")
+    # Ten launches back to back on the same ticket counters: each must find
+    # them at 0, as the last run of the launch before left them.
+    for B in (1, 4):
+        args = k4_inputs(B, 4096, 32, 8, 80, 6143, torch.bfloat16, 9 + B,
+                         True)
+        outs = [KD.decode_attention(*args, window=SERVE_WINDOW)
+                for _ in range(10)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(outs[0], o) for o in outs[1:]):
+            raise AssertionError(f"decode_attention B{B} W4096: ten launches "
+                                 "on reused counters were not bit-identical")
     return n, True
 
 

@@ -37,7 +37,7 @@ from torch_profile_step import kind_of  # noqa: E402
 
 
 def kind(name: str) -> str:
-    if "ring_decode_kernel" in name or "ring_combine_kernel" in name:
+    if "ring_decode_kernel" in name:
         return "attention (K4 decode_attention)"
     return kind_of(name)
 

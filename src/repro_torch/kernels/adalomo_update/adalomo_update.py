@@ -13,12 +13,15 @@ sm_90a, plain C interface, built at first use by ``kernels/build.py``).
 
 Both are bound by bytes, not operations: a few flops per element against
 2-4 bytes per element and pass.  The function must move g once, θ twice (read
-and write) and O(m+n) state; this first design reads g three times and θ
-twice (K1, then K2's partial-sums pass and apply pass), because Σr' is needed
-before u and Σu² before the write.  Hopper's blocks run in no order, so the
-TPU kernels' accumulation across a sequential grid becomes per-block partial
-sums added in block order by a following launch; edges are bounds checks, not
-padding.  No float atomics: the same inputs give bit-identical outputs.
+and write) and O(m+n) state; the design reads g three times and θ twice (K1,
+then K2's partial-sums pass and apply pass), because Σr' is needed before u
+and Σu² before the write.  Hopper's blocks run in no order, so the TPU
+kernels' accumulation across a sequential grid becomes per-block partial sums
+added in block order by a following launch; edges are bounds checks, not
+padding.  K2 reads 16 bytes a thread and load, over a grid of small tiles
+(:func:`update_tiling`), and its apply pass walks them in reverse so the
+re-read finds the partials pass's last tiles in L2.  No float atomics: the
+same inputs give bit-identical outputs.
 
 A CUDA tensor launches the kernel or raises; only a CPU tensor takes the
 plain version.  ``adalomo_stats.launches`` / ``adalomo_update.launches``
@@ -28,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -41,6 +45,47 @@ LIB_NAME = "adalomo_update"
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+# K2's tile (kTileRows x kTileCols of csrc/adalomo_update.cu, checked when the
+# library is bound) and its grid: about BLOCKS_PER_SM blocks on each of the
+# H100's 132 SMs.
+TILE_ROWS, TILE_COLS = 16, 128
+SMS = 132
+BLOCKS_PER_SM = 4
+
+
+class UpdateTiling(NamedTuple):
+    """How K2 cuts each [m, n] slice: tiles of TILE_ROWS x TILE_COLS in
+    row-major order, ``blocks`` blocks a slice, block b taking tiles b,
+    b + blocks, ... (the apply launch walks them in reverse)."""
+    row_tiles: int
+    col_tiles: int
+    blocks: int
+
+    @property
+    def tiles(self) -> int:
+        return self.row_tiles * self.col_tiles
+
+    def tile(self, t: int) -> tuple:
+        """(first row, first column) of tile t."""
+        return (t // self.col_tiles * TILE_ROWS,
+                t % self.col_tiles * TILE_COLS)
+
+    def walk(self, b: int) -> range:
+        """The tiles of block b, in the partials launch's order."""
+        return range(b, self.tiles, self.blocks)
+
+    def partials_shape(self, L: int) -> tuple:
+        return (L, self.blocks, 2)
+
+
+def update_tiling(L: int, m: int, n: int) -> UpdateTiling:
+    """K2's tiling of ``L`` slices of [m, n]: as many blocks as tiles, up to
+    BLOCKS_PER_SM * SMS over all slices.  Depends on the shapes only."""
+    row_tiles, col_tiles = -(-m // TILE_ROWS), -(-n // TILE_COLS)
+    blocks = max(1, min(row_tiles * col_tiles,
+                        -(-SMS * BLOCKS_PER_SM // L)))
+    return UpdateTiling(row_tiles, col_tiles, blocks)
+
 
 def _library() -> ctypes.CDLL:
     lib = load_library(LIB_NAME, SOURCES)
@@ -53,8 +98,14 @@ def _library() -> ctypes.CDLL:
                                          ci, vp]
     lib.adalomo_stats_launch.restype = ci
     lib.adalomo_update_launch.argtypes = [vp, ci, vp, ci, vp, vp, vp, vp, cf,
-                                          cf, ci, ci, ci, ci, vp]
+                                          cf, ci, ci, ci, ci, ci, vp]
     lib.adalomo_update_launch.restype = ci
+    for fn in (lib.adalomo_update_tile_rows, lib.adalomo_update_tile_cols):
+        fn.argtypes, fn.restype = [], ci
+    tile = (lib.adalomo_update_tile_rows(), lib.adalomo_update_tile_cols())
+    if tile != (TILE_ROWS, TILE_COLS):
+        raise RuntimeError(f"adalomo_update: the kernel's tile {tile} is not "
+                           f"the wrapper's {(TILE_ROWS, TILE_COLS)}")
     lib._adalomo_bound = True
     return lib
 
@@ -183,14 +234,15 @@ def adalomo_update(param: Tensor, grad: Tensor, r: Tensor, c: Tensor,
     _check("c", c, lead + (n,), (torch.float32,), dev)
     _check("scal", scal, lead + (4,), (torch.float32,), dev)
     lib = _library()
-    nrb = -(-m // lib.adalomo_rows_per_block())
-    partials = torch.empty((L, nrb, 2), dtype=torch.float32, device=dev)
+    tiling = update_tiling(L, m, n)
+    partials = torch.empty(tiling.partials_shape(L), dtype=torch.float32,
+                           device=dev)
     with torch.cuda.device(dev):
         err = lib.adalomo_update_launch(
             param.data_ptr(), _DTYPE_CODE[param.dtype], grad.data_ptr(),
             _DTYPE_CODE[grad.dtype], r.data_ptr(), c.data_ptr(),
             scal.data_ptr(), partials.data_ptr(), float(eps_div),
-            float(eps_rms), int(bool(literal)), L, m, n,
+            float(eps_rms), int(bool(literal)), L, m, n, tiling.blocks,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "adalomo_update")
     adalomo_update.launches += 1

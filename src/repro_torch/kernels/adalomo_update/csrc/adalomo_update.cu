@@ -13,17 +13,117 @@
 // the real tensor.  All arithmetic is fp32 with one cast, at the store.  u
 // is recomputed, never stored.
 //
-// Bound: bytes.  The function must read g and theta and write theta; the
-// design reads g and theta twice, because the write needs sum(u^2) over the
-// whole slice first.  The TPU version carries that sum in scratch memory
-// across a sequential grid; here it is two launches: per-block partials
-// [L, n_row_blocks, 2], then the apply pass, whose every block adds the
+// Bound: bytes.  The function must read g and theta and write theta (3
+// passes over the slice); a few operations per element.  The write needs
+// sum(u^2) over the whole slice first, so this design makes 5 passes: a
+// partials launch reads g and theta, an apply launch reads them again and
+// writes theta.  The TPU version carries that sum in scratch memory across a
+// sequential grid; here the partials launch leaves one (sum u^2, sum
+// theta^2) per block in [L, n_blocks, 2], and every apply block adds its
 // slice's partials in the same fixed order.  The scalars come from a small
 // fp32 device buffer, so a changed learning rate rebuilds nothing and the
 // host never waits.
+//
+// Design for the H100's memory system:
+// * 16-byte loads: a thread owns 8 consecutive columns of a tile row (one
+//   16-byte load of bf16, two of fp32), 16 threads span a tile's 128
+//   columns and 16 rows make the tile, so a half-warp reads 256 or 512
+//   contiguous bytes.  Where n % 8 != 0 or a pointer is not 16-byte aligned
+//   the same tiles are read element by element (the ragged path).
+// * Enough blocks: tiles of 16 x 128 are small enough that every
+//   h2o-danube-1.8b shape (down to 2560 x 640) has more tiles than the grid
+//   of 4 blocks on each of the 132 SMs; block b walks tiles b, b + n_blocks,
+//   ... (the wrapper's `update_tiling`), a few at once so several 16-byte
+//   loads of each thread are in flight.
+// * Re-reads from L2: the apply launch walks each block's tiles in the
+//   reverse order, so it first re-reads what the partials launch read last,
+//   while that is still in the 50 MB L2.
+// Every sum runs in a fixed order (a thread's tiles in walk order, the block
+// in warp order, the partials in block order) and there are no atomics: the
+// same inputs give bit-identical outputs.
+#include <stdint.h>
+
 #include "common.cuh"
 
 namespace adalomo {
+
+constexpr int kVec = 8;                              // columns a thread owns
+constexpr int kTileCols = 128;
+constexpr int kColThreads = kTileCols / kVec;        // 16
+constexpr int kTileRows = kThreads / kColThreads;    // 16
+constexpr int kMinBlocksPerSM = 4;
+
+// Eight consecutive elements of T, kept as raw 16-byte words until used.
+template <typename T>
+struct Pack8 {
+  static constexpr int kWords = (int)sizeof(T) * kVec / 16;  // bf16 1, fp32 2
+  uint4 w[kWords];
+};
+
+__device__ __forceinline__ float elem(const Pack8<float>& pk, int i) {
+  return reinterpret_cast<const float*>(pk.w)[i];
+}
+__device__ __forceinline__ float elem(const Pack8<__nv_bfloat16>& pk, int i) {
+  return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(pk.w)[i]);
+}
+
+// The first `cnt` (1..8) elements at src; with kVector all 8 as 16-byte
+// loads (src 16-byte aligned), else one at a time (the slots past cnt repeat
+// element 0 and are never used).
+template <bool kVector, bool kReadOnly, typename T>
+__device__ __forceinline__ void load8(Pack8<T>& pk, const T* src, int cnt) {
+  if constexpr (kVector) {
+    const uint4* s = reinterpret_cast<const uint4*>(src);
+#pragma unroll
+    for (int i = 0; i < Pack8<T>::kWords; ++i)
+      pk.w[i] = kReadOnly ? __ldg(s + i) : s[i];
+  } else {
+    T* e = reinterpret_cast<T*>(pk.w);
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) e[i] = src[i < cnt ? i : 0];
+  }
+}
+
+template <bool kVector>
+__device__ __forceinline__ void load_c(float* cj, const float* src, int cnt) {
+  if constexpr (kVector) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(src));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(src) + 1);
+    cj[0] = a.x, cj[1] = a.y, cj[2] = a.z, cj[3] = a.w;
+    cj[4] = b.x, cj[5] = b.y, cj[6] = b.z, cj[7] = b.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) cj[i] = __ldg(src + (i < cnt ? i : 0));
+  }
+}
+
+template <bool kVector>
+__device__ __forceinline__ void store8(float* dst, const float* v, int cnt) {
+  if constexpr (kVector) {
+    reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kVec; ++i)
+      if (i < cnt) dst[i] = v[i];
+  }
+}
+template <bool kVector>
+__device__ __forceinline__ void store8(__nv_bfloat16* dst, const float* v,
+                                       int cnt) {
+  if constexpr (kVector) {
+    uint4 w;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&w);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(dst) = w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kVec; ++i)
+      if (i < cnt) dst[i] = __float2bfloat16_rn(v[i]);
+  }
+}
 
 __device__ __forceinline__ float update_direction(float g, float ri, float cj,
                                                   float inv, float eps_div,
@@ -32,134 +132,153 @@ __device__ __forceinline__ float update_direction(float g, float ri, float cj,
   return literal ? g / (v_hat + eps_div) : g / (sqrtf(v_hat) + eps_div);
 }
 
-template <typename P, typename G>
-__global__ void __launch_bounds__(kThreads)
-update_partials_kernel(const P* __restrict__ p, const G* __restrict__ g,
-                       const float* __restrict__ r,
-                       const float* __restrict__ c,
-                       const float* __restrict__ scal,
-                       float* __restrict__ partials, float eps_div,
-                       int literal, int m, int n) {
-  const int rb = blockIdx.x, l = blockIdx.y, nrb = gridDim.x;
-  const int row0 = rb * kRows;
+// Block (b, l) of either launch.  Without kApply: the partial sums of u^2
+// and theta^2 over block b's tiles into partials[l, b].  With kApply: the
+// slice's scale from all its partials, then theta updated over the same
+// tiles, walked in the reverse order.
+template <typename P, typename G, bool kVector, bool kApply>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
+update_kernel(P* p, const G* __restrict__ g, const float* __restrict__ r,
+              const float* __restrict__ c, const float* __restrict__ scal,
+              float* partials, float eps_div, float eps_rms, int literal,
+              int m, int n) {
+  // tiles whose loads are in flight together (an unroll of 4 spilled at the
+  // 64 registers a thread that four blocks a SM allow)
+  constexpr int kUnroll = kVector ? 2 : 1;
+  const int b = blockIdx.x, l = blockIdx.y, nblk = gridDim.x;
+  const int col_tiles = (n + kTileCols - 1) / kTileCols;
+  const int tiles = (m + kTileRows - 1) / kTileRows * col_tiles;
+  const int mine = b < tiles ? (tiles - 1 - b) / nblk + 1 : 0;
+  const int tr = threadIdx.x / kColThreads;
+  const int tc = (threadIdx.x % kColThreads) * kVec;
   const size_t base = (size_t)l * m * n;
-  __shared__ float r_s[kRows];
-  __shared__ float red[kWarps];
-  if (threadIdx.x < kRows) {
-    const int row = row0 + threadIdx.x;
-    r_s[threadIdx.x] = row < m ? r[(size_t)l * m + row] : 0.f;
-  }
-  __syncthreads();
+  const float* rl = r + (size_t)l * m;
+  const float* cl = c + (size_t)l * n;
   const float inv = scal[l * 4 + 0];
+  __shared__ float red[kWarps];
+
+  float scale = 0.f, lr = 0.f, decay = 0.f;
+  if constexpr (kApply) {
+    // the slice's two sums, added in the same order by every block
+    float su2 = 0.f, sp2 = 0.f;
+    const float* part = partials + (size_t)l * nblk * 2;
+    for (int k = threadIdx.x; k < nblk; k += kThreads) {
+      su2 += part[2 * k];
+      sp2 += part[2 * k + 1];
+    }
+    su2 = block_sum(su2, red);
+    sp2 = block_sum(sp2, red);
+    const float n_elems = (float)((long long)m * (long long)n);
+    const float rms_u = sqrtf(su2 / n_elems);
+    const float rms_p = sqrtf(sp2 / n_elems);
+    lr = scal[l * 4 + 1];
+    decay = scal[l * 4 + 2];
+    const float clip = scal[l * 4 + 3];
+    scale = fmaxf(eps_rms, rms_p) / fmaxf(1.f, rms_u / clip);
+  }
 
   float su2 = 0.f, sp2 = 0.f;
-  for (int col = threadIdx.x; col < n; col += kThreads) {
-    const float cj = c[(size_t)l * n + col];
+  for (int k0 = 0; k0 < mine; k0 += kUnroll) {
+    Pack8<P> pv[kUnroll];
+    Pack8<G> gv[kUnroll];
+    int row[kUnroll], col[kUnroll], cnt[kUnroll];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = row0 + i;
-      if (row < m) {
-        const size_t idx = base + (size_t)row * n + col;
-        const float pv = load_f32(p, idx);
-        const float u = update_direction(load_f32(g, idx), r_s[i], cj, inv,
-                                         eps_div, literal);
-        su2 += u * u;
-        sp2 += pv * pv;
+    for (int u = 0; u < kUnroll; ++u) {
+      const int k = k0 + u;
+      const int tile = b + (kApply ? mine - 1 - k : k) * nblk;
+      row[u] = tile / col_tiles * kTileRows + tr;
+      col[u] = tile % col_tiles * kTileCols + tc;
+      cnt[u] = k < mine && row[u] < m ? min(kVec, n - col[u]) : 0;
+      if (cnt[u] > 0) {
+        const size_t idx = base + (size_t)row[u] * n + col[u];
+        load8<kVector, !kApply>(pv[u], p + idx, cnt[u]);
+        load8<kVector, true>(gv[u], g + idx, cnt[u]);
       }
     }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (cnt[u] <= 0) continue;
+      const float ri = rl[row[u]];
+      float cj[kVec], out[kVec];
+      load_c<kVector>(cj, cl + col[u], cnt[u]);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        if (!kVector && i >= cnt[u]) continue;
+        const float pf = elem(pv[u], i);
+        const float uu = update_direction(elem(gv[u], i), ri, cj[i], inv,
+                                          eps_div, literal);
+        if constexpr (kApply) {
+          out[i] = pf * decay - lr * uu * scale;
+        } else {
+          su2 += uu * uu;
+          sp2 += pf * pf;
+        }
+      }
+      if constexpr (kApply)
+        store8<kVector>(p + base + (size_t)row[u] * n + col[u], out, cnt[u]);
+    }
   }
-  su2 = block_sum(su2, red);
-  sp2 = block_sum(sp2, red);
-  if (threadIdx.x == 0) {
-    float* out = partials + ((size_t)l * nrb + rb) * 2;
-    out[0] = su2;
-    out[1] = sp2;
+  if constexpr (!kApply) {
+    su2 = block_sum(su2, red);
+    sp2 = block_sum(sp2, red);
+    if (threadIdx.x == 0) {
+      float* out = partials + ((size_t)l * nblk + b) * 2;
+      out[0] = su2;
+      out[1] = sp2;
+    }
   }
 }
 
-template <typename P, typename G>
-__global__ void __launch_bounds__(kThreads)
-update_apply_kernel(P* p, const G* __restrict__ g,
-                    const float* __restrict__ r, const float* __restrict__ c,
-                    const float* __restrict__ scal,
-                    const float* __restrict__ partials, float eps_div,
-                    float eps_rms, int literal, int m, int n) {
-  const int rb = blockIdx.x, l = blockIdx.y, nrb = gridDim.x;
-  const int row0 = rb * kRows;
-  const size_t base = (size_t)l * m * n;
-  __shared__ float r_s[kRows];
-  __shared__ float red[kWarps];
-  if (threadIdx.x < kRows) {
-    const int row = row0 + threadIdx.x;
-    r_s[threadIdx.x] = row < m ? r[(size_t)l * m + row] : 0.f;
-  }
-
-  // The slice's two sums, added in the same order by every block.
-  float su2 = 0.f, sp2 = 0.f;
-  const float* part = partials + (size_t)l * nrb * 2;
-  for (int k = threadIdx.x; k < nrb; k += kThreads) {
-    su2 += part[2 * k];
-    sp2 += part[2 * k + 1];
-  }
-  su2 = block_sum(su2, red);  // also orders the writes of r_s
-  sp2 = block_sum(sp2, red);
-
-  const float n_elems = (float)((long long)m * (long long)n);
-  const float rms_u = sqrtf(su2 / n_elems);
-  const float rms_p = sqrtf(sp2 / n_elems);
-  const float inv = scal[l * 4 + 0];
-  const float lr = scal[l * 4 + 1];
-  const float decay = scal[l * 4 + 2];
-  const float clip = scal[l * 4 + 3];
-  const float scale = fmaxf(eps_rms, rms_p) / fmaxf(1.f, rms_u / clip);
-
-  for (int col = threadIdx.x; col < n; col += kThreads) {
-    const float cj = c[(size_t)l * n + col];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = row0 + i;
-      if (row < m) {
-        const size_t idx = base + (size_t)row * n + col;
-        const float pv = load_f32(p, idx);
-        const float u = update_direction(load_f32(g, idx), r_s[i], cj, inv,
-                                         eps_div, literal);
-        store_f32(p, idx, pv * decay - lr * u * scale);
-      }
-    }
-  }
-}
-
-template <typename P, typename G>
-int launch_update(void* p, const void* g, const float* r, const float* c,
-                  const float* scal, float* partials, float eps_div,
-                  float eps_rms, int literal, int L, int m, int n,
-                  cudaStream_t s) {
-  const int nrb = (m + kRows - 1) / kRows;
-  const dim3 grid(nrb, L);
-  update_partials_kernel<P, G><<<grid, kThreads, 0, s>>>(
-      static_cast<const P*>(p), static_cast<const G*>(g), r, c, scal,
-      partials, eps_div, literal, m, n);
+template <typename P, typename G, bool kVector>
+int launch_pair(void* p, const void* g, const float* r, const float* c,
+                const float* scal, float* partials, float eps_div,
+                float eps_rms, int literal, int L, int m, int n, int nblk,
+                cudaStream_t s) {
+  const dim3 grid(nblk, L);
+  update_kernel<P, G, kVector, false><<<grid, kThreads, 0, s>>>(
+      static_cast<P*>(p), static_cast<const G*>(g), r, c, scal, partials,
+      eps_div, eps_rms, literal, m, n);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  update_apply_kernel<P, G><<<grid, kThreads, 0, s>>>(
+  update_kernel<P, G, kVector, true><<<grid, kThreads, 0, s>>>(
       static_cast<P*>(p), static_cast<const G*>(g), r, c, scal, partials,
       eps_div, eps_rms, literal, m, n);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename P, typename G>
+int launch_update(void* p, const void* g, const float* r, const float* c,
+                  const float* scal, float* partials, float eps_div,
+                  float eps_rms, int literal, int L, int m, int n, int nblk,
+                  cudaStream_t s) {
+  const bool vector = n % kVec == 0 &&
+                      (((uintptr_t)p | (uintptr_t)g | (uintptr_t)c) & 15) == 0;
+  return vector ? launch_pair<P, G, true>(p, g, r, c, scal, partials, eps_div,
+                                          eps_rms, literal, L, m, n, nblk, s)
+                : launch_pair<P, G, false>(p, g, r, c, scal, partials,
+                                           eps_div, eps_rms, literal, L, m, n,
+                                           nblk, s);
+}
+
 }  // namespace adalomo
+
+// The tile of K2, rows and columns; the wrapper's tiling must agree.
+extern "C" int adalomo_update_tile_rows() { return adalomo::kTileRows; }
+extern "C" int adalomo_update_tile_cols() { return adalomo::kTileCols; }
 
 // p, g [L, m, n] (dtype 0 = float32, 1 = bfloat16), p updated in place;
 // r [L, m], c [L, n] fp32 from adalomo_stats_launch; scal [L, 4] fp32 =
-// (inv_denom_corr, lr, decay, clip); partials [L, ceil(m / rows_per_block),
-// 2] fp32 scratch.  Returns cudaGetLastError().
+// (inv_denom_corr, lr, decay, clip); n_blocks blocks a slice walk its tiles;
+// partials [L, n_blocks, 2] fp32 scratch.  Returns cudaGetLastError().
 extern "C" int adalomo_update_launch(void* p, int p_dtype, const void* g,
                                      int g_dtype, const void* r,
                                      const void* c, const void* scal,
                                      void* partials, float eps_div,
                                      float eps_rms, int literal, int L, int m,
-                                     int n, void* stream) {
+                                     int n, int n_blocks, void* stream) {
   using namespace adalomo;
+  if (L < 1 || L > 65535 || m < 1 || n < 1 || n_blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* rp = static_cast<const float*>(r);
   const float* cp = static_cast<const float*>(c);
@@ -167,7 +286,7 @@ extern "C" int adalomo_update_launch(void* p, int p_dtype, const void* g,
   float* pp = static_cast<float*>(partials);
 #define ADALOMO_LAUNCH(P, G)                                               \
   return launch_update<P, G>(p, g, rp, cp, sp, pp, eps_div, eps_rms,       \
-                             literal, L, m, n, s)
+                             literal, L, m, n, n_blocks, s)
   if (p_dtype == kFloat32 && g_dtype == kFloat32)
     ADALOMO_LAUNCH(float, float);
   if (p_dtype == kFloat32 && g_dtype == kBFloat16)

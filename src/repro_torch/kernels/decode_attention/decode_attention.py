@@ -16,9 +16,11 @@ Sources: ``csrc/paged_decode_attention.cu`` and ``csrc/decode_attention.cu``
 over the tile loop of ``csrc/decode_tiles.cuh`` (CUDA C++ for sm_90a, plain C
 interface, one library built at first use by ``kernels/build.py``, one
 ``nvcc`` per source).  Bound by bytes: the valid K/V rows must be read once,
-and only they are read.  K3 runs one block per (sequence, KV head); K4 also
-splits the ring into runs of slots and combines the runs' states in a fixed
-order.  No float atomics: the same inputs give bit-identical outputs.
+and only they are read.  K3 runs one block per (sequence, KV head); K4 splits
+the ring into runs of slots, streams them through shared memory with
+``cp.async`` and (bf16) tensor-core products, and the last run to finish
+combines the runs' states in a fixed order, all in one launch.  No float
+atomics: the same inputs give bit-identical outputs.
 
 A CUDA tensor launches the kernel or raises; only a CPU tensor takes the
 plain version.  Each wrapper's ``.launches`` counts its kernel's launches.
@@ -43,18 +45,32 @@ LIB_NAME = "decode_attention"
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 80, 128)
-_TILE = 32                  # slots a tile of the kernels' loop
-_RING_BLOCKS = 132 * 8      # K4 aims at about eight blocks on each SM
+_RING_STEP = 64             # slots a K4 block's four warps take in one round
+_RING_BLOCKS = 132 * 2      # K4 aims at about two blocks on each SM
+_COUNTERS: dict = {}        # device -> K4's int32 tickets, made once
 
 
 def ring_split(B: int, K: int, W: int) -> tuple:
     """(S, span): K4 splits the W slots into S runs of ``span`` slots (whole
-    tiles), so that B * K * S blocks come near ``_RING_BLOCKS``.  Depends on
-    the shapes only."""
-    tiles = -(-W // _TILE)
-    per_run = max(1, -(-tiles * B * K // _RING_BLOCKS))
-    S = -(-tiles // per_run)
-    return S, per_run * _TILE
+    rounds of ``_RING_STEP``), so that B * K * S blocks come near
+    ``_RING_BLOCKS``.  Depends on the shapes only."""
+    rounds = -(-W // _RING_STEP)
+    per_run = max(1, -(-rounds * B * K // _RING_BLOCKS))
+    S = -(-rounds // per_run)
+    return S, per_run * _RING_STEP
+
+
+def ring_counters(device, n: int) -> Tensor:
+    """K4's tickets on ``device``: at least ``n`` int32 zeros, allocated and
+    zeroed once (each launch leaves them at 0), so a launch allocates nothing
+    that must be zeroed and can be captured in a CUDA graph.  A larger
+    request makes a new buffer; the old one is kept, since a captured graph
+    may still point at it."""
+    bufs = _COUNTERS.setdefault(torch.device(device), [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.zeros(max(n, 4096), dtype=torch.int32,
+                                device=device))
+    return bufs[-1]
 
 
 def _library() -> ctypes.CDLL:
@@ -68,9 +84,16 @@ def _library() -> ctypes.CDLL:
         vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cf, ci, vp]
     lib.paged_decode_attention_launch.restype = ci
     lib.decode_attention_launch.argtypes = [
-        vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cf, ci,
-        vp]
+        vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cf,
+        ci, vp]
     lib.decode_attention_launch.restype = ci
+    lib.decode_attention_block_step.argtypes = []
+    lib.decode_attention_block_step.restype = ci
+    if lib.decode_attention_block_step() != _RING_STEP:
+        raise RuntimeError("decode_attention: the kernel's round of "
+                           f"{lib.decode_attention_block_step()} slots is "
+                           f"not the wrapper's {_RING_STEP}")
+    lib.max_group = lib.paged_decode_max_group()
     lib._pda_bound = True
     return lib
 
@@ -120,9 +143,9 @@ def paged_decode_attention(q: Tensor, k_pages: Tensor, v_pages: Tensor,
     if dh not in HEAD_DIMS:
         raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
     lib = _library()
-    if H % K or H // K > lib.paged_decode_max_group():
+    if H % K or H // K > lib.max_group:
         raise ValueError(f"{H} query heads over {K} KV heads: the kernel "
-                         f"takes groups of 1..{lib.paged_decode_max_group()}")
+                         f"takes groups of 1..{lib.max_group}")
     scale = scale if scale is not None else dh ** -0.5
     out = torch.empty_like(q)
     with torch.cuda.device(dev):
@@ -153,8 +176,11 @@ def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
     attended to when ``0 <= kv_pos[t] <= q_pos`` and, with a window,
     ``q_pos - kv_pos[t] < window``.  Returns ``[B,H,dh]`` in q's dtype; a
     row with no valid slot gets 0 (the plain version gives mean(V) there).
-    Two launches, counted as one: the slot runs of ``ring_split``, then
-    their fixed-order combine, through an fp32 workspace made here.
+    One launch over the slot runs of ``ring_split``: the last run of each
+    (sequence, KV head) to finish combines the runs' states, kept in an fp32
+    workspace made here, in run order (tickets from ``ring_counters``).  The
+    tickets are per device: launches on two streams at once must not
+    overlap.
     """
     if not q.is_cuda:
         return ring_decode_attention_ref(q, k_cache, v_cache, kv_pos, q_pos,
@@ -173,20 +199,21 @@ def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
     if dh not in HEAD_DIMS:
         raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
     lib = _library()
-    if H % K or H // K > lib.paged_decode_max_group():
+    if H % K or H // K > lib.max_group:
         raise ValueError(f"{H} query heads over {K} KV heads: the kernel "
-                         f"takes groups of 1..{lib.paged_decode_max_group()}")
+                         f"takes groups of 1..{lib.max_group}")
     scale = scale if scale is not None else dh ** -0.5
     S, span = ring_split(B, K, W)
     part = torch.empty(B * K * S * (H // K) * (dh + 2), dtype=torch.float32,
                        device=dev)
+    counters = ring_counters(dev, B * K)
     out = torch.empty_like(q)
     with torch.cuda.device(dev):
         err = lib.decode_attention_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             kv_pos.data_ptr(), q_pos.data_ptr(), part.data_ptr(),
-            out.data_ptr(), _DTYPE_CODE[q.dtype], B, H, K, dh, W, S, span,
-            float(scale), int(window or 0),
+            counters.data_ptr(), out.data_ptr(), _DTYPE_CODE[q.dtype], B, H,
+            K, dh, W, S, span, float(scale), int(window or 0),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attention: CUDA error {err} at launch")

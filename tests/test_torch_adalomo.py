@@ -255,3 +255,35 @@ def test_backend_cuda_on_cpu_tensor_raises():
                     dict(rule.hparams), 1.0)
     with pytest.raises(ValueError, match="backend"):
         opt_lib.get_rule("adalomo", backend="pallas")
+
+
+# Every [m, n] the train step passes to K2 for h2o-danube-1.8b, the ragged
+# shapes of the on-card checks, and a stacked tensor (L, m, n).
+_DANUBE_SHAPES = [(1, 2560, 2560), (1, 2560, 640), (1, 2560, 6912),
+                  (1, 6912, 2560), (1, 32000, 2560), (1, 2560, 32000)]
+_RAGGED_SHAPES = [(1, 300, 700), (1, 128, 130), (1, 1000, 96),
+                  (1, 16, 4096), (3, 300, 700)]
+
+
+@pytest.mark.parametrize("L,m,n", _DANUBE_SHAPES + _RAGGED_SHAPES)
+def test_update_tiling_covers_each_element_once(L, m, n):
+    """K2's tiles: every element of a slice in exactly one tile of exactly
+    one block's walk, partials [L, blocks, 2], and at danube's shapes at
+    least BLOCKS_PER_SM blocks for each of the card's SMs."""
+    t = K.update_tiling(L, m, n)
+    seen = np.zeros((t.row_tiles * K.TILE_ROWS, t.col_tiles * K.TILE_COLS),
+                    np.int32)
+    walked = []
+    for b in range(t.blocks):
+        for tile in t.walk(b):
+            r0, c0 = t.tile(tile)
+            seen[r0:r0 + K.TILE_ROWS, c0:c0 + K.TILE_COLS] += 1
+            walked.append(tile)
+    assert sorted(walked) == list(range(t.tiles))
+    assert (seen == 1).all()
+    assert seen.shape[0] - K.TILE_ROWS < m <= seen.shape[0]
+    assert seen.shape[1] - K.TILE_COLS < n <= seen.shape[1]
+    assert t.partials_shape(L) == (L, t.blocks, 2)
+    assert 1 <= t.blocks <= t.tiles
+    if (L, m, n) in _DANUBE_SHAPES:
+        assert L * t.blocks >= K.BLOCKS_PER_SM * K.SMS

@@ -309,12 +309,21 @@ def test_wrapped_ring_with_window_matches_reference_kernel():
 @pytest.mark.parametrize("B,K,W", [(4, 8, 4096), (8, 8, 1024), (1, 8, 4096),
                                    (2, 1, 16), (3, 4, 513), (1, 1, 100000)])
 def test_ring_split_covers_the_ring_in_whole_tiles(B, K, W):
-    """K4's runs: whole tiles of 32 slots, every slot in exactly one run,
-    no empty run, and about eight blocks a SM once the ring is long
-    enough."""
+    """K4's runs: whole rounds of 64 slots (four warps of 16; whole tiles of
+    32 for the fp32 loop), every slot in exactly one run, no empty run, about
+    two blocks a SM once the ring is long enough; at danube's timing shapes
+    (32/8 heads) one wave that reaches every SM.  The tickets: at least B * K
+    zeros, allocated once."""
     S, span = KD.ring_split(B, K, W)
-    assert span % 32 == 0 and S * span >= W > (S - 1) * span
-    assert B * K * S <= 2 * 132 * 8 or span == 32
+    assert span % 64 == 0 and S * span >= W > (S - 1) * span
+    assert B * K * S <= 2 * 132 * 2 or span == 64
+    if (B, K, W) in ((4, 8, 4096), (8, 8, 1024), (1, 8, 4096)):
+        assert 132 <= B * K * S <= 132 * 2
+        assert 128 <= span <= 512
+    counters = KD.ring_counters(torch.device("cpu"), B * K)
+    assert counters.dtype == torch.int32 and counters.numel() >= B * K
+    assert not counters.any()
+    assert KD.ring_counters(torch.device("cpu"), B * K) is counters
 
 
 def test_kernel_wrapper_on_cpu_takes_the_plain_version():
