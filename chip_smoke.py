@@ -18,8 +18,11 @@ printing one JSON line:
            the CPU tests' cases, a danube-shaped ragged case with and without
            a window, danube serving shapes (8 sequences, 32/8 heads, dh 80,
            pages of 16, up to 2048 tokens), shuffled page tables and garbage
-           in the scratch page, fp32 (1e-5) and bf16 (3e-2), a bitwise
-           re-run.  Ring-cache decode attention K4: the reference kernel
+           in the scratch page, runs with no live slot (a short sequence in
+           a wide table, a window that leaves only the last page, a
+           sequence with no token, which must give 0), fp32 (1e-5) and bf16
+           (3e-2), a bitwise re-run, and ten launches on the same ticket
+           counters at B 1 and B 8 x 2048 tokens, bit-identical.  Ring-cache decode attention K4: the reference kernel
            tests' cases, a dozen ragged rings, danube's shapes (B 8 x W 1024
            and B 4 x W 4096, windows none, 4096 and 256) over partly filled
            rings (empty slots hold large garbage) and wrapped ones, fp32
@@ -29,10 +32,11 @@ printing one JSON line:
            rotated so they are not served from the L2 cache) beside the least
            time the card could take, and, for K4,
            scaled_dot_product_attention on the same inputs (the library call,
-           never used by the port).  K1, K2 and K4, whose launches at
-           danube's smaller shapes take about what their wrappers cost on the
-           host, are timed as replays of a CUDA graph, with the eager time
-           beside; K3 eagerly.
+           never used by the port); for K3 the two-call library path (the
+           pages gathered into a dense cache, then the same call).  All four
+           kernels, whose launches at danube's smaller shapes take about
+           what their wrappers cost on the host, are timed as replays of a
+           CUDA graph, with the eager time beside.
   train    ``repro_torch.run.run(spec)``: h2o-danube-1.8b at its published
            width and depth, random weights from a seed, AdaLomo fused into
            the backward pass, batch 4 x 1024 tokens, 3 steps.  Launch counts
@@ -71,6 +75,13 @@ printing one JSON line:
 Then the card's name and power limit, one JSON line that lists the kernels
 with their measured numbers, and the result line.
 
+``--phases timing`` (not in the default run) times the kernels as the
+kernels phase does, without its checks, and prints digests of their outputs
+on seeded inputs; with ``--src DIR`` it imports ``repro_torch`` from another
+tree, so that one call can time a parent commit and this one with the same
+script (parent, change, change, parent) and show which kernels' outputs
+stayed bit-identical.
+
 Matrix products stay full fp32 for fp32 inputs: TF32 is switched off here,
 for matmul (PyTorch's default) and for cuDNN (not its default).
 
@@ -81,6 +92,7 @@ left is cuBLAS, which this script does not vouch for.
 """
 import argparse
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -98,8 +110,15 @@ if not torch.cuda.is_available():
                      "is False); this script measures on the GPU only\n")
     sys.exit(1)
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "src"))
+# --src DIR imports repro_torch from another tree (a parent commit unpacked
+# beside this one), so that this script times both in one process's terms
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+for _i, _arg in enumerate(sys.argv[1:], 1):
+    if _arg.startswith("--src="):
+        SRC = os.path.abspath(_arg.split("=", 1)[1])
+    elif _arg == "--src" and _i + 1 < len(sys.argv):
+        SRC = os.path.abspath(sys.argv[_i + 1])
+sys.path.insert(0, SRC)
 
 import numpy as np  # noqa: E402
 
@@ -435,6 +454,11 @@ K3_CASES = [
     (1, 16, 4, 128, 8, 3, None, (24,)),
     (5, 32, 8, 80, 16, 19, None, (1, 15, 16, 17, 300)),
     (5, 32, 8, 80, 16, 19, 6, (1, 15, 16, 17, 300)),
+    # runs with no live slot: a short sequence in a wide table, a window that
+    # leaves only the last page, a sequence with none
+    (3, 8, 2, 64, 8, 16, 5, (3, 100, 128)),
+    (2, 32, 8, 80, 16, 64, 16, (2, 1024)),
+    (8, 32, 8, 80, 16, 128, 16, (0, 2, 17, 33, 700, 1024, 2047, 2048)),
 ]
 # The reference's paged-attention tolerances (rtol = atol): fp32 1e-5; bf16
 # 3e-2, where the plain version rounds the probabilities to bf16 before the
@@ -479,6 +503,13 @@ def check_k3(errs: dict) -> tuple:
             want = paged_decode_attention_ref(q, kp, vp, bt, sl,
                                               window=window)
             got = KD.paged_decode_attention(q, kp, vp, bt, sl, window=window)
+            # a sequence with no token: the kernel gives 0, the plain
+            # version mean(V); the others are compared
+            live = torch.tensor(lens, device=DEV) > 0
+            if bool((got[~live] != 0).any()):
+                raise AssertionError(f"paged_decode_attention case {i}: a "
+                                     "sequence with no token is not 0")
+            got, want = got[live], want[live]
             tol = K3_TOL[dtype]
             assert_close(got, want, rtol=tol, atol=tol,
                          what=f"paged_decode_attention case {i} {dtype}")
@@ -493,6 +524,18 @@ def check_k3(errs: dict) -> tuple:
     if not torch.equal(a, b):
         raise AssertionError("paged_decode_attention: the same inputs did "
                              "not give bit-identical outputs on a re-run")
+    # Ten launches back to back on the same ticket counters: each must find
+    # them at 0, as the last run of the launch before left them.
+    for B in (1, 8):
+        args = k3_inputs(B, 32, 8, 80, 16, 128, (2048,) * B, torch.bfloat16,
+                         20 + B)
+        outs = [KD.paged_decode_attention(*args, window=SERVE_WINDOW)
+                for _ in range(10)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(outs[0], o) for o in outs[1:]):
+            raise AssertionError(f"paged_decode_attention B{B} n2048: ten "
+                                 "launches on reused counters were not "
+                                 "bit-identical")
     return n, True
 
 
@@ -509,9 +552,27 @@ def k3_bound_ms(B, H, Kh, dh, ps, seq_lens, window, elt) -> float:
     return max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S) * 1e3
 
 
+def k3_library(q, kp, vp, bt, mask):
+    """The two-call library path for K3's function, never used by the port:
+    gather the pages into a dense [B, P * ps, K, dh] cache (one indexing
+    call each for K and V), then scaled_dot_product_attention with
+    enable_gqa and a boolean mask [B, 1, 1, P * ps] made beforehand."""
+    B, P = bt.shape
+    _, ps, Kh, dh = kp.shape
+    idx = bt.long()
+    kc = kp[idx].view(B, P * ps, Kh, dh).transpose(1, 2)
+    vc = vp[idx].view(B, P * ps, Kh, dh).transpose(1, 2)
+    return F.scaled_dot_product_attention(q[:, :, None], kc, vc,
+                                          attn_mask=mask, enable_gqa=True)
+
+
 def time_k3() -> tuple:
     """bf16 at danube serving shapes (32/8 heads, dh 80, pages of 16, the
-    model's window): kernel, plain version and bound per launch, in ms."""
+    model's window): kernel, plain version, the two-call library path
+    (``k3_library``) and bound per launch, in ms.  K3 takes tens of
+    microseconds, about what its wrapper costs on the host, so all three
+    are timed as replays of a CUDA graph; eager_ms is the kernel launched
+    one call after another from the host."""
     rng = np.random.default_rng(5)
     shapes = {"B8 n1024": (1024,) * 8, "B8 n2048": (2048,) * 8,
               "B8 ragged<=2048": tuple(int(x) for x in
@@ -526,18 +587,43 @@ def time_k3() -> tuple:
         sets = [k3_inputs(B, H, Kh, dh, ps, P, lens, torch.bfloat16, 50 + c)
                 for c in range(copies)]
         rounds = max(2, 64 // copies)
-        ms = time_ms(lambda q, kp, vp, bt, sl: KD.paged_decode_attention(
-            q, kp, vp, bt, sl, window=SERVE_WINDOW), sets, rounds)
-        plain = time_ms(lambda q, kp, vp, bt, sl: paged_decode_attention_ref(
-            q, kp, vp, bt, sl, window=SERVE_WINDOW), sets, rounds)
-        rows[name] = {"seq_lens": list(lens), "ms": ms, "plain_ms": plain,
+
+        def kernel(q, kp, vp, bt, sl):
+            return KD.paged_decode_attention(q, kp, vp, bt, sl,
+                                             window=SERVE_WINDOW)
+
+        eager = time_ms(kernel, sets, rounds)
+        ms = time_graph_ms(kernel, sets, rounds)
+        plain = time_graph_ms(
+            lambda q, kp, vp, bt, sl: paged_decode_attention_ref(
+                q, kp, vp, bt, sl, window=SERVE_WINDOW), sets, rounds)
+        pos = torch.arange(P * ps, device=DEV)
+        lens_t = torch.tensor(lens, device=DEV)
+        mask = ((pos[None] < lens_t[:, None])
+                & (lens_t[:, None] - 1 - pos[None] < SERVE_WINDOW))
+        lib_sets = [(q, kp, vp, bt, mask[:, None, None])
+                    for q, kp, vp, bt, _ in sets]
+        library = time_graph_ms(k3_library, lib_sets, rounds)
+        rows[name] = {"seq_lens": list(lens), "S": paged_split_of(B, P),
+                      "ms": ms, "eager_ms": eager, "plain_ms": plain,
+                      "library_ms": library,
+                      "library_calls": "2 (page gather, then SDPA)",
                       "bound_ms": k3_bound_ms(B, H, Kh, dh, ps, lens,
                                               SERVE_WINDOW, 2)}
-        del sets
+        del sets, lib_sets
         torch.cuda.empty_cache()
     step = rows["B8 n1024"]
-    total = {k: step[k] * N_LAYERS for k in ("ms", "plain_ms", "bound_ms")}
+    total = {k: step[k] * N_LAYERS
+             for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                       "library_ms")}
     return rows, total
+
+
+def paged_split_of(B, P):
+    """K3's runs a sequence at danube's heads and pages of 16, where the
+    tree under test has a split (None before it had one)."""
+    split = getattr(KD, "paged_split", None)
+    return split(B, 8, P, 16) if split else None
 
 
 # --------------------------------------------------------------------------
@@ -688,6 +774,62 @@ def time_k4() -> tuple:
     total = {k: step[k] * N_LAYERS
              for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
     return rows, total
+
+
+# --------------------------------------------------------------------------
+# timing: the kernels' times alone, and digests of their outputs
+# --------------------------------------------------------------------------
+
+def digest(t) -> str:
+    return hashlib.sha256(t.detach().contiguous().cpu().view(
+        torch.uint8).numpy().tobytes()).hexdigest()[:16]
+
+
+def output_digests() -> dict:
+    """sha256 of each kernel's output on inputs made from seeds on the card,
+    at danube's shapes.  Run against two trees (``--src``), equal digests
+    show that a change left a kernel bit-identical.  K2 is fed r and c from
+    the plain statistics, so that its digest does not depend on K1's."""
+    out = {}
+    beta_t = torch.full((), 0.999, device=DEV)
+    for m, n in DANUBE_SHAPES:
+        p, g, r, c = make_inputs((m, n), torch.bfloat16, torch.bfloat16, 1,
+                                 5.0)
+        r, c = K.adalomo_stats_ref(g, r, c, beta_t, eps_stat=CFG.eps_stat)
+        r2, c2 = r.clone(), c.clone()
+        K.adalomo_stats(g, r2, c2, beta_t, eps_stat=CFG.eps_stat)
+        out[f"adalomo_stats {m}x{n}"] = digest(torch.cat([r2, c2]))
+        K.adalomo_update(p, g, r, c, scal_for(r, 5e-4, 5.0, 0.999, 0.0, 1.0),
+                         eps_div=CFG.eps_div, eps_rms=CFG.eps_rms,
+                         literal=False)
+        out[f"adalomo_update {m}x{n}"] = digest(p)
+    for B, W in ((8, 1024), (4, 4096), (1, 4096)):
+        for wrapped, cur in ((True, W + 2047), (False, W - 200)):
+            args = k4_inputs(B, W, 32, 8, 80, cur, torch.bfloat16, 70,
+                             wrapped)
+            out[f"decode_attention B{B} W{W} cur{cur}"] = digest(
+                KD.decode_attention(*args, window=SERVE_WINDOW))
+    for B, n in ((8, 1024), (8, 2048), (1, 2048)):
+        args = k3_inputs(B, 32, 8, 80, 16, 128, (n,) * B, torch.bfloat16, 71)
+        out[f"paged_decode_attention B{B} n{n}"] = digest(
+            KD.paged_decode_attention(*args, window=SERVE_WINDOW))
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_timing() -> None:
+    """The kernels phase's timings without its checks, and the outputs'
+    digests: the same script times a parent tree (``--src``) and this one
+    in one call (parent, change, change, parent)."""
+    t0 = time.time()
+    build.load_libraries([(K.LIB_NAME, K.SOURCES), (KD.LIB_NAME, KD.SOURCES)])
+    build_s = time.time() - t0
+    rows, totals = time_kernels()
+    k3_rows, totals["paged_decode_attention"] = time_k3()
+    k4_rows, totals["decode_attention"] = time_k4()
+    emit("timing", src=SRC, build_seconds=build_s, per_shape=rows,
+         totals=totals, paged_per_shape_bf16=k3_rows,
+         ring_per_shape_bf16=k4_rows, digests=output_digests())
 
 
 # --------------------------------------------------------------------------
@@ -1133,6 +1275,7 @@ def check_flash_vs_direct() -> dict:
 
 PHASES = ("kernels", "train", "parity", "serve", "serve_parity",
           "legacy_serve", "legacy_parity")
+EXTRA_PHASES = ("timing",)
 
 
 def main() -> None:
@@ -1143,10 +1286,16 @@ def main() -> None:
                          "kernels,serve is a short call after touching K3 "
                          "or the paged engine, kernels,legacy_serve,"
                          "legacy_parity after touching K4, the legacy "
-                         "engine or the long-sequence attention")
+                         "engine or the long-sequence attention; timing "
+                         "(not in the default) times the kernels without "
+                         "checking them and prints their outputs' digests")
+    ap.add_argument("--src", default=SRC,
+                    help="the src directory to import repro_torch from "
+                         "(default: this checkout's); another tree's, to "
+                         "time a parent commit with this script")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
-    unknown = sorted(set(phases) - set(PHASES))
+    unknown = sorted(set(phases) - set(PHASES) - set(EXTRA_PHASES))
     if unknown:
         ap.error(f"unknown phases {unknown}")
 
@@ -1157,7 +1306,10 @@ def main() -> None:
     emit("env", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
          nvidia_smi=smi, nvcc=build.find_nvcc(), matmul_allow_tf32=False,
-         cudnn_allow_tf32=False)
+         cudnn_allow_tf32=False, src=SRC)
+
+    if "timing" in phases:
+        phase_timing()
 
     kern = phase_kernels() if "kernels" in phases else None
     train = phase_train() if "train" in phases else None
@@ -1189,7 +1341,8 @@ def main() -> None:
             ("paged_decode_attention",
              "decode_attention/csrc/paged_decode_attention.cu",
              "decode_attention/decode_attention.py:109",
-             serve["launches"], DECODE_UNIT, None),
+             serve["launches"], DECODE_UNIT,
+             kern["totals"]["paged_decode_attention"]["library_ms"]),
             ("decode_attention", "decode_attention/csrc/decode_attention.cu",
              "decode_attention/decode_attention.py:163",
              legacy["launches"], RING_UNIT,
@@ -1203,6 +1356,8 @@ def main() -> None:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": "bytes",
             "library_ms": library, "unit": unit})
+        if name == "paged_decode_attention":
+            kernels[-1]["library_note"] = PAGED_LIBRARY_NOTE
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1214,6 +1369,9 @@ TRAIN_UNIT = ("one train step: the 170 matrices of h2o-danube-1.8b, bf16 "
               "params and grads")
 DECODE_UNIT = ("one decode step of h2o-danube-1.8b: 24 launches, 8 sequences "
                "of 1024 cached tokens, bf16")
+PAGED_LIBRARY_NOTE = ("two PyTorch calls, not one: the pages gathered into "
+                      "a dense cache, then scaled_dot_product_attention "
+                      "with enable_gqa and a boolean mask")
 RING_UNIT = ("one decode step of h2o-danube-1.8b: 24 launches, 4 sequences "
              "over a wrapped ring of 4096 slots, window 4096, bf16")
 

@@ -32,7 +32,7 @@ from repro_torch.run.data import make_batch_iter  # noqa: E402
 from repro_torch.run.runner import batch_to_device, to_host  # noqa: E402
 
 KINDS = (
-    ("optimizer (K1 adalomo_stats)", ("stats_kernel", "stats_finalize")),
+    ("optimizer (K1 adalomo_stats)", ("stats_kernel",)),
     ("optimizer (K2 adalomo_update)", ("adalomo::update_kernel",)),
     ("matmul", ("gemm", "nvjet", "cutlass", "cublas", "gemv", "sm90_xmma",
                 "sm80_xmma", "splitK", "splitk")),

@@ -17,11 +17,15 @@ and write) and O(m+n) state; the design reads g three times and θ twice (K1,
 then K2's partial-sums pass and apply pass), because Σr' is needed before u
 and Σu² before the write.  Hopper's blocks run in no order, so the TPU
 kernels' accumulation across a sequential grid becomes per-block partial sums
-added in block order by a following launch; edges are bounds checks, not
-padding.  K2 reads 16 bytes a thread and load, over a grid of small tiles
-(:func:`update_tiling`), and its apply pass walks them in reverse so the
-re-read finds the partials pass's last tiles in L2.  No float atomics: the
-same inputs give bit-identical outputs.
+added in a fixed order: K1 in its own launch, where the last block of each
+row band and of each column strip (integer tickets, :func:`stats_tiling`)
+folds that band's or strip's partials; K2 by its second launch.  Both read
+16 bytes a thread and load over grids of small tiles; edges are bounds
+checks, not padding.  K1's tiles are R × 256 (R from the shapes), a warp
+reading a tile row; K2's are 16 × 128 (:func:`update_tiling`), and its
+apply pass walks them in reverse so the re-read finds the partials pass's
+last tiles in L2.  No float atomics: the same inputs give bit-identical
+outputs.
 
 A CUDA tensor launches the kernel or raises; only a CPU tensor takes the
 plain version.  ``adalomo_stats.launches`` / ``adalomo_update.launches``
@@ -36,6 +40,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels.build import load_library
+from repro_torch.kernels.tickets import ticket_counters
 
 Tensor = torch.Tensor
 
@@ -45,12 +50,57 @@ LIB_NAME = "adalomo_update"
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+SMS = 132
+
+# K1's tile: STATS_COLS columns (kStatsCols of csrc/adalomo_stats.cu, checked
+# when the library is bound) by one of STATS_ROWS rows, the shortest that
+# leaves at most STATS_MAX_BANDS row bands (a column fold adds one partial a
+# band).
+STATS_COLS = 256
+STATS_ROWS = (64, 128, 256)
+STATS_MAX_BANDS = 128
+
 # K2's tile (kTileRows x kTileCols of csrc/adalomo_update.cu, checked when the
 # library is bound) and its grid: about BLOCKS_PER_SM blocks on each of the
 # H100's 132 SMs.
 TILE_ROWS, TILE_COLS = 16, 128
-SMS = 132
 BLOCKS_PER_SM = 4
+
+
+class StatsTiling(NamedTuple):
+    """How K1 cuts each [m, n] slice: ``bands`` row bands of ``rows`` rows by
+    ``strips`` column strips of STATS_COLS, one block per (strip, band,
+    slice).  Partials and tickets are laid out as the kernel's C interface
+    says."""
+    rows: int
+    bands: int
+    strips: int
+
+    def blocks(self, L: int) -> int:
+        return L * self.bands * self.strips
+
+    def tile(self, band: int, strip: int) -> tuple:
+        """(first row, first column) of the block (strip, band)."""
+        return band * self.rows, strip * STATS_COLS
+
+    def row_partials_shape(self, L: int) -> tuple:
+        return (L, self.strips, self.bands * self.rows)
+
+    def col_partials_shape(self, L: int) -> tuple:
+        return (L, self.bands, self.strips * STATS_COLS)
+
+    def tickets(self, L: int) -> int:
+        return L * (self.bands + self.strips)
+
+
+def stats_tiling(L: int, m: int, n: int) -> StatsTiling:
+    """K1's tiling of ``L`` slices of [m, n]: the shortest tile of
+    STATS_ROWS that leaves at most STATS_MAX_BANDS row bands, so short
+    matrices get many small blocks and tall ones no long column folds.
+    Depends on the shapes only."""
+    rows = next((r for r in STATS_ROWS if -(-m // r) <= STATS_MAX_BANDS),
+                STATS_ROWS[-1])
+    return StatsTiling(rows, -(-m // rows), -(-n // STATS_COLS))
 
 
 class UpdateTiling(NamedTuple):
@@ -92,20 +142,23 @@ def _library() -> ctypes.CDLL:
     if getattr(lib, "_adalomo_bound", False):
         return lib
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.adalomo_rows_per_block.argtypes = []
-    lib.adalomo_rows_per_block.restype = ci
-    lib.adalomo_stats_launch.argtypes = [vp, ci, vp, vp, vp, vp, cf, ci, ci,
-                                         ci, vp]
+    lib.adalomo_stats_launch.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, cf,
+                                         ci, ci, ci, ci, vp]
     lib.adalomo_stats_launch.restype = ci
     lib.adalomo_update_launch.argtypes = [vp, ci, vp, ci, vp, vp, vp, vp, cf,
                                           cf, ci, ci, ci, ci, ci, vp]
     lib.adalomo_update_launch.restype = ci
-    for fn in (lib.adalomo_update_tile_rows, lib.adalomo_update_tile_cols):
+    for fn in (lib.adalomo_update_tile_rows, lib.adalomo_update_tile_cols,
+               lib.adalomo_stats_tile_cols):
         fn.argtypes, fn.restype = [], ci
     tile = (lib.adalomo_update_tile_rows(), lib.adalomo_update_tile_cols())
     if tile != (TILE_ROWS, TILE_COLS):
         raise RuntimeError(f"adalomo_update: the kernel's tile {tile} is not "
                            f"the wrapper's {(TILE_ROWS, TILE_COLS)}")
+    if lib.adalomo_stats_tile_cols() != STATS_COLS:
+        raise RuntimeError(f"adalomo_stats: the kernel's tile of "
+                           f"{lib.adalomo_stats_tile_cols()} columns is not "
+                           f"the wrapper's {STATS_COLS}")
     lib._adalomo_bound = True
     return lib
 
@@ -158,7 +211,10 @@ def adalomo_stats(grad: Tensor, r: Tensor, c: Tensor, beta: Tensor, *,
 
     grad ``[..., m, n]`` float32 or bfloat16; r ``[..., m]``, c ``[..., n]``
     float32; ``beta`` a float32 tensor of one element on grad's device.
-    Returns ``(r, c)``.
+    Returns ``(r, c)``.  One launch over the tiles of :func:`stats_tiling`;
+    its partials are made here and its tickets come from
+    ``ticket_counters``, so launches on two streams at once must not
+    overlap.
     """
     if not grad.is_cuda:
         nr, nc = adalomo_stats_ref(grad, r, c, beta, eps_stat=eps_stat)
@@ -174,14 +230,18 @@ def adalomo_stats(grad: Tensor, r: Tensor, c: Tensor, beta: Tensor, *,
     if beta.numel() != 1:
         raise ValueError("beta: expected one element")
     lib = _library()
-    nrb = -(-m // lib.adalomo_rows_per_block())
-    col_part = torch.empty((L, nrb, n), dtype=torch.float32, device=dev)
+    tiling = stats_tiling(L, m, n)
+    row_part = torch.empty(tiling.row_partials_shape(L), dtype=torch.float32,
+                           device=dev)
+    col_part = torch.empty(tiling.col_partials_shape(L), dtype=torch.float32,
+                           device=dev)
+    tickets = ticket_counters("adalomo_stats", dev, tiling.tickets(L))
     with torch.cuda.device(dev):
         err = lib.adalomo_stats_launch(
             grad.data_ptr(), _DTYPE_CODE[grad.dtype], r.data_ptr(),
-            c.data_ptr(), col_part.data_ptr(), beta.data_ptr(),
-            float(eps_stat), L, m, n,
-            torch.cuda.current_stream(dev).cuda_stream)
+            c.data_ptr(), row_part.data_ptr(), col_part.data_ptr(),
+            tickets.data_ptr(), beta.data_ptr(), float(eps_stat), L, m, n,
+            tiling.rows, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "adalomo_stats")
     adalomo_stats.launches += 1
     return r, c

@@ -29,7 +29,8 @@
 //   16-byte load of bf16, two of fp32), 16 threads span a tile's 128
 //   columns and 16 rows make the tile, so a half-warp reads 256 or 512
 //   contiguous bytes.  Where n % 8 != 0 or a pointer is not 16-byte aligned
-//   the same tiles are read element by element (the ragged path).
+//   the same tiles are read element by element (the ragged path); both are
+//   common.cuh's Pack8 / load8, shared with K1.
 // * Enough blocks: tiles of 16 x 128 are small enough that every
 //   h2o-danube-1.8b shape (down to 2560 x 640) has more tiles than the grid
 //   of 4 blocks on each of the 132 SMs; block b walks tiles b, b + n_blocks,
@@ -47,42 +48,10 @@
 
 namespace adalomo {
 
-constexpr int kVec = 8;                              // columns a thread owns
 constexpr int kTileCols = 128;
 constexpr int kColThreads = kTileCols / kVec;        // 16
 constexpr int kTileRows = kThreads / kColThreads;    // 16
 constexpr int kMinBlocksPerSM = 4;
-
-// Eight consecutive elements of T, kept as raw 16-byte words until used.
-template <typename T>
-struct Pack8 {
-  static constexpr int kWords = (int)sizeof(T) * kVec / 16;  // bf16 1, fp32 2
-  uint4 w[kWords];
-};
-
-__device__ __forceinline__ float elem(const Pack8<float>& pk, int i) {
-  return reinterpret_cast<const float*>(pk.w)[i];
-}
-__device__ __forceinline__ float elem(const Pack8<__nv_bfloat16>& pk, int i) {
-  return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(pk.w)[i]);
-}
-
-// The first `cnt` (1..8) elements at src; with kVector all 8 as 16-byte
-// loads (src 16-byte aligned), else one at a time (the slots past cnt repeat
-// element 0 and are never used).
-template <bool kVector, bool kReadOnly, typename T>
-__device__ __forceinline__ void load8(Pack8<T>& pk, const T* src, int cnt) {
-  if constexpr (kVector) {
-    const uint4* s = reinterpret_cast<const uint4*>(src);
-#pragma unroll
-    for (int i = 0; i < Pack8<T>::kWords; ++i)
-      pk.w[i] = kReadOnly ? __ldg(s + i) : s[i];
-  } else {
-    T* e = reinterpret_cast<T*>(pk.w);
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) e[i] = src[i < cnt ? i : 0];
-  }
-}
 
 template <bool kVector>
 __device__ __forceinline__ void load_c(float* cj, const float* src, int cnt) {

@@ -1,10 +1,11 @@
 // Shared pieces of the AdaLomo update kernels (Hopper, sm_90a).
 //
-// Tiling used by every kernel here: a block owns kRows consecutive rows of
-// one [m, n] slice and walks the columns in chunks of kThreads, one column
-// per thread.  Neighbouring threads read neighbouring addresses, each thread
-// has kRows independent loads in flight, and the ragged edge is a bounds
-// check: an element outside [m, n] is never read and contributes nothing.
+// Both kernels read 16 bytes a thread and load: a thread owns kVec = 8
+// consecutive columns of a row (one 16-byte load of bf16, two of fp32), so
+// neighbouring threads read neighbouring addresses.  Where n % 8 != 0 or a
+// pointer is not 16-byte aligned the same columns are read element by
+// element (the ragged path), and an element outside [m, n] is never read and
+// contributes nothing.
 //
 // Every reduction runs in a fixed order (per-thread running sum, shuffle
 // tree inside a warp, warps in index order, blocks in index order), so the
@@ -18,37 +19,42 @@
 namespace adalomo {
 
 constexpr int kThreads = 256;
-constexpr int kRows = 16;
 constexpr int kWarps = kThreads / 32;
+constexpr int kVec = 8;  // consecutive columns a thread owns
 
 // dtype codes of the C interface
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
 
+// Eight consecutive elements of T, kept as raw 16-byte words until used.
 template <typename T>
-__device__ __forceinline__ float load_f32(const T* p, size_t i);
-template <>
-__device__ __forceinline__ float load_f32<float>(const float* p, size_t i) {
-  return p[i];
+struct Pack8 {
+  static constexpr int kWords = (int)sizeof(T) * kVec / 16;  // bf16 1, fp32 2
+  uint4 w[kWords];
+};
+
+__device__ __forceinline__ float elem(const Pack8<float>& pk, int i) {
+  return reinterpret_cast<const float*>(pk.w)[i];
 }
-template <>
-__device__ __forceinline__ float load_f32<__nv_bfloat16>(
-    const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
+__device__ __forceinline__ float elem(const Pack8<__nv_bfloat16>& pk, int i) {
+  return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(pk.w)[i]);
 }
 
-// The one cast of the update: fp32 result to the parameter's type,
-// round-to-nearest-even.
-template <typename T>
-__device__ __forceinline__ void store_f32(T* p, size_t i, float v);
-template <>
-__device__ __forceinline__ void store_f32<float>(float* p, size_t i, float v) {
-  p[i] = v;
-}
-template <>
-__device__ __forceinline__ void store_f32<__nv_bfloat16>(__nv_bfloat16* p,
-                                                         size_t i, float v) {
-  p[i] = __float2bfloat16_rn(v);
+// The first `cnt` (1..8) elements at src; with kVector all 8 as 16-byte
+// loads (src 16-byte aligned), else one at a time (the slots past cnt repeat
+// element 0 and are never used).
+template <bool kVector, bool kReadOnly, typename T>
+__device__ __forceinline__ void load8(Pack8<T>& pk, const T* src, int cnt) {
+  if constexpr (kVector) {
+    const uint4* s = reinterpret_cast<const uint4*>(src);
+#pragma unroll
+    for (int i = 0; i < Pack8<T>::kWords; ++i)
+      pk.w[i] = kReadOnly ? __ldg(s + i) : s[i];
+  } else {
+    T* e = reinterpret_cast<T*>(pk.w);
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) e[i] = src[i < cnt ? i : 0];
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

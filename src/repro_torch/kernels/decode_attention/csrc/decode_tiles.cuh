@@ -1,28 +1,29 @@
-// One-token GQA flash-decoding for one (sequence, KV head): the tile loop
-// shared by the paged kernel K3 (paged_decode_attention.cu) and the ring-cache
-// kernel K4 (decode_attention.cu).  The two differ only in where token t's K/V
-// row lies and whether t is attended to; a Rows object answers both:
+// One-token GQA flash-decoding for one (sequence, KV head), fp32: the SIMT
+// tile loop shared by the paged kernel K3 (paged_decode_attention.cu) and
+// the ring-cache kernel K4 (decode_attention.cu).  Both take it for fp32
+// inputs only, over one run of tokens; bf16 goes through the
+// tensor-core warp loop of decode_mma.cuh, since mma.sync would round fp32
+// to TF32.  The two kernels differ only in where token t's K/V row lies and
+// whether t is attended to; a Rows object answers both:
 //     bool rows.row(t, &off)   true when token t is valid; off is the offset,
 //                              in elements, of its row for this KV head.
 // For the G = H / K query heads g of the KV head:
 //     s[g,t] = (q[g] . k[t]) * scale                          (fp32)
 //     out[g] = sum_t softmax(s)[g,t] v[t]   (online softmax over t, fp32)
 // stored as acc / max(l, 1e-30) in the inputs' type, so a head with no valid
-// token gets 0.
+// token gets 0 after the combine.
 //
 // Bound: bytes.  Each valid K/V row must be read once; the work is 4 * dh
 // operations per token and head, far below the card's rate for that traffic.
 // Design: one block of 128 threads walks the tokens in tiles of 32.  A tile's
-// valid rows arrive as 16-byte loads (dh = 80 in bf16 is ten of them) and are
-// widened to fp32 in shared memory; an invalid token is never read and is
-// stored as zeros, so garbage in an unused slot cannot reach the sums.
-// Scores: one thread per (g, token); softmax: one warp per head, shuffles;
-// the weighted sum: one thread per (g, d) output element.  Every sum runs in a
-// fixed order and there are no atomics, so the same inputs give bit-identical
-// outputs.  Load and compute run in series, with nothing of the next tile in
-// flight (overlapped loads are later work, ROADMAP.md).  A kernel may split
-// the tokens over several blocks (kPartial) and combine their states in a
-// fixed order afterwards.
+// valid rows arrive as 16-byte loads into shared memory; an invalid token is never read and is stored as zeros, so garbage
+// in an unused slot cannot reach the sums.  Scores: one thread per (g,
+// token); softmax: one warp per head, shuffles; the weighted sum: one thread
+// per (g, d) output element.  Every sum runs in a fixed order and there are
+// no atomics, so the same inputs give bit-identical outputs.  Load and
+// compute run in series (the fp32 path is the checking path, not the
+// serving one).  The block leaves its run's state for the in-launch combine
+// of decode_mma.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,39 +44,15 @@ constexpr float kNegInf = -1e30f;
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
 
-template <typename T>
-struct Vec16;
-template <>
-struct Vec16<float> {
-  static constexpr int kN = 4;
-  static __device__ __forceinline__ void load(const float* p, float* f) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    f[0] = v.x;
-    f[1] = v.y;
-    f[2] = v.z;
-    f[3] = v.w;
-  }
-};
-template <>
-struct Vec16<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float* f) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 x = __bfloat1622float2(h[i]);
-      f[2 * i] = x.x;
-      f[2 * i + 1] = x.y;
-    }
-  }
-};
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// Four fp32 values as one 16-byte load.
+__device__ __forceinline__ void load4(const float* p, float* f) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  f[0] = v.x;
+  f[1] = v.y;
+  f[2] = v.z;
+  f[3] = v.w;
 }
+
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
@@ -102,16 +79,16 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Tokens [t_lo, t_hi) of one (sequence, KV head); q_base is the offset of its
-// first query head in q and out ([B, H, DH]).  Called by all kThreads threads
-// of the block.  With kPartial the block writes its unnormalised softmax
-// state for a later combine instead of out: at part (its own slot of a
-// workspace), acc[g][d] (G * DH floats), then m[g], then l[g].
-template <typename T, int DH, class Rows, bool kPartial = false>
+// first query head in q ([B, H, DH]).  Called by all kThreads threads of the
+// block, which writes its unnormalised softmax state for the combine: at part
+// (its own slot of a workspace), acc[g][d] (G * DH floats), then m[g], then
+// l[g].
+template <int DH, class Rows>
 __device__ __forceinline__ void decode_tiles(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, size_t q_base, int G, float scale, int t_lo,
-    int t_hi, const Rows& rows, float* __restrict__ part = nullptr) {
-  constexpr int kVec = Vec16<T>::kN;      // elements of one 16-byte load
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, size_t q_base, int G, float scale, int t_lo,
+    int t_hi, const Rows& rows, float* __restrict__ part) {
+  constexpr int kVec = 4;                 // elements of one 16-byte load
   constexpr int kVpr = DH / kVec;         // 16-byte loads a row
   constexpr int kAcc = (kMaxG * DH + kThreads - 1) / kThreads;
   static_assert(DH % kVec == 0, "a row must be whole 16-byte loads");
@@ -125,7 +102,7 @@ __device__ __forceinline__ void decode_tiles(
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int e = tid; e < G * DH; e += kThreads)
-    sq[e / DH][e % DH] = to_f32(q[q_base + e]);
+    sq[e / DH][e % DH] = q[q_base + e];
   if (tid < G) {
     sm[tid] = kNegInf;
     sl[tid] = 0.f;
@@ -136,7 +113,7 @@ __device__ __forceinline__ void decode_tiles(
 
   for (int t0 = t_lo; t0 < t_hi; t0 += kTile) {
     __syncthreads();  // the previous tile's shared memory is consumed
-    // K and V rows of the tile, widened to fp32; an invalid token, or one
+    // K and V rows of the tile; an invalid token, or one
     // past t_hi, is stored as zeros and masked.
     for (int e = tid; e < kTile * kVpr; e += kThreads) {
       const int t = e / kVpr, c = e - t * kVpr;
@@ -145,8 +122,8 @@ __device__ __forceinline__ void decode_tiles(
       const bool live = pos < t_hi && rows.row(pos, &off);
       float kf[kVec], vf[kVec];
       if (live) {
-        Vec16<T>::load(k + off + (size_t)c * kVec, kf);
-        Vec16<T>::load(v + off + (size_t)c * kVec, vf);
+        load4(k + off + (size_t)c * kVec, kf);
+        load4(v + off + (size_t)c * kVec, vf);
       } else {
 #pragma unroll
         for (int i = 0; i < kVec; ++i) kf[i] = vf[i] = 0.f;
@@ -199,25 +176,14 @@ __device__ __forceinline__ void decode_tiles(
     }
   }
   __syncthreads();
-  if constexpr (kPartial) {
 #pragma unroll
-    for (int i = 0; i < kAcc; ++i) {
-      const int e = tid + i * kThreads;
-      if (e < G * DH) part[e] = acc[i];
-    }
-    if (tid < G) {
-      part[G * DH + tid] = sm[tid];
-      part[G * DH + G + tid] = sl[tid];
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < kAcc; ++i) {
-      const int e = tid + i * kThreads;
-      if (e < G * DH) {
-        const int g = e / DH;
-        out[q_base + e] = from_f32<T>(acc[i] / fmaxf(sl[g], 1e-30f));
-      }
-    }
+  for (int i = 0; i < kAcc; ++i) {
+    const int e = tid + i * kThreads;
+    if (e < G * DH) part[e] = acc[i];
+  }
+  if (tid < G) {
+    part[G * DH + tid] = sm[tid];
+    part[G * DH + G + tid] = sl[tid];
   }
 }
 

@@ -13,14 +13,17 @@ window:
   legacy ``Engine``.
 
 Sources: ``csrc/paged_decode_attention.cu`` and ``csrc/decode_attention.cu``
-over the tile loop of ``csrc/decode_tiles.cuh`` (CUDA C++ for sm_90a, plain C
-interface, one library built at first use by ``kernels/build.py``, one
-``nvcc`` per source).  Bound by bytes: the valid K/V rows must be read once,
-and only they are read.  K3 runs one block per (sequence, KV head); K4 splits
-the ring into runs of slots, streams them through shared memory with
-``cp.async`` and (bf16) tensor-core products, and the last run to finish
-combines the runs' states in a fixed order, all in one launch.  No float
-atomics: the same inputs give bit-identical outputs.
+over the warp loop of ``csrc/decode_mma.cuh`` (bf16) and the tile loop of
+``csrc/decode_tiles.cuh`` (fp32) (CUDA C++ for sm_90a, plain C interface,
+one library built at first use by ``kernels/build.py``, one ``nvcc`` per
+source).  Bound by bytes: the valid K/V rows must be read once, and only they
+are read.  Both kernels split each (sequence, KV head) into runs of slots
+(K4: ``ring_split``; K3: ``paged_split``, each block cutting its own run of
+the sequence's live tokens on the device, as ``paged_runs`` does), stream
+them through shared memory with ``cp.async`` and (bf16) tensor-core
+products, and the last run to finish combines the runs' states in a fixed
+order, all in one launch; K3's lanes load the page ids a step ahead.  No
+float atomics: the same inputs give bit-identical outputs.
 
 A CUDA tensor launches the kernel or raises; only a CPU tensor takes the
 plain version.  Each wrapper's ``.launches`` counts its kernel's launches.
@@ -34,6 +37,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.build import load_library
+from repro_torch.kernels.tickets import ticket_counters
 from repro_torch.kernels.decode_attention.ref import (
     paged_decode_attention_ref, ring_decode_attention_ref)
 
@@ -45,32 +49,64 @@ LIB_NAME = "decode_attention"
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 80, 128)
+_STEP = 16                  # slots a warp takes in one step
 _RING_STEP = 64             # slots a K4 block's four warps take in one round
-_RING_BLOCKS = 132 * 2      # K4 aims at about two blocks on each SM
-_COUNTERS: dict = {}        # device -> K4's int32 tickets, made once
+_BLOCKS = 132 * 2           # K3 and K4 aim at about two blocks on each SM
 
 
 def ring_split(B: int, K: int, W: int) -> tuple:
     """(S, span): K4 splits the W slots into S runs of ``span`` slots (whole
     rounds of ``_RING_STEP``), so that B * K * S blocks come near
-    ``_RING_BLOCKS``.  Depends on the shapes only."""
+    ``_BLOCKS``.  Depends on the shapes only."""
     rounds = -(-W // _RING_STEP)
-    per_run = max(1, -(-rounds * B * K // _RING_BLOCKS))
+    per_run = max(1, -(-rounds * B * K // _BLOCKS))
     S = -(-rounds // per_run)
     return S, per_run * _RING_STEP
 
 
 def ring_counters(device, n: int) -> Tensor:
     """K4's tickets on ``device``: at least ``n`` int32 zeros, allocated and
-    zeroed once (each launch leaves them at 0), so a launch allocates nothing
-    that must be zeroed and can be captured in a CUDA graph.  A larger
-    request makes a new buffer; the old one is kept, since a captured graph
-    may still point at it."""
-    bufs = _COUNTERS.setdefault(torch.device(device), [])
-    if not bufs or bufs[-1].numel() < n:
-        bufs.append(torch.zeros(max(n, 4096), dtype=torch.int32,
-                                device=device))
-    return bufs[-1]
+    zeroed once (each launch leaves them at 0)."""
+    return ticket_counters("decode_attention", device, n)
+
+
+def paged_split(B: int, K: int, P: int, ps: int) -> int:
+    """S: K3 splits each sequence's live tokens into S runs, with S from the
+    shapes only (the table's P * ps slots in rounds of ``_RING_STEP``, as
+    ``ring_split`` cuts a ring), so that B * K * S blocks come near
+    ``_BLOCKS`` when the sequences fill their tables.  A shorter sequence
+    gets the same S runs, each shorter."""
+    rounds = -(-P * ps // _RING_STEP)
+    per_run = max(1, -(-rounds * B * K // _BLOCKS))
+    return -(-rounds // per_run)
+
+
+def paged_runs(n_all: int, window: Optional[int], cap: int, S: int) -> list:
+    """The S runs ``[t_lo, t_hi)`` of K3's blocks for one sequence of
+    ``n_all`` tokens in a table of ``cap`` slots, as the kernel's
+    ``paged_run`` computes them on the device: the live range ``[lo, n)``,
+    ``n = min(n_all, cap)``, ``lo = max(0, n_all - window)``, from lo rounded
+    down to a multiple of 16, cut into S runs of whole 16-slot steps.  A run
+    past the end is empty; the kernel attends to ``[max(t_lo, lo), t_hi)``."""
+    n_all = max(n_all, 0)
+    n = min(n_all, cap)
+    lo = max(0, n_all - window) if window else 0
+    if lo >= n:
+        return [(0, 0)] * S
+    a = lo // _STEP * _STEP
+    steps = -(-(n - a) // _STEP)
+    per = -(-steps // S)
+    runs = []
+    for run in range(S):
+        t_lo = min(n, a + run * per * _STEP)
+        runs.append((t_lo, min(n, t_lo + per * _STEP)))
+    return runs
+
+
+def paged_counters(device, n: int) -> Tensor:
+    """K3's tickets on ``device``, its own (not K4's): at least ``n`` int32
+    zeros, allocated and zeroed once (each launch leaves them at 0)."""
+    return ticket_counters("paged_decode_attention", device, n)
 
 
 def _library() -> ctypes.CDLL:
@@ -81,18 +117,23 @@ def _library() -> ctypes.CDLL:
     lib.paged_decode_max_group.argtypes = []
     lib.paged_decode_max_group.restype = ci
     lib.paged_decode_attention_launch.argtypes = [
-        vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cf, ci, vp]
+        vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci,
+        cf, ci, vp]
     lib.paged_decode_attention_launch.restype = ci
     lib.decode_attention_launch.argtypes = [
         vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cf,
         ci, vp]
     lib.decode_attention_launch.restype = ci
-    lib.decode_attention_block_step.argtypes = []
-    lib.decode_attention_block_step.restype = ci
+    for fn in (lib.decode_attention_block_step, lib.paged_decode_step):
+        fn.argtypes, fn.restype = [], ci
     if lib.decode_attention_block_step() != _RING_STEP:
         raise RuntimeError("decode_attention: the kernel's round of "
                            f"{lib.decode_attention_block_step()} slots is "
                            f"not the wrapper's {_RING_STEP}")
+    if lib.paged_decode_step() != _STEP:
+        raise RuntimeError("paged_decode_attention: the kernel's step of "
+                           f"{lib.paged_decode_step()} slots is not the "
+                           f"wrapper's {_STEP}")
     lib.max_group = lib.paged_decode_max_group()
     lib._pda_bound = True
     return lib
@@ -125,7 +166,11 @@ def paged_decode_attention(q: Tensor, k_pages: Tensor, v_pages: Tensor,
     CUDA error); seq_lens ``[B]`` int32 token counts
     *including* the token written this step.  Returns ``[B,H,dh]`` in q's
     dtype.  A sequence with no valid token gets 0 (the plain version,
-    like the dense oracle, gives mean(V) there).
+    like the dense oracle, gives mean(V) there).  One launch over the
+    ``paged_split`` runs of each (sequence, KV head): the last run to
+    finish combines the runs' states, kept in an fp32 workspace made here,
+    in run order (tickets from ``paged_counters``), so launches on two
+    streams at once must not overlap.
     """
     if not q.is_cuda:
         return paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
@@ -147,13 +192,18 @@ def paged_decode_attention(q: Tensor, k_pages: Tensor, v_pages: Tensor,
         raise ValueError(f"{H} query heads over {K} KV heads: the kernel "
                          f"takes groups of 1..{lib.max_group}")
     scale = scale if scale is not None else dh ** -0.5
+    S = paged_split(B, K, P, ps)
+    part = torch.empty(B * K * S * (H // K) * (dh + 2), dtype=torch.float32,
+                       device=dev)
+    counters = paged_counters(dev, B * K)
     out = torch.empty_like(q)
     with torch.cuda.device(dev):
         err = lib.paged_decode_attention_launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            _DTYPE_CODE[q.dtype], B, H, K, dh, N, ps, P, float(scale),
-            int(window or 0), torch.cuda.current_stream(dev).cuda_stream)
+            block_tables.data_ptr(), seq_lens.data_ptr(), part.data_ptr(),
+            counters.data_ptr(), out.data_ptr(), _DTYPE_CODE[q.dtype], B, H,
+            K, dh, N, ps, P, S, float(scale), int(window or 0),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention: CUDA error {err} at "
                            "launch")

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro.core import adalomo as ref_al
+from repro.kernels.adalomo_update.adalomo_update import stats_pallas
 from repro.kernels.adalomo_update.ops import adalomo_update as ref_op
 from repro_torch.core import adalomo as al
 from repro_torch.core import optimizers as opt_lib
@@ -287,3 +288,76 @@ def test_update_tiling_covers_each_element_once(L, m, n):
     assert 1 <= t.blocks <= t.tiles
     if (L, m, n) in _DANUBE_SHAPES:
         assert L * t.blocks >= K.BLOCKS_PER_SM * K.SMS
+
+
+@pytest.mark.parametrize("L,m,n", _DANUBE_SHAPES + _RAGGED_SHAPES)
+def test_stats_tiling_covers_each_element_once(L, m, n):
+    """K1's tiles: every element of a slice in exactly one block's tile,
+    the partials and tickets laid out as the kernel's C interface says, and
+    at danube's shapes other than 2560 x 640 at least one block a SM."""
+    t = K.stats_tiling(L, m, n)
+    assert t.rows in K.STATS_ROWS
+    seen = np.zeros((t.bands * t.rows, t.strips * K.STATS_COLS), np.int32)
+    for band in range(t.bands):
+        for strip in range(t.strips):
+            r0, c0 = t.tile(band, strip)
+            seen[r0:r0 + t.rows, c0:c0 + K.STATS_COLS] += 1
+    assert (seen == 1).all()
+    assert seen.shape[0] - t.rows < m <= seen.shape[0]
+    assert seen.shape[1] - K.STATS_COLS < n <= seen.shape[1]
+    assert t.row_partials_shape(L) == (L, t.strips, t.bands * t.rows)
+    assert t.col_partials_shape(L) == (L, t.bands, t.strips * K.STATS_COLS)
+    assert t.tickets(L) == L * (t.bands + t.strips)
+    assert t.blocks(L) == L * t.bands * t.strips
+    if (L, m, n) in _DANUBE_SHAPES and (m, n) != (2560, 640):
+        assert t.blocks(L) >= K.SMS
+    # a taller tile only where the shortest leaves too many bands to fold
+    assert t.bands <= K.STATS_MAX_BANDS or t.rows == K.STATS_ROWS[-1]
+    if t.rows > K.STATS_ROWS[0]:
+        assert -(-m // (t.rows // 2)) > K.STATS_MAX_BANDS
+
+
+def _stats_tiled(g, r, c, beta, eps_stat):
+    """K1's arithmetic in plain PyTorch: per-tile row and column partials,
+    each band's row partials added in strip order and each strip's column
+    partials in band order, as the kernel's folds do."""
+    L, m, n = g.shape
+    t = K.stats_tiling(L, m, n)
+    g2 = torch.square(g.to(torch.float32)) + eps_stat
+    rows = torch.zeros((L, t.strips, m))
+    cols = torch.zeros((L, t.bands, n))
+    for band in range(t.bands):
+        for strip in range(t.strips):
+            r0, c0 = t.tile(band, strip)
+            tile = g2[:, r0:r0 + t.rows, c0:c0 + K.STATS_COLS]
+            rows[:, strip, r0:r0 + t.rows] = tile.sum(dim=-1)
+            cols[:, band, c0:c0 + K.STATS_COLS] = tile.sum(dim=-2)
+    rsum, csum = rows[:, 0], cols[:, 0]
+    for s in range(1, t.strips):
+        rsum = rsum + rows[:, s]
+    for b in range(1, t.bands):
+        csum = csum + cols[:, b]
+    return beta * r + (1.0 - beta) * rsum, beta * c + (1.0 - beta) * csum
+
+
+@pytest.mark.parametrize("L,m,n", [(1, 300, 700), (1, 128, 130),
+                                   (1, 1000, 96), (3, 96, 160)])
+@pytest.mark.parametrize("gdt", ["float32", "bfloat16"])
+def test_stats_tiled_fold_matches_reference_kernel(L, m, n, gdt):
+    """K1's tiling and fold order, modelled in plain PyTorch, against the
+    reference's Pallas statistics kernel in interpret mode (r and c rtol
+    3e-5 / atol 1e-5: another summation order)."""
+    p, g, r, c = _inputs((m, n), 5.0, seed=m + n, lead=(L,))
+    # the reference pads to whole blocks, as its op does: zero rows and
+    # columns add only eps_stat = 1e-30 to the sums
+    pm, pn = -m % 64, -n % 128
+    gp = np.pad(g, ((0, 0), (0, pm), (0, pn)))
+    want = jax.vmap(lambda gi, ri, ci: stats_pallas(
+        gi, ri, ci, beta=jnp.float32(0.999), eps_stat=1e-30, block=(64, 128),
+        interpret=True))(_j(gp, gdt), _j(np.pad(r, ((0, 0), (0, pm)))),
+                         _j(np.pad(c, ((0, 0), (0, pn)))))
+    want = (want[0][:, :m], want[1][:, :n])
+    got = _stats_tiled(_t(g, gdt), _t(r), _t(c), 0.999, 1e-30)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(np_f32(a), np_f32(b), rtol=3e-5,
+                                   atol=1e-5)

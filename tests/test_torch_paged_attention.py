@@ -166,3 +166,106 @@ def test_decode_attention_matches_reference(B, W, H, K, dh, window, cur,
                                window=window)
     assert layer.shape == (B, 1, H, dh)
     _close(layer[:, 0], want, dtype)
+
+
+# --------------------------------------------------------------------------
+# K3's split: runs of whole 16-slot steps cut on the device, combined in order
+# --------------------------------------------------------------------------
+
+# Empty runs: a short sequence in a wide table, and a window that leaves
+# only the last page of a long one.
+EMPTY_RUN_CASES = [
+    (3, 8, 2, 64, 8, 16, 5, (3, 100, 128)),
+    (2, 32, 8, 80, 16, 64, 16, (2, 1024)),
+]
+
+
+@pytest.mark.parametrize("ps", [4, 8, 16])
+@pytest.mark.parametrize("window", [None, 6, 100, 4096])
+def test_paged_split_covers_live_tokens_once(ps, window):
+    """``paged_runs`` (the kernel's ``paged_run``): the live range [lo, n)
+    in runs of whole steps of 16 from lo rounded down, each live token in
+    exactly one run, empty runs carrying no slot; lengths past the table's
+    P * ps slots read only those.  ``paged_split`` depends on the shapes
+    only and comes near two blocks a SM at danube's serving shapes."""
+    P = 19
+    cap = P * ps
+    S = KD.paged_split(5, 8, P, ps)
+    assert S >= 1
+    for n_all in (0, 1, 5, 15, 16, 17, 33, 100, cap - 1, cap, cap + 7,
+                  5000):
+        runs = KD.paged_runs(n_all, window, cap, S)
+        assert len(runs) == S
+        n = min(n_all, cap)
+        lo = max(0, n_all - window) if window else 0
+        live = []
+        for t_lo, t_hi in runs:
+            assert 0 <= t_lo <= t_hi <= max(n, 0)
+            if t_lo == t_hi:
+                continue
+            assert t_lo % 16 == 0 and t_hi > lo
+            assert (t_hi - t_lo) % 16 == 0 or t_hi == n
+            live += range(max(t_lo, lo), t_hi)
+        assert live == list(range(lo, n))
+    for B, P_, want in ((8, 64, 4), (8, 128, 4), (1, 128, 32)):
+        S = KD.paged_split(B, 8, P_, 16)
+        assert S == want and 132 <= B * 8 * S <= 2 * 132
+    counters = KD.paged_counters(torch.device("cpu"), 40)
+    assert counters.dtype == torch.int32 and counters.numel() >= 40
+    assert not counters.any()
+    assert KD.paged_counters(torch.device("cpu"), 40) is counters
+    assert KD.ring_counters(torch.device("cpu"), 40) is not counters
+
+
+def _split_model(q, kp, vp, bt, sl, window):
+    """K3's arithmetic in plain PyTorch, fp32: each run of ``paged_runs``
+    leaves its softmax state (m, l, acc) over its live slots (an empty run
+    the neutral state), and the runs are combined in run order as the
+    kernel's ``combine_runs`` does."""
+    B, H, dh = q.shape
+    N, ps, K, _ = kp.shape
+    P, G = bt.shape[1], H // K
+    S = KD.paged_split(B, K, P, ps)
+    k_rows, v_rows = kp.reshape(N * ps, K, dh), vp.reshape(N * ps, K, dh)
+    out = torch.zeros_like(q)
+    for b in range(B):
+        n_all = int(sl[b])
+        lo = max(0, n_all - window) if window else 0
+        for kh in range(K):
+            qg = q[b, kh * G:(kh + 1) * G]
+            m_all = torch.full((G,), -1e30)
+            l_all, a_all = torch.zeros(G), torch.zeros(G, dh)
+            for t_lo, t_hi in KD.paged_runs(n_all, window, P * ps, S):
+                t = torch.arange(max(t_lo, lo), max(t_hi, lo))
+                if t.numel() == 0:
+                    ms, ls, acc = torch.full((G,), -1e30), torch.zeros(G), \
+                        torch.zeros(G, dh)
+                else:
+                    rows = bt[b, t // ps].long() * ps + t % ps
+                    s = (qg @ k_rows[rows, kh].T) * dh ** -0.5
+                    ms = s.max(dim=-1).values
+                    p = torch.exp(s - ms[:, None])
+                    ls, acc = p.sum(dim=-1), p @ v_rows[rows, kh]
+                mn = torch.maximum(m_all, ms)
+                c_old, c_new = torch.exp(m_all - mn), torch.exp(ms - mn)
+                l_all = l_all * c_old + ls * c_new
+                a_all = a_all * c_old[:, None] + acc * c_new[:, None]
+                m_all = mn
+            out[b, kh * G:(kh + 1) * G] = a_all / torch.clamp_min(
+                l_all, 1e-30)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("B,H,K,dh,ps,P,window,seq_lens",
+                         CASES + DANUBE + EMPTY_RUN_CASES)
+def test_split_and_combine_match_reference(B, H, K, dh, ps, P, window,
+                                           seq_lens):
+    """The split's arithmetic (per-run states, combined in run order)
+    against the JAX gather oracle, fp32 within 1e-5; the same cases through
+    the port's plain version."""
+    (jq, jk, jv, jbt, jsl), (q, k, v, bt, sl) = _both(
+        _paged_inputs(B * 13 + P, B, H, K, dh, ps, P, seq_lens), "float32")
+    want = jax_paged_ref(jq, jk, jv, jbt, jsl, window=window)
+    _close(_split_model(q, k, v, bt, sl, window), want, "float32")
+    _close(paged_decode_attention_ref(q, k, v, bt, sl, window=window), want,
+           "float32")
