@@ -44,6 +44,20 @@ printing one JSON line:
            go through each kernel.  One device-to-host transfer a step.
   parity   one fused step at full width and 2 layers, CUDA kernels against the
            plain PyTorch update, from the same weights and batch.
+  resume   ``run(spec)`` on h2o-danube-1.8b as in train, 4 steps, with
+           checkpoints every 2 steps (3.67 GB each, written under the
+           system temp or ``_chip_smoke_tmp/`` and removed), eval every 2
+           steps (1 batch), the metrics stream, a heartbeat and a profiler
+           window over step 1.  A runs uninterrupted (K1/K2 launch counts
+           set to 0 before and read after: 170 a step each; the trace holds
+           170 K1 and 340 K2 kernels).  B gets SIGTERM and exits resumable
+           at step 2; C resumes it; D's step raises torch.AcceleratorError
+           after its 4th call and recovers from the step-2 checkpoint.
+           Asserts C's and D's params and OptState bitwise equal to A's,
+           their losses and eval losses equal to A's, the marker consumed,
+           the metrics stream holding steps 0-3 once, no heartbeat stall.
+           Reports each save's and restore's seconds and bytes, the free
+           disk, straggler events, step seconds and peak memory.
   serve    ``repro_torch.serve.engine.PagedEngine``: h2o-danube-1.8b at its
            published width and depth, bf16, random weights from a seed;
            pages of 16, 8 slots, 128 pages a sequence, 1025 pages, chunks of
@@ -92,10 +106,12 @@ left is cuBLAS, which this script does not vouch for.
 """
 import argparse
 import dataclasses
+import gc
 import hashlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -931,6 +947,230 @@ def phase_parity() -> None:
 
 
 # --------------------------------------------------------------------------
+# resume
+# --------------------------------------------------------------------------
+
+RESUME_STEPS = 4
+# bytes: a save stages its files beside the previous step's, so a directory
+# holds two checkpoints of 3.67 GB at once
+RESUME_MIN_FREE = 10 * 2 ** 30
+
+
+def resume_root() -> str:
+    """A fresh directory for the phase's checkpoints, under the system temp
+    or this checkout's git-ignored ``_chip_smoke_tmp/``, whichever disk has
+    more free space; the phase removes it before it returns."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    best = max((tempfile.gettempdir(), here),
+               key=lambda d: shutil.disk_usage(d).free)
+    if shutil.disk_usage(best).free < RESUME_MIN_FREE:
+        raise AssertionError(
+            f"resume: {shutil.disk_usage(best).free} bytes free in {best}, "
+            f"need {RESUME_MIN_FREE}")
+    if best == here:
+        best = os.path.join(here, "_chip_smoke_tmp")
+        os.makedirs(best, exist_ok=True)
+    return tempfile.mkdtemp(prefix="chip_smoke_resume_", dir=best)
+
+
+def resume_spec(root, ckpt, metrics, *, resume=False, profile=False):
+    from repro_torch.run import (CheckpointSpec, EvalSpec, FaultSpec,
+                                 ProfileSpec)
+    return RunSpec(
+        model=ModelSpec(ARCH_ID, smoke=False),
+        data=DataConfig(vocab=0, seq_len=1024, global_batch=4, seed=0),
+        opt=OptSpec(name="adalomo"),
+        steps=StepSpec(total=RESUME_STEPS), log_every=1, seed=0,
+        checkpoint=CheckpointSpec(dir=os.path.join(root, ckpt), every=2,
+                                  resume=resume, keep_last=1),
+        eval=EvalSpec(every=2, n_batches=1),
+        metrics_path=os.path.join(root, metrics),
+        fault=FaultSpec(heartbeat_timeout_s=600.0),
+        profile=ProfileSpec(dir=os.path.join(root, "prof") if profile
+                            else None, start=1, steps=1))
+
+
+def bitwise_equal(a, b) -> bool:
+    from repro_torch.core.tree import pytree_leaves
+    la, lb = pytree_leaves(a), pytree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def run_record(result, root) -> dict:
+    """What one run of the phase reports: its history, step seconds (from
+    its metrics stream), liveness, and the checkpoint manager's save and
+    restore timings."""
+    from repro_torch.run import CheckpointHook, HeartbeatHook, StragglerHook
+    from repro_torch.telemetry.schema import read_stream
+    mgr = result.find_hook(CheckpointHook).manager
+    mgr.wait()
+    hb = result.find_hook(HeartbeatHook).heartbeat
+    dt = {r["step"]: r["dt_s"] for r in
+          read_stream(result.program.spec.metrics_path).steps()}
+    return {"start_step": result.start_step,
+            "steps": result.history["step"],
+            "step_seconds": [dt[s] for s in result.history["step"]],
+            "losses": result.history["loss"],
+            "eval_steps": result.history["eval_step"],
+            "eval_losses": result.history["eval_loss"],
+            "stragglers": [list(e) for e in
+                           result.find_hook(StragglerHook).monitor.events],
+            "heartbeat_stalled": bool(hb.stalled),
+            "checkpoint_io": list(mgr.timings),
+            "disk_free_bytes": shutil.disk_usage(root).free}
+
+
+def profiled_kernels(path: str) -> dict:
+    """CUDA kernel events in a Chrome trace, counted for K1 and K2 (K2's
+    wrapper launches two kernels: its partial sums, then the update)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {"kernels": len(names),
+            "adalomo_stats": sum("stats_kernel" in n for n in names),
+            "adalomo_update": sum("update_kernel" in n for n in names)}
+
+
+def phase_resume() -> dict:
+    """h2o-danube-1.8b at full width through ``run(spec)`` with checkpoints,
+    eval, the metrics stream, the heartbeat and a profiler window: A
+    uninterrupted; B preempted by SIGTERM; C resumed from B; D with an
+    injected transient device error — C and D bitwise equal to A."""
+    import signal
+    from repro_torch.fleet import Preempted
+    from repro_torch.run import Hook, ProfilerHook, build_step_program
+    from repro_torch.telemetry.schema import read_stream
+
+    log = lambda s: print("  " + s, flush=True)            # noqa: E731
+    t0 = time.perf_counter()
+    root = resume_root()
+    out = {"root": root, "disk_free_bytes": shutil.disk_usage(root).free}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        # A: uninterrupted, the slice's main path
+        spec_a = resume_spec(root, "ck_a", "a.jsonl", profile=True)
+        K.adalomo_stats.launches = 0
+        K.adalomo_update.launches = 0
+        res_a = run(spec_a, log_fn=log)
+        launches = {"adalomo_stats": K.adalomo_stats.launches,
+                    "adalomo_update": K.adalomo_update.launches}
+        out["A"] = run_record(res_a, root)
+        prof = res_a.find_hook(ProfilerHook)
+        if prof.trace_path is None:
+            raise AssertionError("resume: the profiler wrote no trace")
+        out["profile"] = {"trace_bytes": os.path.getsize(prof.trace_path),
+                          "window": [1, 2],
+                          **profiled_kernels(prof.trace_path)}
+        out["launches_A"] = launches
+        want = TENSORS_PER_STEP * RESUME_STEPS
+        if launches != {"adalomo_stats": want, "adalomo_update": want}:
+            raise AssertionError(f"resume: A launched {launches}, expected "
+                                 f"{want} each")
+        if (out["profile"]["adalomo_stats"] != TENSORS_PER_STEP or
+                out["profile"]["adalomo_update"] != 2 * TENSORS_PER_STEP):
+            raise AssertionError(
+                f"resume: the trace of step 1 holds {out['profile']}, "
+                f"expected {TENSORS_PER_STEP} K1 and "
+                f"{2 * TENSORS_PER_STEP} K2 kernels")
+        final_a = (res_a.params, res_a.opt_state)
+        shutil.rmtree(os.path.join(root, "ck_a"))
+
+        # B: SIGTERM at step 0's boundary (user hooks run after the
+        # PreemptionHook, which sees it at step 1's): checkpoint at step 2
+        class SendSigterm(Hook):
+            def on_step_end(self, ctx, ev):
+                if ev.step == 0:
+                    os.kill(os.getpid(), signal.SIGTERM)
+
+        from repro_torch.checkpoint.manager import CheckpointManager
+        spec_b = resume_spec(root, "ck_bc", "bc.jsonl")
+        mgr_b = CheckpointManager(spec_b.checkpoint.dir, keep_last=1)
+        try:
+            run(spec_b, hooks=[SendSigterm()], ckpt_manager=mgr_b,
+                log_fn=log)
+            raise AssertionError("resume: B was not preempted")
+        except Preempted as e:
+            out["B"] = {"preempted_at": e.step, "signum": e.signum}
+        marker = mgr_b.read_preempt_marker()
+        out["B"].update(marker=marker, latest_step=mgr_b.latest_step(),
+                        checkpoint_io=list(mgr_b.timings),
+                        disk_free_bytes=shutil.disk_usage(root).free)
+        if out["B"]["preempted_at"] != 2 or (marker or {}).get("step") != 2:
+            raise AssertionError(f"resume: B preempted as {out['B']}")
+        torch.cuda.empty_cache()
+
+        # C: resumed from B's checkpoint, steps 2-3
+        spec_c = dataclasses.replace(
+            spec_b, checkpoint=dataclasses.replace(spec_b.checkpoint,
+                                                   resume=True))
+        res_c = run(spec_c, log_fn=log)
+        out["C"] = run_record(res_c, root)
+        stream = read_stream(spec_c.metrics_path)
+        out["C"]["metrics_steps"] = [r["step"] for r in stream.steps()]
+        out["C"]["bitwise_equal_A"] = bitwise_equal(
+            (res_c.params, res_c.opt_state), final_a)
+        checks = {
+            "C resumed at 2": res_c.start_step == 2,
+            "C params and OptState bitwise": out["C"]["bitwise_equal_A"],
+            "C losses = A's tail": (res_c.history["loss"] ==
+                                    res_a.history["loss"][2:]),
+            "C eval = A's tail": (res_c.history["eval_loss"] ==
+                                  res_a.history["eval_loss"][1:]),
+            "marker consumed": mgr_b.read_preempt_marker() is None,
+            "metrics steps 0-3 once": (out["C"]["metrics_steps"] ==
+                                       list(range(RESUME_STEPS)))}
+        del res_c
+        shutil.rmtree(os.path.join(root, "ck_bc"))
+        torch.cuda.empty_cache()
+
+        # D: a transient device error after the real call 4 (step 3)
+        spec_d = resume_spec(root, "ck_d", "d.jsonl")
+        prog = build_step_program(spec_d)
+        real, calls = prog.step, {"n": 0}
+
+        def flaky(params, opt_state, batch, hp):
+            result = real(params, opt_state, batch, hp)
+            calls["n"] += 1
+            if calls["n"] == 4:
+                raise torch.AcceleratorError("injected")
+            return result
+
+        prog.step = flaky
+        res_d = run(spec_d, program=prog, log_fn=log)
+        out["D"] = run_record(res_d, root)
+        out["D"]["step_calls"] = calls["n"]
+        out["D"]["recover_events"] = read_stream(spec_d.metrics_path).events(
+            "recover")
+        out["D"]["bitwise_equal_A"] = bitwise_equal(
+            (res_d.params, res_d.opt_state), final_a)
+        checks.update({
+            "D params and OptState bitwise": out["D"]["bitwise_equal_A"],
+            "D history = A's": (res_d.history["step"] == list(
+                range(RESUME_STEPS)) and res_d.history["loss"] ==
+                res_a.history["loss"]),
+            "D eval = A's": res_d.history["eval_loss"] ==
+            res_a.history["eval_loss"],
+            "D restored step 2 once": [(r["step"], r["failed_step"]) for r in
+                                       out["D"]["recover_events"]] == [(2, 3)],
+            "no heartbeat stall": not any(out[r]["heartbeat_stalled"]
+                                          for r in "ACD")})
+        del res_d
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["checks"] = checks
+    out["seconds"] = time.perf_counter() - t0
+    emit("resume", arch=ARCH_ID, batch=4, seq=1024, steps=RESUME_STEPS,
+         **out)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"resume: failed {failed}")
+    return {"launches": launches}
+
+
+# --------------------------------------------------------------------------
 # serve
 # --------------------------------------------------------------------------
 
@@ -1273,7 +1513,7 @@ def check_flash_vs_direct() -> dict:
 
 # --------------------------------------------------------------------------
 
-PHASES = ("kernels", "train", "parity", "serve", "serve_parity",
+PHASES = ("kernels", "train", "parity", "resume", "serve", "serve_parity",
           "legacy_serve", "legacy_parity")
 EXTRA_PHASES = ("timing",)
 
@@ -1286,7 +1526,9 @@ def main() -> None:
                          "kernels,serve is a short call after touching K3 "
                          "or the paged engine, kernels,legacy_serve,"
                          "legacy_parity after touching K4, the legacy "
-                         "engine or the long-sequence attention; timing "
+                         "engine or the long-sequence attention, "
+                         "kernels,train,resume after touching the run "
+                         "layer or the checkpoints; timing "
                          "(not in the default) times the kernels without "
                          "checking them and prints their outputs' digests")
     ap.add_argument("--src", default=SRC,
@@ -1316,6 +1558,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     if "parity" in phases:
         phase_parity()
+        torch.cuda.empty_cache()
+    if "resume" in phases:
+        phase_resume()
+        # the process's first profiler start keeps its caller's frames (run
+        # A's) in a reference cycle; free them before the serving phases
+        gc.collect()
         torch.cuda.empty_cache()
     serve = phase_serve() if "serve" in phases else None
     torch.cuda.empty_cache()

@@ -9,6 +9,10 @@ Runs on the card; ``--device cpu`` asks for the CPU.  The flags are the
 reference launcher's (``repro.launch.train``), so one command line or spec
 file drives both packages; a flag of a layer that is not ported yet raises
 ``NotImplementedError``.
+
+A run with ``--ckpt-dir D`` that is sent SIGTERM or SIGINT checkpoints at the
+next step boundary and exits 75 (``PREEMPTED_EXIT_CODE``); the same command
+with ``--resume`` continues it.
 """
 
 
@@ -16,6 +20,7 @@ def main(argv=None):
     import argparse
     import json
 
+    from repro_torch.fleet.preempt import PREEMPTED_EXIT_CODE, Preempted
     from repro_torch.run import run
     from repro_torch.run.spec import RunSpec, add_cli_args, from_cli_args
 
@@ -36,12 +41,22 @@ def main(argv=None):
     else:
         spec = from_cli_args(args)
 
-    result = run(spec, device=args.device)
+    try:
+        result = run(spec, device=args.device)
+    except Preempted as e:
+        # resumable by re-invoking with --resume
+        print(f"preempted: checkpointed at step {e.step}; exiting "
+              f"{PREEMPTED_EXIT_CODE} (resumable)")
+        raise SystemExit(PREEMPTED_EXIT_CODE)
     if args.history_out:
         with open(args.history_out, "w") as f:
             json.dump(result.history, f)
     if result.history.get("loss"):
         print(f"final loss {result.history['loss'][-1]:.4f}")
+    else:
+        # --resume found the run already at total_steps: a no-op resume
+        print(f"nothing to do: resumed at step {result.start_step} of "
+              f"{spec.steps.total}")
 
 
 if __name__ == "__main__":

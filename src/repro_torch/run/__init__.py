@@ -5,8 +5,11 @@
                    opt=OptSpec(name="adalomo"), steps=StepSpec(total=100))
     result = run(spec)                     # on the card; device="cpu" for CPU
 """
-from repro_torch.run.hooks import (HistoryHook, Hook, LoggingHook, StepEvent,
-                                   TimingHook)
+from repro_torch.run.hooks import (CheckpointHook, EvalHook, HeartbeatHook,
+                                   HistoryHook, Hook, LoggingHook,
+                                   MetricsHook, ProfilerHook, StepEvent,
+                                   StragglerHook, TimingHook,
+                                   find_metrics_hook)
 from repro_torch.run.program import StepProgram, build_step_program
 from repro_torch.run.runner import RunContext, RunResult, run
 from repro_torch.run.spec import (DEFAULT_LRS, CheckpointSpec, EvalSpec,
@@ -20,6 +23,8 @@ __all__ = [
     "CheckpointSpec", "EvalSpec", "FaultSpec", "ProfileSpec",
     "ObservabilitySpec", "SentinelSpec", "DEFAULT_LRS",
     "StepProgram", "build_step_program",
-    "Hook", "StepEvent", "HistoryHook", "LoggingHook", "TimingHook",
+    "Hook", "StepEvent", "HistoryHook", "LoggingHook", "MetricsHook",
+    "EvalHook", "CheckpointHook", "HeartbeatHook", "StragglerHook",
+    "TimingHook", "ProfilerHook", "find_metrics_hook",
     "run", "RunResult", "RunContext",
 ]

@@ -23,8 +23,16 @@ def resolved_data(spec: RunSpec, arch) -> DataConfig:
     return dataclasses.replace(spec.data, vocab=arch.cfg.vocab)
 
 
-def make_batch_iter(spec: RunSpec, arch, start_step: int = 0
-                    ) -> Iterator[dict]:
+def make_batch_iter(spec: RunSpec, arch, start_step: int = 0,
+                    *, seed_offset: int = 0) -> Iterator[dict]:
     """Deterministic, resumable stream of numpy batches matching
-    ``arch.train_batch_specs`` leaf-for-leaf."""
-    return batches(resolved_data(spec, arch), start_step)
+    ``arch.train_batch_specs`` leaf-for-leaf.  ``seed_offset`` derives a
+    disjoint stream from the same spec (held-out eval)."""
+    cfg = resolved_data(spec, arch)
+    if seed_offset:
+        cfg = dataclasses.replace(cfg, seed=cfg.seed + seed_offset)
+    return batches(cfg, start_step)
+
+
+# Seed offset for the default held-out eval stream.
+EVAL_SEED_OFFSET = 999

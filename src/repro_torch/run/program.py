@@ -43,16 +43,6 @@ def check_ported(spec: RunSpec) -> None:
          "sharded execution (scale-out)"),
         (d is not None and d.packing, "data.packing",
          "segment-packed batches"),
-        (bool(spec.checkpoint.dir), "checkpoint.dir",
-         "checkpoint save/resume (run layer remainder)"),
-        (bool(spec.eval.every), "eval.every",
-         "the eval hook (run layer remainder)"),
-        (bool(spec.profile.dir), "profile.dir",
-         "the profiler hook (run layer remainder)"),
-        (bool(spec.metrics_path), "metrics_path",
-         "the metrics stream (telemetry)"),
-        (spec.fault.heartbeat_timeout_s > 0, "fault.heartbeat_timeout_s",
-         "the heartbeat hook (run layer remainder)"),
     ]
     for on, field, what in unported:
         if on:
@@ -92,6 +82,15 @@ class StepProgram:
     step: Callable
     hparams_fn: Callable[[int], dict]
     device: torch.device
+    _loss_fn: Any = None
+
+    @property
+    def loss_fn(self):
+        """(params, batch) -> (loss, metrics): the arch's loss, built on
+        first use (eval)."""
+        if self._loss_fn is None:
+            self._loss_fn = self.arch.make_loss_fn()
+        return self._loss_fn
 
     def init(self, seed: int = 0):
         params = self.arch.init_params(seed, device=self.device)

@@ -3,9 +3,9 @@
 The port's copy of ``repro.run.spec``: the same dataclasses with the same
 fields and defaults, so ``RunSpec.to_json()`` is byte-identical in both
 packages and one spec file drives both.  Fields of layers that are not ported
-yet (sentinel, observe, mesh.shape, packing, checkpoint, eval, profile,
-metrics_path) are kept for that reason; ``build_step_program``/``run`` raise
-``NotImplementedError`` when a spec turns one on.
+yet (sentinel, observe, mesh.shape, packing) are kept for that reason;
+``build_step_program``/``run`` raise ``NotImplementedError`` when a spec turns
+one on.
 
 A :class:`RunSpec` is everything the run layer needs to reconstruct a
 training (or dry-run) scenario: which architecture at which shape, the

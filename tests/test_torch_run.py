@@ -169,10 +169,7 @@ def test_default_device_is_the_card_and_raises_without_one():
     {"sentinel": spec_mod.SentinelSpec(enabled=True)},
     {"observe": spec_mod.ObservabilitySpec(optimizer_every=1)},
     {"mesh": spec_mod.MeshSpec(kind="multi", shape=(2,))},
-    {"data": DataConfig(vocab=0, seq_len=32, global_batch=4, packing=True)},
-    {"checkpoint": spec_mod.CheckpointSpec(dir="ck", every=1)},
-    {"eval": spec_mod.EvalSpec(every=2)},
-    {"metrics_path": "m.jsonl"}])
+    {"data": DataConfig(vocab=0, seq_len=32, global_batch=4, packing=True)}])
 def test_unported_spec_fields_raise(change):
     _, pspec = _specs()
     bad = dataclasses.replace(pspec, **change)
