@@ -58,6 +58,31 @@ printing one JSON line:
            the metrics stream holding steps 0-3 once, no heartbeat stall.
            Reports each save's and restore's seconds and bytes, the free
            disk, straggler events, step seconds and peak memory.
+  baselines  the paper's Table 1: ``run(spec)`` on h2o-danube-1.8b at its
+           published width and depth, batch 4 x 1024, 2 steps in four arms
+           — AdaLomo fused (K1/K2), LOMO fused, Adafactor unfused, AdamW
+           unfused — each arm's memory freed before the next (asserted: the
+           card holds what it held before the phase).  Reports per arm the
+           peak memory, the bytes after init (params and state), the state's
+           and the gradients' bytes, step seconds, losses, K1/K2 launches.
+           Asserts finite losses, K1/K2 launches 340 each in the AdaLomo arm
+           and 0 elsewhere, one host sync a step, AdamW's state = 8 bytes a
+           parameter, peaks AdaLomo ~ LOMO (5 %) < Adafactor < AdamW; then
+           AdamW's and Adafactor's steps 1 and 2 on the embedding, a stacked
+           [24, 2560, 640] projection and a norm scale, each on the card and
+           on CPU copies of what the card held before it: fp32 state within
+           1e-6 relative, params within 1e-6 of their step plus one bf16
+           ulp (or 1e-6 of an fp32 value).
+  packed   ``run(spec)`` on h2o-danube-1.8b as in train with segment-packed
+           batches: 2 rows of 4096 tokens of ragged synthetic documents
+           (64-3000 tokens), fused AdaLomo (K1/K2), attention on the
+           segmented flash branch, 2 steps.  First, at the initial weights:
+           two documents' losses (one across a 1024-token block boundary)
+           bitwise unchanged when every other document's tokens are junk,
+           and each within 1e-2 of the same document alone in a row.  Then
+           asserts K1/K2 launches 340 each, one host sync a step, finite
+           losses and params; reports step seconds, peak memory, padding
+           efficiency and documents a row.
   serve    ``repro_torch.serve.engine.PagedEngine``: h2o-danube-1.8b at its
            published width and depth, bf16, random weights from a seed;
            pages of 16, 8 slots, 128 pages a sequence, 1025 pages, chunks of
@@ -1171,6 +1196,413 @@ def phase_resume() -> dict:
 
 
 # --------------------------------------------------------------------------
+# baselines: the paper's Table 1 on the card
+# --------------------------------------------------------------------------
+
+# (registry name, fused): AdaLomo and LOMO fuse the update into the backward
+# loop; Adafactor and AdamW take whole-model gradients, then Opt.step.
+BASELINE_ARMS = (("adalomo", True), ("lomo", True), ("adafactor", False),
+                 ("adamw", False))
+BASELINE_STEPS = 2
+BASELINE_BATCH, BASELINE_SEQ = 4, 1024
+# the three leaves of the card-against-CPU check: (path, shape, dtype,
+# batch_dims) — the embedding, a stacked [L, m, n] projection, a norm scale
+RULE_CHECK_LEAVES = (("outer/tok_embed", (32000, 2560), torch.bfloat16, 0),
+                     ("stacks/blocks/attn/wk", (N_LAYERS, 2560, 640),
+                      torch.bfloat16, 1),
+                     ("outer/final_norm/scale", (2560,), torch.float32, 0))
+RULE_CHECK_RTOL = 1e-6
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def ticket_bytes() -> int:
+    """Bytes of the kernels' integer ticket counters: allocated once a
+    device and kernel and kept for the life of the process."""
+    from repro_torch.kernels import tickets
+    return sum(t.numel() * t.element_size()
+               for bufs in tickets._BUFFERS.values() for t in bufs)
+
+
+def held_bytes() -> int:
+    """Bytes allocated on the card beside the ticket counters, after the
+    cyclic GC, with cuBLAS's workspaces (one a thread and stream, kept by
+    the allocator) released and the allocator's cache emptied."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() - ticket_bytes()
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bfloat16 values at ``x`` (8 significant bits)."""
+    e = torch.floor(torch.log2(torch.clamp_min(x.abs(), 2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def check_rules_card_vs_cpu() -> dict:
+    """AdamW and Adafactor steps 1 and 2 on three leaves of danube's shapes
+    (seeded values, weight decay on), each step on the card and on CPU
+    copies of the card's params and state before it, with the same
+    gradient.  fp32 state within 1e-6 relative; params within 1e-6 of the
+    step they took (the update's own arithmetic) plus, in bf16, one ulp of
+    the stored value (its rounding) and, in fp32, 1e-6 of it.  Where a step
+    cancels the value, the first term is many ulps of the small result:
+    the count of bf16 params more than one ulp off is reported."""
+    from repro_torch.core.api import hparams_on_device
+    out = {}
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    cpu = torch.device("cpu")
+
+    def host(t):
+        return None if t is None else t.to(cpu, copy=True)
+
+    for name in ("adamw", "adafactor"):
+        rule = opt_lib.get_rule(name)
+        hp = {**rule.hparams, "lr": 1e-3, "weight_decay": 0.1}
+        hp_dev = hparams_on_device((hp,), DEV)[0]
+        hp_cpu = hparams_on_device((hp,), cpu)[0]
+        for path, shape, dt, bd in RULE_CHECK_LEAVES:
+            p = (torch.randn(shape, generator=gen, device=DEV) * 0.05).to(dt)
+            st = rule.init(p, batch_dims=bd)
+            rec = {}
+            for step in (1.0, 2.0):
+                p0, pc = host(p), host(p)
+                stc = type(st)(*map(host, st))
+                g = (torch.randn(shape, generator=gen, device=DEV)
+                     * 1e-3).to(dt)
+                rule.update(p, g, st, hp_dev,
+                            torch.tensor(step, device=DEV), batch_dims=bd)
+                rule.update(pc, host(g), stc, hp_cpu, torch.tensor(step),
+                            batch_dims=bd)
+                for field, a, b in zip(st._fields, st, stc):
+                    if a is None:
+                        continue
+                    d = (host(a) - b).abs()
+                    rel = float((d / torch.clamp_min(b.abs(), 1e-30)).max())
+                    key = f"{field}_max_rel_err"
+                    rec[key] = max(rec.get(key, 0.0), rel)
+                    if bool((d > RULE_CHECK_RTOL * b.abs()).any()):
+                        raise AssertionError(
+                            f"baselines: {name} {path} step {step:.0f} state "
+                            f"{field} on the card is {rel:.3e} from the "
+                            f"CPU's (rtol {RULE_CHECK_RTOL})")
+                a32, b32 = host(p).float(), pc.float()
+                d = (a32 - b32).abs()
+                # the update's own error, 1e-6 of the step it took, beside
+                # the rounding of the stored value: where the step cancels
+                # the value, the first is many ulps of the small result
+                lim = RULE_CHECK_RTOL * (b32 - p0.float()).abs()
+                if dt == torch.bfloat16:
+                    ulp = torch.maximum(bf16_ulp(a32), bf16_ulp(b32))
+                    ulps = d / bf16_ulp(b32)
+                    rec["param_max_ulps"] = max(rec.get("param_max_ulps", 0),
+                                                float(ulps.max()))
+                    rec["params_over_1_ulp"] = rec.get(
+                        "params_over_1_ulp", 0) + int((ulps > 1).sum())
+                    lim = lim + ulp
+                else:
+                    rec["param_max_abs_err"] = max(
+                        rec.get("param_max_abs_err", 0.0), float(d.max()))
+                    lim = lim + RULE_CHECK_RTOL * b32.abs()
+                bad = bool((d > lim).any())
+                if bad or torch.equal(pc, p0):
+                    raise AssertionError(
+                        f"baselines: {name} {path} step {step:.0f}: params on "
+                        f"the card and on the CPU disagree or did not move: "
+                        f"{rec}")
+            out[f"{name}:{path}"] = rec
+            del p, pc, p0, st, stc, g
+    return out
+
+
+def baseline_arm(name: str, fused: bool, base: int) -> dict:
+    """One arm of the Table-1 comparison through ``run(spec)``: its step
+    program and init first, to read what params and state hold."""
+    from repro_torch.run import build_step_program
+    spec = RunSpec(model=ModelSpec(ARCH_ID, smoke=False),
+                   data=DataConfig(vocab=0, seq_len=BASELINE_SEQ,
+                                   global_batch=BASELINE_BATCH, seed=0),
+                   opt=OptSpec(name=name),
+                   steps=StepSpec(total=BASELINE_STEPS, fused=fused),
+                   log_every=1, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    program = build_step_program(spec)
+    params, opt_state = program.init(spec.seed)
+    init_bytes = held_bytes() - base
+    rec = {"optimizer": name, "engine": "fused" if fused else "unfused",
+           "n_params": sum(p.numel() for p in tree_leaves(params)),
+           "param_bytes": tree_bytes(params),
+           "state_bytes": program.opt.state_bytes(params),
+           # unfused: one gradient a parameter, in the parameter's dtype,
+           # all alive at once; fused: about one layer's, never the model's
+           "grad_bytes": 0 if fused else tree_bytes(params),
+           "init_allocated_bytes": init_bytes}
+    timing = TimingHook()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            K.adalomo_stats.launches = 0
+            K.adalomo_update.launches = 0
+            result = run(spec, program=program, params=params,
+                         opt_state=opt_state, hooks=[timing],
+                         log_fn=lambda s: print("  " + s, flush=True))
+            launches = {"adalomo_stats": K.adalomo_stats.launches,
+                        "adalomo_update": K.adalomo_update.launches}
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    rec.update(
+        losses=result.history["loss"], step_seconds=timing.step_s,
+        launches=launches,
+        host_syncs=sum("synchroniz" in str(w.message) for w in caught),
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        peak_above_baseline_bytes=torch.cuda.max_memory_allocated() - base,
+        params_finite=all(bool(torch.isfinite(p).all())
+                          for p in tree_leaves(result.params)))
+    del result, params, opt_state, program
+    rec["allocated_after_free_bytes"] = held_bytes()
+    return rec
+
+
+def phase_baselines() -> dict:
+    """The paper's Table 1 on the card: h2o-danube-1.8b at full width and
+    depth, batch 4 x 1024, 2 steps of fused AdaLomo (K1/K2), fused LOMO,
+    unfused Adafactor and unfused AdamW, each arm's memory freed before the
+    next; then the new rules' arithmetic on the card against the CPU."""
+    t0 = time.perf_counter()
+    base = held_bytes()
+    arms, failed = [], []
+    for name, fused in BASELINE_ARMS:
+        rec = baseline_arm(name, fused, base)
+        print("  " + json.dumps({"arm": rec}), flush=True)
+        arms.append(rec)
+        if rec["allocated_after_free_bytes"] != base:
+            failed.append(f"{name}: {rec['allocated_after_free_bytes']} "
+                          f"bytes held after the arm, {base} before")
+    by = {r["optimizer"]: r for r in arms}
+    n = by["adamw"]["n_params"]
+    want_k = {"adalomo_stats": TENSORS_PER_STEP * BASELINE_STEPS,
+              "adalomo_update": TENSORS_PER_STEP * BASELINE_STEPS}
+    for r in arms:
+        if len(r["losses"]) != BASELINE_STEPS or not all(
+                math.isfinite(x) for x in r["losses"]):
+            failed.append(f"{r['optimizer']}: losses {r['losses']}")
+        if not r["params_finite"]:
+            failed.append(f"{r['optimizer']}: a parameter is not finite")
+        want = (want_k if r["optimizer"] == "adalomo"
+                else dict.fromkeys(want_k, 0))
+        if r["launches"] != want:
+            failed.append(f"{r['optimizer']}: K1/K2 launches "
+                          f"{r['launches']}, expected {want}")
+        if r["host_syncs"] != BASELINE_STEPS:
+            failed.append(f"{r['optimizer']}: {r['host_syncs']} host syncs "
+                          f"in {BASELINE_STEPS} steps")
+    if by["adamw"]["state_bytes"] != 8 * n:
+        failed.append(f"adamw: state {by['adamw']['state_bytes']} bytes, "
+                      f"expected 8 x {n}")
+    peak = {k: r["peak_memory_bytes"] for k, r in by.items()}
+    lo, hi = sorted((peak["adalomo"], peak["lomo"]))
+    if not (hi <= 1.05 * lo and hi < peak["adafactor"] < peak["adamw"]):
+        failed.append(f"peak ordering AdaLomo ~ LOMO < Adafactor < AdamW "
+                      f"does not hold: {peak}")
+    rules = check_rules_card_vs_cpu()
+    emit("baselines", arch=ARCH_ID, batch=BASELINE_BATCH, seq=BASELINE_SEQ,
+         steps=BASELINE_STEPS, baseline_allocated_bytes=base, arms=arms,
+         peak_ratio_adamw_over_adalomo=peak["adamw"] / peak["adalomo"],
+         rules_card_vs_cpu=rules, rule_rtol=RULE_CHECK_RTOL,
+         seconds=time.perf_counter() - t0)
+    if failed:
+        raise AssertionError(f"baselines: {failed}")
+    return by
+
+
+# --------------------------------------------------------------------------
+# packed: segment-packed AdaLomo training
+# --------------------------------------------------------------------------
+
+PACKED_ROWS, PACKED_SEQ = 2, 4096
+PACKED_DOC_LENS = (64, 3000)       # slots a document, inclusive
+PACKED_STEPS = 2
+PACKED_SOLO_RTOL = 1e-2
+
+
+def packed_batches(seed: int, vocab: int):
+    """Packed numpy batches of ragged synthetic documents, 64-3000 tokens
+    each (the pipeline's synthetic language, its own packer), first-fit
+    into 2 rows of 4096; a row's worth of slack is drawn for it to drop."""
+    from repro_torch.data.pipeline import SyntheticLM, pack_documents
+    src = SyntheticLM(DataConfig(vocab=vocab, seq_len=PACKED_SEQ,
+                                 global_batch=PACKED_ROWS, seed=seed))
+    step = 0
+    while True:
+        rng = np.random.default_rng((seed, step))
+        docs, total = [], 0
+        while total < (PACKED_ROWS + 1) * PACKED_SEQ:
+            n = int(rng.integers(PACKED_DOC_LENS[0], PACKED_DOC_LENS[1] + 1))
+            docs.append(src._doc(rng, n))
+            total += n
+        yield pack_documents(docs, PACKED_ROWS, PACKED_SEQ)[0].as_dict()
+        step += 1
+
+
+def segments(batch) -> list:
+    """(row, segment id, start, length) of every document of a batch."""
+    out = []
+    for r, row in enumerate(batch["segment_ids"]):
+        for s in range(1, int(row.max()) + 1):
+            idx = np.flatnonzero(row == s)
+            out.append((r, s, int(idx[0]), int(idx.size)))
+    return out
+
+
+def doc_loss(loss_fn, params, batch, row, seg, tokens=None):
+    """The loss of one document of a packed batch, with the labels of every
+    other slot masked; ``tokens`` replaces the batch's."""
+    b = dict(batch)
+    keep = (batch["segment_ids"] == seg) & (
+        np.arange(batch["tokens"].shape[0])[:, None] == row)
+    b["labels"] = np.where(keep, batch["labels"], -1).astype(np.int32)
+    if tokens is not None:
+        b["tokens"] = tokens
+    with torch.no_grad():
+        loss, m = loss_fn(params, {k: torch.from_numpy(v).to(DEV)
+                                   for k, v in b.items()})
+    return loss, int(m["ntokens"])
+
+
+def check_packed_documents(loss_fn, params, batch, vocab: int) -> dict:
+    """At the initial weights: two documents' losses bitwise unchanged when
+    every other document's tokens are junk (one crosses a 1024-token block
+    boundary), and each within 1e-2 of the same document alone in a row of
+    4096 (bf16 activations change the reduction order across layouts)."""
+    from repro_torch.data.pipeline import pack_documents
+    segs = segments(batch)
+    crossing = [s for s in segs if s[2] // 1024 != (s[2] + s[3] - 1) // 1024]
+    if not crossing:
+        raise AssertionError(f"packed: no document crosses a block boundary: "
+                             f"{segs}")
+    # rather one that starts inside a row, behind foreign documents
+    chosen = [max(crossing, key=lambda s: s[2] > 0)]
+    chosen.append(next(s for s in reversed(segs) if s[:2] != chosen[0][:2]))
+    junk = np.random.default_rng(1).integers(
+        0, vocab, batch["tokens"].shape).astype(np.int32)
+    out = []
+    for row, seg, start, n in chosen:
+        keep = (batch["segment_ids"] == seg) & (
+            np.arange(PACKED_ROWS)[:, None] == row)
+        ref, ntok = doc_loss(loss_fn, params, batch, row, seg)
+        scrub, _ = doc_loss(loss_fn, params, batch, row, seg,
+                            tokens=np.where(keep, batch["tokens"], junk))
+        doc = np.concatenate([batch["tokens"][row, start:start + n],
+                              batch["labels"][row, start + n - 1:start + n]])
+        solo = pack_documents([doc], 1, PACKED_SEQ)[0].as_dict()
+        solo_loss, solo_ntok = doc_loss(loss_fn, params, solo, 0, 1)
+        rec = {"row": row, "segment": seg, "start": start, "tokens": n,
+               "crosses_block": start // 1024 != (start + n - 1) // 1024,
+               "loss": float(ref), "loss_scrubbed": float(scrub),
+               "bitwise_unchanged": bool(torch.equal(ref, scrub)),
+               "loss_solo": float(solo_loss), "ntokens": ntok,
+               "solo_rel_gap": abs(float(ref) - float(solo_loss))
+               / abs(float(solo_loss))}
+        out.append(rec)
+        if ntok != n or solo_ntok != n:
+            raise AssertionError(f"packed: a document's tokens {rec}")
+    return {"documents": out}
+
+
+def phase_packed() -> dict:
+    """``run(spec)`` on h2o-danube-1.8b at full width and depth with
+    segment-packed batches of 2 x 4096 tokens: fused AdaLomo through K1/K2,
+    attention on the segmented flash branch (S > 2048), 2 steps; before
+    them, zero leakage and packed-against-solo at the initial weights."""
+    from repro_torch.run import build_step_program
+    from repro_torch.telemetry.schema import read_stream
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_packed_")
+    try:
+        spec = RunSpec(model=ModelSpec(ARCH_ID, smoke=False),
+                       data=DataConfig(vocab=0, seq_len=PACKED_SEQ,
+                                       global_batch=PACKED_ROWS, seed=0,
+                                       packing=True),
+                       opt=OptSpec(name="adalomo"),
+                       steps=StepSpec(total=PACKED_STEPS), log_every=1,
+                       seed=0, metrics_path=os.path.join(root, "m.jsonl"))
+        program = build_step_program(spec)
+        params, opt_state = program.init(spec.seed)
+        vocab = program.arch.cfg.vocab
+        first = next(packed_batches(0, vocab))
+        docs = check_packed_documents(program.loss_fn, params, first, vocab)
+        it = packed_batches(0, vocab)
+        batches = [next(it) for _ in range(PACKED_STEPS)]
+        timing = TimingHook()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                K.adalomo_stats.launches = 0
+                K.adalomo_update.launches = 0
+                result = run(spec, program=program, params=params,
+                             opt_state=opt_state, batch_iter=iter(batches),
+                             hooks=[timing],
+                             log_fn=lambda s: print("  " + s, flush=True))
+                launches = {"adalomo_stats": K.adalomo_stats.launches,
+                            "adalomo_update": K.adalomo_update.launches}
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        losses = result.history["loss"]
+        finite = all(bool(torch.isfinite(p).all())
+                     for p in tree_leaves(result.params))
+        eff = [r["padding_efficiency"]
+               for r in read_stream(spec.metrics_path).steps()]
+        out = dict(
+            docs, losses=losses, step_seconds=timing.step_s,
+            peak_memory_bytes=torch.cuda.max_memory_allocated(),
+            padding_efficiency=eff,
+            docs_per_row=[[int(row.max()) for row in b["segment_ids"]]
+                          for b in batches],
+            doc_lengths=[sorted(n for *_, n in segments(b)) for b in batches],
+            launches=launches, host_syncs=syncs, params_finite=finite)
+        del result, params, opt_state, program
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    emit("packed", arch=ARCH_ID, rows=PACKED_ROWS, seq=PACKED_SEQ,
+         steps=PACKED_STEPS, doc_len_range=PACKED_DOC_LENS,
+         solo_rtol=PACKED_SOLO_RTOL, **out)
+    want = TENSORS_PER_STEP * PACKED_STEPS
+    failed = []
+    if launches != {"adalomo_stats": want, "adalomo_update": want}:
+        failed.append(f"K1/K2 launches {launches}, expected {want} each")
+    if syncs != PACKED_STEPS:
+        failed.append(f"{syncs} host syncs in {PACKED_STEPS} steps")
+    if len(losses) != PACKED_STEPS or not all(map(math.isfinite, losses)):
+        failed.append(f"losses {losses}")
+    if not finite:
+        failed.append("a parameter is not finite")
+    for d in out["documents"]:
+        if not d["bitwise_unchanged"]:
+            failed.append(f"leakage: document {d} changed under the scrub")
+        if d["solo_rel_gap"] > PACKED_SOLO_RTOL:
+            failed.append(f"document {d}: packed and solo losses differ by "
+                          f"more than {PACKED_SOLO_RTOL}")
+    if not any(d["crosses_block"] for d in out["documents"]):
+        failed.append("no checked document crosses a block boundary")
+    if failed:
+        raise AssertionError(f"packed: {failed}")
+    return out
+
+
+# --------------------------------------------------------------------------
 # serve
 # --------------------------------------------------------------------------
 
@@ -1513,8 +1945,8 @@ def check_flash_vs_direct() -> dict:
 
 # --------------------------------------------------------------------------
 
-PHASES = ("kernels", "train", "parity", "resume", "serve", "serve_parity",
-          "legacy_serve", "legacy_parity")
+PHASES = ("kernels", "train", "parity", "resume", "baselines", "packed",
+          "serve", "serve_parity", "legacy_serve", "legacy_parity")
 EXTRA_PHASES = ("timing",)
 
 
@@ -1528,7 +1960,10 @@ def main() -> None:
                          "legacy_parity after touching K4, the legacy "
                          "engine or the long-sequence attention, "
                          "kernels,train,resume after touching the run "
-                         "layer or the checkpoints; timing "
+                         "layer or the checkpoints, kernels,baselines "
+                         "after touching an optimizer rule, "
+                         "kernels,packed after touching the segment "
+                         "masks or the packed path; timing "
                          "(not in the default) times the kernels without "
                          "checking them and prints their outputs' digests")
     ap.add_argument("--src", default=SRC,
@@ -1563,6 +1998,13 @@ def main() -> None:
         phase_resume()
         # the process's first profiler start keeps its caller's frames (run
         # A's) in a reference cycle; free them before the serving phases
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "baselines" in phases:
+        phase_baselines()
+        torch.cuda.empty_cache()
+    if "packed" in phases:
+        phase_packed()
         gc.collect()
         torch.cuda.empty_cache()
     serve = phase_serve() if "serve" in phases else None

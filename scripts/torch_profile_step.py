@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
-"""Where the time of one fused AdaLomo train step goes on the GPU.
+"""Where the time of one train step goes on the GPU.
 
     python3 scripts/torch_profile_step.py [--layers 24] [--batch 4] [--seq 1024]
+        [--optimizer adalomo] [--packing]
 
 Builds the step program of ``repro_torch`` for h2o-danube-1.8b (published
-width; depth by ``--layers``), takes two warm-up steps, times ``--steps``
+width; depth by ``--layers``) with the optimizer's default engine (fused
+AdaLomo/LOMO, unfused baselines) and, with ``--packing``, the data
+pipeline's segment-packed batches (documents of 64 tokens up to the row),
+takes two warm-up steps, times ``--steps``
 steps untraced, then traces as many with ``torch.profiler`` and prints one
 JSON object: the card and its power limit, wall time per step (untraced),
 device-busy time per step (traced), the device's idle share (one minus busy
@@ -58,6 +62,10 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--optimizer", default="adalomo",
+                    help="registry name (repro_torch.core.optimizers)")
+    ap.add_argument("--packing", action="store_true",
+                    help="segment-packed batches")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -67,8 +75,9 @@ def main() -> None:
 
     spec = RunSpec(model=ModelSpec("h2o-danube-1.8b"),
                    data=DataConfig(vocab=0, seq_len=args.seq,
-                                   global_batch=args.batch),
-                   opt=OptSpec(name="adalomo"),
+                                   global_batch=args.batch,
+                                   packing=args.packing, min_doc_len=64),
+                   opt=OptSpec(name=args.optimizer),
                    steps=StepSpec(total=2 + 2 * args.steps), log_every=0)
     arch = get_arch("h2o-danube-1.8b")
     arch = dataclasses.replace(
@@ -117,7 +126,9 @@ def main() -> None:
         capture_output=True, text=True, timeout=60).stdout.strip()
     out = {
         "card": smi, "torch": torch.__version__, "layers": args.layers,
-        "batch": args.batch, "seq": args.seq, "traced_steps": args.steps,
+        "batch": args.batch, "seq": args.seq, "optimizer": args.optimizer,
+        "fused": program.fused, "packing": args.packing,
+        "traced_steps": args.steps,
         "loss": loss, "wall_ms_per_step": wall_ms,
         "wall_ms_per_step_while_traced": traced_wall_ms,
         "device_busy_ms_per_step": busy_ms,

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.core.adalomo import FactoredState
 from repro_torch.core.api import OptState
+from repro_torch.core.optimizers import AdamState, MomentumState, VarianceState
 from repro_torch.core.tree import tree_map
 
 
@@ -34,19 +35,30 @@ def params_from_numpy(tree, device, dtype=None) -> dict:
     return tree_map(lambda x: _tensor(x, device, dtype), tree)
 
 
+# Per-tensor state types by the field names of the reference's NamedTuples.
+# MomentumState and VarianceState both have one field, so the names — not
+# the arity — tell the states apart.
+_STATES = {cls._fields: cls for cls in (FactoredState, MomentumState,
+                                        VarianceState, AdamState)}
+
+
 def _state(s, device):
     if len(s) == 0:                                    # sgd: no state
         return ()
-    if len(s) == 3:                                    # (r, c, v)
-        return FactoredState(*(None if x is None else _tensor(x, device)
-                               for x in s))
-    raise ValueError(f"unknown per-tensor state of {len(s)} fields")
+    cls = _STATES.get(getattr(s, "_fields", None))
+    if cls is None:
+        raise ValueError(f"unknown per-tensor state {type(s).__name__} "
+                         f"with fields {getattr(s, '_fields', None)}; "
+                         f"known: {sorted(_STATES)}")
+    return cls(*(None if x is None else _tensor(x, device) for x in s))
 
 
 def opt_state_from_numpy(step, moments, device) -> OptState:
     """The reference's ``OptState(step, moments)`` — moments a nested dict
-    whose leaves are ``(r, c, v)`` tuples of arrays/None, or ``()`` — as the
-    port's :class:`OptState` on ``device``."""
+    whose leaves are the reference's per-tensor NamedTuples of arrays/None
+    (``FactoredState(r, c, v)``, ``MomentumState(m)``, ``VarianceState(v)``,
+    ``AdamState(m, v)``), or ``()`` — as the port's :class:`OptState` on
+    ``device``, each state as the port's NamedTuple of the same name."""
     return OptState(
         step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
                           device=device),

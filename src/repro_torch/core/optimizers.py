@@ -1,7 +1,8 @@
-"""Optimizer rules (Opt v2, PyTorch): AdaLomo and LOMO's SGD.
+"""Optimizer rules (Opt v2, PyTorch): AdaLomo + the baselines the paper
+compares to.
 
-Counterpart of ``repro.core.optimizers``, holding the rules ported so far.
-Every optimizer is an :class:`repro_torch.core.api.UpdateRule`:
+Counterpart of ``repro.core.optimizers``.  Every optimizer is an
+:class:`repro_torch.core.api.UpdateRule`:
 
     rule.init(param, factored=None, batch_dims=0)            -> state
     rule.update(param, grad, state, hp, step, batch_dims=0)  -> (param, state)
@@ -11,13 +12,22 @@ returns them.  ``hp`` is a resolved dict of dynamic hyperparameters (floats
 or 0-d tensors); ``step`` is the 1-based global step as float32.  The same
 rule runs unfused via ``Opt.step``, fused into the backward loop
 (``core/fused.py``), and — for AdaLomo — on the CUDA kernels via
-``backend="cuda"``.  LOMO is ``sgd()`` under the fused engine.
+``backend="cuda"``.  LOMO is ``sgd()`` under the fused engine; the paper's
+§2.2 ablations are ``sgd_momentum()`` (Eq. 3) and ``sgd_variance()``
+(Eq. 4); ``adamw()`` and ``adafactor()`` are the Table-1 baselines.
+
+The baselines are plain tensor maths, as in the reference: fp32 throughout,
+one cast at the write of ``param``, hyperparameters and ``step`` used as
+(device) tensors, so nothing is read back to the host.  ``batch_dims``
+counts leading dims that index independent tensors (the layer stacks the
+reference ``vmap``s over); the elementwise rules do not depend on it, and
+Adafactor takes its statistics, RMS and factoring decision per slice.
 """
 from __future__ import annotations
 
 import dataclasses
 import inspect
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -25,8 +35,13 @@ from repro_torch.core import adalomo as _adalomo
 from repro_torch.core.api import (GroupSpec, Opt, UpdateRule, make_rule,
                                   no_decay_1d)
 
-__all__ = ["adalomo", "sgd", "REGISTRY", "get_rule", "get_opt", "Opt",
+__all__ = ["adalomo", "sgd", "sgd_momentum", "sgd_variance", "adamw",
+           "adafactor", "MomentumState", "VarianceState", "AdamState",
+           "AdafactorConfig", "REGISTRY", "get_rule", "get_opt", "Opt",
            "GroupSpec", "UpdateRule", "no_decay_1d"]
+
+Tensor = torch.Tensor
+_F32 = torch.float32
 
 
 # --------------------------------------------------------------------------
@@ -93,7 +108,7 @@ def adalomo(cfg: Optional[_adalomo.AdaLomoConfig] = None, *,
 
 
 # --------------------------------------------------------------------------
-# SGD (paper Eq. 1) — LOMO is fused sgd()
+# SGD family (paper Eq. 1, 3, 4) — LOMO is fused sgd()
 # --------------------------------------------------------------------------
 
 def sgd(*, lr: float = 1e-3) -> UpdateRule:
@@ -113,14 +128,184 @@ def sgd(*, lr: float = 1e-3) -> UpdateRule:
     return make_rule("sgd", init_fn, update_fn, hparams=dict(lr=lr))
 
 
+def _zeros32(param: Tensor) -> Tensor:
+    return torch.zeros(param.shape, dtype=_F32, device=param.device)
+
+
+class MomentumState(NamedTuple):
+    m: Tensor
+
+
+def sgd_momentum(*, lr: float = 1e-3, beta1: float = 0.9,
+                 bias_correction: bool = True) -> UpdateRule:
+    """First-moment-only ablation (paper Eq. 3)."""
+
+    def init_fn(param, *, factored=None, batch_dims=0):
+        del factored, batch_dims
+        return MomentumState(m=_zeros32(param))
+
+    @torch.no_grad()
+    def update_fn(param, grad, state, hp, step, *, batch_dims=0):
+        del batch_dims
+        b1 = hp["beta1"]
+        m = state.m.mul_(b1).add_((1.0 - b1) * grad.to(_F32))
+        m_hat = m / (1.0 - b1 ** step) if bias_correction else m
+        param.copy_((param.to(_F32) - hp["lr"] * m_hat).to(param.dtype))
+        return param, state
+
+    return make_rule("sgd_momentum", init_fn, update_fn,
+                     hparams=dict(lr=lr, beta1=beta1))
+
+
+class VarianceState(NamedTuple):
+    v: Tensor
+
+
+def sgd_variance(*, lr: float = 1e-3, beta2: float = 0.999,
+                 eps: float = 1e-8,
+                 bias_correction: bool = True) -> UpdateRule:
+    """Second-moment-only ablation (paper Eq. 4) — the 'SGD with variance'
+    curve in Fig. 1/6 that motivates AdaLomo."""
+
+    def init_fn(param, *, factored=None, batch_dims=0):
+        del factored, batch_dims
+        return VarianceState(v=_zeros32(param))
+
+    @torch.no_grad()
+    def update_fn(param, grad, state, hp, step, *, batch_dims=0):
+        del batch_dims
+        b2 = hp["beta2"]
+        g32 = grad.to(_F32)
+        v = state.v.mul_(b2).add_((1.0 - b2) * torch.square(g32))
+        v_hat = v / (1.0 - b2 ** step) if bias_correction else v
+        upd = g32 / (torch.sqrt(v_hat) + hp["eps"])
+        param.copy_((param.to(_F32) - hp["lr"] * upd).to(param.dtype))
+        return param, state
+
+    return make_rule("sgd_variance", init_fn, update_fn,
+                     hparams=dict(lr=lr, beta2=beta2, eps=eps))
+
+
 # --------------------------------------------------------------------------
-# Registry (the rules ported so far)
+# AdamW (paper Eq. 2 + decoupled weight decay) — the de-facto baseline
+# --------------------------------------------------------------------------
+
+class AdamState(NamedTuple):
+    m: Tensor
+    v: Tensor
+
+
+def adamw(*, lr: float = 1e-3, beta1: float = 0.9, beta2: float = 0.999,
+          eps: float = 1e-8, weight_decay: float = 0.0) -> UpdateRule:
+    """AdamW: fp32 m and v (8 bytes a parameter); the fp32 copy of θ is
+    decayed before the update is subtracted."""
+
+    def init_fn(param, *, factored=None, batch_dims=0):
+        del factored, batch_dims
+        return AdamState(m=_zeros32(param), v=_zeros32(param))
+
+    @torch.no_grad()
+    def update_fn(param, grad, state, hp, step, *, batch_dims=0):
+        del batch_dims
+        b1, b2, lr = hp["beta1"], hp["beta2"], hp["lr"]
+        g32 = grad.to(_F32)
+        # the moments are updated in place: the same products and sums as
+        # b*s + (1-b)*g, with fewer whole-tensor temporaries
+        m = state.m.mul_(b1).add_((1.0 - b1) * g32)
+        v = state.v.mul_(b2).add_((1.0 - b2) * torch.square(g32))
+        del g32
+        upd = (m / (1.0 - b1 ** step)).div_(
+            (v / (1.0 - b2 ** step)).sqrt_().add_(hp["eps"]))
+        p32 = param.to(_F32) * (1.0 - lr * hp["weight_decay"])
+        param.copy_(p32.sub_(upd.mul_(lr)).to(param.dtype))
+        return param, state
+
+    return make_rule("adamw", init_fn, update_fn,
+                     hparams=dict(lr=lr, beta1=beta1, beta2=beta2, eps=eps,
+                                  weight_decay=weight_decay))
+
+
+# --------------------------------------------------------------------------
+# Adafactor (Shazeer & Stern 2018) — the factored-moment baseline.
+# AdaLomo's Table-1 claim: a factored state like this one, but O(1) grads
+# because the update happens inside the backward pass.
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AdafactorConfig:
+    """Structural config; decay_rate/clip/weight_decay are dynamic hparams."""
+
+    eps_stat: float = 1e-30
+    eps_rms: float = 1e-3
+    min_dim_size_to_factor: int = 16
+    factored: bool = True
+    relative_step_scale: bool = True  # multiply update by max(eps2, RMS(θ))
+
+
+def adafactor(cfg: Optional[AdafactorConfig] = None, *, lr: float = 1e-3,
+              decay_rate: float = 0.8, clip: float = 1.0,
+              weight_decay: float = 0.0) -> UpdateRule:
+    """Adafactor: row and column *means* of g², folded by
+    ``beta2t = 1 - step^(-decay_rate)``; its own arithmetic, never AdaLomo's
+    sums, β-EMA or kernels.  AdaLomo's state container and init are shared,
+    with Adafactor's factoring thresholds."""
+    cfg = cfg or AdafactorConfig()
+    al_cfg = _adalomo.AdaLomoConfig(
+        min_dim_size_to_factor=cfg.min_dim_size_to_factor,
+        factored=cfg.factored, eps_stat=cfg.eps_stat)
+
+    def init_fn(param, *, factored=None, batch_dims=0):
+        c = al_cfg if factored is None else dataclasses.replace(
+            al_cfg, factored=factored)
+        return _adalomo.init_state(param, c, batch_dims=batch_dims)
+
+    @torch.no_grad()
+    def update_fn(param, grad, state, hp, step, *, batch_dims=0):
+        g32 = grad.to(_F32)
+        g2 = torch.square(g32) + cfg.eps_stat
+        beta2t = 1.0 - step ** (-hp["decay_rate"])
+        if state.v is not None:
+            new = _adalomo.FactoredState(
+                r=None, c=None, v=beta2t * state.v + (1.0 - beta2t) * g2)
+        else:
+            new = _adalomo.FactoredState(
+                r=beta2t * state.r + (1.0 - beta2t) * torch.mean(g2, dim=-1),
+                c=beta2t * state.c + (1.0 - beta2t) * torch.mean(g2, dim=-2),
+                v=None)
+        del g2
+        u = g32 * torch.rsqrt(_adalomo.reconstruct_v(new, al_cfg)
+                              + cfg.eps_stat)
+        del g32
+        # per layer slice: the trailing one or two dims form "the matrix"
+        axes = _adalomo._matrix_axes(u.ndim - batch_dims)
+        u = u / torch.clamp_min(_adalomo._rms(u, axes) / hp["clip"], 1.0)
+        p32 = param.to(_F32)
+        if cfg.relative_step_scale:
+            u = u * torch.clamp_min(_adalomo._rms(p32, axes), cfg.eps_rms)
+        p32 = p32 * (1.0 - hp["lr"] * hp["weight_decay"])
+        param.copy_((p32 - hp["lr"] * u).to(param.dtype))
+        for old, x in zip(state, new):
+            if old is not None:
+                old.copy_(x)
+        return param, state
+
+    return make_rule("adafactor", init_fn, update_fn,
+                     hparams=dict(lr=lr, decay_rate=decay_rate, clip=clip,
+                                  weight_decay=weight_decay))
+
+
+# --------------------------------------------------------------------------
+# Registry
 # --------------------------------------------------------------------------
 
 REGISTRY: dict[str, Callable[..., UpdateRule]] = {
     "adalomo": adalomo,
     "lomo": sgd,       # LOMO == fused SGD
     "sgd": sgd,
+    "sgd_momentum": sgd_momentum,
+    "sgd_variance": sgd_variance,
+    "adamw": adamw,
+    "adafactor": adafactor,
 }
 
 

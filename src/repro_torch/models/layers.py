@@ -14,8 +14,12 @@ The attention dispatcher has the reference's three branches: direct
 attention up to 2048 tokens, the sliding-window gather past ``window + 1024``
 and, between them or without a window, blockwise online-softmax attention
 whose gradient (``_flash_attention``, a ``torch.autograd.Function``)
-recomputes the probabilities blockwise.  Prefix-LM and packed-segment masks
-are not ported (``MaskSpec`` has no fields for them).
+recomputes the probabilities blockwise.  Packed-segment batches
+(``MaskSpec.segmented``) carry per-row ``(B, S)`` positions and segment ids
+through the direct and blockwise/flash branches, where attention never
+crosses a segment, forward or backward; as in the reference they never take
+the window gather.  Prefix-LM masks are not ported (``MaskSpec`` has no
+fields for them).
 """
 from __future__ import annotations
 
@@ -79,7 +83,8 @@ def rope_sincos(positions: Tensor, d_rot: int, theta: float = 10000.0
 
 def apply_rope(x: Tensor, sin: Tensor, cos: Tensor, rope_pct: float = 1.0
                ) -> Tensor:
-    """x: (..., S, H, dh); sin/cos: (S, d_rot/2) or broadcastable."""
+    """x: (..., S, H, dh); sin/cos: (S, d_rot/2), or (B, S, d_rot/2) for
+    per-row positions (packed batches restart them at every document)."""
     dh = x.shape[-1]
     d_rot = int(dh * rope_pct)
     d_rot -= d_rot % 2
@@ -87,7 +92,8 @@ def apply_rope(x: Tensor, sin: Tensor, cos: Tensor, rope_pct: float = 1.0
         return x
     xr, xp = x[..., :d_rot], x[..., d_rot:]
     x1, x2 = torch.chunk(xr.to(torch.float32), 2, dim=-1)
-    # sin/cos broadcast over batch & head dims: (S, half) -> (S, 1, half)
+    # over the head dim: (S, half) -> (S, 1, half) broadcasts over batch
+    # and heads, (B, S, half) -> (B, S, 1, half) over heads only
     s = sin[..., :, None, :]
     c = cos[..., :, None, :]
     rot = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
@@ -102,10 +108,15 @@ def apply_rope(x: Tensor, sin: Tensor, cos: Tensor, rope_pct: float = 1.0
 class MaskSpec:
     causal: bool = True
     window: Optional[int] = None       # SWA: attend to [pos-window+1, pos]
+    # packed-segment batches: attention also requires equal segment ids
+    # (q_seg/kv_seg travel beside the positions)
+    segmented: bool = False
 
 
-def _mask_block(q_pos: Tensor, kv_pos: Tensor, spec: MaskSpec) -> Tensor:
-    """Bool mask block (..., Sq, Skv) from position vectors."""
+def _mask_block(q_pos: Tensor, kv_pos: Tensor, spec: MaskSpec,
+                q_seg: Optional[Tensor] = None,
+                kv_seg: Optional[Tensor] = None) -> Tensor:
+    """Bool mask block (..., Sq, Skv) from position (and segment) vectors."""
     q = q_pos[..., :, None]
     k = kv_pos[..., None, :]
     m = torch.ones(torch.broadcast_shapes(q.shape, k.shape), dtype=torch.bool,
@@ -114,36 +125,69 @@ def _mask_block(q_pos: Tensor, kv_pos: Tensor, spec: MaskSpec) -> Tensor:
         m = m & (q >= k)
     if spec.window is not None:
         m = m & (q - k < spec.window)
+    if q_seg is not None:
+        m = m & (q_seg[..., :, None] == kv_seg[..., None, :])
     return m
 
 
-def _scan_block_mask(qp: Tensor, kp: Tensor, spec: MaskSpec) -> Tensor:
-    """Mask for one (query block, KV block) pair of the blockwise loops:
-    qp ``(T, qb)``, kp ``(kb,)`` -> ``(1, T, 1, 1, qb, kb)``, broadcastable
-    against score blocks ``[B, T, K, G, qb, kb]``."""
-    return _mask_block(qp, kp, spec)[None, :, None, None]
+def _scan_block_mask(qp: Tensor, kp: Tensor, qs: Optional[Tensor],
+                     ks: Optional[Tensor], spec: MaskSpec) -> Tensor:
+    """Mask for one (query block, KV block) pair of the blockwise loops.
+
+    qp ``(T, qb)`` shared by the rows, or ``(B, T, qb)`` per row (packed
+    segments); kp ``(kb,)`` or ``(B, kb)`` to match; qs/ks segment-id blocks
+    of the same shapes, or None.  Returns a mask broadcastable against score
+    blocks ``[B, T, K, G, qb, kb]``: ``(1, T, 1, 1, qb, kb)`` for metadata
+    shared by the rows, ``(B, T, 1, 1, qb, kb)`` otherwise."""
+    if qp.ndim == 3:                    # per row: lift kp/ks over the tiles
+        kp, ks = kp[:, None], None if ks is None else ks[:, None]
+        return _mask_block(qp, kp, spec, qs, ks)[:, :, None, None]
+    return _mask_block(qp, kp, spec, qs, ks)[None, :, None, None]
 
 
 def _q_meta_blocks(a: Tensor, T: int, Sloc: int, pq: int, qb: int,
                    fill: int) -> Tensor:
-    """Tile, pad and block query positions: ``(Sq,)`` -> ``[nq, T, qb]``."""
-    a = a.reshape(T, Sloc)
+    """Tile, pad and block query metadata (positions or segment ids):
+    ``(Sq,)`` -> ``[nq, T, qb]``; ``(B, Sq)`` -> ``[nq, B, T, qb]``."""
+    a = a.reshape(tuple(a.shape[:-1]) + (T, Sloc))
     if pq:
         a = F.pad(a, (0, pq), value=fill)
-    return a.reshape(T, (Sloc + pq) // qb, qb).transpose(0, 1)
+    a = a.reshape(tuple(a.shape[:-1]) + ((Sloc + pq) // qb, qb))
+    return a.movedim(-2, 0)
 
 
 def _kv_meta_blocks(a: Tensor, pk: int, kb: int, fill: int) -> Tensor:
-    """Pad and block KV positions: ``(Skv,)`` -> ``[nk, kb]``."""
+    """Pad and block KV metadata: ``(Skv,)`` -> ``[nk, kb]``; ``(B, Skv)``
+    -> ``[nk, B, kb]``."""
     if pk:
         a = F.pad(a, (0, pk), value=fill)
-    return a.reshape(-1, kb)
+    return a.reshape(tuple(a.shape[:-1]) + (-1, kb)).movedim(-2, 0)
 
 
-# Fill values for padded position slots: a padded query (-1) and a padded
-# KV slot (2**30) can never pass the causal or window terms against a real
-# slot.
+# Fill values for padded metadata slots: a padded query (pos -1, seg -1)
+# and a padded KV slot (pos 2**30, seg -2) can never pass the causal,
+# window or segment-equality terms against a real slot.
 _QPOS_FILL, _KPOS_FILL = -1, 2 ** 30
+_QSEG_FILL, _KSEG_FILL = -1, -2
+
+
+def _meta_blocks(q_pos, kv_pos, q_seg, kv_seg, T, Sloc, pq, qb, pk, kb):
+    """The blocked metadata of both loops: ``(qps, kps, qss, kss)``; the
+    segment blocks are None for an unpacked batch."""
+    qps = _q_meta_blocks(q_pos, T, Sloc, pq, qb, _QPOS_FILL)
+    kps = _kv_meta_blocks(kv_pos, pk, kb, _KPOS_FILL)
+    if q_seg is None:
+        return qps, kps, None, None
+    return (qps, kps, _q_meta_blocks(q_seg, T, Sloc, pq, qb, _QSEG_FILL),
+            _kv_meta_blocks(kv_seg, pk, kb, _KSEG_FILL))
+
+
+def _per_row(q_pos, kv_pos, q_seg, B: int) -> tuple:
+    """Shared ``(S,)`` positions of a packed batch as ``(B, S)`` rows, as
+    the reference broadcasts them."""
+    if q_seg is not None and q_pos.ndim == 1:
+        return q_pos.expand(B, -1), kv_pos.expand(B, -1)
+    return q_pos, kv_pos
 
 
 # --------------------------------------------------------------------------
@@ -185,21 +229,25 @@ def _pad_kv(x: Tensor, pk: int) -> Tensor:
 
 def _block_attention(q, k, v, q_pos, kv_pos, spec, scale, q_block: int,
                      kv_block: int, tiles: int = 1,
-                     return_lse: bool = False):
+                     return_lse: bool = False, q_seg=None, kv_seg=None):
     """Two-level blockwise attention with an online softmax (flash-style).
 
     q ``[B,Sq,K,G,dh]``; k/v ``[B,Skv,K,dh]``; positions ``(Sq,)`` and
-    ``(Skv,)``.  Loops over query blocks (outer) and KV blocks (inner);
-    score blocks ``[B,T,K,G,qb,kb]`` are the only O(S·block) intermediates.
-    ``tiles`` > 1 splits the query sequence into T tiles carried as a tensor
-    dim (the reference shards it over a mesh; here it only reshapes)."""
+    ``(Skv,)`` shared by the rows, or ``(B, Sq)`` and ``(B, Skv)`` per row
+    for packed-segment batches (then q_seg/kv_seg carry matching segment ids
+    and attention never crosses a segment).  Loops over query blocks
+    (outer) and KV blocks (inner); score blocks ``[B,T,K,G,qb,kb]`` are the
+    only O(S·block) intermediates.  ``tiles`` > 1 splits the query sequence
+    into T tiles carried as a tensor dim (the reference shards it over a
+    mesh; here it only reshapes)."""
     B, Sq, K, G, dh = q.shape
     dv = v.shape[-1]
     Skv = k.shape[1]
+    q_pos, kv_pos = _per_row(q_pos, kv_pos, q_seg, B)
     T, Sloc, qb, kb, pq, pk = _block_geometry(Sq, Skv, q_block, kv_block,
                                               tiles)
-    qps = _q_meta_blocks(q_pos, T, Sloc, pq, qb, _QPOS_FILL)
-    kps = _kv_meta_blocks(kv_pos, pk, kb, _KPOS_FILL)
+    qps, kps, qss, kss = _meta_blocks(q_pos, kv_pos, q_seg, kv_seg, T, Sloc,
+                                      pq, qb, pk, kb)
     Slp = Sloc + pq
     nq = Slp // qb
     qs = _pad_q_tiles(q, T, Sloc, pq).reshape(B, T, nq, qb, K, G, dh)
@@ -217,8 +265,10 @@ def _block_attention(q, k, v, q_pos, kv_pos, spec, scale, q_block: int,
             vj = vs[:, j]
             logits = torch.einsum("btqkgd,bskd->btkgqs", qi,
                                   ks[:, j].to(torch.float32)) * scale
-            logits = torch.where(_scan_block_mask(qps[i], kps[j], spec),
-                                 logits, NEG_INF)
+            mask = _scan_block_mask(qps[i], kps[j],
+                                    None if qss is None else qss[i],
+                                    None if kss is None else kss[j], spec)
+            logits = torch.where(mask, logits, NEG_INF)
             m_new = torch.maximum(m_run, logits.amax(dim=-1))
             p = torch.exp(logits - m_new[..., None])
             corr = torch.exp(m_run - m_new)
@@ -241,23 +291,29 @@ def _block_attention(q, k, v, q_pos, kv_pos, spec, scale, q_block: int,
 class _FlashAttention(torch.autograd.Function):
     """Blockwise attention whose backward saves only ``(q, k, v, out, lse)``
     and recomputes the probabilities block by block, as FlashAttention's
-    backward does (the reference's ``jax.custom_vjp``)."""
+    backward does (the reference's ``jax.custom_vjp``).  Segment masking
+    (packed batches) is part of the recomputed mask, so cross-segment terms
+    drop out of dq, dk and dv as they do out of the forward."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_pos, kv_pos, spec, scale, q_block, kv_block,
-                tiles):
+                tiles, q_seg, kv_seg):
         out, lse = _block_attention(q, k, v, q_pos, kv_pos, spec, scale,
                                     q_block, kv_block, tiles,
-                                    return_lse=True)
+                                    return_lse=True, q_seg=q_seg,
+                                    kv_seg=kv_seg)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.meta = (q_pos, kv_pos, spec, scale, q_block, kv_block, tiles)
+        ctx.meta = (q_pos, kv_pos, q_seg, kv_seg, spec, scale, q_block,
+                    kv_block, tiles)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        q_pos, kv_pos, spec, scale, q_block, kv_block, tiles = ctx.meta
+        (q_pos, kv_pos, q_seg, kv_seg, spec, scale, q_block, kv_block,
+         tiles) = ctx.meta
         B, Sq, K, G, dh = q.shape
+        q_pos, kv_pos = _per_row(q_pos, kv_pos, q_seg, B)
         dvd = v.shape[-1]
         Skv = k.shape[1]
         T, Sloc, qb, kb, pq, pk = _block_geometry(Sq, Skv, q_block,
@@ -272,8 +328,8 @@ class _FlashAttention(torch.autograd.Function):
             return x.reshape((B, T, nq, qb) + tuple(x.shape[3:]))
 
         qs, dos, lses, Ds = blocks(q), blocks(dout), blocks(lse), blocks(D)
-        qps = _q_meta_blocks(q_pos, T, Sloc, pq, qb, _QPOS_FILL)
-        kps = _kv_meta_blocks(kv_pos, pk, kb, _KPOS_FILL)
+        qps, kps, qss, kss = _meta_blocks(q_pos, kv_pos, q_seg, kv_seg, T,
+                                          Sloc, pq, qb, pk, kb)
         ks = _pad_kv(k, pk).reshape(B, -1, kb, K, dh).to(f32)
         vs = _pad_kv(v, pk).reshape(B, -1, kb, K, dvd).to(f32)
         nk = ks.shape[1]
@@ -289,8 +345,12 @@ class _FlashAttention(torch.autograd.Function):
             for j in range(nk):
                 ki, vi = ks[:, j], vs[:, j]
                 logits = torch.einsum("btqkgd,bskd->btkgqs", qi, ki) * scale
-                p = torch.where(_scan_block_mask(qps[i], kps[j], spec),
-                                torch.exp(logits - lse_t[..., None]), 0.0)
+                mask = _scan_block_mask(qps[i], kps[j],
+                                        None if qss is None else qss[i],
+                                        None if kss is None else kss[j],
+                                        spec)
+                p = torch.where(mask, torch.exp(logits - lse_t[..., None]),
+                                0.0)
                 dv[:, j] += torch.einsum("btkgqs,btqkgv->bskv", p, doi)
                 dp = torch.einsum("btqkgv,bskv->btkgqs", doi, vi)
                 ds = p * (dp - D_t[..., None])
@@ -303,19 +363,19 @@ class _FlashAttention(torch.autograd.Function):
         dk = dk.reshape(B, -1, K, dh)[:, :Skv]
         dv = dv.reshape(B, -1, K, dvd)[:, :Skv]
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
-                None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None, None)
 
 
 def _flash_attention(q, k, v, q_pos, kv_pos, spec, scale, q_block: int,
-                     kv_block: int, tiles: int = 1):
+                     kv_block: int, tiles: int = 1, q_seg=None, kv_seg=None):
     """Blockwise attention with the recomputing backward of
     ``_FlashAttention``; where no gradient is asked for (``torch.no_grad``,
     or inputs that do not require one) only the forward runs."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, q_pos, kv_pos, spec, scale,
-                                     q_block, kv_block, tiles)
+                                     q_block, kv_block, tiles, q_seg, kv_seg)
     return _block_attention(q, k, v, q_pos, kv_pos, spec, scale, q_block,
-                            kv_block, tiles)
+                            kv_block, tiles, q_seg=q_seg, kv_seg=kv_seg)
 
 
 def _swa_gather_attention(q, k, v, q_pos, kv_pos, spec, scale, q_block: int):
@@ -356,17 +416,28 @@ def attention(
     v: Tensor,              # [B, Skv, K, dh]
     *,
     spec: MaskSpec,
-    q_pos: Tensor,          # (Sq,) int positions
-    kv_pos: Tensor,         # (Skv,) int
+    q_pos: Tensor,          # (Sq,) int positions, or (B, Sq) when packed
+    kv_pos: Tensor,         # (Skv,) int, or (B, Skv)
+    q_seg: Optional[Tensor] = None,     # (B, Sq) segment ids (packed)
+    kv_seg: Optional[Tensor] = None,    # (B, Skv)
     scale: Optional[float] = None,
     force_direct: bool = False,
 ) -> Tensor:
-    """GQA attention dispatcher. Returns [B, Sq, H, dv] (dv = v head dim)."""
+    """GQA attention dispatcher. Returns [B, Sq, H, dv] (dv = v head dim).
+
+    Direct attention up to 2048 tokens; past that, the window gather for a
+    sliding window shorter than the keys less a query block, and the
+    blockwise/flash branch otherwise.  A packed batch (segment ids) never
+    takes the gather, whose windows the segment mask does not cut."""
     B, Sq, H, dh = q.shape
     K = k.shape[2]
     if H % K or k.shape[-1] != dh:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
                          "form grouped-query attention")
+    if spec.segmented != (q_seg is not None):
+        raise ValueError("MaskSpec.segmented must match whether segment ids "
+                         f"are passed (segmented={spec.segmented}, q_seg "
+                         f"{'given' if q_seg is not None else 'None'})")
     dv = v.shape[-1]
     G = H // K
     qg = q.reshape(B, Sq, K, G, dh)
@@ -374,16 +445,18 @@ def attention(
     Skv = k.shape[1]
 
     if force_direct or max(Sq, Skv) <= _DIRECT_ATTN_MAX_SEQ:
-        mask = _mask_block(q_pos, kv_pos, spec)
+        mask = _mask_block(q_pos, kv_pos, spec, q_seg, kv_seg)
         mask = mask[None, None, None] if mask.ndim == 2 else mask[:, None, None]
         out = _direct_attention(qg, k, v, mask, scale)
-    elif spec.window is not None and Skv > spec.window + _Q_BLOCK:
+    elif (spec.window is not None and q_seg is None
+          and Skv > spec.window + _Q_BLOCK):
         out = _swa_gather_attention(qg, k, v, q_pos, kv_pos, spec, scale,
                                     _Q_BLOCK)
     else:
         # one query tile: the reference's seq_tiles() without a mesh
         out = _flash_attention(qg, k, v, q_pos, kv_pos, spec, scale,
-                               _Q_BLOCK, _KV_BLOCK, tiles=1)
+                               _Q_BLOCK, _KV_BLOCK, tiles=1, q_seg=q_seg,
+                               kv_seg=kv_seg)
     return out.reshape(B, Sq, H, dv)
 
 

@@ -60,18 +60,34 @@ class Arch:
         spec = self._family_mod().make_fused_spec(self.cfg)
         return partial(unfused_loss_fn, spec)
 
+    def supports_packing(self) -> bool:
+        """Packed-segment batches need the transformer train path with
+        plain causal/SWA masks (no prefix/modality prefix/MTP)."""
+        cfg = self.cfg
+        return self.family == "transformer" and not (
+            cfg.prefix_lm or cfg.n_prefix_tokens or cfg.mtp)
+
     def train_batch_specs(self, batch: int, seq_len: int, *,
                           labels: bool = True, packed: bool = False) -> dict:
         """``{leaf: (shape, dtype)}`` of a train batch for an explicit
         (batch, seq_len) — the contract between the data layer
         (``repro_torch.run.data.make_batch_iter`` yields exactly these leaves)
-        and the step program."""
-        if packed:
-            raise NotImplementedError(
-                "packed (segment-id) batches are not ported yet")
-        out = {"tokens": ((batch, seq_len), torch.int32)}
+        and the step program.  ``packed=True`` adds the packed-segment
+        leaves: ``segment_ids``, ``positions`` and ``loss_mask``."""
+        B, S = batch, seq_len
+        if packed and not self.supports_packing():
+            raise ValueError(
+                f"packing is not supported for arch {self.arch_id!r} "
+                f"(family={self.family}; prefix-LM/modality-prefix/MTP "
+                f"batches have extra sequence structure packing would "
+                f"break)")
+        out = {"tokens": ((B, S), torch.int32)}
         if labels:
-            out["labels"] = ((batch, seq_len), torch.int32)
+            out["labels"] = ((B, S), torch.int32)
+        if packed:
+            out["segment_ids"] = ((B, S), torch.int32)
+            out["positions"] = ((B, S), torch.int32)
+            out["loss_mask"] = ((B, S), torch.bool)
         return out
 
     # ---- legacy serve (ring-buffer cache) -----------------------------------

@@ -8,7 +8,9 @@ applies.  Ported: dense GQA blocks with ``qk_norm``, sliding ``window``,
 ``make_prefill_kv_step``, ``make_paged_decode_step`` and ``init_page_pool``;
 for the legacy engine's ring cache, ``cache_window``, ``init_cache``,
 ``make_prefill_step`` and ``make_decode_step``.  Decode steps update the
-page pool or the cache in place.  MoE, MLA, MTP, prefix-LM and
+page pool or the cache in place.  The train half takes packed batches
+(``segment_ids`` and per-document ``positions``): RoPE restarts at every
+document and attention never crosses one.  MoE, MLA, MTP, prefix-LM and
 modality-prefix configs raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -177,14 +179,19 @@ def _qkv(p: dict, cfg: LMConfig, h: Tensor, sin: Tensor, cos: Tensor
     return q, k, v
 
 
-def _gqa_attn_kv(p: dict, cfg: LMConfig, h: Tensor, pos: Tensor) -> tuple:
+def _gqa_attn_kv(p: dict, cfg: LMConfig, h: Tensor, pos: Tensor,
+                 seg: Optional[Tensor] = None) -> tuple:
     """Causal (SWA) self-attention over the sequence; returns the block's
-    attention output and this layer's roped k and v."""
+    attention output and this layer's roped k and v.  ``pos`` is ``(S,)``,
+    or ``(B, S)`` for a packed batch, whose ``seg [B, S]`` keeps attention
+    inside each document (RoPE phases restart with the positions)."""
     B, S, _ = h.shape
     sin, cos = _rope_tables(cfg, pos)
     q, k, v = _qkv(p, cfg, h, sin, cos)
-    spec = L.MaskSpec(causal=True, window=cfg.window)
-    o = L.attention(q, k, v, spec=spec, q_pos=pos, kv_pos=pos)
+    spec = L.MaskSpec(causal=True, window=cfg.window,
+                      segmented=seg is not None)
+    o = L.attention(q, k, v, spec=spec, q_pos=pos, kv_pos=pos, q_seg=seg,
+                    kv_seg=seg)
     return L.dense(o.reshape(B, S, -1), p["wo"]), k, v
 
 
@@ -203,8 +210,9 @@ def make_block_body(cfg: LMConfig):
         _, ctx_act = ctx
         x, aux_loss = carry
         pos = ctx_act["pos"]        # int positions; never differentiated
+        seg = ctx_act.get("seg")    # int segment ids of a packed batch
         h = L.norm_apply(p["ln1"], x, kind=cfg.norm)
-        x = x + _gqa_attn_kv(p["attn"], cfg, h, pos)[0]
+        x = x + _gqa_attn_kv(p["attn"], cfg, h, pos, seg)[0]
         return (_mlp_residual(p, cfg, x), aux_loss)
 
     return body
@@ -253,11 +261,16 @@ def make_prologue(cfg: LMConfig):
 
 def make_pro_ctx(cfg: LMConfig):
     def pro_ctx(outer, batch):
-        # Positions travel as integers: the port differentiates only the
-        # carry and the parameters, never the context.
+        # Positions and segment ids travel as integers: the port
+        # differentiates only the carry and the parameters, never the
+        # context.
         if "segment_ids" in batch:
-            raise NotImplementedError(
-                "packed (segment-id) batches are not ported yet")
+            if cfg.prefix_lm or cfg.n_prefix_tokens or cfg.mtp:
+                raise ValueError(
+                    "packed (segment-id) batches are not supported for "
+                    "prefix-LM / modality-prefix / MTP architectures")
+            return {"pos": batch["positions"].to(torch.int32),
+                    "seg": batch["segment_ids"].to(torch.int32)}
         tokens = batch["tokens"]
         return {"pos": torch.arange(tokens.shape[1], dtype=torch.int32,
                                     device=tokens.device)}

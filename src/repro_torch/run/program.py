@@ -34,15 +34,12 @@ from repro_torch.train.schedules import constant, warmup_cosine
 def check_ported(spec: RunSpec) -> None:
     """Raise ``NotImplementedError`` for a spec that turns on a layer the
     port does not have yet, naming it."""
-    d = spec.data
     unported = [
         (spec.sentinel.enabled, "sentinel.enabled", "the training sentinel"),
         (spec.observe.enabled, "observe.optimizer_every",
          "the optimizer-health probes (telemetry)"),
         (spec.mesh.shape is not None, "mesh.shape",
          "sharded execution (scale-out)"),
-        (d is not None and d.packing, "data.packing",
-         "segment-packed batches"),
     ]
     for on, field, what in unported:
         if on:
@@ -59,6 +56,17 @@ def _split_microbatches(batch: dict, k: int) -> list:
                 f"batch dim {x.shape[0]} not divisible by microbatches={k}")
     return [{name: x.reshape((k, x.shape[0] // k) + tuple(x.shape[1:]))[i]
              for name, x in batch.items()} for i in range(k)]
+
+
+def _apply_loss_mask(batch: dict) -> dict:
+    """Packed-batch loss contract: slots where ``loss_mask`` is False
+    (padding, cross-segment label shifts) never reach the loss.  The packer
+    already emits -1 labels there; masking again at step entry makes the
+    contract hold for any injected batch iterator too."""
+    if "loss_mask" not in batch:
+        return batch
+    return {**batch, "labels": torch.where(batch["loss_mask"],
+                                           batch["labels"], -1)}
 
 
 def _mean(values: list):
@@ -113,6 +121,10 @@ def build_step_program(spec: RunSpec, arch=None, opt: Optional[Opt] = None,
     if arch is None:
         from repro_torch.models.registry import get_arch
         arch = get_arch(spec.model.arch, smoke=spec.model.smoke)
+    if spec.data is not None and spec.data.packing:
+        # fail at build time, not at the first step, for unsupported archs
+        arch.train_batch_specs(spec.data.global_batch, spec.data.seq_len,
+                               packed=True)
     if opt is None:
         rule = opt_lib.get_rule(spec.opt.name, **spec.opt.kwargs)
         if groups is None:
@@ -137,6 +149,7 @@ def build_step_program(spec: RunSpec, arch=None, opt: Optional[Opt] = None,
             opt, global_grad_norm=global_grad_norm)
 
         def one_step(params, opt_state, batch, hp):
+            batch = _apply_loss_mask(batch)
             if k == 1:
                 return step_kw(params, opt_state, batch, hparams=hp)
             # LOMO-style: sequential updates per microbatch.
@@ -166,6 +179,7 @@ def build_step_program(spec: RunSpec, arch=None, opt: Optional[Opt] = None,
                     tree_map(lambda _: next(it), p_req))
 
         def one_step(params, opt_state, batch, hp):
+            batch = _apply_loss_mask(batch)
             if k == 1:
                 loss, metrics, grads = loss_and_grads(params, batch)
             else:

@@ -3,7 +3,7 @@
 The port's copy of ``repro.run.spec``: the same dataclasses with the same
 fields and defaults, so ``RunSpec.to_json()`` is byte-identical in both
 packages and one spec file drives both.  Fields of layers that are not ported
-yet (sentinel, observe, mesh.shape, packing) are kept for that reason;
+yet (sentinel, observe, mesh.shape) are kept for that reason;
 ``build_step_program``/``run`` raise ``NotImplementedError`` when a spec turns
 one on.
 

@@ -15,7 +15,8 @@ from repro.core.optimizers import get_opt as ref_get_opt
 from repro_torch.checkpoint.manager import CheckpointManager, CorruptCheckpoint
 from repro_torch.core.adalomo import FactoredState
 from repro_torch.core.api import OptState
-from repro_torch.core.optimizers import get_opt
+from repro_torch.core.optimizers import (AdamState, MomentumState,
+                                         VarianceState, get_opt)
 from repro_torch.core.tree import pytree_leaves, pytree_unflatten
 from torch_parity import (CPU, convert_opt_state, np_f32,
                           ref_params_and_copy, smoke_archs)
@@ -309,10 +310,10 @@ def test_leaf_order_sorts_keys_whatever_the_insertion_order():
 
 # ------------------------------------------------ across the two packages
 
-def _ref_and_port_state():
+def _ref_and_port_state(name="adalomo"):
     ref_arch, _ = smoke_archs()
     ref_params, params = ref_params_and_copy(ref_arch, seed=4)
-    ref_opt = ref_get_opt("adalomo")
+    ref_opt = ref_get_opt(name)
     ref_state = ref_opt.init(ref_params)
     # a state with non-zero moments and step: one unfused reference update
     grads = jax.tree.map(lambda p: jnp.cos(p) * 0.01, ref_params)
@@ -389,3 +390,64 @@ def test_bf16_written_by_the_reference_restores_bitwise(tmp_path):
         assert torch.equal(got["s"], port_tree["s"])
         np.testing.assert_array_equal(
             got["w"].float().numpy(), np.asarray(ref_tree["w"], np.float32))
+
+
+# ------------------------------------------------ the baselines' states
+
+@pytest.mark.parametrize("name,cls", [("adamw", AdamState),
+                                      ("sgd_momentum", MomentumState),
+                                      ("sgd_variance", VarianceState),
+                                      ("adafactor", FactoredState)])
+def test_baseline_state_leaf_order_is_jax_order(name, cls):
+    """The baselines' NamedTuples expand in field order, as JAX flattens
+    them (AdamW: m, then v); the same shapes and dtypes leaf for leaf, and
+    unflatten rebuilds each state as its own type."""
+    ref_arch, _ = smoke_archs()
+    ref_params, params = ref_params_and_copy(ref_arch)
+    ref_state = ref_get_opt(name).init(ref_params)
+    state = get_opt(name).init(params)
+    ref_leaves = jax.tree_util.tree_leaves((ref_params, ref_state))
+    leaves = pytree_leaves((params, state))
+    assert len(leaves) == len(ref_leaves)
+    for a, b in zip(leaves, ref_leaves):
+        assert tuple(a.shape) == b.shape
+        assert str(a.dtype).removeprefix("torch.") == str(b.dtype)
+    rebuilt = pytree_unflatten((params, state), [t.clone() for t in leaves])
+    m = rebuilt[1].moments["stacks"]["blocks"]["attn"]["wq"]
+    assert type(m) is cls
+    _assert_equal_trees(rebuilt, (params, state))
+
+
+def test_adamw_state_crosses_between_the_packages_bitwise(tmp_path):
+    """An AdamW ``(params, OptState)`` (fp32 tree, non-zero m and v after
+    one reference step) written by the reference restores bitwise in the
+    port, each state an ``AdamState`` with m before v; the port writes the
+    same manifest and byte-equal files, which the reference restores
+    bitwise."""
+    ref_tree, port_tree = _ref_and_port_state("adamw")
+    RefManager(tmp_path / "r", async_write=False).save(3, ref_tree)
+    template = pytree_unflatten(
+        port_tree, [torch.zeros_like(t) for t in pytree_leaves(port_tree)])
+    step, got, _ = CheckpointManager(tmp_path / "r").restore(
+        template=template)
+    assert step == 3 and int(got[1].step) == 1
+    for a, b in zip(pytree_leaves(got), jax.tree_util.tree_leaves(ref_tree)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    ref_head = ref_tree[1].moments["outer"]["head"]
+    head = got[1].moments["outer"]["head"]
+    assert type(head) is AdamState
+    np.testing.assert_array_equal(head.m.numpy(), np.asarray(ref_head.m))
+    np.testing.assert_array_equal(head.v.numpy(), np.asarray(ref_head.v))
+    assert not np.array_equal(np.asarray(ref_head.m), np.asarray(ref_head.v))
+
+    CheckpointManager(tmp_path / "p", async_write=False).save(3, port_tree)
+    assert _manifest(tmp_path / "p", 3) == _manifest(tmp_path / "r", 3)
+    for a, b in zip(_leaf_files(tmp_path / "p" / "step_000000003"),
+                    _leaf_files(tmp_path / "r" / "step_000000003")):
+        assert a.name == b.name and a.read_bytes() == b.read_bytes()
+    step, back, _ = RefManager(tmp_path / "p").restore(template=ref_tree)
+    assert step == 3
+    for a, b in zip(jax.tree_util.tree_leaves(back),
+                    jax.tree_util.tree_leaves(ref_tree)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

@@ -71,8 +71,10 @@ def test_unknown_keys_raise():
     with pytest.raises(KeyError, match="accepted kwargs"):
         opt_lib.get_rule("adalomo", momentum=0.9)
     with pytest.raises(KeyError, match="unknown optimizer"):
-        opt_lib.get_rule("adamw")
-    assert sorted(opt_lib.REGISTRY) == ["adalomo", "lomo", "sgd"]
+        opt_lib.get_rule("madgrad")
+    assert sorted(opt_lib.REGISTRY) == ["adafactor", "adalomo", "adamw",
+                                        "lomo", "sgd", "sgd_momentum",
+                                        "sgd_variance"]
 
 
 def test_no_decay_1d_sees_per_tensor_ndim():

@@ -168,8 +168,7 @@ def test_default_device_is_the_card_and_raises_without_one():
 @pytest.mark.parametrize("change", [
     {"sentinel": spec_mod.SentinelSpec(enabled=True)},
     {"observe": spec_mod.ObservabilitySpec(optimizer_every=1)},
-    {"mesh": spec_mod.MeshSpec(kind="multi", shape=(2,))},
-    {"data": DataConfig(vocab=0, seq_len=32, global_batch=4, packing=True)}])
+    {"mesh": spec_mod.MeshSpec(kind="multi", shape=(2,))}])
 def test_unported_spec_fields_raise(change):
     _, pspec = _specs()
     bad = dataclasses.replace(pspec, **change)
