@@ -58,6 +58,26 @@ printing one JSON line:
            the metrics stream holding steps 0-3 once, no heartbeat stall.
            Reports each save's and restore's seconds and bytes, the free
            disk, straggler events, step seconds and peak memory.
+  sentinel  ``run(spec)`` on h2o-danube-1.8b as in train with the training
+           sentinel on (fused AdaLomo through K1/K2, the metrics stream on),
+           three runs, each one's memory freed before the next (asserted).
+           A: 8 steps, ladder skip+backoff, the optimizer-health probes every
+           step (the factored ones every 2), a NaN'd update injected at step
+           3 — asserts the verdict nonfinite at 3 only, params and the whole
+           OptState after 3 bitwise equal on the card to a copy taken after
+           2, opt_state.step 7, K1/K2 1360 launches each (a skipped step
+           still launches), one host sync a step, probe records every step
+           (finite group ratios, histogram counts summing to the units,
+           finite residuals >= 0 on the two largest factored moments) and
+           one anomaly record (nonfinite, 3, backoff).  B: 8 steps, an
+           update scaled 100x at step 6 — the spike guard fires there only,
+           the step is a bitwise no-op, lr scaled 0.1 from step 7.  C: 6
+           steps, ladder skip+rollback, checkpoints every 2 (3.67 GB each,
+           under the system temp or ``_chip_smoke_tmp/``, removed), a NaN'd
+           update at step 4 — rolled back to the step-4 checkpoint,
+           quarantine [4, 5), finite losses, the rollback record.  Reports
+           step seconds and peak memory beside the train phase's, the
+           snapshot's bytes, and C's save and restore seconds.
   baselines  the paper's Table 1: ``run(spec)`` on h2o-danube-1.8b at its
            published width and depth, batch 4 x 1024, 2 steps in four arms
            — AdaLomo fused (K1/K2), LOMO fused, Adafactor unfused, AdamW
@@ -924,7 +944,8 @@ def phase_train(steps: int = 3) -> dict:
         raise AssertionError(
             f"train: {len(syncs)} synchronising host transfers in {steps} "
             "steps, expected one a step")
-    return {"launches": launches}
+    return {"launches": launches, "step_seconds": timing.step_s,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
 
 
 # --------------------------------------------------------------------------
@@ -981,8 +1002,8 @@ RESUME_STEPS = 4
 RESUME_MIN_FREE = 10 * 2 ** 30
 
 
-def resume_root() -> str:
-    """A fresh directory for the phase's checkpoints, under the system temp
+def resume_root(prefix: str = "chip_smoke_resume_") -> str:
+    """A fresh directory for a phase's checkpoints, under the system temp
     or this checkout's git-ignored ``_chip_smoke_tmp/``, whichever disk has
     more free space; the phase removes it before it returns."""
     here = os.path.dirname(os.path.abspath(__file__))
@@ -995,7 +1016,7 @@ def resume_root() -> str:
     if best == here:
         best = os.path.join(here, "_chip_smoke_tmp")
         os.makedirs(best, exist_ok=True)
-    return tempfile.mkdtemp(prefix="chip_smoke_resume_", dir=best)
+    return tempfile.mkdtemp(prefix=prefix, dir=best)
 
 
 def resume_spec(root, ckpt, metrics, *, resume=False, profile=False):
@@ -1193,6 +1214,385 @@ def phase_resume() -> dict:
     if failed:
         raise AssertionError(f"resume: failed {failed}")
     return {"launches": launches}
+
+
+# --------------------------------------------------------------------------
+# sentinel: the step guard, its policies and the optimizer-health probes
+# --------------------------------------------------------------------------
+
+SENTINEL_STEPS = {"A": 8, "B": 8, "C": 6}
+# the two largest factored moments of danube (424,673,280 elements each
+# reconstructed; ties broken by path)
+SENTINEL_RECON_KEYS = ("recon/stacks/blocks/mlp/w_down",
+                       "recon/stacks/blocks/mlp/w_gate")
+
+
+def sentinel_spec(name: str, sentinel, *, root, observe=None,
+                  checkpoint=None):
+    from repro_torch.run import CheckpointSpec, ObservabilitySpec
+    return RunSpec(
+        model=ModelSpec(ARCH_ID, smoke=False),
+        data=DataConfig(vocab=0, seq_len=1024, global_batch=4, seed=0),
+        opt=OptSpec(name="adalomo"),
+        steps=StepSpec(total=SENTINEL_STEPS[name]), log_every=1, seed=0,
+        sentinel=sentinel, observe=observe or ObservabilitySpec(),
+        checkpoint=checkpoint or CheckpointSpec(),
+        metrics_path=os.path.join(root, f"{name}.jsonl"))
+
+
+def n_syncs(caught: list) -> int:
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def sentinel_watch(caught: list, copy_at: int, check_at: int):
+    """A user hook (the pipeline's last) that keeps each step's verdict and
+    host syncs (counted from its own end at the previous step, so its own
+    checks are not counted), the peak memory before it copies the state,
+    and whether the state after ``check_at`` equals, bitwise on the card,
+    the copy it took after ``copy_at``."""
+    from repro_torch.core.tree import pytree_leaves, pytree_unflatten
+    from repro_torch.run import Hook
+
+    class Watch(Hook):
+        def __init__(self):
+            self.verdicts, self.syncs = [], []
+            self.copy = self.bitwise = self.peak_before_copy = None
+            self._mark = 0
+
+        def on_run_start(self, ctx):
+            self._mark = n_syncs(caught)
+
+        def on_step_end(self, ctx, ev):
+            self.syncs.append(n_syncs(caught) - self._mark)
+            self.verdicts.append(dict(ev.metrics["sentinel"]))
+            tree = (ctx.params, ctx.opt_state)
+            if ev.step == copy_at:
+                self.peak_before_copy = torch.cuda.max_memory_allocated()
+                self.copy = pytree_unflatten(
+                    tree, [t.clone() for t in pytree_leaves(tree)])
+            elif ev.step == check_at:
+                self.bitwise = bitwise_equal(tree, self.copy)
+                self.copy = None
+                torch.cuda.reset_peak_memory_stats()
+            self._mark = n_syncs(caught)
+
+    return Watch()
+
+
+def sentinel_run(spec, inject, *, copy_at, check_at, logs):
+    """One run of the phase: ``run(spec, inject=...)`` with K1/K2 counts
+    set to 0 before it and read after, host syncs counted under the sync
+    debug mode."""
+    timing = TimingHook()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            watch = sentinel_watch(caught, copy_at, check_at)
+            K.adalomo_stats.launches = 0
+            K.adalomo_update.launches = 0
+            result = run(spec, hooks=[timing, watch], inject=inject,
+                         log_fn=lambda s: (logs.append(s),
+                                           print("  " + s, flush=True)))
+            launches = {"adalomo_stats": K.adalomo_stats.launches,
+                        "adalomo_update": K.adalomo_update.launches}
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return result, watch, timing, launches
+
+
+def check_all_finite() -> dict:
+    """The guard's finiteness sweep on the card: one NaN, +inf or -inf at a
+    seeded position of a bf16 leaf of danube's largest shape, or of an fp32
+    moment, is found ({case: found})."""
+    from repro_torch.sentinel.guard import _all_finite
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    leaves = {"bf16 [24, 2560, 6912]": torch.randn(
+        (N_LAYERS, 2560, 6912), generator=gen, device=DEV).to(torch.bfloat16),
+        "fp32 [24, 6912]": torch.rand((N_LAYERS, 6912), generator=gen,
+                                      device=DEV)}
+    found = {}
+    if not bool(_all_finite(leaves)):
+        raise AssertionError("sentinel: a finite tree was found non-finite")
+    for name, t in leaves.items():
+        for bad in (float("nan"), float("inf"), -float("inf")):
+            at = int(torch.randint(t.numel(), (1,), generator=gen,
+                                   device=DEV))
+            keep = t.view(-1)[at].clone()
+            t.view(-1)[at] = bad
+            found[f"{name} {bad} at {at}"] = not bool(_all_finite(leaves))
+            t.view(-1)[at] = keep
+    del leaves
+    return found
+
+
+def time_guard_parts(rounds: int = 5) -> dict:
+    """Each part of the guard and the probes on danube's params at full
+    size (a seeded relative update of 1e-3), timed alone: the device's time
+    by CUDA events and the host's by its clock, medians of ``rounds``
+    calls after one warm-up, in ms."""
+    from repro_torch.core.tree import tree_leaves as leaves
+    from repro_torch.run import ObservabilitySpec, build_step_program
+    from repro_torch.sentinel import SentinelSpec
+    from repro_torch.sentinel.guard import _all_finite
+    from repro_torch.telemetry import probes as P
+    spec = sentinel_spec("A", SentinelSpec(enabled=True),
+                         root=tempfile.gettempdir(),
+                         observe=ObservabilitySpec(optimizer_every=1,
+                                                   factored_every=2))
+    program = build_step_program(spec)
+    params, state = program.init(0)
+    opt = program.opt
+    snap = P.Snapshot()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(1)
+    old_p, old_s = snap.capture(params, state)
+    for t in leaves(params):
+        t.mul_(1 + 1e-3 * torch.randn(t.shape, generator=gen, device=DEV,
+                                     dtype=t.dtype))
+    for st in leaves(state.moments):
+        for t in st:
+            if t is not None:
+                t.add_(torch.rand(t.shape, generator=gen, device=DEV))
+    keep = torch.ones((), dtype=torch.bool, device=DEV)
+    ospec = spec.observe
+    sums = P.leaf_sums(old_p, params)
+    hp = program.hparams_fn(1)
+
+    def commit():
+        for new, o in zip(P._tensors((params, state.moments)),
+                          P._tensors((old_p, old_s.moments))):
+            if new.is_floating_point():
+                torch.where(keep, new, o, out=new)
+
+    parts = {
+        "snapshot copy": lambda: snap.capture(params, state),
+        "finiteness sweep": lambda: _all_finite(params, state.moments),
+        "unit sums (update only)": lambda: P.leaf_sums(old_p, params,
+                                                       par=False),
+        "unit sums (update and params)": lambda: P.leaf_sums(old_p, params),
+        "commit": commit,
+        "probes from the sums": lambda: P.optimizer_health(
+            old_p, params, old_s, state, hp, opt=opt, ospec=ospec,
+            sums=P.committed_sums(sums, keep)),
+        "factored residuals": lambda: P.factored_health(
+            old_s.moments, state.moments, 0.999, ospec)}
+    out = {}
+    for name, fn in parts.items():
+        fn()
+        dev_ms, host_ms = [], []
+        for _ in range(rounds):
+            torch.cuda.synchronize()
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t = time.perf_counter()
+            a.record()
+            fn()
+            b.record()
+            host_ms.append((time.perf_counter() - t) * 1e3)
+            torch.cuda.synchronize()
+            dev_ms.append(a.elapsed_time(b))
+        out[name] = {"ms": float(np.median(dev_ms)),
+                     "host_ms": float(np.median(host_ms))}
+    del params, state, old_p, old_s, snap, sums, program
+    return out
+
+
+def phase_sentinel(train=None) -> dict:
+    """h2o-danube-1.8b at full width and depth through ``run(spec)`` with
+    the sentinel on, fused AdaLomo (K1/K2), batch 4 x 1024, the metrics
+    stream on: A skips a NaN'd update under the probes, B skips a spike
+    and backs the lr off, C rolls back to a checkpoint and quarantines the
+    batch.  Each run's memory is freed before the next (asserted)."""
+    from repro_torch.run import (CheckpointHook, CheckpointSpec,
+                                 ObservabilitySpec)
+    from repro_torch.sentinel import Injection, SentinelSpec
+    from repro_torch.telemetry.schema import read_stream
+
+    t0 = time.perf_counter()
+    finite = check_all_finite()
+    parts = time_guard_parts()
+    base = held_bytes()
+    root = resume_root("chip_smoke_sentinel_")
+    out, checks = {"baseline_allocated_bytes": base,
+                   "all_finite_on_card": finite, "guard_parts": parts}, {
+        "one bad element found in any piece": all(finite.values())}
+    steps = SENTINEL_STEPS
+    try:
+        # A: a NaN'd update at step 3, skip + backoff, probes every step
+        logs = []
+        spec = sentinel_spec(
+            "A", SentinelSpec(enabled=True, ladder=("skip", "backoff")),
+            root=root, observe=ObservabilitySpec(optimizer_every=1,
+                                                 factored_every=2))
+        res, watch, timing, launches = sentinel_run(
+            spec, Injection("nan_grads", at_step=3), copy_at=2, check_at=3,
+            logs=logs)
+        stream = read_stream(spec.metrics_path)
+        probes = stream.probes()
+        health = [r for r in probes if r["probe"] == "opt_health"]
+        factored = [r for r in probes if r["probe"] == "factored"]
+        v = watch.verdicts
+        peak = max(watch.peak_before_copy, torch.cuda.max_memory_allocated())
+        clean = [dt for i, dt in enumerate(timing.step_s) if i not in (0, 3)]
+        out["A"] = {
+            "steps": steps["A"], "losses": res.history["loss"],
+            "step_seconds": timing.step_s, "launches": launches,
+            "host_syncs_per_step": watch.syncs,
+            "anomalies": [(a["anomaly"], a["step"], a["action"])
+                          for a in stream.anomalies()],
+            "verdict_step_3": v[3], "opt_step": int(res.opt_state.step),
+            "bitwise_step_3_equals_step_2": watch.bitwise,
+            "snapshot_bytes": res.program.snapshot.nbytes,
+            "peak_memory_bytes": peak,
+            "peak_before_check_copy_bytes": watch.peak_before_copy,
+            "clean_step_seconds_median": float(np.median(clean)),
+            "probe_records": {"opt_health": len(health),
+                              "factored": len(factored)},
+            "eff_lr_step_1": health[1]["eff_lr"] if len(health) > 1
+            else None,
+            "group_ratio_step_1": health[1]["group_ratio"]
+            if len(health) > 1 else None,
+            "factored_step_0": factored[0] if factored else None}
+        if train is not None:
+            out["A"]["train_phase"] = {
+                "step_seconds": train["step_seconds"],
+                "peak_memory_bytes": train["peak_memory_bytes"],
+                "step_seconds_median_after_first": float(
+                    np.median(train["step_seconds"][1:]))}
+            out["A"]["guard_and_probes_ms_a_step"] = 1e3 * (
+                out["A"]["clean_step_seconds_median"]
+                - out["A"]["train_phase"]["step_seconds_median_after_first"])
+        want_k = TENSORS_PER_STEP * steps["A"]
+        checks.update({
+            "A step 3 anomaly/nonfinite": (v[3]["anomaly"] == 1.0 and
+                                           v[3]["nonfinite"] == 1.0),
+            "A only step 3 anomalous": [x["anomaly"] for x in v] ==
+            [float(i == 3) for i in range(steps["A"])],
+            "A step 3 bitwise a no-op": watch.bitwise is True,
+            "A opt_state.step == 7": int(res.opt_state.step) == 7,
+            "A K1/K2 1360 each": launches == {"adalomo_stats": want_k,
+                                              "adalomo_update": want_k},
+            "A one host sync a step": watch.syncs == [1] * steps["A"],
+            "A losses finite": len(res.history["loss"]) == steps["A"] and
+            all(math.isfinite(x) for x in res.history["loss"]),
+            "A probe records every step": (
+                [r["step"] for r in health] == list(range(steps["A"])) and
+                [r["step"] for r in factored] ==
+                list(range(0, steps["A"], 2))),
+            "A group ratios finite": all(
+                math.isfinite(x) for r in health
+                for x in r["group_ratio"].values()),
+            # the skipped step committed nothing: every unit's relative
+            # update is 0, below the histogram's range
+            "A counts sum to n_units (0 at the skip)": all(
+                sum(r["eff_lr"]["counts"]) == (
+                    0 if r["step"] == 3 else r["eff_lr"]["n_units"])
+                for r in health),
+            "A recon finite >= 0 on the two largest": all(
+                sorted(k for k in r if k.startswith("recon/")) ==
+                list(SENTINEL_RECON_KEYS) and all(
+                    math.isfinite(r[k]) and r[k] >= 0
+                    for k in SENTINEL_RECON_KEYS) for r in factored),
+            "A one anomaly record nonfinite/3/backoff": out["A"]["anomalies"]
+            == [("nonfinite", 3, "backoff")]})
+        del res, watch, stream
+        out["A"]["allocated_after_free_bytes"] = held_bytes()
+        checks["A memory freed"] = out["A"]["allocated_after_free_bytes"] \
+            == base
+
+        # B: an update scaled 100x at step 6, after the default warmup of 5
+        spec = sentinel_spec(
+            "B", SentinelSpec(enabled=True, ladder=("skip", "backoff")),
+            root=root)
+        res, watch, timing, launches = sentinel_run(
+            spec, Injection("spike", at_step=6, scale=100.0), copy_at=5,
+            check_at=6, logs=[])
+        v = watch.verdicts
+        stream = read_stream(spec.metrics_path)
+        out["B"] = {
+            "steps": steps["B"], "losses": res.history["loss"],
+            "step_seconds": timing.step_s, "launches": launches,
+            "host_syncs_per_step": watch.syncs,
+            "update_norms": [x["update_norm"] for x in v],
+            "ema_refs": [x["ema_ref"] for x in v],
+            "lr_scales": [x["lr_scale"] for x in v],
+            "anomalies": [(a["anomaly"], a["step"], a["action"])
+                          for a in stream.anomalies()],
+            "bitwise_step_6_equals_step_5": watch.bitwise,
+            "opt_step": int(res.opt_state.step),
+            "peak_memory_bytes": max(watch.peak_before_copy,
+                                     torch.cuda.max_memory_allocated())}
+        checks.update({
+            "B spike at 6 and only there": (
+                [x["spike"] for x in v] == [float(i == 6) for i in
+                                            range(steps["B"])] and
+                [x["anomaly"] for x in v] == [x["spike"] for x in v]),
+            "B lr_scale 0.1 from step 7": out["B"]["lr_scales"] ==
+            [1.0] * 7 + [float(torch.tensor(0.1, dtype=torch.float32))],
+            "B step 6 bitwise a no-op": watch.bitwise is True,
+            "B opt_state.step == 7": out["B"]["opt_step"] == 7,
+            "B one host sync a step": watch.syncs == [1] * steps["B"],
+            "B one anomaly record spike/6/backoff": out["B"]["anomalies"] ==
+            [("spike", 6, "backoff")]})
+        del res, watch, stream
+        out["B"]["allocated_after_free_bytes"] = held_bytes()
+        checks["B memory freed"] = out["B"]["allocated_after_free_bytes"] \
+            == base
+
+        # C: a NaN'd update at step 4 rolls back to the step-4 checkpoint
+        logs = []
+        ck = CheckpointSpec(dir=os.path.join(root, "ck_c"), every=2,
+                            keep_last=1)
+        spec = sentinel_spec(
+            "C", SentinelSpec(enabled=True, ladder=("skip", "rollback"),
+                              rollback_after=1), root=root, checkpoint=ck)
+        res, watch, timing, launches = sentinel_run(
+            spec, Injection("nan_grads", at_step=4), copy_at=-1,
+            check_at=-1, logs=logs)
+        mgr = res.find_hook(CheckpointHook).manager
+        mgr.wait()
+        stream = read_stream(spec.metrics_path)
+        anoms = stream.anomalies()
+        out["C"] = {
+            "steps": steps["C"], "history_steps": res.history["step"],
+            "losses": res.history["loss"], "step_seconds": timing.step_s,
+            "launches": launches,
+            "anomalies": anoms, "checkpoint_io": list(mgr.timings),
+            "rolled_back_log": [m for m in logs if "rolled back" in m],
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "disk_free_bytes": shutil.disk_usage(root).free}
+        checks.update({
+            "C rolled back to step 4": any("rolled back to step 4" in m
+                                           for m in logs),
+            "C quarantine [4, 5)": [a.get("quarantine") for a in anoms] ==
+            [[4, 5]],
+            "C rollback record": [(a["anomaly"], a["step"], a["action"],
+                                   a.get("anomaly_step")) for a in anoms] ==
+            [("nonfinite", 4, "rollback", 4)],
+            "C completes with finite losses": (
+                res.history["step"] == list(range(steps["C"])) and
+                all(math.isfinite(x) for x in res.history["loss"])),
+            "C K1/K2 170 a step run": launches == {
+                "adalomo_stats": TENSORS_PER_STEP * (steps["C"] + 1),
+                "adalomo_update": TENSORS_PER_STEP * (steps["C"] + 1)}})
+        del res, watch, stream, mgr
+        shutil.rmtree(ck.dir, ignore_errors=True)
+        out["C"]["allocated_after_free_bytes"] = held_bytes()
+        checks["C memory freed"] = out["C"]["allocated_after_free_bytes"] \
+            == base
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["checks"] = checks
+    out["seconds"] = time.perf_counter() - t0
+    emit("sentinel", arch=ARCH_ID, batch=4, seq=1024, **out)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"sentinel: failed {failed}")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1945,8 +2345,8 @@ def check_flash_vs_direct() -> dict:
 
 # --------------------------------------------------------------------------
 
-PHASES = ("kernels", "train", "parity", "resume", "baselines", "packed",
-          "serve", "serve_parity", "legacy_serve", "legacy_parity")
+PHASES = ("kernels", "train", "parity", "resume", "sentinel", "baselines",
+          "packed", "serve", "serve_parity", "legacy_serve", "legacy_parity")
 EXTRA_PHASES = ("timing",)
 
 
@@ -1960,7 +2360,9 @@ def main() -> None:
                          "legacy_parity after touching K4, the legacy "
                          "engine or the long-sequence attention, "
                          "kernels,train,resume after touching the run "
-                         "layer or the checkpoints, kernels,baselines "
+                         "layer or the checkpoints, kernels,train,sentinel "
+                         "after touching the sentinel or the probes, "
+                         "kernels,baselines "
                          "after touching an optimizer rule, "
                          "kernels,packed after touching the segment "
                          "masks or the packed path; timing "
@@ -1998,6 +2400,10 @@ def main() -> None:
         phase_resume()
         # the process's first profiler start keeps its caller's frames (run
         # A's) in a reference cycle; free them before the serving phases
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "sentinel" in phases:
+        phase_sentinel(train)
         gc.collect()
         torch.cuda.empty_cache()
     if "baselines" in phases:

@@ -7,8 +7,10 @@
 
 Runs on the card; ``--device cpu`` asks for the CPU.  The flags are the
 reference launcher's (``repro.launch.train``), so one command line or spec
-file drives both packages; a flag of a layer that is not ported yet raises
-``NotImplementedError``.
+file drives both packages — ``--sentinel*`` (the step guard and its policy
+ladder) and ``--observe-*`` (the optimizer-health probes, recorded in the
+``--metrics-path`` stream) included; a flag of a layer that is not ported
+yet raises ``NotImplementedError``.
 
 A run with ``--ckpt-dir D`` that is sent SIGTERM or SIGINT checkpoints at the
 next step boundary and exits 75 (``PREEMPTED_EXIT_CODE``); the same command

@@ -149,9 +149,11 @@ class MetricsHook(Hook):
     The file is a schema-v1 stream (``repro_torch.telemetry.schema``): it
     opens with a ``{"schema": 1, "stream": "train"}`` header, which is
     never stored in ``records``; legacy headerless files still resume
-    cleanly.  Optimizer-health ``probe`` records are written from
-    ``ev.metrics["opt_health"]`` at the ObservabilitySpec cadence; the
-    port's step does not compute the probes yet, so they stay absent."""
+    cleanly.  When the run's ObservabilitySpec is enabled, the
+    optimizer-health values arriving in ``ev.metrics["opt_health"]``
+    (already host values — they rode the runner's one transfer) are
+    recorded as ``probe`` records at the spec's cadence; the sentinel's
+    verdicts become ``anomaly`` records (:meth:`record_anomaly`)."""
 
     def __init__(self, path, every: int = 1):
         self.path = str(path)
@@ -328,7 +330,9 @@ class EvalHook(Hook):
 class CheckpointHook(Hook):
     """Checkpoint save every ``every`` steps; drains on exit.  The saved
     tree is ``(params, opt_state)`` with the data step recorded so resume
-    is exactly deterministic."""
+    is exactly deterministic, and the sentinel monitor's state (counters,
+    quarantine, device-state snapshot) under ``extra["sentinel"]`` when the
+    run has one."""
 
     def __init__(self, manager, every: int):
         self.manager = manager
@@ -336,8 +340,13 @@ class CheckpointHook(Hook):
 
     def on_step_end(self, ctx, ev: StepEvent) -> None:
         if self.every and (ev.step + 1) % self.every == 0:
+            extra = {"data_step": ev.step + 1}
+            if getattr(ctx, "sentinel", None) is not None:
+                # monitor counters + device-state snapshot: a resumed run
+                # rebuilds the sentinel's cross-step memory bitwise
+                extra["sentinel"] = ctx.sentinel.to_extra()
             self.manager.save(ev.step + 1, (ctx.params, ctx.opt_state),
-                              extra={"data_step": ev.step + 1})
+                              extra=extra)
 
     def on_exit(self, ctx) -> None:
         self.manager.wait()

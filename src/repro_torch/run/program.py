@@ -15,6 +15,13 @@ PyTorch runs eagerly, so there is nothing to compile or lower: the program's
 reference's ``donate_argnums=(0, 1)`` — and returns the objects it was
 given.  ``hparams_fn(step)`` returns the dynamic hparams (host floats) for the
 1-based step; they reach the device as data.
+
+With ``spec.sentinel.enabled`` the step is wrapped by the sentinel guard
+(``repro_torch.sentinel.guard``) and takes and returns a ``SentinelState``
+as a fifth item; with ``spec.observe`` enabled the optimizer-health probes
+(``repro_torch.telemetry.probes``) ride the metrics — inside the guard when
+both are on.  Either wrapper keeps one pre-step :class:`Snapshot` of params
+and moments, whose buffers the program owns from step to step.
 """
 from __future__ import annotations
 
@@ -35,9 +42,6 @@ def check_ported(spec: RunSpec) -> None:
     """Raise ``NotImplementedError`` for a spec that turns on a layer the
     port does not have yet, naming it."""
     unported = [
-        (spec.sentinel.enabled, "sentinel.enabled", "the training sentinel"),
-        (spec.observe.enabled, "observe.optimizer_every",
-         "the optimizer-health probes (telemetry)"),
         (spec.mesh.shape is not None, "mesh.shape",
          "sharded execution (scale-out)"),
     ]
@@ -79,8 +83,11 @@ class StepProgram:
 
     ``step(params, opt_state, batch, hparams)`` runs one step **in place**
     and returns ``(params, opt_state, loss, metrics)`` with loss and metrics
-    as 0-d device tensors.  ``hparams_fn(step)`` returns the dynamic hparams
-    for the 1-based step.  ``device`` is where ``init`` allocates.
+    as device tensors; with the sentinel on it is ``step(params, opt_state,
+    batch, hparams, sent)`` and returns ``sent'`` fifth.  ``hparams_fn(step)``
+    returns the dynamic hparams for the 1-based step.  ``device`` is where
+    ``init`` and ``init_sentinel`` allocate; ``snapshot`` is the pre-step
+    copy the guard or the probes keep (None when neither is on).
     """
 
     spec: RunSpec
@@ -90,6 +97,7 @@ class StepProgram:
     step: Callable
     hparams_fn: Callable[[int], dict]
     device: torch.device
+    snapshot: Any = None
     _loss_fn: Any = None
 
     @property
@@ -104,17 +112,32 @@ class StepProgram:
         params = self.arch.init_params(seed, device=self.device)
         return params, self.opt.init(params)
 
+    # ---------------- sentinel ----------------
+    @property
+    def sentinel_enabled(self) -> bool:
+        return self.spec.sentinel.enabled
+
+    def init_sentinel(self):
+        """Fresh device SentinelState, or None when the guard is off."""
+        if not self.sentinel_enabled:
+            return None
+        from repro_torch.sentinel.guard import init_sentinel_state
+        return init_sentinel_state(self.device)
+
 
 def build_step_program(spec: RunSpec, arch=None, opt: Optional[Opt] = None,
                        *, groups=None, global_grad_norm=None,
-                       device="cuda") -> StepProgram:
+                       device="cuda", inject=None) -> StepProgram:
     """Assemble the :class:`StepProgram` for ``spec``.
 
     ``arch`` defaults to the registry lookup of ``spec.model``.
     ``groups=None`` applies the paper-standard no-decay-on-1-D grouping when
     the rule has a ``weight_decay`` hparam.  ``device`` (the card unless the
     caller asks for the CPU) is where the program's ``init`` allocates;
-    without a CUDA device the default raises.
+    without a CUDA device the default raises.  ``inject`` (an
+    :class:`~repro_torch.sentinel.inject.Injection`) arms the fault injector
+    inside the sentinel guard — it requires ``spec.sentinel.enabled``
+    because the guard owns the injection point.
     """
     check_ported(spec)
     device = resolve_device(device)
@@ -197,6 +220,25 @@ def build_step_program(spec: RunSpec, arch=None, opt: Optional[Opt] = None,
             params, opt_state = opt.step(params, grads, opt_state, hp)
             return params, opt_state, loss, metrics
 
+    if inject is not None and not spec.sentinel.enabled:
+        raise ValueError("fault injection requires spec.sentinel.enabled "
+                         "(the sentinel guard owns the injection point)")
+    snapshot = None
+    if spec.sentinel.enabled:
+        # One guard a step, around the whole microbatch loop: snapshot,
+        # in-place step, injection, detection, and the torch.where commit,
+        # with the verdict in metrics["sentinel"].  With probes on, the
+        # guard computes them itself on the COMMITTED transition.
+        from repro_torch.sentinel.guard import guard_step
+        one_step = guard_step(
+            one_step, opt=opt, sspec=spec.sentinel,
+            ospec=spec.observe if spec.observe.enabled else None,
+            inject=inject)
+        snapshot = one_step.snapshot
+    elif spec.observe.enabled:
+        from repro_torch.telemetry.probes import instrument_step
+        one_step = instrument_step(one_step, opt=opt, ospec=spec.observe)
+        snapshot = one_step.snapshot
     return StepProgram(spec=spec, arch=arch, opt=opt, fused=fused,
                        step=one_step, hparams_fn=hparams_fn,
-                       device=device)
+                       device=device, snapshot=snapshot)

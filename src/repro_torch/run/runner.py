@@ -2,18 +2,20 @@
 
 Counterpart of ``repro.run.runner``: assembles arch + :class:`StepProgram` +
 data + hook pipeline from a :class:`RunSpec` and drives the loop, with
-checkpoint resume and transient-failure recovery.  The reference's
-sentinel and elastic (``mesh.shape``) branches belong to later slices; a
-spec that asks for them raises ``NotImplementedError``
-(``program.check_ported``).
+checkpoint resume, transient-failure recovery and the training sentinel's
+host policy (skip, backoff, rollback with quarantine, budget abort).  The
+reference's elastic (``mesh.shape``) branch belongs to a later slice; a spec
+that asks for it raises ``NotImplementedError`` (``program.check_ported``).
 
 Default hook order (measurement before side effects; see
 ``repro_torch.run.hooks``): straggler → heartbeat → profiler → history →
 logging → metrics → eval → checkpoint → preemption → user hooks.
 
-One device-to-host transfer per step: loss and metrics are stacked on the
-device and read back with a single copy; hooks get host floats.  Saves and
-evals add their own transfers, on the steps they run.
+One device-to-host transfer per step: loss and every tensor of the metrics
+(the sentinel's verdict and the probes included) are flattened into one
+vector on the device and read back with a single copy; hooks get host
+values.  Saves, evals and rollbacks add their own transfers, on the steps
+they run.
 """
 from __future__ import annotations
 
@@ -43,6 +45,9 @@ class RunContext:
     hooks: tuple
     ckpt_manager: Any = None
     start_step: int = 0
+    # SentinelMonitor when spec.sentinel.enabled (CheckpointHook persists
+    # its to_extra() so resume rebuilds the device SentinelState exactly).
+    sentinel: Any = None
 
     def dispatch_eval(self, step: int, metrics: dict) -> None:
         for h in self.hooks:
@@ -125,21 +130,56 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
     return out
 
 
+class _Slot(int):
+    """Where a tensor stood in the metrics tree (its index in the flat
+    transfer)."""
+
+
 def to_host(loss, metrics: dict) -> tuple:
-    """The ONE device→host transfer of a step: every 0-d observable in one
-    stacked tensor, one copy."""
-    names = sorted(metrics)
-    flat = torch.stack([loss.to(torch.float32)]
-                       + [metrics[n].to(torch.float32) for n in names])
-    vals = flat.cpu().tolist()
-    return vals[0], dict(zip(names, vals[1:]))
+    """The ONE device→host transfer of a step: the loss and every tensor of
+    the (nested) metrics flattened into one fp32 vector, read back with one
+    copy, and put back in place — 0-d values as Python floats, others as
+    float32 numpy arrays.  The host values the reference's jitted step
+    turns into arrays (a histogram's bounds and unit count) become floats,
+    and dicts come back with sorted keys, so a stream record is the
+    reference's value for value and type for type."""
+    tensors = [loss]
+
+    def collect(x):
+        if isinstance(x, dict):
+            return {k: collect(v) for k, v in x.items()}
+        if isinstance(x, torch.Tensor):
+            tensors.append(x)
+            return _Slot(len(tensors) - 1)
+        return x
+
+    tree = collect(metrics)
+    flat = torch.cat([t.reshape(-1).to(torch.float32)
+                      for t in tensors]).cpu().numpy()
+    vals, at = [], 0
+    for t in tensors:
+        n = t.numel()
+        vals.append(float(flat[at]) if t.dim() == 0
+                    else flat[at:at + n].reshape(tuple(t.shape)).copy())
+        at += n
+
+    def place(x):
+        if isinstance(x, dict):
+            return {k: place(x[k]) for k in sorted(x)}
+        if isinstance(x, _Slot):
+            return vals[x]
+        if isinstance(x, (int, float)) and not isinstance(x, bool):
+            return float(x)
+        return x
+
+    return vals[0], place(tree)
 
 
 def run(spec: RunSpec, *, arch=None, program: Optional[StepProgram] = None,
         hooks: Sequence[hooks_lib.Hook] = (), params=None, opt_state=None,
         batch_iter: Optional[Iterator[dict]] = None, eval_iter=None,
         ckpt_manager=None, start_step: int = 0, groups=None, device="cuda",
-        log_fn: Callable[[str], None] = print) -> RunResult:
+        inject=None, log_fn: Callable[[str], None] = print) -> RunResult:
     """Drive one run end-to-end.  Overrides (all optional):
 
     ``arch``       an Arch instance for ad-hoc configs (else registry);
@@ -156,7 +196,10 @@ def run(spec: RunSpec, *, arch=None, program: Optional[StepProgram] = None,
                    hooks replace the default instance);
     ``start_step`` begin mid-schedule without a checkpoint;
     ``device``     where the run lives: the card by default, and the call
-                   raises if there is none; pass ``"cpu"`` for the CPU.
+                   raises if there is none; pass ``"cpu"`` for the CPU;
+    ``inject``     a fault :class:`~repro_torch.sentinel.inject.Injection`
+                   (chaos harness; requires ``spec.sentinel.enabled`` and no
+                   prebuilt program).
 
     A transient device error in a step (``torch.AcceleratorError``) restores
     the latest checkpoint and replays from it, up to ``spec.fault.retries``
@@ -164,9 +207,20 @@ def run(spec: RunSpec, *, arch=None, program: Optional[StepProgram] = None,
     the run must be resumed by a new process.
     """
     if program is None:
-        program = build_step_program(spec, arch, groups=groups, device=device)
+        program = build_step_program(spec, arch, groups=groups, device=device,
+                                     inject=inject)
+    elif inject is not None:
+        raise ValueError("inject requires run() to build the program "
+                         "(pass inject to build_step_program instead)")
     device = program.device
     arch = program.arch
+
+    # --- training sentinel (host side) --------------------------------
+    monitor = None
+    sent = program.init_sentinel()
+    if program.sentinel_enabled:
+        from repro_torch.sentinel.policy import SentinelMonitor
+        monitor = SentinelMonitor(spec.sentinel)
 
     if params is None:
         params, opt_state = program.init(spec.seed)
@@ -178,16 +232,38 @@ def run(spec: RunSpec, *, arch=None, program: Optional[StepProgram] = None,
         from repro_torch.checkpoint.manager import CheckpointManager
         ckpt_manager = CheckpointManager(ck.dir, keep_last=ck.keep_last,
                                          gc_incomplete=ck.gc_incomplete)
+
+    def _restore_sentinel(extra):
+        """Rebuild monitor + device SentinelState from checkpoint extra —
+        bitwise resume includes the sentinel's cross-step memory."""
+        nonlocal sent
+        snap = (extra or {}).get("sentinel")
+        if monitor is None or not snap:
+            return
+        from repro_torch.sentinel.guard import state_from_snapshot
+        monitor.load_extra(snap)
+        if snap.get("state"):
+            sent = state_from_snapshot(snap["state"], device)
+
     if (ckpt_manager is not None and ck.resume
             and ckpt_manager.latest_step() is not None):
         # into the live tensors: the device holds one copy of the model,
         # and the caller's ``params`` stays the run's params
-        start_step, _ = ckpt_manager.restore_into((params, opt_state))
+        start_step, _extra = ckpt_manager.restore_into((params, opt_state))
+        _restore_sentinel(_extra)
         log_fn(f"resumed from step {start_step}")
+
+    def _train_iter(s):
+        """The step-keyed train stream from step ``s`` — with quarantined
+        ranges substituted when the sentinel has rolled back."""
+        if monitor is not None:
+            from repro_torch.sentinel.policy import quarantined_batch_iter
+            return quarantined_batch_iter(spec, arch, s, monitor)
+        return make_batch_iter(spec, arch, s)
 
     own_batch_iter = batch_iter is None
     if batch_iter is None:
-        batch_iter = make_batch_iter(spec, arch, start_step)
+        batch_iter = _train_iter(start_step)
     eval_factory = None
     if eval_iter is None and spec.eval.every and spec.data is not None:
         # The default held-out stream is a pure function of how many eval
@@ -203,7 +279,8 @@ def run(spec: RunSpec, *, arch=None, program: Optional[StepProgram] = None,
                               user_hooks=hooks)
     ctx = RunContext(spec=spec, program=program, params=params,
                      opt_state=opt_state, log=log_fn, hooks=pipeline,
-                     ckpt_manager=ckpt_manager, start_step=start_step)
+                     ckpt_manager=ckpt_manager, start_step=start_step,
+                     sentinel=monitor)
 
     # Transient-failure policy: the step updates (params, opt_state) in
     # place, so a failed call may have half-applied its update — re-invoking
@@ -227,8 +304,13 @@ def run(spec: RunSpec, *, arch=None, program: Optional[StepProgram] = None,
             batch = batch_to_device(next(batch_iter), device)
             hp = program.hparams_fn(step + 1)
             try:
-                ctx.params, ctx.opt_state, loss, metrics = program.step(
-                    ctx.params, ctx.opt_state, batch, hp)
+                if sent is None:
+                    ctx.params, ctx.opt_state, loss, metrics = program.step(
+                        ctx.params, ctx.opt_state, batch, hp)
+                else:
+                    (ctx.params, ctx.opt_state, loss, metrics,
+                     sent) = program.step(ctx.params, ctx.opt_state, batch,
+                                          hp, sent)
             except RETRIABLE as e:
                 failures += 1
                 if ckpt_manager is not None:
@@ -254,13 +336,14 @@ def run(spec: RunSpec, *, arch=None, program: Optional[StepProgram] = None,
                         spec.fault.retry_backoff_s * 2.0 ** (failures - 1),
                         spec.fault.retry_backoff_max_s)
                     time.sleep(delay)
-                restored, _ = ckpt_manager.restore_into(
+                restored, _extra = ckpt_manager.restore_into(
                     (ctx.params, ctx.opt_state))
+                _restore_sentinel(_extra)
                 log_fn(f"step {step} failed ({type(e).__name__}); "
                        f"restored step {restored} "
                        f"(attempt {failures}/{spec.fault.retries})")
                 failed_at, step = step, restored
-                batch_iter = make_batch_iter(spec, arch, restored)
+                batch_iter = _train_iter(restored)
                 for h in pipeline:
                     h.on_recover(ctx, restored)
                 # after on_recover: the truncation must not eat the event
@@ -276,8 +359,72 @@ def run(spec: RunSpec, *, arch=None, program: Optional[StepProgram] = None,
                                      metrics=metrics_h, hparams=hp,
                                      dt=now - t_last)
             t_last = now
+            # The monitor ingests the verdict BEFORE hook dispatch so a
+            # boundary checkpoint persists the current device-state
+            # snapshot; policy *actions* run after the hooks have seen
+            # the step (records first, then recovery).
+            anomalous = False
+            if monitor is not None:
+                verdict = ev.metrics.get("sentinel", {})
+                anomalous = monitor.observe(step, verdict)
             for h in pipeline:
                 h.on_step_end(ctx, ev)
+            if anomalous:
+                spc = spec.sentinel
+                reason = monitor.classify(verdict)
+                mh = hooks_lib.find_metrics_hook(pipeline)
+                rewindable_eval = all(
+                    h.iter_factory is not None for h in pipeline
+                    if isinstance(h, hooks_lib.EvalHook) and h.every)
+                rollback = (monitor.wants_rollback() and own_batch_iter
+                            and rewindable_eval and ckpt_manager is not None
+                            and ckpt_manager.latest_step() is not None)
+                action = ("rollback" if rollback else
+                          "backoff" if "backoff" in spc.ladder else "skip")
+                log_fn(f"sentinel: anomaly at step {step} ({reason}) -> "
+                       f"{action} [{monitor.anomalies}/{spc.budget}]")
+                if monitor.exhausted():
+                    # Loudly, and NOT via a retriable error: a run that
+                    # keeps tripping the guard must not silently spin
+                    # through restore cycles.
+                    from repro_torch.sentinel.policy import \
+                        AnomalyBudgetExceeded
+                    if mh is not None:
+                        mh.record_anomaly(step, reason, action="abort",
+                                          count=monitor.anomalies)
+                    raise AnomalyBudgetExceeded(
+                        f"anomaly budget exhausted: {monitor.anomalies} "
+                        f"anomalies > budget {spc.budget} "
+                        f"(last: {reason} at step {step})")
+                if rollback:
+                    ckpt_manager.wait()
+                    restored, _ = ckpt_manager.restore_into(
+                        (ctx.params, ctx.opt_state))
+                    monitor.quarantine(restored, step + 1)
+                    # The device SentinelState deliberately carries
+                    # forward: the guard's memory (EMA, seen-clock)
+                    # survives the rewind, which also keeps seen-keyed
+                    # injected faults from re-firing on replay.
+                    batch_iter = _train_iter(restored)
+                    for h in pipeline:
+                        h.on_recover(ctx, restored)
+                    if mh is not None:
+                        mh.record_anomaly(restored, reason,
+                                          action="rollback",
+                                          anomaly_step=step,
+                                          quarantine=[restored, step + 1],
+                                          count=monitor.anomalies)
+                    log_fn(f"sentinel: rolled back to step {restored}; "
+                           f"quarantined steps [{restored}, {step + 1})")
+                    step = restored
+                    t_last = time.time()
+                    continue
+                if mh is not None:
+                    mh.record_anomaly(
+                        step, reason, action=action,
+                        count=monitor.anomalies,
+                        update_norm=verdict.get("update_norm"),
+                        ema_ref=verdict.get("ema_ref"))
             step += 1
     finally:
         for h in pipeline:

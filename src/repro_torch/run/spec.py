@@ -2,10 +2,10 @@
 
 The port's copy of ``repro.run.spec``: the same dataclasses with the same
 fields and defaults, so ``RunSpec.to_json()`` is byte-identical in both
-packages and one spec file drives both.  Fields of layers that are not ported
-yet (sentinel, observe, mesh.shape) are kept for that reason;
-``build_step_program``/``run`` raise ``NotImplementedError`` when a spec turns
-one on.
+packages and one spec file drives both.  The one field of a layer that is not
+ported yet, ``mesh.shape``, is kept for that reason;
+``build_step_program``/``run`` raise ``NotImplementedError`` when a spec sets
+it.
 
 A :class:`RunSpec` is everything the run layer needs to reconstruct a
 training (or dry-run) scenario: which architecture at which shape, the

@@ -5,19 +5,20 @@ One frozen dataclass rides :class:`repro_torch.run.spec.RunSpec` (field
 stack:
 
 * **detection thresholds** — spike EMA decay/warmup/factor and the
-  per-group trust-ratio ceiling — consumed by the step guard;
+  per-group trust-ratio ceiling — consumed by
+  :func:`repro_torch.sentinel.guard.guard_step`;
 * **policy ladder** — an ordered tuple of rungs drawn from
   ``("skip", "backoff", "rollback")``.  ``skip`` is mandatory and always
   first: every anomalous update is discarded in-graph before any host
   policy runs, so the moments can never be poisoned no matter what the
   host decides afterwards;
-* **budget** — a lifetime anomaly allowance; exhausting it aborts the run
-  (loud failure, not silent degradation).
+* **budget** — a lifetime anomaly allowance; exhausting it raises
+  :class:`repro_torch.sentinel.policy.AnomalyBudgetExceeded` (loud failure,
+  not silent degradation).
 
 A copy of ``repro.sentinel.spec`` (the port imports nothing of ``repro``), so
-that ``RunSpec.to_json()`` is byte-identical in both packages.  The guard and
-the policies themselves are not ported yet: ``run()`` raises for
-``enabled=True``.
+that ``RunSpec.to_json()`` is byte-identical in both packages.  The guard is
+``repro_torch.sentinel.guard``, the policies ``repro_torch.sentinel.policy``.
 """
 from __future__ import annotations
 

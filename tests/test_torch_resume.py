@@ -263,3 +263,105 @@ def test_injected_iterator_is_not_rewound(tmp_path):
         run(spec, program=_flaky_program(spec, {4}),
             batch_iter=make_batch_iter(spec, arch), **QUIET)
     assert CheckpointManager(tmp_path / "ck").latest_step() == 2
+
+
+# ------------------------------------------------ the sentinel's extra
+
+def _sentinel_spec(d, total, resume=False):
+    from repro_torch.run import ObservabilitySpec, SentinelSpec
+    return _spec(total=total, checkpoint=_ckpt(d, resume=resume),
+                 metrics_path=str(d / "m.jsonl"),
+                 sentinel=SentinelSpec(enabled=True,
+                                       ladder=("skip", "backoff")),
+                 observe=ObservabilitySpec(optimizer_every=1,
+                                           factored_every=2))
+
+
+def _capture(base):
+    """A hook that keeps the monitor's extra as the run starts (after any
+    restore) and as each step ends, and each step's verdict."""
+    class Capture(base):
+        def __init__(self):
+            self.start, self.ends, self.verdicts = None, [], []
+
+        def on_run_start(self, ctx):
+            self.start = ctx.sentinel.to_extra()
+
+        def on_step_end(self, ctx, ev):
+            self.ends.append(ctx.sentinel.to_extra())
+            self.verdicts.append(dict(ev.metrics["sentinel"]))
+    return Capture()
+
+
+def _assert_resumed_state(saved: dict, first: dict, *, bitwise: bool):
+    """The first verdict after a resume continues the saved device state:
+    counters exactly, the EMA folded from the saved value (in fp32 — bitwise
+    in the port)."""
+    st = saved["state"]
+    assert first["anomaly"] == 0.0
+    assert first["seen"] == st["seen"] + 1
+    assert first["clean"] == st["clean"] + 1
+    assert first["skipped"] == st["skipped"]
+    assert first["backoff"] == max(st["backoff"] - 1, 0)
+    f = np.float32
+    ema = f(0.9) * f(st["ema"]) + (f(1) - f(0.9)) * f(first["update_norm"])
+    if bitwise:
+        assert f(first["ema"]) == ema
+    else:
+        np.testing.assert_allclose(first["ema"], ema, rtol=1e-6)
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_sentinel_extra_crosses_between_the_packages(tmp_path, direction):
+    """A run with the sentinel (a NaN'd update at step 1, under backoff)
+    saved by one package resumes in the other: the monitor's counters and
+    quarantine equal what was saved, and the device SentinelState rebuilt
+    from the extra continues bitwise."""
+    from repro.run import hooks as ref_hooks
+    from repro.sentinel import Injection as RefInjection
+    from repro_torch.run import Hook
+    from repro_torch.sentinel import Injection
+    ref_arch, _ = smoke_archs()
+    d = tmp_path / "ck"
+    first = _sentinel_spec(d, 4)
+    again = _sentinel_spec(d, 6, resume=True)
+    saver = _capture(ref_hooks.Hook if direction == "jax_to_port" else Hook)
+    loader = _capture(Hook if direction == "jax_to_port" else ref_hooks.Hook)
+    if direction == "jax_to_port":
+        ref_run(_ref(first), params=ref_params_and_copy(ref_arch)[0],
+                hooks=[saver], inject=RefInjection("nan_grads", at_step=1),
+                log_fn=lambda s: None)
+        res = run(again, params=_port_params(), hooks=[loader], **QUIET)
+    else:
+        run(first, params=ref_params_and_copy(ref_arch)[1], hooks=[saver],
+            inject=Injection("nan_grads", at_step=1), **QUIET)
+        res = ref_run(_ref(again), params=ref_params_and_copy(ref_arch)[0],
+                      hooks=[loader], log_fn=lambda s: None)
+    saved = saver.ends[-1]
+    assert saved["anomalies"] == 1 and saved["state"]["skipped"] == 1.0
+    assert saved["state"]["seen"] == 4.0 and saved["state"]["backoff"] > 0
+    assert loader.start == saved
+    assert res.start_step == 4 and res.history["step"] == [4, 5]
+    _assert_resumed_state(saved, loader.verdicts[0],
+                          bitwise=direction == "jax_to_port")
+
+
+def test_sentinel_stream_reads_and_reports_in_both_packages(tmp_path):
+    """The port's stream with ``anomaly`` and ``probe`` records validates
+    with the reference's reader, and both packages' report summarises it
+    equally."""
+    from repro.telemetry import read_stream as ref_read_stream
+    from repro.telemetry.report import summarize as ref_summarize
+    from repro_torch.sentinel import Injection
+    from repro_torch.telemetry.report import summarize
+    spec = _sentinel_spec(tmp_path / "ck", 4)
+    run(spec, params=_port_params(),
+        inject=Injection("nan_grads", at_step=2), **QUIET)
+    ref_stream = ref_read_stream(spec.metrics_path)
+    port_stream = read_stream(spec.metrics_path)
+    assert [(a["anomaly"], a["step"], a["action"])
+            for a in ref_stream.anomalies()] == [("nonfinite", 2, "backoff")]
+    assert len(ref_stream.probes()) == len(port_stream.probes()) == 6
+    want = ref_summarize([ref_stream])
+    assert summarize([port_stream]) == want
+    assert want["train"]["anomalies"]["by_reason"] == {"nonfinite": 1}

@@ -130,6 +130,32 @@ def test_cli_runs_on_cpu(tmp_path):
     assert json.loads(out2.read_text())["loss"] == hist["loss"]
 
 
+def test_cli_sentinel_and_probes_on_cpu(tmp_path):
+    """``--sentinel --observe-every 2`` run on the CPU: the stream holds
+    probe records every 2 steps and no anomaly on a clean run; the spec the
+    flags make is the reference CLI's."""
+    metrics = tmp_path / "m.jsonl"
+    argv = ["--arch", ARCH_ID, "--smoke", "--steps", "4", "--batch", "2",
+            "--seq", "16", "--sentinel", "--sentinel-ladder",
+            "skip,backoff", "--observe-every", "2", "--metrics-path",
+            str(metrics)]
+    assert RunSpec.from_cli(argv).to_json() == \
+        ref_spec_mod.RunSpec.from_cli(argv).to_json()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *argv,
+         "--device", "cpu"],
+        env=dict(os.environ, PYTHONPATH=SRC), capture_output=True, text=True,
+        timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "final loss" in proc.stdout and "sentinel" not in proc.stdout
+    from repro_torch.telemetry.schema import read_stream
+    s = read_stream(str(metrics))
+    assert [(r["probe"], r["step"]) for r in s.probes()] == [
+        ("opt_health", 0), ("factored", 0), ("opt_health", 2),
+        ("factored", 2)]
+    assert s.anomalies() == [] and len(s.steps()) == 4
+
+
 def test_port_imports_neither_jax_nor_repro():
     """Every module of the port, imported in a fresh interpreter: neither
     ``jax`` nor anything of ``repro`` gets loaded."""
@@ -166,8 +192,6 @@ def test_default_device_is_the_card_and_raises_without_one():
 
 
 @pytest.mark.parametrize("change", [
-    {"sentinel": spec_mod.SentinelSpec(enabled=True)},
-    {"observe": spec_mod.ObservabilitySpec(optimizer_every=1)},
     {"mesh": spec_mod.MeshSpec(kind="multi", shape=(2,))}])
 def test_unported_spec_fields_raise(change):
     _, pspec = _specs()
