@@ -14,7 +14,10 @@ printing one JSON line:
            plain PyTorch version on the card.  AdaLomo K1/K2: the shapes of
            h2o-danube-1.8b plus ragged ones, for every pairing of fp32 and
            bf16 params and grads; weight decay, the literal mode, a stacked
-           [3, m, n] case and a bitwise re-run.  Paged decode attention K3:
+           [3, m, n] case and a bitwise re-run; deepseek-moe-16b's expert
+           batches [64, 2048, 1408] and [64, 1408, 2048] (bf16) and its fp32
+           router [2048, 64], with a bitwise re-run on an expert batch.
+           Paged decode attention K3:
            the CPU tests' cases, a danube-shaped ragged case with and without
            a window, danube serving shapes (8 sequences, 32/8 heads, dh 80,
            pages of 16, up to 2048 tokens), shuffled page tables and garbage
@@ -22,12 +25,18 @@ printing one JSON line:
            a wide table, a window that leaves only the last page, a
            sequence with no token, which must give 0), fp32 (1e-5) and bf16
            (3e-2), a bitwise re-run, and ten launches on the same ticket
-           counters at B 1 and B 8 x 2048 tokens, bit-identical.  Ring-cache decode attention K4: the reference kernel
+           counters at B 1 and B 8 x 2048 tokens, bit-identical; the same
+           serving shapes, runs with no live slot and bitwise re-runs at
+           the other configs' heads (``NEW_HEADS``: dh 120 and 160 at 32/8
+           heads, a query group of 1 at 16/16, 64/8 at dh 128).
+           Ring-cache decode attention K4: the reference kernel
            tests' cases, a dozen ragged rings, danube's shapes (B 8 x W 1024
            and B 4 x W 4096, windows none, 4096 and 256) over partly filled
            rings (empty slots hold large garbage) and wrapped ones, fp32
            (1e-5) and bf16 (3e-2), a bitwise re-run, and ten launches on the
-           same ticket counters at B 1 and B 4 x W 4096, bit-identical.  Then
+           same ticket counters at B 1 and B 4 x W 4096, bit-identical; rings
+           of 1024 (partly filled) and 4096 (wrapped) with bitwise re-runs at
+           the other configs' heads.  Then
            times kernel and plain version (CUDA events, after warm-up, inputs
            rotated so they are not served from the L2 cache) beside the least
            time the card could take, and, for K4,
@@ -130,9 +139,36 @@ printing one JSON line:
            of Engine (asserted equal in fp32, reported in bf16); then, fp32
            at danube's heads and 4096 tokens, the flash branch's value and
            gradients against direct attention's autograd.
+  moe      deepseek-moe-16b at its published width and depth (28 layers,
+           d_model 2048, 16/16 heads, 64 routed experts top-6 of width
+           1408, 2 shared, vocab 102400, bf16; 16.9 B parameters), random
+           weights from a seed.  ``run(spec)`` with fused AdaLomo at 4 x
+           1024, 3 steps: finite losses that move, K1/K2 310 launches a step
+           each (the fp32 router through K2's fp32 variant), one host sync a
+           step, the aux loss in the metrics, and step 1 re-run from the
+           same seed bitwise equal (a digest of params and OptState on the
+           card); fused LOMO's peak beside AdaLomo's, and AdamW's and
+           Adafactor's bytes reckoned (they cannot fit).  Then PagedEngine
+           as in serve (16 requests of 32-1900 tokens, 64 new, 8 slots; K3
+           at a query group of 1: 28 launches a decode step), and at 2
+           layers the serve_parity checks (greedy tokens asserted in fp32).
+  configs  qwen3-32b (full depth, 1 x 1024: 65.5 GB of weights),
+           stablelm-12b and h2o-danube-3-4b (full depth, 4 x 1024): one
+           fused AdaLomo step each — finite loss, K1/K2 launches (450, 282,
+           170), one host sync, peak.  Then for the new head dims
+           (stablelm-12b's 160, danube-3's 120) at full depth: PagedEngine
+           (8 requests of 32-1000 tokens, 16 new) and Engine (2 x 1024
+           tokens, 16 new) with serve's and legacy_serve's token, launch and
+           sync checks; at 2 layers, fp32 greedy tokens through K3 and K4
+           equal to the plain attention's.
 
 Then the card's name and power limit, one JSON line that lists the kernels
 with their measured numbers, and the result line.
+
+``--phases configs_lomo`` (not in the default run) takes Table 1's fused
+LOMO step of qwen3-32b at full depth, 1 x 1024: the plain SGD update's fp32
+temporaries of a whole leaf bring its peak to about 3 GB below the card's
+capacity, too close for a check run by default.
 
 ``--phases timing`` (not in the default run) times the kernels as the
 kernels phase does, without its checks, and prints digests of their outputs
@@ -196,6 +232,7 @@ from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     paged_decode_attention_ref, ring_decode_attention_ref)
 from repro_torch.models import layers as ML  # noqa: E402
 from repro_torch.models.registry import get_arch  # noqa: E402
+from repro_torch.models.transformer import cache_window  # noqa: E402
 from repro_torch.run import (ModelSpec, OptSpec, RunSpec, StepSpec,  # noqa: E402
                              TimingHook, run)
 from repro_torch.serve.engine import (Engine, PagedEngine,  # noqa: E402
@@ -238,6 +275,12 @@ CFG = AdaLomoConfig()
 
 def emit(phase: str, **payload) -> None:
     print(json.dumps({"phase": phase, **payload}), flush=True)
+
+
+def progress(msg: str) -> None:
+    """A line on standard error as each part of a phase starts, so that a
+    run cut by its time limit shows where it stood."""
+    print(f"[{time.strftime('%H:%M:%S')}] {msg}", file=sys.stderr, flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -324,6 +367,66 @@ def check_kernels(errs: dict) -> int:
     return n
 
 
+# deepseek-moe-16b's leaves that the dense configs lack, as the fused step
+# hands them over: expert stacks (one layer's [64, m, n] a call, 64
+# independent matrices) and the fp32 router
+MOE_KERNEL_CASES = {"experts [64,2048,1408]": ((2048, 1408), (64,),
+                                               torch.bfloat16),
+                    "experts [64,1408,2048]": ((1408, 2048), (64,),
+                                               torch.bfloat16),
+                    "router fp32 [2048,64]": ((2048, 64), (), torch.float32)}
+MOE_CALLS_PER_STEP = {"experts [64,2048,1408]": 56,
+                      "experts [64,1408,2048]": 28,
+                      "router fp32 [2048,64]": 28}
+
+
+def check_moe_kernels(errs: dict) -> dict:
+    """K1 and K2 at deepseek-moe-16b's expert batches and fp32 router
+    against their plain versions, steps 1 and 5 (params and grads in the
+    leaf's dtype, as the fused step passes them), and a bitwise re-run of
+    the whole op on an expert batch."""
+    beta, lr = 0.999, 5e-4
+    beta_t = torch.full((), beta, device=DEV)
+    n = 0
+    for name, (shape, lead, dt) in MOE_KERNEL_CASES.items():
+        for step in (1.0, 5.0):
+            p, g, r, c = make_inputs(shape, dt, dt, shape[0] + len(lead),
+                                     step, lead=lead)
+            what = f"{name} step {step}"
+            want_r, want_c = K.adalomo_stats_ref(g, r, c, beta_t,
+                                                 eps_stat=CFG.eps_stat)
+            K.adalomo_stats(g, r, c, beta_t, eps_stat=CFG.eps_stat)
+            assert_close(r, want_r, what="adalomo_stats r " + what, **TOL_RC)
+            assert_close(c, want_c, what="adalomo_stats c " + what, **TOL_RC)
+            errs["adalomo_stats"] = max(errs["adalomo_stats"],
+                                        max_err(r, want_r), max_err(c, want_c))
+            scal = scal_for(r, lr, step, beta, 0.0, 1.0)
+            want_p = K.adalomo_update_ref(p, g, r, c, scal,
+                                          eps_div=CFG.eps_div,
+                                          eps_rms=CFG.eps_rms, literal=False)
+            K.adalomo_update(p, g, r, c, scal, eps_div=CFG.eps_div,
+                             eps_rms=CFG.eps_rms, literal=False)
+            assert_close(p, want_p, rtol=TOL_P[dt], atol=TOL_P[dt],
+                         what="adalomo_update " + what)
+            errs["adalomo_update"] = max(errs["adalomo_update"],
+                                         max_err(p, want_p))
+            n += 1
+            del p, g, r, c, want_r, want_c, want_p
+    runs = []
+    for _ in range(2):
+        p, g, r, c = make_inputs((2048, 1408), torch.bfloat16, torch.bfloat16,
+                                 6, 3.0, lead=(64,))
+        adalomo_update(p, g, r, c, 5e-4, 3.0, 0.999, 0.01, 1.0)
+        runs.append((p, r, c))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("adalomo_update on [64, 2048, 1408]: the same "
+                             "inputs did not give bit-identical outputs")
+    del runs
+    torch.cuda.empty_cache()
+    return {"cases": n, "rerun_bitwise": True}
+
+
 def check_op_variants() -> dict:
     """The whole op (K1, glue, K2) against the port's oracle: weight decay,
     the literal mode, a stacked [3, m, n] tensor, and a bitwise re-run."""
@@ -402,11 +505,11 @@ def time_graph_ms(fn, sets, rounds: int) -> float:
 def time_kernels() -> tuple:
     """Per danube shape, bf16 params and grads (what the train step passes):
     kernel, plain-version and bound, in ms, and per step (x the shape's
-    count of the 170 tensors).  Kernel and plain version are timed as
+    count of the 170 tensors); then per call at deepseek-moe-16b's expert
+    batches and fp32 router.  Kernel and plain version are timed as
     replays of a CUDA graph, because at danube's smaller shapes an eager
     launch takes about what the wrapper costs on the host; eager_ms is the
     kernel launched one call after another from the host."""
-    rows = []
     beta_t = torch.full((), 0.999, device=DEV)
     kw2 = dict(eps_div=CFG.eps_div, eps_rms=CFG.eps_rms, literal=False)
 
@@ -422,32 +525,38 @@ def time_kernels() -> tuple:
     def k2_plain(p, g, r, c, s):
         K.adalomo_update_ref(p, g, r, c, s, **kw2)
 
-    for shape, count in DANUBE_SHAPES.items():
+    def time_shape(shape, lead, dt, count):
         m, n = shape
-        set_bytes = 2 * m * n * 2
+        L = math.prod(lead)
+        elt = torch.finfo(dt).bits // 8
+        set_bytes = 2 * L * m * n * elt
         copies = min(32, max(2, math.ceil(192e6 / set_bytes)))
         sets = []
         for i in range(copies):
-            p, g, r, c = make_inputs(shape, torch.bfloat16, torch.bfloat16,
-                                     i, 5.0)
+            p, g, r, c = make_inputs(shape, dt, dt, i, 5.0, lead=lead)
             K.adalomo_stats(g, r, c, beta_t, eps_stat=CFG.eps_stat)
             sets.append((p, g, r, c, scal_for(r, 5e-4, 5.0, 0.999, 0.0, 1.0)))
         rounds = max(2, min(20, 200 // copies))
-        state_bytes = 4 * (m + n)
-        k1_bytes = m * n * 2 + 2 * state_bytes          # g; r, c in and out
-        k2_bytes = 3 * m * n * 2 + state_bytes + 16     # theta in/out, g
-        row = {"shape": list(shape), "per_step": count}
+        state_bytes = 4 * L * (m + n)
+        k1_bytes = L * m * n * elt + 2 * state_bytes      # g; r, c in and out
+        k2_bytes = 3 * L * m * n * elt + state_bytes + 16 * L  # theta, g
+        row = {"shape": list(lead) + list(shape), "dtype": str(dt),
+               "per_step": count}
         for key, fn, plain, nbytes, flop in (
                 ("stats", k1, k1_plain, k1_bytes, K1_FLOP_PER_ELEM),
                 ("update", k2, k2_plain, k2_bytes, K2_FLOP_PER_ELEM)):
             row[key + "_ms"] = time_graph_ms(fn, sets, rounds)
             row[key + "_eager_ms"] = time_ms(fn, sets, rounds)
             row[key + "_plain_ms"] = time_graph_ms(plain, sets, rounds)
-            row[key + "_bound_ms"] = max(nbytes / HBM_BYTES_PER_S,
-                                         flop * m * n / FP32_FLOP_PER_S) * 1e3
-        rows.append(row)
+            row[key + "_bound_ms"] = max(
+                nbytes / HBM_BYTES_PER_S,
+                flop * L * m * n / FP32_FLOP_PER_S) * 1e3
         del sets
         torch.cuda.empty_cache()
+        return row
+
+    rows = [time_shape(shape, (), torch.bfloat16, count)
+            for shape, count in DANUBE_SHAPES.items()]
 
     def per_step(key):
         return sum(r[key] * r["per_step"] for r in rows)
@@ -456,16 +565,22 @@ def time_kernels() -> tuple:
                      for k in ("ms", "eager_ms", "plain_ms", "bound_ms")}
               for name, key in (("adalomo_stats", "stats"),
                                 ("adalomo_update", "update"))}
-    return rows, totals
+    # deepseek-moe-16b's own leaves, per call (28 layers: 56, 28 and 28 calls
+    # a step); not in the danube totals
+    moe_rows = {name: time_shape(shape, lead, dt, MOE_CALLS_PER_STEP[name])
+                for name, (shape, lead, dt) in MOE_KERNEL_CASES.items()}
+    return rows, totals, moe_rows
 
 
 def phase_kernels() -> dict:
     t0 = time.time()
     libs = [(K.LIB_NAME, K.SOURCES), (KD.LIB_NAME, KD.SOURCES)]
+    progress("kernels: building")
     build.load_libraries(libs)         # every nvcc at once, from the sources
     K._library()
     KD._library()
     build_s = time.time() - t0
+    progress(f"kernels: built in {build_s:.1f} s")
     usage = {}
     for name, sources in libs:
         log = build.build_dir(name, list(sources)) / "build.log"
@@ -474,12 +589,20 @@ def phase_kernels() -> dict:
                               if "registers" in ln or "spill" in ln})
     errs = {"adalomo_stats": 0.0, "adalomo_update": 0.0,
             "paged_decode_attention": 0.0, "decode_attention": 0.0}
+    progress("kernels: K1/K2 cases")
     n_cases = check_kernels(errs)
     variants = check_op_variants()
+    progress("kernels: K1/K2 at the MoE shapes")
+    moe_checks = check_moe_kernels(errs)
+    progress("kernels: K3 cases")
     k3_cases, k3_bitwise = check_k3(errs)
+    progress("kernels: K4 cases")
     k4_cases, k4_bitwise = check_k4(errs)
-    rows, totals = time_kernels()
+    progress("kernels: timing K1/K2")
+    rows, totals, moe_rows = time_kernels()
+    progress("kernels: timing K3")
     k3_rows, totals["paged_decode_attention"] = time_k3()
+    progress("kernels: timing K4")
     k4_rows, totals["decode_attention"] = time_k4()
     emit("kernels", kernels=["adalomo_stats", "adalomo_update",
                              "paged_decode_attention", "decode_attention"],
@@ -491,6 +614,8 @@ def phase_kernels() -> dict:
          timing_dtype="bf16 param, bf16 grad", per_shape=rows,
          per_step_of_170_tensors={k: totals[k] for k in
                                   ("adalomo_stats", "adalomo_update")},
+         moe_cases=moe_checks, moe_per_call=moe_rows,
+         new_heads=NEW_HEADS,
          paged_cases=k3_cases, paged_rerun_bitwise=k3_bitwise,
          paged_per_shape_bf16=k3_rows,
          paged_per_decode_step_B8_n1024=totals["paged_decode_attention"],
@@ -526,6 +651,13 @@ K3_CASES = [
 # weighted sum and the kernel keeps them in fp32.
 K3_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 SERVE_WINDOW = 4096                 # h2o-danube-1.8b's sliding window
+# The other configs' heads (query, KV, head dim, window): the head dims 120
+# and 160 (not whole 16-wide k-steps; more than the dense path had seen) and
+# a query group of 1 (deepseek-moe-16b is MHA)
+NEW_HEADS = {"danube3 dh120": (32, 8, 120, 4096),
+             "stablelm dh160": (32, 8, 160, None),
+             "moe G1 dh128": (16, 16, 128, None),
+             "qwen3 G8 dh128": (64, 8, 128, None)}
 
 
 def k3_inputs(B, H, Kh, dh, ps, P, seq_lens, dtype, seed):
@@ -556,8 +688,13 @@ def check_k3(errs: dict) -> tuple:
     serve_lens = tuple(int(x) for x in rng.integers(1, 2049, 6)) + (1, 2048)
     cases = K3_CASES + [(8, 32, 8, 80, 16, 128, w, serve_lens)
                         for w in (None, SERVE_WINDOW, 100)]
+    for H, Kh, dh, window in NEW_HEADS.values():
+        cases += [(8, H, Kh, dh, 16, 128, w, serve_lens)
+                  for w in sorted({window, 100}, key=str)]
+        cases.append((3, H, Kh, dh, 16, 16, 5, (3, 100, 256)))
     n = 0
     for i, (B, H, Kh, dh, ps, P, window, lens) in enumerate(cases):
+        progress(f"  K3 case {i}: B{B} {H}/{Kh} dh {dh} window {window}")
         for dtype in (torch.float32, torch.bfloat16):
             q, kp, vp, bt, sl = k3_inputs(B, H, Kh, dh, ps, P, lens, dtype,
                                           100 + i)
@@ -577,14 +714,17 @@ def check_k3(errs: dict) -> tuple:
             errs["paged_decode_attention"] = max(
                 errs["paged_decode_attention"], max_err(got, want))
             n += 1
-    q, kp, vp, bt, sl = k3_inputs(8, 32, 8, 80, 16, 128, serve_lens,
-                                  torch.bfloat16, 7)
-    a = KD.paged_decode_attention(q, kp, vp, bt, sl, window=SERVE_WINDOW)
-    b = KD.paged_decode_attention(q, kp, vp, bt, sl, window=SERVE_WINDOW)
-    torch.cuda.synchronize()
-    if not torch.equal(a, b):
-        raise AssertionError("paged_decode_attention: the same inputs did "
-                             "not give bit-identical outputs on a re-run")
+    for H, Kh, dh, window in [(32, 8, 80, SERVE_WINDOW)] + list(
+            NEW_HEADS.values()):
+        q, kp, vp, bt, sl = k3_inputs(8, H, Kh, dh, 16, 128, serve_lens,
+                                      torch.bfloat16, 7)
+        a = KD.paged_decode_attention(q, kp, vp, bt, sl, window=window)
+        b = KD.paged_decode_attention(q, kp, vp, bt, sl, window=window)
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"paged_decode_attention {H}/{Kh} dh {dh}: "
+                                 "the same inputs did not give bit-identical "
+                                 "outputs on a re-run")
     # Ten launches back to back on the same ticket counters: each must find
     # them at 0, as the last run of the launch before left them.
     for B in (1, 8):
@@ -629,19 +769,26 @@ def k3_library(q, kp, vp, bt, mask):
 
 def time_k3() -> tuple:
     """bf16 at danube serving shapes (32/8 heads, dh 80, pages of 16, the
-    model's window): kernel, plain version, the two-call library path
-    (``k3_library``) and bound per launch, in ms.  K3 takes tens of
+    model's window), then at the other configs' heads (``NEW_HEADS``) where
+    the tree under test takes their head dim: kernel, plain version, the
+    two-call library path (``k3_library``) and bound per launch, in ms.  K3 takes tens of
     microseconds, about what its wrapper costs on the host, so all three
     are timed as replays of a CUDA graph; eager_ms is the kernel launched
     one call after another from the host."""
     rng = np.random.default_rng(5)
-    shapes = {"B8 n1024": (1024,) * 8, "B8 n2048": (2048,) * 8,
-              "B8 ragged<=2048": tuple(int(x) for x in
-                                       rng.integers(1, 2049, 8)),
-              "B1 n2048": (2048,)}
-    H, Kh, dh, ps = 32, 8, 80, 16
+    danube = (32, 8, 80, SERVE_WINDOW)
+    shapes = {"B8 n1024": ((1024,) * 8, danube),
+              "B8 n2048": ((2048,) * 8, danube),
+              "B8 ragged<=2048": (tuple(int(x) for x in
+                                        rng.integers(1, 2049, 8)), danube),
+              "B1 n2048": ((2048,), danube)}
+    # the other configs' heads at 8 x 1024 (window 4096 > 1024 for danube3)
+    shapes.update({f"{name} B8 n1024": ((1024,) * 8, heads)
+                   for name, heads in NEW_HEADS.items()
+                   if heads[2] in KD.HEAD_DIMS})
+    ps = 16
     rows = {}
-    for name, lens in shapes.items():
+    for name, (lens, (H, Kh, dh, window)) in shapes.items():
         B, P = len(lens), -(-max(lens) // ps)
         set_bytes = (1 + B * P) * ps * Kh * dh * 2 * 2
         copies = min(16, max(2, math.ceil(200e6 / set_bytes)))
@@ -651,26 +798,28 @@ def time_k3() -> tuple:
 
         def kernel(q, kp, vp, bt, sl):
             return KD.paged_decode_attention(q, kp, vp, bt, sl,
-                                             window=SERVE_WINDOW)
+                                             window=window)
 
         eager = time_ms(kernel, sets, rounds)
         ms = time_graph_ms(kernel, sets, rounds)
         plain = time_graph_ms(
             lambda q, kp, vp, bt, sl: paged_decode_attention_ref(
-                q, kp, vp, bt, sl, window=SERVE_WINDOW), sets, rounds)
+                q, kp, vp, bt, sl, window=window), sets, rounds)
         pos = torch.arange(P * ps, device=DEV)
         lens_t = torch.tensor(lens, device=DEV)
-        mask = ((pos[None] < lens_t[:, None])
-                & (lens_t[:, None] - 1 - pos[None] < SERVE_WINDOW))
+        mask = pos[None] < lens_t[:, None]
+        if window:
+            mask &= lens_t[:, None] - 1 - pos[None] < window
         lib_sets = [(q, kp, vp, bt, mask[:, None, None])
                     for q, kp, vp, bt, _ in sets]
         library = time_graph_ms(k3_library, lib_sets, rounds)
-        rows[name] = {"seq_lens": list(lens), "S": paged_split_of(B, P),
+        rows[name] = {"heads": [H, Kh, dh], "window": window,
+                      "seq_lens": list(lens), "S": paged_split_of(B, P, Kh),
                       "ms": ms, "eager_ms": eager, "plain_ms": plain,
                       "library_ms": library,
                       "library_calls": "2 (page gather, then SDPA)",
                       "bound_ms": k3_bound_ms(B, H, Kh, dh, ps, lens,
-                                              SERVE_WINDOW, 2)}
+                                              window, 2)}
         del sets, lib_sets
         torch.cuda.empty_cache()
     step = rows["B8 n1024"]
@@ -680,11 +829,11 @@ def time_k3() -> tuple:
     return rows, total
 
 
-def paged_split_of(B, P):
-    """K3's runs a sequence at danube's heads and pages of 16, where the
+def paged_split_of(B, P, Kh=8):
+    """K3's runs a sequence at ``Kh`` KV heads and pages of 16, where the
     tree under test has a split (None before it had one)."""
     split = getattr(KD, "paged_split", None)
-    return split(B, 8, P, 16) if split else None
+    return split(B, Kh, P, 16) if split else None
 
 
 # --------------------------------------------------------------------------
@@ -736,6 +885,12 @@ def k4_cases() -> list:
         for window in (None, SERVE_WINDOW, 256):
             cases.append((B, W, 32, 8, 80, window, W - 200, False))
             cases.append((B, W, 32, 8, 80, window, W + 2047, True))
+    # the other configs' heads: a partly filled ring of 1024 and a wrapped
+    # one of 4096, with and without a window
+    for H, Kh, dh, _ in NEW_HEADS.values():
+        for window in (None, 256):
+            cases.append((8, 1024, H, Kh, dh, window, 1024 - 200, False))
+            cases.append((4, 4096, H, Kh, dh, window, 4096 + 2047, True))
     return cases
 
 
@@ -744,6 +899,8 @@ def check_k4(errs: dict) -> tuple:
     bitwise re-run at danube's deep ring."""
     n = 0
     for i, (B, W, H, Kh, dh, window, cur, wrapped) in enumerate(k4_cases()):
+        progress(f"  K4 case {i}: B{B} W{W} {H}/{Kh} dh {dh} window "
+                 f"{window}")
         for dtype in (torch.float32, torch.bfloat16):
             q, kc, vc, pos, q_pos = k4_inputs(B, W, H, Kh, dh, cur, dtype,
                                               200 + i, wrapped)
@@ -756,13 +913,16 @@ def check_k4(errs: dict) -> tuple:
             errs["decode_attention"] = max(errs["decode_attention"],
                                            max_err(got, want))
             n += 1
-    args = k4_inputs(4, 4096, 32, 8, 80, 6143, torch.bfloat16, 8, True)
-    a = KD.decode_attention(*args, window=SERVE_WINDOW)
-    b = KD.decode_attention(*args, window=SERVE_WINDOW)
-    torch.cuda.synchronize()
-    if not torch.equal(a, b):
-        raise AssertionError("decode_attention: the same inputs did not give "
-                             "bit-identical outputs on a re-run")
+    for H, Kh, dh, window in [(32, 8, 80, SERVE_WINDOW)] + list(
+            NEW_HEADS.values()):
+        args = k4_inputs(4, 4096, H, Kh, dh, 6143, torch.bfloat16, 8, True)
+        a = KD.decode_attention(*args, window=window)
+        b = KD.decode_attention(*args, window=window)
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"decode_attention {H}/{Kh} dh {dh}: the "
+                                 "same inputs did not give bit-identical "
+                                 "outputs on a re-run")
     # Ten launches back to back on the same ticket counters: each must find
     # them at 0, as the last run of the launch before left them.
     for B in (1, 4):
@@ -788,19 +948,25 @@ def k4_bound_ms(B, H, Kh, dh, W, n_valid, elt) -> float:
 
 
 def time_k4() -> tuple:
-    """bf16, danube's heads (32 query / 8 KV, dh 80) and window, a wrapped
-    ring whose every slot is valid (the legacy engine's steady state):
-    kernel, plain version, bound and the library call per launch, in ms.
+    """bf16, danube's heads (32 query / 8 KV, dh 80) and window, then the
+    other configs' heads (``NEW_HEADS``) where the tree under test takes
+    their head dim, over a wrapped ring whose every slot is valid (the
+    legacy engine's steady state): kernel, plain version, bound and the
+    library call per launch, in ms.
     The library call is scaled_dot_product_attention of q [B, H, 1, dh]
     against the cache's [B, K, W, dh] views with enable_gqa and a boolean
     mask made before the timed region.  K4 takes tens of microseconds, about
     what its wrapper costs on the host, so all three are timed as replays of
     a CUDA graph; eager_ms is the kernel's time launched one call after
     another from the host."""
-    H, Kh, dh = 32, 8, 80
+    danube = (32, 8, 80, SERVE_WINDOW)
+    shapes = {"B8 W1024": (8, 1024, danube), "B4 W4096": (4, 4096, danube),
+              "B1 W4096": (1, 4096, danube)}
+    shapes.update({f"{name} B4 W4096": (4, 4096, heads)
+                   for name, heads in NEW_HEADS.items()
+                   if heads[2] in KD.HEAD_DIMS})
     rows = {}
-    for name, (B, W) in {"B8 W1024": (8, 1024), "B4 W4096": (4, 4096),
-                         "B1 W4096": (1, 4096)}.items():
+    for name, (B, W, (H, Kh, dh, window)) in shapes.items():
         cur = W + 2047
         set_bytes = 2 * B * W * Kh * dh * 2
         copies = min(16, max(2, math.ceil(200e6 / set_bytes)))
@@ -809,23 +975,24 @@ def time_k4() -> tuple:
         rounds = max(2, 64 // copies)
 
         def kernel(q, kc, vc, pos, qp):
-            return KD.decode_attention(q, kc, vc, pos, qp,
-                                       window=SERVE_WINDOW)
+            return KD.decode_attention(q, kc, vc, pos, qp, window=window)
 
         eager = time_ms(kernel, sets, rounds)
         ms = time_graph_ms(kernel, sets, rounds)
         plain = time_graph_ms(
             lambda q, kc, vc, pos, qp: ring_decode_attention_ref(
-                q, kc, vc, pos, qp, window=SERVE_WINDOW), sets, rounds)
-        valid = (sets[0][3] >= 0) & (sets[0][3] <= cur) & (
-            cur - sets[0][3] < SERVE_WINDOW)
+                q, kc, vc, pos, qp, window=window), sets, rounds)
+        valid = (sets[0][3] >= 0) & (sets[0][3] <= cur)
+        if window:
+            valid &= cur - sets[0][3] < window
         lib_sets = [(q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
                      valid.view(1, 1, 1, W)) for q, kc, vc, _, _ in sets]
         library = time_graph_ms(
             lambda q, k, v, m: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=m, enable_gqa=True), lib_sets, rounds)
         n_valid = int(valid.sum())
-        rows[name] = {"B": B, "W": W, "valid_slots": n_valid, "ms": ms,
+        rows[name] = {"heads": [H, Kh, dh], "window": window, "B": B, "W": W,
+                      "valid_slots": n_valid, "ms": ms,
                       "eager_ms": eager, "plain_ms": plain,
                       "library_ms": library,
                       "bound_ms": k4_bound_ms(B, H, Kh, dh, W, n_valid, 2)}
@@ -874,6 +1041,30 @@ def output_digests() -> dict:
         args = k3_inputs(B, 32, 8, 80, 16, 128, (n,) * B, torch.bfloat16, 71)
         out[f"paged_decode_attention B{B} n{n}"] = digest(
             KD.paged_decode_attention(*args, window=SERVE_WINDOW))
+    # the other configs' shapes, where the tree under test takes them
+    for name, (shape, lead, dt) in MOE_KERNEL_CASES.items():
+        p, g, r, c = make_inputs(shape, dt, dt, 1, 5.0, lead=lead)
+        r, c = K.adalomo_stats_ref(g, r, c, beta_t, eps_stat=CFG.eps_stat)
+        r2, c2 = r.clone(), c.clone()
+        K.adalomo_stats(g, r2, c2, beta_t, eps_stat=CFG.eps_stat)
+        out[f"adalomo_stats {name}"] = digest(torch.cat([r2.flatten(),
+                                                         c2.flatten()]))
+        K.adalomo_update(p, g, r, c, scal_for(r, 5e-4, 5.0, 0.999, 0.0, 1.0),
+                         eps_div=CFG.eps_div, eps_rms=CFG.eps_rms,
+                         literal=False)
+        out[f"adalomo_update {name}"] = digest(p)
+        del p, g, r, c, r2, c2
+    for name, (H, Kh, dh, window) in NEW_HEADS.items():
+        if dh not in KD.HEAD_DIMS:
+            out[f"{name}"] = "head dim not taken by this tree"
+            continue
+        args = k3_inputs(8, H, Kh, dh, 16, 64, (1024,) * 8, torch.bfloat16,
+                         72)
+        out[f"paged_decode_attention {name} B8 n1024"] = digest(
+            KD.paged_decode_attention(*args, window=window))
+        args = k4_inputs(4, 4096, H, Kh, dh, 6143, torch.bfloat16, 73, True)
+        out[f"decode_attention {name} B4 W4096"] = digest(
+            KD.decode_attention(*args, window=window))
     torch.cuda.synchronize()
     return out
 
@@ -885,11 +1076,11 @@ def phase_timing() -> None:
     t0 = time.time()
     build.load_libraries([(K.LIB_NAME, K.SOURCES), (KD.LIB_NAME, KD.SOURCES)])
     build_s = time.time() - t0
-    rows, totals = time_kernels()
+    rows, totals, moe_rows = time_kernels()
     k3_rows, totals["paged_decode_attention"] = time_k3()
     k4_rows, totals["decode_attention"] = time_k4()
     emit("timing", src=SRC, build_seconds=build_s, per_shape=rows,
-         totals=totals, paged_per_shape_bf16=k3_rows,
+         totals=totals, moe_per_call=moe_rows, paged_per_shape_bf16=k3_rows,
          ring_per_shape_bf16=k4_rows, digests=output_digests())
 
 
@@ -923,7 +1114,7 @@ def phase_train(steps: int = 3) -> dict:
     losses = result.history["loss"]
     params = tree_leaves(result.params)
     n_params = sum(p.numel() for p in params)
-    finite = all(bool(torch.isfinite(p).all()) for p in params)
+    finite = all_finite(result.params)
     emit("train", arch=ARCH_ID, n_layers=result.program.arch.cfg.n_layers,
          n_params=n_params, batch=4, seq=1024, steps=steps, losses=losses,
          step_seconds=timing.step_s, launches=launches,
@@ -1720,21 +1911,36 @@ def check_rules_card_vs_cpu() -> dict:
     return out
 
 
-def baseline_arm(name: str, fused: bool, base: int) -> dict:
+def all_finite(tree, piece: int = 1 << 26) -> bool:
+    """Whether every element of ``tree`` is finite, checked in pieces of
+    ``piece`` elements (a whole-leaf mask of qwen3-32b's largest stack would
+    take 15.6 GiB), with one read back at the end."""
+    flags = [torch.isfinite(x).all() for t in tree_leaves(tree)
+             for x in t.detach().reshape(-1).split(piece)]
+    return bool(torch.stack(flags).all())
+
+
+def baseline_arm(name: str, fused: bool, base: int, *, arch_id=ARCH_ID,
+                 steps=BASELINE_STEPS, batch=BASELINE_BATCH,
+                 seq=BASELINE_SEQ, hooks=()) -> dict:
     """One arm of the Table-1 comparison through ``run(spec)``: its step
-    program and init first, to read what params and state hold."""
+    program and init first, to read what params and state hold; then the
+    run, with K1/K2 counts set to 0 before it and read after, host syncs
+    counted under the sync debug mode (``hooks`` join the pipeline's end);
+    then everything freed."""
     from repro_torch.run import build_step_program
-    spec = RunSpec(model=ModelSpec(ARCH_ID, smoke=False),
-                   data=DataConfig(vocab=0, seq_len=BASELINE_SEQ,
-                                   global_batch=BASELINE_BATCH, seed=0),
+    spec = RunSpec(model=ModelSpec(arch_id, smoke=False),
+                   data=DataConfig(vocab=0, seq_len=seq, global_batch=batch,
+                                   seed=0),
                    opt=OptSpec(name=name),
-                   steps=StepSpec(total=BASELINE_STEPS, fused=fused),
+                   steps=StepSpec(total=steps, fused=fused),
                    log_every=1, seed=0)
     torch.cuda.reset_peak_memory_stats()
     program = build_step_program(spec)
     params, opt_state = program.init(spec.seed)
     init_bytes = held_bytes() - base
-    rec = {"optimizer": name, "engine": "fused" if fused else "unfused",
+    rec = {"arch": arch_id, "batch": batch, "seq": seq,
+           "optimizer": name, "engine": "fused" if fused else "unfused",
            "n_params": sum(p.numel() for p in tree_leaves(params)),
            "param_bytes": tree_bytes(params),
            "state_bytes": program.opt.state_bytes(params),
@@ -1750,7 +1956,7 @@ def baseline_arm(name: str, fused: bool, base: int) -> dict:
             K.adalomo_stats.launches = 0
             K.adalomo_update.launches = 0
             result = run(spec, program=program, params=params,
-                         opt_state=opt_state, hooks=[timing],
+                         opt_state=opt_state, hooks=[timing, *hooks],
                          log_fn=lambda s: print("  " + s, flush=True))
             launches = {"adalomo_stats": K.adalomo_stats.launches,
                         "adalomo_update": K.adalomo_update.launches}
@@ -1761,10 +1967,12 @@ def baseline_arm(name: str, fused: bool, base: int) -> dict:
         losses=result.history["loss"], step_seconds=timing.step_s,
         launches=launches,
         host_syncs=sum("synchroniz" in str(w.message) for w in caught),
+        host_sync_sites=sorted({f"{os.path.basename(w.filename)}:{w.lineno}"
+                                for w in caught
+                                if "synchroniz" in str(w.message)}),
         peak_memory_bytes=torch.cuda.max_memory_allocated(),
         peak_above_baseline_bytes=torch.cuda.max_memory_allocated() - base,
-        params_finite=all(bool(torch.isfinite(p).all())
-                          for p in tree_leaves(result.params)))
+        params_finite=all_finite(result.params))
     del result, params, opt_state, program
     rec["allocated_after_free_bytes"] = held_bytes()
     return rec
@@ -1960,8 +2168,7 @@ def phase_packed() -> dict:
         torch.cuda.synchronize()
         syncs = sum("synchroniz" in str(w.message) for w in caught)
         losses = result.history["loss"]
-        finite = all(bool(torch.isfinite(p).all())
-                     for p in tree_leaves(result.params))
+        finite = all_finite(result.params)
         eff = [r["padding_efficiency"]
                for r in read_stream(spec.metrics_path).steps()]
         out = dict(
@@ -2018,18 +2225,34 @@ def phase_serve() -> dict:
     the first step (mid-flight admission)."""
     arch = get_arch(ARCH_ID)
     params = arch.init_params(0)
-    rng = np.random.default_rng(0)
-    lens = rng.integers(SERVE_PROMPT_LENS[0], SERVE_PROMPT_LENS[1] + 1,
-                        SERVE_REQUESTS)
+    report, launches = paged_serve_run(arch, params, SERVE_CFG,
+                                       SERVE_REQUESTS, SERVE_PROMPT_LENS)
+    emit("serve", arch=ARCH_ID, **report)
+    return {"launches": launches}
+
+
+def paged_serve_run(arch, params, serve_cfg: dict, requests: int,
+                    prompt_lens: tuple, seed: int = 0) -> tuple:
+    """PagedEngine over ``requests`` prompts of ``prompt_lens`` tokens (drawn
+    from ``seed``), half submitted, the rest after the first step
+    (mid-flight admission), after a warmup of the prompt buckets.  Asserts
+    every request's tokens, every page back, K3 launches == layers x decode
+    steps (counted after the warmup), synchronising host transfers ==
+    chunks + admissions, no input signature the warmup had not run.
+    Returns the report and the K3 launches."""
+    n_layers = arch.cfg.n_layers
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(prompt_lens[0], prompt_lens[1] + 1, requests)
     prompts = [rng.integers(1, arch.cfg.vocab, int(n)).tolist()
                for n in lens]
+    first = requests // 2
     with tempfile.TemporaryDirectory() as tmp:
         gauges = os.path.join(tmp, "serve.jsonl")
-        scfg = PagedServeConfig(**SERVE_CFG, telemetry_path=gauges)
+        scfg = PagedServeConfig(**serve_cfg, telemetry_path=gauges)
         eng = PagedEngine(arch, params, scfg)
         free0 = eng.allocator.n_free
         t0 = time.perf_counter()
-        eng.warmup(list(SERVE_PROMPT_LENS))
+        eng.warmup(list(prompt_lens))
         torch.cuda.synchronize()
         warmup_s = time.perf_counter() - t0
         warm_prefill, warm_decode = (eng.prefill_compile_count(),
@@ -2044,9 +2267,9 @@ def phase_serve() -> dict:
                 warnings.simplefilter("always")
                 KD.paged_decode_attention.launches = 0
                 t0 = time.perf_counter()
-                rids = [eng.submit(p) for p in prompts[:8]]
+                rids = [eng.submit(p) for p in prompts[:first]]
                 eng.step()
-                rids += [eng.submit(p) for p in prompts[8:]]
+                rids += [eng.submit(p) for p in prompts[first:]]
                 eng.run()
                 wall_s = time.perf_counter() - t0
                 launches = KD.paged_decode_attention.launches
@@ -2063,36 +2286,37 @@ def phase_serve() -> dict:
     decode_s = eng.telemetry.decode_s - dec0
     # the first token of each admission comes from its prefill
     decode_tokens = sum(len(o) for o in outs) - admissions
-    emit("serve", arch=ARCH_ID, n_layers=arch.cfg.n_layers,
-         dtype=str(arch.cfg.dtype), config=SERVE_CFG,
-         requests=SERVE_REQUESTS, prompt_lens=[int(n) for n in lens],
-         warmup_seconds=warmup_s, wall_seconds=wall_s,
-         prefill_seconds=prefill_s, decode_seconds=decode_s,
-         decode_tokens=decode_tokens,
-         decode_tokens_per_s=decode_tokens / decode_s,
-         ms_per_decode_step=decode_s / decode_steps * 1e3,
-         chunks=chunks, decode_steps=decode_steps, admissions=admissions,
-         preemptions=eng.scheduler.counters["preempted"],
-         launches={"paged_decode_attention": launches},
-         host_syncs=len(syncs),
-         host_sync_sites=sorted({f"{os.path.basename(w.filename)}:{w.lineno}"
-                                 for w in syncs}),
-         decode_signatures=eng.decode_compile_count(),
-         prefill_signatures=eng.prefill_compile_count(),
-         peak_memory_bytes=torch.cuda.max_memory_allocated())
-    bad = [i for i, o in enumerate(outs) if len(o) != SERVE_CFG[
+    report = dict(
+        n_layers=n_layers,
+        dtype=str(arch.cfg.dtype), config=serve_cfg,
+        requests=requests, prompt_lens=[int(n) for n in lens],
+        warmup_seconds=warmup_s, wall_seconds=wall_s,
+        prefill_seconds=prefill_s, decode_seconds=decode_s,
+        decode_tokens=decode_tokens,
+        decode_tokens_per_s=decode_tokens / decode_s,
+        ms_per_decode_step=decode_s / decode_steps * 1e3,
+        chunks=chunks, decode_steps=decode_steps, admissions=admissions,
+        preemptions=eng.scheduler.counters["preempted"],
+        launches={"paged_decode_attention": launches},
+        host_syncs=len(syncs),
+        host_sync_sites=sorted({f"{os.path.basename(w.filename)}:{w.lineno}"
+                                for w in syncs}),
+        decode_signatures=eng.decode_compile_count(),
+        prefill_signatures=eng.prefill_compile_count(),
+        peak_memory_bytes=torch.cuda.max_memory_allocated())
+    bad = [i for i, o in enumerate(outs) if len(o) != serve_cfg[
         "max_new_tokens"]]
     if bad:
         raise AssertionError(f"serve: requests {bad} did not emit "
-                             f"{SERVE_CFG['max_new_tokens']} tokens")
+                             f"{serve_cfg['max_new_tokens']} tokens")
     if any(not 0 <= t < arch.cfg.vocab for o in outs for t in o):
         raise AssertionError("serve: a token id outside the vocabulary")
     if eng.allocator.n_free != free0 or eng.scheduler.has_work():
         raise AssertionError(f"serve: {eng.allocator.n_free} pages free "
                              f"after the run, {free0} before")
-    if launches != N_LAYERS * decode_steps:
+    if launches != n_layers * decode_steps:
         raise AssertionError(f"serve: {launches} paged_decode_attention "
-                             f"launches, expected {N_LAYERS} x "
+                             f"launches, expected {n_layers} x "
                              f"{decode_steps} decode steps")
     if len(syncs) != chunks + admissions:
         raise AssertionError(
@@ -2102,7 +2326,7 @@ def phase_serve() -> dict:
             warm_decode, warm_prefill):
         raise AssertionError("serve: an input signature the warmup had not "
                              "run")
-    return {"launches": launches}
+    return report, launches
 
 
 SERVE_PARITY_TOL = {torch.float32: 1e-3, torch.bfloat16: 0.1}
@@ -2114,55 +2338,68 @@ def phase_serve_parity() -> None:
     (use_kernel=False), at full width and 2 layers: the logits of one decode
     step over the same pool, and greedy tokens end to end."""
     rng = np.random.default_rng(1)
-    report = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        arch = get_arch(ARCH_ID)
-        arch = dataclasses.replace(arch, cfg=dataclasses.replace(
-            arch.cfg, n_layers=2, dtype=dtype))
-        params = arch.init_params(0)
-        prompts = [rng.integers(1, arch.cfg.vocab, n).tolist()
-                   for n in SERVE_PARITY_PROMPT_LENS]
-        scfg = PagedServeConfig(**dict(SERVE_CFG, max_batch=4,
-                                       max_new_tokens=16))
-        eng = PagedEngine(arch, params, scfg)
-        for p in prompts:
-            eng.submit(p)
-        eng._admit_all()
-        eng._ensure_ahead_all()
-        tables = build_block_tables(eng.scheduler.page_lists(),
-                                    scfg.max_pages_per_seq)
-        batch = {"tokens": torch.from_numpy(eng._tok[:, None]).to(DEV),
-                 "block_tables": torch.from_numpy(tables).to(DEV),
-                 "seq_lens": torch.from_numpy(eng._n).to(DEV),
-                 "emit": torch.from_numpy(~eng._done).to(DEV)}
-        logits = {}
-        for use_kernel in (None, False):
-            pages = {k: v.clone() for k, v in eng._pages.items()}
-            logits[use_kernel] = arch.make_paged_decode_step(
-                use_kernel=use_kernel)(params, pages, batch)[0]
-        err = max_err(logits[None], logits[False])
-        tokens = {}
-        for use_kernel in (None, False):
-            e = PagedEngine(arch, params, dataclasses.replace(
-                scfg, use_kernel=use_kernel))
-            tokens[use_kernel] = e.generate(prompts)
-        torch.cuda.synchronize()
-        report[str(dtype)] = {
-            "logits_max_abs_err": err, "tolerance": SERVE_PARITY_TOL[dtype],
-            "greedy_tokens_equal": tokens[None] == tokens[False],
-            "tokens_kernel": tokens[None][0][:8],
-            "tokens_plain": tokens[False][0][:8]}
-        if not err <= SERVE_PARITY_TOL[dtype]:
-            raise AssertionError(f"serve_parity {dtype}: decode-step logits "
-                                 f"differ by {err}")
-        if dtype == torch.float32 and tokens[None] != tokens[False]:
-            raise AssertionError("serve_parity fp32: greedy tokens differ "
-                                 "between the kernel and the plain version")
-        del eng, params
-        torch.cuda.empty_cache()
-    emit("serve_parity", n_layers=2, d_model=arch.cfg.d_model,
+    report = {str(dtype): paged_parity(ARCH_ID, dtype, rng,
+                                       SERVE_PARITY_PROMPT_LENS)
+              for dtype in (torch.float32, torch.bfloat16)}
+    emit("serve_parity", n_layers=2, d_model=get_arch(ARCH_ID).cfg.d_model,
          prompt_lens=list(SERVE_PARITY_PROMPT_LENS), max_new_tokens=16,
          **report)
+
+
+def paged_parity(arch_id: str, dtype, rng, prompt_lens, *, n_layers: int = 2,
+                 check_bf16_logits: bool = True) -> dict:
+    """``arch_id`` at full width and ``n_layers`` layers in ``dtype``: one
+    decode step's logits through K3 against the plain version over the same
+    pool (asserted within ``SERVE_PARITY_TOL``; in bf16 only with
+    ``check_bf16_logits``), and greedy tokens of the engine end to end
+    (asserted equal in fp32, reported in bf16)."""
+    arch = get_arch(arch_id)
+    arch = dataclasses.replace(arch, cfg=dataclasses.replace(
+        arch.cfg, n_layers=n_layers, dtype=dtype))
+    params = arch.init_params(0)
+    prompts = [rng.integers(1, arch.cfg.vocab, n).tolist()
+               for n in prompt_lens]
+    scfg = PagedServeConfig(**dict(SERVE_CFG, max_batch=4,
+                                   max_new_tokens=16))
+    eng = PagedEngine(arch, params, scfg)
+    for p in prompts:
+        eng.submit(p)
+    eng._admit_all()
+    eng._ensure_ahead_all()
+    tables = build_block_tables(eng.scheduler.page_lists(),
+                                scfg.max_pages_per_seq)
+    batch = {"tokens": torch.from_numpy(eng._tok[:, None]).to(DEV),
+             "block_tables": torch.from_numpy(tables).to(DEV),
+             "seq_lens": torch.from_numpy(eng._n).to(DEV),
+             "emit": torch.from_numpy(~eng._done).to(DEV)}
+    logits = {}
+    for use_kernel in (None, False):
+        pages = {k: v.clone() for k, v in eng._pages.items()}
+        logits[use_kernel] = arch.make_paged_decode_step(
+            use_kernel=use_kernel)(params, pages, batch)[0]
+    err = max_err(logits[None], logits[False])
+    tokens = {}
+    for use_kernel in (None, False):
+        e = PagedEngine(arch, params, dataclasses.replace(
+            scfg, use_kernel=use_kernel))
+        tokens[use_kernel] = e.generate(prompts)
+    torch.cuda.synchronize()
+    out = {
+        "logits_max_abs_err": err, "tolerance": SERVE_PARITY_TOL[dtype],
+        "greedy_tokens_equal": tokens[None] == tokens[False],
+        "tokens_kernel": tokens[None][0][:8],
+        "tokens_plain": tokens[False][0][:8]}
+    if not err <= SERVE_PARITY_TOL[dtype] and (
+            dtype == torch.float32 or check_bf16_logits):
+        raise AssertionError(f"paged parity {arch_id} {dtype}: "
+                             f"decode-step logits differ by {err}")
+    if dtype == torch.float32 and tokens[None] != tokens[False]:
+        raise AssertionError(f"paged parity {arch_id} fp32: greedy "
+                             "tokens differ between the kernel and the "
+                             "plain version")
+    del eng, e, params
+    torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -2194,10 +2431,23 @@ def phase_legacy_serve() -> dict:
     every step), 64 greedy tokens each."""
     arch = get_arch(ARCH_ID)
     params = arch.init_params(0)
-    rng = np.random.default_rng(2)
-    prompts = [rng.integers(1, arch.cfg.vocab, LEGACY_PROMPT_LEN).tolist()
-               for _ in range(LEGACY_BATCH)]
-    eng = Engine(arch, params, ServeConfig(max_new_tokens=LEGACY_NEW_TOKENS))
+    report, launches = legacy_serve_run(arch, params, LEGACY_BATCH,
+                                        LEGACY_PROMPT_LEN, LEGACY_NEW_TOKENS)
+    emit("legacy_serve", arch=ARCH_ID, **report)
+    return {"launches": launches}
+
+
+def legacy_serve_run(arch, params, batch: int, prompt_len: int,
+                     new_tokens: int, seed: int = 2) -> tuple:
+    """Engine over ``batch`` prompts of ``prompt_len`` tokens from ``seed``,
+    ``new_tokens`` greedy tokens each.  Asserts the tokens, K4 launches ==
+    layers x decode steps and one synchronising host transfer a step.
+    Returns the report and the K4 launches."""
+    n_layers = arch.cfg.n_layers
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, arch.cfg.vocab, prompt_len).tolist()
+               for _ in range(batch)]
+    eng = Engine(arch, params, ServeConfig(max_new_tokens=new_tokens))
     prefill_ev, decode_ev = [], []
     eng._prefill = _event_timed(eng._prefill, prefill_ev)
     eng._decode = _event_timed(eng._decode, decode_ev)
@@ -2219,33 +2469,34 @@ def phase_legacy_serve() -> dict:
     steps = len(decode_ev)
     prefill_s = prefill_ev[0][0].elapsed_time(prefill_ev[0][1]) / 1e3
     decode_s = decode_ev[0][0].elapsed_time(decode_ev[-1][1]) / 1e3
-    emit("legacy_serve", arch=ARCH_ID, n_layers=arch.cfg.n_layers,
-         dtype=str(arch.cfg.dtype), batch=LEGACY_BATCH,
-         prompt_len=LEGACY_PROMPT_LEN, ring_slots=arch.cfg.window,
-         max_new_tokens=LEGACY_NEW_TOKENS, wall_seconds=wall_s,
-         prefill_seconds=prefill_s, decode_steps=steps,
-         decode_seconds=decode_s, ms_per_decode_step=decode_s / steps * 1e3,
-         decode_tokens_per_s=LEGACY_BATCH * steps / decode_s,
-         launches={"decode_attention": launches}, host_syncs=len(syncs),
-         host_sync_sites=sorted({f"{os.path.basename(w.filename)}:{w.lineno}"
-                                 for w in syncs}),
-         tokens_row0=outs[0][:8],
-         peak_memory_bytes=torch.cuda.max_memory_allocated())
-    if [len(o) for o in outs] != [LEGACY_NEW_TOKENS] * LEGACY_BATCH:
+    report = dict(
+        n_layers=n_layers, dtype=str(arch.cfg.dtype), batch=batch,
+        prompt_len=prompt_len, ring_slots=cache_window(arch.cfg, prompt_len),
+        max_new_tokens=new_tokens, wall_seconds=wall_s,
+        prefill_seconds=prefill_s, decode_steps=steps,
+        decode_seconds=decode_s, ms_per_decode_step=decode_s / steps * 1e3,
+        decode_tokens_per_s=batch * steps / decode_s,
+        launches={"decode_attention": launches}, host_syncs=len(syncs),
+        host_sync_sites=sorted({f"{os.path.basename(w.filename)}:{w.lineno}"
+                                for w in syncs}),
+        tokens_row0=outs[0][:8],
+        peak_memory_bytes=torch.cuda.max_memory_allocated())
+    if [len(o) for o in outs] != [new_tokens] * batch:
         raise AssertionError(f"legacy_serve: rows emitted "
                              f"{[len(o) for o in outs]} tokens, expected "
-                             f"{LEGACY_NEW_TOKENS} each")
+                             f"{new_tokens} each")
     if any(not 0 <= t < arch.cfg.vocab for o in outs for t in o):
         raise AssertionError("legacy_serve: a token id outside the vocabulary")
-    if steps != LEGACY_NEW_TOKENS - 1 or launches != N_LAYERS * steps:
+    if steps != new_tokens - 1 or launches != n_layers * steps:
         raise AssertionError(f"legacy_serve: {launches} decode_attention "
                              f"launches in {steps} decode steps, expected "
-                             f"{N_LAYERS} x {LEGACY_NEW_TOKENS - 1}")
-    if len(syncs) != LEGACY_NEW_TOKENS:
+                             f"{n_layers} x {new_tokens - 1}")
+    if len(syncs) != new_tokens:
         raise AssertionError(
             f"legacy_serve: {len(syncs)} synchronising host transfers, "
-            f"expected one per emitted step ({LEGACY_NEW_TOKENS})")
-    return {"launches": launches}
+            f"expected one per emitted step ({new_tokens})")
+    return report, launches
+
 
 
 LEGACY_PARITY_LENS = (1024, 3072, 6144)   # direct, blockwise, window gather
@@ -2344,10 +2595,318 @@ def check_flash_vs_direct() -> dict:
 
 
 # --------------------------------------------------------------------------
+# moe: deepseek-moe-16b at its published width and depth
+# --------------------------------------------------------------------------
+
+MOE_ID = "deepseek-moe-16b"
+MOE_STEPS = 3
+# 11 factored leaves a layer (wq, wk, wv, wo, the fp32 router, the expert
+# stacks w_gate, w_up, w_down, the shared experts' three) x 28, embed, head
+MOE_LEAVES_PER_STEP = 310
+MOE_PARITY_LAYERS = 2
+DIGEST_CHUNK = 1 << 24
+
+
+def factored_leaves(params) -> int:
+    """Tensors a fused AdaLomo step hands to K1 and K2 (each once): a layer
+    slice of every stacked matrix or expert stack, each outer matrix."""
+    n = sum(t.shape[0] for t in tree_leaves(params["stacks"]) if t.ndim >= 3)
+    return n + sum(1 for t in tree_leaves(params["outer"]) if t.ndim >= 2)
+
+
+def device_digest(tree) -> torch.Tensor:
+    """Two int64 sums a leaf of its raw bits, plain and weighted by position,
+    computed on the card in pieces (no host sync, no second copy of the
+    model): bitwise-equal trees give equal digests, a changed bit changes
+    them."""
+    from repro_torch.core.tree import pytree_leaves
+    out = []
+    for t in pytree_leaves(tree):
+        bits = t.detach().reshape(-1).view(
+            {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+             8: torch.int64}[t.element_size()])
+        s1 = torch.zeros((), dtype=torch.int64, device=t.device)
+        s2 = torch.zeros((), dtype=torch.int64, device=t.device)
+        for i in range(0, bits.numel(), DIGEST_CHUNK):
+            piece = bits[i:i + DIGEST_CHUNK].to(torch.int64)
+            w = torch.arange(i, i + piece.numel(), device=t.device) % 1000003
+            s1 += piece.sum()
+            s2 += (piece * (w + 1)).sum()
+        out += [s1, s2]
+    return torch.stack(out)
+
+
+def moe_watch(digest_at: int):
+    """A user hook: each step's aux loss (the metrics' ``aux_loss``), the
+    bytes allocated when the run starts (params and state), and the digest
+    of params and OptState after step ``digest_at``."""
+    from repro_torch.run import Hook
+
+    class Watch(Hook):
+        def __init__(self):
+            self.aux, self.digest, self.start_bytes = [], None, None
+
+        def on_run_start(self, ctx):
+            self.start_bytes = torch.cuda.memory_allocated()
+
+        def on_step_end(self, ctx, ev):
+            self.aux.append(ev.metrics["aux_loss"])
+            if ev.step == digest_at:
+                # an asynchronous copy into pinned host memory: no host
+                # sync inside the run, and nothing left on the card
+                self.digest = device_digest(
+                    (ctx.params, ctx.opt_state)).to("cpu", non_blocking=True)
+
+    return Watch()
+
+
+def reckoned_bytes(arch_id: str) -> dict:
+    """Table 1's unfused rules on ``arch_id``, reckoned, not run: params,
+    one gradient a parameter in its dtype (all alive at once), and the
+    state ``Opt.state_bytes`` gives, from shapes on the meta device."""
+    meta = get_arch(arch_id).init_params(0, device="meta")
+    params = tree_bytes(meta)
+    out = {}
+    for name in ("adamw", "adafactor"):
+        state = opt_lib.get_opt(name).state_bytes(meta)
+        out[name] = {"param_bytes": params, "grad_bytes": params,
+                     "state_bytes": state,
+                     "total_bytes": 2 * params + state}
+    return out
+
+
+def phase_moe() -> dict:
+    """deepseek-moe-16b at its published width and depth: fused AdaLomo
+    through ``run(spec)`` (the Table-1 line beside fused LOMO and the
+    reckoned unfused rules), then paged serving through K3 and its parity
+    with the plain attention."""
+    t0 = time.perf_counter()
+    base = held_bytes()
+    arch = get_arch(MOE_ID)
+    meta = arch.init_params(0, device="meta")
+    leaves = factored_leaves(meta)
+    if leaves != MOE_LEAVES_PER_STEP:
+        raise AssertionError(f"moe: {leaves} factored leaves a step, "
+                             f"expected {MOE_LEAVES_PER_STEP}")
+    failed = []
+    watch = moe_watch(0)
+    progress("moe: fused AdaLomo, 3 steps")
+    rec = baseline_arm("adalomo", True, base, arch_id=MOE_ID,
+                       steps=MOE_STEPS, hooks=[watch])
+    rec.update(aux_losses=watch.aux, allocated_at_run_start_bytes=(
+        watch.start_bytes))
+    digest = watch.digest
+    rerun_watch = moe_watch(0)
+    progress("moe: step 1 re-run, then LOMO")
+    rerun = baseline_arm("adalomo", True, base, arch_id=MOE_ID, steps=1,
+                         hooks=[rerun_watch])
+    rerun_bitwise = (rerun["losses"][0] == rec["losses"][0]
+                     and torch.equal(rerun_watch.digest, digest))
+    lomo = baseline_arm("lomo", True, base, arch_id=MOE_ID, steps=1)
+    losses = rec["losses"]
+    want = {"adalomo_stats": MOE_LEAVES_PER_STEP * MOE_STEPS,
+            "adalomo_update": MOE_LEAVES_PER_STEP * MOE_STEPS}
+    if len(losses) != MOE_STEPS or not all(map(math.isfinite, losses)):
+        failed.append(f"losses {losses}")
+    elif losses[-1] == losses[0]:
+        failed.append(f"losses do not move: {losses}")
+    if rec["launches"] != want:
+        failed.append(f"K1/K2 launches {rec['launches']}, expected {want}")
+    if rec["host_syncs"] != MOE_STEPS:
+        failed.append(f"{rec['host_syncs']} host syncs in {MOE_STEPS} steps")
+    if not rec["params_finite"]:
+        failed.append("a parameter is not finite")
+    if len(watch.aux) != MOE_STEPS or not all(
+            math.isfinite(a) and a > 0 for a in watch.aux):
+        failed.append(f"aux losses {watch.aux}")
+    if not rerun_bitwise:
+        failed.append("step 1 re-run from the same seed is not bitwise equal")
+    if lomo["launches"] != dict.fromkeys(want, 0) or not all(
+            map(math.isfinite, lomo["losses"])):
+        failed.append(f"lomo: {lomo['launches']} {lomo['losses']}")
+    for r in (rec, rerun, lomo):
+        if r["allocated_after_free_bytes"] != base:
+            failed.append(f"{r['optimizer']}: "
+                          f"{r['allocated_after_free_bytes']} bytes held "
+                          f"after the run, {base} before")
+    emit("moe_train", arch=MOE_ID, n_layers=arch.cfg.n_layers,
+         active_params=arch.cfg.active_param_count(),
+         factored_leaves_per_step=leaves, adalomo=rec,
+         rerun_step1={"losses": rerun["losses"], "bitwise": rerun_bitwise,
+                      "step_seconds": rerun["step_seconds"]},
+         lomo=lomo, reckoned_unfused=reckoned_bytes(MOE_ID),
+         seconds=time.perf_counter() - t0)
+    if failed:
+        raise AssertionError(f"moe train: {failed}")
+
+    t0 = time.perf_counter()
+    progress("moe: paged serving")
+    params = arch.init_params(0)
+    serve, launches = paged_serve_run(arch, params, SERVE_CFG,
+                                      SERVE_REQUESTS, SERVE_PROMPT_LENS)
+    del params
+    emit("moe_serve", arch=MOE_ID, **serve, seconds=time.perf_counter() - t0,
+         held_after_bytes=held_bytes(), held_before_bytes=base)
+    rng = np.random.default_rng(11)
+    progress("moe: serve parity at 2 layers")
+    parity = {str(dt): paged_parity(MOE_ID, dt, rng, SERVE_PARITY_PROMPT_LENS,
+                                    n_layers=MOE_PARITY_LAYERS,
+                                    check_bf16_logits=False)
+              for dt in (torch.float32, torch.bfloat16)}
+    emit("moe_serve_parity", arch=MOE_ID, n_layers=MOE_PARITY_LAYERS,
+         prompt_lens=list(SERVE_PARITY_PROMPT_LENS), max_new_tokens=16,
+         **parity)
+    return {"launches": {"adalomo_stats": rec["launches"]["adalomo_stats"],
+                         "adalomo_update": rec["launches"]["adalomo_update"],
+                         "paged_decode_attention": launches}}
+
+
+# --------------------------------------------------------------------------
+# configs: the other dense transformer configs at full width
+# --------------------------------------------------------------------------
+
+# arch: (batch, seq) of its one fused AdaLomo step at full width and depth;
+# qwen3-32b's 65.5 GB of bf16 weights leave room for one row of 1024
+CONFIG_TRAIN = {"stablelm-12b": (4, 1024), "h2o-danube-3-4b": (4, 1024),
+                "qwen3-32b": (1, 1024)}
+# K1/K2 launches of one fused AdaLomo step: 7 factored leaves a layer
+CONFIG_LAUNCHES = {"stablelm-12b": 282, "h2o-danube-3-4b": 170,
+                   "qwen3-32b": 450}
+# the two new head dims: stablelm-12b's 160, h2o-danube-3-4b's 120
+CONFIG_SERVE = ("stablelm-12b", "h2o-danube-3-4b")
+CONFIG_SERVE_CFG = dict(page_size=16, max_batch=8, max_pages_per_seq=64,
+                        num_pages=513, chunk=8, max_new_tokens=16)
+CONFIG_PROMPT_LENS = (32, 1000)
+CONFIG_LEGACY = dict(batch=2, prompt_len=1024, new_tokens=16)
+
+
+def legacy_parity(arch_id: str, prompt_len: int, rng) -> dict:
+    """fp32 at full width and 2 layers: one decode step's logits through K4
+    against the plain version over the same cache (1e-3), and greedy
+    tokens of Engine (asserted equal)."""
+    arch = get_arch(arch_id)
+    arch = dataclasses.replace(arch, cfg=dataclasses.replace(
+        arch.cfg, n_layers=2, dtype=torch.float32))
+    params = arch.init_params(0)
+    toks = torch.from_numpy(rng.integers(
+        1, arch.cfg.vocab, (2, prompt_len)).astype(np.int32)).to(DEV)
+    logits0, cache = arch.make_prefill_step()(params, {"tokens": toks})
+    nxt = torch.argmax(logits0, dim=-1).to(torch.int32)[:, None]
+    logits = {}
+    for use_kernel in (None, False):
+        c = {k: v.clone() for k, v in cache.items()}
+        logits[use_kernel] = arch.make_decode_step(use_kernel=use_kernel)(
+            params, c, {"tokens": nxt})[0]
+    err = max_err(logits[None], logits[False])
+    prompts = toks.cpu().tolist()
+    tokens = {u: Engine(arch, params, ServeConfig(
+        max_new_tokens=16, use_kernel=u)).generate(prompts)
+        for u in (None, False)}
+    torch.cuda.synchronize()
+    out = {"logits_max_abs_err": err,
+           "tolerance": SERVE_PARITY_TOL[torch.float32],
+           "greedy_tokens_equal": tokens[None] == tokens[False],
+           "tokens_kernel": tokens[None][0][:8]}
+    if not err <= SERVE_PARITY_TOL[torch.float32]:
+        raise AssertionError(f"legacy parity {arch_id}: decode-step logits "
+                             f"differ by {err}")
+    if tokens[None] != tokens[False]:
+        raise AssertionError(f"legacy parity {arch_id}: greedy tokens differ "
+                             "between K4 and the plain version")
+    del params, cache, c
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_configs() -> dict:
+    """qwen3-32b, stablelm-12b and h2o-danube-3-4b at their published
+    widths and depths.  For the two new head dims (stablelm-12b's 160,
+    danube-3's 120): paged serving through K3 and legacy serving through K4
+    with their token checks, and fp32 greedy tokens through each kernel
+    against the plain attention at 2 layers.  Then one fused AdaLomo step
+    each through ``run(spec)``, qwen3-32b (the one that needs most of the
+    card) last."""
+    base = held_bytes()
+    launches = dict.fromkeys(("adalomo_stats", "adalomo_update",
+                              "paged_decode_attention", "decode_attention"),
+                             0)
+    rng = np.random.default_rng(12)
+    for arch_id in CONFIG_SERVE:
+        progress(f"configs: serving {arch_id}")
+        t0 = time.perf_counter()
+        arch = get_arch(arch_id)
+        params = arch.init_params(0)
+        paged, n3 = paged_serve_run(arch, params, CONFIG_SERVE_CFG, 8,
+                                    CONFIG_PROMPT_LENS)
+        legacy, n4 = legacy_serve_run(arch, params, **CONFIG_LEGACY)
+        del params
+        launches["paged_decode_attention"] += n3
+        launches["decode_attention"] += n4
+        emit("configs_serve", arch=arch_id, head_dim=arch.cfg.head_dim,
+             paged=paged, legacy=legacy,
+             paged_parity_fp32=paged_parity(arch_id, torch.float32, rng,
+                                            SERVE_PARITY_PROMPT_LENS),
+             legacy_parity_fp32=legacy_parity(arch_id, 1024, rng),
+             seconds=time.perf_counter() - t0)
+    held_after_serving = held_bytes()
+    failed = []
+    for arch_id in CONFIG_TRAIN:
+        rec, bad = config_step(arch_id, "adalomo", base, held_after_serving)
+        failed += bad
+        for k in ("adalomo_stats", "adalomo_update"):
+            launches[k] += rec["launches"][k]
+    if failed:
+        raise AssertionError(f"configs train: {failed}")
+    return {"launches": launches}
+
+
+def config_step(arch_id: str, opt: str, base: int, held: int) -> tuple:
+    """One fused ``opt`` step of ``arch_id`` at full width and depth
+    through ``baseline_arm`` (``held``: the bytes the card holds before
+    it): its record, emitted and returned, and its failures."""
+    batch, seq = CONFIG_TRAIN[arch_id]
+    progress(f"configs: one fused {opt} step of {arch_id}")
+    t0 = time.perf_counter()
+    leaves = factored_leaves(get_arch(arch_id).init_params(0, device="meta"))
+    rec = baseline_arm(opt, True, held, arch_id=arch_id, steps=1,
+                       batch=batch, seq=seq)
+    emit("configs_train", factored_leaves_per_step=leaves,
+         held_before_phase_bytes=base, seconds=time.perf_counter() - t0,
+         reckoned_unfused=reckoned_bytes(arch_id), **rec)
+    want = dict.fromkeys(("adalomo_stats", "adalomo_update"),
+                         CONFIG_LAUNCHES[arch_id] if opt == "adalomo" else 0)
+    what = f"{arch_id} {opt}"
+    failed = []
+    if len(rec["losses"]) != 1 or not all(map(math.isfinite,
+                                              rec["losses"])):
+        failed.append(f"{what}: losses {rec['losses']}")
+    if leaves != CONFIG_LAUNCHES[arch_id] or rec["launches"] != want:
+        failed.append(f"{what}: {leaves} factored leaves, K1/K2 launches "
+                      f"{rec['launches']}, expected {want}")
+    if rec["host_syncs"] != 1 or not rec["params_finite"]:
+        failed.append(f"{what}: {rec['host_syncs']} host syncs, params "
+                      f"finite {rec['params_finite']}")
+    if rec["allocated_after_free_bytes"] != held:
+        failed.append(f"{what}: memory held after the run")
+    return rec, failed
+
+
+def phase_configs_lomo() -> None:
+    """Table 1's fused LOMO step on qwen3-32b at full depth, 1 x 1024 (not
+    in the default run: its plain SGD update forms fp32 temporaries of a
+    whole leaf, and the step's peak leaves about 3 GB of the card)."""
+    base = held_bytes()
+    failed = config_step("qwen3-32b", "lomo", base, base)[1]
+    if failed:
+        raise AssertionError(f"configs_lomo: {failed}")
+
+
+# --------------------------------------------------------------------------
 
 PHASES = ("kernels", "train", "parity", "resume", "sentinel", "baselines",
-          "packed", "serve", "serve_parity", "legacy_serve", "legacy_parity")
-EXTRA_PHASES = ("timing",)
+          "packed", "serve", "serve_parity", "legacy_serve", "legacy_parity",
+          "moe", "configs")
+EXTRA_PHASES = ("timing", "configs_lomo")
 
 
 def main() -> None:
@@ -2365,7 +2924,10 @@ def main() -> None:
                          "kernels,baselines "
                          "after touching an optimizer rule, "
                          "kernels,packed after touching the segment "
-                         "masks or the packed path; timing "
+                         "masks or the packed path, kernels,moe,configs "
+                         "after touching the MoE FFN, the configs or the "
+                         "head dims of K3/K4; configs_lomo (not in the "
+                         "default) qwen3-32b's fused LOMO step; timing "
                          "(not in the default) times the kernels without "
                          "checking them and prints their outputs' digests")
     ap.add_argument("--src", default=SRC,
@@ -2422,6 +2984,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     if "legacy_parity" in phases:
         phase_legacy_parity()
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = phase_moe() if "moe" in phases else None
+    gc.collect()
+    torch.cuda.empty_cache()
+    configs = phase_configs() if "configs" in phases else None
+    if "configs_lomo" in phases:
+        phase_configs_lomo()
     if set(phases) != set(PHASES):
         print("chip_smoke: partial run (--phases); no result line")
         sys.exit(3)
@@ -2451,7 +3021,13 @@ def main() -> None:
             "launches": launches, "max_abs_err": kern["errs"][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": "bytes",
-            "library_ms": library, "unit": unit})
+            "library_ms": library, "unit": unit,
+            "launches_by_phase": {
+                "train" if name.startswith("adalomo") else
+                "serve" if name.startswith("paged") else "legacy_serve":
+                launches,
+                "moe": moe["launches"].get(name, 0),
+                "configs": configs["launches"][name]}})
         if name == "paged_decode_attention":
             kernels[-1]["library_note"] = PAGED_LIBRARY_NOTE
     print(smi, flush=True)

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Where the time of one paged decode step goes on the GPU.
 
-    python3 scripts/torch_profile_serve.py [--layers 24] [--batch 8] \
-        [--prompt 1024] [--chunks 2]
+    python3 scripts/torch_profile_serve.py [--arch h2o-danube-1.8b] \
+        [--layers 24] [--batch 8] [--prompt 1024] [--chunks 2]
 
-Builds ``repro_torch.serve.engine.PagedEngine`` for h2o-danube-1.8b
-(published width; depth by ``--layers``; bf16, random weights from a seed,
+Builds ``repro_torch.serve.engine.PagedEngine`` for ``--arch`` (published
+width; depth by ``--layers``; bf16, random weights from a seed,
 pages of 16, chunks of 8 decode steps), admits ``--batch`` requests of
 ``--prompt`` tokens, runs two chunks to warm up, times ``--chunks`` chunks
 untraced, then traces as many with ``torch.profiler`` and prints one JSON
@@ -44,6 +44,8 @@ def kind(name: str) -> str:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="h2o-danube-1.8b",
+                    help="a config of repro_torch.models.registry")
     ap.add_argument("--layers", type=int, default=24)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt", type=int, default=1024)
@@ -55,7 +57,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    arch = get_arch("h2o-danube-1.8b")
+    arch = get_arch(args.arch)
     arch = dataclasses.replace(
         arch, cfg=dataclasses.replace(arch.cfg, n_layers=args.layers))
     params = arch.init_params(0)

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of one train step goes on the GPU.
 
-    python3 scripts/torch_profile_step.py [--layers 24] [--batch 4] [--seq 1024]
-        [--optimizer adalomo] [--packing]
+    python3 scripts/torch_profile_step.py [--arch h2o-danube-1.8b]
+        [--layers 24] [--batch 4] [--seq 1024] [--optimizer adalomo]
+        [--packing]
 
-Builds the step program of ``repro_torch`` for h2o-danube-1.8b (published
-width; depth by ``--layers``) with the optimizer's default engine (fused
+Builds the step program of ``repro_torch`` for ``--arch`` (published width;
+depth by ``--layers``) with the optimizer's default engine (fused
 AdaLomo/LOMO, unfused baselines) and, with ``--packing``, the data
 pipeline's segment-packed batches (documents of 64 tokens up to the row),
 takes two warm-up steps, times ``--steps``
@@ -58,6 +59,8 @@ def kind_of(name: str) -> str:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="h2o-danube-1.8b",
+                    help="a config of repro_torch.models.registry")
     ap.add_argument("--layers", type=int, default=24)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=1024)
@@ -73,13 +76,13 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    spec = RunSpec(model=ModelSpec("h2o-danube-1.8b"),
+    spec = RunSpec(model=ModelSpec(args.arch),
                    data=DataConfig(vocab=0, seq_len=args.seq,
                                    global_batch=args.batch,
                                    packing=args.packing, min_doc_len=64),
                    opt=OptSpec(name=args.optimizer),
                    steps=StepSpec(total=2 + 2 * args.steps), log_every=0)
-    arch = get_arch("h2o-danube-1.8b")
+    arch = get_arch(args.arch)
     arch = dataclasses.replace(
         arch, cfg=dataclasses.replace(arch.cfg, n_layers=args.layers))
     program = build_step_program(spec, arch)

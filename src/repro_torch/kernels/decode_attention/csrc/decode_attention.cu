@@ -156,7 +156,7 @@ extern "C" int decode_attention_block_step() { return rda::kBlockStep; }
 // S runs of span slots (span a multiple of 64, S * span >= W > (S - 1) *
 // span); part is an fp32 workspace of B * K * S * (H / K) * (dh + 2) floats;
 // counters B * K int32, all 0 before the launch and left at 0 after it (one
-// launch at a time may use them).  dh in {32, 64, 80, 128}, H / K <= 8.
+// launch at a time may use them).  dh in {32, 64, 80, 120, 128, 160}, H / K <= 8.
 // Returns the launch's cudaError_t (0 = launched).
 extern "C" int decode_attention_launch(const void* q, const void* k_cache,
                                        const void* v_cache,

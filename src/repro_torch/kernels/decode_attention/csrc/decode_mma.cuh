@@ -143,16 +143,25 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
+// A head dim that is not a whole number of 16-wide k-steps (120) is rounded
+// up to one (kDHPad): the last k-step's upper half multiplies zeros, the
+// q fragment's (never loaded) and the K rows' pad columns [DH, kDHPad)
+// (zeroed once a block; no copy writes them).  Rows keep 8 more elements
+// beyond kDHPad, so that a row is an odd number of 16-byte pieces and
+// ldmatrix stays free of bank conflicts.
 template <int DH>
 struct MmaShape {
-  static constexpr int kRow = DH + 8;            // padded row, bf16 elements
+  static constexpr int kDHPad = (DH + 15) / 16 * 16;  // whole k-steps
+  static constexpr int kRow = kDHPad + 8;        // padded row, bf16 elements
   static constexpr int kChunks = DH / 8;         // 16-byte pieces a row
   static constexpr int kStageElems = 2 * kStep * kRow;   // K then V
   static constexpr size_t kSmemBytes =
       (size_t)kWarps * kStages * kStageElems * sizeof(__nv_bfloat16);
-  static_assert(DH % 16 == 0, "head dim must be whole k-steps of 16");
+  static_assert(DH % 8 == 0, "head dim must be whole n-tiles of 8");
   static_assert(kSmemBytes >= kWarps * kMaxG * (DH + 2) * sizeof(float),
                 "the block's combine reuses the stages");
+  static_assert(kSmemBytes <= 227 * 1024,
+                "the stages exceed a block's shared memory");
 };
 
 // A step's slot as its owning lane sees it a step ahead: attended to, and
@@ -178,7 +187,7 @@ __device__ __forceinline__ void decode_run_mma(
     const __nv_bfloat16* __restrict__ v, const Rows& rows, size_t q_base,
     int G, float scale, int t_lo, int t_hi, float* __restrict__ state) {
   using Sh = MmaShape<DH>;
-  constexpr int kKSteps = DH / 16;
+  constexpr int kKSteps = Sh::kDHPad / 16;
   constexpr int kNTiles = DH / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -197,7 +206,19 @@ __device__ __forceinline__ void decode_run_mma(
     const __nv_bfloat16* qr = q + q_base + (size_t)grp * DH + 16 * ks +
                               2 * tig;
     qa0[ks] = grp < G ? __ldg(reinterpret_cast<const unsigned*>(qr)) : 0u;
-    qa2[ks] = grp < G ? __ldg(reinterpret_cast<const unsigned*>(qr + 8)) : 0u;
+    qa2[ks] = grp < G && 16 * ks + 8 < DH
+                  ? __ldg(reinterpret_cast<const unsigned*>(qr + 8))
+                  : 0u;
+  }
+  if constexpr (Sh::kDHPad != DH) {
+    // the K rows' pad columns meet the zero half of q's last k-step: they
+    // must hold finite values, zeros here
+    static_assert(Sh::kDHPad - DH == 8, "one 16-byte piece of pad");
+    for (int r = lane; r < kStages * kStep; r += 32)
+      *reinterpret_cast<uint4*>(stages + (r / kStep) * Sh::kStageElems +
+                                (r % kStep) * Sh::kRow + DH) =
+          make_uint4(0u, 0u, 0u, 0u);
+    __syncwarp();
   }
 
   // slot lane of the warp's j-th step (lanes 0..15): whether it is attended
@@ -218,10 +239,17 @@ __device__ __forceinline__ void decode_run_mma(
     if (lane == 0) smask[warp][st] = vm;
     __nv_bfloat16* sk = stages + st * Sh::kStageElems;
     __nv_bfloat16* sv = sk + kStep * Sh::kRow;
-    // 2 * DH copies a step, a whole number of rounds of the warp's lanes
-    for (int e = lane; e < kStep * Sh::kChunks; e += 32) {
-      const int tok = e / Sh::kChunks, ch = e - tok * Sh::kChunks;
-      const bool live = (vm >> tok) & 1u;
+    // kStep * kChunks 16-byte copies a step for K, as many for V, in whole
+    // rounds of the warp: every lane reaches the __shfl_sync of every round
+    // (dh 120 has 7.5 rounds of copies; the last round's upper lanes copy
+    // nothing)
+    constexpr int kCopies = kStep * Sh::kChunks;
+    for (int e0 = 0; e0 < kCopies; e0 += 32) {
+      const int e = e0 + lane;
+      const bool mine_copy = kCopies % 32 == 0 || e < kCopies;
+      const int tok = mine_copy ? e / Sh::kChunks : 0;
+      const int ch = e - tok * Sh::kChunks;
+      const bool live = mine_copy && ((vm >> tok) & 1u);
       size_t off;
       if constexpr (Rows::kRowAhead) {
         const int row = __shfl_sync(0xffffffffu, a.row, tok);
@@ -229,9 +257,11 @@ __device__ __forceinline__ void decode_run_mma(
       } else {
         off = live ? rows.off(t0 + tok) + (size_t)ch * 8 : 0;
       }
-      const int so = tok * Sh::kRow + ch * 8;
-      cp_async16(smem_addr(sk + so), k + off, live);
-      cp_async16(smem_addr(sv + so), v + off, live);
+      if (mine_copy) {
+        const int so = tok * Sh::kRow + ch * 8;
+        cp_async16(smem_addr(sk + so), k + off, live);
+        cp_async16(smem_addr(sv + so), v + off, live);
+      }
     }
   };
 
@@ -301,12 +331,20 @@ __device__ __forceinline__ void decode_run_mma(
     const uint32_t pa0 = pack_bf16(pr[0], pr[1]);
     const uint32_t pa2 = pack_bf16(pr[2], pr[3]);
 #pragma unroll
-    for (int jj = 0; jj < kKSteps; ++jj) {
+    for (int jj = 0; jj < kNTiles / 2; ++jj) {
       uint32_t vb[4];
       ldsm_x4_trans(vb, smem_addr(sv + ((mi & 1) * 8 + mr) * Sh::kRow +
                                   16 * jj + (mi >> 1) * 8));
       mma_16816(acc[2 * jj], pa0, pa2, vb[0], vb[1]);
       mma_16816(acc[2 * jj + 1], pa0, pa2, vb[2], vb[3]);
+    }
+    if constexpr (kNTiles % 2 != 0) {
+      // dh 120: the last n-tile alone; the load's upper two matrices are
+      // pad columns of the padded row, read and unused
+      uint32_t vb[4];
+      ldsm_x4_trans(vb, smem_addr(sv + ((mi & 1) * 8 + mr) * Sh::kRow +
+                                  16 * (kNTiles / 2) + (mi >> 1) * 8));
+      mma_16816(acc[kNTiles - 1], pa0, pa2, vb[0], vb[1]);
     }
     __syncwarp();   // the stage is consumed before a later fetch refills it
   }

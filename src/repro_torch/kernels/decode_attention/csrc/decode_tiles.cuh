@@ -201,8 +201,14 @@ inline cudaError_t with_head_dim(int dh, Launch launch) {
     case 80:
       launch(std::integral_constant<int, 80>());
       break;
+    case 120:
+      launch(std::integral_constant<int, 120>());
+      break;
     case 128:
       launch(std::integral_constant<int, 128>());
+      break;
+    case 160:
+      launch(std::integral_constant<int, 160>());
       break;
     default:
       return cudaErrorInvalidValue;

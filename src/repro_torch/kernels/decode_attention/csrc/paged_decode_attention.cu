@@ -159,7 +159,7 @@ extern "C" int paged_decode_step() { return pda::kStep; }
 // window <= 0 means none.  Each sequence's live tokens are split into S runs
 // on the device; part is an fp32 workspace of B * K * S * (H / K) * (dh + 2)
 // floats; counters B * K int32, all 0 before the launch and left at 0 after
-// it (one launch at a time may use them).  dh in {32, 64, 80, 128},
+// it (one launch at a time may use them).  dh in {32, 64, 80, 120, 128, 160},
 // H / K <= 8.  Returns the launch's cudaError_t (0 = launched).
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* k_pages, const void* v_pages,

@@ -50,13 +50,23 @@ def rmsnorm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
     return out.to(x.dtype)
 
 
+def layernorm(x: Tensor, scale: Tensor, bias: Tensor, eps: float = 1e-5
+              ) -> Tensor:
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    out = out * scale.to(torch.float32) + bias.to(torch.float32)
+    return out.to(x.dtype)
+
+
 def norm_apply(params: dict, x: Tensor, *, kind: str, eps: float = 1e-6
                ) -> Tensor:
+    # as in the reference, both kinds take this eps (1e-6), not
+    # layernorm's own default of 1e-5
     if kind == "rmsnorm":
         return rmsnorm(x, params["scale"], eps)
-    raise NotImplementedError(
-        f"norm kind {kind!r}: only 'rmsnorm' is ported (layernorm comes "
-        "with the encoder-decoder family)")
+    return layernorm(x, params["scale"], params["bias"], eps)
 
 
 def norm_init(d: int, kind: str, *, device) -> dict:
@@ -64,7 +74,8 @@ def norm_init(d: int, kind: str, *, device) -> dict:
         # stored as (scale - 1) so zeros-init == identity; see rmsnorm().
         return {"scale": torch.zeros((d,), dtype=torch.float32,
                                      device=device)}
-    raise NotImplementedError(f"norm kind {kind!r}: only 'rmsnorm' is ported")
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
 
 
 # --------------------------------------------------------------------------

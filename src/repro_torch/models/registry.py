@@ -1,7 +1,10 @@
 """Architecture registry: ``--arch <id>`` → family functions + input specs.
 
 Counterpart of ``repro.models.registry``, holding the architectures ported so
-far (the dense GQA transformer family).
+far: the transformer family's dense GQA configs and its mixture-of-experts
+config.  MLA/MTP (deepseek-v3-671b), prefix-LM with modality prefixes
+(paligemma-3b) and the ``mamba2``/``hybrid``/``encdec`` families are not
+ported; ``get_arch`` raises ``KeyError`` for them.
 """
 from __future__ import annotations
 
@@ -12,8 +15,14 @@ from typing import Any
 
 import torch
 
+from repro_torch.configs.shapes import cells_for
+
 _CONFIG_MODULES = {
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
+    "h2o-danube-3-4b": "repro_torch.configs.h2o_danube_3_4b",
+    "stablelm-12b": "repro_torch.configs.stablelm_12b",
+    "qwen3-32b": "repro_torch.configs.qwen3_32b",
+    "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
 }
 
 ARCH_IDS = tuple(_CONFIG_MODULES)
@@ -59,6 +68,11 @@ class Arch:
         from repro_torch.core.fused import unfused_loss_fn
         spec = self._family_mod().make_fused_spec(self.cfg)
         return partial(unfused_loss_fn, spec)
+
+    def supported_cells(self) -> list:
+        """The assigned input-shape cells (``configs/shapes.py``) this
+        architecture runs."""
+        return cells_for(self.arch_id)
 
     def supports_packing(self) -> bool:
         """Packed-segment batches need the transformer train path with

@@ -1,17 +1,19 @@
-"""Decoder-only LM family (PyTorch), dense GQA: the train half and both
-serving halves.
+"""Decoder-only LM family (PyTorch), GQA attention over a dense or a
+mixture-of-experts FFN: the train half and both serving halves.
 
 Counterpart of ``repro.models.transformer``: scan-over-layers layout with
 stacked ``[L, ...]`` params so the fused AdaLomo backward (``core/fused.py``)
-applies.  Ported: dense GQA blocks with ``qk_norm``, sliding ``window``,
-``tie_embeddings`` and ``z_loss``; for paged serving,
+applies.  Ported: GQA blocks with ``qk_norm``, sliding ``window``, partial
+rotary, rmsnorm or layernorm, ``tie_embeddings`` and ``z_loss``, and the MoE
+FFN (``models/moe.py``), whose load-balance loss the train body adds to the
+carry; for paged serving,
 ``make_prefill_kv_step``, ``make_paged_decode_step`` and ``init_page_pool``;
 for the legacy engine's ring cache, ``cache_window``, ``init_cache``,
 ``make_prefill_step`` and ``make_decode_step``.  Decode steps update the
 page pool or the cache in place.  The train half takes packed batches
 (``segment_ids`` and per-document ``positions``): RoPE restarts at every
-document and attention never crosses one.  MoE, MLA, MTP, prefix-LM and
-modality-prefix configs raise ``NotImplementedError``.
+document and attention never crosses one.  MLA, MTP, prefix-LM,
+modality-prefix and ``glu=False`` configs raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.models import layers as L
+from repro_torch.models.moe import MoEConfig, moe_ffn, moe_init
 
 Tensor = torch.Tensor
 
@@ -48,11 +51,11 @@ class LMConfig:
     glu: bool = True
     tie_embeddings: bool = False
     embed_scale: bool = False             # gemma-style sqrt(d) embed scaling
-    # Fields of model families that are not ported yet; a config that sets
-    # one raises in check_supported().
+    # prefix_lm, n_prefix_tokens, mla and mtp belong to model families that
+    # are not ported yet; a config that sets one raises in check_supported().
     prefix_lm: bool = False
     n_prefix_tokens: int = 0
-    moe: Any = None
+    moe: Optional[MoEConfig] = None
     mla: Any = None
     mtp: bool = False
     mtp_weight: float = 0.1
@@ -68,18 +71,28 @@ class LMConfig:
         shapes = init_params(0, self, device="meta")
         return sum(math.prod(x.shape) for x in tree_leaves(shapes))
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: shared + top-k routed only)."""
+        if self.moe is None:
+            return self.param_count()
+        total = self.param_count()
+        E, K, f, d = (self.moe.n_routed, self.moe.top_k,
+                      self.moe.d_ff_expert, self.d_model)
+        routed = self.n_layers * E * 3 * d * f
+        active_routed = self.n_layers * K * 3 * d * f
+        return total - routed + active_routed
+
 
 def check_supported(cfg: LMConfig) -> None:
     """Raise for configurations whose code path is not ported yet."""
-    for field, what in (("moe", "mixture-of-experts FFN"),
-                        ("mla", "multi-head latent attention"),
+    for field, what in (("mla", "multi-head latent attention"),
                         ("mtp", "multi-token prediction"),
                         ("prefix_lm", "prefix-LM masks"),
                         ("n_prefix_tokens", "modality prefix embeddings")):
         if getattr(cfg, field):
             raise NotImplementedError(
-                f"LMConfig.{field}: {what} is not ported yet (dense GQA "
-                "transformers only)")
+                f"LMConfig.{field}: {what} is not ported yet (GQA "
+                "transformers, dense or MoE, only)")
     if not cfg.glu:
         raise NotImplementedError("LMConfig.glu=False: the plain 2-layer MLP "
                                   "is not ported yet")
@@ -108,18 +121,22 @@ def _attn_init(gen, cfg: LMConfig, device) -> dict:
 def _block_init(gen, cfg: LMConfig, device) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     dt = cfg.dtype
-    return {
+    p = {
         "ln1": L.norm_init(d, cfg.norm, device=device),
         "ln2": L.norm_init(d, cfg.norm, device=device),
         "attn": _attn_init(gen, cfg, device),
-        "mlp": {
+    }
+    if cfg.moe is not None:
+        p["moe"] = moe_init(gen, d, cfg.moe, dtype=dt, device=device)
+    else:
+        p["mlp"] = {
             "w_gate": L.linear_init(gen, d, f, dtype=dt, device=device),
             "w_up": L.linear_init(gen, d, f, dtype=dt, device=device),
             "w_down": L.linear_init(gen, f, d,
                                     scale=(2 * cfg.n_layers) ** -0.5,
                                     dtype=dt, device=device),
-        },
-    }
+        }
+    return p
 
 
 def init_params(seed: int, cfg: LMConfig, *, device="cuda") -> dict:
@@ -195,9 +212,17 @@ def _gqa_attn_kv(p: dict, cfg: LMConfig, h: Tensor, pos: Tensor,
     return L.dense(o.reshape(B, S, -1), p["wo"]), k, v
 
 
-def _mlp_residual(p: dict, cfg: LMConfig, x: Tensor) -> Tensor:
+def _ffn_residual(p: dict, cfg: LMConfig, x: Tensor) -> tuple:
+    """``x`` plus the block's FFN of ``ln2(x)``, and the FFN's auxiliary
+    loss: the MoE load-balance loss, None for the dense GLU MLP.  With MoE
+    each row of ``x`` is a routing group, its capacity from ``x``'s length
+    (a serving prefill's right-padded bucket included: pad tokens come
+    after the real ones in slot order and never displace them)."""
     h = L.norm_apply(p["ln2"], x, kind=cfg.norm)
-    return x + L.glu_mlp(p["mlp"], h, cfg.act)
+    if cfg.moe is not None:
+        y, aux = moe_ffn(p["moe"], h, cfg.moe)
+        return x + y, aux
+    return x + L.glu_mlp(p["mlp"], h, cfg.act), None
 
 
 # --------------------------------------------------------------------------
@@ -213,7 +238,10 @@ def make_block_body(cfg: LMConfig):
         seg = ctx_act.get("seg")    # int segment ids of a packed batch
         h = L.norm_apply(p["ln1"], x, kind=cfg.norm)
         x = x + _gqa_attn_kv(p["attn"], cfg, h, pos, seg)[0]
-        return (_mlp_residual(p, cfg, x), aux_loss)
+        x, aux = _ffn_residual(p, cfg, x)
+        if aux is not None:
+            aux_loss = aux_loss + aux
+        return (x, aux_loss)
 
     return body
 
@@ -292,6 +320,10 @@ def make_epilogue(cfg: LMConfig):
             "ntokens": ntok.to(torch.float32),
             "accuracy": correct.to(torch.float32) / denom,
         }
+        if cfg.moe is not None:
+            # the load-balance part of the loss, summed over the layers (a
+            # metric the reference does not report)
+            metrics["aux_loss"] = aux_loss.detach()
         return loss, metrics
 
     return epilogue
@@ -344,7 +376,7 @@ def make_prefill_kv_step(cfg: LMConfig):
             a, k, v = _gqa_attn_kv(p["attn"], cfg, h, pos)
             ks.append(k)
             vs.append(v)
-            x = _mlp_residual(p, cfg, x + a)
+            x = _ffn_residual(p, cfg, x + a)[0]
         last = torch.clamp_min(length - 1, 0)[:, None, None].expand(
             B, 1, x.shape[-1])
         h = L.norm_apply(outer["final_norm"], torch.gather(x, 1, last),
@@ -400,7 +432,7 @@ def make_paged_decode_step(cfg: LMConfig, *, use_kernel=None):
                                        window=cfg.window,
                                        use_kernel=use_kernel)
             a = L.dense(o.reshape(B, 1, -1), p["attn"]["wo"])
-            x = _mlp_residual(p, cfg, x + a)
+            x = _ffn_residual(p, cfg, x + a)[0]
         h = L.norm_apply(outer["final_norm"], x, kind=cfg.norm)
         logits = _logits(outer, cfg, h)[:, 0]
         return logits, pages
@@ -486,7 +518,7 @@ def make_decode_step(cfg: LMConfig, *, use_kernel=None):
             x = x + _decode_gqa(p["attn"], cfg, h, cache["k"][i],
                                 cache["v"][i], cache["pos"], cur, slot,
                                 rope, use_kernel)
-            x = _mlp_residual(p, cfg, x)
+            x = _ffn_residual(p, cfg, x)[0]
         h = L.norm_apply(outer["final_norm"], x, kind=cfg.norm)
         logits = _logits(outer, cfg, h)[:, 0]
         cur.add_(1)
@@ -526,7 +558,7 @@ def make_prefill_step(cfg: LMConfig):
             a, k, v = _gqa_attn_kv(p["attn"], cfg, h, pos)
             cache["k"][i] = k[:, S - W:]
             cache["v"][i] = v[:, S - W:]
-            x = _mlp_residual(p, cfg, x + a)
+            x = _ffn_residual(p, cfg, x + a)[0]
         h = L.norm_apply(outer["final_norm"], x[:, -1:], kind=cfg.norm)
         return _logits(outer, cfg, h)[:, 0], cache
 

@@ -139,8 +139,8 @@ def test_logits_are_fp32_from_bf16_params():
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("field,value", [("moe", object()), ("mla", object()),
-                                         ("mtp", True), ("prefix_lm", True)])
+@pytest.mark.parametrize("field,value", [("mla", object()), ("mtp", True),
+                                         ("prefix_lm", True)])
 def test_unported_model_features_raise(field, value):
     cfg = dataclasses.replace(get_arch(ARCH_ID, smoke=True).cfg,
                               **{field: value})
@@ -174,4 +174,4 @@ def test_configs_and_init_match_reference_shapes():
     assert port_arch.train_batch_specs(4, 16) == {
         "tokens": ((4, 16), torch.int32), "labels": ((4, 16), torch.int32)}
     with pytest.raises(KeyError, match="not ported"):
-        get_arch("qwen3-32b")
+        get_arch("mamba2-1.3b")

@@ -55,10 +55,11 @@ def assert_trees_close(port_tree, ref_tree, *, rtol, atol, what=""):
                                    err_msg=f"{what} {path}")
 
 
-def smoke_archs(**overrides):
-    """The danube smoke config in both packages, with the same overrides."""
-    ref = ref_get_arch(ARCH_ID, smoke=True)
-    port = port_get_arch(ARCH_ID, smoke=True)
+def smoke_archs(arch_id: str = ARCH_ID, **overrides):
+    """A smoke config (danube's by default) in both packages, with the same
+    overrides."""
+    ref = ref_get_arch(arch_id, smoke=True)
+    port = port_get_arch(arch_id, smoke=True)
     if overrides:
         ref = dataclasses.replace(
             ref, cfg=dataclasses.replace(ref.cfg, **overrides))
