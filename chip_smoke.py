@@ -162,13 +162,31 @@ printing one JSON line:
            sync checks; at 2 layers, fp32 greedy tokens through K3 and K4
            equal to the plain attention's.
 
+  mla      deepseek-v3-671b at its published widths (d_model 7168, 128
+           heads, MLA with q rank 1536, kv rank 512, q/k head dim 128 + 64
+           against v head dim 128, 256 routed experts top-8 of width 2048 +
+           1 shared, sigmoid router, an MTP head, vocab 129280, bf16; 704.1 B
+           parameters at 61 layers), random weights from a seed, depth cut.
+           K1/K2 on whole expert batches [256, 7168, 2048] and [256, 2048,
+           7168] held against the plain versions on entries 0, 1, 254, 255
+           (the last starts past 2**31 elements), bitwise on re-run, timed
+           beside their bounds.  ``run(spec)`` with fused AdaLomo at 1 layer,
+           1 x 1024, 3 steps: finite losses that move, the aux and MTP losses
+           in the metrics, 27 K1/K2 launches a step each, one host sync a
+           step, step 1 re-run bitwise (on-card digest); fused LOMO's peak
+           within 1 % of AdaLomo's; AdamW and Adafactor reckoned at full
+           depth.  Engine at 2 layers (50.4 GB of weights) from the latent
+           cache: 4 prompts of 1024 tokens, 32 greedy tokens, one host sync
+           a step, no K4 (MLA decodes in plain PyTorch); PagedEngine refuses
+           the model.  fp32 at 1 layer: a decode step's logits against a
+           prefill over one more token (1e-3), Engine's greedy tokens equal
+           to a loop that recomputes the whole sequence.
+
 Then the card's name and power limit, one JSON line that lists the kernels
 with their measured numbers, and the result line.
 
-``--phases configs_lomo`` (not in the default run) takes Table 1's fused
-LOMO step of qwen3-32b at full depth, 1 x 1024: the plain SGD update's fp32
-temporaries of a whole leaf bring its peak to about 3 GB below the card's
-capacity, too close for a check run by default.
+``--phases configs_lomo`` (not in the default run, to keep it short) takes
+Table 1's fused LOMO step of qwen3-32b at full depth, 1 x 1024.
 
 ``--phases timing`` (not in the default run) times the kernels as the
 kernels phase does, without its checks, and prints digests of their outputs
@@ -221,7 +239,8 @@ import numpy as np  # noqa: E402
 
 from repro_torch.core import optimizers as opt_lib  # noqa: E402
 from repro_torch.core.adalomo import AdaLomoConfig  # noqa: E402
-from repro_torch.core.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.core.tree import (leading_pieces, tree_leaves,  # noqa: E402
+                                   tree_map)
 from repro_torch.data.pipeline import DataConfig  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.adalomo_update import adalomo_update as K  # noqa: E402
@@ -1911,23 +1930,24 @@ def check_rules_card_vs_cpu() -> dict:
     return out
 
 
-def all_finite(tree, piece: int = 1 << 26) -> bool:
-    """Whether every element of ``tree`` is finite, checked in pieces of
-    ``piece`` elements (a whole-leaf mask of qwen3-32b's largest stack would
+def all_finite(tree) -> bool:
+    """Whether every element of ``tree`` is finite, checked in
+    ``leading_pieces`` (a whole-leaf mask of qwen3-32b's largest stack would
     take 15.6 GiB), with one read back at the end."""
     flags = [torch.isfinite(x).all() for t in tree_leaves(tree)
-             for x in t.detach().reshape(-1).split(piece)]
+             for x in leading_pieces(t.detach())]
     return bool(torch.stack(flags).all())
 
 
 def baseline_arm(name: str, fused: bool, base: int, *, arch_id=ARCH_ID,
                  steps=BASELINE_STEPS, batch=BASELINE_BATCH,
-                 seq=BASELINE_SEQ, hooks=()) -> dict:
+                 seq=BASELINE_SEQ, hooks=(), n_layers=None) -> dict:
     """One arm of the Table-1 comparison through ``run(spec)``: its step
     program and init first, to read what params and state hold; then the
     run, with K1/K2 counts set to 0 before it and read after, host syncs
     counted under the sync debug mode (``hooks`` join the pipeline's end);
-    then everything freed."""
+    then everything freed.  ``n_layers`` cuts the depth (published widths
+    kept)."""
     from repro_torch.run import build_step_program
     spec = RunSpec(model=ModelSpec(arch_id, smoke=False),
                    data=DataConfig(vocab=0, seq_len=seq, global_batch=batch,
@@ -1935,11 +1955,15 @@ def baseline_arm(name: str, fused: bool, base: int, *, arch_id=ARCH_ID,
                    opt=OptSpec(name=name),
                    steps=StepSpec(total=steps, fused=fused),
                    log_every=1, seed=0)
+    arch = get_arch(arch_id)
+    if n_layers is not None:
+        arch = with_layers(arch, n_layers)
     torch.cuda.reset_peak_memory_stats()
-    program = build_step_program(spec)
+    program = build_step_program(spec, arch)
     params, opt_state = program.init(spec.seed)
     init_bytes = held_bytes() - base
-    rec = {"arch": arch_id, "batch": batch, "seq": seq,
+    rec = {"arch": arch_id, "n_layers": arch.cfg.n_layers, "batch": batch,
+           "seq": seq,
            "optimizer": name, "engine": "fused" if fused else "unfused",
            "n_params": sum(p.numel() for p in tree_leaves(params)),
            "param_bytes": tree_bytes(params),
@@ -2441,9 +2465,11 @@ def legacy_serve_run(arch, params, batch: int, prompt_len: int,
                      new_tokens: int, seed: int = 2) -> tuple:
     """Engine over ``batch`` prompts of ``prompt_len`` tokens from ``seed``,
     ``new_tokens`` greedy tokens each.  Asserts the tokens, K4 launches ==
-    layers x decode steps and one synchronising host transfer a step.
+    layers x decode steps (none for MLA, which decodes from its latent
+    cache in plain PyTorch) and one synchronising host transfer a step.
     Returns the report and the K4 launches."""
     n_layers = arch.cfg.n_layers
+    k4_layers = 0 if arch.cfg.mla is not None else n_layers
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(1, arch.cfg.vocab, prompt_len).tolist()
                for _ in range(batch)]
@@ -2487,10 +2513,10 @@ def legacy_serve_run(arch, params, batch: int, prompt_len: int,
                              f"{new_tokens} each")
     if any(not 0 <= t < arch.cfg.vocab for o in outs for t in o):
         raise AssertionError("legacy_serve: a token id outside the vocabulary")
-    if steps != new_tokens - 1 or launches != n_layers * steps:
+    if steps != new_tokens - 1 or launches != k4_layers * steps:
         raise AssertionError(f"legacy_serve: {launches} decode_attention "
                              f"launches in {steps} decode steps, expected "
-                             f"{n_layers} x {new_tokens - 1}")
+                             f"{k4_layers} x {new_tokens - 1}")
     if len(syncs) != new_tokens:
         raise AssertionError(
             f"legacy_serve: {len(syncs)} synchronising host transfers, "
@@ -2637,20 +2663,24 @@ def device_digest(tree) -> torch.Tensor:
 
 
 def moe_watch(digest_at: int):
-    """A user hook: each step's aux loss (the metrics' ``aux_loss``), the
-    bytes allocated when the run starts (params and state), and the digest
-    of params and OptState after step ``digest_at``."""
+    """A user hook: each step's aux loss (the metrics' ``aux_loss``) and MTP
+    loss where the model has the head (``mtp_loss``), the bytes allocated
+    when the run starts (params and state), and the digest of params and
+    OptState after step ``digest_at``."""
     from repro_torch.run import Hook
 
     class Watch(Hook):
         def __init__(self):
             self.aux, self.digest, self.start_bytes = [], None, None
+            self.mtp = []
 
         def on_run_start(self, ctx):
             self.start_bytes = torch.cuda.memory_allocated()
 
         def on_step_end(self, ctx, ev):
             self.aux.append(ev.metrics["aux_loss"])
+            if "mtp_loss" in ev.metrics:
+                self.mtp.append(ev.metrics["mtp_loss"])
             if ev.step == digest_at:
                 # an asynchronous copy into pinned host memory: no host
                 # sync inside the run, and nothing left on the card
@@ -2893,8 +2923,8 @@ def config_step(arch_id: str, opt: str, base: int, held: int) -> tuple:
 
 def phase_configs_lomo() -> None:
     """Table 1's fused LOMO step on qwen3-32b at full depth, 1 x 1024 (not
-    in the default run: its plain SGD update forms fp32 temporaries of a
-    whole leaf, and the step's peak leaves about 3 GB of the card)."""
+    in the default run, to keep it short); the SGD update works in pieces
+    of 2**24 elements, so its peak is about fused AdaLomo's."""
     base = held_bytes()
     failed = config_step("qwen3-32b", "lomo", base, base)[1]
     if failed:
@@ -2902,10 +2932,345 @@ def phase_configs_lomo() -> None:
 
 
 # --------------------------------------------------------------------------
+# mla: deepseek-v3-671b (MLA, MTP, 256 experts) at its published widths
+# --------------------------------------------------------------------------
+
+MLA_ID = "deepseek-v3-671b"
+MLA_STEPS = 3
+# Depth is the one cut.  At 1 layer the params are 13,694,580,736 (27.4 GB
+# in bf16) and one MoE layer's gradients 23.0 GB; at 2 layers the params
+# alone are 50.4 GB and the fused step does not fit in the card.
+MLA_TRAIN_LAYERS = 1
+MLA_TRAIN_BATCH, MLA_TRAIN_SEQ = 1, 1024
+# K1/K2 launches of one fused step: 14 factored leaves a layer (w_dq, w_uq,
+# w_dkv, w_kr, w_uk, w_uv, wo; the fp32 router; the expert stacks w_gate,
+# w_up, w_down; the shared expert's three) and 13 in outer (tok_embed,
+# head, mtp_proj; the MTP block's 7 MLA and 3 MLP matrices)
+MLA_LEAVES_PER_LAYER, MLA_OUTER_LEAVES = 14, 13
+MLA_LOMO_PEAK_RTOL = 0.01
+MLA_SERVE_LAYERS = 2                    # 50.4 GB of bf16 weights
+MLA_SERVE = dict(batch=4, prompt_len=1024, new_tokens=32)
+# fp32 parity at 1 layer (54.8 GB): 2 prompts of 16 tokens, 8 greedy tokens
+MLA_PARITY_LAYERS = 1
+MLA_PARITY_B, MLA_PARITY_S, MLA_PARITY_NEW = 2, 16, 8
+MLA_PARITY_TOL = 1e-3
+# K1/K2 on whole expert batches of 256 [m, n] matrices, held against their
+# plain versions on entries 0, 1, 254 and 255; entry 255 of [256, 7168,
+# 2048] starts at element 3,743,416,320, past 2**31
+MLA_EXPERTS = 256
+MLA_KERNEL_SHAPES = ((7168, 2048), (2048, 7168))
+MLA_CHECK_ENTRIES = (0, 1, 254, 255)
+# K2 there is held on its update, at an lr whose update is as large as the
+# params (std 0.1): a few hundred bf16 ulps where one rounding is at most
+# 0.3 % of the largest update.  Per checked entry, the kernel's update
+# (θ' − θ) lies within 1 % of the largest plain update (fp32, unrounded) of
+# the plain one, and the plain update moves at least 95 % of the entry's
+# bf16 elements; an entry left unwritten, a flipped sign or another
+# entry's r and c are off by the whole update.
+MLA_K2_LR = 1.0
+MLA_K2_UPDATE_RTOL = 1e-2
+MLA_K2_MOVED_MIN = 0.95
+
+
+def with_layers(arch, n_layers: int, **cfg_changes):
+    """``arch`` at its published widths with the depth cut (and any other
+    config field changed)."""
+    return dataclasses.replace(arch, cfg=dataclasses.replace(
+        arch.cfg, n_layers=n_layers, **cfg_changes))
+
+
+def expert_batch_inputs(shape, seed: int) -> tuple:
+    """bf16 params and grads ``[256, m, n]`` drawn 16 matrices at a time
+    (no fp32 copy of a whole 7.5 GB batch), fp32 r and c as a later step
+    holds them."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    full = (MLA_EXPERTS,) + tuple(shape)
+    p = torch.empty(full, dtype=torch.bfloat16, device=DEV)
+    g = torch.empty_like(p)
+    for t, std in ((p, 0.1), (g, 0.3)):
+        for part in t.split(16):
+            part.copy_(torch.randn(part.shape, generator=gen, device=DEV)
+                       * std)
+    r = torch.rand(full[:-1], generator=gen, device=DEV) * 1e-2
+    c = torch.rand(full[:-2] + full[-1:], generator=gen, device=DEV) * 1e-2
+    return p, g, r, c
+
+
+def held_update(p0, p_new, want32, what: str) -> dict:
+    """K2's update on the checked entries ``p0 -> p_new`` against the plain
+    version's fp32 result ``want32``: per entry, the largest gap between
+    the two updates over the plain update's largest value, which must stay
+    within ``MLA_K2_UPDATE_RTOL``, and the share of the entry's bf16
+    elements the plain update moves, at least ``MLA_K2_MOVED_MIN``."""
+    base = p0.to(torch.float32)
+    d_plain = want32 - base
+    gap = (p_new.to(torch.float32) - base - d_plain).abs().amax(dim=(-2, -1))
+    rel = gap / d_plain.abs().amax(dim=(-2, -1))
+    moved = (want32.to(p0.dtype) != p0).to(torch.float32).mean(dim=(-2, -1))
+    rec = {"update_rel_err": rel.tolist(), "moved_share": moved.tolist(),
+           "max_abs_err_vs_fp32": max_err(p_new, want32)}
+    if (bool((rel > MLA_K2_UPDATE_RTOL).any())
+            or bool((moved < MLA_K2_MOVED_MIN).any())):
+        raise AssertionError(
+            f"{what}: the kernel's update and the plain one disagree, or the "
+            f"plain one does not move the entries "
+            f"(rtol {MLA_K2_UPDATE_RTOL}, moved >= {MLA_K2_MOVED_MIN}): "
+            f"{rec}")
+    return rec
+
+
+def check_expert_batches(errs: dict) -> dict:
+    """K1 then K2 (step 5, bf16 params and grads, as the fused step hands
+    an expert stack over) on each whole ``[256, m, n]`` batch, held against
+    the plain versions on ``MLA_CHECK_ENTRIES``: K1's r' and c' within
+    ``TOL_RC``, K2's update (at ``MLA_K2_LR``, on the r', c' K1 wrote) by
+    ``held_update``; the same inputs again, bitwise; then each kernel timed
+    on the whole batch (CUDA events: a batch is far past the L2 cache)
+    beside its bound, and the plain versions on the four entries."""
+    beta, lr, step = 0.999, MLA_K2_LR, 5.0
+    beta_t = torch.full((), beta, device=DEV)
+    kw2 = dict(eps_div=CFG.eps_div, eps_rms=CFG.eps_rms, literal=False)
+    sel = torch.tensor(MLA_CHECK_ENTRIES, device=DEV)
+    rows = {}
+    for shape in MLA_KERNEL_SHAPES:
+        name = f"experts [{MLA_EXPERTS},{shape[0]},{shape[1]}]"
+        first = None
+        for rep in range(2):
+            p, g, r, c = expert_batch_inputs(shape, seed=shape[0])
+            p0, r0, c0 = p[sel], r[sel], c[sel]          # copies
+            K.adalomo_stats(g, r, c, beta_t, eps_stat=CFG.eps_stat)
+            scal = scal_for(r, lr, step, beta, 0.0, 1.0)
+            K.adalomo_update(p, g, r, c, scal, **kw2)
+            if first is None:
+                g4 = g[sel]
+                want_r, want_c = K.adalomo_stats_ref(
+                    g4, r0, c0, beta_t, eps_stat=CFG.eps_stat)
+                assert_close(r[sel], want_r, what=f"adalomo_stats r {name}",
+                             **TOL_RC)
+                assert_close(c[sel], want_c, what=f"adalomo_stats c {name}",
+                             **TOL_RC)
+                want_p = K.adalomo_update_ref(
+                    p0.to(torch.float32), g4, r[sel], c[sel], scal[sel],
+                    **kw2)
+                update = held_update(p0, p[sel], want_p,
+                                     f"adalomo_update {name}")
+                err = {"adalomo_stats": max(max_err(r[sel], want_r),
+                                            max_err(c[sel], want_c)),
+                       "adalomo_update": max_err(p[sel], want_p)}
+                for k, v in err.items():
+                    errs[k] = max(errs[k], v)
+                first = (p, r, c)
+                del g, g4, want_r, want_c, want_p
+                continue
+            bitwise = all(torch.equal(a, b) for a, b in zip(first, (p, r, c)))
+            if not bitwise:
+                raise AssertionError(f"K1/K2 on {name}: the same inputs did "
+                                     "not give bit-identical outputs")
+        del first
+        L, (m, n) = MLA_EXPERTS, shape
+        g4, r4, c4, p4, s4 = g[sel], r[sel], c[sel], p[sel], scal[sel]
+        one = (p, g, r, c, scal)
+        row = {"entries_checked": list(MLA_CHECK_ENTRIES),
+               "max_abs_err": err, "update": update,
+               "rerun_bitwise": bitwise,
+               "stats_ms": time_ms(
+                   lambda p, g, r, c, s: K.adalomo_stats(
+                       g, r, c, beta_t, eps_stat=CFG.eps_stat), [one], 5),
+               "update_ms": time_ms(
+                   lambda p, g, r, c, s: K.adalomo_update(p, g, r, c, s,
+                                                          **kw2), [one], 5),
+               "stats_plain_ms_4_entries": time_ms(
+                   lambda: K.adalomo_stats_ref(g4, r4, c4, beta_t,
+                                               eps_stat=CFG.eps_stat),
+                   [()], 3),
+               "update_plain_ms_4_entries": time_ms(
+                   lambda: K.adalomo_update_ref(p4, g4, r4, c4, s4, **kw2),
+                   [()], 3)}
+        state_bytes = 4 * L * (m + n)
+        for key, nbytes, flop in (
+                ("stats", L * m * n * 2 + 2 * state_bytes, K1_FLOP_PER_ELEM),
+                ("update", 3 * L * m * n * 2 + state_bytes + 16 * L,
+                 K2_FLOP_PER_ELEM)):
+            row[key + "_bound_ms"] = max(
+                nbytes / HBM_BYTES_PER_S,
+                flop * L * m * n / FP32_FLOP_PER_S) * 1e3
+        rows[name] = row
+        del p, g, r, c, scal, one, g4, r4, c4, p4, s4
+        torch.cuda.empty_cache()
+    return rows
+
+
+def mla_parity() -> dict:
+    """fp32 at full width and 1 layer: one decode step's logits from the
+    absorbed latent path (the ring of the prompt's 16 slots, so the step
+    overwrites position 0) against the last-position logits of a prefill
+    over the same tokens plus one with a window of 16 (the positions that
+    ring holds), within 1e-3; then Engine's greedy tokens equal to a plain
+    loop that recomputes the whole sequence each token.  Both sides at a
+    capacity factor of 32 (experts / top-k: no token is ever dropped),
+    since a prefill drops by capacity where a one-token decode cannot."""
+    B, S, new = MLA_PARITY_B, MLA_PARITY_S, MLA_PARITY_NEW
+    arch = get_arch(MLA_ID)
+    moe = arch.cfg.moe
+    arch = with_layers(arch, MLA_PARITY_LAYERS, dtype=torch.float32,
+                       window=S, moe=dataclasses.replace(
+                           moe, capacity_factor=moe.n_routed / moe.top_k))
+    params = arch.init_params(0)
+    rng = np.random.default_rng(13)
+    toks = torch.from_numpy(rng.integers(
+        1, arch.cfg.vocab, (B, S + 1)).astype(np.int32)).to(DEV)
+    prefill = arch.make_prefill_step()
+    _, cache = prefill(params, {"tokens": toks[:, :S]})
+    ring_slots = int(cache["ckv"].shape[2])
+    dec = arch.make_decode_step()(params, cache, {"tokens": toks[:, S:]})[0]
+    full = prefill(params, {"tokens": toks})[0]
+    err = max_err(dec, full)
+    tokens = Engine(arch, params, ServeConfig(max_new_tokens=new)).generate(
+        toks[:, :S].cpu().tolist())
+    seq, plain = toks[:, :S], []
+    for _ in range(new):
+        nxt = torch.argmax(prefill(params, {"tokens": seq})[0],
+                           dim=-1).to(torch.int32)
+        plain.append(nxt)
+        seq = torch.cat([seq, nxt[:, None]], dim=1)
+    plain = torch.stack(plain, dim=1).cpu().tolist()
+    torch.cuda.synchronize()
+    out = {"n_layers": MLA_PARITY_LAYERS, "dtype": "float32", "batch": B,
+           "prompt_len": S, "ring_slots": ring_slots,
+           "capacity_factor": arch.cfg.moe.capacity_factor,
+           "decode_vs_prefill_logits_max_abs_err": err,
+           "tolerance": MLA_PARITY_TOL, "greedy_tokens_equal": tokens == plain,
+           "tokens_engine": tokens[0], "tokens_recompute": plain[0]}
+    del params, cache
+    torch.cuda.empty_cache()
+    if not err <= MLA_PARITY_TOL:
+        raise AssertionError(f"mla parity: decode-step logits differ from "
+                             f"the prefill's by {err}")
+    if tokens != plain:
+        raise AssertionError(f"mla parity: Engine's greedy tokens {tokens} "
+                             f"differ from the recompute loop's {plain}")
+    return out
+
+
+def phase_mla() -> dict:
+    """deepseek-v3-671b at its published widths, depth cut: K1/K2 on its
+    expert batches; fused AdaLomo (and fused LOMO beside it) through
+    ``run(spec)`` at 1 layer; the legacy Engine serving from the latent
+    cache at 2 layers; fp32 parity of the latent decode at 1 layer."""
+    t0 = time.perf_counter()
+    base = held_bytes()
+    errs = {"adalomo_stats": 0.0, "adalomo_update": 0.0}
+    progress("mla: K1/K2 on the [256, m, n] expert batches")
+    kernels = check_expert_batches(errs)
+    emit("mla_kernels", arch=MLA_ID, dtype="bf16 param, bf16 grad",
+         tolerances={"r_c": TOL_RC, "k2_lr": MLA_K2_LR,
+                     "k2_update_rtol": MLA_K2_UPDATE_RTOL,
+                     "k2_moved_min": MLA_K2_MOVED_MIN},
+         per_call=kernels, max_abs_err=errs,
+         held_after_bytes=held_bytes(), held_before_bytes=base,
+         seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    arch = with_layers(get_arch(MLA_ID), MLA_TRAIN_LAYERS)
+    leaves = factored_leaves(arch.init_params(0, device="meta"))
+    want_leaves = MLA_LEAVES_PER_LAYER * MLA_TRAIN_LAYERS + MLA_OUTER_LEAVES
+    failed = []
+    if leaves != want_leaves:
+        failed.append(f"{leaves} factored leaves a step, expected "
+                      f"{want_leaves}")
+    kw = dict(arch_id=MLA_ID, batch=MLA_TRAIN_BATCH, seq=MLA_TRAIN_SEQ,
+              n_layers=MLA_TRAIN_LAYERS)
+    watch = moe_watch(0)
+    progress(f"mla: fused AdaLomo, {MLA_STEPS} steps at 1 layer")
+    rec = baseline_arm("adalomo", True, base, steps=MLA_STEPS,
+                       hooks=[watch], **kw)
+    rec.update(aux_losses=watch.aux, mtp_losses=watch.mtp,
+               allocated_at_run_start_bytes=watch.start_bytes)
+    rerun_watch = moe_watch(0)
+    progress("mla: step 1 re-run, then LOMO")
+    rerun = baseline_arm("adalomo", True, base, steps=1,
+                         hooks=[rerun_watch], **kw)
+    rerun_bitwise = (rerun["losses"][0] == rec["losses"][0]
+                     and torch.equal(rerun_watch.digest, watch.digest))
+    lomo = baseline_arm("lomo", True, base, steps=1, **kw)
+    losses = rec["losses"]
+    want = dict.fromkeys(("adalomo_stats", "adalomo_update"),
+                         want_leaves * MLA_STEPS)
+    if len(losses) != MLA_STEPS or not all(map(math.isfinite, losses)):
+        failed.append(f"losses {losses}")
+    elif losses[-1] == losses[0]:
+        failed.append(f"losses do not move: {losses}")
+    if rec["launches"] != want:
+        failed.append(f"K1/K2 launches {rec['launches']}, expected {want}")
+    if rec["host_syncs"] != MLA_STEPS:
+        failed.append(f"{rec['host_syncs']} host syncs in {MLA_STEPS} steps")
+    if not rec["params_finite"]:
+        failed.append("a parameter is not finite")
+    for what, vals in (("aux", watch.aux), ("mtp", watch.mtp)):
+        if len(vals) != MLA_STEPS or not all(
+                math.isfinite(a) and a > 0 for a in vals):
+            failed.append(f"{what} losses {vals}")
+    if not rerun_bitwise:
+        failed.append("step 1 re-run from the same seed is not bitwise equal")
+    if lomo["launches"] != dict.fromkeys(want, 0) or not all(
+            map(math.isfinite, lomo["losses"])):
+        failed.append(f"lomo: {lomo['launches']} {lomo['losses']}")
+    lomo_gap = (lomo["peak_memory_bytes"] / rec["peak_memory_bytes"]) - 1.0
+    if abs(lomo_gap) > MLA_LOMO_PEAK_RTOL:
+        failed.append(f"LOMO's peak is {lomo_gap:+.2%} of AdaLomo's")
+    for r in (rec, rerun, lomo):
+        if r["allocated_after_free_bytes"] != base:
+            failed.append(f"{r['optimizer']}: "
+                          f"{r['allocated_after_free_bytes']} bytes held "
+                          f"after the run, {base} before")
+    emit("mla_train", arch=MLA_ID, cut={"n_layers": [61, MLA_TRAIN_LAYERS],
+                                        "batch": MLA_TRAIN_BATCH,
+                                        "seq": MLA_TRAIN_SEQ,
+                                        "steps": MLA_STEPS},
+         factored_leaves_per_step=leaves, adalomo=rec,
+         rerun_step1={"losses": rerun["losses"], "bitwise": rerun_bitwise,
+                      "step_seconds": rerun["step_seconds"]},
+         lomo=lomo, lomo_peak_vs_adalomo=lomo_gap,
+         reckoned_unfused_full_depth=reckoned_bytes(MLA_ID),
+         seconds=time.perf_counter() - t0)
+    if failed:
+        raise AssertionError(f"mla train: {failed}")
+
+    t0 = time.perf_counter()
+    progress(f"mla: Engine from the latent cache at {MLA_SERVE_LAYERS} "
+             "layers")
+    arch = with_layers(get_arch(MLA_ID), MLA_SERVE_LAYERS)
+    params = arch.init_params(0)
+    try:
+        PagedEngine(arch, params, PagedServeConfig(**SERVE_CFG))
+    except ValueError as e:
+        paged_refusal = str(e)
+    else:
+        raise AssertionError("mla serve: PagedEngine accepted an MLA model")
+    report, launches = legacy_serve_run(arch, params, **MLA_SERVE)
+    del params
+    emit("mla_serve", arch=MLA_ID, cut={"n_layers": [61, MLA_SERVE_LAYERS]},
+         cache="latent ckv [L,B,W,512] + kr [L,B,W,64]",
+         paged_refusal=paged_refusal, **report,
+         held_after_bytes=held_bytes(), held_before_bytes=base,
+         seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    progress("mla: fp32 parity of the latent decode at 1 layer")
+    emit("mla_parity", arch=MLA_ID, **mla_parity(),
+         seconds=time.perf_counter() - t0)
+    return {"launches": {"adalomo_stats": rec["launches"]["adalomo_stats"],
+                         "adalomo_update": rec["launches"]["adalomo_update"],
+                         "decode_attention": launches},
+            "per_call": kernels, "errs": errs}
+
+
+# --------------------------------------------------------------------------
 
 PHASES = ("kernels", "train", "parity", "resume", "sentinel", "baselines",
           "packed", "serve", "serve_parity", "legacy_serve", "legacy_parity",
-          "moe", "configs")
+          "moe", "configs", "mla")
 EXTRA_PHASES = ("timing", "configs_lomo")
 
 
@@ -2926,7 +3291,9 @@ def main() -> None:
                          "kernels,packed after touching the segment "
                          "masks or the packed path, kernels,moe,configs "
                          "after touching the MoE FFN, the configs or the "
-                         "head dims of K3/K4; configs_lomo (not in the "
+                         "head dims of K3/K4, kernels,mla after touching "
+                         "MLA, MTP, the latent cache or deepseek-v3-671b; "
+                         "configs_lomo (not in the "
                          "default) qwen3-32b's fused LOMO step; timing "
                          "(not in the default) times the kernels without "
                          "checking them and prints their outputs' digests")
@@ -2990,6 +3357,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     configs = phase_configs() if "configs" in phases else None
+    gc.collect()
+    torch.cuda.empty_cache()
+    mla = phase_mla() if "mla" in phases else None
     if "configs_lomo" in phases:
         phase_configs_lomo()
     if set(phases) != set(PHASES):
@@ -3018,7 +3388,9 @@ def main() -> None:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/" + src,
             "replaces": "src/repro/kernels/" + replaces,
-            "launches": launches, "max_abs_err": kern["errs"][name],
+            "launches": launches,
+            "max_abs_err": max(kern["errs"][name],
+                               mla["errs"].get(name, 0.0)),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": "bytes",
             "library_ms": library, "unit": unit,
@@ -3027,9 +3399,16 @@ def main() -> None:
                 "serve" if name.startswith("paged") else "legacy_serve":
                 launches,
                 "moe": moe["launches"].get(name, 0),
-                "configs": configs["launches"][name]}})
+                "configs": configs["launches"][name],
+                "mla": mla["launches"].get(name, 0)}})
         if name == "paged_decode_attention":
             kernels[-1]["library_note"] = PAGED_LIBRARY_NOTE
+        if name.startswith("adalomo"):
+            key = "stats" if name == "adalomo_stats" else "update"
+            kernels[-1]["deepseek_v3_expert_batch_per_call"] = {
+                shape: {k.replace(key + "_", ""): v for k, v in row.items()
+                        if k.startswith(key + "_")}
+                for shape, row in mla["per_call"].items()}
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

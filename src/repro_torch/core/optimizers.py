@@ -34,6 +34,7 @@ import torch
 from repro_torch.core import adalomo as _adalomo
 from repro_torch.core.api import (GroupSpec, Opt, UpdateRule, make_rule,
                                   no_decay_1d)
+from repro_torch.core.tree import leading_pieces
 
 __all__ = ["adalomo", "sgd", "sgd_momentum", "sgd_variance", "adamw",
            "adafactor", "MomentumState", "VarianceState", "AdamState",
@@ -112,7 +113,9 @@ def adalomo(cfg: Optional[_adalomo.AdaLomoConfig] = None, *,
 # --------------------------------------------------------------------------
 
 def sgd(*, lr: float = 1e-3) -> UpdateRule:
-    """Plain SGD — the LOMO update rule (paper Eq. 1)."""
+    """Plain SGD — the LOMO update rule (paper Eq. 1).  In place, piece by
+    piece (``leading_pieces``): each piece in fp32, cast once at its write,
+    so the result is the whole-leaf update's, bit for bit."""
 
     def init_fn(param, *, factored=None, batch_dims=0):
         del factored, batch_dims
@@ -121,8 +124,8 @@ def sgd(*, lr: float = 1e-3) -> UpdateRule:
     @torch.no_grad()
     def update_fn(param, grad, state, hp, step, *, batch_dims=0):
         del step, batch_dims
-        p32 = param.to(torch.float32)
-        param.copy_((p32 - hp["lr"] * grad.to(torch.float32)).to(param.dtype))
+        for p, g in zip(leading_pieces(param), leading_pieces(grad)):
+            p.copy_((p.to(_F32) - hp["lr"] * g.to(_F32)).to(p.dtype))
         return param, state
 
     return make_rule("sgd", init_fn, update_fn, hparams=dict(lr=lr))

@@ -71,3 +71,21 @@ def pytree_unflatten(template, leaves: list):
         return next(it)
 
     return build(template)
+
+
+# Elements in one piece where a large tensor is worked on piece by piece, so
+# that no fp32 temporary of a whole leaf exists: 64 MB of fp32 a piece (an
+# expert stack of deepseek-v3-671b is 3.76 G elements, 15 GB in fp32).
+PIECE = 1 << 24
+
+
+def leading_pieces(t) -> list:
+    """Views of the tensor ``t`` that cover it once, in order, cut along its
+    leading axes into runs of at most ``PIECE`` elements (an index of an
+    axis whose sub-tensor is larger is cut further along the next)."""
+    if t.ndim == 0 or t.numel() <= PIECE:
+        return [t]
+    row = t.numel() // t.shape[0]
+    if row > PIECE:
+        return [p for sub in t.unbind(0) for p in leading_pieces(sub)]
+    return list(t.split(PIECE // row, dim=0))

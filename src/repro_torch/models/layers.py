@@ -24,10 +24,13 @@ fields for them).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core.tree import leading_pieces
 
 Tensor = torch.Tensor
 
@@ -69,13 +72,18 @@ def norm_apply(params: dict, x: Tensor, *, kind: str, eps: float = 1e-6
     return layernorm(x, params["scale"], params["bias"], eps)
 
 
-def norm_init(d: int, kind: str, *, device) -> dict:
-    if kind == "rmsnorm":
-        # stored as (scale - 1) so zeros-init == identity; see rmsnorm().
-        return {"scale": torch.zeros((d,), dtype=torch.float32,
-                                     device=device)}
-    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
-            "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+def norm_init(d: int, kind: str, *, device,
+              out: Optional[dict] = None) -> dict:
+    """The norm's fp32 leaves, written into ``out`` where it is given."""
+    if out is None:
+        keys = ("scale",) if kind == "rmsnorm" else ("scale", "bias")
+        out = {k: torch.empty((d,), dtype=torch.float32, device=device)
+               for k in keys}
+    # rmsnorm stores (scale - 1) so zeros-init == identity; see rmsnorm().
+    out["scale"].fill_(0.0 if kind == "rmsnorm" else 1.0)
+    if "bias" in out:
+        out["bias"].zero_()
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -531,21 +539,38 @@ def glu_mlp(params: dict, x: Tensor, act: str = "silu") -> Tensor:
 # Initializers
 # --------------------------------------------------------------------------
 
-def _normal(shape: tuple, gen: Optional[torch.Generator], device) -> Tensor:
-    """Standard normal fp32 draws from ``gen``; on the meta device (shape
-    bookkeeping) nothing is drawn."""
-    out = torch.empty(shape, dtype=torch.float32, device=device)
-    if out.device.type != "meta":
-        out.normal_(generator=gen)
+# A random init of more than this many elements is drawn piece by piece
+# (deepseek-v3-671b's expert stacks are 3.76 G elements: one fp32 draw of a
+# whole stack would be 15 GB beside the model); a smaller one takes one draw.
+_NORMAL_WHOLE_MAX = 1 << 30
+
+
+def normal_init(gen, shape: tuple, std: float, *, dtype, device,
+                out: Optional[Tensor] = None) -> Tensor:
+    """``std`` times standard normal draws from ``gen``, in ``dtype``,
+    written into ``out`` (a tensor of ``shape``, e.g. one layer of a stack)
+    where one is given.  A tensor of at most ``_NORMAL_WHOLE_MAX`` elements
+    is one fp32 draw; a larger one is drawn in ``leading_pieces``, so no fp32
+    copy of the whole tensor exists.  On the meta device (shape bookkeeping)
+    nothing is drawn."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    if out is None:
+        out = torch.empty(shape, dtype=dtype, device=device)
+    whole = math.prod(shape) <= _NORMAL_WHOLE_MAX
+    for part in [out] if whole else leading_pieces(out):
+        draw = torch.empty(part.shape, dtype=torch.float32, device=device)
+        part.copy_(draw.normal_(generator=gen).mul_(std))
     return out
 
 
 def linear_init(gen, d_in: int, d_out: int, *, scale: float = 1.0,
-                dtype=torch.float32, device) -> Tensor:
-    std = scale * (d_in ** -0.5)
-    return (_normal((d_in, d_out), gen, device) * std).to(dtype)
+                dtype=torch.float32, device, out: Optional[Tensor] = None
+                ) -> Tensor:
+    return normal_init(gen, (d_in, d_out), scale * (d_in ** -0.5),
+                       dtype=dtype, device=device, out=out)
 
 
 def embed_init(gen, vocab: int, d: int, *, dtype=torch.float32, device
                ) -> Tensor:
-    return (_normal((vocab, d), gen, device) * 0.02).to(dtype)
+    return normal_init(gen, (vocab, d), 0.02, dtype=dtype, device=device)

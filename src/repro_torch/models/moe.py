@@ -22,6 +22,7 @@ a device mesh).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -48,31 +49,35 @@ def _round_up(x: int, m: int) -> int:
 
 
 def moe_init(gen, d_model: int, cfg: MoEConfig, *, dtype=torch.float32,
-             device) -> dict:
+             device, out: Optional[dict] = None) -> dict:
     """The reference's layout and scales: an fp32 router ``[d, E]``, expert
     stacks ``w_gate``/``w_up [E, d, f]`` and ``w_down [E, f, d]`` in
     ``dtype``, and the shared experts as one GLU MLP of width
-    ``n_shared * f``."""
+    ``n_shared * f``; drawn into ``out`` (the same tree) where given."""
     E, f = cfg.n_routed, cfg.d_ff_expert
+    o = out or {}
     p = {
         "router": L.linear_init(gen, d_model, E, dtype=torch.float32,
-                                device=device),
-        "w_gate": (L._normal((E, d_model, f), gen, device)
-                   * d_model ** -0.5).to(dtype),
-        "w_up": (L._normal((E, d_model, f), gen, device)
-                 * d_model ** -0.5).to(dtype),
-        "w_down": (L._normal((E, f, d_model), gen, device)
-                   * f ** -0.5).to(dtype),
+                                device=device, out=o.get("router")),
+        "w_gate": L.normal_init(gen, (E, d_model, f), d_model ** -0.5,
+                                dtype=dtype, device=device,
+                                out=o.get("w_gate")),
+        "w_up": L.normal_init(gen, (E, d_model, f), d_model ** -0.5,
+                              dtype=dtype, device=device, out=o.get("w_up")),
+        "w_down": L.normal_init(gen, (E, f, d_model), f ** -0.5,
+                                dtype=dtype, device=device,
+                                out=o.get("w_down")),
     }
     if cfg.n_shared:
         fs = cfg.n_shared * f
+        sh = o.get("shared_mlp", {})
         p["shared_mlp"] = {
             "w_gate": L.linear_init(gen, d_model, fs, dtype=dtype,
-                                    device=device),
+                                    device=device, out=sh.get("w_gate")),
             "w_up": L.linear_init(gen, d_model, fs, dtype=dtype,
-                                  device=device),
+                                  device=device, out=sh.get("w_up")),
             "w_down": L.linear_init(gen, fs, d_model, dtype=dtype,
-                                    device=device),
+                                    device=device, out=sh.get("w_down")),
         }
     return p
 

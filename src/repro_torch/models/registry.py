@@ -1,10 +1,11 @@
 """Architecture registry: ``--arch <id>`` → family functions + input specs.
 
 Counterpart of ``repro.models.registry``, holding the architectures ported so
-far: the transformer family's dense GQA configs and its mixture-of-experts
-config.  MLA/MTP (deepseek-v3-671b), prefix-LM with modality prefixes
-(paligemma-3b) and the ``mamba2``/``hybrid``/``encdec`` families are not
-ported; ``get_arch`` raises ``KeyError`` for them.
+far: the transformer family's dense GQA configs, its mixture-of-experts
+config and deepseek-v3-671b (MLA, MoE with a sigmoid router, MTP).  Prefix-LM
+with modality prefixes (paligemma-3b) and the ``mamba2``/``hybrid``/
+``encdec`` families are not ported; ``get_arch`` raises ``KeyError`` for
+them.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ _CONFIG_MODULES = {
     "stablelm-12b": "repro_torch.configs.stablelm_12b",
     "qwen3-32b": "repro_torch.configs.qwen3_32b",
     "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
 }
 
 ARCH_IDS = tuple(_CONFIG_MODULES)
@@ -87,7 +89,8 @@ class Arch:
         (batch, seq_len) — the contract between the data layer
         (``repro_torch.run.data.make_batch_iter`` yields exactly these leaves)
         and the step program.  ``packed=True`` adds the packed-segment
-        leaves: ``segment_ids``, ``positions`` and ``loss_mask``."""
+        leaves: ``segment_ids``, ``positions`` and ``loss_mask``; an MTP
+        model's labelled batch adds ``labels_mtp``."""
         B, S = batch, seq_len
         if packed and not self.supports_packing():
             raise ValueError(
@@ -102,6 +105,8 @@ class Arch:
             out["segment_ids"] = ((B, S), torch.int32)
             out["positions"] = ((B, S), torch.int32)
             out["loss_mask"] = ((B, S), torch.bool)
+        if self.cfg.mtp and labels:
+            out["labels_mtp"] = ((B, S), torch.int32)
         return out
 
     # ---- legacy serve (ring-buffer cache) -----------------------------------

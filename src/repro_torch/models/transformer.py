@@ -1,19 +1,25 @@
-"""Decoder-only LM family (PyTorch), GQA attention over a dense or a
-mixture-of-experts FFN: the train half and both serving halves.
+"""Decoder-only LM family (PyTorch): GQA or multi-head latent attention
+(MLA) over a dense or a mixture-of-experts FFN, with an optional
+multi-token-prediction (MTP) head — the train half and both serving halves.
 
 Counterpart of ``repro.models.transformer``: scan-over-layers layout with
 stacked ``[L, ...]`` params so the fused AdaLomo backward (``core/fused.py``)
 applies.  Ported: GQA blocks with ``qk_norm``, sliding ``window``, partial
-rotary, rmsnorm or layernorm, ``tie_embeddings`` and ``z_loss``, and the MoE
-FFN (``models/moe.py``), whose load-balance loss the train body adds to the
-carry; for paged serving,
-``make_prefill_kv_step``, ``make_paged_decode_step`` and ``init_page_pool``;
-for the legacy engine's ring cache, ``cache_window``, ``init_cache``,
-``make_prefill_step`` and ``make_decode_step``.  Decode steps update the
-page pool or the cache in place.  The train half takes packed batches
-(``segment_ids`` and per-document ``positions``): RoPE restarts at every
-document and attention never crosses one.  MLA, MTP, prefix-LM,
-modality-prefix and ``glu=False`` configs raise ``NotImplementedError``.
+rotary, rmsnorm or layernorm, ``tie_embeddings`` and ``z_loss``; MLA
+(DeepSeek-V3: a low-rank query, a shared latent KV plus one RoPE key, q/k
+head dim ``d_nope + d_rope`` against v head dim ``d_v``); the MoE FFN
+(``models/moe.py``), whose load-balance loss the train body adds to the
+carry; and the MTP head, one dense block over ``[h_t ; emb(token_t)]``
+scored against ``labels_mtp``.  For paged serving (GQA only, as in the
+reference) ``make_prefill_kv_step``, ``make_paged_decode_step`` and
+``init_page_pool``; for the legacy engine's ring cache ``cache_window``,
+``init_cache``, ``make_prefill_step`` and ``make_decode_step``, whose MLA
+cache is the latent ``ckv``/``kr`` and whose MLA decode scores in latent
+space (the absorbed matmuls).  Decode steps update the page pool or the
+cache in place.  The train half takes packed batches (``segment_ids`` and
+per-document ``positions``): RoPE restarts at every document and attention
+never crosses one.  Prefix-LM, modality-prefix and ``glu=False`` configs
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -30,6 +36,15 @@ from repro_torch.models import layers as L
 from repro_torch.models.moe import MoEConfig, moe_ffn, moe_init
 
 Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    d_nope: int = 128
+    d_rope: int = 64
+    d_v: int = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,13 +66,13 @@ class LMConfig:
     glu: bool = True
     tie_embeddings: bool = False
     embed_scale: bool = False             # gemma-style sqrt(d) embed scaling
-    # prefix_lm, n_prefix_tokens, mla and mtp belong to model families that
-    # are not ported yet; a config that sets one raises in check_supported().
+    # prefix_lm and n_prefix_tokens belong to a model family that is not
+    # ported yet; a config that sets one raises in check_supported().
     prefix_lm: bool = False
     n_prefix_tokens: int = 0
     moe: Optional[MoEConfig] = None
-    mla: Any = None
-    mtp: bool = False
+    mla: Optional[MLAConfig] = None
+    mtp: bool = False                     # deepseek-v3 multi-token prediction
     mtp_weight: float = 0.1
     z_loss: float = 0.0
     dtype: Any = torch.bfloat16
@@ -85,14 +100,12 @@ class LMConfig:
 
 def check_supported(cfg: LMConfig) -> None:
     """Raise for configurations whose code path is not ported yet."""
-    for field, what in (("mla", "multi-head latent attention"),
-                        ("mtp", "multi-token prediction"),
-                        ("prefix_lm", "prefix-LM masks"),
+    for field, what in (("prefix_lm", "prefix-LM masks"),
                         ("n_prefix_tokens", "modality prefix embeddings")):
         if getattr(cfg, field):
             raise NotImplementedError(
-                f"LMConfig.{field}: {what} is not ported yet (GQA "
-                "transformers, dense or MoE, only)")
+                f"LMConfig.{field}: {what} is not ported yet (GQA or MLA "
+                "transformers, dense or MoE, with or without MTP, only)")
     if not cfg.glu:
         raise NotImplementedError("LMConfig.glu=False: the plain 2-layer MLP "
                                   "is not ported yet")
@@ -102,48 +115,85 @@ def check_supported(cfg: LMConfig) -> None:
 # Init
 # --------------------------------------------------------------------------
 
-def _attn_init(gen, cfg: LMConfig, device) -> dict:
+def _attn_init(gen, cfg: LMConfig, device, out: Optional[dict] = None
+               ) -> dict:
     d, H, K, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = cfg.dtype
+    o = out or {}
+
+    def lin(key, d_in, d_out, **kw):
+        return L.linear_init(gen, d_in, d_out, dtype=dt, device=device,
+                             out=o.get(key), **kw)
+
+    def norm(key, width):
+        return L.norm_init(width, "rmsnorm", device=device, out=o.get(key))
+
+    wo_scale = (2 * cfg.n_layers) ** -0.5
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {
+            "w_dq": lin("w_dq", d, m.q_lora_rank),
+            "q_ln": norm("q_ln", m.q_lora_rank),
+            "w_uq": lin("w_uq", m.q_lora_rank, H * (m.d_nope + m.d_rope)),
+            "w_dkv": lin("w_dkv", d, m.kv_lora_rank),
+            "kv_ln": norm("kv_ln", m.kv_lora_rank),
+            "w_kr": lin("w_kr", d, m.d_rope),
+            "w_uk": lin("w_uk", m.kv_lora_rank, H * m.d_nope),
+            "w_uv": lin("w_uv", m.kv_lora_rank, H * m.d_v),
+            "wo": lin("wo", H * m.d_v, d, scale=wo_scale),
+        }
     p = {
-        "wq": L.linear_init(gen, d, H * dh, dtype=dt, device=device),
-        "wk": L.linear_init(gen, d, K * dh, dtype=dt, device=device),
-        "wv": L.linear_init(gen, d, K * dh, dtype=dt, device=device),
-        "wo": L.linear_init(gen, H * dh, d, scale=(2 * cfg.n_layers) ** -0.5,
-                            dtype=dt, device=device),
+        "wq": lin("wq", d, H * dh),
+        "wk": lin("wk", d, K * dh),
+        "wv": lin("wv", d, K * dh),
+        "wo": lin("wo", H * dh, d, scale=wo_scale),
     }
     if cfg.qk_norm:
-        p["q_norm"] = L.norm_init(dh, "rmsnorm", device=device)
-        p["k_norm"] = L.norm_init(dh, "rmsnorm", device=device)
+        p["q_norm"] = norm("q_norm", dh)
+        p["k_norm"] = norm("k_norm", dh)
     return p
 
 
-def _block_init(gen, cfg: LMConfig, device) -> dict:
+def _block_init(gen, cfg: LMConfig, device, out: Optional[dict] = None
+                ) -> dict:
+    """One layer's params, drawn into ``out`` (views of one layer of the
+    stack) where it is given."""
     d, f = cfg.d_model, cfg.d_ff
     dt = cfg.dtype
+    o = out or {}
     p = {
-        "ln1": L.norm_init(d, cfg.norm, device=device),
-        "ln2": L.norm_init(d, cfg.norm, device=device),
-        "attn": _attn_init(gen, cfg, device),
+        "ln1": L.norm_init(d, cfg.norm, device=device, out=o.get("ln1")),
+        "ln2": L.norm_init(d, cfg.norm, device=device, out=o.get("ln2")),
+        "attn": _attn_init(gen, cfg, device, out=o.get("attn")),
     }
     if cfg.moe is not None:
-        p["moe"] = moe_init(gen, d, cfg.moe, dtype=dt, device=device)
+        p["moe"] = moe_init(gen, d, cfg.moe, dtype=dt, device=device,
+                            out=o.get("moe"))
     else:
+        mlp = o.get("mlp", {})
         p["mlp"] = {
-            "w_gate": L.linear_init(gen, d, f, dtype=dt, device=device),
-            "w_up": L.linear_init(gen, d, f, dtype=dt, device=device),
+            "w_gate": L.linear_init(gen, d, f, dtype=dt, device=device,
+                                    out=mlp.get("w_gate")),
+            "w_up": L.linear_init(gen, d, f, dtype=dt, device=device,
+                                  out=mlp.get("w_up")),
             "w_down": L.linear_init(gen, f, d,
                                     scale=(2 * cfg.n_layers) ** -0.5,
-                                    dtype=dt, device=device),
+                                    dtype=dt, device=device,
+                                    out=mlp.get("w_down")),
         }
     return p
+
+
+def _mtp_cfg(cfg: LMConfig) -> LMConfig:
+    """The MTP block's config: the model's attention, a dense GLU MLP."""
+    return dataclasses.replace(cfg, moe=None, mtp=False)
 
 
 def init_params(seed: int, cfg: LMConfig, *, device="cuda") -> dict:
     """Params in the fused-engine layout ``{outer, shared, stacks}``, drawn
     from a ``torch.Generator`` seeded with ``seed`` on ``device``.  The
-    layer stack is filled one layer at a time, so no second copy of the
-    model is ever alive."""
+    layer stack is allocated once and each layer drawn straight into it, so
+    no copy of a layer is ever made."""
     check_supported(cfg)
     dev = torch.device(device)
     if dev.type != "meta":
@@ -160,13 +210,19 @@ def init_params(seed: int, cfg: LMConfig, *, device="cuda") -> dict:
     if not cfg.tie_embeddings:
         outer["head"] = L.linear_init(gen, cfg.d_model, cfg.vocab,
                                       dtype=cfg.dtype, device=dev)
-    layer = _block_init(gen, cfg, dev)
-    blocks = tree_map(lambda t: t.new_empty((cfg.n_layers,) + t.shape), layer)
-    for i in range(cfg.n_layers):
-        if i:
-            layer = _block_init(gen, cfg, dev)
-        if dev.type != "meta":
-            tree_map(lambda dst, src: dst[i].copy_(src), blocks, layer)
+    if cfg.mtp:
+        # the MTP block is dense (the routed experts live in the main stack)
+        outer["mtp_proj"] = L.linear_init(gen, 2 * cfg.d_model, cfg.d_model,
+                                          dtype=cfg.dtype, device=dev)
+        outer["mtp_block"] = _block_init(gen, _mtp_cfg(cfg), dev)
+        outer["mtp_norm"] = L.norm_init(cfg.d_model, cfg.norm, device=dev)
+    blocks = tree_map(
+        lambda t: torch.empty((cfg.n_layers,) + t.shape, dtype=t.dtype,
+                              device=dev),
+        _block_init(None, cfg, torch.device("meta")))
+    if dev.type != "meta":
+        for i in range(cfg.n_layers):
+            _block_init(gen, cfg, dev, out=tree_map(lambda t: t[i], blocks))
     return {"outer": outer, "shared": {}, "stacks": {"blocks": blocks}}
 
 
@@ -175,7 +231,12 @@ def init_params(seed: int, cfg: LMConfig, *, device="cuda") -> dict:
 # --------------------------------------------------------------------------
 
 def _rope_tables(cfg: LMConfig, pos: Tensor) -> tuple:
-    d_rot = int(cfg.head_dim * cfg.rope_pct) // 2 * 2
+    """sin/cos at ``pos``: over the rotated part of a GQA head, or over
+    MLA's ``d_rope`` wide RoPE part."""
+    if cfg.mla is not None:
+        d_rot = cfg.mla.d_rope
+    else:
+        d_rot = int(cfg.head_dim * cfg.rope_pct) // 2 * 2
     return L.rope_sincos(pos, d_rot, cfg.rope_theta)
 
 
@@ -212,6 +273,62 @@ def _gqa_attn_kv(p: dict, cfg: LMConfig, h: Tensor, pos: Tensor,
     return L.dense(o.reshape(B, S, -1), p["wo"]), k, v
 
 
+def _mla_query(p: dict, cfg: LMConfig, h: Tensor, sin: Tensor, cos: Tensor
+               ) -> tuple:
+    """MLA's low-rank query of ``h [B,S,d]``: ``q_nope [B,S,H,d_nope]`` and
+    the roped ``q_rope [B,S,H,d_rope]``."""
+    m = cfg.mla
+    B, S, _ = h.shape
+    q = L.dense(L.rmsnorm(L.dense(h, p["w_dq"]), p["q_ln"]["scale"]),
+                p["w_uq"]).reshape(B, S, cfg.n_heads, m.d_nope + m.d_rope)
+    return q[..., :m.d_nope], L.apply_rope(q[..., m.d_nope:], sin, cos)
+
+
+def _mla_latent(p: dict, cfg: LMConfig, h: Tensor, sin: Tensor, cos: Tensor
+                ) -> tuple:
+    """What MLA's cache holds for ``h [B,S,d]``: the normed latent
+    ``ckv [B,S,kv_lora_rank]`` and the roped key ``kr [B,S,d_rope]`` that
+    every head shares."""
+    B, S, _ = h.shape
+    d_rope = cfg.mla.d_rope
+    ckv = L.rmsnorm(L.dense(h, p["w_dkv"]), p["kv_ln"]["scale"])
+    kr = L.dense(h, p["w_kr"]).reshape(B, S, 1, d_rope)
+    return ckv, L.apply_rope(kr, sin, cos).reshape(B, S, d_rope)
+
+
+def _mla_attn_kv(p: dict, cfg: LMConfig, h: Tensor, pos: Tensor,
+                 seg: Optional[Tensor] = None) -> tuple:
+    """MLA over the sequence (the train and prefill path): the latent KV is
+    up-projected per head, k = [k_nope ; kr] with kr broadcast over the
+    heads, and the dispatcher runs q/k head dim d_nope + d_rope against v
+    head dim d_v at scale (d_nope + d_rope)^-1/2.  Returns the block's
+    attention output and this layer's ``ckv`` and ``kr``."""
+    m = cfg.mla
+    B, S, _ = h.shape
+    H = cfg.n_heads
+    sin, cos = _rope_tables(cfg, pos)
+    q_nope, q_rope = _mla_query(p, cfg, h, sin, cos)
+    ckv, kr = _mla_latent(p, cfg, h, sin, cos)
+    k_nope = L.dense(ckv, p["w_uk"]).reshape(B, S, H, m.d_nope)
+    v = L.dense(ckv, p["w_uv"]).reshape(B, S, H, m.d_v)
+    k = torch.cat([k_nope, kr[:, :, None].expand(B, S, H, m.d_rope)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    spec = L.MaskSpec(causal=True, window=cfg.window,
+                      segmented=seg is not None)
+    o = L.attention(q, k, v, spec=spec, q_pos=pos, kv_pos=pos, q_seg=seg,
+                    kv_seg=seg, scale=(m.d_nope + m.d_rope) ** -0.5)
+    return L.dense(o.reshape(B, S, H * m.d_v), p["wo"]), ckv, kr
+
+
+def _attn_kv(p: dict, cfg: LMConfig, h: Tensor, pos: Tensor,
+             seg: Optional[Tensor] = None) -> tuple:
+    """The block's self-attention and what this layer's cache keeps:
+    ``(out, k, v)`` for GQA, ``(out, ckv, kr)`` for MLA."""
+    if cfg.mla is not None:
+        return _mla_attn_kv(p, cfg, h, pos, seg)
+    return _gqa_attn_kv(p, cfg, h, pos, seg)
+
+
 def _ffn_residual(p: dict, cfg: LMConfig, x: Tensor) -> tuple:
     """``x`` plus the block's FFN of ``ln2(x)``, and the FFN's auxiliary
     loss: the MoE load-balance loss, None for the dense GLU MLP.  With MoE
@@ -237,7 +354,7 @@ def make_block_body(cfg: LMConfig):
         pos = ctx_act["pos"]        # int positions; never differentiated
         seg = ctx_act.get("seg")    # int segment ids of a packed batch
         h = L.norm_apply(p["ln1"], x, kind=cfg.norm)
-        x = x + _gqa_attn_kv(p["attn"], cfg, h, pos, seg)[0]
+        x = x + _attn_kv(p["attn"], cfg, h, pos, seg)[0]
         x, aux = _ffn_residual(p, cfg, x)
         if aux is not None:
             aux_loss = aux_loss + aux
@@ -315,6 +432,9 @@ def make_epilogue(cfg: LMConfig):
                                                 cfg.z_loss)
         denom = torch.clamp_min(ntok, 1).to(torch.float32)
         loss = loss_sum / denom + aux_loss
+        if cfg.mtp:
+            mtp_sum, mtp_denom = _mtp_loss(outer, cfg, h, batch)
+            loss = loss + cfg.mtp_weight * mtp_sum / mtp_denom
         metrics = {
             "loss": loss.detach(),
             "ntokens": ntok.to(torch.float32),
@@ -324,9 +444,33 @@ def make_epilogue(cfg: LMConfig):
             # the load-balance part of the loss, summed over the layers (a
             # metric the reference does not report)
             metrics["aux_loss"] = aux_loss.detach()
+        if cfg.mtp:
+            # the MTP head's mean cross entropy (nor does it report this)
+            metrics["mtp_loss"] = (mtp_sum / mtp_denom).detach()
         return loss, metrics
 
     return epilogue
+
+
+def _mtp_loss(outer: dict, cfg: LMConfig, h: Tensor, batch: dict) -> tuple:
+    """The MTP head's summed cross entropy against ``labels_mtp`` and its
+    token count (at least 1, fp32).  The reference's comment reads
+    ``[h_t ; emb(token_{t+1})]``, but its code embeds ``batch["tokens"]``
+    unshifted, i.e. ``emb(token_t)``: the port takes the code's meaning.
+    ``h`` is the final-normed hidden state; the block gets positions 0..S-1
+    of its own."""
+    tokens = batch["tokens"]
+    x = L.dense(torch.cat([h, _embed(outer, cfg, tokens)], dim=-1),
+                outer["mtp_proj"])
+    pos = torch.arange(tokens.shape[1], dtype=torch.int32,
+                       device=tokens.device)
+    x, _ = make_block_body(_mtp_cfg(cfg))(
+        outer["mtp_block"], ({}, {"pos": pos}),
+        (x, torch.zeros((), dtype=torch.float32, device=x.device)), 0)
+    x = L.norm_apply(outer["mtp_norm"], x, kind=cfg.norm)
+    loss_sum, ntok, _ = cross_entropy(_logits(outer, cfg, x),
+                                      batch["labels_mtp"])
+    return loss_sum, torch.clamp_min(ntok, 1).to(torch.float32)
 
 
 def make_fused_spec(cfg: LMConfig):
@@ -350,6 +494,16 @@ def _layer(blocks: dict, i: int) -> dict:
     return tree_map(lambda t: t[i], blocks)
 
 
+def _check_paged(cfg: LMConfig) -> None:
+    """The paged halves take GQA caches only, as the reference's do: an MLA
+    model keeps a latent cache, which the legacy ``Engine`` serves."""
+    check_supported(cfg)
+    if cfg.mla is not None:
+        raise ValueError(f"{cfg.name}: paged serving supports GQA caches "
+                         "only (MLA keeps a latent cache; serve it with the "
+                         "legacy Engine)")
+
+
 def make_prefill_kv_step(cfg: LMConfig):
     """prefill(params, batch{'tokens': [B,S], 'length': [B]}) ->
     (logits [B,vocab] at position length-1, k [L,B,S,K,dh], v [L,B,S,K,dh]).
@@ -358,7 +512,7 @@ def make_prefill_kv_step(cfg: LMConfig):
     scatter it into KV pages; SWA is enforced by the decode-attention mask.
     Right-padding is harmless: with a causal mask, K/V at positions < length
     never see the pad tail, and logits are gathered at length-1."""
-    check_supported(cfg)
+    _check_paged(cfg)
 
     @torch.no_grad()
     def prefill(params, batch):
@@ -400,7 +554,7 @@ def make_paged_decode_step(cfg: LMConfig, *, use_kernel=None):
     their logits are garbage by construction; the engine masks them.
     ``use_kernel`` as in ``kernels.decode_attention.ops``: None = the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors."""
-    check_supported(cfg)
+    _check_paged(cfg)
     from repro_torch.kernels.decode_attention.ops import paged_decode_attention
 
     @torch.no_grad()
@@ -443,7 +597,7 @@ def make_paged_decode_step(cfg: LMConfig, *, use_kernel=None):
 def init_page_pool(cfg: LMConfig, num_pages: int, page_size: int, *,
                    device="cuda") -> dict:
     """Zeroed shared KV page pool (page 0 is the engine's scratch page)."""
-    check_supported(cfg)
+    _check_paged(cfg)
     shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads,
              cfg.head_dim)
     dev = resolve_device(device)
@@ -460,18 +614,31 @@ def cache_window(cfg: LMConfig, max_len: int) -> int:
     return min(cfg.window, max_len) if cfg.window else max_len
 
 
+def _cache_shapes(cfg: LMConfig, batch: int, W: int) -> dict:
+    """The per-layer ring tensors ``[L, B, W, ...]``: k and v ``[.., K, dh]``
+    for GQA; for MLA the latent ``ckv [.., kv_lora_rank]`` and the shared
+    RoPE key ``kr [.., d_rope]``."""
+    lead = (cfg.n_layers, batch, W)
+    if cfg.mla is not None:
+        return {"ckv": lead + (cfg.mla.kv_lora_rank,),
+                "kr": lead + (cfg.mla.d_rope,)}
+    kv = lead + (cfg.n_kv_heads, cfg.head_dim)
+    return {"k": kv, "v": kv}
+
+
 def init_cache(cfg: LMConfig, batch: int, max_len: int, *, device="cuda"
                ) -> dict:
-    """Empty ring cache: k, v ``[L,B,W,K,dh]`` zeros, pos ``[W]`` int32 -1
-    (empty slot), cur a 0-d int32 (position of the next token)."""
+    """Empty ring cache: the per-layer tensors of ``_cache_shapes`` as
+    zeros, pos ``[W]`` int32 -1 (empty slot), cur a 0-d int32 (position of
+    the next token)."""
     check_supported(cfg)
     W = cache_window(cfg, max_len)
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, W, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            "pos": torch.full((W,), -1, dtype=torch.int32, device=dev),
-            "cur": torch.zeros((), dtype=torch.int32, device=dev)}
+    cache = {k: torch.zeros(shape, dtype=cfg.dtype, device=dev)
+             for k, shape in _cache_shapes(cfg, batch, W).items()}
+    cache["pos"] = torch.full((W,), -1, dtype=torch.int32, device=dev)
+    cache["cur"] = torch.zeros((), dtype=torch.int32, device=dev)
+    return cache
 
 
 def _decode_gqa(p: dict, cfg: LMConfig, h: Tensor, kc: Tensor, vc: Tensor,
@@ -491,15 +658,47 @@ def _decode_gqa(p: dict, cfg: LMConfig, h: Tensor, kc: Tensor, vc: Tensor,
     return L.dense(o.reshape(B, 1, -1), p["wo"])
 
 
+def _decode_mla(p: dict, cfg: LMConfig, h: Tensor, ckv_c: Tensor,
+                kr_c: Tensor, pos_tab: Tensor, cur: Tensor, slot: Tensor,
+                rope: tuple) -> Tensor:
+    """Absorbed-matmul MLA decode of ``h [B,1,d]``: writes this token's
+    latent and RoPE key into ring slot ``slot`` of ``ckv_c [B,W,r]`` and
+    ``kr_c [B,W,d_rope]`` in place, folds ``W_uk`` into the query
+    (``q_lat [B,H,r]``), scores in latent space plus the RoPE part, softmaxes
+    in fp32 over the slots with ``0 <= pos <= cur``, casts the
+    probabilities to the cache dtype (as the reference does) before the
+    latent weighted sum, and up-projects through ``W_uv``.  Plain PyTorch:
+    the reference's is ``jnp`` outside any Pallas kernel."""
+    m = cfg.mla
+    B, H, r = h.shape[0], cfg.n_heads, m.kv_lora_rank
+    q_nope, q_rope = _mla_query(p, cfg, h, *rope)
+    ckv, kr = _mla_latent(p, cfg, h, *rope)
+    ckv_c.index_copy_(1, slot, ckv)
+    kr_c.index_copy_(1, slot, kr)
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0],
+                         p["w_uk"].reshape(r, H, m.d_nope))
+    s_nope = torch.einsum("bhr,bwr->bhw", q_lat, ckv_c)
+    s_rope = torch.einsum("bhd,bwd->bhw", q_rope[:, 0], kr_c)
+    logits = (s_nope + s_rope).to(torch.float32) * (m.d_nope + m.d_rope
+                                                     ) ** -0.5
+    valid = (pos_tab >= 0) & (pos_tab <= cur)
+    logits = torch.where(valid[None, None, :], logits, L.NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(ckv_c.dtype)
+    o_lat = torch.einsum("bhw,bwr->bhr", probs, ckv_c)
+    o = torch.einsum("bhr,rhv->bhv", o_lat, p["w_uv"].reshape(r, H, m.d_v))
+    return L.dense(o.reshape(B, 1, H * m.d_v), p["wo"])
+
+
 def make_decode_step(cfg: LMConfig, *, use_kernel=None):
     """decode_step(params, cache, batch{'tokens': [B,1]}) -> (logits, cache).
 
     The cache is **updated in place** and returned: this token's position
     is marked in ``pos`` before attention (so the token sees itself), its
-    K/V go into slot ``cur % W`` of every layer, and ``cur`` advances.
-    Nothing is read back to the host.  ``use_kernel`` as in
-    ``kernels.decode_attention.ops``: None = the CUDA kernel (K4) for CUDA
-    tensors, the plain version for CPU tensors."""
+    K/V (MLA: its latent and RoPE key) go into slot ``cur % W`` of every
+    layer, and ``cur`` advances.  Nothing is read back to the host.
+    ``use_kernel`` as in ``kernels.decode_attention.ops``: None = the CUDA
+    kernel (K4) for CUDA tensors, the plain version for CPU tensors.  MLA
+    decodes in plain PyTorch (``_decode_mla``) and never reaches K4."""
     check_supported(cfg)
 
     @torch.no_grad()
@@ -515,10 +714,14 @@ def make_decode_step(cfg: LMConfig, *, use_kernel=None):
         for i in range(cfg.n_layers):
             p = _layer(blocks, i)
             h = L.norm_apply(p["ln1"], x, kind=cfg.norm)
-            x = x + _decode_gqa(p["attn"], cfg, h, cache["k"][i],
-                                cache["v"][i], cache["pos"], cur, slot,
-                                rope, use_kernel)
-            x = _ffn_residual(p, cfg, x)[0]
+            if cfg.mla is not None:
+                a = _decode_mla(p["attn"], cfg, h, cache["ckv"][i],
+                                cache["kr"][i], cache["pos"], cur, slot, rope)
+            else:
+                a = _decode_gqa(p["attn"], cfg, h, cache["k"][i],
+                                cache["v"][i], cache["pos"], cur, slot, rope,
+                                use_kernel)
+            x = _ffn_residual(p, cfg, x + a)[0]
         h = L.norm_apply(outer["final_norm"], x, kind=cfg.norm)
         logits = _logits(outer, cfg, h)[:, 0]
         cur.add_(1)
@@ -532,9 +735,10 @@ def make_prefill_step(cfg: LMConfig):
 
     The full-sequence forward (the attention dispatcher picks direct,
     blockwise or sliding-window-gather attention by S), keeping each
-    layer's K/V of the last ``W = cache_window(cfg, S)`` positions: the ring
-    is sized to the prompt, slot j holds position S - W + j, and ``cur`` is
-    S.  Logits are those of position S - 1."""
+    layer's K/V (MLA: latent and RoPE key) of the last
+    ``W = cache_window(cfg, S)`` positions: the ring is sized to the prompt,
+    slot j holds position S - W + j, and ``cur`` is S.  Logits are those of
+    position S - 1."""
     check_supported(cfg)
 
     @torch.no_grad()
@@ -546,19 +750,20 @@ def make_prefill_step(cfg: LMConfig):
         x = _embed(outer, cfg, tokens)
         pos = torch.arange(S, dtype=torch.int32, device=dev)
         W = cache_window(cfg, S)
-        shape = (cfg.n_layers, B, W, cfg.n_kv_heads, cfg.head_dim)
-        cache = {"k": torch.empty(shape, dtype=cfg.dtype, device=dev),
-                 "v": torch.empty(shape, dtype=cfg.dtype, device=dev),
-                 "pos": pos[S - W:].clone(),
-                 "cur": torch.full((), S, dtype=torch.int32, device=dev)}
+        shapes = _cache_shapes(cfg, B, W)
+        cache = {k: torch.empty(shape, dtype=cfg.dtype, device=dev)
+                 for k, shape in shapes.items()}
+        ka, kb = shapes             # k, v (GQA) or ckv, kr (MLA)
         blocks = params["stacks"]["blocks"]
         for i in range(cfg.n_layers):
             p = _layer(blocks, i)
             h = L.norm_apply(p["ln1"], x, kind=cfg.norm)
-            a, k, v = _gqa_attn_kv(p["attn"], cfg, h, pos)
-            cache["k"][i] = k[:, S - W:]
-            cache["v"][i] = v[:, S - W:]
+            a, ca, cb = _attn_kv(p["attn"], cfg, h, pos)
+            cache[ka][i] = ca[:, S - W:]
+            cache[kb][i] = cb[:, S - W:]
             x = _ffn_residual(p, cfg, x + a)[0]
+        cache["pos"] = pos[S - W:].clone()
+        cache["cur"] = torch.full((), S, dtype=torch.int32, device=dev)
         h = L.norm_apply(outer["final_norm"], x[:, -1:], kind=cfg.norm)
         return _logits(outer, cfg, h)[:, 0], cache
 

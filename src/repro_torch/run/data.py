@@ -2,13 +2,17 @@
 
 Counterpart of ``repro.run.data``.  The token pipeline
 (``repro_torch.data.pipeline``) is family-agnostic and yields numpy batches;
-the dense transformer family needs no per-batch extras, so the stream is the
-pipeline's own, keyed per step so a resume reproduces it.
+of the reference's per-batch extras the port's architectures need one, the
+MTP head's ``labels_mtp`` (the labels shifted once more, padded with -1),
+made from each batch's own labels, so a resume reproduces it with the
+stream, which is keyed per step.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Iterator
+
+import numpy as np
 
 from repro_torch.data.pipeline import DataConfig, batches
 from repro_torch.run.spec import RunSpec
@@ -23,6 +27,16 @@ def resolved_data(spec: RunSpec, arch) -> DataConfig:
     return dataclasses.replace(spec.data, vocab=arch.cfg.vocab)
 
 
+def _with_extras(b: dict, arch) -> dict:
+    """``b`` with the leaves ``arch.train_batch_specs`` adds to the
+    pipeline's: ``labels_mtp`` for an MTP model (token t + 2's label at t)."""
+    if not arch.cfg.mtp:
+        return b
+    lab = b["labels"]
+    return {**b, "labels_mtp": np.concatenate(
+        [lab[:, 1:], -np.ones((lab.shape[0], 1), np.int32)], 1)}
+
+
 def make_batch_iter(spec: RunSpec, arch, start_step: int = 0,
                     *, seed_offset: int = 0) -> Iterator[dict]:
     """Deterministic, resumable stream of numpy batches matching
@@ -31,7 +45,7 @@ def make_batch_iter(spec: RunSpec, arch, start_step: int = 0,
     cfg = resolved_data(spec, arch)
     if seed_offset:
         cfg = dataclasses.replace(cfg, seed=cfg.seed + seed_offset)
-    return batches(cfg, start_step)
+    return (_with_extras(b, arch) for b in batches(cfg, start_step))
 
 
 # Seed offset for the default held-out eval stream.

@@ -37,11 +37,9 @@ import dataclasses
 
 import torch
 
-INJECT_KINDS = ("nan_grads", "inf_grads", "nan_loss", "nan_batch", "spike")
+from repro_torch.core.tree import leading_pieces
 
-# Elements per piece of the spike rewrite: its bf16 temporaries (64 MiB)
-# stay small on the largest stacked leaves.
-_CHUNK = 1 << 25
+INJECT_KINDS = ("nan_grads", "inf_grads", "nan_loss", "nan_batch", "spike")
 
 
 def float_tensors(tree) -> list:
@@ -57,13 +55,6 @@ def float_tensors(tree) -> list:
     if isinstance(tree, torch.Tensor) and tree.is_floating_point():
         return [tree]
     return []
-
-
-def _pieces(t: torch.Tensor, chunk: int = _CHUNK) -> list:
-    """Views of a contiguous tensor as 1-D pieces of at most ``chunk``
-    elements, in order."""
-    flat = t.view(-1)
-    return [flat[i:i + chunk] for i in range(0, flat.numel(), chunk)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,9 +109,10 @@ class Injection:
         if self.kind == "spike":
             # θ' = θ + scale·(θ' − θ) in the leaf's dtype (one lerp, rounded
             # once; the reference rounds each bf16 op); the where leaves a
-            # step that does not fire bitwise as it was
+            # step that does not fire bitwise as it was; piece by piece, so
+            # its temporaries stay small on the largest stacked leaves
             for o, n in zip(float_tensors(snap), float_tensors(params)):
-                for oc, nc in zip(_pieces(o), _pieces(n)):
+                for oc, nc in zip(leading_pieces(o), leading_pieces(n)):
                     torch.where(fire, torch.lerp(oc, nc, self.scale), nc,
                                 out=nc)
         return loss                        # nan_batch: handled upstream

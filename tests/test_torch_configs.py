@@ -1,7 +1,8 @@
 """PyTorch port vs the JAX reference: the configs the port knows
 (``configs/*.py``, ``models/registry.py``) — fields, shapes, parameter counts
-and cells equal to the reference's, unported architectures refused — one
-fused AdaLomo step of each dense smoke config against the reference's,
+and cells equal to the reference's (deepseek-v3-671b's MLA and MTP fields
+too), unported architectures refused — one fused AdaLomo step of each
+dense smoke config against the reference's,
 paged serving of the new dense smoke configs against the JAX engine,
 ``layers.layernorm`` with the reference's eps trap, and the plain versions
 of K3 and K4 at the head dims the new configs bring (120, 160; a query group
@@ -38,10 +39,10 @@ from torch_parity import (CPU, assert_trees_close, jax_batch, make_batch,
                           np_f32, ref_params_and_copy, smoke_archs,
                           torch_batch)
 
-NEW = ("deepseek-moe-16b", "qwen3-32b", "stablelm-12b", "h2o-danube-3-4b")
-DENSE_NEW = NEW[1:]
-UNPORTED = ("paligemma-3b", "deepseek-v3-671b", "mamba2-1.3b",
-            "whisper-base", "zamba2-1.2b")
+NEW = ("deepseek-moe-16b", "qwen3-32b", "stablelm-12b", "h2o-danube-3-4b",
+       "deepseek-v3-671b")
+DENSE_NEW = NEW[1:4]
+UNPORTED = ("paligemma-3b", "mamba2-1.3b", "whisper-base", "zamba2-1.2b")
 TORCH_DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 # |Δloss| and parameters: the reference's own fused drop-in bounds
 LOSS_TOL = 1e-4
@@ -50,8 +51,9 @@ PARAM_TOL = dict(rtol=1e-4, atol=1e-5)
 
 def _fields(cfg) -> dict:
     out = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(LMConfig)}
-    if out["moe"] is not None:
-        out["moe"] = dataclasses.asdict(out["moe"])
+    for sub in ("moe", "mla"):
+        if out[sub] is not None:
+            out[sub] = dataclasses.asdict(out[sub])
     return out
 
 
@@ -76,6 +78,9 @@ def test_param_counts_and_cells_match_reference(arch_id):
     if arch_id == "deepseek-moe-16b":
         assert port.cfg.param_count() == 16_879_568_896
         assert port.cfg.active_param_count() < port.cfg.param_count() // 4
+    if arch_id == "deepseek-v3-671b":
+        assert port.cfg.param_count() == 704_131_741_696
+        assert port.cfg.active_param_count() == 37_891_717_120
 
 
 def test_registry_and_shapes():

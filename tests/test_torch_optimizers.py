@@ -17,7 +17,7 @@ import torch
 from repro.core import api as ref_api
 from repro.core import optimizers as ref_opt
 from repro_torch.convert import opt_state_from_numpy, to_numpy
-from repro_torch.core import api, optimizers as opt_lib
+from repro_torch.core import api, optimizers as opt_lib, tree as tree_lib
 from repro_torch.core.tree import tree_flatten_with_path, tree_map
 from torch_parity import (CPU, assert_trees_close, convert_opt_state,
                           jax_batch, make_batch, np_f32, ref_params_and_copy,
@@ -359,3 +359,41 @@ def test_launcher_trains_a_baseline_on_the_cpu(name, tmp_path, capsys):
     with pytest.raises(KeyError, match="unknown optimizer"):
         main(["--arch", "h2o-danube-1.8b", "--smoke", "--steps", "1",
               "--device", "cpu", "--optimizer", "madgrad"])
+
+
+@pytest.mark.parametrize("shape,dtype,transposed", [
+    ((3, 70, 40), torch.bfloat16, False),
+    ((130, 64), torch.float32, True),
+    ((2, 3, 50, 20), torch.bfloat16, True)])
+def test_lomo_updates_in_pieces_bitwise_as_the_whole_leaf(shape, dtype,
+                                                          transposed,
+                                                          monkeypatch):
+    """The SGD (LOMO) rule updates a leaf larger than one piece piece by
+    piece, in place, and gives the whole-leaf update's bits: fp32
+    arithmetic, one cast at each piece's write.  Pieces are views along
+    the leading axes (cut further where one index is larger than a piece)
+    that cover the leaf once; a non-contiguous gradient is cut the same
+    way.  The piece is shrunk to 1000 elements so a small leaf spans
+    several."""
+    monkeypatch.setattr(tree_lib, "PIECE", 1000)
+    rng = np.random.default_rng(len(shape))
+    p = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                         ).to(dtype)
+    g = torch.from_numpy(rng.standard_normal(shape[:-2] + shape[:-3:-1])
+                         .astype(np.float32)).to(dtype).transpose(-1, -2) \
+        if transposed else torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(dtype)
+    assert g.is_contiguous() != transposed
+    lr = torch.tensor(0.05)
+    want = (p.to(torch.float32) - lr * g.to(torch.float32)).to(dtype)
+    pieces = tree_lib.leading_pieces(p)
+    assert len(pieces) > 1 and max(x.numel() for x in pieces) <= 1000
+    assert sum(x.numel() for x in pieces) == p.numel()
+    assert all(x.untyped_storage().data_ptr() ==
+               p.untyped_storage().data_ptr() for x in pieces)
+    before = p.data_ptr()
+    rule = opt_lib.get_rule("sgd")
+    out, state = rule.update(p, g, rule.init(p), {"lr": lr},
+                             torch.tensor(1.0))
+    assert out is p and p.data_ptr() == before and state == ()
+    assert torch.equal(p, want)

@@ -11,8 +11,10 @@ import pytest
 import torch
 
 from repro.models import layers as ref_L
+from repro_torch.core import tree as tree_lib
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 from repro_torch.models.registry import get_arch, paper_llama_1b
 from repro_torch.models.transformer import LMConfig, make_fused_spec
 from torch_parity import (ARCH_ID, assert_trees_close, jax_batch, make_batch,
@@ -139,8 +141,7 @@ def test_logits_are_fp32_from_bf16_params():
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("field,value", [("mla", object()), ("mtp", True),
-                                         ("prefix_lm", True)])
+@pytest.mark.parametrize("field,value", [("prefix_lm", True)])
 def test_unported_model_features_raise(field, value):
     cfg = dataclasses.replace(get_arch(ARCH_ID, smoke=True).cfg,
                               **{field: value})
@@ -175,3 +176,75 @@ def test_configs_and_init_match_reference_shapes():
         "tokens": ((4, 16), torch.int32), "labels": ((4, 16), torch.int32)}
     with pytest.raises(KeyError, match="not ported"):
         get_arch("mamba2-1.3b")
+
+
+@pytest.mark.parametrize("arch_id", ["h2o-danube-1.8b", "deepseek-moe-16b",
+                                     "deepseek-v3-671b", "stablelm-12b"])
+def test_init_params_draws_each_layer_into_its_stack(arch_id):
+    """``init_params`` allocates the layer stack once and draws each layer
+    straight into it: bitwise the trees that the same generator gives when
+    the outer leaves and then each layer are drawn on their own, in that
+    order (a dense, a MoE, an MLA + MTP and a layernorm config)."""
+    cfg = dataclasses.replace(get_arch(arch_id, smoke=True).cfg, n_layers=3)
+    got = T.init_params(5, cfg, device="cpu")
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(5)
+    cpu = torch.device("cpu")
+    want = {"tok_embed": L.embed_init(gen, cfg.vocab, cfg.d_model,
+                                      dtype=cfg.dtype, device=cpu),
+            "final_norm": L.norm_init(cfg.d_model, cfg.norm, device=cpu)}
+    if not cfg.tie_embeddings:
+        want["head"] = L.linear_init(gen, cfg.d_model, cfg.vocab,
+                                     dtype=cfg.dtype, device=cpu)
+    if cfg.mtp:
+        want["mtp_proj"] = L.linear_init(gen, 2 * cfg.d_model, cfg.d_model,
+                                         dtype=cfg.dtype, device=cpu)
+        want["mtp_block"] = T._block_init(gen, T._mtp_cfg(cfg), cpu)
+        want["mtp_norm"] = L.norm_init(cfg.d_model, cfg.norm, device=cpu)
+    layers = [T._block_init(gen, cfg, cpu) for _ in range(cfg.n_layers)]
+    assert sorted(got["outer"]) == sorted(want)
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(got["outer"]),
+                                                 tree_leaves(want)))
+    blocks = got["stacks"]["blocks"]
+    for i, layer in enumerate(layers):
+        stack_i = tree_leaves(tree_map(lambda t: t[i], blocks))
+        assert [x.dtype for x in stack_i] == \
+            [x.dtype for x in tree_leaves(layer)]
+        assert all(torch.equal(x, y)
+                   for x, y in zip(stack_i, tree_leaves(layer)))
+    meta = T.init_params(5, cfg, device="meta")
+    assert [x.shape for x in tree_leaves(meta)] == \
+        [x.shape for x in tree_leaves(got)]
+
+
+@pytest.mark.parametrize("shape", [(5, 4, 6), (2, 10, 6)])
+def test_normal_init_draws_a_large_tensor_in_pieces_into_out(shape,
+                                                             monkeypatch):
+    """Past ``_NORMAL_WHOLE_MAX`` elements ``normal_init`` draws piece by
+    piece (``leading_pieces``: along the first axis, or cut further where
+    one index is larger than a piece), each piece one fp32 draw from the
+    generator in order, scaled and cast at its write; with ``out`` it
+    writes into the view it is given and returns it.  At or below the
+    limit it is one draw.  The limit and the piece are shrunk so a small
+    tensor spans several pieces."""
+    monkeypatch.setattr(L, "_NORMAL_WHOLE_MAX", 100)
+    monkeypatch.setattr(tree_lib, "PIECE", 24)
+    stack = torch.zeros((2,) + shape, dtype=torch.bfloat16)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(3)
+    got = L.normal_init(gen, shape, 0.5, dtype=torch.bfloat16, device="cpu",
+                        out=stack[1])
+    assert got.data_ptr() == stack[1].data_ptr()
+    assert not stack[0].any()
+    pieces = tree_lib.leading_pieces(torch.empty(shape))
+    assert len(pieces) > 1 and max(p.numel() for p in pieces) <= 24
+    gen.manual_seed(3)
+    want = torch.cat([
+        (torch.empty(p.shape).normal_(generator=gen) * 0.5).to(torch.bfloat16)
+        .reshape(-1) for p in pieces]).reshape(shape)
+    assert torch.equal(got, want)
+    gen.manual_seed(3)
+    small = L.normal_init(gen, (4, 25), 0.5, dtype=torch.float32,
+                          device="cpu")
+    gen.manual_seed(3)
+    assert torch.equal(small, torch.empty(4, 25).normal_(generator=gen) * 0.5)
