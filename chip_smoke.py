@@ -16,7 +16,11 @@ printing one JSON line:
            bf16 params and grads; weight decay, the literal mode, a stacked
            [3, m, n] case and a bitwise re-run; deepseek-moe-16b's expert
            batches [64, 2048, 1408] and [64, 1408, 2048] (bf16) and its fp32
-           router [2048, 64], with a bitwise re-run on an expert batch.
+           router [2048, 64], with a bitwise re-run on an expert batch;
+           paligemma-3b's leaf shapes in bf16 (the layer matrices and the
+           tied [257216, 2048] head), steps 1 and 5, r and c against the
+           plain version, K2 held on its update at lr 1.0, the head bitwise
+           on a re-run.
            Paged decode attention K3:
            the CPU tests' cases, a danube-shaped ragged case with and without
            a window, danube serving shapes (8 sequences, 32/8 heads, dh 80,
@@ -26,9 +30,11 @@ printing one JSON line:
            sequence with no token, which must give 0), fp32 (1e-5) and bf16
            (3e-2), a bitwise re-run, and ten launches on the same ticket
            counters at B 1 and B 8 x 2048 tokens, bit-identical; the same
-           serving shapes, runs with no live slot and bitwise re-runs at
-           the other configs' heads (``NEW_HEADS``: dh 120 and 160 at 32/8
-           heads, a query group of 1 at 16/16, 64/8 at dh 128).
+           serving shapes, runs with no live slot and bitwise re-runs
+           (fp32 and bf16) at the other configs' heads (``NEW_HEADS``: dh
+           120 and 160 at 32/8 heads, a query group of 1 at 16/16, 64/8 at
+           dh 128, paligemma-3b's 8/1 at dh 256, the smoke configs' dh 16
+           and 24).
            Ring-cache decode attention K4: the reference kernel
            tests' cases, a dozen ragged rings, danube's shapes (B 8 x W 1024
            and B 4 x W 4096, windows none, 4096 and 256) over partly filled
@@ -36,7 +42,10 @@ printing one JSON line:
            (1e-5) and bf16 (3e-2), a bitwise re-run, and ten launches on the
            same ticket counters at B 1 and B 4 x W 4096, bit-identical; rings
            of 1024 (partly filled) and 4096 (wrapped) with bitwise re-runs at
-           the other configs' heads.  Then
+           the other configs' heads, and paligemma-3b's rings of 4 x 1280
+           (its prefix phase's) and 8 x 4352 slots at dh 256.  The ptxas
+           register and spill lines of the decode kernels at dh 16, 24 and
+           256 are reported per template instance.  Then
            times kernel and plain version (CUDA events, after warm-up, inputs
            rotated so they are not served from the L2 cache) beside the least
            time the card could take, and, for K4,
@@ -181,6 +190,26 @@ printing one JSON line:
            the model.  fp32 at 1 layer: a decode step's logits against a
            prefill over one more token (1e-3), Engine's greedy tokens equal
            to a loop that recomputes the whole sequence.
+  prefix   paligemma-3b at its published width and depth (18 layers,
+           d_model 2048, 8 query heads over 1 at dh 256, d_ff 16384, a tied
+           257,216-token head, gelu, 256 prefix embeddings; 2.51 B
+           parameters), bf16, random weights and data from a seed.
+           ``run(spec)`` with fused AdaLomo at 4 x (1024 text + 256
+           prefix), 3 steps (the direct branch, no flash call): finite
+           losses that move, 127 K1/K2 launches a step each, one host sync
+           a step, step 1 re-run bitwise (on-card digest); one step at 1 x
+           (2048 + 256) through the flash branch with the prefix mask (18
+           flash forwards with and 18 without a gradient, 18 recomputing
+           backwards); fused LOMO's step at 4 x 1280; AdamW and Adafactor
+           reckoned.  Engine through K4 at dh 256: 4 prompts of 1024 tokens
+           behind 256 seeded prefix embeddings, 32 greedy tokens, 18 K4
+           launches a decode step, one host sync a step, the same tokens on
+           a re-run and through the plain attention; one decode step's
+           bf16 logits through K4 within 0.15 of the plain attention's and
+           within the gap between the plain attention's and an fp32 copy of
+           the model's; PagedEngine refuses the model.  fp32 at full
+           depth: a decode step's logits through K4 within 1e-3 of the
+           plain attention's, Engine's greedy tokens equal.
 
 Then the card's name and power limit, one JSON line that lists the kernels
 with their measured numbers, and the result line.
@@ -446,6 +475,109 @@ def check_moe_kernels(errs: dict) -> dict:
     return {"cases": n, "rerun_bitwise": True}
 
 
+# K2 on a bf16 leaf is held on its update, at an lr whose update is as large
+# as the params (std 0.1): a few hundred bf16 ulps where one rounding is at
+# most 0.3 % of the largest update (at an lr of 5e-4 the update is a tenth
+# of a bf16 ulp of such a param).  Per matrix, the kernel's update (θ' − θ)
+# lies within 1 % of the largest plain update (fp32, unrounded) of the
+# plain one, and the plain update moves at least 95 % of the matrix's bf16
+# elements; a matrix left unwritten, a flipped sign or another matrix's r
+# and c are off by the whole update.
+K2_HELD_LR = 1.0
+K2_HELD_UPDATE_RTOL = 1e-2
+K2_HELD_MOVED_MIN = 0.95
+
+
+def held_update(p0, p_new, want32, what: str) -> dict:
+    """K2's update ``p0 -> p_new`` of a matrix or a batch of them (the
+    last two dims) against the plain version's fp32 result ``want32``: per
+    matrix, the largest gap between the two updates over the plain update's
+    largest value, which must stay within ``K2_HELD_UPDATE_RTOL``, and the
+    share of its bf16 elements the plain update moves, at least
+    ``K2_HELD_MOVED_MIN``."""
+    base = p0.to(torch.float32)
+    d_plain = want32 - base
+    gap = (p_new.to(torch.float32) - base - d_plain).abs().amax(dim=(-2, -1))
+    rel = gap / d_plain.abs().amax(dim=(-2, -1))
+    moved = (want32.to(p0.dtype) != p0).to(torch.float32).mean(dim=(-2, -1))
+    rec = {"update_rel_err": rel.tolist(), "moved_share": moved.tolist(),
+           "max_abs_err_vs_fp32": max_err(p_new, want32)}
+    if (bool((rel > K2_HELD_UPDATE_RTOL).any())
+            or bool((moved < K2_HELD_MOVED_MIN).any())):
+        raise AssertionError(
+            f"{what}: the kernel's update and the plain one disagree, or the "
+            f"plain one does not move the matrices "
+            f"(rtol {K2_HELD_UPDATE_RTOL}, moved >= {K2_HELD_MOVED_MIN}): "
+            f"{rec}")
+    return rec
+
+
+# paligemma-3b's leaves as its fused step hands them over, one 2-D matrix a
+# call, bf16 params and grads: the layer slices of wq and wo, wk and wv,
+# w_gate and w_up, w_down (18 of each) and the tied embedding, 527 M
+# elements, the widest leaf K1/K2 take
+PALI_KERNEL_CASES = {"wq, wo [2048,2048]": (2048, 2048),
+                     "wk, wv [2048,256]": (2048, 256),
+                     "w_gate, w_up [2048,16384]": (2048, 16384),
+                     "w_down [16384,2048]": (16384, 2048),
+                     "tied embedding [257216,2048]": (257216, 2048)}
+
+
+def check_pali_kernels(errs: dict) -> dict:
+    """K1 then K2 at paligemma-3b's leaf shapes, steps 1 and 5: K1's r' and
+    c' against the plain version within ``TOL_RC``, K2's update (at
+    ``K2_HELD_LR``, on the r', c' K1 wrote) against the plain version's fp32
+    one by ``held_update``; then the step-5 inputs of the tied embedding
+    again, bitwise."""
+    beta, lr = 0.999, K2_HELD_LR
+    beta_t = torch.full((), beta, device=DEV)
+    kw2 = dict(eps_div=CFG.eps_div, eps_rms=CFG.eps_rms, literal=False)
+    rows = {}
+    for name, shape in PALI_KERNEL_CASES.items():
+        for step in (1.0, 5.0):
+            p, g, r, c = make_inputs(shape, torch.bfloat16, torch.bfloat16,
+                                     shape[0] * 3 + shape[1], step)
+            what = f"{name} step {step}"
+            want_r, want_c = K.adalomo_stats_ref(g, r, c, beta_t,
+                                                 eps_stat=CFG.eps_stat)
+            K.adalomo_stats(g, r, c, beta_t, eps_stat=CFG.eps_stat)
+            assert_close(r, want_r, what="adalomo_stats r " + what, **TOL_RC)
+            assert_close(c, want_c, what="adalomo_stats c " + what, **TOL_RC)
+            scal = scal_for(r, lr, step, beta, 0.0, 1.0)
+            p0 = p.clone()
+            want_p = K.adalomo_update_ref(p0.to(torch.float32), g, r, c,
+                                          scal, **kw2)
+            K.adalomo_update(p, g, r, c, scal, **kw2)
+            update = held_update(p0, p, want_p, "adalomo_update " + what)
+            err = {"adalomo_stats": max(max_err(r, want_r),
+                                        max_err(c, want_c)),
+                   "adalomo_update": max_err(p, want_p)}
+            errs["adalomo_stats"] = max(errs["adalomo_stats"],
+                                        err["adalomo_stats"])
+            rows[what] = {"max_abs_err": err, "update": update}
+            del p, g, r, c, p0, want_r, want_c, want_p, scal
+            torch.cuda.empty_cache()
+    runs = []
+    for _ in range(2):
+        p, g, r, c = make_inputs(PALI_KERNEL_CASES[
+            "tied embedding [257216,2048]"], torch.bfloat16, torch.bfloat16,
+            8, 5.0)
+        K.adalomo_stats(g, r, c, beta_t, eps_stat=CFG.eps_stat)
+        K.adalomo_update(p, g, r, c, scal_for(r, lr, 5.0, beta, 0.0, 1.0),
+                         **kw2)
+        runs.append((p, r, c))
+        del g
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(*runs))
+    del runs
+    torch.cuda.empty_cache()
+    if not bitwise:
+        raise AssertionError("K1/K2 on the tied embedding [257216, 2048]: "
+                             "the same inputs did not give bit-identical "
+                             "outputs")
+    return {"per_case": rows, "tied_embedding_rerun_bitwise": bitwise}
+
+
 def check_op_variants() -> dict:
     """The whole op (K1, glue, K2) against the port's oracle: weight decay,
     the literal mode, a stacked [3, m, n] tensor, and a bitwise re-run."""
@@ -591,6 +723,19 @@ def time_kernels() -> tuple:
     return rows, totals, moe_rows
 
 
+def ptxas_by_entry(lines: list) -> dict:
+    """``ptxas -v`` lines of a build log by kernel: each entry function's
+    mangled name and the register and spill lines that follow it."""
+    out, cur = {}, None
+    for ln in lines:
+        if "Compiling entry function" in ln:
+            cur = ln.split("'")[1] if "'" in ln else ln
+            out[cur] = []
+        elif cur and ("registers" in ln or "spill" in ln):
+            out[cur].append(ln.split(":", 1)[-1].strip())
+    return out
+
+
 def phase_kernels() -> dict:
     t0 = time.time()
     libs = [(K.LIB_NAME, K.SOURCES), (KD.LIB_NAME, KD.SOURCES)]
@@ -600,12 +745,17 @@ def phase_kernels() -> dict:
     KD._library()
     build_s = time.time() - t0
     progress(f"kernels: built in {build_s:.1f} s")
-    usage = {}
+    usage, by_entry = {}, {}
     for name, sources in libs:
         log = build.build_dir(name, list(sources)) / "build.log"
         lines = log.read_text().splitlines() if log.exists() else []
         usage[name] = sorted({ln.split(":", 1)[-1].strip() for ln in lines
                               if "registers" in ln or "spill" in ln})
+        by_entry.update(ptxas_by_entry(lines))
+    # the decode kernels at the head dims this slice adds: the register and
+    # spill lines of each template instance
+    new_dh = {k: v for k, v in by_entry.items() if "decode" in k
+              and any(f"Li{d}E" in k for d in (16, 24, 256))}
     errs = {"adalomo_stats": 0.0, "adalomo_update": 0.0,
             "paged_decode_attention": 0.0, "decode_attention": 0.0}
     progress("kernels: K1/K2 cases")
@@ -613,6 +763,8 @@ def phase_kernels() -> dict:
     variants = check_op_variants()
     progress("kernels: K1/K2 at the MoE shapes")
     moe_checks = check_moe_kernels(errs)
+    progress("kernels: K1/K2 at paligemma-3b's shapes")
+    pali_checks = check_pali_kernels(errs)
     progress("kernels: K3 cases")
     k3_cases, k3_bitwise = check_k3(errs)
     progress("kernels: K4 cases")
@@ -625,7 +777,8 @@ def phase_kernels() -> dict:
     k4_rows, totals["decode_attention"] = time_k4()
     emit("kernels", kernels=["adalomo_stats", "adalomo_update",
                              "paged_decode_attention", "decode_attention"],
-         build_seconds=build_s, ptxas=usage, cases=n_cases,
+         build_seconds=build_s, ptxas=usage,
+         ptxas_decode_dh16_24_256=new_dh, cases=n_cases,
          max_abs_err=errs, op_variants=variants,
          tolerances={"param_fp32": 1e-5, "param_bf16": 5e-3, "r_c": TOL_RC,
                      "paged_fp32": 1e-5, "paged_bf16": 3e-2,
@@ -634,6 +787,10 @@ def phase_kernels() -> dict:
          per_step_of_170_tensors={k: totals[k] for k in
                                   ("adalomo_stats", "adalomo_update")},
          moe_cases=moe_checks, moe_per_call=moe_rows,
+         pali_cases=pali_checks,
+         pali_tolerances={"r_c": TOL_RC, "k2_lr": K2_HELD_LR,
+                          "k2_update_rtol": K2_HELD_UPDATE_RTOL,
+                          "k2_moved_min": K2_HELD_MOVED_MIN},
          new_heads=NEW_HEADS,
          paged_cases=k3_cases, paged_rerun_bitwise=k3_bitwise,
          paged_per_shape_bf16=k3_rows,
@@ -641,7 +798,9 @@ def phase_kernels() -> dict:
          ring_cases=k4_cases, ring_rerun_bitwise=k4_bitwise,
          ring_per_shape_bf16=k4_rows,
          ring_per_decode_step_B4_W4096=totals["decode_attention"])
-    return {"errs": errs, "totals": totals}
+    return {"errs": errs, "totals": totals,
+            "rows": {"paged_decode_attention": k3_rows,
+                     "decode_attention": k4_rows}}
 
 
 # --------------------------------------------------------------------------
@@ -671,12 +830,23 @@ K3_CASES = [
 K3_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 SERVE_WINDOW = 4096                 # h2o-danube-1.8b's sliding window
 # The other configs' heads (query, KV, head dim, window): the head dims 120
-# and 160 (not whole 16-wide k-steps; more than the dense path had seen) and
-# a query group of 1 (deepseek-moe-16b is MHA)
+# and 160 (not whole 16-wide k-steps; more than the dense path had seen), a
+# query group of 1 (deepseek-moe-16b is MHA), paligemma-3b's 8 query heads
+# over 1 at dh 256, and the smoke configs' dh 16 (4 over 1) and dh 24
+# (h2o-danube-3-4b's smoke config: 4 over 2, window 8)
 NEW_HEADS = {"danube3 dh120": (32, 8, 120, 4096),
              "stablelm dh160": (32, 8, 160, None),
              "moe G1 dh128": (16, 16, 128, None),
-             "qwen3 G8 dh128": (64, 8, 128, None)}
+             "qwen3 G8 dh128": (64, 8, 128, None),
+             "paligemma G8 dh256": (8, 1, 256, None),
+             "smoke dh16": (4, 1, 16, None),
+             "smoke dh24": (4, 2, 24, 8)}
+# paligemma-3b's legacy decode: K4 over the ring of the prefix phase's
+# prompts (4 x (1024 text + 256 prefix), every slot valid once the ring
+# wraps) and over 8 x (4096 + 256) slots
+PALI_HEADS = NEW_HEADS["paligemma G8 dh256"]
+PALI_RINGS = {"paligemma B4 W1280": (4, 1280),
+              "paligemma B8 W4352": (8, 4352)}
 
 
 def k3_inputs(B, H, Kh, dh, ps, P, seq_lens, dtype, seed):
@@ -735,15 +905,17 @@ def check_k3(errs: dict) -> tuple:
             n += 1
     for H, Kh, dh, window in [(32, 8, 80, SERVE_WINDOW)] + list(
             NEW_HEADS.values()):
-        q, kp, vp, bt, sl = k3_inputs(8, H, Kh, dh, 16, 128, serve_lens,
-                                      torch.bfloat16, 7)
-        a = KD.paged_decode_attention(q, kp, vp, bt, sl, window=window)
-        b = KD.paged_decode_attention(q, kp, vp, bt, sl, window=window)
-        torch.cuda.synchronize()
-        if not torch.equal(a, b):
-            raise AssertionError(f"paged_decode_attention {H}/{Kh} dh {dh}: "
-                                 "the same inputs did not give bit-identical "
-                                 "outputs on a re-run")
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kp, vp, bt, sl = k3_inputs(8, H, Kh, dh, 16, 128, serve_lens,
+                                          dtype, 7)
+            a = KD.paged_decode_attention(q, kp, vp, bt, sl, window=window)
+            b = KD.paged_decode_attention(q, kp, vp, bt, sl, window=window)
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"paged_decode_attention {H}/{Kh} dh {dh} {dtype}: the "
+                    "same inputs did not give bit-identical outputs on a "
+                    "re-run")
     # Ten launches back to back on the same ticket counters: each must find
     # them at 0, as the last run of the launch before left them.
     for B in (1, 8):
@@ -910,6 +1082,12 @@ def k4_cases() -> list:
         for window in (None, 256):
             cases.append((8, 1024, H, Kh, dh, window, 1024 - 200, False))
             cases.append((4, 4096, H, Kh, dh, window, 4096 + 2047, True))
+    # paligemma's prefix-phase ring, as its first and its last decode step
+    # see it (slot 0 overwritten by position 1280, then 31 more)
+    H, Kh, dh, _ = PALI_HEADS
+    for B, W in PALI_RINGS.values():
+        cases.append((B, W, H, Kh, dh, None, W, True))
+        cases.append((B, W, H, Kh, dh, None, W + 31, True))
     return cases
 
 
@@ -932,16 +1110,20 @@ def check_k4(errs: dict) -> tuple:
             errs["decode_attention"] = max(errs["decode_attention"],
                                            max_err(got, want))
             n += 1
-    for H, Kh, dh, window in [(32, 8, 80, SERVE_WINDOW)] + list(
-            NEW_HEADS.values()):
-        args = k4_inputs(4, 4096, H, Kh, dh, 6143, torch.bfloat16, 8, True)
-        a = KD.decode_attention(*args, window=window)
-        b = KD.decode_attention(*args, window=window)
-        torch.cuda.synchronize()
-        if not torch.equal(a, b):
-            raise AssertionError(f"decode_attention {H}/{Kh} dh {dh}: the "
-                                 "same inputs did not give bit-identical "
-                                 "outputs on a re-run")
+    reruns = [(4, 4096, 32, 8, 80, SERVE_WINDOW)] + [
+        (4, 4096) + heads for heads in NEW_HEADS.values()] + [
+        (B, W) + PALI_HEADS for B, W in PALI_RINGS.values()]
+    for B, W, H, Kh, dh, window in reruns:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = k4_inputs(B, W, H, Kh, dh, W + 2047, dtype, 8, True)
+            a = KD.decode_attention(*args, window=window)
+            b = KD.decode_attention(*args, window=window)
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"decode_attention B{B} W{W} {H}/{Kh} dh {dh} {dtype}: "
+                    "the same inputs did not give bit-identical outputs on "
+                    "a re-run")
     # Ten launches back to back on the same ticket counters: each must find
     # them at 0, as the last run of the launch before left them.
     for B in (1, 4):
@@ -977,13 +1159,17 @@ def time_k4() -> tuple:
     mask made before the timed region.  K4 takes tens of microseconds, about
     what its wrapper costs on the host, so all three are timed as replays of
     a CUDA graph; eager_ms is the kernel's time launched one call after
-    another from the host."""
+    another from the host.  paligemma-3b's rings (``PALI_RINGS``) are timed
+    too."""
     danube = (32, 8, 80, SERVE_WINDOW)
     shapes = {"B8 W1024": (8, 1024, danube), "B4 W4096": (4, 4096, danube),
               "B1 W4096": (1, 4096, danube)}
     shapes.update({f"{name} B4 W4096": (4, 4096, heads)
                    for name, heads in NEW_HEADS.items()
                    if heads[2] in KD.HEAD_DIMS})
+    if PALI_HEADS[2] in KD.HEAD_DIMS:
+        shapes.update({name: (B, W, PALI_HEADS)
+                       for name, (B, W) in PALI_RINGS.items()})
     rows = {}
     for name, (B, W, (H, Kh, dh, window)) in shapes.items():
         cur = W + 2047
@@ -2455,25 +2641,29 @@ def phase_legacy_serve() -> dict:
     every step), 64 greedy tokens each."""
     arch = get_arch(ARCH_ID)
     params = arch.init_params(0)
-    report, launches = legacy_serve_run(arch, params, LEGACY_BATCH,
-                                        LEGACY_PROMPT_LEN, LEGACY_NEW_TOKENS)
+    report, launches, _ = legacy_serve_run(
+        arch, params, LEGACY_BATCH, LEGACY_PROMPT_LEN, LEGACY_NEW_TOKENS)
     emit("legacy_serve", arch=ARCH_ID, **report)
     return {"launches": launches}
 
 
 def legacy_serve_run(arch, params, batch: int, prompt_len: int,
-                     new_tokens: int, seed: int = 2) -> tuple:
-    """Engine over ``batch`` prompts of ``prompt_len`` tokens from ``seed``,
-    ``new_tokens`` greedy tokens each.  Asserts the tokens, K4 launches ==
-    layers x decode steps (none for MLA, which decodes from its latent
-    cache in plain PyTorch) and one synchronising host transfer a step.
-    Returns the report and the K4 launches."""
+                     new_tokens: int, seed: int = 2, *, extras=None,
+                     use_kernel=None) -> tuple:
+    """Engine over ``batch`` prompts of ``prompt_len`` tokens from ``seed``
+    (and ``extras``, a modality prefix's inputs), ``new_tokens`` greedy
+    tokens each.  Asserts the tokens, K4 launches == layers x decode steps
+    (none for MLA, which decodes from its latent cache in plain PyTorch, or
+    with ``use_kernel=False``) and one synchronising host transfer a step.
+    Returns the report, the K4 launches and the tokens."""
     n_layers = arch.cfg.n_layers
-    k4_layers = 0 if arch.cfg.mla is not None else n_layers
+    k4_layers = (0 if arch.cfg.mla is not None or use_kernel is False
+                 else n_layers)
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(1, arch.cfg.vocab, prompt_len).tolist()
                for _ in range(batch)]
-    eng = Engine(arch, params, ServeConfig(max_new_tokens=new_tokens))
+    eng = Engine(arch, params, ServeConfig(max_new_tokens=new_tokens,
+                                           use_kernel=use_kernel))
     prefill_ev, decode_ev = [], []
     eng._prefill = _event_timed(eng._prefill, prefill_ev)
     eng._decode = _event_timed(eng._decode, decode_ev)
@@ -2485,7 +2675,7 @@ def legacy_serve_run(arch, params, batch: int, prompt_len: int,
             warnings.simplefilter("always")
             KD.decode_attention.launches = 0
             t0 = time.perf_counter()
-            outs = eng.generate(prompts)
+            outs = eng.generate(prompts, extras=extras)
             wall_s = time.perf_counter() - t0
             launches = KD.decode_attention.launches
     finally:
@@ -2497,7 +2687,9 @@ def legacy_serve_run(arch, params, batch: int, prompt_len: int,
     decode_s = decode_ev[0][0].elapsed_time(decode_ev[-1][1]) / 1e3
     report = dict(
         n_layers=n_layers, dtype=str(arch.cfg.dtype), batch=batch,
-        prompt_len=prompt_len, ring_slots=cache_window(arch.cfg, prompt_len),
+        prompt_len=prompt_len, n_prefix_tokens=arch.cfg.n_prefix_tokens,
+        ring_slots=cache_window(arch.cfg,
+                                prompt_len + arch.cfg.n_prefix_tokens),
         max_new_tokens=new_tokens, wall_seconds=wall_s,
         prefill_seconds=prefill_s, decode_steps=steps,
         decode_seconds=decode_s, ms_per_decode_step=decode_s / steps * 1e3,
@@ -2521,11 +2713,28 @@ def legacy_serve_run(arch, params, batch: int, prompt_len: int,
         raise AssertionError(
             f"legacy_serve: {len(syncs)} synchronising host transfers, "
             f"expected one per emitted step ({new_tokens})")
-    return report, launches
+    return report, launches, outs
 
 
 
 LEGACY_PARITY_LENS = (1024, 3072, 6144)   # direct, blockwise, window gather
+
+
+def decode_step_both(arch, params, batch: dict) -> tuple:
+    """A prefill of ``batch`` (``tokens`` and any prefix leaves, numpy or
+    on the card), then one decode step of its greedy token through K4
+    (``None``) and through the plain attention (``False``), each on its own
+    copy of the ring: the two steps' logits by ``use_kernel``, and the
+    ring's slots."""
+    batch = {k: torch.as_tensor(v, device=DEV) for k, v in batch.items()}
+    logits0, cache = arch.make_prefill_step()(params, batch)
+    nxt = torch.argmax(logits0, dim=-1).to(torch.int32)[:, None]
+    logits = {}
+    for use_kernel in (None, False):
+        c = {k: v.clone() for k, v in cache.items()}
+        logits[use_kernel] = arch.make_decode_step(use_kernel=use_kernel)(
+            params, c, {"tokens": nxt})[0]
+    return logits, int(cache["pos"].shape[0])
 
 
 def phase_legacy_parity() -> None:
@@ -2542,24 +2751,16 @@ def phase_legacy_parity() -> None:
             arch.cfg, n_layers=2, dtype=dtype))
         params = arch.init_params(0)
         for S in LEGACY_PARITY_LENS:
-            toks = torch.from_numpy(rng.integers(
-                1, arch.cfg.vocab, (2, S)).astype(np.int32)).to(DEV)
-            logits0, cache = arch.make_prefill_step()(params,
-                                                      {"tokens": toks})
-            nxt = torch.argmax(logits0, dim=-1).to(torch.int32)[:, None]
-            logits = {}
-            for use_kernel in (None, False):
-                c = {k: v.clone() for k, v in cache.items()}
-                logits[use_kernel] = arch.make_decode_step(
-                    use_kernel=use_kernel)(params, c, {"tokens": nxt})[0]
+            toks = rng.integers(1, arch.cfg.vocab, (2, S)).astype(np.int32)
+            logits, slots = decode_step_both(arch, params, {"tokens": toks})
             err = max_err(logits[None], logits[False])
-            prompts = toks.cpu().tolist()
+            prompts = toks.tolist()
             tokens = {u: Engine(arch, params, ServeConfig(
                 max_new_tokens=16, use_kernel=u)).generate(prompts)
                 for u in (None, False)}
             torch.cuda.synchronize()
             report[f"{dtype} S{S}"] = {
-                "ring_slots": int(cache["pos"].shape[0]),
+                "ring_slots": slots,
                 "logits_max_abs_err": err,
                 "tolerance": SERVE_PARITY_TOL[dtype],
                 "greedy_tokens_equal": tokens[None] == tokens[False],
@@ -2572,7 +2773,7 @@ def phase_legacy_parity() -> None:
                 raise AssertionError(f"legacy_parity fp32 S={S}: greedy "
                                      "tokens differ between the kernel and "
                                      "the plain version")
-            del cache, c
+            del logits
         del params
         torch.cuda.empty_cache()
     report["flash_vs_direct"] = check_flash_vs_direct()
@@ -2663,8 +2864,9 @@ def device_digest(tree) -> torch.Tensor:
 
 
 def moe_watch(digest_at: int):
-    """A user hook: each step's aux loss (the metrics' ``aux_loss``) and MTP
-    loss where the model has the head (``mtp_loss``), the bytes allocated
+    """A user hook: each step's aux loss (the metrics' ``aux_loss``) where
+    the model has one and MTP loss where the model has the head
+    (``mtp_loss``), the bytes allocated
     when the run starts (params and state), and the digest of params and
     OptState after step ``digest_at``."""
     from repro_torch.run import Hook
@@ -2678,7 +2880,8 @@ def moe_watch(digest_at: int):
             self.start_bytes = torch.cuda.memory_allocated()
 
         def on_step_end(self, ctx, ev):
-            self.aux.append(ev.metrics["aux_loss"])
+            if "aux_loss" in ev.metrics:
+                self.aux.append(ev.metrics["aux_loss"])
             if "mtp_loss" in ev.metrics:
                 self.mtp.append(ev.metrics["mtp_loss"])
             if ev.step == digest_at:
@@ -2868,7 +3071,7 @@ def phase_configs() -> dict:
         params = arch.init_params(0)
         paged, n3 = paged_serve_run(arch, params, CONFIG_SERVE_CFG, 8,
                                     CONFIG_PROMPT_LENS)
-        legacy, n4 = legacy_serve_run(arch, params, **CONFIG_LEGACY)
+        legacy, n4, _ = legacy_serve_run(arch, params, **CONFIG_LEGACY)
         del params
         launches["paged_decode_attention"] += n3
         launches["decode_attention"] += n4
@@ -2960,16 +3163,6 @@ MLA_PARITY_TOL = 1e-3
 MLA_EXPERTS = 256
 MLA_KERNEL_SHAPES = ((7168, 2048), (2048, 7168))
 MLA_CHECK_ENTRIES = (0, 1, 254, 255)
-# K2 there is held on its update, at an lr whose update is as large as the
-# params (std 0.1): a few hundred bf16 ulps where one rounding is at most
-# 0.3 % of the largest update.  Per checked entry, the kernel's update
-# (θ' − θ) lies within 1 % of the largest plain update (fp32, unrounded) of
-# the plain one, and the plain update moves at least 95 % of the entry's
-# bf16 elements; an entry left unwritten, a flipped sign or another
-# entry's r and c are off by the whole update.
-MLA_K2_LR = 1.0
-MLA_K2_UPDATE_RTOL = 1e-2
-MLA_K2_MOVED_MIN = 0.95
 
 
 def with_layers(arch, n_layers: int, **cfg_changes):
@@ -2997,38 +3190,15 @@ def expert_batch_inputs(shape, seed: int) -> tuple:
     return p, g, r, c
 
 
-def held_update(p0, p_new, want32, what: str) -> dict:
-    """K2's update on the checked entries ``p0 -> p_new`` against the plain
-    version's fp32 result ``want32``: per entry, the largest gap between
-    the two updates over the plain update's largest value, which must stay
-    within ``MLA_K2_UPDATE_RTOL``, and the share of the entry's bf16
-    elements the plain update moves, at least ``MLA_K2_MOVED_MIN``."""
-    base = p0.to(torch.float32)
-    d_plain = want32 - base
-    gap = (p_new.to(torch.float32) - base - d_plain).abs().amax(dim=(-2, -1))
-    rel = gap / d_plain.abs().amax(dim=(-2, -1))
-    moved = (want32.to(p0.dtype) != p0).to(torch.float32).mean(dim=(-2, -1))
-    rec = {"update_rel_err": rel.tolist(), "moved_share": moved.tolist(),
-           "max_abs_err_vs_fp32": max_err(p_new, want32)}
-    if (bool((rel > MLA_K2_UPDATE_RTOL).any())
-            or bool((moved < MLA_K2_MOVED_MIN).any())):
-        raise AssertionError(
-            f"{what}: the kernel's update and the plain one disagree, or the "
-            f"plain one does not move the entries "
-            f"(rtol {MLA_K2_UPDATE_RTOL}, moved >= {MLA_K2_MOVED_MIN}): "
-            f"{rec}")
-    return rec
-
-
 def check_expert_batches(errs: dict) -> dict:
     """K1 then K2 (step 5, bf16 params and grads, as the fused step hands
     an expert stack over) on each whole ``[256, m, n]`` batch, held against
     the plain versions on ``MLA_CHECK_ENTRIES``: K1's r' and c' within
-    ``TOL_RC``, K2's update (at ``MLA_K2_LR``, on the r', c' K1 wrote) by
+    ``TOL_RC``, K2's update (at ``K2_HELD_LR``, on the r', c' K1 wrote) by
     ``held_update``; the same inputs again, bitwise; then each kernel timed
     on the whole batch (CUDA events: a batch is far past the L2 cache)
     beside its bound, and the plain versions on the four entries."""
-    beta, lr, step = 0.999, MLA_K2_LR, 5.0
+    beta, lr, step = 0.999, K2_HELD_LR, 5.0
     beta_t = torch.full((), beta, device=DEV)
     kw2 = dict(eps_div=CFG.eps_div, eps_rms=CFG.eps_rms, literal=False)
     sel = torch.tensor(MLA_CHECK_ENTRIES, device=DEV)
@@ -3164,9 +3334,9 @@ def phase_mla() -> dict:
     progress("mla: K1/K2 on the [256, m, n] expert batches")
     kernels = check_expert_batches(errs)
     emit("mla_kernels", arch=MLA_ID, dtype="bf16 param, bf16 grad",
-         tolerances={"r_c": TOL_RC, "k2_lr": MLA_K2_LR,
-                     "k2_update_rtol": MLA_K2_UPDATE_RTOL,
-                     "k2_moved_min": MLA_K2_MOVED_MIN},
+         tolerances={"r_c": TOL_RC, "k2_lr": K2_HELD_LR,
+                     "k2_update_rtol": K2_HELD_UPDATE_RTOL,
+                     "k2_moved_min": K2_HELD_MOVED_MIN},
          per_call=kernels, max_abs_err=errs,
          held_after_bytes=held_bytes(), held_before_bytes=base,
          seconds=time.perf_counter() - t0)
@@ -3248,7 +3418,7 @@ def phase_mla() -> dict:
         paged_refusal = str(e)
     else:
         raise AssertionError("mla serve: PagedEngine accepted an MLA model")
-    report, launches = legacy_serve_run(arch, params, **MLA_SERVE)
+    report, launches, _ = legacy_serve_run(arch, params, **MLA_SERVE)
     del params
     emit("mla_serve", arch=MLA_ID, cut={"n_layers": [61, MLA_SERVE_LAYERS]},
          cache="latent ckv [L,B,W,512] + kr [L,B,W,64]",
@@ -3267,10 +3437,265 @@ def phase_mla() -> dict:
 
 
 # --------------------------------------------------------------------------
+# prefix: paligemma-3b (prefix-LM over a stubbed modality prefix)
+# --------------------------------------------------------------------------
+
+PALI_ID = "paligemma-3b"
+PREFIX_STEPS = 3
+# rows x text tokens; each row adds the 256 prefix embeddings: 4 x 1,280
+# positions take the direct branch, 1 x 2,304 the flash branch
+PREFIX_TRAIN = (4, 1024)
+PREFIX_FLASH = (1, 2048)
+# K1/K2 launches of one fused step: 7 matrices a layer (wq, wk, wv, wo,
+# w_gate, w_up, w_down) x 18, and the tied embedding
+PREFIX_LEAVES_PER_STEP = 18 * 7 + 1
+PREFIX_SERVE = dict(batch=4, prompt_len=1024, new_tokens=32)
+# fp32 at full depth: K4 (its fp32 tile loop at dh 256) against the plain
+# attention, a decode step's logits within 1e-3 and greedy tokens equal
+PREFIX_PARITY = dict(batch=2, prompt_len=256, new_tokens=16)
+PREFIX_PARITY_TOL = 1e-3
+# bf16 at the serving shape: one decode step's logits through K4 against the
+# plain attention's, within 4x the 0.038 first read on the card; and K4 must
+# move them less than bf16 itself does (the plain attention in bf16 against
+# an fp32 copy of the same weights)
+PREFIX_BF16_LOGITS_TOL = 0.15
+
+
+def prefix_extras(cfg, batch: int, seed: int) -> dict:
+    """A modality prefix's inputs as the data layer draws them: seeded
+    normal ``prefix_embed [B, n_prefix_tokens, d_model]`` (float32) and
+    ``prefix_len`` = n_prefix_tokens a row."""
+    rng = np.random.default_rng(seed)
+    n = cfg.n_prefix_tokens
+    return {"prefix_embed": rng.standard_normal((batch, n, cfg.d_model),
+                                                dtype=np.float32),
+            "prefix_len": np.full((batch,), n, np.int32)}
+
+
+class FlashCount:
+    """Counts, while active, the dispatcher's calls of the flash branch with
+    a gradient asked for (they take the recomputing backward) and without,
+    and the runs of that backward."""
+
+    def __enter__(self):
+        self.counts = {"with_grad": 0, "no_grad": 0, "backward": 0}
+        self._fa, self._bw = ML._flash_attention, ML._FlashAttention.backward
+
+        def fa(q, *args, **kw):
+            grad = torch.is_grad_enabled() and q.requires_grad
+            self.counts["with_grad" if grad else "no_grad"] += 1
+            return self._fa(q, *args, **kw)
+
+        def bw(ctx, *grads):
+            self.counts["backward"] += 1
+            return self._bw(ctx, *grads)
+
+        ML._flash_attention = fa
+        ML._FlashAttention.backward = staticmethod(bw)
+        return self
+
+    def __exit__(self, *exc):
+        ML._flash_attention = self._fa
+        ML._FlashAttention.backward = staticmethod(self._bw)
+
+
+def prefix_parity(rng) -> dict:
+    """fp32 at full width and depth: after a prefill of 256 prefix
+    embeddings and 256 tokens, one decode step's logits through K4 (the
+    fp32 tile loop at dh 256, group 8) against the plain attention over the
+    same ring (``PREFIX_PARITY_TOL``), and Engine's greedy tokens through
+    each (asserted equal)."""
+    cfg = PREFIX_PARITY
+    arch = get_arch(PALI_ID)
+    arch = dataclasses.replace(arch, cfg=dataclasses.replace(
+        arch.cfg, dtype=torch.float32))
+    params = arch.init_params(0)
+    B, S = cfg["batch"], cfg["prompt_len"]
+    extras = prefix_extras(arch.cfg, B, seed=23)
+    toks = rng.integers(1, arch.cfg.vocab, (B, S)).astype(np.int32)
+    logits, slots = decode_step_both(arch, params,
+                                     dict(extras, tokens=toks))
+    err = max_err(logits[None], logits[False])
+    tokens = {u: Engine(arch, params, ServeConfig(
+        max_new_tokens=cfg["new_tokens"], use_kernel=u)).generate(
+            toks.tolist(), extras=extras) for u in (None, False)}
+    torch.cuda.synchronize()
+    out = {"dtype": "float32", "n_layers": arch.cfg.n_layers, **cfg,
+           "ring_slots": slots,
+           "decode_logits_max_abs_err": err, "tolerance": PREFIX_PARITY_TOL,
+           "greedy_tokens_equal": tokens[None] == tokens[False],
+           "tokens_kernel": tokens[None][0], "tokens_plain": tokens[False][0]}
+    del params, logits
+    torch.cuda.empty_cache()
+    if not err <= PREFIX_PARITY_TOL:
+        raise AssertionError(f"prefix parity: decode-step logits through K4 "
+                             f"differ from the plain attention's by {err}")
+    if tokens[None] != tokens[False]:
+        raise AssertionError("prefix parity: fp32 greedy tokens differ "
+                             "between K4 and the plain attention")
+    return out
+
+
+def phase_prefix() -> dict:
+    """paligemma-3b at its published width and depth (18 layers, d_model
+    2048, 8 query heads over 1 at dh 256, a tied 257,216-token head, 256
+    prefix embeddings), bf16, random weights and data from a seed: fused
+    AdaLomo through ``run(spec)`` at 4 x (1024 + 256) (the direct branch),
+    3 steps, step 1 re-run bitwise; one step at 1 x (2048 + 256) (the flash
+    branch, forward and recomputing backward, with the prefix mask); fused
+    LOMO's step for Table 1; the legacy Engine through K4 at dh 256 with a
+    bitwise re-run, beside the plain attention; PagedEngine refusing; fp32
+    parity of K4 at full depth."""
+    t0 = time.perf_counter()
+    base = held_bytes()
+    arch = get_arch(PALI_ID)
+    leaves = factored_leaves(arch.init_params(0, device="meta"))
+    failed = []
+    if leaves != PREFIX_LEAVES_PER_STEP:
+        failed.append(f"{leaves} factored leaves a step, expected "
+                      f"{PREFIX_LEAVES_PER_STEP}")
+    B, T = PREFIX_TRAIN
+    kw = dict(arch_id=PALI_ID, batch=B, seq=T)
+    watch = moe_watch(0)
+    progress(f"prefix: fused AdaLomo, {PREFIX_STEPS} steps at {B} x "
+             f"({T} + {arch.cfg.n_prefix_tokens})")
+    with FlashCount() as direct_fc:
+        rec = baseline_arm("adalomo", True, base, steps=PREFIX_STEPS,
+                           hooks=[watch], **kw)
+    rec["allocated_at_run_start_bytes"] = watch.start_bytes
+    rerun_watch = moe_watch(0)
+    progress("prefix: step 1 re-run, the flash step, then LOMO")
+    rerun = baseline_arm("adalomo", True, base, steps=1,
+                         hooks=[rerun_watch], **kw)
+    rerun_bitwise = (rerun["losses"][0] == rec["losses"][0]
+                     and torch.equal(rerun_watch.digest, watch.digest))
+    fB, fT = PREFIX_FLASH
+    with FlashCount() as flash_fc:
+        flash = baseline_arm("adalomo", True, base, steps=1, arch_id=PALI_ID,
+                             batch=fB, seq=fT)
+    lomo = baseline_arm("lomo", True, base, steps=1, **kw)
+    want = dict.fromkeys(("adalomo_stats", "adalomo_update"),
+                         PREFIX_LEAVES_PER_STEP * PREFIX_STEPS)
+    losses = rec["losses"]
+    if len(losses) != PREFIX_STEPS or not all(map(math.isfinite, losses)):
+        failed.append(f"losses {losses}")
+    elif losses[-1] == losses[0]:
+        failed.append(f"losses do not move: {losses}")
+    if rec["launches"] != want:
+        failed.append(f"K1/K2 launches {rec['launches']}, expected {want}")
+    if rec["host_syncs"] != PREFIX_STEPS:
+        failed.append(f"{rec['host_syncs']} host syncs in {PREFIX_STEPS} "
+                      "steps")
+    if not rec["params_finite"]:
+        failed.append("a parameter is not finite")
+    if any(direct_fc.counts.values()):
+        failed.append(f"the 1,280-position steps reached the flash branch: "
+                      f"{direct_fc.counts}")
+    if not rerun_bitwise:
+        failed.append("step 1 re-run from the same seed is not bitwise equal")
+    n = arch.cfg.n_layers
+    if flash_fc.counts != {"with_grad": n, "no_grad": n, "backward": n}:
+        failed.append(f"the 2,304-position step's flash calls "
+                      f"{flash_fc.counts}, expected {n} of each")
+    if (flash["launches"] != dict.fromkeys(want, PREFIX_LEAVES_PER_STEP)
+            or not all(map(math.isfinite, flash["losses"]))
+            or not flash["params_finite"]):
+        failed.append(f"flash step: {flash['launches']} {flash['losses']}")
+    if lomo["launches"] != dict.fromkeys(want, 0) or not all(
+            map(math.isfinite, lomo["losses"])):
+        failed.append(f"lomo: {lomo['launches']} {lomo['losses']}")
+    for r in (rec, rerun, flash, lomo):
+        if r["allocated_after_free_bytes"] != base:
+            failed.append(f"{r['optimizer']} {r['seq']}: "
+                          f"{r['allocated_after_free_bytes']} bytes held "
+                          f"after the run, {base} before")
+    emit("prefix_train", arch=PALI_ID, n_prefix_tokens=arch.cfg.n_prefix_tokens,
+         cut={"steps": PREFIX_STEPS}, factored_leaves_per_step=leaves,
+         adalomo=rec, flash_calls_in_direct_run=direct_fc.counts,
+         rerun_step1={"losses": rerun["losses"], "bitwise": rerun_bitwise,
+                      "step_seconds": rerun["step_seconds"]},
+         flash_step=dict(flash, positions=fT + arch.cfg.n_prefix_tokens,
+                         flash_calls=flash_fc.counts),
+         lomo=lomo, lomo_peak_vs_adalomo=(
+             lomo["peak_memory_bytes"] / rec["peak_memory_bytes"] - 1.0),
+         reckoned_unfused=reckoned_bytes(PALI_ID),
+         seconds=time.perf_counter() - t0)
+    if failed:
+        raise AssertionError(f"prefix train: {failed}")
+
+    t0 = time.perf_counter()
+    progress("prefix: legacy Engine through K4 at dh 256")
+    params = arch.init_params(0)
+    try:
+        PagedEngine(arch, params, PagedServeConfig(**SERVE_CFG))
+    except ValueError as e:
+        paged_refusal = str(e)
+    else:
+        raise AssertionError("prefix serve: PagedEngine accepted a "
+                             "prefix-LM model")
+    extras = prefix_extras(arch.cfg, PREFIX_SERVE["batch"], seed=21)
+    report, launches, outs = legacy_serve_run(arch, params, **PREFIX_SERVE,
+                                              extras=extras)
+    again = legacy_serve_run(arch, params, **PREFIX_SERVE, extras=extras)
+    plain = legacy_serve_run(arch, params, **PREFIX_SERVE, extras=extras,
+                             use_kernel=False)
+    # one decode step after the prefill, through K4 and the plain attention,
+    # in bf16 and in fp32 (the same weights, widened)
+    toks = np.random.default_rng(2).integers(
+        1, arch.cfg.vocab, (PREFIX_SERVE["batch"], PREFIX_SERVE[
+            "prompt_len"])).astype(np.int32)
+    batch = dict(extras, tokens=toks)
+    step_logits, _ = decode_step_both(arch, params, batch)
+    arch32 = dataclasses.replace(arch, cfg=dataclasses.replace(
+        arch.cfg, dtype=torch.float32))
+    params = tree_map(lambda t: t.to(torch.float32), params)
+    logits32, _ = decode_step_both(arch32, params, batch)
+    step_err = max_err(step_logits[None], step_logits[False])
+    control = {"k4_bf16": max_err(step_logits[None], logits32[False]),
+               "plain_bf16": max_err(step_logits[False], logits32[False]),
+               "k4_fp32": max_err(logits32[None], logits32[False])}
+    del params, step_logits, logits32
+    torch.cuda.empty_cache()
+    report.update(
+        rerun_tokens_equal=again[2] == outs, rerun_launches=again[1],
+        plain={"tokens_equal": plain[2] == outs,
+               "ms_per_decode_step": plain[0]["ms_per_decode_step"],
+               "tokens_row0": plain[2][0][:8]},
+        decode_step_logits_bf16={
+            "k4_vs_plain_max_abs_err": step_err,
+            "tolerance": PREFIX_BF16_LOGITS_TOL,
+            "max_abs_err_vs_plain_fp32": control})
+    emit("prefix_serve", arch=PALI_ID, paged_refusal=paged_refusal, **report,
+         held_after_bytes=held_bytes(), held_before_bytes=base,
+         seconds=time.perf_counter() - t0)
+    if again[2] != outs:
+        raise AssertionError("prefix serve: a re-run of the same prompts "
+                             "gave other tokens")
+    if plain[2] != outs:
+        raise AssertionError("prefix serve: the tokens through K4 differ "
+                             "from the plain attention's")
+    if not step_err <= min(PREFIX_BF16_LOGITS_TOL, control["plain_bf16"]):
+        raise AssertionError(
+            f"prefix serve: bf16 decode-step logits through K4 differ from "
+            f"the plain attention's by {step_err} (limit "
+            f"{PREFIX_BF16_LOGITS_TOL}, and bf16 itself moves them by "
+            f"{control['plain_bf16']})")
+
+    t0 = time.perf_counter()
+    progress("prefix: fp32 K4 parity at full depth")
+    emit("prefix_parity", arch=PALI_ID,
+         **prefix_parity(np.random.default_rng(14)),
+         seconds=time.perf_counter() - t0)
+    return {"launches": {"adalomo_stats": rec["launches"]["adalomo_stats"],
+                         "adalomo_update": rec["launches"]["adalomo_update"],
+                         "decode_attention": launches}}
+
+
+# --------------------------------------------------------------------------
 
 PHASES = ("kernels", "train", "parity", "resume", "sentinel", "baselines",
           "packed", "serve", "serve_parity", "legacy_serve", "legacy_parity",
-          "moe", "configs", "mla")
+          "moe", "configs", "mla", "prefix")
 EXTRA_PHASES = ("timing", "configs_lomo")
 
 
@@ -3292,7 +3717,9 @@ def main() -> None:
                          "masks or the packed path, kernels,moe,configs "
                          "after touching the MoE FFN, the configs or the "
                          "head dims of K3/K4, kernels,mla after touching "
-                         "MLA, MTP, the latent cache or deepseek-v3-671b; "
+                         "MLA, MTP, the latent cache or deepseek-v3-671b, "
+                         "kernels,prefix after touching the prefix-LM "
+                         "masks, paligemma-3b or K4 at dh 256; "
                          "configs_lomo (not in the "
                          "default) qwen3-32b's fused LOMO step; timing "
                          "(not in the default) times the kernels without "
@@ -3360,6 +3787,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     mla = phase_mla() if "mla" in phases else None
+    gc.collect()
+    torch.cuda.empty_cache()
+    prefix = phase_prefix() if "prefix" in phases else None
     if "configs_lomo" in phases:
         phase_configs_lomo()
     if set(phases) != set(PHASES):
@@ -3400,9 +3830,17 @@ def main() -> None:
                 launches,
                 "moe": moe["launches"].get(name, 0),
                 "configs": configs["launches"][name],
-                "mla": mla["launches"].get(name, 0)}})
+                "mla": mla["launches"].get(name, 0),
+                "prefix": prefix["launches"].get(name, 0)}})
         if name == "paged_decode_attention":
             kernels[-1]["library_note"] = PAGED_LIBRARY_NOTE
+        if name.endswith("decode_attention"):
+            # per launch at dh 256 (paligemma-3b's 8 query heads over 1)
+            kernels[-1]["dh256_per_launch"] = {
+                shape: {k: row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "library_ms")}
+                for shape, row in kern["rows"][name].items()
+                if row["heads"][2] == 256}
         if name.startswith("adalomo"):
             key = "stats" if name == "adalomo_stats" else "update"
             kernels[-1]["deepseek_v3_expert_batch_per_call"] = {

@@ -123,8 +123,26 @@ ring_decode_kernel_mma(const __nv_bfloat16* __restrict__ q,
     combine_runs<__nv_bfloat16>(p0, out + q_base, G, DH, S);
 }
 
-// static: the flag below must be this library's own (a function-local static
-// of an inline template is one symbol for the whole process).
+// static: the flags below must be this library's own (a function-local
+// static of an inline template is one symbol for the whole process).
+template <int DH>
+static cudaError_t launch_f32(dim3 grid, cudaStream_t s, const void* q,
+                              const void* kc, const void* vc,
+                              const int* kv_pos, const int* q_pos,
+                              float* part, int* counters, void* out, int H,
+                              int K, int G, int W, int span, float scale,
+                              int window) {
+  constexpr size_t smem = TilesShape<DH>::kSmemBytes;
+  static bool sized = false;   // the attribute is set once a process
+  const cudaError_t err = size_smem_once(sized, ring_decode_kernel<DH>, smem);
+  if (err != cudaSuccess) return err;
+  ring_decode_kernel<DH><<<grid, kThreads, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(kc),
+      static_cast<const float*>(vc), kv_pos, q_pos, part, counters,
+      static_cast<float*>(out), H, K, G, W, span, scale, window);
+  return cudaGetLastError();
+}
+
 template <int DH>
 static cudaError_t launch_bf16(dim3 grid, cudaStream_t s, const void* q,
                         const void* kc, const void* vc, const int* kv_pos,
@@ -156,7 +174,8 @@ extern "C" int decode_attention_block_step() { return rda::kBlockStep; }
 // S runs of span slots (span a multiple of 64, S * span >= W > (S - 1) *
 // span); part is an fp32 workspace of B * K * S * (H / K) * (dh + 2) floats;
 // counters B * K int32, all 0 before the launch and left at 0 after it (one
-// launch at a time may use them).  dh in {32, 64, 80, 120, 128, 160}, H / K <= 8.
+// launch at a time may use them).  dh in {16, 24, 32, 64, 80, 120, 128,
+// 160, 256}, H / K <= 8.
 // Returns the launch's cudaError_t (0 = launched).
 extern "C" int decode_attention_launch(const void* q, const void* k_cache,
                                        const void* v_cache,
@@ -178,22 +197,21 @@ extern "C" int decode_attention_launch(const void* q, const void* k_cache,
   const int* qp = static_cast<const int*>(q_pos);
   float* ws = static_cast<float*>(part);
   int* cnt = static_cast<int*>(counters);
+  cudaError_t launched = cudaSuccess;
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == kFloat32) {
     err = with_head_dim(dh, [&](auto d) {
-      ring_decode_kernel<decltype(d)::value><<<grid, kThreads, 0, s>>>(
-          static_cast<const float*>(q), static_cast<const float*>(k_cache),
-          static_cast<const float*>(v_cache), kp, qp, ws, cnt,
-          static_cast<float*>(out), H, K, G, W, span, scale, window);
+      launched = launch_f32<decltype(d)::value>(
+          grid, s, q, k_cache, v_cache, kp, qp, ws, cnt, out, H, K, G, W,
+          span, scale, window);
     });
   } else if (dtype == kBFloat16) {
-    cudaError_t launched = cudaSuccess;
     err = with_head_dim(dh, [&](auto d) {
       launched = launch_bf16<decltype(d)::value>(
           grid, s, q, k_cache, v_cache, kp, qp, ws, cnt, out, H, K, G, W,
           span, scale, window);
     });
-    if (err == cudaSuccess) err = launched;
   }
+  if (err == cudaSuccess) err = launched;
   return static_cast<int>(err);
 }

@@ -143,12 +143,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// A head dim that is not a whole number of 16-wide k-steps (120) is rounded
-// up to one (kDHPad): the last k-step's upper half multiplies zeros, the
+// A head dim that is not a whole number of 16-wide k-steps (24, 120) is
+// rounded up to one (kDHPad): the last k-step's upper half multiplies zeros, the
 // q fragment's (never loaded) and the K rows' pad columns [DH, kDHPad)
 // (zeroed once a block; no copy writes them).  Rows keep 8 more elements
 // beyond kDHPad, so that a row is an odd number of 16-byte pieces and
-// ldmatrix stays free of bank conflicts.
+// ldmatrix stays free of bank conflicts.  At head dim 256 the stages take
+// 202,752 bytes, so one block fits on an SM (the split aims at two).
 template <int DH>
 struct MmaShape {
   static constexpr int kDHPad = (DH + 15) / 16 * 16;  // whole k-steps
@@ -241,8 +242,8 @@ __device__ __forceinline__ void decode_run_mma(
     __nv_bfloat16* sv = sk + kStep * Sh::kRow;
     // kStep * kChunks 16-byte copies a step for K, as many for V, in whole
     // rounds of the warp: every lane reaches the __shfl_sync of every round
-    // (dh 120 has 7.5 rounds of copies; the last round's upper lanes copy
-    // nothing)
+    // (dh 24 has 1.5 rounds of copies, dh 120 7.5; the last round's upper
+    // lanes copy nothing)
     constexpr int kCopies = kStep * Sh::kChunks;
     for (int e0 = 0; e0 < kCopies; e0 += 32) {
       const int e = e0 + lane;
@@ -339,8 +340,8 @@ __device__ __forceinline__ void decode_run_mma(
       mma_16816(acc[2 * jj + 1], pa0, pa2, vb[2], vb[3]);
     }
     if constexpr (kNTiles % 2 != 0) {
-      // dh 120: the last n-tile alone; the load's upper two matrices are
-      // pad columns of the padded row, read and unused
+      // dh 24, 120: the last n-tile alone; the load's upper two matrices
+      // are pad columns of the padded row, read and unused
       uint32_t vb[4];
       ldsm_x4_trans(vb, smem_addr(sv + ((mi & 1) * 8 + mr) * Sh::kRow +
                                   16 * (kNTiles / 2) + (mi >> 1) * 8));

@@ -23,7 +23,11 @@
 // no atomics, so the same inputs give bit-identical outputs.  Load and
 // compute run in series (the fp32 path is the checking path, not the
 // serving one).  The block leaves its run's state for the in-launch combine
-// of decode_mma.cuh.
+// of decode_mma.cuh.  Its arrays live in dynamic shared memory
+// (TilesShape<DH>::kSmemBytes, set once a kernel by size_smem_once): at
+// head dim 256 they take 75,104 bytes, past the 48 KB a block may declare
+// statically, and a tile of 32 tokens is kept, since the softmax gives each
+// lane one token.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -78,11 +82,24 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The tile loop's shared memory: q [kMaxG][DH], K [kTile][DH + 1] (padded:
+// conflict-free k[t][d]), V [kTile][DH], scores [kMaxG][kTile], m, l and
+// the correction [kMaxG] each (fp32), then the tile's valid flags [kTile].
+template <int DH>
+struct TilesShape {
+  static constexpr size_t kFloats = (size_t)kMaxG * DH + kTile * (DH + 1) +
+                                    kTile * DH + kMaxG * kTile + 3 * kMaxG;
+  static constexpr size_t kSmemBytes =
+      kFloats * sizeof(float) + kTile * sizeof(int);
+  static_assert(kSmemBytes <= 227 * 1024,
+                "the tiles exceed a block's shared memory");
+};
+
 // Tokens [t_lo, t_hi) of one (sequence, KV head); q_base is the offset of its
 // first query head in q ([B, H, DH]).  Called by all kThreads threads of the
-// block, which writes its unnormalised softmax state for the combine: at part
-// (its own slot of a workspace), acc[g][d] (G * DH floats), then m[g], then
-// l[g].
+// block, with TilesShape<DH>::kSmemBytes of dynamic shared memory; the block
+// writes its unnormalised softmax state for the combine: at part (its own
+// slot of a workspace), acc[g][d] (G * DH floats), then m[g], then l[g].
 template <int DH, class Rows>
 __device__ __forceinline__ void decode_tiles(
     const float* __restrict__ q, const float* __restrict__ k,
@@ -93,16 +110,19 @@ __device__ __forceinline__ void decode_tiles(
   constexpr int kAcc = (kMaxG * DH + kThreads - 1) / kThreads;
   static_assert(DH % kVec == 0, "a row must be whole 16-byte loads");
 
-  __shared__ float sq[kMaxG][DH];
-  __shared__ float sk[kTile][DH + 1];     // padded: conflict-free k[t][d]
-  __shared__ float sv[kTile][DH];
-  __shared__ float sp[kMaxG][kTile];      // scores, then probabilities
-  __shared__ float sm[kMaxG], sl[kMaxG], scorr[kMaxG];
-  __shared__ int svalid[kTile];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sq = reinterpret_cast<float*>(smem_raw);   // [kMaxG][DH]
+  float* sk = sq + kMaxG * DH;                      // [kTile][DH + 1]
+  float* sv = sk + kTile * (DH + 1);                // [kTile][DH]
+  float* sp = sv + kTile * DH;      // [kMaxG][kTile]: scores, probabilities
+  float* sm = sp + kMaxG * kTile;
+  float* sl = sm + kMaxG;
+  float* scorr = sl + kMaxG;
+  int* svalid = reinterpret_cast<int*>(scorr + kMaxG);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int e = tid; e < G * DH; e += kThreads)
-    sq[e / DH][e % DH] = q[q_base + e];
+    sq[e] = q[q_base + e];
   if (tid < G) {
     sm[tid] = kNegInf;
     sl[tid] = 0.f;
@@ -130,8 +150,8 @@ __device__ __forceinline__ void decode_tiles(
       }
 #pragma unroll
       for (int i = 0; i < kVec; ++i) {
-        sk[t][c * kVec + i] = kf[i];
-        sv[t][c * kVec + i] = vf[i];
+        sk[t * (DH + 1) + c * kVec + i] = kf[i];
+        sv[t * DH + c * kVec + i] = vf[i];
       }
       if (c == 0) svalid[t] = live;
     }
@@ -141,19 +161,19 @@ __device__ __forceinline__ void decode_tiles(
       const int g = e / kTile, t = e - g * kTile;
       float s = 0.f;
 #pragma unroll 8
-      for (int d = 0; d < DH; ++d) s += sq[g][d] * sk[t][d];
-      sp[g][t] = s * scale;
+      for (int d = 0; d < DH; ++d) s += sq[g * DH + d] * sk[t * (DH + 1) + d];
+      sp[g * kTile + t] = s * scale;
     }
     __syncthreads();
     // online softmax: one warp per head, lane = token
     for (int g = warp; g < G; g += kWarps) {
       const bool valid = svalid[lane] != 0;
-      const float s = valid ? sp[g][lane] : kNegInf;
+      const float s = valid ? sp[g * kTile + lane] : kNegInf;
       const float m_old = sm[g];
       const float m_new = fmaxf(m_old, warp_max(s));
       const float p = valid ? expf(s - m_new) : 0.f;
       const float psum = warp_sum(p);
-      sp[g][lane] = p;
+      sp[g * kTile + lane] = p;
       if (lane == 0) {
         const float corr = expf(m_old - m_new);
         scorr[g] = corr;
@@ -170,7 +190,8 @@ __device__ __forceinline__ void decode_tiles(
         const int g = e / DH, d = e - g * DH;
         float a = acc[i] * scorr[g];
 #pragma unroll 8
-        for (int t = 0; t < kTile; ++t) a += sp[g][t] * sv[t][d];
+        for (int t = 0; t < kTile; ++t)
+          a += sp[g * kTile + t] * sv[t * DH + d];
         acc[i] = a;
       }
     }
@@ -192,6 +213,12 @@ __device__ __forceinline__ void decode_tiles(
 template <typename Launch>
 inline cudaError_t with_head_dim(int dh, Launch launch) {
   switch (dh) {
+    case 16:
+      launch(std::integral_constant<int, 16>());
+      break;
+    case 24:
+      launch(std::integral_constant<int, 24>());
+      break;
     case 32:
       launch(std::integral_constant<int, 32>());
       break;
@@ -209,6 +236,9 @@ inline cudaError_t with_head_dim(int dh, Launch launch) {
       break;
     case 160:
       launch(std::integral_constant<int, 160>());
+      break;
+    case 256:
+      launch(std::integral_constant<int, 256>());
       break;
     default:
       return cudaErrorInvalidValue;

@@ -134,8 +134,9 @@ static cudaError_t launch_paged(dim3 grid, cudaStream_t s, const void* q,
                                 void* out, int H, int K, int G, int N, int ps,
                                 int P, float scale, int window) {
   constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
-  constexpr size_t smem = kMma ? MmaShape<DH>::kSmemBytes : 0;
-  static bool sized = !kMma;   // the attribute is set once a process
+  constexpr size_t smem =
+      kMma ? MmaShape<DH>::kSmemBytes : TilesShape<DH>::kSmemBytes;
+  static bool sized = false;   // the attribute is set once a process
   const cudaError_t err =
       size_smem_once(sized, paged_decode_kernel<T, DH>, smem);
   if (err != cudaSuccess) return err;
@@ -159,8 +160,8 @@ extern "C" int paged_decode_step() { return pda::kStep; }
 // window <= 0 means none.  Each sequence's live tokens are split into S runs
 // on the device; part is an fp32 workspace of B * K * S * (H / K) * (dh + 2)
 // floats; counters B * K int32, all 0 before the launch and left at 0 after
-// it (one launch at a time may use them).  dh in {32, 64, 80, 120, 128, 160},
-// H / K <= 8.  Returns the launch's cudaError_t (0 = launched).
+// it (one launch at a time may use them).  dh in {16, 24, 32, 64, 80, 120,
+// 128, 160, 256}, H / K <= 8.  Returns the launch's cudaError_t (0 = launched).
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* k_pages, const void* v_pages,
     const void* block_tables, const void* seq_lens, void* part,

@@ -48,7 +48,7 @@ SOURCES = (_CSRC / "paged_decode_attention.cu", _CSRC / "decode_attention.cu")
 LIB_NAME = "decode_attention"
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 80, 120, 128, 160)
+HEAD_DIMS = (16, 24, 32, 64, 80, 120, 128, 160, 256)
 _STEP = 16                  # slots a warp takes in one step
 _RING_STEP = 64             # slots a K4 block's four warps take in one round
 _BLOCKS = 132 * 2           # K3 and K4 aim at about two blocks on each SM

@@ -18,8 +18,11 @@ recomputes the probabilities blockwise.  Packed-segment batches
 (``MaskSpec.segmented``) carry per-row ``(B, S)`` positions and segment ids
 through the direct and blockwise/flash branches, where attention never
 crosses a segment, forward or backward; as in the reference they never take
-the window gather.  Prefix-LM masks are not ported (``MaskSpec`` has no
-fields for them).
+the window gather.  Prefix-LM masks (``MaskSpec.has_prefix`` with a ``(B,)``
+``prefix_len``) open the first ``prefix_len[b]`` keys of row b to every
+query, in the direct and blockwise/flash branches, forward and recomputing
+backward; a prefix batch never takes the window gather either, and a packed
+batch refuses a prefix.
 """
 from __future__ import annotations
 
@@ -127,15 +130,21 @@ def apply_rope(x: Tensor, sin: Tensor, cos: Tensor, rope_pct: float = 1.0
 class MaskSpec:
     causal: bool = True
     window: Optional[int] = None       # SWA: attend to [pos-window+1, pos]
+    # prefix-LM: kv positions < prefix_len[b] are visible to every query
+    has_prefix: bool = False
     # packed-segment batches: attention also requires equal segment ids
-    # (q_seg/kv_seg travel beside the positions)
+    # (q_seg/kv_seg travel beside the positions); incompatible with
+    # has_prefix
     segmented: bool = False
 
 
 def _mask_block(q_pos: Tensor, kv_pos: Tensor, spec: MaskSpec,
                 q_seg: Optional[Tensor] = None,
-                kv_seg: Optional[Tensor] = None) -> Tensor:
-    """Bool mask block (..., Sq, Skv) from position (and segment) vectors."""
+                kv_seg: Optional[Tensor] = None,
+                prefix_len: Optional[Tensor] = None) -> Tensor:
+    """Bool mask block (..., Sq, Skv) from position (and segment) vectors;
+    with a prefix, ``(B, ..., Sq, Skv)`` for ``prefix_len`` of shape
+    ``(B,)``."""
     q = q_pos[..., :, None]
     k = kv_pos[..., None, :]
     m = torch.ones(torch.broadcast_shapes(q.shape, k.shape), dtype=torch.bool,
@@ -146,18 +155,28 @@ def _mask_block(q_pos: Tensor, kv_pos: Tensor, spec: MaskSpec,
         m = m & (q - k < spec.window)
     if q_seg is not None:
         m = m & (q_seg[..., :, None] == kv_seg[..., None, :])
+    if spec.has_prefix and prefix_len is not None:
+        pl = prefix_len.reshape(tuple(prefix_len.shape) + (1,) * q.ndim)
+        m = m | (k < pl)
+        if spec.window is not None:
+            m = m & ((q - k < spec.window) | (k < pl))
     return m
 
 
 def _scan_block_mask(qp: Tensor, kp: Tensor, qs: Optional[Tensor],
-                     ks: Optional[Tensor], spec: MaskSpec) -> Tensor:
+                     ks: Optional[Tensor], spec: MaskSpec,
+                     prefix_len: Optional[Tensor] = None) -> Tensor:
     """Mask for one (query block, KV block) pair of the blockwise loops.
 
     qp ``(T, qb)`` shared by the rows, or ``(B, T, qb)`` per row (packed
     segments); kp ``(kb,)`` or ``(B, kb)`` to match; qs/ks segment-id blocks
-    of the same shapes, or None.  Returns a mask broadcastable against score
-    blocks ``[B, T, K, G, qb, kb]``: ``(1, T, 1, 1, qb, kb)`` for metadata
-    shared by the rows, ``(B, T, 1, 1, qb, kb)`` otherwise."""
+    of the same shapes, or None; prefix_len ``(B,)`` with shared metadata
+    only.  Returns a mask broadcastable against score blocks
+    ``[B, T, K, G, qb, kb]``: ``(1, T, 1, 1, qb, kb)`` for metadata shared
+    by the rows and no prefix, ``(B, T, 1, 1, qb, kb)`` otherwise."""
+    if spec.has_prefix and prefix_len is not None:   # lifted to (B,T,qb,kb)
+        return _mask_block(qp, kp, spec, qs, ks,
+                           prefix_len)[:, :, None, None]
     if qp.ndim == 3:                    # per row: lift kp/ks over the tiles
         kp, ks = kp[:, None], None if ks is None else ks[:, None]
         return _mask_block(qp, kp, spec, qs, ks)[:, :, None, None]
@@ -248,13 +267,15 @@ def _pad_kv(x: Tensor, pk: int) -> Tensor:
 
 def _block_attention(q, k, v, q_pos, kv_pos, spec, scale, q_block: int,
                      kv_block: int, tiles: int = 1,
-                     return_lse: bool = False, q_seg=None, kv_seg=None):
+                     return_lse: bool = False, q_seg=None, kv_seg=None,
+                     prefix_len=None):
     """Two-level blockwise attention with an online softmax (flash-style).
 
     q ``[B,Sq,K,G,dh]``; k/v ``[B,Skv,K,dh]``; positions ``(Sq,)`` and
     ``(Skv,)`` shared by the rows, or ``(B, Sq)`` and ``(B, Skv)`` per row
     for packed-segment batches (then q_seg/kv_seg carry matching segment ids
-    and attention never crosses a segment).  Loops over query blocks
+    and attention never crosses a segment); prefix_len ``(B,)`` for
+    prefix-LM masks.  Loops over query blocks
     (outer) and KV blocks (inner); score blocks ``[B,T,K,G,qb,kb]`` are the
     only O(S·block) intermediates.  ``tiles`` > 1 splits the query sequence
     into T tiles carried as a tensor dim (the reference shards it over a
@@ -286,7 +307,8 @@ def _block_attention(q, k, v, q_pos, kv_pos, spec, scale, q_block: int,
                                   ks[:, j].to(torch.float32)) * scale
             mask = _scan_block_mask(qps[i], kps[j],
                                     None if qss is None else qss[i],
-                                    None if kss is None else kss[j], spec)
+                                    None if kss is None else kss[j], spec,
+                                    prefix_len)
             logits = torch.where(mask, logits, NEG_INF)
             m_new = torch.maximum(m_run, logits.amax(dim=-1))
             p = torch.exp(logits - m_new[..., None])
@@ -311,26 +333,27 @@ class _FlashAttention(torch.autograd.Function):
     """Blockwise attention whose backward saves only ``(q, k, v, out, lse)``
     and recomputes the probabilities block by block, as FlashAttention's
     backward does (the reference's ``jax.custom_vjp``).  Segment masking
-    (packed batches) is part of the recomputed mask, so cross-segment terms
-    drop out of dq, dk and dv as they do out of the forward."""
+    (packed batches) and the prefix (prefix-LM) are part of the recomputed
+    mask, so masked terms drop out of dq, dk and dv as they do out of the
+    forward; prefix_len is a non-differentiable input."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_pos, kv_pos, spec, scale, q_block, kv_block,
-                tiles, q_seg, kv_seg):
+                tiles, q_seg, kv_seg, prefix_len):
         out, lse = _block_attention(q, k, v, q_pos, kv_pos, spec, scale,
                                     q_block, kv_block, tiles,
                                     return_lse=True, q_seg=q_seg,
-                                    kv_seg=kv_seg)
+                                    kv_seg=kv_seg, prefix_len=prefix_len)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.meta = (q_pos, kv_pos, q_seg, kv_seg, spec, scale, q_block,
-                    kv_block, tiles)
+        ctx.meta = (q_pos, kv_pos, q_seg, kv_seg, prefix_len, spec, scale,
+                    q_block, kv_block, tiles)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        (q_pos, kv_pos, q_seg, kv_seg, spec, scale, q_block, kv_block,
-         tiles) = ctx.meta
+        (q_pos, kv_pos, q_seg, kv_seg, prefix_len, spec, scale, q_block,
+         kv_block, tiles) = ctx.meta
         B, Sq, K, G, dh = q.shape
         q_pos, kv_pos = _per_row(q_pos, kv_pos, q_seg, B)
         dvd = v.shape[-1]
@@ -367,7 +390,7 @@ class _FlashAttention(torch.autograd.Function):
                 mask = _scan_block_mask(qps[i], kps[j],
                                         None if qss is None else qss[i],
                                         None if kss is None else kss[j],
-                                        spec)
+                                        spec, prefix_len)
                 p = torch.where(mask, torch.exp(logits - lse_t[..., None]),
                                 0.0)
                 dv[:, j] += torch.einsum("btkgqs,btqkgv->bskv", p, doi)
@@ -382,19 +405,22 @@ class _FlashAttention(torch.autograd.Function):
         dk = dk.reshape(B, -1, K, dh)[:, :Skv]
         dv = dv.reshape(B, -1, K, dvd)[:, :Skv]
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
-                None, None, None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None, None, None)
 
 
 def _flash_attention(q, k, v, q_pos, kv_pos, spec, scale, q_block: int,
-                     kv_block: int, tiles: int = 1, q_seg=None, kv_seg=None):
+                     kv_block: int, tiles: int = 1, q_seg=None, kv_seg=None,
+                     prefix_len=None):
     """Blockwise attention with the recomputing backward of
     ``_FlashAttention``; where no gradient is asked for (``torch.no_grad``,
     or inputs that do not require one) only the forward runs."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, q_pos, kv_pos, spec, scale,
-                                     q_block, kv_block, tiles, q_seg, kv_seg)
+                                     q_block, kv_block, tiles, q_seg, kv_seg,
+                                     prefix_len)
     return _block_attention(q, k, v, q_pos, kv_pos, spec, scale, q_block,
-                            kv_block, tiles, q_seg=q_seg, kv_seg=kv_seg)
+                            kv_block, tiles, q_seg=q_seg, kv_seg=kv_seg,
+                            prefix_len=prefix_len)
 
 
 def _swa_gather_attention(q, k, v, q_pos, kv_pos, spec, scale, q_block: int):
@@ -437,6 +463,7 @@ def attention(
     spec: MaskSpec,
     q_pos: Tensor,          # (Sq,) int positions, or (B, Sq) when packed
     kv_pos: Tensor,         # (Skv,) int, or (B, Skv)
+    prefix_len: Optional[Tensor] = None,    # (B,) for prefix-LM
     q_seg: Optional[Tensor] = None,     # (B, Sq) segment ids (packed)
     kv_seg: Optional[Tensor] = None,    # (B, Skv)
     scale: Optional[float] = None,
@@ -446,8 +473,9 @@ def attention(
 
     Direct attention up to 2048 tokens; past that, the window gather for a
     sliding window shorter than the keys less a query block, and the
-    blockwise/flash branch otherwise.  A packed batch (segment ids) never
-    takes the gather, whose windows the segment mask does not cut."""
+    blockwise/flash branch otherwise.  A packed batch (segment ids) or a
+    prefix-LM batch never takes the gather, whose windows neither mask
+    cuts; a packed batch with a prefix is refused."""
     B, Sq, H, dh = q.shape
     K = k.shape[2]
     if H % K or k.shape[-1] != dh:
@@ -457,6 +485,9 @@ def attention(
         raise ValueError("MaskSpec.segmented must match whether segment ids "
                          f"are passed (segmented={spec.segmented}, q_seg "
                          f"{'given' if q_seg is not None else 'None'})")
+    if q_seg is not None and spec.has_prefix:
+        raise ValueError("packed-segment batches are incompatible with "
+                         "prefix-LM masks")
     dv = v.shape[-1]
     G = H // K
     qg = q.reshape(B, Sq, K, G, dh)
@@ -464,10 +495,10 @@ def attention(
     Skv = k.shape[1]
 
     if force_direct or max(Sq, Skv) <= _DIRECT_ATTN_MAX_SEQ:
-        mask = _mask_block(q_pos, kv_pos, spec, q_seg, kv_seg)
+        mask = _mask_block(q_pos, kv_pos, spec, q_seg, kv_seg, prefix_len)
         mask = mask[None, None, None] if mask.ndim == 2 else mask[:, None, None]
         out = _direct_attention(qg, k, v, mask, scale)
-    elif (spec.window is not None and q_seg is None
+    elif (spec.window is not None and not spec.has_prefix and q_seg is None
           and Skv > spec.window + _Q_BLOCK):
         out = _swa_gather_attention(qg, k, v, q_pos, kv_pos, spec, scale,
                                     _Q_BLOCK)
@@ -475,7 +506,7 @@ def attention(
         # one query tile: the reference's seq_tiles() without a mesh
         out = _flash_attention(qg, k, v, q_pos, kv_pos, spec, scale,
                                _Q_BLOCK, _KV_BLOCK, tiles=1, q_seg=q_seg,
-                               kv_seg=kv_seg)
+                               kv_seg=kv_seg, prefix_len=prefix_len)
     return out.reshape(B, Sq, H, dv)
 
 

@@ -2,10 +2,10 @@
 
 Counterpart of ``repro.models.registry``, holding the architectures ported so
 far: the transformer family's dense GQA configs, its mixture-of-experts
-config and deepseek-v3-671b (MLA, MoE with a sigmoid router, MTP).  Prefix-LM
-with modality prefixes (paligemma-3b) and the ``mamba2``/``hybrid``/
-``encdec`` families are not ported; ``get_arch`` raises ``KeyError`` for
-them.
+config, deepseek-v3-671b (MLA, MoE with a sigmoid router, MTP) and
+paligemma-3b (prefix-LM over a stubbed modality prefix).  The
+``mamba2``/``hybrid``/``encdec`` families are not ported; ``get_arch`` raises
+``KeyError`` for their configs.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ _CONFIG_MODULES = {
     "qwen3-32b": "repro_torch.configs.qwen3_32b",
     "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
     "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
+    "paligemma-3b": "repro_torch.configs.paligemma_3b",
 }
 
 ARCH_IDS = tuple(_CONFIG_MODULES)
@@ -78,7 +79,8 @@ class Arch:
 
     def supports_packing(self) -> bool:
         """Packed-segment batches need the transformer train path with
-        plain causal/SWA masks (no prefix/modality prefix/MTP)."""
+        plain causal/SWA masks: a prefix-LM mask, a modality prefix or an
+        MTP head adds sequence structure that packing would break."""
         cfg = self.cfg
         return self.family == "transformer" and not (
             cfg.prefix_lm or cfg.n_prefix_tokens or cfg.mtp)
@@ -89,7 +91,9 @@ class Arch:
         (batch, seq_len) — the contract between the data layer
         (``repro_torch.run.data.make_batch_iter`` yields exactly these leaves)
         and the step program.  ``packed=True`` adds the packed-segment
-        leaves: ``segment_ids``, ``positions`` and ``loss_mask``; an MTP
+        leaves: ``segment_ids``, ``positions`` and ``loss_mask``; a
+        prefix-LM model's batch adds ``prefix_embed [B, n_prefix_tokens,
+        d_model]`` (float32) and ``prefix_len [B]`` (int32); an MTP
         model's labelled batch adds ``labels_mtp``."""
         B, S = batch, seq_len
         if packed and not self.supports_packing():
@@ -105,6 +109,11 @@ class Arch:
             out["segment_ids"] = ((B, S), torch.int32)
             out["positions"] = ((B, S), torch.int32)
             out["loss_mask"] = ((B, S), torch.bool)
+            return out
+        if self.cfg.prefix_lm:
+            out["prefix_embed"] = ((B, self.cfg.n_prefix_tokens,
+                                    self.cfg.d_model), torch.float32)
+            out["prefix_len"] = ((B,), torch.int32)
         if self.cfg.mtp and labels:
             out["labels_mtp"] = ((B, S), torch.int32)
         return out
@@ -125,29 +134,32 @@ class Arch:
 
     # ---- paged serving (continuous batching; transformer GQA only) --------
     def supports_paged_serving(self) -> bool:
-        return (self.family == "transformer"
-                and getattr(self.cfg, "mla", None) is None
-                and not getattr(self.cfg, "prefix_lm", False))
+        try:
+            self.paged_family()
+        except ValueError:
+            return False
+        return True
 
-    def _paged(self):
-        if not self.supports_paged_serving():
-            raise ValueError(f"{self.arch_id}: paged serving supports GQA "
-                             "transformers only")
-        return self._family_mod()
+    def paged_family(self):
+        """The family module for the paged halves; raises ``ValueError``
+        (``transformer.check_paged``) for a config they refuse."""
+        mod = self._family_mod()
+        mod.check_paged(self.cfg)
+        return mod
 
     def make_prefill_kv_step(self):
-        return self._paged().make_prefill_kv_step(self.cfg)
+        return self.paged_family().make_prefill_kv_step(self.cfg)
 
     def make_paged_decode_step(self, *, use_kernel=None):
         """``use_kernel``: None = the CUDA kernel for CUDA tensors and the
         plain version for CPU tensors; False = the plain version."""
-        return self._paged().make_paged_decode_step(self.cfg,
-                                                    use_kernel=use_kernel)
+        return self.paged_family().make_paged_decode_step(
+            self.cfg, use_kernel=use_kernel)
 
     def init_page_pool(self, num_pages: int, page_size: int, *,
                        device="cuda"):
-        return self._paged().init_page_pool(self.cfg, num_pages, page_size,
-                                            device=device)
+        return self.paged_family().init_page_pool(
+            self.cfg, num_pages, page_size, device=device)
 
 
 def get_arch(arch_id: str, *, smoke: bool = False) -> Arch:

@@ -18,8 +18,11 @@ cache is the latent ``ckv``/``kr`` and whose MLA decode scores in latent
 space (the absorbed matmuls).  Decode steps update the page pool or the
 cache in place.  The train half takes packed batches (``segment_ids`` and
 per-document ``positions``): RoPE restarts at every document and attention
-never crosses one.  Prefix-LM, modality-prefix and ``glu=False`` configs
-raise ``NotImplementedError``.
+never crosses one.  Prefix-LM configs (paligemma-3b) prepend the batch's
+``prefix_embed`` (a stubbed modality frontend's patch embeddings) to the
+token embeddings and open the first ``prefix_len`` positions to every
+query; the legacy ring serves them, the paged halves refuse them, as the
+reference's do.  ``glu=False`` configs raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -66,10 +69,8 @@ class LMConfig:
     glu: bool = True
     tie_embeddings: bool = False
     embed_scale: bool = False             # gemma-style sqrt(d) embed scaling
-    # prefix_lm and n_prefix_tokens belong to a model family that is not
-    # ported yet; a config that sets one raises in check_supported().
-    prefix_lm: bool = False
-    n_prefix_tokens: int = 0
+    prefix_lm: bool = False               # prefix-LM mask over the prefix
+    n_prefix_tokens: int = 0              # modality prefix (prefix_embed)
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     mtp: bool = False                     # deepseek-v3 multi-token prediction
@@ -100,12 +101,6 @@ class LMConfig:
 
 def check_supported(cfg: LMConfig) -> None:
     """Raise for configurations whose code path is not ported yet."""
-    for field, what in (("prefix_lm", "prefix-LM masks"),
-                        ("n_prefix_tokens", "modality prefix embeddings")):
-        if getattr(cfg, field):
-            raise NotImplementedError(
-                f"LMConfig.{field}: {what} is not ported yet (GQA or MLA "
-                "transformers, dense or MoE, with or without MTP, only)")
     if not cfg.glu:
         raise NotImplementedError("LMConfig.glu=False: the plain 2-layer MLP "
                                   "is not ported yet")
@@ -257,18 +252,24 @@ def _qkv(p: dict, cfg: LMConfig, h: Tensor, sin: Tensor, cos: Tensor
     return q, k, v
 
 
+def _mask_spec(cfg: LMConfig, seg: Optional[Tensor]) -> L.MaskSpec:
+    return L.MaskSpec(causal=True, window=cfg.window,
+                      has_prefix=cfg.prefix_lm, segmented=seg is not None)
+
+
 def _gqa_attn_kv(p: dict, cfg: LMConfig, h: Tensor, pos: Tensor,
-                 seg: Optional[Tensor] = None) -> tuple:
+                 seg: Optional[Tensor] = None,
+                 prefix_len: Optional[Tensor] = None) -> tuple:
     """Causal (SWA) self-attention over the sequence; returns the block's
     attention output and this layer's roped k and v.  ``pos`` is ``(S,)``,
     or ``(B, S)`` for a packed batch, whose ``seg [B, S]`` keeps attention
-    inside each document (RoPE phases restart with the positions)."""
+    inside each document (RoPE phases restart with the positions);
+    ``prefix_len [B]`` opens each row's prefix to every query (prefix-LM)."""
     B, S, _ = h.shape
     sin, cos = _rope_tables(cfg, pos)
     q, k, v = _qkv(p, cfg, h, sin, cos)
-    spec = L.MaskSpec(causal=True, window=cfg.window,
-                      segmented=seg is not None)
-    o = L.attention(q, k, v, spec=spec, q_pos=pos, kv_pos=pos, q_seg=seg,
+    o = L.attention(q, k, v, spec=_mask_spec(cfg, seg), q_pos=pos,
+                    kv_pos=pos, prefix_len=prefix_len, q_seg=seg,
                     kv_seg=seg)
     return L.dense(o.reshape(B, S, -1), p["wo"]), k, v
 
@@ -297,7 +298,8 @@ def _mla_latent(p: dict, cfg: LMConfig, h: Tensor, sin: Tensor, cos: Tensor
 
 
 def _mla_attn_kv(p: dict, cfg: LMConfig, h: Tensor, pos: Tensor,
-                 seg: Optional[Tensor] = None) -> tuple:
+                 seg: Optional[Tensor] = None,
+                 prefix_len: Optional[Tensor] = None) -> tuple:
     """MLA over the sequence (the train and prefill path): the latent KV is
     up-projected per head, k = [k_nope ; kr] with kr broadcast over the
     heads, and the dispatcher runs q/k head dim d_nope + d_rope against v
@@ -313,20 +315,20 @@ def _mla_attn_kv(p: dict, cfg: LMConfig, h: Tensor, pos: Tensor,
     v = L.dense(ckv, p["w_uv"]).reshape(B, S, H, m.d_v)
     k = torch.cat([k_nope, kr[:, :, None].expand(B, S, H, m.d_rope)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
-    spec = L.MaskSpec(causal=True, window=cfg.window,
-                      segmented=seg is not None)
-    o = L.attention(q, k, v, spec=spec, q_pos=pos, kv_pos=pos, q_seg=seg,
+    o = L.attention(q, k, v, spec=_mask_spec(cfg, seg), q_pos=pos,
+                    kv_pos=pos, prefix_len=prefix_len, q_seg=seg,
                     kv_seg=seg, scale=(m.d_nope + m.d_rope) ** -0.5)
     return L.dense(o.reshape(B, S, H * m.d_v), p["wo"]), ckv, kr
 
 
 def _attn_kv(p: dict, cfg: LMConfig, h: Tensor, pos: Tensor,
-             seg: Optional[Tensor] = None) -> tuple:
+             seg: Optional[Tensor] = None,
+             prefix_len: Optional[Tensor] = None) -> tuple:
     """The block's self-attention and what this layer's cache keeps:
     ``(out, k, v)`` for GQA, ``(out, ckv, kr)`` for MLA."""
     if cfg.mla is not None:
-        return _mla_attn_kv(p, cfg, h, pos, seg)
-    return _gqa_attn_kv(p, cfg, h, pos, seg)
+        return _mla_attn_kv(p, cfg, h, pos, seg, prefix_len)
+    return _gqa_attn_kv(p, cfg, h, pos, seg, prefix_len)
 
 
 def _ffn_residual(p: dict, cfg: LMConfig, x: Tensor) -> tuple:
@@ -353,8 +355,9 @@ def make_block_body(cfg: LMConfig):
         x, aux_loss = carry
         pos = ctx_act["pos"]        # int positions; never differentiated
         seg = ctx_act.get("seg")    # int segment ids of a packed batch
+        prefix_len = ctx_act.get("prefix")  # int prefix lengths (prefix-LM)
         h = L.norm_apply(p["ln1"], x, kind=cfg.norm)
-        x = x + _attn_kv(p["attn"], cfg, h, pos, seg)[0]
+        x = x + _attn_kv(p["attn"], cfg, h, pos, seg, prefix_len)[0]
         x, aux = _ffn_residual(p, cfg, x)
         if aux is not None:
             aux_loss = aux_loss + aux
@@ -369,8 +372,28 @@ def _embed(outer: dict, cfg: LMConfig, tokens: Tensor) -> Tensor:
     # backward of advanced indexing scatters with float atomics.
     x = F.embedding(tokens, outer["tok_embed"])
     if cfg.embed_scale:
-        x = x * (cfg.d_model ** 0.5)
+        # the factor in the embedding's dtype, as the reference casts it
+        # (sqrt(2048) is 45.25 in bf16)
+        x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
     return x
+
+
+def _with_prefix(cfg: LMConfig, x: Tensor, batch: dict) -> Tensor:
+    """``x`` after the batch's ``prefix_embed [B, n_prefix_tokens, d]``
+    (the stubbed modality frontend's patch embeddings, cast to x's dtype and
+    not scaled), for a config with a modality prefix."""
+    if not cfg.n_prefix_tokens:
+        return x
+    return torch.cat([batch["prefix_embed"].to(x.dtype), x], dim=1)
+
+
+def _prefix_ctx(cfg: LMConfig, batch: dict, pos: Tensor) -> dict:
+    """The attention context of an unpacked batch: positions, and for a
+    prefix-LM config the rows' int32 ``prefix`` lengths."""
+    ctx = {"pos": pos}
+    if cfg.prefix_lm:
+        ctx["prefix"] = batch["prefix_len"].to(torch.int32)
+    return ctx
 
 
 def _logits(outer: dict, cfg: LMConfig, h: Tensor) -> Tensor:
@@ -398,7 +421,7 @@ def cross_entropy(logits: Tensor, labels: Tensor, z_loss: float = 0.0
 
 def make_prologue(cfg: LMConfig):
     def prologue(outer, batch):
-        x = _embed(outer, cfg, batch["tokens"])
+        x = _with_prefix(cfg, _embed(outer, cfg, batch["tokens"]), batch)
         return (x, torch.zeros((), dtype=torch.float32, device=x.device))
 
     return prologue
@@ -417,8 +440,9 @@ def make_pro_ctx(cfg: LMConfig):
             return {"pos": batch["positions"].to(torch.int32),
                     "seg": batch["segment_ids"].to(torch.int32)}
         tokens = batch["tokens"]
-        return {"pos": torch.arange(tokens.shape[1], dtype=torch.int32,
-                                    device=tokens.device)}
+        S = tokens.shape[1] + cfg.n_prefix_tokens
+        return _prefix_ctx(cfg, batch, torch.arange(
+            S, dtype=torch.int32, device=tokens.device))
 
     return pro_ctx
 
@@ -426,6 +450,8 @@ def make_pro_ctx(cfg: LMConfig):
 def make_epilogue(cfg: LMConfig):
     def epilogue(outer, carry, batch):
         x, aux_loss = carry
+        if cfg.n_prefix_tokens:
+            x = x[:, cfg.n_prefix_tokens:]
         h = L.norm_apply(outer["final_norm"], x, kind=cfg.norm)
         logits = _logits(outer, cfg, h)
         loss_sum, ntok, correct = cross_entropy(logits, batch["labels"],
@@ -494,10 +520,14 @@ def _layer(blocks: dict, i: int) -> dict:
     return tree_map(lambda t: t[i], blocks)
 
 
-def _check_paged(cfg: LMConfig) -> None:
-    """The paged halves take GQA caches only, as the reference's do: an MLA
-    model keeps a latent cache, which the legacy ``Engine`` serves."""
+def check_paged(cfg: LMConfig) -> None:
+    """The paged halves take GQA caches without a prefix only, as the
+    reference's do: an MLA model keeps a latent cache and a prefix-LM model
+    a prefix, both of which the legacy ``Engine`` serves."""
     check_supported(cfg)
+    if cfg.prefix_lm:
+        raise ValueError(f"{cfg.name}: paged serving: prefix-LM not plumbed "
+                         "yet (serve it with the legacy Engine)")
     if cfg.mla is not None:
         raise ValueError(f"{cfg.name}: paged serving supports GQA caches "
                          "only (MLA keeps a latent cache; serve it with the "
@@ -512,7 +542,7 @@ def make_prefill_kv_step(cfg: LMConfig):
     scatter it into KV pages; SWA is enforced by the decode-attention mask.
     Right-padding is harmless: with a causal mask, K/V at positions < length
     never see the pad tail, and logits are gathered at length-1."""
-    _check_paged(cfg)
+    check_paged(cfg)
 
     @torch.no_grad()
     def prefill(params, batch):
@@ -554,7 +584,7 @@ def make_paged_decode_step(cfg: LMConfig, *, use_kernel=None):
     their logits are garbage by construction; the engine masks them.
     ``use_kernel`` as in ``kernels.decode_attention.ops``: None = the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors."""
-    _check_paged(cfg)
+    check_paged(cfg)
     from repro_torch.kernels.decode_attention.ops import paged_decode_attention
 
     @torch.no_grad()
@@ -597,7 +627,7 @@ def make_paged_decode_step(cfg: LMConfig, *, use_kernel=None):
 def init_page_pool(cfg: LMConfig, num_pages: int, page_size: int, *,
                    device="cuda") -> dict:
     """Zeroed shared KV page pool (page 0 is the engine's scratch page)."""
-    _check_paged(cfg)
+    check_paged(cfg)
     shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads,
              cfg.head_dim)
     dev = resolve_device(device)
@@ -738,17 +768,21 @@ def make_prefill_step(cfg: LMConfig):
     layer's K/V (MLA: latent and RoPE key) of the last
     ``W = cache_window(cfg, S)`` positions: the ring is sized to the prompt,
     slot j holds position S - W + j, and ``cur`` is S.  Logits are those of
-    position S - 1."""
+    position S - 1.  A modality-prefix config takes ``prefix_embed`` (and,
+    prefix-LM, ``prefix_len``) in the batch: S counts the prefix, whose K/V
+    the ring then holds."""
     check_supported(cfg)
 
     @torch.no_grad()
     def prefill_step(params, batch):
         outer = params["outer"]
         tokens = batch["tokens"]
-        B, S = tokens.shape
         dev = tokens.device
-        x = _embed(outer, cfg, tokens)
-        pos = torch.arange(S, dtype=torch.int32, device=dev)
+        x = _with_prefix(cfg, _embed(outer, cfg, tokens), batch)
+        B, S = x.shape[:2]
+        ctx = _prefix_ctx(cfg, batch, torch.arange(S, dtype=torch.int32,
+                                                    device=dev))
+        pos = ctx["pos"]
         W = cache_window(cfg, S)
         shapes = _cache_shapes(cfg, B, W)
         cache = {k: torch.empty(shape, dtype=cfg.dtype, device=dev)
@@ -758,7 +792,8 @@ def make_prefill_step(cfg: LMConfig):
         for i in range(cfg.n_layers):
             p = _layer(blocks, i)
             h = L.norm_apply(p["ln1"], x, kind=cfg.norm)
-            a, ca, cb = _attn_kv(p["attn"], cfg, h, pos)
+            a, ca, cb = _attn_kv(p["attn"], cfg, h, pos,
+                                 prefix_len=ctx.get("prefix"))
             cache[ka][i] = ca[:, S - W:]
             cache[kb][i] = cb[:, S - W:]
             x = _ffn_residual(p, cfg, x + a)[0]

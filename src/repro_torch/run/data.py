@@ -2,10 +2,12 @@
 
 Counterpart of ``repro.run.data``.  The token pipeline
 (``repro_torch.data.pipeline``) is family-agnostic and yields numpy batches;
-of the reference's per-batch extras the port's architectures need one, the
-MTP head's ``labels_mtp`` (the labels shifted once more, padded with -1),
-made from each batch's own labels, so a resume reproduces it with the
-stream, which is keyed per step.
+of the reference's per-batch extras the port's architectures need two kinds:
+a prefix-LM model's ``prefix_embed`` (the stubbed modality frontend's patch
+embeddings, a seeded normal draw keyed by the data seed and the step) and
+``prefix_len``, and the MTP head's ``labels_mtp`` (the labels shifted once
+more, padded with -1).  Both are keyed per step, as the reference's are, so a
+resumed run and the eval stream reproduce them bitwise.
 """
 from __future__ import annotations
 
@@ -27,14 +29,26 @@ def resolved_data(spec: RunSpec, arch) -> DataConfig:
     return dataclasses.replace(spec.data, vocab=arch.cfg.vocab)
 
 
-def _with_extras(b: dict, arch) -> dict:
+def _with_extras(b: dict, arch, cfg: DataConfig, step: int) -> dict:
     """``b`` with the leaves ``arch.train_batch_specs`` adds to the
-    pipeline's: ``labels_mtp`` for an MTP model (token t + 2's label at t)."""
-    if not arch.cfg.mtp:
+    pipeline's: ``prefix_embed`` and ``prefix_len`` for a prefix-LM model
+    (drawn as the reference draws them, from ``(seed, 0x5eed, step)``) and
+    ``labels_mtp`` for an MTP model (token t + 2's label at t)."""
+    prefix, mtp = arch.cfg.prefix_lm, arch.cfg.mtp
+    if not (prefix or mtp):
         return b
-    lab = b["labels"]
-    return {**b, "labels_mtp": np.concatenate(
-        [lab[:, 1:], -np.ones((lab.shape[0], 1), np.int32)], 1)}
+    b = dict(b)
+    if prefix:
+        B, n = cfg.local_batch, arch.cfg.n_prefix_tokens
+        rng = np.random.default_rng((cfg.seed, 0x5eed, step))
+        b["prefix_embed"] = rng.standard_normal((B, n, arch.cfg.d_model),
+                                                dtype=np.float32)
+        b["prefix_len"] = np.full((B,), n, np.int32)
+    if mtp:
+        lab = b["labels"]
+        b["labels_mtp"] = np.concatenate(
+            [lab[:, 1:], -np.ones((lab.shape[0], 1), np.int32)], 1)
+    return b
 
 
 def make_batch_iter(spec: RunSpec, arch, start_step: int = 0,
@@ -45,7 +59,8 @@ def make_batch_iter(spec: RunSpec, arch, start_step: int = 0,
     cfg = resolved_data(spec, arch)
     if seed_offset:
         cfg = dataclasses.replace(cfg, seed=cfg.seed + seed_offset)
-    return (_with_extras(b, arch) for b in batches(cfg, start_step))
+    return (_with_extras(b, arch, cfg, step)
+            for step, b in enumerate(batches(cfg, start_step), start_step))
 
 
 # Seed offset for the default held-out eval stream.

@@ -80,10 +80,12 @@ def _engine_device(params, device) -> torch.device:
     return dev
 
 
-def _upload(host: np.ndarray, device: torch.device) -> Tensor:
-    """One int32 host array on ``device``.  On a CUDA device a pinned
-    staging copy goes up non-blocking: the host never waits."""
-    t = torch.from_numpy(np.ascontiguousarray(host, dtype=np.int32))
+def _upload(host: np.ndarray, device: torch.device, dtype=np.int32
+            ) -> Tensor:
+    """One host array on ``device`` as ``dtype`` (int32 unless asked).  On
+    a CUDA device a pinned staging copy goes up non-blocking: the host never
+    waits."""
+    t = torch.from_numpy(np.ascontiguousarray(host, dtype=dtype))
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.clone()
@@ -127,18 +129,20 @@ class Engine:
                  extras: Optional[dict] = None) -> list[list[int]]:
         """prompts: batch of token-id lists, right-padded with token 0 to the
         longest; every row's first token is sampled at that length - 1, as
-        the reference does."""
-        if extras:
-            raise NotImplementedError(
-                "Engine.generate(extras=...): modality-prefix models are not "
-                "ported yet")
+        the reference does.  ``extras``: the model's other prefill inputs as
+        host arrays (a modality-prefix model's ``prefix_embed [B, n, d]`` and
+        ``prefix_len [B]``), uploaded beside the tokens in the dtypes of
+        ``arch.train_batch_specs``; a leaf the model does not take raises
+        ``ValueError`` (the reference passes it on unread)."""
         scfg = self.scfg
         B = len(prompts)
         toks = np.zeros((B, max(len(p) for p in prompts)), np.int32)
         for i, p in enumerate(prompts):
             toks[i, :len(p)] = p
-        logits, cache = self._prefill(self.params,
-                                      {"tokens": _upload(toks, self.device)})
+        batch = {"tokens": _upload(toks, self.device)}
+        if extras:
+            batch.update(self._extras(extras, *toks.shape))
+        logits, cache = self._prefill(self.params, batch)
         done = torch.zeros(B, dtype=torch.bool, device=self.device)
         tok, done = self._sample_step(
             logits, torch.zeros(B, dtype=torch.int32, device=self.device),
@@ -158,6 +162,17 @@ class Engine:
                                          {"tokens": tok[:, None]})
             tok, done = self._sample_step(logits, tok, done)
         return out
+
+    def _extras(self, extras: dict, B: int, S: int) -> dict:
+        specs = self.arch.train_batch_specs(B, S, labels=False)
+        takes = sorted(set(specs) - {"tokens"})
+        foreign = sorted(set(extras) - set(takes))
+        if foreign:
+            raise ValueError(f"extras {foreign} are not inputs of "
+                             f"{self.arch.arch_id} (it takes {takes})")
+        return {k: _upload(v, self.device, np.dtype(
+            str(specs[k][1]).removeprefix("torch."))) for k, v in
+            extras.items()}
 
 
 @dataclasses.dataclass
@@ -193,9 +208,7 @@ def _signature(*tensors) -> tuple:
 class PagedEngine:
     def __init__(self, arch, params, scfg: PagedServeConfig, *,
                  clock=time.monotonic, device="cuda"):
-        if not arch.supports_paged_serving():
-            raise ValueError(f"{arch.arch_id}: paged serving supports GQA "
-                             "transformers only")
+        arch.paged_family()                 # raises for MLA and prefix-LM
         self.device = dev = _engine_device(params, device)
         self.arch = arch
         self.params = params

@@ -1,13 +1,14 @@
 """PyTorch port vs the JAX reference: the configs the port knows
 (``configs/*.py``, ``models/registry.py``) — fields, shapes, parameter counts
 and cells equal to the reference's (deepseek-v3-671b's MLA and MTP fields
-too), unported architectures refused — one fused AdaLomo step of each
-dense smoke config against the reference's,
+too; paligemma-3b's prefix fields), unported architectures refused — one
+fused AdaLomo step of each dense smoke config against the reference's,
 paged serving of the new dense smoke configs against the JAX engine,
 ``layers.layernorm`` with the reference's eps trap, and the plain versions
-of K3 and K4 at the head dims the new configs bring (120, 160; a query group
-of 1) against the reference's oracles and its Pallas kernels in interpret
-mode.  fp32 on the CPU unless stated; inputs made with numpy from a seed."""
+of K3 and K4 at the head dims the new configs bring (120, 160, paligemma's
+256 over a query group of 8, and the smoke configs' 16 and 24; a query
+group of 1) against the reference's oracles and its Pallas kernels in
+interpret mode.  fp32 on the CPU unless stated; inputs made with numpy from a seed."""
 import dataclasses
 
 import jax
@@ -40,9 +41,9 @@ from torch_parity import (CPU, assert_trees_close, jax_batch, make_batch,
                           torch_batch)
 
 NEW = ("deepseek-moe-16b", "qwen3-32b", "stablelm-12b", "h2o-danube-3-4b",
-       "deepseek-v3-671b")
+       "deepseek-v3-671b", "paligemma-3b")
 DENSE_NEW = NEW[1:4]
-UNPORTED = ("paligemma-3b", "mamba2-1.3b", "whisper-base", "zamba2-1.2b")
+UNPORTED = ("mamba2-1.3b", "whisper-base", "zamba2-1.2b")
 TORCH_DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 # |Δloss| and parameters: the reference's own fused drop-in bounds
 LOSS_TOL = 1e-4
@@ -81,6 +82,8 @@ def test_param_counts_and_cells_match_reference(arch_id):
     if arch_id == "deepseek-v3-671b":
         assert port.cfg.param_count() == 704_131_741_696
         assert port.cfg.active_param_count() == 37_891_717_120
+    if arch_id == "paligemma-3b":
+        assert port.cfg.param_count() == 2_508_662_784
 
 
 def test_registry_and_shapes():
@@ -192,14 +195,21 @@ DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
 # B, H, K, dh, page size, P, window, seq_lens: danube-3's heads (group 4,
 # dh 120) and stablelm's (group 4, dh 160) cut to 2 KV heads; the MoE
-# model's query group of 1 (dh 128)
+# model's query group of 1 (dh 128); paligemma's 8 heads over 1 (dh 256);
+# the smoke configs' dh 16 (group 4 over 1, as paligemma's smoke config)
+# and dh 24 (danube-3's smoke config: group 2)
 PAGED = [(2, 8, 2, 120, 16, 3, None, (19, 40)),
          (2, 8, 2, 120, 16, 3, 6, (19, 40)),
          (2, 8, 2, 160, 8, 4, None, (1, 30)),
-         (3, 4, 4, 128, 8, 3, 5, (3, 24, 11))]
+         (3, 4, 4, 128, 8, 3, 5, (3, 24, 11)),
+         (2, 8, 1, 256, 16, 3, None, (19, 40)),
+         (2, 4, 1, 16, 8, 4, 6, (5, 29)),
+         (2, 4, 2, 24, 8, 3, None, (9, 20))]
 # B, W, H, K, dh, window, cur
 RING = [(2, 96, 8, 2, 120, None, 70), (2, 96, 8, 2, 120, 32, 150),
-        (2, 64, 8, 2, 160, None, 40), (1, 80, 4, 4, 128, 16, 200)]
+        (2, 64, 8, 2, 160, None, 40), (1, 80, 4, 4, 128, 16, 200),
+        (2, 64, 8, 1, 256, None, 40), (2, 64, 8, 1, 256, None, 100),
+        (2, 48, 4, 1, 16, 8, 60), (1, 80, 4, 2, 24, None, 50)]
 
 
 def _paged_inputs(seed, B, H, K, dh, ps, P, seq_lens):

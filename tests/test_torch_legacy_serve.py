@@ -182,7 +182,8 @@ def test_engine_one_host_copy_per_decode_step(danube, monkeypatch):
 def test_engine_rejects_extras_and_foreign_params(danube):
     _, port, _, pp = danube
     eng = Engine(port, pp, ServeConfig(), device=CPU)
-    with pytest.raises(NotImplementedError, match="modality"):
+    # danube has no modality prefix: a prefix is not one of its inputs
+    with pytest.raises(ValueError, match="not inputs of"):
         eng.generate([[1, 2]], extras={"prefix_embed": np.zeros((1, 2, 4))})
     with pytest.raises(ValueError, match="params lie on"):
         Engine(port, pp, ServeConfig(), device="meta")

@@ -301,11 +301,11 @@ def test_architecture_that_cannot_pack_raises_at_build_time():
     assert arch.supports_packing() and not prefix.supports_packing()
     with pytest.raises(ValueError, match="packing is not supported"):
         build_step_program(_spec(), prefix, device="cpu")
-    # unpacked, the same config reaches the port's own guard instead
-    with pytest.raises(NotImplementedError, match="prefix-LM"):
-        build_step_program(dataclasses.replace(
-            _spec(), data=dataclasses.replace(_spec().data, packing=False)),
-            prefix, device="cpu")
+    # unpacked, the same config builds: prefix-LM is ported
+    prog = build_step_program(dataclasses.replace(
+        _spec(), data=dataclasses.replace(_spec().data, packing=False)),
+        prefix, device="cpu")
+    assert prog.device.type == "cpu"
     # and the packed context refuses it as the reference's does
     from repro_torch.models.transformer import make_pro_ctx
     with pytest.raises(ValueError, match="packed"):

@@ -141,7 +141,7 @@ def test_logits_are_fp32_from_bf16_params():
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("field,value", [("prefix_lm", True)])
+@pytest.mark.parametrize("field,value", [("glu", False)])
 def test_unported_model_features_raise(field, value):
     cfg = dataclasses.replace(get_arch(ARCH_ID, smoke=True).cfg,
                               **{field: value})
