@@ -20,7 +20,9 @@ printing one JSON line:
            paligemma-3b's leaf shapes in bf16 (the layer matrices and the
            tied [257216, 2048] head), steps 1 and 5, r and c against the
            plain version, K2 held on its update at lr 1.0, the head bitwise
-           on a re-run.
+           on a re-run; the same at mamba2-1.3b's and zamba2-1.2b's leaf
+           shapes (in_proj, out_proj, LoRA sides, the shared block's
+           matrices, both tied heads).
            Paged decode attention K3:
            the CPU tests' cases, a danube-shaped ragged case with and without
            a window, danube serving shapes (8 sequences, 32/8 heads, dh 80,
@@ -43,7 +45,9 @@ printing one JSON line:
            same ticket counters at B 1 and B 4 x W 4096, bit-identical; rings
            of 1024 (partly filled) and 4096 (wrapped) with bitwise re-runs at
            the other configs' heads, and paligemma-3b's rings of 4 x 1280
-           (its prefix phase's) and 8 x 4352 slots at dh 256.  The ptxas
+           (its prefix phase's) and 8 x 4352 slots at dh 256, zamba2-1.2b's
+           32/32 heads at dh 64 (``NEW_HEADS``) and its ring of 4 x 1024
+           (the ssm phase's).  The ptxas
            register and spill lines of the decode kernels at dh 16, 24 and
            256 are reported per template instance.  Then
            times kernel and plain version (CUDA events, after warm-up, inputs
@@ -210,6 +214,38 @@ printing one JSON line:
            the model's; PagedEngine refuses the model.  fp32 at full
            depth: a decode step's logits through K4 within 1e-3 of the
            plain attention's, Engine's greedy tokens equal.
+  ssm      mamba2-1.3b (48 layers, d_model 2048, 64 SSD heads of 64 over a
+           state of 128, chunk 128, a tied 50,280-token head; 1.34 B) and
+           zamba2-1.2b (38 mamba2 layers with a state of 64, a shared
+           attention block at 32/32 heads, dh 64, applied at layers 0, 6,
+           ..., 36 on concat(x, x0) with a LoRA of rank 128 a layer, d_ff
+           8192, vocab 32000; 1.21 B) at their published widths and
+           depths, bf16, random weights and data from a seed.  Each:
+           ``run(spec)`` with fused AdaLomo at 4 x 1024, 3 steps — finite
+           losses that move, every param finite after step 1 and after the
+           run, K1/K2 97 (mamba2) and 312 (zamba2) launches a step, one host
+           sync a step, step 1 re-run bitwise (on-card digest), peak; fused
+           LOMO's step and peak.  Engine over the state cache, 4 prompts of
+           1024 tokens, 32 greedy tokens, one host sync a step, the same
+           tokens on a re-run: mamba2 with no K4 launch; zamba2 with 7 K4
+           launches a decode step, its tokens equal to the plain
+           attention's in fp32 (the same weights widened); in bf16,
+           teacher-forced on K4's tokens, every step's logits within 0.15
+           of the plain attention's and every argmax flip at a near tie.
+           fp32 at 2 layers (zamba2 at 7: two
+           applications): a decode step's logits within 1e-3 of a prefill
+           over one more token, Engine's greedy tokens equal to a loop that
+           recomputes the whole sequence.  PagedEngine refuses both.  Then
+           Table 1 on mamba2-1.3b at 4 x 1024: unfused Adafactor measured,
+           unfused AdamW reckoned (it does not fit on the card), beside
+           fused AdaLomo.
+  sweep    ``repro_torch.fleet.sweep.run_sweep`` in subprocess mode, one
+           member in flight, on mamba2-1.3b at full size, 2 x 512 tokens,
+           2 steps a member: AdaLomo at lr 5e-4 and 1e-3 and LOMO, each
+           member ``python -m repro_torch.launch.train --spec ... --device
+           cuda`` — every member done, ``report.json`` ranked by final
+           loss, a second call skipping all three (``DONE.json``); each
+           member's wall seconds.
 
 Then the card's name and power limit, one JSON line that lists the kernels
 with their measured numbers, and the result line.
@@ -521,19 +557,34 @@ PALI_KERNEL_CASES = {"wq, wo [2048,2048]": (2048, 2048),
                      "w_gate, w_up [2048,16384]": (2048, 16384),
                      "w_down [16384,2048]": (16384, 2048),
                      "tied embedding [257216,2048]": (257216, 2048)}
+# the state-space configs' leaves that the earlier cases lack, as their fused
+# steps hand them over (bf16, one 2-D matrix a call): mamba2-1.3b's in_proj,
+# out_proj (zamba2-1.2b's too) and tied head; zamba2-1.2b's in_proj, LoRA
+# sides, shared attention and MLP projections and tied head
+SSM_KERNEL_CASES = {"mamba2 in_proj [2048,8512]": (2048, 8512),
+                    "out_proj, shared wq/wk/wv [4096,2048]": (4096, 2048),
+                    "mamba2 tied embedding [50280,2048]": (50280, 2048),
+                    "zamba2 in_proj [2048,8384]": (2048, 8384),
+                    "zamba2 lora A [4096,128]": (4096, 128),
+                    "zamba2 lora B [128,2048]": (128, 2048),
+                    "zamba2 shared wo [2048,2048]": (2048, 2048),
+                    "zamba2 w_gate, w_up [2048,8192]": (2048, 8192),
+                    "zamba2 w_down [8192,2048]": (8192, 2048),
+                    "zamba2 tied embedding [32000,2048]": (32000, 2048)}
 
 
-def check_pali_kernels(errs: dict) -> dict:
-    """K1 then K2 at paligemma-3b's leaf shapes, steps 1 and 5: K1's r' and
-    c' against the plain version within ``TOL_RC``, K2's update (at
-    ``K2_HELD_LR``, on the r', c' K1 wrote) against the plain version's fp32
-    one by ``held_update``; then the step-5 inputs of the tied embedding
-    again, bitwise."""
+def check_leaf_kernels(errs: dict, cases: dict, rerun: tuple) -> dict:
+    """K1 then K2 at a model's leaf shapes (``cases``: name -> shape), bf16,
+    steps 1 and 5: K1's r' and c' against the plain version within
+    ``TOL_RC``, K2's update (at ``K2_HELD_LR``, on the r', c' K1 wrote)
+    against the plain version's fp32 one by ``held_update``; then the step-5
+    inputs of each case named in ``rerun`` (the tied heads) again,
+    bitwise."""
     beta, lr = 0.999, K2_HELD_LR
     beta_t = torch.full((), beta, device=DEV)
     kw2 = dict(eps_div=CFG.eps_div, eps_rms=CFG.eps_rms, literal=False)
     rows = {}
-    for name, shape in PALI_KERNEL_CASES.items():
+    for name, shape in cases.items():
         for step in (1.0, 5.0):
             p, g, r, c = make_inputs(shape, torch.bfloat16, torch.bfloat16,
                                      shape[0] * 3 + shape[1], step)
@@ -557,25 +608,24 @@ def check_pali_kernels(errs: dict) -> dict:
             rows[what] = {"max_abs_err": err, "update": update}
             del p, g, r, c, p0, want_r, want_c, want_p, scal
             torch.cuda.empty_cache()
-    runs = []
-    for _ in range(2):
-        p, g, r, c = make_inputs(PALI_KERNEL_CASES[
-            "tied embedding [257216,2048]"], torch.bfloat16, torch.bfloat16,
-            8, 5.0)
-        K.adalomo_stats(g, r, c, beta_t, eps_stat=CFG.eps_stat)
-        K.adalomo_update(p, g, r, c, scal_for(r, lr, 5.0, beta, 0.0, 1.0),
-                         **kw2)
-        runs.append((p, r, c))
-        del g
-    torch.cuda.synchronize()
-    bitwise = all(torch.equal(a, b) for a, b in zip(*runs))
-    del runs
-    torch.cuda.empty_cache()
-    if not bitwise:
-        raise AssertionError("K1/K2 on the tied embedding [257216, 2048]: "
-                             "the same inputs did not give bit-identical "
-                             "outputs")
-    return {"per_case": rows, "tied_embedding_rerun_bitwise": bitwise}
+    for name in rerun:
+        runs = []
+        for _ in range(2):
+            p, g, r, c = make_inputs(cases[name], torch.bfloat16,
+                                     torch.bfloat16, 8, 5.0)
+            K.adalomo_stats(g, r, c, beta_t, eps_stat=CFG.eps_stat)
+            K.adalomo_update(p, g, r, c, scal_for(r, lr, 5.0, beta, 0.0,
+                                                  1.0), **kw2)
+            runs.append((p, r, c))
+            del g
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(*runs))
+        del runs
+        torch.cuda.empty_cache()
+        if not bitwise:
+            raise AssertionError(f"K1/K2 on {name}: the same inputs did not "
+                                 "give bit-identical outputs")
+    return {"per_case": rows, "rerun_bitwise": list(rerun)}
 
 
 def check_op_variants() -> dict:
@@ -764,7 +814,12 @@ def phase_kernels() -> dict:
     progress("kernels: K1/K2 at the MoE shapes")
     moe_checks = check_moe_kernels(errs)
     progress("kernels: K1/K2 at paligemma-3b's shapes")
-    pali_checks = check_pali_kernels(errs)
+    pali_checks = check_leaf_kernels(errs, PALI_KERNEL_CASES,
+                                     ("tied embedding [257216,2048]",))
+    progress("kernels: K1/K2 at mamba2-1.3b's and zamba2-1.2b's shapes")
+    ssm_checks = check_leaf_kernels(
+        errs, SSM_KERNEL_CASES, ("mamba2 tied embedding [50280,2048]",
+                                 "zamba2 tied embedding [32000,2048]"))
     progress("kernels: K3 cases")
     k3_cases, k3_bitwise = check_k3(errs)
     progress("kernels: K4 cases")
@@ -787,7 +842,7 @@ def phase_kernels() -> dict:
          per_step_of_170_tensors={k: totals[k] for k in
                                   ("adalomo_stats", "adalomo_update")},
          moe_cases=moe_checks, moe_per_call=moe_rows,
-         pali_cases=pali_checks,
+         pali_cases=pali_checks, ssm_cases=ssm_checks,
          pali_tolerances={"r_c": TOL_RC, "k2_lr": K2_HELD_LR,
                           "k2_update_rtol": K2_HELD_UPDATE_RTOL,
                           "k2_moved_min": K2_HELD_MOVED_MIN},
@@ -840,13 +895,18 @@ NEW_HEADS = {"danube3 dh120": (32, 8, 120, 4096),
              "qwen3 G8 dh128": (64, 8, 128, None),
              "paligemma G8 dh256": (8, 1, 256, None),
              "smoke dh16": (4, 1, 16, None),
-             "smoke dh24": (4, 2, 24, 8)}
-# paligemma-3b's legacy decode: K4 over the ring of the prefix phase's
-# prompts (4 x (1024 text + 256 prefix), every slot valid once the ring
-# wraps) and over 8 x (4096 + 256) slots
+             "smoke dh24": (4, 2, 24, 8),
+             "zamba2 G1 dh64": (32, 32, 64, None)}
+# The legacy decode rings of the serving phases, as (B, W, heads):
+# paligemma-3b's K4 over the prefix phase's prompts (4 x (1024 text + 256
+# prefix), every slot valid once the ring wraps) and over 8 x (4096 + 256)
+# slots; zamba2-1.2b's shared attention over the ssm phase's prompts (4 x
+# 1024 tokens)
 PALI_HEADS = NEW_HEADS["paligemma G8 dh256"]
-PALI_RINGS = {"paligemma B4 W1280": (4, 1280),
-              "paligemma B8 W4352": (8, 4352)}
+ZAMBA_HEADS = NEW_HEADS["zamba2 G1 dh64"]
+DECODE_RINGS = {"paligemma B4 W1280": (4, 1280, PALI_HEADS),
+                "paligemma B8 W4352": (8, 4352, PALI_HEADS),
+                "zamba2 B4 W1024": (4, 1024, ZAMBA_HEADS)}
 
 
 def k3_inputs(B, H, Kh, dh, ps, P, seq_lens, dtype, seed):
@@ -1082,10 +1142,9 @@ def k4_cases() -> list:
         for window in (None, 256):
             cases.append((8, 1024, H, Kh, dh, window, 1024 - 200, False))
             cases.append((4, 4096, H, Kh, dh, window, 4096 + 2047, True))
-    # paligemma's prefix-phase ring, as its first and its last decode step
-    # see it (slot 0 overwritten by position 1280, then 31 more)
-    H, Kh, dh, _ = PALI_HEADS
-    for B, W in PALI_RINGS.values():
+    # the serving phases' rings, as their first and their last decode step
+    # see them (slot 0 overwritten by position W, then 30 or 31 more)
+    for B, W, (H, Kh, dh, _) in DECODE_RINGS.values():
         cases.append((B, W, H, Kh, dh, None, W, True))
         cases.append((B, W, H, Kh, dh, None, W + 31, True))
     return cases
@@ -1112,7 +1171,7 @@ def check_k4(errs: dict) -> tuple:
             n += 1
     reruns = [(4, 4096, 32, 8, 80, SERVE_WINDOW)] + [
         (4, 4096) + heads for heads in NEW_HEADS.values()] + [
-        (B, W) + PALI_HEADS for B, W in PALI_RINGS.values()]
+        (B, W) + heads for B, W, heads in DECODE_RINGS.values()]
     for B, W, H, Kh, dh, window in reruns:
         for dtype in (torch.float32, torch.bfloat16):
             args = k4_inputs(B, W, H, Kh, dh, W + 2047, dtype, 8, True)
@@ -1159,17 +1218,16 @@ def time_k4() -> tuple:
     mask made before the timed region.  K4 takes tens of microseconds, about
     what its wrapper costs on the host, so all three are timed as replays of
     a CUDA graph; eager_ms is the kernel's time launched one call after
-    another from the host.  paligemma-3b's rings (``PALI_RINGS``) are timed
-    too."""
+    another from the host.  The serving phases' rings (``DECODE_RINGS``:
+    paligemma-3b's, zamba2-1.2b's) are timed too."""
     danube = (32, 8, 80, SERVE_WINDOW)
     shapes = {"B8 W1024": (8, 1024, danube), "B4 W4096": (4, 4096, danube),
               "B1 W4096": (1, 4096, danube)}
     shapes.update({f"{name} B4 W4096": (4, 4096, heads)
                    for name, heads in NEW_HEADS.items()
                    if heads[2] in KD.HEAD_DIMS})
-    if PALI_HEADS[2] in KD.HEAD_DIMS:
-        shapes.update({name: (B, W, PALI_HEADS)
-                       for name, (B, W) in PALI_RINGS.items()})
+    shapes.update({name: ring for name, ring in DECODE_RINGS.items()
+                   if ring[2][2] in KD.HEAD_DIMS})
     rows = {}
     for name, (B, W, (H, Kh, dh, window)) in shapes.items():
         cur = W + 2047
@@ -2116,13 +2174,17 @@ def check_rules_card_vs_cpu() -> dict:
     return out
 
 
+def finite_flag(tree) -> torch.Tensor:
+    """A 0-d bool on the card: whether every element of ``tree`` is finite,
+    checked in ``leading_pieces`` (a whole-leaf mask of qwen3-32b's largest
+    stack would take 15.6 GiB)."""
+    return torch.stack([torch.isfinite(x).all() for t in tree_leaves(tree)
+                        for x in leading_pieces(t.detach())]).all()
+
+
 def all_finite(tree) -> bool:
-    """Whether every element of ``tree`` is finite, checked in
-    ``leading_pieces`` (a whole-leaf mask of qwen3-32b's largest stack would
-    take 15.6 GiB), with one read back at the end."""
-    flags = [torch.isfinite(x).all() for t in tree_leaves(tree)
-             for x in leading_pieces(t.detach())]
-    return bool(torch.stack(flags).all())
+    """``finite_flag`` read back."""
+    return bool(finite_flag(tree))
 
 
 def baseline_arm(name: str, fused: bool, base: int, *, arch_id=ARCH_ID,
@@ -2647,18 +2709,31 @@ def phase_legacy_serve() -> dict:
     return {"launches": launches}
 
 
+def k4_per_decode_step(arch, use_kernel=None) -> int:
+    """K4 launches a legacy decode step: one a layer of a GQA transformer,
+    one an application of zamba2-1.2b's shared attention block; none for
+    MLA (its latent cache decodes in plain PyTorch), for mamba2 (no
+    attention) or with ``use_kernel=False``."""
+    if (use_kernel is False or arch.family == "mamba2"
+            or getattr(arch.cfg, "mla", None) is not None):
+        return 0
+    if arch.family == "hybrid":
+        return arch.cfg.n_attn_applications()
+    return arch.cfg.n_layers
+
+
 def legacy_serve_run(arch, params, batch: int, prompt_len: int,
                      new_tokens: int, seed: int = 2, *, extras=None,
                      use_kernel=None) -> tuple:
     """Engine over ``batch`` prompts of ``prompt_len`` tokens from ``seed``
     (and ``extras``, a modality prefix's inputs), ``new_tokens`` greedy
-    tokens each.  Asserts the tokens, K4 launches == layers x decode steps
-    (none for MLA, which decodes from its latent cache in plain PyTorch, or
-    with ``use_kernel=False``) and one synchronising host transfer a step.
+    tokens each.  Asserts the tokens, K4 launches ==
+    ``k4_per_decode_step`` x decode steps and one synchronising host
+    transfer a step.
     Returns the report, the K4 launches and the tokens."""
     n_layers = arch.cfg.n_layers
-    k4_layers = (0 if arch.cfg.mla is not None or use_kernel is False
-                 else n_layers)
+    k4_layers = k4_per_decode_step(arch, use_kernel)
+    n_prefix = getattr(arch.cfg, "n_prefix_tokens", 0)
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(1, arch.cfg.vocab, prompt_len).tolist()
                for _ in range(batch)]
@@ -2687,9 +2762,10 @@ def legacy_serve_run(arch, params, batch: int, prompt_len: int,
     decode_s = decode_ev[0][0].elapsed_time(decode_ev[-1][1]) / 1e3
     report = dict(
         n_layers=n_layers, dtype=str(arch.cfg.dtype), batch=batch,
-        prompt_len=prompt_len, n_prefix_tokens=arch.cfg.n_prefix_tokens,
-        ring_slots=cache_window(arch.cfg,
-                                prompt_len + arch.cfg.n_prefix_tokens),
+        prompt_len=prompt_len, n_prefix_tokens=n_prefix,
+        ring_slots=(0 if arch.family == "mamba2" else
+                    prompt_len if arch.family == "hybrid" else
+                    cache_window(arch.cfg, prompt_len + n_prefix)),
         max_new_tokens=new_tokens, wall_seconds=wall_s,
         prefill_seconds=prefill_s, decode_steps=steps,
         decode_seconds=decode_s, ms_per_decode_step=decode_s / steps * 1e3,
@@ -2836,9 +2912,16 @@ DIGEST_CHUNK = 1 << 24
 
 def factored_leaves(params) -> int:
     """Tensors a fused AdaLomo step hands to K1 and K2 (each once): a layer
-    slice of every stacked matrix or expert stack, each outer matrix."""
-    n = sum(t.shape[0] for t in tree_leaves(params["stacks"]) if t.ndim >= 3)
-    return n + sum(1 for t in tree_leaves(params["outer"]) if t.ndim >= 2)
+    slice of every stacked matrix or expert stack, each outer and shared
+    matrix — those whose last two dims are both at least the rule's
+    ``min_dim_size_to_factor`` (mamba2's [C, 4] conv weights stay plain)."""
+    def big(t):
+        return min(t.shape[-2:]) >= CFG.min_dim_size_to_factor
+
+    n = sum(t.shape[0] for t in tree_leaves(params["stacks"])
+            if t.ndim >= 3 and big(t))
+    return n + sum(1 for k in ("outer", "shared")
+                   for t in tree_leaves(params[k]) if t.ndim >= 2 and big(t))
 
 
 def device_digest(tree) -> torch.Tensor:
@@ -2868,13 +2951,14 @@ def moe_watch(digest_at: int):
     the model has one and MTP loss where the model has the head
     (``mtp_loss``), the bytes allocated
     when the run starts (params and state), and the digest of params and
-    OptState after step ``digest_at``."""
+    OptState after step ``digest_at`` and whether every param is finite
+    then (``finite``)."""
     from repro_torch.run import Hook
 
     class Watch(Hook):
         def __init__(self):
             self.aux, self.digest, self.start_bytes = [], None, None
-            self.mtp = []
+            self.mtp, self.finite = [], None
 
         def on_run_start(self, ctx):
             self.start_bytes = torch.cuda.memory_allocated()
@@ -2889,6 +2973,8 @@ def moe_watch(digest_at: int):
                 # sync inside the run, and nothing left on the card
                 self.digest = device_digest(
                     (ctx.params, ctx.opt_state)).to("cpu", non_blocking=True)
+                self.finite = finite_flag(ctx.params).to("cpu",
+                                                         non_blocking=True)
 
     return Watch()
 
@@ -3692,10 +3778,451 @@ def phase_prefix() -> dict:
 
 
 # --------------------------------------------------------------------------
+# ssm: the state-space families at full width and depth
+# --------------------------------------------------------------------------
+
+SSM_IDS = ("mamba2-1.3b", "zamba2-1.2b")
+SSM_STEPS = 3
+SSM_TRAIN = (4, 1024)
+# K1/K2 launches a fused step: mamba2-1.3b's in_proj and out_proj a layer
+# and the tied head (its [4352, 4] conv weights stay plain); zamba2-1.2b's
+# in_proj, out_proj and six LoRA sides a layer, the shared block's seven
+# matrices and the tied head
+SSM_LEAVES_PER_STEP = {"mamba2-1.3b": 48 * 2 + 1,
+                       "zamba2-1.2b": 38 * 8 + 7 + 1}
+SSM_SERVE = dict(batch=4, prompt_len=1024, new_tokens=32)
+SSM_BF16_LOGITS_TOL = 0.15
+# fp32 parity: zamba2 at 7 layers applies its shared block twice (0, 6)
+SSM_PARITY = dict(batch=2, prompt_len=256, new_tokens=16)
+SSM_PARITY_LAYERS = {"mamba2-1.3b": 2, "zamba2-1.2b": 7}
+SSM_PARITY_TOL = 1e-3
+# Table 1's unfused arms at the train cell: Adafactor measured on the card;
+# AdamW does not fit at 4 x 1024 (its 10.75 GB of fp32 moments on top of
+# Adafactor's peak pass the card's 80 GB), so it is reckoned
+SSM_TABLE1_ID = "mamba2-1.3b"
+SSM_TABLE1_STEPS = 2
+
+
+def ssm_train(arch_id: str) -> dict:
+    """Fused AdaLomo through ``run(spec)`` at 4 x 1024, 3 steps: finite
+    losses that move, every param finite after step 1 and after the run,
+    the K1/K2 launches of ``SSM_LEAVES_PER_STEP``, one host sync a step,
+    step 1 re-run bitwise (on-card digest); fused LOMO's step beside it."""
+    t0 = time.perf_counter()
+    base = held_bytes()
+    arch = get_arch(arch_id)
+    leaves = factored_leaves(arch.init_params(0, device="meta"))
+    failed = []
+    if leaves != SSM_LEAVES_PER_STEP[arch_id]:
+        failed.append(f"{leaves} factored leaves a step, expected "
+                      f"{SSM_LEAVES_PER_STEP[arch_id]}")
+    B, T = SSM_TRAIN
+    kw = dict(arch_id=arch_id, batch=B, seq=T)
+    watch = moe_watch(0)
+    progress(f"ssm: {arch_id} fused AdaLomo, {SSM_STEPS} steps at {B} x {T}")
+    rec = baseline_arm("adalomo", True, base, steps=SSM_STEPS, hooks=[watch],
+                       **kw)
+    rec["allocated_at_run_start_bytes"] = watch.start_bytes
+    rerun_watch = moe_watch(0)
+    progress(f"ssm: {arch_id} step 1 re-run, then LOMO")
+    rerun = baseline_arm("adalomo", True, base, steps=1,
+                         hooks=[rerun_watch], **kw)
+    rerun_bitwise = (rerun["losses"][0] == rec["losses"][0]
+                     and torch.equal(rerun_watch.digest, watch.digest))
+    lomo = baseline_arm("lomo", True, base, steps=1, **kw)
+    want = dict.fromkeys(("adalomo_stats", "adalomo_update"),
+                         SSM_LEAVES_PER_STEP[arch_id] * SSM_STEPS)
+    losses = rec["losses"]
+    if len(losses) != SSM_STEPS or not all(map(math.isfinite, losses)):
+        failed.append(f"losses {losses}")
+    elif losses[-1] == losses[0]:
+        failed.append(f"losses do not move: {losses}")
+    if rec["launches"] != want:
+        failed.append(f"K1/K2 launches {rec['launches']}, expected {want}")
+    if rec["host_syncs"] != SSM_STEPS:
+        failed.append(f"{rec['host_syncs']} host syncs in {SSM_STEPS} steps")
+    if not (bool(watch.finite) and rec["params_finite"]):
+        failed.append(f"a parameter is not finite (after step 1: "
+                      f"{bool(watch.finite)}; after the run: "
+                      f"{rec['params_finite']})")
+    if not rerun_bitwise:
+        failed.append("step 1 re-run from the same seed is not bitwise equal")
+    if lomo["launches"] != dict.fromkeys(want, 0) or not all(
+            map(math.isfinite, lomo["losses"])) or not lomo["params_finite"]:
+        failed.append(f"lomo: {lomo['launches']} {lomo['losses']}")
+    for r in (rec, rerun, lomo):
+        if r["allocated_after_free_bytes"] != base:
+            failed.append(f"{r['optimizer']}: "
+                          f"{r['allocated_after_free_bytes']} bytes held "
+                          f"after the run, {base} before")
+    emit("ssm_train", arch=arch_id, family=arch.family,
+         n_layers=arch.cfg.n_layers, chunk=arch.cfg.chunk,
+         factored_leaves_per_step=leaves, adalomo=rec,
+         params_finite_after_step1=bool(watch.finite),
+         rerun_step1={"losses": rerun["losses"], "bitwise": rerun_bitwise,
+                      "step_seconds": rerun["step_seconds"]},
+         lomo=lomo, lomo_peak_vs_adalomo=(
+             lomo["peak_memory_bytes"] / rec["peak_memory_bytes"] - 1.0),
+         reckoned_unfused=reckoned_bytes(arch_id),
+         seconds=time.perf_counter() - t0)
+    if failed:
+        raise AssertionError(f"ssm train {arch_id}: {failed}")
+    return rec
+
+
+def teacher_forced_logits(arch, params, prompts, follow, use_kernel):
+    """fp32 logits ``[B, n, vocab]`` of a prefill of ``prompts [B, S]``
+    and then of ``n - 1`` decode steps fed ``follow [B, n]``'s tokens
+    (teacher forcing: both attentions see the same tokens)."""
+    toks = torch.as_tensor(prompts, dtype=torch.int32, device=DEV)
+    follow = torch.as_tensor(follow, dtype=torch.int32, device=DEV)
+    logits, cache = arch.make_prefill_step()(params, {"tokens": toks})
+    decode = arch.make_decode_step(use_kernel=use_kernel)
+    out = [logits]
+    for t in range(follow.shape[1] - 1):
+        logits, cache = decode(params, cache, {"tokens": follow[:, t:t + 1]})
+        out.append(logits)
+    return torch.stack(out, dim=1)
+
+
+def flips_at_near_ties(k4: torch.Tensor, plain: torch.Tensor) -> dict:
+    """Per (row, step): |K4 - plain| logits, and the argmax flips between
+    the two with the plain logits' top-2 margin there; a flip is a near tie
+    when that margin is at most twice the step's gap."""
+    gap = (k4 - plain).abs().amax(dim=-1)
+    top2 = torch.topk(plain, 2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    flip = k4.argmax(dim=-1) != plain.argmax(dim=-1)
+    return {"max_abs_err": float(gap.max()),
+            "flips": int(flip.sum()),
+            "flips_not_near_tie": int((flip & (margin > 2 * gap)).sum()),
+            "flip_margins": margin[flip].tolist(),
+            "flip_gaps": gap[flip].tolist(),
+            "median_margin": float(margin.median())}
+
+
+def ssm_serve(arch_id: str) -> int:
+    """The legacy Engine over the state cache at full width and depth,
+    bf16: 4 prompts of 1024 tokens, 32 greedy tokens, one host sync a step,
+    the same tokens on a re-run; PagedEngine refusing the family.
+    zamba2-1.2b's shared attention goes through K4 (7 launches a decode
+    step).  Against the plain attention: teacher-forced on K4's tokens, the
+    bf16 logits of the prefill and all 31 decode steps within
+    ``SSM_BF16_LOGITS_TOL`` and every argmax flip at a near tie (the
+    random init's logits are nearly flat: its loss is about ln 32000); the
+    plain attention's own greedy tokens reported; in fp32 (the same weights,
+    widened) a decode step's logits within ``SSM_PARITY_TOL`` and the
+    greedy tokens equal.  Returns the K4 launches of the first run."""
+    t0 = time.perf_counter()
+    base = held_bytes()
+    arch = get_arch(arch_id)
+    progress(f"ssm: {arch_id} legacy Engine over the state cache")
+    params = arch.init_params(0)
+    try:
+        PagedEngine(arch, params, PagedServeConfig(**SERVE_CFG))
+    except ValueError as e:
+        paged_refusal = str(e)
+    else:
+        raise AssertionError(f"ssm serve: PagedEngine accepted {arch_id}")
+    report, launches, outs = legacy_serve_run(arch, params, **SSM_SERVE)
+    again = legacy_serve_run(arch, params, **SSM_SERVE)
+    report["rerun_tokens_equal"] = again[2] == outs
+    if again[2] != outs:
+        raise AssertionError(f"ssm serve {arch_id}: a re-run of the same "
+                             "prompts gave other tokens")
+    if arch.family == "hybrid":
+        plain = legacy_serve_run(arch, params, **SSM_SERVE, use_kernel=False)
+        prompts = np.random.default_rng(2).integers(
+            1, arch.cfg.vocab, (SSM_SERVE["batch"], SSM_SERVE["prompt_len"])
+        ).astype(np.int32)
+        forced = {u: teacher_forced_logits(arch, params, prompts, outs, u)
+                  for u in (None, False)}
+        flips = flips_at_near_ties(forced[None], forced[False])
+        del forced
+        arch32 = dataclasses.replace(arch, cfg=dataclasses.replace(
+            arch.cfg, dtype=torch.float32))
+        params32 = tree_map(lambda t: t.to(torch.float32), params)
+        logits32, _ = decode_step_both(arch32, params32, {"tokens": prompts})
+        err32 = max_err(logits32[None], logits32[False])
+        tokens32 = {u: legacy_serve_run(arch32, params32, **SSM_SERVE,
+                                        use_kernel=u)[2]
+                    for u in (None, False)}
+        del params32, logits32
+        agree = [sum(a == b for a, b in zip(r, q))
+                 for r, q in zip(outs, plain[2])]
+        report.update(
+            plain={"tokens_equal": plain[2] == outs,
+                   "tokens_agreeing_per_row": agree,
+                   "ms_per_decode_step": plain[0]["ms_per_decode_step"],
+                   "tokens_row0": plain[2][0][:8]},
+            teacher_forced_bf16=dict(flips, tolerance=SSM_BF16_LOGITS_TOL),
+            fp32={"decode_step_k4_vs_plain_max_abs_err": err32,
+                  "tolerance": SSM_PARITY_TOL,
+                  "tokens_equal": tokens32[None] == tokens32[False]})
+        if not flips["max_abs_err"] <= SSM_BF16_LOGITS_TOL:
+            raise AssertionError(
+                f"ssm serve {arch_id}: bf16 logits through K4 differ from "
+                f"the plain attention's by {flips['max_abs_err']} (limit "
+                f"{SSM_BF16_LOGITS_TOL})")
+        if flips["flips_not_near_tie"]:
+            raise AssertionError(
+                f"ssm serve {arch_id}: {flips['flips_not_near_tie']} argmax "
+                f"flips between K4 and the plain attention away from a near "
+                f"tie: {flips}")
+        if not err32 <= SSM_PARITY_TOL or tokens32[None] != tokens32[False]:
+            raise AssertionError(
+                f"ssm serve {arch_id}: fp32 decode-step logits K4 vs plain "
+                f"{err32}, tokens equal {tokens32[None] == tokens32[False]}")
+    del params
+    emit("ssm_serve", arch=arch_id, paged_refusal=paged_refusal, **report,
+         held_after_bytes=held_bytes(), held_before_bytes=base,
+         seconds=time.perf_counter() - t0)
+    return launches
+
+
+def ssm_parity(arch_id: str, rng) -> dict:
+    """fp32 at full width and ``SSM_PARITY_LAYERS`` layers: one decode
+    step's logits against the last-position logits of a prefill over the
+    same tokens plus one (1e-3), and Engine's greedy tokens equal to a loop
+    that recomputes the whole sequence each token.  zamba2's decode runs
+    over a ring that holds every token (``make_prefill_step(max_len=...)``),
+    so both sides attend to the same positions; its default ring, sized to
+    the prompt, is held through K4 against the plain attention (tokens
+    equal)."""
+    B, S, new = (SSM_PARITY[k] for k in ("batch", "prompt_len",
+                                         "new_tokens"))
+    arch = with_layers(get_arch(arch_id), SSM_PARITY_LAYERS[arch_id],
+                       dtype=torch.float32)
+    hybrid = arch.family == "hybrid"
+    params = arch.init_params(0)
+    toks = torch.from_numpy(rng.integers(
+        1, arch.cfg.vocab, (B, S + 1)).astype(np.int32)).to(DEV)
+    prefill = arch.make_prefill_step()
+    wide = (arch.make_prefill_step(max_len=S + new) if hybrid else prefill)
+    _, cache = wide(params, {"tokens": toks[:, :S]})
+    KD.decode_attention.launches = 0
+    dec = arch.make_decode_step()(params, cache, {"tokens": toks[:, S:]})[0]
+    step_launches = KD.decode_attention.launches
+    full = prefill(params, {"tokens": toks})[0]
+    err = max_err(dec, full)
+    eng = Engine(arch, params, ServeConfig(max_new_tokens=new))
+    eng._prefill = wide
+    tokens = eng.generate(toks[:, :S].cpu().tolist())
+    seq, plain = toks[:, :S], []
+    for _ in range(new):
+        nxt = torch.argmax(prefill(params, {"tokens": seq})[0],
+                           dim=-1).to(torch.int32)
+        plain.append(nxt)
+        seq = torch.cat([seq, nxt[:, None]], dim=1)
+    plain = torch.stack(plain, dim=1).cpu().tolist()
+    out = {"arch": arch_id, "n_layers": arch.cfg.n_layers,
+           "dtype": "float32", **SSM_PARITY,
+           "decode_vs_prefill_logits_max_abs_err": err,
+           "tolerance": SSM_PARITY_TOL, "k4_launches_one_step": step_launches,
+           "greedy_tokens_equal": tokens == plain,
+           "tokens_engine": tokens[0], "tokens_recompute": plain[0]}
+    if hybrid:
+        ring = {u: Engine(arch, params, ServeConfig(
+            max_new_tokens=new, use_kernel=u)).generate(
+                toks[:, :S].cpu().tolist()) for u in (None, False)}
+        out["prompt_sized_ring"] = {
+            "k4_tokens_equal_plain": ring[None] == ring[False],
+            "tokens_equal_recompute": ring[None] == plain}
+    torch.cuda.synchronize()
+    del params, cache
+    torch.cuda.empty_cache()
+    if not err <= SSM_PARITY_TOL:
+        raise AssertionError(f"ssm parity {arch_id}: decode-step logits "
+                             f"differ from the prefill's by {err}")
+    if tokens != plain:
+        raise AssertionError(f"ssm parity {arch_id}: Engine's greedy tokens "
+                             f"{tokens} differ from the recompute loop's "
+                             f"{plain}")
+    if step_launches != k4_per_decode_step(arch):
+        raise AssertionError(f"ssm parity {arch_id}: {step_launches} K4 "
+                             "launches in one decode step, expected "
+                             f"{k4_per_decode_step(arch)}")
+    if hybrid and not out["prompt_sized_ring"]["k4_tokens_equal_plain"]:
+        raise AssertionError(f"ssm parity {arch_id}: fp32 tokens through K4 "
+                             "differ from the plain attention's")
+    return out
+
+
+def ssm_table1(base_rec: dict) -> None:
+    """Table 1 on mamba2-1.3b at the train cell, beside the fused AdaLomo
+    arm of ``ssm_train``: unfused Adafactor measured (2 steps, its memory
+    freed after); unfused AdamW reckoned — Adafactor's measured peak with
+    Adafactor's state swapped for AdamW's (the same parameters, gradients
+    and activations), and the plain reckoning of params, gradients and
+    state."""
+    t0 = time.perf_counter()
+    base = held_bytes()
+    B, T = SSM_TRAIN
+    failed = []
+    progress(f"ssm: Table 1, adafactor unfused on {SSM_TABLE1_ID}")
+    r = baseline_arm("adafactor", False, base, arch_id=SSM_TABLE1_ID,
+                     steps=SSM_TABLE1_STEPS, batch=B, seq=T)
+    print("  " + json.dumps({"arm": r}), flush=True)
+    if (len(r["losses"]) != SSM_TABLE1_STEPS
+            or not all(map(math.isfinite, r["losses"]))
+            or not r["params_finite"]
+            or r["launches"] != dict.fromkeys(r["launches"], 0)
+            or r["host_syncs"] != SSM_TABLE1_STEPS
+            or r["allocated_after_free_bytes"] != base):
+        failed.append(f"adafactor: {r['losses']} {r['launches']} "
+                      f"{r['host_syncs']} syncs, "
+                      f"{r['allocated_after_free_bytes']} bytes held after")
+    reckoned = reckoned_bytes(SSM_TABLE1_ID)
+    adamw_state = reckoned["adamw"]["state_bytes"]
+    peak = {"adalomo": base_rec["peak_memory_bytes"],
+            "adafactor": r["peak_memory_bytes"],
+            "adamw_reckoned": (r["peak_memory_bytes"] - r["state_bytes"]
+                               + adamw_state)}
+    if not peak["adalomo"] < peak["adafactor"] < peak["adamw_reckoned"]:
+        failed.append(f"peaks AdaLomo < Adafactor < AdamW do not hold: "
+                      f"{peak}")
+    emit("ssm_table1", arch=SSM_TABLE1_ID, batch=B, seq=T,
+         measured=["adalomo", "adafactor"], reckoned=["adamw"],
+         adafactor=r, adamw_reckoned={
+             "peak_bytes": peak["adamw_reckoned"],
+             "state_bytes": adamw_state,
+             "params_grads_state_bytes": reckoned["adamw"]["total_bytes"],
+             "card_bytes": torch.cuda.get_device_properties(0).total_memory},
+         peaks=peak,
+         peak_ratio_adafactor_over_adalomo=(peak["adafactor"]
+                                            / peak["adalomo"]),
+         seconds=time.perf_counter() - t0)
+    if failed:
+        raise AssertionError(f"ssm table1: {failed}")
+
+
+def phase_ssm() -> dict:
+    """mamba2-1.3b, then zamba2-1.2b, at their published widths and depths
+    (bf16, random weights and data from a seed): fused AdaLomo, LOMO and
+    the legacy Engine over the state cache (zamba2's shared attention
+    through K4), fp32 parity of decode against prefill; then Table 1's
+    unfused arms on mamba2-1.3b."""
+    launches = dict.fromkeys(("adalomo_stats", "adalomo_update",
+                              "decode_attention"), 0)
+    recs = {}
+    rng = np.random.default_rng(15)
+    for arch_id in SSM_IDS:
+        recs[arch_id] = ssm_train(arch_id)
+        for k in ("adalomo_stats", "adalomo_update"):
+            launches[k] += recs[arch_id]["launches"][k]
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches["decode_attention"] += ssm_serve(arch_id)
+        t0 = time.perf_counter()
+        progress(f"ssm: {arch_id} fp32 parity")
+        emit("ssm_parity", **ssm_parity(arch_id, rng),
+             seconds=time.perf_counter() - t0)
+        gc.collect()
+        torch.cuda.empty_cache()
+    ssm_table1(recs[SSM_TABLE1_ID])
+    return {"launches": launches}
+
+
+# --------------------------------------------------------------------------
+# sweep: the sweep driver's subprocess members on the card
+# --------------------------------------------------------------------------
+
+SWEEP_ID = "mamba2-1.3b"
+SWEEP_DATA = (2, 512)
+SWEEP_STEPS = 2
+SWEEP_VARIANTS = [{"opt.lr": 5e-4}, {"opt.lr": 1e-3},
+                  {"opt.name": "lomo", "opt.lr": 1e-2}]
+
+
+def phase_sweep() -> dict:
+    """``run_sweep`` in subprocess mode, one member in flight, on
+    mamba2-1.3b at its published width and depth (2 x 512 tokens, 2 steps a
+    member, a checkpoint at the last step): AdaLomo at two learning rates
+    and LOMO, each ``python -m repro_torch.launch.train --spec ...
+    --device cuda``.  Every member done, ``report.json`` ranked by final
+    loss; a second call skips all three (``DONE.json``).  Reports each
+    member's wall seconds; the members' directories are removed."""
+    from repro_torch.fleet.sweep import run_sweep
+    from repro_torch.run import CheckpointSpec
+    t0 = time.perf_counter()
+    held_bytes()
+    B, T = SWEEP_DATA
+    base = RunSpec(model=ModelSpec(SWEEP_ID, smoke=False),
+                   data=DataConfig(vocab=0, seq_len=T, global_batch=B,
+                                   seed=0),
+                   opt=OptSpec(name="adalomo"),
+                   steps=StepSpec(total=SWEEP_STEPS),
+                   checkpoint=CheckpointSpec(every=SWEEP_STEPS, keep_last=1),
+                   log_every=1, seed=0)
+    root = resume_root("chip_smoke_sweep_")
+    sweep_dir = os.path.join(root, "sweep")
+    logs, again_logs = [], []
+
+    def log(line):
+        logs.append((time.perf_counter(), line))
+        print("  " + line, flush=True)
+
+    try:
+        progress("sweep: 3 subprocess members")
+        report = run_sweep(base, SWEEP_VARIANTS, sweep_dir,
+                           mode="subprocess", parallel=1, log_fn=log)
+        again = run_sweep(base, SWEEP_VARIANTS, sweep_dir,
+                          mode="subprocess", parallel=1,
+                          log_fn=again_logs.append)
+        with open(os.path.join(sweep_dir, "report.json")) as f:
+            on_disk = json.load(f)
+        tails = {}
+        for row in report["members"]:
+            with open(os.path.join(sweep_dir, row["name"],
+                                   "stdout.log")) as f:
+                tails[row["name"]] = f.read().strip().splitlines()[-3:]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    def member(line):
+        return line.split("]")[0][1:]
+
+    start = {member(line): t for t, line in logs if "launched" in line}
+    wall = {member(line): t - start[member(line)] for t, line in logs
+            if " exit " in line}
+    rows = {r["name"]: r for r in report["members"]}
+    failed = []
+    if report["n_done"] != len(SWEEP_VARIANTS):
+        statuses = {n: r["status"] for n, r in rows.items()}
+        failed.append(f"{report['n_done']} members done: {statuses}; "
+                      f"stdout tails {tails}")
+    losses = [rows[n].get("final_loss") for n in report["ranking"]]
+    if (len(losses) != len(SWEEP_VARIANTS)
+            or not all(math.isfinite(x) for x in losses)
+            or losses != sorted(losses)):
+        failed.append(f"ranking {report['ranking']} by final losses "
+                      f"{losses}")
+    if on_disk["ranking"] != report["ranking"]:
+        failed.append("report.json's ranking differs from the returned one")
+    if (sum("skipping" in line for line in again_logs) != len(SWEEP_VARIANTS)
+            or any("launched" in line for line in again_logs)
+            or again["ranking"] != report["ranking"]):
+        failed.append(f"second call: {again_logs}")
+    emit("sweep", arch=SWEEP_ID, batch=B, seq=T, steps=SWEEP_STEPS,
+         mode="subprocess", parallel=1, variants=SWEEP_VARIANTS,
+         ranking=report["ranking"],
+         members={n: {"status": r["status"], "final_loss":
+                      r.get("final_loss"), "steps_done": r.get("steps_done"),
+                      "mean_tokens_per_s": r.get("mean_tokens_per_s"),
+                      "wall_seconds": wall.get(n), "stdout_tail": tails[n]}
+                  for n, r in rows.items()},
+         second_call_skipped=sum("skipping" in line for line in again_logs),
+         seconds=time.perf_counter() - t0)
+    if failed:
+        raise AssertionError(f"sweep: {failed}")
+    return {"wall_seconds": wall}
+
+
+# --------------------------------------------------------------------------
 
 PHASES = ("kernels", "train", "parity", "resume", "sentinel", "baselines",
           "packed", "serve", "serve_parity", "legacy_serve", "legacy_parity",
-          "moe", "configs", "mla", "prefix")
+          "moe", "configs", "mla", "prefix", "ssm", "sweep")
 EXTRA_PHASES = ("timing", "configs_lomo")
 
 
@@ -3719,7 +4246,10 @@ def main() -> None:
                          "head dims of K3/K4, kernels,mla after touching "
                          "MLA, MTP, the latent cache or deepseek-v3-671b, "
                          "kernels,prefix after touching the prefix-LM "
-                         "masks, paligemma-3b or K4 at dh 256; "
+                         "masks, paligemma-3b or K4 at dh 256, "
+                         "kernels,ssm,sweep after touching mamba2, the "
+                         "hybrid family, zamba2's shared attention or the "
+                         "sweep driver; "
                          "configs_lomo (not in the "
                          "default) qwen3-32b's fused LOMO step; timing "
                          "(not in the default) times the kernels without "
@@ -3790,6 +4320,13 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     prefix = phase_prefix() if "prefix" in phases else None
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm = phase_ssm() if "ssm" in phases else None
+    gc.collect()
+    torch.cuda.empty_cache()
+    if "sweep" in phases:
+        phase_sweep()
     if "configs_lomo" in phases:
         phase_configs_lomo()
     if set(phases) != set(PHASES):
@@ -3831,16 +4368,21 @@ def main() -> None:
                 "moe": moe["launches"].get(name, 0),
                 "configs": configs["launches"][name],
                 "mla": mla["launches"].get(name, 0),
-                "prefix": prefix["launches"].get(name, 0)}})
+                "prefix": prefix["launches"].get(name, 0),
+                "ssm": ssm["launches"].get(name, 0)}})
         if name == "paged_decode_attention":
             kernels[-1]["library_note"] = PAGED_LIBRARY_NOTE
         if name.endswith("decode_attention"):
             # per launch at dh 256 (paligemma-3b's 8 query heads over 1)
-            kernels[-1]["dh256_per_launch"] = {
-                shape: {k: row[k] for k in ("ms", "plain_ms", "bound_ms",
-                                            "library_ms")}
-                for shape, row in kern["rows"][name].items()
-                if row["heads"][2] == 256}
+            # and at zamba2-1.2b's 32/32 heads, dh 64
+            for key, heads in (("dh256_per_launch", None),
+                               ("zamba2_dh64_per_launch", [32, 32, 64])):
+                kernels[-1][key] = {
+                    shape: {k: row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                "library_ms")}
+                    for shape, row in kern["rows"][name].items()
+                    if (row["heads"] == heads if heads
+                        else row["heads"][2] == 256)}
         if name.startswith("adalomo"):
             key = "stats" if name == "adalomo_stats" else "update"
             kernels[-1]["deepseek_v3_expert_batch_per_call"] = {

@@ -33,7 +33,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.tree import leading_pieces
+from repro_torch import resolve_device
+from repro_torch.core.tree import leading_pieces, tree_map
 
 Tensor = torch.Tensor
 
@@ -605,3 +606,30 @@ def linear_init(gen, d_in: int, d_out: int, *, scale: float = 1.0,
 def embed_init(gen, vocab: int, d: int, *, dtype=torch.float32, device
                ) -> Tensor:
     return normal_init(gen, (vocab, d), 0.02, dtype=dtype, device=device)
+
+
+def stacked_blocks(n_layers: int, block_init, gen, device) -> dict:
+    """The ``[n_layers, ...]`` layer stack, allocated once with each layer
+    drawn straight into it by ``block_init(gen, device, out)`` (``out``:
+    views of that layer of the stack; None and the meta device give the
+    shapes), in layer order, so no copy of a layer is ever made."""
+    blocks = tree_map(
+        lambda t: torch.empty((n_layers,) + t.shape, dtype=t.dtype,
+                              device=device),
+        block_init(None, torch.device("meta"), None))
+    if torch.device(device).type != "meta":
+        for i in range(n_layers):
+            block_init(gen, device, tree_map(lambda t: t[i], blocks))
+    return blocks
+
+
+def init_generator(seed: int, device) -> tuple:
+    """``(device, generator)``: the resolved device and a generator seeded
+    with ``seed`` on it (None on the meta device, where nothing is drawn)."""
+    dev = torch.device(device)
+    if dev.type == "meta":
+        return dev, None
+    dev = resolve_device(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return dev, gen

@@ -2,10 +2,12 @@
 
 Counterpart of ``repro.models.registry``, holding the architectures ported so
 far: the transformer family's dense GQA configs, its mixture-of-experts
-config, deepseek-v3-671b (MLA, MoE with a sigmoid router, MTP) and
-paligemma-3b (prefix-LM over a stubbed modality prefix).  The
-``mamba2``/``hybrid``/``encdec`` families are not ported; ``get_arch`` raises
-``KeyError`` for their configs.
+config, deepseek-v3-671b (MLA, MoE with a sigmoid router, MTP),
+paligemma-3b (prefix-LM over a stubbed modality prefix), the ``mamba2``
+family (mamba2-1.3b, served from a state cache) and the ``hybrid`` family
+(zamba2-1.2b: a mamba2 backbone and a shared attention block).  The
+``encdec`` family is not ported; ``get_arch`` raises ``KeyError`` for its
+config (whisper-base).
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ _CONFIG_MODULES = {
     "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
     "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
     "paligemma-3b": "repro_torch.configs.paligemma_3b",
+    "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
 }
 
 ARCH_IDS = tuple(_CONFIG_MODULES)
@@ -38,12 +42,14 @@ class Arch:
     cfg: Any
 
     def _family_mod(self):
-        if self.family != "transformer":
+        from repro_torch.models import hybrid, mamba2, transformer
+        mods = {"transformer": transformer, "mamba2": mamba2,
+                "hybrid": hybrid}
+        if self.family not in mods:
             raise NotImplementedError(
-                f"model family {self.family!r} is not ported yet (only "
-                "'transformer')")
-        from repro_torch.models import transformer
-        return transformer
+                f"model family {self.family!r} is not ported yet (have "
+                f"{sorted(mods)})")
+        return mods[self.family]
 
     # ---- construction -----------------------------------------------------
     def init_params(self, seed: int = 0, *, device="cuda"):
@@ -110,11 +116,11 @@ class Arch:
             out["positions"] = ((B, S), torch.int32)
             out["loss_mask"] = ((B, S), torch.bool)
             return out
-        if self.cfg.prefix_lm:
+        if getattr(self.cfg, "prefix_lm", False):
             out["prefix_embed"] = ((B, self.cfg.n_prefix_tokens,
                                     self.cfg.d_model), torch.float32)
             out["prefix_len"] = ((B,), torch.int32)
-        if self.cfg.mtp and labels:
+        if getattr(self.cfg, "mtp", False) and labels:
             out["labels_mtp"] = ((B, S), torch.int32)
         return out
 
@@ -124,13 +130,16 @@ class Arch:
 
     def make_decode_step(self, *, use_kernel=None):
         """``use_kernel``: None = the CUDA kernel (K4) for CUDA tensors and
-        the plain version for CPU tensors; False = the plain version."""
+        the plain version for CPU tensors; False = the plain version.  The
+        mamba2 family has no attention and does not read it."""
         return self._family_mod().make_decode_step(self.cfg,
                                                    use_kernel=use_kernel)
 
     def init_cache(self, batch: int, max_len: int, *, device="cuda"):
-        return self._family_mod().init_cache(self.cfg, batch, max_len,
-                                             device=device)
+        mod = self._family_mod()
+        if self.family == "mamba2":
+            return mod.init_state_cache(self.cfg, batch, device=device)
+        return mod.init_cache(self.cfg, batch, max_len, device=device)
 
     # ---- paged serving (continuous batching; transformer GQA only) --------
     def supports_paged_serving(self) -> bool:
@@ -142,8 +151,15 @@ class Arch:
 
     def paged_family(self):
         """The family module for the paged halves; raises ``ValueError``
-        (``transformer.check_paged``) for a config they refuse."""
+        for a config they refuse: every family but the transformer (as the
+        reference's ``supports_paged_serving``), and the transformer configs
+        ``transformer.check_paged`` refuses."""
         mod = self._family_mod()
+        if self.family != "transformer":
+            raise ValueError(
+                f"{self.arch_id}: paged serving supports the transformer "
+                f"family only (family {self.family!r} keeps a state cache; "
+                "serve it with the legacy Engine)")
         mod.check_paged(self.cfg)
         return mod
 

@@ -190,13 +190,7 @@ def init_params(seed: int, cfg: LMConfig, *, device="cuda") -> dict:
     layer stack is allocated once and each layer drawn straight into it, so
     no copy of a layer is ever made."""
     check_supported(cfg)
-    dev = torch.device(device)
-    if dev.type != "meta":
-        dev = resolve_device(dev)
-    gen = None
-    if dev.type != "meta":
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
+    dev, gen = L.init_generator(seed, device)
     outer = {
         "tok_embed": L.embed_init(gen, cfg.vocab, cfg.d_model,
                                   dtype=cfg.dtype, device=dev),
@@ -211,13 +205,8 @@ def init_params(seed: int, cfg: LMConfig, *, device="cuda") -> dict:
                                           dtype=cfg.dtype, device=dev)
         outer["mtp_block"] = _block_init(gen, _mtp_cfg(cfg), dev)
         outer["mtp_norm"] = L.norm_init(cfg.d_model, cfg.norm, device=dev)
-    blocks = tree_map(
-        lambda t: torch.empty((cfg.n_layers,) + t.shape, dtype=t.dtype,
-                              device=dev),
-        _block_init(None, cfg, torch.device("meta")))
-    if dev.type != "meta":
-        for i in range(cfg.n_layers):
-            _block_init(gen, cfg, dev, out=tree_map(lambda t: t[i], blocks))
+    blocks = L.stacked_blocks(cfg.n_layers, lambda g, dv, out: _block_init(
+        g, cfg, dv, out=out), gen, dev)
     return {"outer": outer, "shared": {}, "stacks": {"blocks": blocks}}
 
 

@@ -34,7 +34,8 @@ def _with_extras(b: dict, arch, cfg: DataConfig, step: int) -> dict:
     pipeline's: ``prefix_embed`` and ``prefix_len`` for a prefix-LM model
     (drawn as the reference draws them, from ``(seed, 0x5eed, step)``) and
     ``labels_mtp`` for an MTP model (token t + 2's label at t)."""
-    prefix, mtp = arch.cfg.prefix_lm, arch.cfg.mtp
+    prefix = getattr(arch.cfg, "prefix_lm", False)
+    mtp = getattr(arch.cfg, "mtp", False)
     if not (prefix or mtp):
         return b
     b = dict(b)

@@ -1,7 +1,8 @@
 """PyTorch port vs the JAX reference: the configs the port knows
 (``configs/*.py``, ``models/registry.py``) — fields, shapes, parameter counts
 and cells equal to the reference's (deepseek-v3-671b's MLA and MTP fields
-too; paligemma-3b's prefix fields), unported architectures refused — one
+too; paligemma-3b's prefix fields; the state-space configs mamba2-1.3b and
+zamba2-1.2b), the unported architecture refused — one
 fused AdaLomo step of each dense smoke config against the reference's,
 paged serving of the new dense smoke configs against the JAX engine,
 ``layers.layernorm`` with the reference's eps trap, and the plain versions
@@ -34,7 +35,6 @@ from repro_torch.kernels.decode_attention import decode_attention as KD
 from repro_torch.kernels.decode_attention import ops
 from repro_torch.models import layers as L
 from repro_torch.models.registry import ARCH_IDS, get_arch
-from repro_torch.models.transformer import LMConfig
 from repro_torch.serve.engine import PagedEngine, PagedServeConfig
 from torch_parity import (CPU, assert_trees_close, jax_batch, make_batch,
                           np_f32, ref_params_and_copy, smoke_archs,
@@ -43,7 +43,8 @@ from torch_parity import (CPU, assert_trees_close, jax_batch, make_batch,
 NEW = ("deepseek-moe-16b", "qwen3-32b", "stablelm-12b", "h2o-danube-3-4b",
        "deepseek-v3-671b", "paligemma-3b")
 DENSE_NEW = NEW[1:4]
-UNPORTED = ("mamba2-1.3b", "whisper-base", "zamba2-1.2b")
+SSM = ("mamba2-1.3b", "zamba2-1.2b")
+UNPORTED = ("whisper-base",)
 TORCH_DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 # |Δloss| and parameters: the reference's own fused drop-in bounds
 LOSS_TOL = 1e-4
@@ -51,15 +52,15 @@ PARAM_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
 def _fields(cfg) -> dict:
-    out = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(LMConfig)}
+    out = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     for sub in ("moe", "mla"):
-        if out[sub] is not None:
+        if out.get(sub) is not None:
             out[sub] = dataclasses.asdict(out[sub])
     return out
 
 
 @pytest.mark.parametrize("smoke", [False, True])
-@pytest.mark.parametrize("arch_id", NEW)
+@pytest.mark.parametrize("arch_id", NEW + SSM)
 def test_config_fields_match_reference(arch_id, smoke):
     port, ref = get_arch(arch_id, smoke=smoke), ref_get_arch(arch_id,
                                                             smoke=smoke)
@@ -69,7 +70,7 @@ def test_config_fields_match_reference(arch_id, smoke):
     assert _fields(port.cfg) == want
 
 
-@pytest.mark.parametrize("arch_id", NEW)
+@pytest.mark.parametrize("arch_id", NEW + SSM)
 def test_param_counts_and_cells_match_reference(arch_id):
     """Counted from shapes on the meta device (nothing allocated)."""
     port, ref = get_arch(arch_id), ref_get_arch(arch_id)
@@ -84,21 +85,26 @@ def test_param_counts_and_cells_match_reference(arch_id):
         assert port.cfg.active_param_count() == 37_891_717_120
     if arch_id == "paligemma-3b":
         assert port.cfg.param_count() == 2_508_662_784
+    if arch_id == "mamba2-1.3b":
+        assert port.cfg.param_count() == 1_343_740_928
+    if arch_id == "zamba2-1.2b":
+        assert port.cfg.param_count() == 1_207_176_064
+        assert port.cfg.n_attn_applications() == 7
 
 
 def test_registry_and_shapes():
-    assert sorted(ARCH_IDS) == sorted(("h2o-danube-1.8b",) + NEW)
+    assert sorted(ARCH_IDS) == sorted(("h2o-danube-1.8b",) + NEW + SSM)
     for arch_id in UNPORTED:
         with pytest.raises(KeyError, match="not ported"):
             get_arch(arch_id)
     assert shapes.SHAPES == {k: shapes.ShapeSpec(**dataclasses.asdict(v))
                              for k, v in ref_shapes.SHAPES.items()}
     assert shapes.LONG_OK == ref_shapes.LONG_OK
-    for arch_id in NEW + UNPORTED:
+    for arch_id in NEW + SSM + UNPORTED:
         assert shapes.cells_for(arch_id) == ref_shapes.cells_for(arch_id)
 
 
-@pytest.mark.parametrize("arch_id", NEW)
+@pytest.mark.parametrize("arch_id", NEW + SSM)
 def test_smoke_init_matches_reference_shapes(arch_id):
     ref, port = smoke_archs(arch_id)
     rp = ref.init_params(jax.random.PRNGKey(0))

@@ -175,7 +175,7 @@ def test_configs_and_init_match_reference_shapes():
     assert port_arch.train_batch_specs(4, 16) == {
         "tokens": ((4, 16), torch.int32), "labels": ((4, 16), torch.int32)}
     with pytest.raises(KeyError, match="not ported"):
-        get_arch("mamba2-1.3b")
+        get_arch("whisper-base")
 
 
 @pytest.mark.parametrize("arch_id", ["h2o-danube-1.8b", "deepseek-moe-16b",
