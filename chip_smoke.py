@@ -22,7 +22,8 @@ printing one JSON line:
            plain version, K2 held on its update at lr 1.0, the head bitwise
            on a re-run; the same at mamba2-1.3b's and zamba2-1.2b's leaf
            shapes (in_proj, out_proj, LoRA sides, the shared block's
-           matrices, both tied heads).
+           matrices, both tied heads), and at whisper-base's (the attention
+           and MLP matrices, the tied [51865, 512] head).
            Paged decode attention K3:
            the CPU tests' cases, a danube-shaped ragged case with and without
            a window, danube serving shapes (8 sequences, 32/8 heads, dh 80,
@@ -47,7 +48,11 @@ printing one JSON line:
            the other configs' heads, and paligemma-3b's rings of 4 x 1280
            (its prefix phase's) and 8 x 4352 slots at dh 256, zamba2-1.2b's
            32/32 heads at dh 64 (``NEW_HEADS``) and its ring of 4 x 1024
-           (the ssm phase's).  The ptxas
+           (the ssm phase's), whisper-base's 8/8 heads at dh 64 over its
+           self-attention ring (16 x 448: partly filled at 40, wrapped at
+           479) and its cross-attention over 16 x 1500 frames (every slot
+           valid, query position 2**30; W not a multiple of 16), each
+           with a bitwise re-run.  The ptxas
            register and spill lines of the decode kernels at dh 16, 24 and
            256 are reported per template instance.  Then
            times kernel and plain version (CUDA events, after warm-up, inputs
@@ -239,6 +244,26 @@ printing one JSON line:
            Table 1 on mamba2-1.3b at 4 x 1024: unfused Adafactor measured,
            unfused AdamW reckoned (it does not fit on the card), beside
            fused AdaLomo.
+  encdec   whisper-base at its published widths and depth (6 + 6 layers,
+           d_model 512, 8/8 heads at dh 64, d_ff 2048, a tied 51,865-token
+           head, 1500 frames; 70.7 M parameters), bf16, random weights and
+           frames from a seed.  ``run(spec)`` with fused AdaLomo at 16 x 448
+           decoder tokens over 1500 frames, 3 steps: finite losses that
+           move, every param finite after step 1, 97 K1/K2 launches a step,
+           one host sync a step, step 1 re-run bitwise (on-card digest);
+           Table 1 at the same batch, all four arms measured (fused LOMO,
+           unfused Adafactor and AdamW, 2 steps each; peaks AdaLomo, LOMO <
+           Adafactor < AdamW).  ``make_prefill_step(max_decode_len=448)``
+           on 16 x 1500 frames and 64 greedy decode steps from
+           <|startoftranscript|> (50258), both attentions of a step through
+           K4 (12 launches a step), one host sync a step, the same tokens
+           on a re-run; against the plain attention, teacher-forced bf16
+           logits within 0.15 with every argmax flip at a near tie, and fp32
+           (the same weights widened) greedy tokens equal.  fp32 at 2 + 2
+           layers: every decode step's logits within 1e-4 of the
+           teacher-forced decoder forward's over the prefill's encoder
+           output.  ``Engine`` refuses the family (it is served by its step
+           functions).
   sweep    ``repro_torch.fleet.sweep.run_sweep`` in subprocess mode, one
            member in flight, on mamba2-1.3b at full size, 2 x 512 tokens,
            2 steps a member: AdaLomo at lr 5e-4 and 1e-3 and LOMO, each
@@ -573,6 +598,15 @@ SSM_KERNEL_CASES = {"mamba2 in_proj [2048,8512]": (2048, 8512),
                     "zamba2 tied embedding [32000,2048]": (32000, 2048)}
 
 
+# whisper-base's leaves (bf16, one 2-D matrix a call, as its fused step
+# hands them over): the attention projections, the MLP's two and the tied
+# head, whose 51,865 rows are odd
+WHISPER_KERNEL_CASES = {"whisper wq, wk, wv, wo [512,512]": (512, 512),
+                        "whisper w_up [512,2048]": (512, 2048),
+                        "whisper w_down [2048,512]": (2048, 512),
+                        "whisper tied embedding [51865,512]": (51865, 512)}
+
+
 def check_leaf_kernels(errs: dict, cases: dict, rerun: tuple) -> dict:
     """K1 then K2 at a model's leaf shapes (``cases``: name -> shape), bf16,
     steps 1 and 5: K1's r' and c' against the plain version within
@@ -820,6 +854,9 @@ def phase_kernels() -> dict:
     ssm_checks = check_leaf_kernels(
         errs, SSM_KERNEL_CASES, ("mamba2 tied embedding [50280,2048]",
                                  "zamba2 tied embedding [32000,2048]"))
+    progress("kernels: K1/K2 at whisper-base's shapes")
+    whisper_checks = check_leaf_kernels(
+        errs, WHISPER_KERNEL_CASES, ("whisper tied embedding [51865,512]",))
     progress("kernels: K3 cases")
     k3_cases, k3_bitwise = check_k3(errs)
     progress("kernels: K4 cases")
@@ -843,6 +880,7 @@ def phase_kernels() -> dict:
                                   ("adalomo_stats", "adalomo_update")},
          moe_cases=moe_checks, moe_per_call=moe_rows,
          pali_cases=pali_checks, ssm_cases=ssm_checks,
+         whisper_cases=whisper_checks,
          pali_tolerances={"r_c": TOL_RC, "k2_lr": K2_HELD_LR,
                           "k2_update_rtol": K2_HELD_UPDATE_RTOL,
                           "k2_moved_min": K2_HELD_MOVED_MIN},
@@ -896,17 +934,30 @@ NEW_HEADS = {"danube3 dh120": (32, 8, 120, 4096),
              "paligemma G8 dh256": (8, 1, 256, None),
              "smoke dh16": (4, 1, 16, None),
              "smoke dh24": (4, 2, 24, 8),
-             "zamba2 G1 dh64": (32, 32, 64, None)}
+             "zamba2 G1 dh64": (32, 32, 64, None),
+             "whisper G1 dh64": (8, 8, 64, None)}
 # The legacy decode rings of the serving phases, as (B, W, heads):
 # paligemma-3b's K4 over the prefix phase's prompts (4 x (1024 text + 256
 # prefix), every slot valid once the ring wraps) and over 8 x (4096 + 256)
 # slots; zamba2-1.2b's shared attention over the ssm phase's prompts (4 x
-# 1024 tokens)
+# 1024 tokens); whisper-base's self-attention ring of 448 slots and its
+# cross-attention over 1500 frames (the encdec phase's 16 rows; W = 1500 is
+# not a multiple of 16)
 PALI_HEADS = NEW_HEADS["paligemma G8 dh256"]
 ZAMBA_HEADS = NEW_HEADS["zamba2 G1 dh64"]
+WHISPER_HEADS = NEW_HEADS["whisper G1 dh64"]
 DECODE_RINGS = {"paligemma B4 W1280": (4, 1280, PALI_HEADS),
                 "paligemma B8 W4352": (8, 4352, PALI_HEADS),
-                "zamba2 B4 W1024": (4, 1024, ZAMBA_HEADS)}
+                "zamba2 B4 W1024": (4, 1024, ZAMBA_HEADS),
+                "whisper self B16 W448": (16, 448, WHISPER_HEADS),
+                "whisper cross B16 W1500": (16, 1500, WHISPER_HEADS)}
+# whisper-base's decode attention as the encdec phase calls K4, (B, W, H,
+# K, dh, window, cur, wrapped): the cross-attention (slot t holds frame t,
+# the query at 2**30 sees all 1500), and the self-attention ring partly
+# filled (cur 40) and wrapped (cur 448 + 31)
+WHISPER_K4_CASES = [(16, 1500) + WHISPER_HEADS + (2 ** 30, False),
+                    (16, 448) + WHISPER_HEADS + (40, False),
+                    (16, 448) + WHISPER_HEADS + (448 + 31, True)]
 
 
 def k3_inputs(B, H, Kh, dh, ps, P, seq_lens, dtype, seed):
@@ -1147,7 +1198,7 @@ def k4_cases() -> list:
     for B, W, (H, Kh, dh, _) in DECODE_RINGS.values():
         cases.append((B, W, H, Kh, dh, None, W, True))
         cases.append((B, W, H, Kh, dh, None, W + 31, True))
-    return cases
+    return cases + WHISPER_K4_CASES
 
 
 def check_k4(errs: dict) -> tuple:
@@ -1181,6 +1232,17 @@ def check_k4(errs: dict) -> tuple:
             if not torch.equal(a, b):
                 raise AssertionError(
                     f"decode_attention B{B} W{W} {H}/{Kh} dh {dh} {dtype}: "
+                    "the same inputs did not give bit-identical outputs on "
+                    "a re-run")
+    for B, W, H, Kh, dh, window, cur, wrapped in WHISPER_K4_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = k4_inputs(B, W, H, Kh, dh, cur, dtype, 8, wrapped)
+            a = KD.decode_attention(*args, window=window)
+            b = KD.decode_attention(*args, window=window)
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"decode_attention whisper B{B} W{W} cur {cur} {dtype}: "
                     "the same inputs did not give bit-identical outputs on "
                     "a re-run")
     # Ten launches back to back on the same ticket counters: each must find
@@ -2210,7 +2272,8 @@ def baseline_arm(name: str, fused: bool, base: int, *, arch_id=ARCH_ID,
     program = build_step_program(spec, arch)
     params, opt_state = program.init(spec.seed)
     init_bytes = held_bytes() - base
-    rec = {"arch": arch_id, "n_layers": arch.cfg.n_layers, "batch": batch,
+    rec = {"arch": arch_id, "n_layers": getattr(arch.cfg, "n_layers", None),
+           "batch": batch,
            "seq": seq,
            "optimizer": name, "engine": "fused" if fused else "unfused",
            "n_params": sum(p.numel() for p in tree_leaves(params)),
@@ -4124,6 +4187,314 @@ def phase_ssm() -> dict:
 
 
 # --------------------------------------------------------------------------
+# encdec: whisper-base trained by fused AdaLomo and decoded through K4
+# --------------------------------------------------------------------------
+
+ENCDEC_ID = "whisper-base"
+ENCDEC_STEPS = 3
+# 16 rows of 448 decoder tokens (whisper's text context) over 1500 frames
+ENCDEC_TRAIN = (16, 448)
+# K1/K2 launches a fused step: wq, wk, wv, wo, w_up, w_down an encoder
+# layer; self and cross wq, wk, wv, wo, w_up, w_down a decoder layer; the
+# tied head
+ENCDEC_LEAVES_PER_STEP = 6 * 6 + 6 * 10 + 1
+ENCDEC_TABLE1_STEPS = 2
+# serving: 16 rows of 1500 frames, a ring of whisper's 448 text positions,
+# 64 greedy tokens from <|startoftranscript|>
+ENCDEC_SERVE = dict(batch=16, max_decode_len=448, new_tokens=64)
+ENCDEC_SOT = 50258
+ENCDEC_BF16_LOGITS_TOL = SSM_BF16_LOGITS_TOL
+ENCDEC_PARITY = dict(layers=2, batch=2, new_tokens=16)
+ENCDEC_PARITY_TOL = 1e-4
+
+
+def encdec_frames(cfg, batch: int, seed: int) -> torch.Tensor:
+    """Frame embeddings ``[batch, n_frames, d_model]`` (the stubbed audio
+    frontend's output), float32 normal draws on the card from ``seed``."""
+    g = torch.Generator(device=DEV)
+    g.manual_seed(seed)
+    return torch.randn((batch, cfg.n_frames, cfg.d_model), generator=g,
+                       device=DEV)
+
+
+def encdec_decode(arch, params, frames, new_tokens: int, *, use_kernel=None,
+                  follow=None) -> dict:
+    """``make_prefill_step`` on ``frames``, then ``new_tokens`` decode steps
+    from the start token: greedy, or fed ``follow [B, new_tokens]``'s tokens
+    (teacher forcing).  One host transfer a step (the step's tokens).  K4
+    launches counted from 0; prefill and decode steps timed by CUDA events.
+    Returns the tokens, the stacked fp32 logits and the counts."""
+    B = frames.shape[0]
+    prefill = arch.make_prefill_step(
+        max_decode_len=ENCDEC_SERVE["max_decode_len"])
+    decode = arch.make_decode_step(use_kernel=use_kernel)
+    prefill_ev, decode_ev = [], []
+    prefill = _event_timed(prefill, prefill_ev)
+    decode = _event_timed(decode, decode_ev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            KD.decode_attention.launches = 0
+            _, cache = prefill(params, {"frames": frames})
+            tok = torch.full((B, 1), ENCDEC_SOT, dtype=torch.int32,
+                             device=DEV)
+            tokens, logits = [], []
+            for t in range(new_tokens):
+                out, cache = decode(params, cache, {"tokens": tok})
+                logits.append(out)
+                tok = (torch.argmax(out, dim=-1).to(torch.int32)[:, None]
+                       if follow is None else follow[:, t:t + 1])
+                tokens.append(tok.cpu())
+            launches = KD.decode_attention.launches
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    decode_s = decode_ev[0][0].elapsed_time(decode_ev[-1][1]) / 1e3
+    return {"tokens": torch.cat(tokens, dim=1), "logits": torch.stack(
+                logits, dim=1),
+            "launches": launches,
+            "host_syncs": sum("synchroniz" in str(w.message) for w in caught),
+            "prefill_seconds": prefill_ev[0][0].elapsed_time(
+                prefill_ev[0][1]) / 1e3,
+            "ms_per_decode_step": decode_s / new_tokens * 1e3,
+            "decode_tokens_per_s": B * new_tokens / decode_s}
+
+
+def encdec_train() -> dict:
+    """Fused AdaLomo through ``run(spec)`` at 16 x 448 over 1500 frames, 3
+    steps: finite losses that move, every param finite after step 1, the
+    K1/K2 launches of ``ENCDEC_LEAVES_PER_STEP``, one host sync a step,
+    step 1 re-run bitwise (on-card digest); then Table 1's other arms at
+    the same batch, all measured: fused LOMO, unfused Adafactor and
+    unfused AdamW (2 steps each), each arm's memory freed after it."""
+    t0 = time.perf_counter()
+    base = held_bytes()
+    arch = get_arch(ENCDEC_ID)
+    leaves = factored_leaves(arch.init_params(0, device="meta"))
+    failed = []
+    if leaves != ENCDEC_LEAVES_PER_STEP:
+        failed.append(f"{leaves} factored leaves a step, expected "
+                      f"{ENCDEC_LEAVES_PER_STEP}")
+    B, T = ENCDEC_TRAIN
+    kw = dict(arch_id=ENCDEC_ID, batch=B, seq=T)
+    watch = moe_watch(0)
+    progress(f"encdec: fused AdaLomo, {ENCDEC_STEPS} steps at {B} x {T}")
+    rec = baseline_arm("adalomo", True, base, steps=ENCDEC_STEPS,
+                       hooks=[watch], **kw)
+    rerun_watch = moe_watch(0)
+    rerun = baseline_arm("adalomo", True, base, steps=1, hooks=[rerun_watch],
+                         **kw)
+    rerun_bitwise = (rerun["losses"][0] == rec["losses"][0]
+                     and torch.equal(rerun_watch.digest, watch.digest))
+    progress("encdec: Table 1's other arms")
+    arms = {"adalomo": rec}
+    for name, fused in BASELINE_ARMS[1:]:
+        arms[name] = baseline_arm(name, fused, base,
+                                  steps=ENCDEC_TABLE1_STEPS, **kw)
+    want = dict.fromkeys(("adalomo_stats", "adalomo_update"),
+                         ENCDEC_LEAVES_PER_STEP * ENCDEC_STEPS)
+    losses = rec["losses"]
+    if len(losses) != ENCDEC_STEPS or not all(map(math.isfinite, losses)):
+        failed.append(f"losses {losses}")
+    elif losses[-1] == losses[0]:
+        failed.append(f"losses do not move: {losses}")
+    if rec["launches"] != want:
+        failed.append(f"K1/K2 launches {rec['launches']}, expected {want}")
+    if not bool(watch.finite):
+        failed.append("a parameter is not finite after step 1")
+    if not rerun_bitwise:
+        failed.append("step 1 re-run from the same seed is not bitwise equal")
+    for name, r in arms.items():
+        steps = ENCDEC_STEPS if name == "adalomo" else ENCDEC_TABLE1_STEPS
+        if (len(r["losses"]) != steps
+                or not all(map(math.isfinite, r["losses"]))
+                or not r["params_finite"] or r["host_syncs"] != steps):
+            failed.append(f"{name}: losses {r['losses']}, "
+                          f"{r['host_syncs']} host syncs, params finite "
+                          f"{r['params_finite']}")
+        if name != "adalomo" and r["launches"] != dict.fromkeys(want, 0):
+            failed.append(f"{name}: K1/K2 launches {r['launches']}")
+    for r in (*arms.values(), rerun):
+        if r["allocated_after_free_bytes"] != base:
+            failed.append(f"{r['optimizer']}: "
+                          f"{r['allocated_after_free_bytes']} bytes held "
+                          f"after the run, {base} before")
+    peak = {k: r["peak_memory_bytes"] for k, r in arms.items()}
+    if not (max(peak["adalomo"], peak["lomo"]) < peak["adafactor"]
+            < peak["adamw"]):
+        failed.append(f"peaks AdaLomo, LOMO < Adafactor < AdamW do not "
+                      f"hold: {peak}")
+    if arms["adamw"]["state_bytes"] != 8 * arms["adamw"]["n_params"]:
+        failed.append(f"adamw: state {arms['adamw']['state_bytes']} bytes")
+    emit("encdec_train", arch=ENCDEC_ID, family=arch.family,
+         n_layers=[arch.cfg.n_enc_layers, arch.cfg.n_dec_layers],
+         n_frames=arch.cfg.n_frames, batch=B, seq=T,
+         factored_leaves_per_step=leaves, adalomo=rec,
+         params_finite_after_step1=bool(watch.finite),
+         rerun_step1={"losses": rerun["losses"], "bitwise": rerun_bitwise,
+                      "step_seconds": rerun["step_seconds"]},
+         table1={name: {k: r[k] for k in (
+             "engine", "n_params", "param_bytes", "state_bytes",
+             "grad_bytes", "init_allocated_bytes", "peak_memory_bytes",
+             "step_seconds", "losses", "launches")}
+             for name, r in arms.items()},
+         peak_ratio_adamw_over_adalomo=peak["adamw"] / peak["adalomo"],
+         peak_ratio_lomo_over_adalomo=peak["lomo"] / peak["adalomo"],
+         seconds=time.perf_counter() - t0)
+    if failed:
+        raise AssertionError(f"encdec train: {failed}")
+    return rec
+
+
+def encdec_serve() -> int:
+    """bf16 at full width and depth: prefill on 16 x 1500 frames, then 64
+    greedy decode steps from the start token, 12 K4 launches a step (6
+    self, 6 cross), one host sync a step, the same tokens on a re-run (whose
+    times are reported).  Against the plain attention (``use_kernel=False``):
+    teacher-forced on K4's tokens, every step's bf16 logits within
+    ``ENCDEC_BF16_LOGITS_TOL`` and every argmax flip at a near tie; in fp32
+    (the same weights, widened) the greedy tokens equal.  Returns the K4
+    launches of the first run."""
+    t0 = time.perf_counter()
+    base = held_bytes()
+    arch = get_arch(ENCDEC_ID)
+    B, n = ENCDEC_SERVE["batch"], ENCDEC_SERVE["new_tokens"]
+    per_step = 2 * arch.cfg.n_dec_layers
+    params = arch.init_params(0)
+    frames = encdec_frames(arch.cfg, B, 7)
+    progress(f"encdec: prefill on {B} x {arch.cfg.n_frames} frames, {n} "
+             "greedy steps through K4")
+    first = encdec_decode(arch, params, frames, n)
+    again = encdec_decode(arch, params, frames, n)
+    failed = []
+    if first["launches"] != per_step * n:
+        failed.append(f"{first['launches']} K4 launches in {n} decode "
+                      f"steps, expected {per_step} a step")
+    for r in (first, again):
+        if r["host_syncs"] != n:
+            failed.append(f"{r['host_syncs']} host syncs in {n} steps")
+    toks = first["tokens"]
+    if not bool(((toks >= 0) & (toks < arch.cfg.vocab)).all()):
+        failed.append("a token id outside the vocabulary")
+    if not torch.equal(again["tokens"], toks):
+        failed.append("a re-run gave other tokens")
+    progress("encdec: the plain attention, teacher-forced and greedy")
+    plain = encdec_decode(arch, params, frames, n, use_kernel=False)
+    forced = encdec_decode(arch, params, frames, n, use_kernel=False,
+                           follow=toks.to(DEV))
+    flips = flips_at_near_ties(first["logits"], forced["logits"])
+    if not flips["max_abs_err"] <= ENCDEC_BF16_LOGITS_TOL:
+        failed.append(f"bf16 logits through K4 differ from the plain "
+                      f"attention's by {flips['max_abs_err']}")
+    if flips["flips_not_near_tie"]:
+        failed.append(f"argmax flips away from a near tie: {flips}")
+    if plain["launches"] or forced["launches"]:
+        failed.append("the plain attention launched K4")
+    for r in (first, again, plain, forced):
+        del r["logits"]
+    arch32 = dataclasses.replace(arch, cfg=dataclasses.replace(
+        arch.cfg, dtype=torch.float32))
+    params32 = tree_map(lambda t: t.to(torch.float32), params)
+    del params
+    progress("encdec: fp32 tokens, K4 and plain")
+    fp32 = {u: encdec_decode(arch32, params32, frames, n, use_kernel=u)
+            for u in (None, False)}
+    err32 = max_err(fp32[None]["logits"], fp32[False]["logits"])
+    tokens32_equal = torch.equal(fp32[None]["tokens"], fp32[False]["tokens"])
+    if not tokens32_equal:
+        failed.append("fp32 greedy tokens differ between K4 and the plain "
+                      "attention")
+    del params32, fp32, frames
+    torch.cuda.empty_cache()
+    agree = (plain["tokens"] == toks).sum(dim=1).tolist()
+    emit("encdec_serve", arch=ENCDEC_ID, dtype="bfloat16", batch=B,
+         n_frames=arch.cfg.n_frames, ring_slots=ENCDEC_SERVE[
+             "max_decode_len"], new_tokens=n, start_token=ENCDEC_SOT,
+         k4_launches=first["launches"], k4_per_decode_step=per_step,
+         host_syncs=again["host_syncs"],
+         prefill_seconds=again["prefill_seconds"],
+         ms_per_decode_step=again["ms_per_decode_step"],
+         decode_tokens_per_s=again["decode_tokens_per_s"],
+         first_run={k: first[k] for k in ("prefill_seconds",
+                                          "ms_per_decode_step")},
+         rerun_tokens_equal=torch.equal(again["tokens"], toks),
+         tokens_row0=toks[0, :8].tolist(),
+         plain={"tokens_equal": torch.equal(plain["tokens"], toks),
+                "tokens_agreeing_per_row": agree,
+                "ms_per_decode_step": plain["ms_per_decode_step"]},
+         teacher_forced_bf16=dict(flips, tolerance=ENCDEC_BF16_LOGITS_TOL),
+         fp32={"logits_k4_vs_plain_max_abs_err": err32,
+               "tokens_equal": tokens32_equal},
+         held_after_bytes=held_bytes(), held_before_bytes=base,
+         seconds=time.perf_counter() - t0)
+    if failed:
+        raise AssertionError(f"encdec serve: {failed}")
+    return first["launches"]
+
+
+def encdec_parity() -> dict:
+    """fp32 at the published widths and 2 + 2 layers: the decode steps'
+    logits (through K4) at each position against the teacher-forced
+    decoder forward's (``encdec.decoder_logits``, what ``loss_fn`` scores)
+    over the prefill's own encoder output, within ``ENCDEC_PARITY_TOL``."""
+    from repro_torch.models.encdec import decoder_logits
+    L_, B, n = (ENCDEC_PARITY[k] for k in ("layers", "batch", "new_tokens"))
+    arch = get_arch(ENCDEC_ID)
+    arch = dataclasses.replace(arch, cfg=dataclasses.replace(
+        arch.cfg, n_enc_layers=L_, n_dec_layers=L_, dtype=torch.float32))
+    params = arch.init_params(0)
+    frames = encdec_frames(arch.cfg, B, 8)
+    enc_out, cache = arch.make_prefill_step(max_decode_len=n)(
+        params, {"frames": frames})
+    decode = arch.make_decode_step()
+    tok = torch.full((B, 1), ENCDEC_SOT, dtype=torch.int32, device=DEV)
+    seq, logits = [tok], []
+    KD.decode_attention.launches = 0
+    for _ in range(n):
+        out, cache = decode(params, cache, {"tokens": tok})
+        logits.append(out)
+        tok = torch.argmax(out, dim=-1).to(torch.int32)[:, None]
+        seq.append(tok)
+    launches = KD.decode_attention.launches
+    with torch.no_grad():
+        want = decoder_logits(arch.cfg, params, enc_out,
+                              torch.cat(seq[:-1], dim=1))
+    err = max_err(torch.stack(logits, dim=1), want)
+    del params, cache, enc_out
+    torch.cuda.empty_cache()
+    out = {"n_layers": [L_, L_], "dtype": "float32", "batch": B,
+           "decode_steps": n, "k4_launches": launches,
+           "decode_vs_teacher_forced_max_abs_err": err,
+           "tolerance": ENCDEC_PARITY_TOL}
+    if not err <= ENCDEC_PARITY_TOL or launches != 2 * L_ * n:
+        raise AssertionError(f"encdec parity: {out}")
+    return out
+
+
+def phase_encdec() -> dict:
+    """whisper-base at its published widths and depth (bf16, random weights
+    and frames from a seed): fused AdaLomo and Table 1's arms at 16 x 448
+    over 1500 frames, then decoding through K4 from the prefill's caches,
+    then fp32 parity of decode against the teacher-forced forward."""
+    launches = dict.fromkeys(("adalomo_stats", "adalomo_update",
+                              "decode_attention"), 0)
+    rec = encdec_train()
+    for k in ("adalomo_stats", "adalomo_update"):
+        launches[k] = rec["launches"][k]
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["decode_attention"] = encdec_serve()
+    t0 = time.perf_counter()
+    progress("encdec: fp32 parity at 2 + 2 layers")
+    emit("encdec_parity", **encdec_parity(), seconds=time.perf_counter() - t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+# --------------------------------------------------------------------------
 # sweep: the sweep driver's subprocess members on the card
 # --------------------------------------------------------------------------
 
@@ -4222,7 +4593,7 @@ def phase_sweep() -> dict:
 
 PHASES = ("kernels", "train", "parity", "resume", "sentinel", "baselines",
           "packed", "serve", "serve_parity", "legacy_serve", "legacy_parity",
-          "moe", "configs", "mla", "prefix", "ssm", "sweep")
+          "moe", "configs", "mla", "prefix", "ssm", "encdec", "sweep")
 EXTRA_PHASES = ("timing", "configs_lomo")
 
 
@@ -4249,7 +4620,9 @@ def main() -> None:
                          "masks, paligemma-3b or K4 at dh 256, "
                          "kernels,ssm,sweep after touching mamba2, the "
                          "hybrid family, zamba2's shared attention or the "
-                         "sweep driver; "
+                         "sweep driver, kernels,encdec after touching the "
+                         "encoder-decoder family (whisper-base), the fused "
+                         "engine's ctx gradient or K4's rings; "
                          "configs_lomo (not in the "
                          "default) qwen3-32b's fused LOMO step; timing "
                          "(not in the default) times the kernels without "
@@ -4325,6 +4698,9 @@ def main() -> None:
     ssm = phase_ssm() if "ssm" in phases else None
     gc.collect()
     torch.cuda.empty_cache()
+    encdec = phase_encdec() if "encdec" in phases else None
+    gc.collect()
+    torch.cuda.empty_cache()
     if "sweep" in phases:
         phase_sweep()
     if "configs_lomo" in phases:
@@ -4369,14 +4745,16 @@ def main() -> None:
                 "configs": configs["launches"][name],
                 "mla": mla["launches"].get(name, 0),
                 "prefix": prefix["launches"].get(name, 0),
-                "ssm": ssm["launches"].get(name, 0)}})
+                "ssm": ssm["launches"].get(name, 0),
+                "encdec": encdec["launches"].get(name, 0)}})
         if name == "paged_decode_attention":
             kernels[-1]["library_note"] = PAGED_LIBRARY_NOTE
         if name.endswith("decode_attention"):
-            # per launch at dh 256 (paligemma-3b's 8 query heads over 1)
-            # and at zamba2-1.2b's 32/32 heads, dh 64
+            # per launch at dh 256 (paligemma-3b's 8 query heads over 1),
+            # at zamba2-1.2b's 32/32 heads and at whisper-base's 8/8, dh 64
             for key, heads in (("dh256_per_launch", None),
-                               ("zamba2_dh64_per_launch", [32, 32, 64])):
+                               ("zamba2_dh64_per_launch", [32, 32, 64]),
+                               ("whisper_dh64_per_launch", [8, 8, 64])):
                 kernels[-1][key] = {
                     shape: {k: row[k] for k in ("ms", "plain_ms", "bound_ms",
                                                 "library_ms")}

@@ -2,11 +2,12 @@
 """Where the time of one train step goes on the GPU.
 
     python3 scripts/torch_profile_step.py [--arch h2o-danube-1.8b]
-        [--layers 24] [--batch 4] [--seq 1024] [--optimizer adalomo]
+        [--layers N] [--batch 4] [--seq 1024] [--optimizer adalomo]
         [--packing]
 
 Builds the step program of ``repro_torch`` for ``--arch`` (published width;
-depth by ``--layers``) with the optimizer's default engine (fused
+published depth, or ``--layers`` layers: an encoder-decoder model's encoder
+and decoder get ``--layers`` each) with the optimizer's default engine (fused
 AdaLomo/LOMO, unfused baselines) and, with ``--packing``, the data
 pipeline's segment-packed batches (documents of 64 tokens up to the row),
 takes two warm-up steps, times ``--steps``
@@ -61,7 +62,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="h2o-danube-1.8b",
                     help="a config of repro_torch.models.registry")
-    ap.add_argument("--layers", type=int, default=24)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth (default: the published one)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=2)
@@ -83,8 +85,11 @@ def main() -> None:
                    opt=OptSpec(name=args.optimizer),
                    steps=StepSpec(total=2 + 2 * args.steps), log_every=0)
     arch = get_arch(args.arch)
-    arch = dataclasses.replace(
-        arch, cfg=dataclasses.replace(arch.cfg, n_layers=args.layers))
+    if args.layers is not None:
+        depth = (dict(n_enc_layers=args.layers, n_dec_layers=args.layers)
+                 if arch.family == "encdec" else dict(n_layers=args.layers))
+        arch = dataclasses.replace(
+            arch, cfg=dataclasses.replace(arch.cfg, **depth))
     program = build_step_program(spec, arch)
     params, state = program.init(0)
     batches = make_batch_iter(spec, arch)
@@ -128,7 +133,9 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     out = {
-        "card": smi, "torch": torch.__version__, "layers": args.layers,
+        "card": smi, "torch": torch.__version__,
+        "layers": getattr(arch.cfg, "n_layers", None) or [
+            arch.cfg.n_enc_layers, arch.cfg.n_dec_layers],
         "batch": args.batch, "seq": args.seq, "optimizer": args.optimizer,
         "fused": program.fused, "packing": args.packing,
         "traced_steps": args.steps,

@@ -134,42 +134,55 @@ def stack_forward(body: Callable, stacked_params, ctx, x) -> StackResiduals:
     return StackResiduals(saved_x=saved, x_out=x)
 
 
-def _layer_vjp(body, layer_p, ctx, x_in, dx, aux):
-    """Re-run one layer with autograd on; returns (g_layer, g_shared,
-    dx_in)."""
+def _layer_vjp(body, layer_p, ctx, x_in, dx, aux, act_grad: bool = False):
+    """Re-run one layer with autograd on; returns (g_layer, g_shared, dx_in,
+    g_act): ``g_act`` is the gradient of the ctx activation tree where
+    ``act_grad`` asks for it, else None."""
     shared, ctx_act = ctx
     p_req = _grad_leaves(layer_p)
     sh_req = _grad_leaves(shared)
+    act = _grad_leaves(ctx_act) if act_grad else ctx_act
     x_req = _carry_tree(x_in, requires_grad=True)
     with torch.enable_grad():
-        y = body(p_req, (sh_req, ctx_act), _carry_tuple(x_req), aux)
-    g_layer, g_shared, dx_in = _vjp(list(y), list(dx), p_req, sh_req, x_req)
-    return g_layer, g_shared, _carry_tuple(dx_in)
+        y = body(p_req, (sh_req, act), _carry_tuple(x_req), aux)
+    wrt = (p_req, sh_req, x_req) + ((act,) if act_grad else ())
+    g_layer, g_shared, dx_in, *g_act = _vjp(list(y), list(dx), *wrt)
+    return (g_layer, g_shared, _carry_tuple(dx_in),
+            g_act[0] if act_grad else None)
 
 
 def stack_backward_update(body: Callable, rule: UpdateRule, stacked_params,
                           stacked_states, ctx, residuals: StackResiduals,
-                          dx_out, *, labels, hp, step):
+                          dx_out, *, labels, hp, step,
+                          act_grad: bool = False):
     """Reverse loop: per-layer VJP + immediate in-place optimizer update.
 
-    Returns ``(dx_in, d_shared, stacked_params, stacked_states)``;
-    ``d_shared`` is the gradient of the shared parameters summed over the
-    layers.  The stacked trees are the ones passed in, updated.
+    Returns ``(dx_in, d_ctx, stacked_params, stacked_states)``: ``d_ctx`` is
+    ``d_shared``, the gradient of the shared parameters summed over the
+    layers; with ``act_grad`` it is ``(d_shared, d_act)``, ``d_act`` the
+    gradient of the ctx activation tree (an encoder's output that every
+    layer cross-attends to), summed over the layers in reverse layer order
+    from zeros in the activation's own dtype, as the reference's scan carry
+    sums it.  The stacked trees are the ones passed in, updated.
     """
-    shared, _ = ctx
+    shared, ctx_act = ctx
     d_shared = _tree_zeros_like(shared)
+    d_act = _tree_zeros_like(ctx_act) if act_grad else None
     dx = dx_out
     for i in reversed(range(_n_layers(stacked_params))):
         layer_p = tree_map(lambda t: t[i], stacked_params)
         layer_s = tree_map(lambda _, s: _slice_state(s, i), stacked_params,
                            stacked_states)
-        g_layer, g_sh, dx = _layer_vjp(body, layer_p, ctx,
-                                       residuals.saved_x[i], dx, i)
+        g_layer, g_sh, dx, g_act = _layer_vjp(
+            body, layer_p, ctx, residuals.saved_x[i], dx, i, act_grad)
         # >>> the LOMO moment: this layer's grads are consumed *here* <<<
         apply_rule_tree(rule, layer_p, g_layer, layer_s, labels, hp, step)
         del g_layer
         d_shared = _tree_add(d_shared, g_sh)
-    return dx, d_shared, stacked_params, stacked_states
+        if act_grad:
+            d_act = _tree_add(d_act, g_act)
+    d_ctx = (d_shared, d_act) if act_grad else d_shared
+    return dx, d_ctx, stacked_params, stacked_states
 
 
 def stack_grads(body: Callable, stacked_params, ctx,
@@ -183,8 +196,8 @@ def stack_grads(body: Callable, stacked_params, ctx,
     per_layer = []
     for i in reversed(range(_n_layers(stacked_params))):
         layer_p = tree_map(lambda t: t[i], stacked_params)
-        g_layer, g_sh, dx = _layer_vjp(body, layer_p, ctx,
-                                       residuals.saved_x[i], dx, i)
+        g_layer, g_sh, dx, _ = _layer_vjp(body, layer_p, ctx,
+                                          residuals.saved_x[i], dx, i)
         per_layer.append(g_layer)
         d_shared = _tree_add(d_shared, g_sh)
     per_layer.reverse()

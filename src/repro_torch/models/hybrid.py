@@ -96,12 +96,7 @@ def _block_init(gen, cfg: HybridConfig, device, out: Optional[dict] = None
                              out=o.get(key))
 
     def zeros(key, shape):
-        t = o.get(key)
-        if t is None:
-            t = torch.empty(shape, dtype=dt, device=device)
-        if torch.device(device).type != "meta":
-            t.zero_()
-        return t
+        return L.zeros_init(shape, dtype=dt, device=device, out=o.get(key))
 
     return {
         "mamba": M2._block_init(gen, cfg.mamba_cfg(), device,

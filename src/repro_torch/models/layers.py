@@ -567,6 +567,12 @@ def glu_mlp(params: dict, x: Tensor, act: str = "silu") -> Tensor:
     return dense(ACTS[act](g) * u, params["w_down"])
 
 
+def mlp(params: dict, x: Tensor, act: str = "gelu") -> Tensor:
+    """Plain 2-layer MLP with biases (whisper): down( act(up(x)) )."""
+    h = ACTS[act](dense(x, params["w_up"], params.get("b_up")))
+    return dense(h, params["w_down"], params.get("b_down"))
+
+
 # --------------------------------------------------------------------------
 # Initializers
 # --------------------------------------------------------------------------
@@ -601,6 +607,35 @@ def linear_init(gen, d_in: int, d_out: int, *, scale: float = 1.0,
                 ) -> Tensor:
     return normal_init(gen, (d_in, d_out), scale * (d_in ** -0.5),
                        dtype=dtype, device=device, out=out)
+
+
+def zeros_init(shape: tuple, *, dtype, device, out: Optional[Tensor] = None
+               ) -> Tensor:
+    """Zeros of ``shape`` in ``dtype``, written into ``out`` where one is
+    given (on the meta device nothing is written)."""
+    if out is None:
+        out = torch.empty(shape, dtype=dtype, device=device)
+    if out.device.type != "meta":
+        out.zero_()
+    return out
+
+
+def mlp_init(gen, d: int, d_ff: int, *, dtype, device,
+             out: Optional[dict] = None) -> dict:
+    """The plain MLP's leaves (``mlp``): ``w_up`` then ``w_down`` drawn
+    from ``gen`` at unit scale, zero biases; written into ``out`` where it
+    is given."""
+    o = out or {}
+    return {
+        "w_up": linear_init(gen, d, d_ff, dtype=dtype, device=device,
+                            out=o.get("w_up")),
+        "b_up": zeros_init((d_ff,), dtype=dtype, device=device,
+                           out=o.get("b_up")),
+        "w_down": linear_init(gen, d_ff, d, dtype=dtype, device=device,
+                              out=o.get("w_down")),
+        "b_down": zeros_init((d,), dtype=dtype, device=device,
+                             out=o.get("b_down")),
+    }
 
 
 def embed_init(gen, vocab: int, d: int, *, dtype=torch.float32, device

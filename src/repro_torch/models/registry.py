@@ -4,10 +4,10 @@ Counterpart of ``repro.models.registry``, holding the architectures ported so
 far: the transformer family's dense GQA configs, its mixture-of-experts
 config, deepseek-v3-671b (MLA, MoE with a sigmoid router, MTP),
 paligemma-3b (prefix-LM over a stubbed modality prefix), the ``mamba2``
-family (mamba2-1.3b, served from a state cache) and the ``hybrid`` family
-(zamba2-1.2b: a mamba2 backbone and a shared attention block).  The
-``encdec`` family is not ported; ``get_arch`` raises ``KeyError`` for its
-config (whisper-base).
+family (mamba2-1.3b, served from a state cache), the ``hybrid`` family
+(zamba2-1.2b: a mamba2 backbone and a shared attention block) and the
+``encdec`` family (whisper-base: an audio encoder over stubbed frame
+embeddings and a text decoder that cross-attends to it).
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ _CONFIG_MODULES = {
     "paligemma-3b": "repro_torch.configs.paligemma_3b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
     "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
+    "whisper-base": "repro_torch.configs.whisper_base",
 }
 
 ARCH_IDS = tuple(_CONFIG_MODULES)
@@ -42,14 +43,9 @@ class Arch:
     cfg: Any
 
     def _family_mod(self):
-        from repro_torch.models import hybrid, mamba2, transformer
-        mods = {"transformer": transformer, "mamba2": mamba2,
-                "hybrid": hybrid}
-        if self.family not in mods:
-            raise NotImplementedError(
-                f"model family {self.family!r} is not ported yet (have "
-                f"{sorted(mods)})")
-        return mods[self.family]
+        from repro_torch.models import encdec, hybrid, mamba2, transformer
+        return {"transformer": transformer, "mamba2": mamba2,
+                "hybrid": hybrid, "encdec": encdec}[self.family]
 
     # ---- construction -----------------------------------------------------
     def init_params(self, seed: int = 0, *, device="cuda"):
@@ -61,8 +57,17 @@ class Arch:
     def make_fused_train_step(self, opt, *, global_grad_norm=None):
         """``opt`` is a ``repro_torch.core.api.Opt``; the returned step is
         ``step(params, opt_state, batch, *, hparams)`` and updates ``params``
-        and ``opt_state`` in place."""
+        and ``opt_state`` in place.  The ``encdec`` family wires its two
+        stacks itself and refuses ``global_grad_norm`` with ``ValueError``
+        (the reference's drops it unread)."""
         from repro_torch.core.fused import fused_train_step
+        if self.family == "encdec":
+            if global_grad_norm is not None:
+                raise ValueError(
+                    f"{self.arch_id}: global_grad_norm (LOMO's two-pass "
+                    "clip) is not supported by the encoder-decoder fused "
+                    "step")
+            return self._family_mod().make_fused_train_step(self.cfg, opt)
         spec = self._family_mod().make_fused_spec(self.cfg)
 
         def train_step(params, opt_state, batch, *, hparams=None):
@@ -75,6 +80,8 @@ class Arch:
     def make_loss_fn(self):
         """(params, batch) -> (loss, metrics), differentiable."""
         from repro_torch.core.fused import unfused_loss_fn
+        if self.family == "encdec":
+            return partial(self._family_mod().loss_fn, self.cfg)
         spec = self._family_mod().make_fused_spec(self.cfg)
         return partial(unfused_loss_fn, spec)
 
@@ -100,7 +107,8 @@ class Arch:
         leaves: ``segment_ids``, ``positions`` and ``loss_mask``; a
         prefix-LM model's batch adds ``prefix_embed [B, n_prefix_tokens,
         d_model]`` (float32) and ``prefix_len [B]`` (int32); an MTP
-        model's labelled batch adds ``labels_mtp``."""
+        model's labelled batch adds ``labels_mtp``; an encoder-decoder
+        model's adds ``frames [B, n_frames, d_model]`` (float32)."""
         B, S = batch, seq_len
         if packed and not self.supports_packing():
             raise ValueError(
@@ -116,6 +124,9 @@ class Arch:
             out["positions"] = ((B, S), torch.int32)
             out["loss_mask"] = ((B, S), torch.bool)
             return out
+        if self.family == "encdec":
+            out["frames"] = ((B, self.cfg.n_frames, self.cfg.d_model),
+                             torch.float32)
         if getattr(self.cfg, "prefix_lm", False):
             out["prefix_embed"] = ((B, self.cfg.n_prefix_tokens,
                                     self.cfg.d_model), torch.float32)
@@ -126,6 +137,8 @@ class Arch:
 
     # ---- legacy serve (ring-buffer cache) -----------------------------------
     def make_prefill_step(self, **kw):
+        """The family's prefill (``encdec``: ``max_decode_len=``, returning
+        the encoder's output and the cache)."""
         return self._family_mod().make_prefill_step(self.cfg, **kw)
 
     def make_decode_step(self, *, use_kernel=None):
@@ -155,6 +168,12 @@ class Arch:
         reference's ``supports_paged_serving``), and the transformer configs
         ``transformer.check_paged`` refuses."""
         mod = self._family_mod()
+        if self.family == "encdec":
+            raise ValueError(
+                f"{self.arch_id}: paged serving supports the transformer "
+                "family only (family 'encdec' decodes over cross K/V of its "
+                "encoder; serve it with make_prefill_step and "
+                "make_decode_step)")
         if self.family != "transformer":
             raise ValueError(
                 f"{self.arch_id}: paged serving supports the transformer "
@@ -180,7 +199,7 @@ class Arch:
 
 def get_arch(arch_id: str, *, smoke: bool = False) -> Arch:
     if arch_id not in _CONFIG_MODULES:
-        raise KeyError(f"architecture {arch_id!r} is not ported yet; have "
+        raise KeyError(f"unknown architecture {arch_id!r}; have "
                        f"{sorted(_CONFIG_MODULES)}")
     mod = importlib.import_module(_CONFIG_MODULES[arch_id])
     cfg = mod.smoke_config() if smoke else mod.config()

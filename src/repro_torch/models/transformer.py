@@ -22,7 +22,8 @@ never crosses one.  Prefix-LM configs (paligemma-3b) prepend the batch's
 ``prefix_embed`` (a stubbed modality frontend's patch embeddings) to the
 token embeddings and open the first ``prefix_len`` positions to every
 query; the legacy ring serves them, the paged halves refuse them, as the
-reference's do.  ``glu=False`` configs raise ``NotImplementedError``.
+reference's do.  ``glu=False`` configs take the plain two-layer MLP with
+biases (``layers.mlp``) in place of the GLU.
 """
 from __future__ import annotations
 
@@ -99,13 +100,6 @@ class LMConfig:
         return total - routed + active_routed
 
 
-def check_supported(cfg: LMConfig) -> None:
-    """Raise for configurations whose code path is not ported yet."""
-    if not cfg.glu:
-        raise NotImplementedError("LMConfig.glu=False: the plain 2-layer MLP "
-                                  "is not ported yet")
-
-
 # --------------------------------------------------------------------------
 # Init
 # --------------------------------------------------------------------------
@@ -164,7 +158,7 @@ def _block_init(gen, cfg: LMConfig, device, out: Optional[dict] = None
     if cfg.moe is not None:
         p["moe"] = moe_init(gen, d, cfg.moe, dtype=dt, device=device,
                             out=o.get("moe"))
-    else:
+    elif cfg.glu:
         mlp = o.get("mlp", {})
         p["mlp"] = {
             "w_gate": L.linear_init(gen, d, f, dtype=dt, device=device,
@@ -176,6 +170,9 @@ def _block_init(gen, cfg: LMConfig, device, out: Optional[dict] = None
                                     dtype=dt, device=device,
                                     out=mlp.get("w_down")),
         }
+    else:
+        p["mlp"] = L.mlp_init(gen, d, f, dtype=dt, device=device,
+                              out=o.get("mlp"))
     return p
 
 
@@ -189,7 +186,6 @@ def init_params(seed: int, cfg: LMConfig, *, device="cuda") -> dict:
     from a ``torch.Generator`` seeded with ``seed`` on ``device``.  The
     layer stack is allocated once and each layer drawn straight into it, so
     no copy of a layer is ever made."""
-    check_supported(cfg)
     dev, gen = L.init_generator(seed, device)
     outer = {
         "tok_embed": L.embed_init(gen, cfg.vocab, cfg.d_model,
@@ -322,7 +318,8 @@ def _attn_kv(p: dict, cfg: LMConfig, h: Tensor, pos: Tensor,
 
 def _ffn_residual(p: dict, cfg: LMConfig, x: Tensor) -> tuple:
     """``x`` plus the block's FFN of ``ln2(x)``, and the FFN's auxiliary
-    loss: the MoE load-balance loss, None for the dense GLU MLP.  With MoE
+    loss: the MoE load-balance loss, None for a dense MLP (GLU, or the plain
+    two-layer MLP with biases where ``glu=False``).  With MoE
     each row of ``x`` is a routing group, its capacity from ``x``'s length
     (a serving prefill's right-padded bucket included: pad tokens come
     after the real ones in slot order and never displace them)."""
@@ -330,7 +327,9 @@ def _ffn_residual(p: dict, cfg: LMConfig, x: Tensor) -> tuple:
     if cfg.moe is not None:
         y, aux = moe_ffn(p["moe"], h, cfg.moe)
         return x + y, aux
-    return x + L.glu_mlp(p["mlp"], h, cfg.act), None
+    if cfg.glu:
+        return x + L.glu_mlp(p["mlp"], h, cfg.act), None
+    return x + L.mlp(p["mlp"], h, cfg.act), None
 
 
 # --------------------------------------------------------------------------
@@ -490,7 +489,6 @@ def _mtp_loss(outer: dict, cfg: LMConfig, h: Tensor, batch: dict) -> tuple:
 
 def make_fused_spec(cfg: LMConfig):
     from repro_torch.core.fused import FusedSpec
-    check_supported(cfg)
     return FusedSpec(
         prologue=make_prologue(cfg),
         bodies={"blocks": make_block_body(cfg)},
@@ -513,7 +511,6 @@ def check_paged(cfg: LMConfig) -> None:
     """The paged halves take GQA caches without a prefix only, as the
     reference's do: an MLA model keeps a latent cache and a prefix-LM model
     a prefix, both of which the legacy ``Engine`` serves."""
-    check_supported(cfg)
     if cfg.prefix_lm:
         raise ValueError(f"{cfg.name}: paged serving: prefix-LM not plumbed "
                          "yet (serve it with the legacy Engine)")
@@ -650,7 +647,6 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, *, device="cuda"
     """Empty ring cache: the per-layer tensors of ``_cache_shapes`` as
     zeros, pos ``[W]`` int32 -1 (empty slot), cur a 0-d int32 (position of
     the next token)."""
-    check_supported(cfg)
     W = cache_window(cfg, max_len)
     dev = resolve_device(device)
     cache = {k: torch.zeros(shape, dtype=cfg.dtype, device=dev)
@@ -718,7 +714,6 @@ def make_decode_step(cfg: LMConfig, *, use_kernel=None):
     ``use_kernel`` as in ``kernels.decode_attention.ops``: None = the CUDA
     kernel (K4) for CUDA tensors, the plain version for CPU tensors.  MLA
     decodes in plain PyTorch (``_decode_mla``) and never reaches K4."""
-    check_supported(cfg)
 
     @torch.no_grad()
     def decode_step(params, cache, batch):
@@ -760,7 +755,6 @@ def make_prefill_step(cfg: LMConfig):
     position S - 1.  A modality-prefix config takes ``prefix_embed`` (and,
     prefix-LM, ``prefix_len``) in the batch: S counts the prefix, whose K/V
     the ring then holds."""
-    check_supported(cfg)
 
     @torch.no_grad()
     def prefill_step(params, batch):

@@ -2,12 +2,13 @@
 
 Counterpart of ``repro.run.data``.  The token pipeline
 (``repro_torch.data.pipeline``) is family-agnostic and yields numpy batches;
-of the reference's per-batch extras the port's architectures need two kinds:
-a prefix-LM model's ``prefix_embed`` (the stubbed modality frontend's patch
-embeddings, a seeded normal draw keyed by the data seed and the step) and
-``prefix_len``, and the MTP head's ``labels_mtp`` (the labels shifted once
-more, padded with -1).  Both are keyed per step, as the reference's are, so a
-resumed run and the eval stream reproduce them bitwise.
+the reference's per-batch extras are an encoder-decoder model's ``frames``
+(the stubbed audio frontend's frame embeddings), a prefix-LM model's
+``prefix_embed`` (the stubbed modality frontend's patch embeddings) and
+``prefix_len`` — the embeddings seeded normal draws keyed by the data seed
+and the step — and the MTP head's ``labels_mtp`` (the labels shifted once
+more, padded with -1).  All are keyed per step, as the reference's are, so
+a resumed run and the eval stream reproduce them bitwise.
 """
 from __future__ import annotations
 
@@ -31,19 +32,24 @@ def resolved_data(spec: RunSpec, arch) -> DataConfig:
 
 def _with_extras(b: dict, arch, cfg: DataConfig, step: int) -> dict:
     """``b`` with the leaves ``arch.train_batch_specs`` adds to the
-    pipeline's: ``prefix_embed`` and ``prefix_len`` for a prefix-LM model
-    (drawn as the reference draws them, from ``(seed, 0x5eed, step)``) and
+    pipeline's: ``frames`` for an encoder-decoder model, ``prefix_embed``
+    and ``prefix_len`` for a prefix-LM model (drawn as the reference draws
+    them, frames first, from one ``(seed, 0x5eed, step)`` generator) and
     ``labels_mtp`` for an MTP model (token t + 2's label at t)."""
+    frames = arch.family == "encdec"
     prefix = getattr(arch.cfg, "prefix_lm", False)
     mtp = getattr(arch.cfg, "mtp", False)
-    if not (prefix or mtp):
+    if not (frames or prefix or mtp):
         return b
     b = dict(b)
+    B, d = cfg.local_batch, arch.cfg.d_model
+    rng = np.random.default_rng((cfg.seed, 0x5eed, step))
+    if frames:
+        b["frames"] = rng.standard_normal((B, arch.cfg.n_frames, d),
+                                          dtype=np.float32)
     if prefix:
-        B, n = cfg.local_batch, arch.cfg.n_prefix_tokens
-        rng = np.random.default_rng((cfg.seed, 0x5eed, step))
-        b["prefix_embed"] = rng.standard_normal((B, n, arch.cfg.d_model),
-                                                dtype=np.float32)
+        n = arch.cfg.n_prefix_tokens
+        b["prefix_embed"] = rng.standard_normal((B, n, d), dtype=np.float32)
         b["prefix_len"] = np.full((B,), n, np.int32)
     if mtp:
         lab = b["labels"]

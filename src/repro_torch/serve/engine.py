@@ -7,6 +7,9 @@ then one decode step per token through the ring-cache kernel of
 ``kernels/decode_attention`` (K4) on a CUDA device, or its plain version on
 the CPU or when ``use_kernel=False``; finished rows are frozen on the device
 and the host syncs once per step (one bundled copy of tokens and done mask).
+It refuses an encoder-decoder model, whose prefill returns the encoder's
+output (the reference's fails on it); that family is served by its step
+functions.
 
 ``PagedEngine`` is the production-shaped path:
 
@@ -108,6 +111,14 @@ class Engine:
     """Legacy static-batch engine: prefill once, decode one token a step."""
 
     def __init__(self, arch, params, scfg: ServeConfig, *, device="cuda"):
+        if arch.family == "encdec":
+            # the reference's Engine samples from the encoder prefill's
+            # output and fails on a broadcast; refuse instead
+            raise ValueError(
+                f"{arch.arch_id}: the legacy Engine serves decoder-only "
+                "models; an encoder-decoder model is served by its step "
+                "functions: arch.make_prefill_step(max_decode_len=...) on "
+                "the frames, then arch.make_decode_step() a token a step")
         self.device = _engine_device(params, device)
         self.arch = arch
         self.params = params

@@ -2,7 +2,8 @@
 (``configs/*.py``, ``models/registry.py``) — fields, shapes, parameter counts
 and cells equal to the reference's (deepseek-v3-671b's MLA and MTP fields
 too; paligemma-3b's prefix fields; the state-space configs mamba2-1.3b and
-zamba2-1.2b), the unported architecture refused — one
+zamba2-1.2b; the encoder-decoder whisper-base), an unknown architecture
+refused — one
 fused AdaLomo step of each dense smoke config against the reference's,
 paged serving of the new dense smoke configs against the JAX engine,
 ``layers.layernorm`` with the reference's eps trap, and the plain versions
@@ -44,7 +45,8 @@ NEW = ("deepseek-moe-16b", "qwen3-32b", "stablelm-12b", "h2o-danube-3-4b",
        "deepseek-v3-671b", "paligemma-3b")
 DENSE_NEW = NEW[1:4]
 SSM = ("mamba2-1.3b", "zamba2-1.2b")
-UNPORTED = ("whisper-base",)
+ENCDEC = ("whisper-base",)
+UNKNOWN = ("no-such-arch",)
 TORCH_DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 # |Δloss| and parameters: the reference's own fused drop-in bounds
 LOSS_TOL = 1e-4
@@ -60,7 +62,7 @@ def _fields(cfg) -> dict:
 
 
 @pytest.mark.parametrize("smoke", [False, True])
-@pytest.mark.parametrize("arch_id", NEW + SSM)
+@pytest.mark.parametrize("arch_id", NEW + SSM + ENCDEC)
 def test_config_fields_match_reference(arch_id, smoke):
     port, ref = get_arch(arch_id, smoke=smoke), ref_get_arch(arch_id,
                                                             smoke=smoke)
@@ -70,7 +72,7 @@ def test_config_fields_match_reference(arch_id, smoke):
     assert _fields(port.cfg) == want
 
 
-@pytest.mark.parametrize("arch_id", NEW + SSM)
+@pytest.mark.parametrize("arch_id", NEW + SSM + ENCDEC)
 def test_param_counts_and_cells_match_reference(arch_id):
     """Counted from shapes on the meta device (nothing allocated)."""
     port, ref = get_arch(arch_id), ref_get_arch(arch_id)
@@ -90,21 +92,24 @@ def test_param_counts_and_cells_match_reference(arch_id):
     if arch_id == "zamba2-1.2b":
         assert port.cfg.param_count() == 1_207_176_064
         assert port.cfg.n_attn_applications() == 7
+    if arch_id == "whisper-base":
+        assert port.cfg.param_count() == 70_686_208
 
 
 def test_registry_and_shapes():
-    assert sorted(ARCH_IDS) == sorted(("h2o-danube-1.8b",) + NEW + SSM)
-    for arch_id in UNPORTED:
-        with pytest.raises(KeyError, match="not ported"):
+    assert sorted(ARCH_IDS) == sorted(("h2o-danube-1.8b",) + NEW + SSM +
+                                      ENCDEC)
+    for arch_id in UNKNOWN:
+        with pytest.raises(KeyError, match="unknown architecture"):
             get_arch(arch_id)
     assert shapes.SHAPES == {k: shapes.ShapeSpec(**dataclasses.asdict(v))
                              for k, v in ref_shapes.SHAPES.items()}
     assert shapes.LONG_OK == ref_shapes.LONG_OK
-    for arch_id in NEW + SSM + UNPORTED:
+    for arch_id in NEW + SSM + ENCDEC + UNKNOWN:
         assert shapes.cells_for(arch_id) == ref_shapes.cells_for(arch_id)
 
 
-@pytest.mark.parametrize("arch_id", NEW + SSM)
+@pytest.mark.parametrize("arch_id", NEW + SSM + ENCDEC)
 def test_smoke_init_matches_reference_shapes(arch_id):
     ref, port = smoke_archs(arch_id)
     rp = ref.init_params(jax.random.PRNGKey(0))

@@ -10,13 +10,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import optimizers as ref_opt
 from repro.models import layers as ref_L
+from repro_torch.core import optimizers as opt_lib
 from repro_torch.core import tree as tree_lib
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.registry import get_arch, paper_llama_1b
-from repro_torch.models.transformer import LMConfig, make_fused_spec
+from repro_torch.models.transformer import LMConfig
 from torch_parity import (ARCH_ID, assert_trees_close, jax_batch, make_batch,
                           np_f32, ref_params_and_copy, smoke_archs,
                           torch_batch)
@@ -143,10 +145,28 @@ def test_logits_are_fp32_from_bf16_params():
 
 @pytest.mark.parametrize("field,value", [("glu", False)])
 def test_unported_model_features_raise(field, value):
-    cfg = dataclasses.replace(get_arch(ARCH_ID, smoke=True).cfg,
-                              **{field: value})
-    with pytest.raises(NotImplementedError, match=field):
-        make_fused_spec(cfg)
+    """Model features the port once refused as unported, each now run
+    against the reference: ``glu=False`` (the plain two-layer MLP with
+    biases, ``layers.mlp``) in one fused AdaLomo step of danube's smoke
+    config from the same weights and batch — loss within 1e-4, params at
+    rtol 1e-4 / atol 1e-5 (the fused drop-in bounds)."""
+    ref_arch, port_arch = smoke_archs(**{field: value})
+    ref_params, port_params = ref_params_and_copy(ref_arch, seed=5)
+    assert sorted(port_params["stacks"]["blocks"]["mlp"]) == [
+        "b_down", "b_up", "w_down", "w_up"]
+    batch = make_batch(ref_arch.cfg.vocab, 2, 16, seed=5)
+    ropt = ref_opt.get_opt("adalomo", backend="jnp")
+    popt = opt_lib.get_opt("adalomo", backend="torch")
+    rp, _, rloss, _ = jax.jit(
+        lambda p, s, b: ref_arch.make_fused_train_step(ropt)(
+            p, s, b, hparams=1e-3))(ref_params, ropt.init(ref_params),
+                                    jax_batch(batch))
+    _, _, ploss, _ = port_arch.make_fused_train_step(popt)(
+        port_params, popt.init(port_params), torch_batch(batch),
+        hparams=1e-3)
+    assert abs(float(ploss) - float(rloss)) < 1e-4
+    assert_trees_close(port_params, rp, what=f"{field}={value}", rtol=1e-4,
+                       atol=1e-5)
 
 
 def test_configs_and_init_match_reference_shapes():
@@ -174,8 +194,8 @@ def test_configs_and_init_match_reference_shapes():
     assert not torch.equal(a["outer"]["head"], c["outer"]["head"])
     assert port_arch.train_batch_specs(4, 16) == {
         "tokens": ((4, 16), torch.int32), "labels": ((4, 16), torch.int32)}
-    with pytest.raises(KeyError, match="not ported"):
-        get_arch("whisper-base")
+    with pytest.raises(KeyError, match="unknown architecture"):
+        get_arch("no-such-arch")
 
 
 @pytest.mark.parametrize("arch_id", ["h2o-danube-1.8b", "deepseek-moe-16b",
