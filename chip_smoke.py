@@ -23,7 +23,14 @@ printing one JSON line:
            on a re-run; the same at mamba2-1.3b's and zamba2-1.2b's leaf
            shapes (in_proj, out_proj, LoRA sides, the shared block's
            matrices, both tied heads), and at whisper-base's (the attention
-           and MLP matrices, the tied [51865, 512] head).
+           and MLP matrices, the tied [51865, 512] head).  K1/K2's sharded
+           entries (ZeRO-3 shards): danube's attn/wq and mlp/w_gate split by
+           rows, attn/wo and mlp/w_down by columns, 2 and 4 ways, alone and
+           as stacked [24, m, n] leaves, bf16 and fp32, the sums over the
+           ranks emulated by fixed-order sums — r and c (3e-5) and theta'
+           (K2's tolerance) against the whole-tensor kernels, a bitwise
+           re-run, and the shard's element count in place of the tensor's
+           made to disagree; timed per shard at a 2-way split.
            Paged decode attention K3:
            the CPU tests' cases, a danube-shaped ragged case with and without
            a window, danube serving shapes (8 sequences, 32/8 heads, dh 80,
@@ -71,6 +78,29 @@ printing one JSON line:
            go through each kernel.  One device-to-host transfer a step.
   parity   one fused step at full width and 2 layers, CUDA kernels against the
            plain PyTorch update, from the same weights and batch.
+  dist     the sharded run (ZeRO-3 over the data axis), one JSON line a
+           part.  A one-rank NCCL world: ``run(spec)`` with mesh (1,) on
+           h2o-danube-1.8b at full width and depth, 4 x 1024, 3 steps, twice
+           — loss (rtol 1e-5) and params (rtol 5e-4, atol 1e-5, plus one
+           bf16 ulp) against the train phase's unsharded run of the same
+           seed, bitwise on the re-run (on-card digest), 170 launches a step
+           of each of K1/K2's four sharded wrappers and none of the
+           whole-tensor ones, collective calls and bytes a step, one host
+           sync a step, step seconds and peak beside train's.  Two gloo
+           ranks sharing the card (spawned): danube at full width, 4 layers,
+           its own bf16 params, global batch 4 x 1024, 4 steps, checkpoints
+           every 2 — loss and params against the unsharded bf16 run at the
+           same depth, bounded by that run's own distance from an fp32 run
+           of the same seed (losses: rtol 1e-5 or that distance a step;
+           params: each leaf's RMS distance at most that run's from fp32),
+           then the same in fp32 against the fp32 run within the
+           reference's sharded tolerance (loss rtol 1e-5; params rtol 5e-4,
+           atol 1e-5), the replicated leaves bitwise equal on both ranks, each rank's peak
+           beside the reckoning (half the params, one whole layer, one
+           layer's fp32 gradient) and the collectives' host staging.  Elastic: the two-rank step-2
+           checkpoint restored onto the one-rank world and onto no mesh,
+           every leaf bitwise equal to the files, and each continued to step
+           4 with losses within 1e-5 of the two-rank run's.
   resume   ``run(spec)`` on h2o-danube-1.8b as in train, 4 steps, with
            checkpoints every 2 steps (3.67 GB each, written under the
            system temp or ``_chip_smoke_tmp/`` and removed), eval every 2
@@ -841,10 +871,13 @@ def phase_kernels() -> dict:
     new_dh = {k: v for k, v in by_entry.items() if "decode" in k
               and any(f"Li{d}E" in k for d in (16, 24, 256))}
     errs = {"adalomo_stats": 0.0, "adalomo_update": 0.0,
+            "adalomo_stats_sharded": 0.0, "adalomo_update_sharded": 0.0,
             "paged_decode_attention": 0.0, "decode_attention": 0.0}
     progress("kernels: K1/K2 cases")
     n_cases = check_kernels(errs)
     variants = check_op_variants()
+    progress("kernels: K1/K2 sharded entries at danube's shards")
+    sharded_checks = check_sharded_kernels(errs)
     progress("kernels: K1/K2 at the MoE shapes")
     moe_checks = check_moe_kernels(errs)
     progress("kernels: K1/K2 at paligemma-3b's shapes")
@@ -863,6 +896,9 @@ def phase_kernels() -> dict:
     k4_cases, k4_bitwise = check_k4(errs)
     progress("kernels: timing K1/K2")
     rows, totals, moe_rows = time_kernels()
+    progress("kernels: timing K1/K2's sharded entries")
+    shard_rows, shard_totals = time_sharded_kernels()
+    totals.update(shard_totals)
     progress("kernels: timing K3")
     k3_rows, totals["paged_decode_attention"] = time_k3()
     progress("kernels: timing K4")
@@ -878,6 +914,9 @@ def phase_kernels() -> dict:
          timing_dtype="bf16 param, bf16 grad", per_shape=rows,
          per_step_of_170_tensors={k: totals[k] for k in
                                   ("adalomo_stats", "adalomo_update")},
+         sharded_cases=sharded_checks,
+         sharded_per_shape_2way_bf16=shard_rows,
+         sharded_per_step_of_170_shards_2way=shard_totals,
          moe_cases=moe_checks, moe_per_call=moe_rows,
          pali_cases=pali_checks, ssm_cases=ssm_checks,
          whisper_cases=whisper_checks,
@@ -1461,7 +1500,10 @@ def phase_train(steps: int = 3) -> dict:
             f"train: {len(syncs)} synchronising host transfers in {steps} "
             "steps, expected one a step")
     return {"launches": launches, "step_seconds": timing.step_s,
-            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "losses": losses,
+            # the dist phase's one-rank world is held against these
+            "params_cpu": [t.to("cpu") for t in params]}
 
 
 # --------------------------------------------------------------------------
@@ -4495,6 +4537,691 @@ def phase_encdec() -> dict:
 
 
 # --------------------------------------------------------------------------
+# K1/K2 sharded entries: ZeRO-3 row and column shards of danube's leaves
+# --------------------------------------------------------------------------
+
+# danube's leaves as the rules split them over the data axis: rows for
+# attn/wq and mlp/w_gate, columns for attn/wo and mlp/w_down
+SHARD_CASES = {"attn/wq [2560,2560]": ((2560, 2560), -2),
+               "mlp/w_gate [2560,6912]": ((2560, 6912), -2),
+               "attn/wo [2560,2560]": ((2560, 2560), -1),
+               "mlp/w_down [6912,2560]": ((6912, 2560), -1)}
+# The 170 leaves of a step by shape and split (wq, wk, wv, w_gate, w_up and
+# the head by rows; wo, w_down and the embedding by columns)
+SHARDED_PER_STEP = {((2560, 2560), -2): 24, ((2560, 2560), -1): 24,
+                    ((2560, 640), -2): 48, ((2560, 6912), -2): 48,
+                    ((6912, 2560), -1): 24, ((32000, 2560), -1): 1,
+                    ((2560, 32000), -2): 1}
+# A clip above RMS(u), so that a wrong element count does not cancel
+# between RMS(u) and RMS(theta)
+SHARD_WRONG_CLIP = 100.0
+SHARDED_WRAPPERS = ("adalomo_stats_partial", "adalomo_stats_fold",
+                    "adalomo_update_partials", "adalomo_update_apply")
+
+
+def split_shards(p, g, r, c, w, axis):
+    """w shards of [.., m, n] along ``axis``, each a contiguous copy, and
+    each rank's state: its part of the split axis' vector, all of the
+    other.  The inputs are left as they are."""
+    def parts(t, dim):
+        return [x.clone(memory_format=torch.contiguous_format)
+                for x in t.chunk(w, dim=dim)]
+    if axis == -2:
+        return parts(p, -2), parts(g, -2), parts(r, -1), \
+            [c.clone() for _ in range(w)]
+    return parts(p, -1), parts(g, -1), [r.clone() for _ in range(w)], \
+        parts(c, -1)
+
+
+def run_shards(p, g, r, c, w, axis, *, lr, step, beta, clip=1.0,
+               n_total=None, plain=False):
+    """The sharded entries on w shards (their kernels, or with ``plain``
+    their plain versions), the sums over the ranks emulated by fixed-order
+    sums in this process; the shards put back together."""
+    from repro_torch.kernels.adalomo_update.ref import adalomo_update_shards
+    ps, gs, rs, cs = split_shards(p, g, r, c, w, axis)
+    adalomo_update_shards(ps, gs, rs, cs, lr=lr, step=step, beta=beta,
+                          clip=clip, axis=axis, n_total=n_total, plain=plain)
+    folded = cs if axis == -2 else rs
+    if not all(torch.equal(t, folded[0]) for t in folded[1:]):
+        raise AssertionError("sharded K1: the ranks folded different bits "
+                             "from the same sum")
+    return (torch.cat(ps, dim=axis),
+            torch.cat(rs, dim=-1) if axis == -2 else rs[0],
+            cs[0] if axis == -2 else torch.cat(cs, dim=-1))
+
+
+def check_sharded_kernels(errs: dict) -> dict:
+    """K1/K2's sharded entries on danube's leaves split 1, 2 and 4 ways
+    along the dim the rules give them, alone and as stacked [24, m, n]
+    leaves (the one-way split at those shapes is what the one-rank world of
+    the dist phase runs), bf16 and fp32: held against their plain versions
+    on the same shards (the kernels' line's max_abs_err) and against the
+    whole-tensor kernels on the same inputs, r and c within TOL_RC and
+    theta' within K2's tolerance; a bitwise re-run; and one case with the
+    shard's element count in place of the tensor's, which must
+    disagree."""
+    beta, lr, step = 0.999, 5e-4, 5.0
+    cases = {}
+    for name, (shape, axis) in SHARD_CASES.items():
+        for lead in ((), (N_LAYERS,)):
+            for dt in (torch.bfloat16, torch.float32):
+                for w in (1, 2, 4):
+                    key = (f"{name} {'x'.join(map(str, lead)) or '1'} "
+                           f"{str(dt)[6:]} /{w}")
+                    p, g, r, c = make_inputs(shape, dt, dt, shape[1] + w, step,
+                                             lead=lead)
+                    kw = dict(lr=lr, step=step, beta=beta)
+                    ps, rs, cs = run_shards(p, g, r, c, w, axis, **kw)
+                    pp, rp, cp = run_shards(p, g, r, c, w, axis, plain=True,
+                                            **kw)
+                    assert_close(rs, rp, what="sharded K1 r " + key, **TOL_RC)
+                    assert_close(cs, cp, what="sharded K1 c " + key, **TOL_RC)
+                    assert_close(ps, pp, rtol=TOL_P[dt], atol=TOL_P[dt],
+                                 what="sharded K2 " + key)
+                    vs_plain = (max(max_err(rs, rp), max_err(cs, cp)),
+                                max_err(ps, pp))
+                    del pp, rp, cp
+                    pw, rw, cw = p.clone(), r.clone(), c.clone()
+                    adalomo_update(pw, g, rw, cw, lr, step, beta)
+                    for what, a, b, tol in (
+                            ("r", rs, rw, TOL_RC), ("c", cs, cw, TOL_RC),
+                            ("theta'", ps, pw, dict(rtol=TOL_P[dt],
+                                                    atol=TOL_P[dt]))):
+                        assert_close(a, b, **tol, what=f"sharded K1/K2 {what} "
+                                     f"against the whole-tensor kernel {key}")
+                    again = run_shards(p, g, r, c, w, axis, **kw)
+                    rerun = all(torch.equal(a, b) for a, b in
+                                zip(again, (ps, rs, cs)))
+                    if not rerun:
+                        raise AssertionError(f"sharded K1/K2 {key}: a re-run "
+                                             "gave other bits")
+                    errs["adalomo_stats_sharded"] = max(
+                        errs["adalomo_stats_sharded"], vs_plain[0])
+                    errs["adalomo_update_sharded"] = max(
+                        errs["adalomo_update_sharded"], vs_plain[1])
+                    cases[key] = {
+                        "r_c_max_abs_err_vs_plain": vs_plain[0],
+                        "param_max_abs_err_vs_plain": vs_plain[1],
+                        "r_c_max_abs_err_vs_whole": max(max_err(rs, rw),
+                                                        max_err(cs, cw)),
+                        "param_max_abs_err_vs_whole": max_err(ps, pw),
+                        "bitwise_vs_whole": bool(
+                            torch.equal(ps, pw) and torch.equal(rs, rw)
+                            and torch.equal(cs, cw)),
+                        "rerun_bitwise": rerun}
+                    del p, g, r, c, pw, rw, cw, ps, rs, cs, again
+    # the silent error of this design: the shard's m*n in place of the
+    # tensor's.  It must move theta' away from the whole-tensor kernel's.
+    shape, axis = next(iter(SHARD_CASES.values()))      # attn/wq, rows
+    p, g, r, c = make_inputs(shape, torch.float32, torch.float32, 7, step)
+    pw, rw, cw = p.clone(), r.clone(), c.clone()
+    adalomo_update(pw, g, rw, cw, 5e-2, step, beta, clip=SHARD_WRONG_CLIP)
+    wrong, _, _ = run_shards(p, g, r, c, 4, axis, lr=5e-2, step=step,
+                             beta=beta, clip=SHARD_WRONG_CLIP,
+                             n_total=shape[0] * shape[1] // 4)
+    try:
+        assert_close(wrong, pw, rtol=TOL_P[torch.float32],
+                     atol=TOL_P[torch.float32], what="wrong element count")
+    except AssertionError:
+        caught = True
+    else:
+        caught = False
+    if not caught:
+        raise AssertionError("sharded K2 with the shard's element count "
+                             "agreed with the whole tensor's update")
+    torch.cuda.synchronize()
+    return {"cases": cases, "wrong_count_disagrees": caught,
+            "wrong_count_max_abs_err": max_err(wrong, pw)}
+
+
+def time_sharded_kernels() -> tuple:
+    """One rank's work at a 2-way split of each danube leaf, bf16: K1's
+    sharded entry, the fold, K2's partials and apply launches (graph
+    replays), their plain versions and bounds, and the totals over the 170
+    leaves of a step beside the whole-tensor kernels'."""
+    beta_t = torch.full((), 0.999, device=DEV)
+    kw2 = dict(eps_div=CFG.eps_div, eps_rms=CFG.eps_rms, literal=False)
+    rows = []
+    for (shape, axis), count in SHARDED_PER_STEP.items():
+        m, n = shape
+        sm, sn = (m // 2, n) if axis == -2 else (m, n // 2)
+        elt = 2
+        set_bytes = 2 * sm * sn * elt
+        copies = min(32, max(2, math.ceil(192e6 / set_bytes)))
+        sets = []
+        for i in range(copies):
+            # the shard, and this rank's state: its part of the split
+            # axis' vector, all of the other
+            p, g, r, c = make_inputs((sm, sn), torch.bfloat16,
+                                     torch.bfloat16, i, 5.0)
+            raw = K.adalomo_stats_partial(g, r, c, beta_t,
+                                          eps_stat=CFG.eps_stat, axis=axis)
+            scal = scal_for(r, 5e-4, 5.0, 0.999, 0.0, 1.0)
+            sums = K.adalomo_update_partials(p, g, r, c, scal, **kw2)
+            vec = c if axis == -2 else r
+            sets.append((p, g, r, c, scal, raw, vec, sums))
+        rounds = max(2, min(20, 200 // copies))
+        state = 4 * (r.numel() + c.numel())
+        fns = {
+            "stats_partial": (
+                lambda p, g, r, c, s, raw, v, su: K.adalomo_stats_partial(
+                    g, r, c, beta_t, eps_stat=CFG.eps_stat, axis=axis),
+                lambda p, g, r, c, s, raw, v, su:
+                K.adalomo_stats_partial_ref(g, r, c, beta_t,
+                                            eps_stat=CFG.eps_stat, axis=axis),
+                sm * sn * elt + 2 * state + 4 * raw.numel(),
+                K1_FLOP_PER_ELEM * sm * sn),
+            "stats_fold": (
+                lambda p, g, r, c, s, raw, v, su: K.adalomo_stats_fold(
+                    v, raw, beta_t),
+                lambda p, g, r, c, s, raw, v, su: K.adalomo_stats_fold_ref(
+                    v, raw, beta_t),
+                4 * (2 * vec.numel() + raw.numel()), 3 * vec.numel()),
+            "update_partials": (
+                lambda p, g, r, c, s, raw, v, su: K.adalomo_update_partials(
+                    p, g, r, c, s, **kw2),
+                lambda p, g, r, c, s, raw, v, su:
+                K.adalomo_update_partials_ref(p, g, r, c, s, **kw2),
+                2 * sm * sn * elt + state, K2_FLOP_PER_ELEM * sm * sn),
+            "update_apply": (
+                lambda p, g, r, c, s, raw, v, su: K.adalomo_update_apply(
+                    p, g, r, c, s, su, m * n, **kw2),
+                lambda p, g, r, c, s, raw, v, su: K.adalomo_update_apply_ref(
+                    p, g, r, c, s, su, m * n, **kw2),
+                3 * sm * sn * elt + state, K2_FLOP_PER_ELEM * sm * sn)}
+        row = {"shape": [m, n], "split": "rows" if axis == -2 else "columns",
+               "shard": [sm, sn], "dtype": "bf16", "per_step": count}
+        for key, (fn, plain, nbytes, flop) in fns.items():
+            row[key + "_ms"] = time_graph_ms(fn, sets, rounds)
+            row[key + "_plain_ms"] = time_graph_ms(plain, sets, rounds)
+            row[key + "_bound_ms"] = max(nbytes / HBM_BYTES_PER_S,
+                                         flop / FP32_FLOP_PER_S) * 1e3
+        rows.append(row)
+        del sets
+        torch.cuda.empty_cache()
+
+    def per_step(keys, what):
+        return sum(r[f"{k}_{what}"] * r["per_step"] for r in rows
+                   for k in keys)
+
+    totals = {name: {what: per_step(keys, what)
+                     for what in ("ms", "plain_ms", "bound_ms")}
+              for name, keys in (
+                  ("adalomo_stats_sharded", ("stats_partial", "stats_fold")),
+                  ("adalomo_update_sharded", ("update_partials",
+                                              "update_apply")))}
+    return rows, totals
+
+
+# --------------------------------------------------------------------------
+# dist: the sharded run — a one-rank NCCL world at full size, two gloo ranks
+# sharing the card, and elastic restores between them
+# --------------------------------------------------------------------------
+
+DIST_STEPS = 3
+DIST_GLOO_LAYERS = 4
+DIST_GLOO_STEPS = 4
+DIST_CKPT_STEP = 2
+DIST_LOSS_RTOL = 1e-5
+DIST_GLOO_TIMEOUT_S = 300       # the two ranks' runs take about 90 s
+DIST_PARAM_TOL = dict(rtol=5e-4, atol=1e-5)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def sharded_launches() -> dict:
+    return {name: getattr(K, name).launches
+            for name in SHARDED_WRAPPERS + ("adalomo_stats",
+                                            "adalomo_update")}
+
+
+def reset_launches() -> None:
+    for name in SHARDED_WRAPPERS + ("adalomo_stats", "adalomo_update"):
+        getattr(K, name).launches = 0
+
+
+def dist_spec(steps, *, shape=None, ckpt=None, every=0):
+    from repro_torch.run import CheckpointSpec, MeshSpec
+    return RunSpec(model=ModelSpec(ARCH_ID, smoke=False),
+                   data=DataConfig(vocab=0, seq_len=1024, global_batch=4,
+                                   seed=0),
+                   opt=OptSpec(name="adalomo"),
+                   steps=StepSpec(total=steps), log_every=0, seed=0,
+                   mesh=(MeshSpec(kind="multi", shape=shape) if shape
+                         else MeshSpec()),
+                   checkpoint=CheckpointSpec(dir=ckpt, every=every,
+                                             resume=True))
+
+
+def cut_arch(layers: int, dtype=None):
+    """danube at its published width, ``layers`` deep, in its own dtype
+    (bf16) unless ``dtype`` is given."""
+    arch = get_arch(ARCH_ID)
+    return dataclasses.replace(arch, cfg=dataclasses.replace(
+        arch.cfg, n_layers=layers, dtype=dtype or arch.cfg.dtype))
+
+
+def within(a, b, *, rtol, atol) -> tuple:
+    """(ok, max abs difference): |a - b| <= atol + rtol |b|, widened to
+    fp32; for a bf16 leaf one bf16 ulp of b is allowed beside it (one
+    rounding of the write landing on the other side)."""
+    a32, b32 = a.to(torch.float32), b.to(torch.float32)
+    lim = atol + rtol * b32.abs()
+    if b.dtype == torch.bfloat16:
+        lim = lim + bf16_ulp(b32)
+    diff = (a32 - b32).abs()
+    return bool((diff <= lim).all()), float(diff.max()) if diff.numel() \
+        else 0.0
+
+
+def bf16_gap_readings(got, want, want32) -> dict:
+    """How far the bf16 leaves ``got`` lie from ``want`` (the unsharded
+    bf16 run's), against how far bf16 itself moves that run: the largest
+    ratio over the leaves of the root-mean-square distance from ``want``
+    to ``want``'s own from an fp32 run of the same seed (``want32``; the
+    check: at most 1), and the elements outside within()'s limit (a
+    reading: two ranks' bf16 partial sums, added in fp32 and rounded once,
+    leave some params two ulps from the one-rank rounding)."""
+    outside, ratio = 0, 0.0
+    for a, b, b32 in zip(got, want, want32):
+        a32, b16 = a.to(torch.float32), b.to(torch.float32)
+        diff = (a32 - b16).abs()
+        lim = DIST_PARAM_TOL["atol"] + DIST_PARAM_TOL["rtol"] * b16.abs() \
+            + bf16_ulp(b16)
+        outside += int((diff > lim).sum())
+        gap = float(torch.sqrt(torch.mean(torch.square(
+            b16 - b32.to(torch.float32)))))
+        rms = float(torch.sqrt(torch.mean(torch.square(diff))))
+        if rms:
+            ratio = max(ratio, rms / gap if gap else math.inf)
+    return {"max_rms_ratio_to_bf16_fp32_gap": ratio,
+            "elements_outside_tol": outside}
+
+
+class HostProbe:
+    """What the host did over a run: the time Python's collector took, the
+    caching allocator's cudaMalloc retries and device allocations and
+    frees, the process's CPU seconds, and the state it started from (the
+    allocator's reserved bytes, the live Python objects)."""
+
+    KEYS = ("num_alloc_retries", "num_device_alloc", "num_device_free",
+            "num_sync_all_streams")
+
+    def __init__(self):
+        self.gc_s, self.gc_n, self._t = 0.0, 0, 0.0
+        stats = torch.cuda.memory_stats()
+        self.before = {k: stats.get(k, 0) for k in self.KEYS}
+        self.start = {"reserved_bytes": torch.cuda.memory_reserved(),
+                      "python_objects": len(gc.get_objects())}
+        self.cpu0 = time.process_time()
+        gc.callbacks.append(self._on_gc)
+
+    def _on_gc(self, phase, info):
+        if phase == "start":
+            self._t = time.perf_counter()
+        else:
+            self.gc_s += time.perf_counter() - self._t
+            self.gc_n += 1
+
+    def close(self, *, step_seconds) -> dict:
+        gc.callbacks.remove(self._on_gc)
+        stats = torch.cuda.memory_stats()
+        return {"step_seconds": step_seconds, **self.start,
+                "process_cpu_seconds": time.process_time() - self.cpu0,
+                "gc_seconds": self.gc_s, "gc_collections": self.gc_n,
+                **{k: stats.get(k, 0) - v for k, v in self.before.items()}}
+
+
+def dist_nccl(train) -> dict:
+    """run(spec) on a one-rank NCCL world at full width and depth, twice,
+    against the train phase's unsharded run of the same seed."""
+    from repro_torch.sharding import collectives as C
+    out = {}
+    digests, host = [], []
+    for attempt in range(2):
+        reset_launches()
+        C.reset_stats()
+        timing = TimingHook()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.set_sync_debug_mode("warn")
+        probe = HostProbe()
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                res = run(dist_spec(DIST_STEPS, shape=(1,)), hooks=[timing],
+                          device=DEV,
+                          log_fn=lambda s: print("  " + s, flush=True))
+                launches = sharded_launches()
+                stats = dict(C.STATS)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            host.append(probe.close(step_seconds=timing.step_s))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()     # before the checks
+        digests.append(device_digest((res.params, res.opt_state)))
+        if attempt == 0:
+            syncs = n_syncs(caught)
+            ok_p, worst, bitwise = True, 0.0, True
+            for a, b in zip(tree_leaves(res.params), train["params_cpu"]):
+                b = b.to(DEV)
+                ok, d = within(a, b, **DIST_PARAM_TOL)
+                ok_p &= ok
+                worst = max(worst, d)
+                bitwise &= bool(torch.equal(a, b))
+            losses = res.history["loss"]
+            loss_err = max(abs(x - y) / abs(y)
+                           for x, y in zip(losses, train["losses"]))
+            out = {"losses": losses, "train_losses": train["losses"],
+                   "loss_max_rel_err": loss_err,
+                   "param_max_abs_diff": worst, "params_within_tol": ok_p,
+                   "params_bitwise_vs_train": bitwise,
+                   "launches": launches,
+                   "launches_per_step": {k: v / DIST_STEPS
+                                         for k, v in launches.items()},
+                   "collectives_per_step": {k: v / DIST_STEPS
+                                            for k, v in stats.items()},
+                   "host_syncs": syncs,
+                   "step_seconds": timing.step_s,
+                   "train_step_seconds": train["step_seconds"],
+                   "peak_memory_bytes": peak,
+                   "train_peak_memory_bytes": train["peak_memory_bytes"]}
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["rerun_bitwise"] = bool(torch.equal(digests[0], digests[1]))
+    out["host"] = host
+    emit("dist", sub="nccl_1rank", arch=ARCH_ID, mesh=[1], batch=4, seq=1024,
+         steps=DIST_STEPS, tolerance={"loss_rtol": DIST_LOSS_RTOL,
+                                      **DIST_PARAM_TOL,
+                                      "bf16": "plus one bf16 ulp of the value"},
+         **out)
+    if out["loss_max_rel_err"] > DIST_LOSS_RTOL or not out[
+            "params_within_tol"]:
+        raise AssertionError(f"dist nccl: loss rel err "
+                             f"{out['loss_max_rel_err']}, params within "
+                             f"tolerance {out['params_within_tol']} "
+                             f"(max diff {out['param_max_abs_diff']})")
+    if not out["rerun_bitwise"]:
+        raise AssertionError("dist nccl: a re-run gave other bits")
+    if out["host_syncs"] != DIST_STEPS:
+        raise AssertionError(f"dist nccl: {out['host_syncs']} host syncs in "
+                             f"{DIST_STEPS} steps, expected one a step")
+    want = TENSORS_PER_STEP * DIST_STEPS
+    if any(out["launches"][k] != want for k in SHARDED_WRAPPERS) or \
+            out["launches"]["adalomo_stats"] or \
+            out["launches"]["adalomo_update"]:
+        raise AssertionError(f"dist nccl: launches {out['launches']}, "
+                             f"expected {want} of each sharded entry")
+    return out
+
+
+# the two gloo ranks' runs: danube's own bf16 (checkpoints every 2 steps,
+# for the elastic restores), then fp32 (a checkpoint at the end, to read
+# the params at the reference's sharded tolerance)
+DIST_GLOO_RUNS = (("bfloat16", None, "ck", DIST_CKPT_STEP),
+                  ("float32", torch.float32, "ck32", DIST_GLOO_STEPS))
+
+
+def dist_gloo_rank(rank: int, world: int, store: str, root: str) -> None:
+    """One of the two gloo ranks sharing the card (spawned)."""
+    import torch.distributed as dist
+    from repro_torch.core.tree import tree_flatten_with_path
+    from repro_torch.sharding import collectives as C
+    torch.cuda.set_device(DEV)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        for name, dtype, ck, every in DIST_GLOO_RUNS:
+            reset_launches()
+            C.reset_stats()
+            timing = TimingHook()
+            torch.cuda.reset_peak_memory_stats()
+            res = run(dist_spec(DIST_GLOO_STEPS, shape=(world,),
+                                ckpt=os.path.join(root, ck), every=every),
+                      arch=cut_arch(DIST_GLOO_LAYERS, dtype), hooks=[timing],
+                      device=DEV, log_fn=lambda s: None)
+            torch.cuda.synchronize()
+            dims = [d for _, d in tree_flatten_with_path(
+                res.program.zero.dims)]
+            whole = [t for t, d in zip(tree_leaves(res.params), dims)
+                     if d is None]
+            rec = {"losses": res.history["loss"],
+                   "step_seconds": timing.step_s,
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                   "local_param_bytes": sum(
+                       t.numel() * t.element_size()
+                       for t in tree_leaves(res.params)),
+                   "whole_leaves": len(whole),
+                   "whole_digest": device_digest(whole).tolist(),
+                   "collectives": dict(C.STATS),
+                   "launches": sharded_launches()}
+            with open(os.path.join(root, f"rank{rank}_{name}.json"),
+                      "w") as f:
+                json.dump(rec, f)
+            del res, whole
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+def checkpoint_leaves_equal(tree, step_dir) -> bool:
+    """Every leaf of ``tree`` (whole tensors) bitwise equal to the
+    checkpoint's file of it."""
+    from repro_torch.core.tree import pytree_leaves
+    files = sorted(f for f in os.listdir(step_dir) if f.endswith(".npy"))
+    leaves = pytree_leaves(tree)
+    if len(files) != len(leaves):
+        return False
+    for t, f in zip(leaves, files):
+        a = np.load(os.path.join(step_dir, f))
+        # a bf16 leaf's file holds its raw 16-bit words (descr <V2)
+        a = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
+            if t.dtype == torch.bfloat16 else torch.from_numpy(a)
+        if not torch.equal(t.detach().cpu(), a):
+            return False
+    return True
+
+
+def dist_gloo_and_elastic(root) -> None:
+    """Two gloo ranks on the card against the unsharded run at the same
+    depth; then the two-rank step-2 checkpoint restored onto the one-rank
+    NCCL world and onto no mesh, bitwise, and continued.  Prints the two
+    lines, then fails if a check did not hold."""
+    import torch.multiprocessing as mp
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.run.program import build_step_program
+    from repro_torch.sharding.zero import Zero3
+    arch = cut_arch(DIST_GLOO_LAYERS)
+    t0 = time.time()
+    ctx = mp.spawn(dist_gloo_rank, args=(2, os.path.join(root, "store"),
+                                         root), nprocs=2, join=False)
+    while not ctx.join(timeout=2.0):
+        if time.time() - t0 > DIST_GLOO_TIMEOUT_S:
+            for proc in ctx.processes:
+                proc.kill()
+            raise AssertionError(f"dist gloo: the two ranks did not finish "
+                                 f"in {DIST_GLOO_TIMEOUT_S} s")
+    spawn_s = time.time() - t0
+    ranks, ranks32 = ([json.loads(open(os.path.join(
+        root, f"rank{r}_{name}.json")).read()) for r in range(2)]
+        for name, *_ in DIST_GLOO_RUNS)
+    torch.cuda.reset_peak_memory_stats()
+    ref = run(dist_spec(DIST_GLOO_STEPS), arch=arch, device=DEV,
+              log_fn=lambda s: None)
+    ref_peak = torch.cuda.max_memory_allocated()
+    # the same seed in fp32: how far bf16 itself moves the unsharded run
+    ref32 = run(dist_spec(DIST_GLOO_STEPS),
+                arch=cut_arch(DIST_GLOO_LAYERS, torch.float32), device=DEV,
+                log_fn=lambda s: None)
+    losses = ranks[0]["losses"]
+    ref_losses = ref.history["loss"]
+    loss_err = max(abs(x - y) / abs(y) for x, y in zip(losses, ref_losses))
+    # each step's loss within rtol 1e-5, or within the unsharded run's own
+    # bf16-vs-fp32 distance at that step
+    loss_ok = all(abs(x - y) <= max(DIST_LOSS_RTOL * abs(y), abs(y - z))
+                  for x, y, z in zip(losses, ref_losses,
+                                     ref32.history["loss"]))
+    loss_gap = max(abs(x - y) / abs(y) for x, y in
+                   zip(ref_losses, ref32.history["loss"]))
+    opt = opt_lib.get_opt("adalomo")
+    ck = os.path.join(root, "ck")
+    _, tree, _ = CheckpointManager(ck).restore(
+        DIST_GLOO_STEPS, template=(ref.params, opt.init(ref.params)))
+    ok_p, worst = True, 0.0
+    for a, b in zip(tree_leaves(tree[0]), tree_leaves(ref.params)):
+        ok, d = within(a, b, **DIST_PARAM_TOL)
+        ok_p &= ok
+        worst = max(worst, d)
+    readings = bf16_gap_readings(tree_leaves(tree[0]),
+                                 tree_leaves(ref.params),
+                                 tree_leaves(ref32.params))
+    # fp32: the reference's sharded tolerance
+    _, tree32, _ = CheckpointManager(os.path.join(root, "ck32")).restore(
+        DIST_GLOO_STEPS, template=(ref32.params, opt.init(ref32.params)))
+    ok32, worst32 = True, 0.0
+    for a, b in zip(tree_leaves(tree32[0]), tree_leaves(ref32.params)):
+        ok, d = within(a, b, **DIST_PARAM_TOL)
+        ok32 &= ok
+        worst32 = max(worst32, d)
+    losses32 = ranks32[0]["losses"]
+    fp32 = {"losses": losses32, "unsharded_losses": ref32.history["loss"],
+            "loss_max_rel_err": max(abs(x - y) / abs(y) for x, y in zip(
+                losses32, ref32.history["loss"])),
+            "param_max_abs_diff": worst32, "params_within_tol": ok32,
+            "replicated_bitwise_across_ranks":
+                ranks32[0]["whole_digest"] == ranks32[1]["whole_digest"],
+            "rank_peak_memory_bytes": [r["peak_memory_bytes"]
+                                       for r in ranks32],
+            "rank_step_seconds": [r["step_seconds"] for r in ranks32],
+            "rank_collectives": [r["collectives"] for r in ranks32]}
+    del tree32
+    leaves = tree_leaves(ref.params)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    layer = [t[0] for t in tree_leaves(ref.params["stacks"])]
+    reckoning = n_bytes // 2 + sum(t.numel() * (t.element_size() + 4)
+                                   for t in layer)
+    del ref, ref32, tree, leaves, layer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # elastic: the step-2 checkpoint onto the one-rank world and no mesh
+    src = os.path.join(ck, f"step_{DIST_CKPT_STEP:09d}")
+    spec = dist_spec(DIST_GLOO_STEPS, shape=(1,))
+    zero = Zero3(make_mesh((1,), DEV), arch.init_params(0, device="meta"))
+    program = build_step_program(spec, arch, device=DEV, zero=zero)
+    tree = program.init(0)
+    CheckpointManager(ck, zero=zero).restore_into(tree, step=DIST_CKPT_STEP)
+    onto_one = checkpoint_leaves_equal(tree, src)
+    del tree, program
+    params = arch.init_params(0, device=DEV)
+    tree = (params, opt.init(params))
+    CheckpointManager(ck).restore_into(tree, step=DIST_CKPT_STEP)
+    onto_none = checkpoint_leaves_equal(tree, src)
+    del tree, params
+    cont = {}
+    for name, shape in (("one_rank_nccl", (1,)), ("no_mesh", None)):
+        d = os.path.join(root, "cont_" + name)
+        os.makedirs(d)
+        shutil.copytree(src, os.path.join(d, os.path.basename(src)))
+        res = run(dist_spec(DIST_GLOO_STEPS, shape=shape, ckpt=d,
+                            every=DIST_CKPT_STEP),
+                  arch=arch, device=DEV, log_fn=lambda s: None)
+        cont[name] = {
+            "steps": res.history["step"], "losses": res.history["loss"],
+            "loss_max_rel_err": max(
+                abs(x - y) / abs(y) for x, y in
+                zip(res.history["loss"], losses[DIST_CKPT_STEP:]))}
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = {
+        "n_layers": DIST_GLOO_LAYERS, "dtype": str(arch.cfg.dtype)[6:],
+        "spawn_seconds": spawn_s, "losses": losses,
+        "unsharded_losses": ref_losses, "loss_max_rel_err": loss_err,
+        "unsharded_bf16_vs_fp32_loss_max_rel_err": loss_gap,
+        "bound": "each step's loss within rtol 1e-5 of the unsharded bf16 "
+                 "run's or within that run's distance from fp32; each "
+                 "leaf's RMS distance from the unsharded bf16 run at most "
+                 "that run's own from fp32; params_within_tol (rtol 5e-4, "
+                 "atol 1e-5, one ulp) is read, not held",
+        "losses_within_bound": loss_ok, "param_max_abs_diff": worst,
+        "params_within_tol": ok_p, **readings,
+        "replicated_leaves": ranks[0]["whole_leaves"],
+        "replicated_bitwise_across_ranks":
+            ranks[0]["whole_digest"] == ranks[1]["whole_digest"],
+        "rank_peak_memory_bytes": [r["peak_memory_bytes"] for r in ranks],
+        "rank_local_param_bytes": [r["local_param_bytes"] for r in ranks],
+        "reckoning_bytes": reckoning,
+        "reckoning": "half the params + one whole layer + the fp32 "
+                     "gradient of one layer",
+        "unsharded_peak_memory_bytes": ref_peak,
+        "rank_step_seconds": [r["step_seconds"] for r in ranks],
+        "rank_collectives": [r["collectives"] for r in ranks],
+        "rank_launches": [r["launches"] for r in ranks],
+        "float32": fp32,
+        "elastic": {"checkpoint_step": DIST_CKPT_STEP,
+                    "restore_onto_one_rank_bitwise": onto_one,
+                    "restore_onto_no_mesh_bitwise": onto_none,
+                    "continued": cont}}
+    elastic = out.pop("elastic")
+    emit("dist", sub="gloo_2rank", arch=ARCH_ID, mesh=[2], batch=4, seq=1024,
+         steps=DIST_GLOO_STEPS, **out)
+    emit("dist", sub="elastic", arch=ARCH_ID, from_mesh=[2],
+         onto=["one-rank NCCL world", "no mesh"], **elastic)
+    if not loss_ok or readings["max_rms_ratio_to_bf16_fp32_gap"] > 1.0:
+        raise AssertionError(
+            f"dist gloo: losses within their bound {loss_ok} (rel err "
+            f"{loss_err}, bf16 vs fp32 {loss_gap}); params' RMS distance "
+            f"{readings['max_rms_ratio_to_bf16_fp32_gap']} of bf16's own")
+    if fp32["loss_max_rel_err"] > DIST_LOSS_RTOL or not ok32:
+        raise AssertionError(f"dist gloo fp32: loss rel err "
+                             f"{fp32['loss_max_rel_err']}, params within "
+                             f"tolerance {ok32} (max diff {worst32})")
+    if not (out["replicated_bitwise_across_ranks"]
+            and fp32["replicated_bitwise_across_ranks"]):
+        raise AssertionError("dist gloo: a replicated leaf differs between "
+                             "the ranks")
+    if not (onto_one and onto_none):
+        raise AssertionError(f"dist elastic: restore bitwise onto one rank "
+                             f"{onto_one}, onto no mesh {onto_none}")
+    for name, c in cont.items():
+        if c["steps"] != list(range(DIST_CKPT_STEP, DIST_GLOO_STEPS)) or \
+                c["loss_max_rel_err"] > DIST_LOSS_RTOL:
+            raise AssertionError(f"dist elastic {name}: {c}")
+
+
+def phase_dist(train) -> dict:
+    """The sharded run on the card (module docstring)."""
+    import torch.distributed as dist
+    if train is None:
+        raise SystemExit("chip_smoke: the dist phase is held against the "
+                         "train phase's run: --phases ...,train,dist")
+    t0 = time.time()
+    root = resume_root("chip_smoke_dist_")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        progress("dist: one-rank NCCL world, full size")
+        nccl = dist_nccl(train)
+        progress("dist: two gloo ranks on the card, then elastic restores")
+        dist_gloo_and_elastic(root)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    emit("dist", sub="done", seconds=time.time() - t0)
+    return {"launches": nccl["launches"]}
+
+
+# --------------------------------------------------------------------------
 # sweep: the sweep driver's subprocess members on the card
 # --------------------------------------------------------------------------
 
@@ -4591,7 +5318,8 @@ def phase_sweep() -> dict:
 
 # --------------------------------------------------------------------------
 
-PHASES = ("kernels", "train", "parity", "resume", "sentinel", "baselines",
+PHASES = ("kernels", "train", "parity", "dist", "resume", "sentinel",
+          "baselines",
           "packed", "serve", "serve_parity", "legacy_serve", "legacy_parity",
           "moe", "configs", "mla", "prefix", "ssm", "encdec", "sweep")
 EXTRA_PHASES = ("timing", "configs_lomo")
@@ -4607,7 +5335,10 @@ def main() -> None:
                          "legacy_parity after touching K4, the legacy "
                          "engine or the long-sequence attention, "
                          "kernels,train,resume after touching the run "
-                         "layer or the checkpoints, kernels,train,sentinel "
+                         "layer or the checkpoints, kernels,train,dist "
+                         "after touching the sharded step, the "
+                         "collectives, the checkpoints or K1/K2's sharded "
+                         "entries, kernels,train,sentinel "
                          "after touching the sentinel or the probes, "
                          "kernels,baselines "
                          "after touching an optimizer rule, "
@@ -4655,6 +5386,11 @@ def main() -> None:
     if "parity" in phases:
         phase_parity()
         torch.cuda.empty_cache()
+    dist_rec = phase_dist(train) if "dist" in phases else None
+    if train is not None:
+        train.pop("params_cpu", None)
+    gc.collect()
+    torch.cuda.empty_cache()
     if "resume" in phases:
         phase_resume()
         # the process's first profiler start keeps its caller's frames (run
@@ -4767,6 +5503,26 @@ def main() -> None:
                 shape: {k.replace(key + "_", ""): v for k, v in row.items()
                         if k.startswith(key + "_")}
                 for shape, row in mla["per_call"].items()}
+    for name, src, replaces, wrappers in (
+            ("adalomo_stats_sharded", "adalomo_update/csrc/adalomo_stats.cu",
+             "adalomo_update/adalomo_update.py:68",
+             ("adalomo_stats_partial", "adalomo_stats_fold")),
+            ("adalomo_update_sharded", "adalomo_update/csrc/adalomo_update.cu",
+             "adalomo_update/adalomo_update.py:137",
+             ("adalomo_update_partials", "adalomo_update_apply"))):
+        t = kern["totals"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/" + src,
+            "replaces": "src/repro/kernels/" + replaces,
+            "launches": sum(dist_rec["launches"][w] for w in wrappers),
+            "max_abs_err": kern["errs"][name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "unit": SHARDED_UNIT,
+            "launches_by_wrapper": {w: dist_rec["launches"][w]
+                                    for w in wrappers},
+            "launches_phase": "dist (one-rank NCCL world, 3 steps)"})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4781,6 +5537,10 @@ DECODE_UNIT = ("one decode step of h2o-danube-1.8b: 24 launches, 8 sequences "
 PAGED_LIBRARY_NOTE = ("two PyTorch calls, not one: the pages gathered into "
                       "a dense cache, then scaled_dot_product_attention "
                       "with enable_gqa and a boolean mask")
+SHARDED_UNIT = ("one rank's share of a train step at a 2-way split: the 170 "
+                "matrices of h2o-danube-1.8b, each halved along the dim the "
+                "rules split, bf16 params and grads; both launches of the "
+                "entry pair")
 RING_UNIT = ("one decode step of h2o-danube-1.8b: 24 launches, 4 sequences "
              "over a wrapped ring of 4096 slots, window 4096, bf16")
 

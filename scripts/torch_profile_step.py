@@ -3,7 +3,7 @@
 
     python3 scripts/torch_profile_step.py [--arch h2o-danube-1.8b]
         [--layers N] [--batch 4] [--seq 1024] [--optimizer adalomo]
-        [--packing]
+        [--packing] [--mesh-shape 1]
 
 Builds the step program of ``repro_torch`` for ``--arch`` (published width;
 published depth, or ``--layers`` layers: an encoder-decoder model's encoder
@@ -15,7 +15,10 @@ steps untraced, then traces as many with ``torch.profiler`` and prints one
 JSON object: the card and its power limit, wall time per step (untraced),
 device-busy time per step (traced), the device's idle share (one minus busy
 over untraced wall), device time by kind of kernel, and the largest kernels
-by name.  Needs a CUDA device; ``--out FILE`` also writes the JSON there.
+by name.  ``--mesh-shape 1`` runs the step ZeRO-3 sharded on a one-rank
+NCCL world (this process), the sharded path with every collective a copy:
+NCCL's kernels are counted as "collectives".  Needs a CUDA device; ``--out
+FILE`` also writes the JSON there.
 """
 import argparse
 import dataclasses
@@ -38,8 +41,10 @@ from repro_torch.run.data import make_batch_iter  # noqa: E402
 from repro_torch.run.runner import batch_to_device, to_host  # noqa: E402
 
 KINDS = (
-    ("optimizer (K1 adalomo_stats)", ("stats_kernel",)),
-    ("optimizer (K2 adalomo_update)", ("adalomo::update_kernel",)),
+    ("optimizer (K1 adalomo_stats)", ("stats_kernel", "fold_kernel")),
+    ("optimizer (K2 adalomo_update)", ("adalomo::update_kernel",
+                                       "partials_sum_kernel")),
+    ("collectives", ("nccl", "Nccl")),
     ("matmul", ("gemm", "nvjet", "cutlass", "cublas", "gemv", "sm90_xmma",
                 "sm80_xmma", "splitK", "splitk")),
     ("softmax", ("softmax",)),
@@ -71,6 +76,9 @@ def main() -> None:
                     help="registry name (repro_torch.core.optimizers)")
     ap.add_argument("--packing", action="store_true",
                     help="segment-packed batches")
+    ap.add_argument("--mesh-shape", type=int, default=None, choices=(1,),
+                    help="1: the ZeRO-3 sharded step on a one-rank NCCL "
+                         "world")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -90,7 +98,23 @@ def main() -> None:
                  if arch.family == "encdec" else dict(n_layers=args.layers))
         arch = dataclasses.replace(
             arch, cfg=dataclasses.replace(arch.cfg, **depth))
-    program = build_step_program(spec, arch)
+    zero = None
+    if args.mesh_shape:
+        import socket
+
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.sharding.zero import Zero3
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                rank=0, world_size=1)
+        zero = Zero3(make_mesh((args.mesh_shape,), "cuda"),
+                     arch.init_params(0, device="meta"))
+    program = build_step_program(spec, arch, zero=zero)
     params, state = program.init(0)
     batches = make_batch_iter(spec, arch)
 
@@ -138,6 +162,7 @@ def main() -> None:
             arch.cfg.n_enc_layers, arch.cfg.n_dec_layers],
         "batch": args.batch, "seq": args.seq, "optimizer": args.optimizer,
         "fused": program.fused, "packing": args.packing,
+        "mesh_shape": [args.mesh_shape] if args.mesh_shape else None,
         "traced_steps": args.steps,
         "loss": loss, "wall_ms_per_step": wall_ms,
         "wall_ms_per_step_while_traced": traced_wall_ms,
@@ -149,6 +174,9 @@ def main() -> None:
                          "calls_per_step": c} for n, (ms, c) in top],
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
     }
+    if zero is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     text = json.dumps(out, indent=1)
     print(text)
     if args.out:

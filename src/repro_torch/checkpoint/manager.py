@@ -29,6 +29,14 @@ Two points where tensors differ from JAX arrays:
   ``"bfloat16"`` — and restored bitwise as ``torch.bfloat16``.  (The JAX
   package's own restore rejects such a leaf: ``np.load`` gives ``|V2``,
   which fails its dtype check.  The port does not reproduce that.)
+
+A sharded run (``zero``, a ``sharding.zero.Zero3``) keeps the format: full
+logical arrays, one ``.npy`` a leaf, so a checkpoint written from any world
+size restores onto any other.  ``save`` gathers each sharded leaf to rank 0
+in pieces of at most ``core.tree.PIECE`` elements; rank 0 alone writes
+(synchronously) and marks ``_COMPLETE``, the other ranks wait at a barrier.
+``restore_into`` has each rank read only its slice of each leaf from a
+memory map.  Markers and garbage collection are rank 0's.
 """
 from __future__ import annotations
 
@@ -42,7 +50,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.tree import pytree_leaves, pytree_unflatten
+from repro_torch.core.tree import PIECE, pytree_leaves, pytree_unflatten
 
 _BF16 = "bfloat16"
 
@@ -95,17 +103,28 @@ class CheckpointManager:
     PREEMPT_MARKER = "_PREEMPTED.json"
 
     def __init__(self, directory: str | Path, *, keep_last: int = 3,
-                 async_write: bool = True, gc_incomplete: bool = False):
+                 async_write: bool = True, gc_incomplete: bool = False,
+                 zero=None):
         self.dir = Path(directory)
-        self.dir.mkdir(parents=True, exist_ok=True)
+        self.zero = zero
+        self.writer = zero is None or zero.mesh.rank == 0
+        if self.writer:
+            self.dir.mkdir(parents=True, exist_ok=True)
         self.keep_last = keep_last
-        self.async_write = async_write
+        self.async_write = async_write and zero is None
         self._thread: Optional[threading.Thread] = None
         # one dict a save (host_s: the copy to host memory, write_s: the
         # files) and a restore (read_s, copy_s), with the bytes moved
         self.timings: list = []
-        if gc_incomplete:
+        if gc_incomplete and self.writer:
             self.gc_incomplete()
+        self._barrier()
+
+    def _barrier(self) -> None:
+        if self.zero is not None:
+            from repro_torch.sharding import collectives as C
+            C.all_reduce_exact(torch.zeros(1, device=self.zero.mesh.device),
+                               self.zero.world)
 
     def gc_incomplete(self) -> list[str]:
         """Remove crash-orphaned partial checkpoints: ``_tmp_step_*``
@@ -128,7 +147,10 @@ class CheckpointManager:
         """Snapshot ``tree`` at ``step``.  Returns once the host copy is
         complete; the files are written on a thread if ``async_write``."""
         t0 = time.perf_counter()
-        host = [_host_copy(x) for x in pytree_leaves(tree)]
+        if self.zero is None:
+            host = [_host_copy(x) for x in pytree_leaves(tree)]
+        else:
+            host = self._gather_host(tree)
         rec = {"kind": "save", "step": step,
                "host_s": time.perf_counter() - t0,
                "bytes": sum(a.nbytes for a, _ in host)}
@@ -158,11 +180,42 @@ class CheckpointManager:
             self._gc()
             rec["write_s"] = time.perf_counter() - t1
 
-        if self.async_write:
+        if self.zero is not None:
+            if self.writer:
+                _write()
+            self._barrier()
+        elif self.async_write:
             self._thread = threading.Thread(target=_write, daemon=True)
             self._thread.start()
         else:
             _write()
+
+    def _gather_host(self, tree) -> list:
+        """Rank 0: ``[(numpy array, manifest dtype)]`` of the whole leaves
+        of a sharded ``tree``, each split leaf gathered from the ranks of
+        its ``data`` group in pieces of at most PIECE elements; the other
+        ranks take part and return []."""
+        from repro_torch.sharding import collectives as C
+        zero = self.zero
+        out = []
+        for x, d in zip(pytree_leaves(tree), zero.tree_dims(tree)):
+            if d is None:
+                if self.writer:
+                    out.append(_host_copy(x))
+                continue
+            flat = x.detach().reshape(-1)
+            w = zero.mesh.size("data")
+            parts = torch.empty((w, flat.numel()), dtype=x.dtype)
+            for at in range(0, flat.numel(), PIECE):
+                piece = C._gather_flat(flat[at:at + PIECE], zero.data)
+                if self.writer:
+                    parts[:, at:at + piece.shape[1]].copy_(piece)
+            if self.writer:
+                full = parts.reshape((w,) + tuple(x.shape)).movedim(0, d)
+                shape = list(x.shape)
+                shape[d] *= w
+                out.append(_host_copy(full.reshape(shape)))
+        return out
 
     def wait(self):
         if self._thread is not None:
@@ -190,6 +243,8 @@ class CheckpointManager:
     # ---------------- preemption marker ----------------
     def write_preempt_marker(self, step: int, **info) -> Path:
         marker = self.dir / self.PREEMPT_MARKER
+        if not self.writer:
+            return marker
         tmp = self.dir / (self.PREEMPT_MARKER + ".tmp")
         tmp.write_text(json.dumps({"step": step, "resumable": True, **info}))
         tmp.rename(marker)     # atomic: readers never see a partial marker
@@ -203,8 +258,9 @@ class CheckpointManager:
 
     def clear_preempt_marker(self) -> None:
         marker = self.dir / self.PREEMPT_MARKER
-        if marker.exists():
+        if self.writer and marker.exists():
             marker.unlink()
+        self._barrier()
 
     # ---------------- restore ----------------
     def _flag_damaged(self, d: Path, err: str) -> None:
@@ -213,10 +269,11 @@ class CheckpointManager:
         except OSError:
             pass   # flagging is best-effort; discovery re-validates anyway
 
-    def _load_leaves(self, d: Path) -> tuple[dict, list]:
-        """Read and validate one checkpoint dir's payload as CPU tensors.
-        Raises :class:`CorruptCheckpoint` on any missing, truncated,
-        garbled, or mismatched leaf."""
+    def _load_leaves(self, d: Path, mmap: bool = False) -> tuple[dict, list]:
+        """Read and validate one checkpoint dir's payload as CPU tensors
+        (with ``mmap``, as read-only memory-mapped numpy arrays).  Raises
+        :class:`CorruptCheckpoint` on any missing, truncated, garbled, or
+        mismatched leaf."""
         try:
             manifest = json.loads((d / "manifest.json").read_text())
         except (OSError, json.JSONDecodeError) as e:
@@ -233,7 +290,7 @@ class CheckpointManager:
                     f"{d.name}: {meta['file']} is {f.stat().st_size} bytes, "
                     f"manifest says {want} (truncated?)")
             try:
-                a = np.load(f)
+                a = np.load(f, mmap_mode="r" if mmap else None)
             except Exception as e:
                 raise CorruptCheckpoint(
                     f"{d.name}: {meta['file']} unparseable: {e}")
@@ -244,16 +301,18 @@ class CheckpointManager:
                 raise CorruptCheckpoint(
                     f"{d.name}: {meta['file']} is {a.dtype}{list(a.shape)}, "
                     f"manifest says {meta['dtype']}{meta['shape']}")
-            leaves.append(_as_tensor(a, meta["dtype"]))
+            leaves.append(a if mmap else _as_tensor(a, meta["dtype"]))
         if len(leaves) != manifest.get("n_leaves", len(leaves)):
             raise CorruptCheckpoint(
                 f"{d.name}: {len(leaves)} leaves vs n_leaves="
                 f"{manifest.get('n_leaves')}")
         return manifest, leaves
 
-    def _read(self, step: Optional[int]) -> tuple[int, dict, list]:
+    def _read(self, step: Optional[int], mmap: bool = False
+              ) -> tuple[int, dict, list]:
         """The requested step's (or, with ``step=None``, the newest valid
-        step's) manifest and leaves as CPU tensors."""
+        step's) manifest and leaves as CPU tensors (``mmap``: numpy memory
+        maps)."""
         t0 = time.perf_counter()
         if step is None:
             candidates = sorted(self._complete_steps(), reverse=True)
@@ -263,9 +322,10 @@ class CheckpointManager:
             for s in candidates:
                 d = self.dir / f"step_{s:09d}"
                 try:
-                    manifest, leaves = self._load_leaves(d)
+                    manifest, leaves = self._load_leaves(d, mmap)
                 except CorruptCheckpoint as e:
-                    self._flag_damaged(d, str(e))
+                    if self.writer:
+                        self._flag_damaged(d, str(e))
                     continue
                 step = s
                 break
@@ -274,11 +334,12 @@ class CheckpointManager:
                     f"every complete checkpoint in {self.dir} is damaged")
         else:
             manifest, leaves = self._load_leaves(
-                self.dir / f"step_{step:09d}")
+                self.dir / f"step_{step:09d}", mmap)
         self.timings.append({
             "kind": "restore", "step": step,
             "read_s": time.perf_counter() - t0,
-            "bytes": sum(t.numel() * t.element_size() for t in leaves)})
+            "bytes": sum(t.nbytes if mmap else t.numel() * t.element_size()
+                         for t in leaves)})
         return step, manifest, leaves
 
     @staticmethod
@@ -312,13 +373,47 @@ class CheckpointManager:
                      ) -> tuple[int, dict]:
         """As :meth:`restore`, but copied into ``tree``'s own tensors
         (``copy_``), so the device never holds a second copy and every
-        reference to them stays valid.  Returns (step, extra)."""
+        reference to them stays valid.  Returns (step, extra).  Sharded
+        (``zero``): each rank reads its slice of each leaf only."""
+        if self.zero is not None:
+            return self._restore_shards(tree, step)
         step, manifest, leaves = self._read(step)
         live = pytree_leaves(tree)
         self._check(live, leaves)
         t0 = time.perf_counter()
         for dst, src in zip(live, leaves):
             dst.copy_(src)
+        if live and live[0].device.type == "cuda":
+            torch.cuda.synchronize(live[0].device)
+        self.timings[-1]["copy_s"] = time.perf_counter() - t0
+        return step, manifest.get("extra", {})
+
+    def _restore_shards(self, tree: Any, step: Optional[int]
+                        ) -> tuple[int, dict]:
+        step, manifest, arrays = self._read(step, mmap=True)
+        live = pytree_leaves(tree)
+        dims = self.zero.tree_dims(tree)
+        w = self.zero.mesh.size("data")
+        k = self.zero.mesh.coords.get("data", 0)
+        if len(live) != len(arrays):
+            raise ValueError(f"leaf count mismatch {len(live)} vs "
+                             f"{len(arrays)}")
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for i, (dst, a, d, meta) in enumerate(
+                    zip(live, arrays, dims, manifest["leaves"])):
+                want = list(dst.shape)
+                if d is not None:
+                    want[d] *= w
+                if list(a.shape) != want or meta["dtype"] != _dtype_name(
+                        dst.dtype):
+                    raise ValueError(
+                        f"leaf {i}: template {dst.dtype}{want} (whole), "
+                        f"checkpoint {meta['dtype']}{list(a.shape)}")
+                if d is not None:
+                    n = dst.shape[d]
+                    a = a[(slice(None),) * d + (slice(k * n, (k + 1) * n),)]
+                dst.copy_(_as_tensor(np.array(a), meta["dtype"]))
         if live and live[0].device.type == "cuda":
             torch.cuda.synchronize(live[0].device)
         self.timings[-1]["copy_s"] = time.perf_counter() - t0

@@ -184,3 +184,63 @@ def update_tensor(param: Tensor, grad: Tensor, state: FactoredState, *,
     p32 = p32 * (1.0 - lr * weight_decay)
     new_param = (p32 - lr * u).to(param.dtype)
     return new_param, new_state
+
+
+def update_tensor_sharded(param: Tensor, grad: Tensor, state: FactoredState,
+                          *, lr, step, beta=DEFAULT_HPARAMS["beta"],
+                          weight_decay=DEFAULT_HPARAMS["weight_decay"],
+                          clip=DEFAULT_HPARAMS["clip"], cfg: AdaLomoConfig,
+                          shard) -> tuple:
+    """:func:`update_tensor` for one rank's ZeRO-3 shard of a tensor whose
+    trailing two dims form the matrix (leading dims independent slices).
+
+    ``shard.axis`` is the matrix dim the shard splits (-2 rows, -1
+    columns), ``shard.sum`` the fixed-order sum over the ranks holding the
+    other shards, ``shard.n_total`` the whole matrix's element count.  A
+    factored state holds this shard's part of the split axis' vector and the
+    whole other one (rows: r of the shard's rows, all of c); an unfactored
+    ``v`` is sharded as the parameter.  The statistics of the split axis,
+    Σr, Σu² and Σθ² are summed over the ranks; everything else is local.
+    Returns new ``(param, state)``; nothing is mutated."""
+    dt = cfg.state_dtype
+    g32 = grad.to(dt)
+    g2 = torch.square(g32) + cfg.eps_stat
+    b = beta
+    if state.v is not None:
+        new_state = FactoredState(r=None, c=None,
+                                  v=b * state.v + (1.0 - b) * g2)
+        v = new_state.v
+    elif shard.axis == -2:
+        r = b * state.r + (1.0 - b) * torch.sum(g2, dim=-1)
+        raw = shard.sum(torch.cat([torch.sum(g2, dim=-2),
+                                   torch.sum(r, dim=-1, keepdim=True)], -1))
+        c = b * state.c + (1.0 - b) * raw[..., :-1]
+        new_state = FactoredState(r=r, c=c, v=None)
+        v = (r[..., :, None] * c[..., None, :]) / torch.clamp_min(
+            raw[..., -1:, None], cfg.eps_stat)
+    else:
+        c = b * state.c + (1.0 - b) * torch.sum(g2, dim=-2)
+        r = b * state.r + (1.0 - b) * shard.sum(torch.sum(g2, dim=-1))
+        new_state = FactoredState(r=r, c=c, v=None)
+        v = reconstruct_v(new_state, cfg)
+    del g2
+    if cfg.bias_correction:
+        correction = 1.0 - torch.as_tensor(beta, dtype=dt) \
+            ** torch.as_tensor(step, dtype=dt)
+        v_hat = v / torch.clamp_min(correction, cfg.eps_stat)
+    else:
+        v_hat = v
+    if cfg.literal_div_v:
+        u = g32 / (v_hat + cfg.eps_div)
+    else:
+        u = g32 / (torch.sqrt(v_hat) + cfg.eps_div)
+    p32 = param.to(dt)
+    sums = shard.sum(torch.stack([torch.sum(torch.square(u), dim=(-2, -1)),
+                                  torch.sum(torch.square(p32), dim=(-2, -1))],
+                                 dim=-1))
+    rms_u = torch.sqrt(sums[..., 0, None, None] / shard.n_total)
+    rms_p = torch.sqrt(sums[..., 1, None, None] / shard.n_total)
+    u = u / torch.clamp_min(rms_u / clip, 1.0)
+    u = u * torch.clamp_min(rms_p, cfg.eps_rms)
+    new_param = (p32 * (1.0 - lr * weight_decay) - lr * u).to(param.dtype)
+    return new_param, new_state

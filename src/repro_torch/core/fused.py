@@ -24,6 +24,18 @@ reference's donated buffers — and the dicts passed in are the ones returned.
 ``global_grad_norm`` reproduces LOMO's two-pass alternative: pass 1 walks the
 whole backward just for the global gradient norm (holding one stack's
 gradient at a time, as the reference does), pass 2 applies the clipped update.
+
+With ``zero`` (a :class:`~repro_torch.sharding.zero.Zero3`) the step runs
+ZeRO-3 sharded over the ``data`` axis, the batch split over ``pod`` ×
+``data``: ``params`` and the moments are this rank's resting shards, the
+batch this rank's rows.  The outer leaves are gathered once a step and kept
+from the prologue to the epilogue's gradient; each layer is gathered before
+its forward and again before its re-run, and dies after it; each layer's
+gradients are reduce-scattered to the resting shard (a whole leaf's summed
+over the ranks) before the rule updates the shard, summing its statistics
+over the ranks.  The loss is this rank's share of the global one (the
+model's epilogue divides by the global token count), so the gradients'
+sum over the ranks is the whole batch's gradient.
 """
 from __future__ import annotations
 
@@ -32,7 +44,8 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.core.api import Opt, OptState, UpdateRule, hparams_on_device
-from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.core.tree import tree_flatten_with_path, tree_leaves, tree_map
+from repro_torch.sharding.rules import make_param_constraint
 
 Tensor = torch.Tensor
 
@@ -96,16 +109,26 @@ def _n_layers(stacked_params) -> int:
 
 @torch.no_grad()
 def apply_rule_tree(rule: UpdateRule, params, grads, states, labels, hp,
-                    step):
+                    step, shards=None):
     """Apply ``rule`` leaf-wise, **in place**, with per-group hparams.
 
     ``states`` has one rule-state per param leaf; ``labels`` is an int tree
     matching ``params`` (from ``Opt.labels``); ``hp`` is the tuple of resolved
-    per-group hparam dicts from ``Opt.resolve``.  Returns ``(params,
-    states)``, the trees passed in.
+    per-group hparam dicts from ``Opt.resolve``; ``shards`` (a tree of
+    ``TensorShard`` or None) marks the leaves that are shards of a tensor.
+    Returns ``(params, states)``, the trees passed in.
     """
-    tree_map(lambda p, g, s, lab: rule.update(p, g, s, hp[lab], step),
-             params, grads, states, labels)
+    if shards is None:
+        tree_map(lambda p, g, s, lab: rule.update(p, g, s, hp[lab], step),
+                 params, grads, states, labels)
+        return params, states
+
+    def one(p, g, s, lab, sh):
+        if sh is None:
+            return rule.update(p, g, s, hp[lab], step)
+        return rule.update(p, g, s, hp[lab], step, shard=sh)
+
+    tree_map(one, params, grads, states, labels, shards)
     return params, states
 
 
@@ -120,17 +143,24 @@ class StackResiduals(NamedTuple):
     x_out: Any            # final carry
 
 
+def _slice_layer(stacked_params, i: int):
+    return tree_map(lambda t: t[i], stacked_params)
+
+
 @torch.no_grad()
-def stack_forward(body: Callable, stacked_params, ctx, x) -> StackResiduals:
+def stack_forward(body: Callable, stacked_params, ctx, x, *,
+                  layer_fn: Callable = _slice_layer) -> StackResiduals:
     """Forward loop over a layer stack, saving layer inputs.
 
     ``body(layer_params, ctx, x, aux) -> x`` is one layer's forward on the
     carry ``x`` (a tuple of tensors); ``aux`` is the layer index.
+    ``layer_fn(stacked_params, i)`` gives layer ``i``'s params (ZeRO-3:
+    gathered whole, and dropped after the layer).
     """
     saved = []
     for i in range(_n_layers(stacked_params)):
         saved.append(x)
-        x = body(tree_map(lambda t: t[i], stacked_params), ctx, x, i)
+        x = body(layer_fn(stacked_params, i), ctx, x, i)
     return StackResiduals(saved_x=saved, x_out=x)
 
 
@@ -154,7 +184,8 @@ def _layer_vjp(body, layer_p, ctx, x_in, dx, aux, act_grad: bool = False):
 def stack_backward_update(body: Callable, rule: UpdateRule, stacked_params,
                           stacked_states, ctx, residuals: StackResiduals,
                           dx_out, *, labels, hp, step,
-                          act_grad: bool = False):
+                          act_grad: bool = False, layer_fn=None,
+                          grad_fn=None, shards=None):
     """Reverse loop: per-layer VJP + immediate in-place optimizer update.
 
     Returns ``(dx_in, d_ctx, stacked_params, stacked_states)``: ``d_ctx`` is
@@ -164,6 +195,10 @@ def stack_backward_update(body: Callable, rule: UpdateRule, stacked_params,
     layer cross-attends to), summed over the layers in reverse layer order
     from zeros in the activation's own dtype, as the reference's scan carry
     sums it.  The stacked trees are the ones passed in, updated.
+
+    ZeRO-3 (``layer_fn``, ``grad_fn``, ``shards`` from ``Zero3``): the layer
+    is re-run on its gathered params, its gradients go through ``grad_fn``
+    to the resting shards, and the rule updates those with ``shards``.
     """
     shared, ctx_act = ctx
     d_shared = _tree_zeros_like(shared)
@@ -173,10 +208,15 @@ def stack_backward_update(body: Callable, rule: UpdateRule, stacked_params,
         layer_p = tree_map(lambda t: t[i], stacked_params)
         layer_s = tree_map(lambda _, s: _slice_state(s, i), stacked_params,
                            stacked_states)
+        whole = layer_p if layer_fn is None else layer_fn(stacked_params, i)
         g_layer, g_sh, dx, g_act = _layer_vjp(
-            body, layer_p, ctx, residuals.saved_x[i], dx, i, act_grad)
+            body, whole, ctx, residuals.saved_x[i], dx, i, act_grad)
+        del whole
+        if grad_fn is not None:
+            g_layer = grad_fn(g_layer)
         # >>> the LOMO moment: this layer's grads are consumed *here* <<<
-        apply_rule_tree(rule, layer_p, g_layer, layer_s, labels, hp, step)
+        apply_rule_tree(rule, layer_p, g_layer, layer_s, labels, hp, step,
+                        shards)
         del g_layer
         d_shared = _tree_add(d_shared, g_sh)
         if act_grad:
@@ -186,18 +226,24 @@ def stack_backward_update(body: Callable, rule: UpdateRule, stacked_params,
 
 
 def stack_grads(body: Callable, stacked_params, ctx,
-                residuals: StackResiduals, dx_out):
+                residuals: StackResiduals, dx_out, *,
+                layer_fn: Callable = _slice_layer, grad_fn=None):
     """Backward loop that only *collects* grads (no update) — used by the
     two-pass global-grad-norm mode and by fused-vs-unfused equivalence
-    tests.  Returns ``(dx_in, d_shared, g_stack)``."""
+    tests.  Returns ``(dx_in, d_shared, g_stack)``.  ZeRO-3 (``layer_fn``,
+    ``grad_fn``): each layer re-run whole, its gradients kept as the resting
+    shards' (summed over the ranks)."""
     shared, _ = ctx
     d_shared = _tree_zeros_like(shared)
     dx = dx_out
     per_layer = []
     for i in reversed(range(_n_layers(stacked_params))):
-        layer_p = tree_map(lambda t: t[i], stacked_params)
+        layer_p = layer_fn(stacked_params, i)
         g_layer, g_sh, dx, _ = _layer_vjp(body, layer_p, ctx,
                                           residuals.saved_x[i], dx, i)
+        del layer_p
+        if grad_fn is not None:
+            g_layer = grad_fn(g_layer)
         per_layer.append(g_layer)
         d_shared = _tree_add(d_shared, g_sh)
     per_layer.reverse()
@@ -239,7 +285,7 @@ def _sqsum(tree) -> Tensor:
 
 def fused_train_step(spec: FusedSpec, opt: Opt, params, opt_state: OptState,
                      batch, *, hparams=None,
-                     global_grad_norm: Optional[float] = None):
+                     global_grad_norm: Optional[float] = None, zero=None):
     """One fused LOMO/AdaLomo training step, **in place**.
 
     ``opt_state`` is the :class:`OptState` from ``opt.init(params)`` — the
@@ -248,7 +294,37 @@ def fused_train_step(spec: FusedSpec, opt: Opt, params, opt_state: OptState,
     scalar = lr).  Returns ``(params, new_opt_state, loss, metrics)``:
     ``params`` and the moments are the objects passed in, updated; loss and
     metrics are 0-d tensors on the device (nothing is read back here).
+    ``zero``: run ZeRO-3 sharded (module docstring); the loss and metrics
+    returned are then the global batch's, and ``global_grad_norm``'s norm is
+    of the gradients summed over the ranks.
     """
+    if zero is not None:
+        from repro_torch.sharding.act import use_policy
+        with use_policy(zero.policy):
+            return _fused_step(spec, opt, params, opt_state, batch, hparams,
+                               global_grad_norm, zero)
+    return _fused_step(spec, opt, params, opt_state, batch, hparams,
+                       global_grad_norm, None)
+
+
+def _sharded_sqsum(zero, trees_and_dims) -> Tensor:
+    """Σg² over ZeRO-3 gradients (each tree with its dims tree): the shards'
+    squares summed over the ``data`` ranks in rank order, whole leaves'
+    once — the same bits on every rank."""
+    from repro_torch.sharding import collectives as C
+    split, whole = [], []
+    for tree, dims in trees_and_dims:
+        for g, (_, d) in zip(tree_leaves(tree), tree_flatten_with_path(dims)):
+            (whole if d is None else split).append(
+                torch.sum(torch.square(g.to(torch.float32))))
+    dev = zero.mesh.device
+    part = torch.stack(split).sum() if split else torch.zeros((), device=dev)
+    total = C.all_reduce(part.reshape(1), zero.data)[0]
+    return total + (torch.stack(whole).sum() if whole else 0.0)
+
+
+def _fused_step(spec, opt, params, opt_state, batch, hparams,
+                global_grad_norm, zero):
     rule = opt.rule
     outer, shared, stacks = params["outer"], params["shared"], params["stacks"]
     device = tree_leaves(params)[0].device
@@ -257,6 +333,13 @@ def fused_train_step(spec: FusedSpec, opt: Opt, params, opt_state: OptState,
     step = opt_state.step + 1
     stepf = step.to(torch.float32)
     moments = opt_state.moments
+    seams = {}
+    if zero is not None:
+        # the outer and shared leaves whole for the step; each layer whole
+        # for its forward and its re-run only
+        outer = zero.gather(outer, zero.dims["outer"])
+        shared = zero.gather(shared, zero.dims["shared"])
+        seams = {name: zero.seams(name) for name in stacks}
 
     # ---- forward ----
     with torch.no_grad():
@@ -264,8 +347,10 @@ def fused_train_step(spec: FusedSpec, opt: Opt, params, opt_state: OptState,
         ctx_act = spec.pro_ctx(outer, batch)
         residuals: dict = {}
         for name, stacked in stacks.items():
+            kw = ({"layer_fn": seams[name]["layer_fn"]} if name in seams
+                  else {})
             res = stack_forward(spec.bodies[name], stacked, (shared, ctx_act),
-                                x)
+                                x, **kw)
             residuals[name] = res
             x = res.x_out
 
@@ -279,6 +364,8 @@ def fused_train_step(spec: FusedSpec, opt: Opt, params, opt_state: OptState,
     dx_epi = _carry_tuple(dx_epi)
     loss = loss.detach()
     metrics = {k: v.detach() for k, v in metrics.items()}
+    if zero is not None:
+        loss = metrics["loss"]         # the global batch's
     del outer_req, x_req
 
     def prologue_grads(dx):
@@ -296,14 +383,25 @@ def fused_train_step(spec: FusedSpec, opt: Opt, params, opt_state: OptState,
         dxn = dx_epi
         d_shared_n = _tree_zeros_like(shared)
         for name in reversed(list(stacks.keys())):
+            kw = {} if zero is None else {
+                k: seams[name][k] for k in ("layer_fn", "grad_fn")}
             dxn, d_sh, g_stack = stack_grads(
                 spec.bodies[name], stacks[name], (shared, ctx_act),
-                residuals[name], dxn)
+                residuals[name], dxn, **kw)
             d_shared_n = _tree_add(d_shared_n, d_sh)
-            sq = sq + _sqsum(g_stack)
+            sq = sq + (_sqsum(g_stack) if zero is None else _sharded_sqsum(
+                zero, [(g_stack, zero.dims["stacks"][name])]))
             del g_stack
-        sq = sq + _sqsum(_tree_add(g_outer_epi, prologue_grads(dxn)))
-        sq = sq + _sqsum(d_shared_n)
+        g_outer_n = _tree_add(g_outer_epi, prologue_grads(dxn))
+        if zero is None:
+            sq = sq + _sqsum(g_outer_n) + _sqsum(d_shared_n)
+        else:
+            sq = sq + _sharded_sqsum(zero, [
+                (zero.scatter(g_outer_n, zero.dims["outer"]),
+                 zero.dims["outer"]),
+                (zero.scatter(d_shared_n, zero.dims["shared"]),
+                 zero.dims["shared"])])
+        del g_outer_n
         gnorm = torch.sqrt(sq)
         scale = torch.clamp_max(global_grad_norm / (gnorm + 1e-6), 1.0)
         # Fold the clip into every group's lr — hparams stay data.
@@ -316,28 +414,54 @@ def fused_train_step(spec: FusedSpec, opt: Opt, params, opt_state: OptState,
         dx, d_sh, _, _ = stack_backward_update(
             spec.bodies[name], rule, stacks[name], moments["stacks"][name],
             (shared, ctx_act), residuals[name], dx,
-            labels=labels["stacks"][name], hp=hp, step=stepf)
+            labels=labels["stacks"][name], hp=hp, step=stepf,
+            **seams.get(name, {}))
         d_shared = _tree_add(d_shared, d_sh)
 
     # ``outer`` is updated once, after both gradients are summed.
     g_outer = _tree_add(g_outer_epi, prologue_grads(dx))
-    apply_rule_tree(rule, outer, g_outer, moments["outer"], labels["outer"],
-                    hp, stepf)
-    apply_rule_tree(rule, shared, d_shared, moments["shared"],
-                    labels["shared"], hp, stepf)
+    if zero is None:
+        apply_rule_tree(rule, outer, g_outer, moments["outer"],
+                        labels["outer"], hp, stepf)
+        apply_rule_tree(rule, shared, d_shared, moments["shared"],
+                        labels["shared"], hp, stepf)
+    else:
+        del outer, shared, g_outer_epi
+        for key, g in (("outer", g_outer), ("shared", d_shared)):
+            dims = zero.dims[key]
+            g = zero.scatter(g, dims)
+            apply_rule_tree(rule, params[key], g, moments[key], labels[key],
+                            hp, stepf, zero.shards(dims, zero.shapes[key]))
 
     return params, OptState(step=step, moments=moments), loss, metrics
 
 
-def unfused_loss_fn(spec: FusedSpec, params, batch):
+def unfused_loss_fn(spec: FusedSpec, params, batch, *, zero=None):
     """The same model as one differentiable function — for gradient-based
-    baselines and fused-vs-unfused equivalence tests."""
-    outer, shared, stacks = params["outer"], params["shared"], params["stacks"]
+    baselines and fused-vs-unfused equivalence tests.  With ``zero``
+    (ZeRO-3 shards, evaluation on a mesh): the global ``batch`` is cut to
+    this rank's rows, the outer leaves and each layer are gathered for
+    their use, and the loss and metrics returned are the global batch's."""
+    if zero is not None:
+        from repro_torch.sharding.act import use_policy
+        with use_policy(zero.policy):
+            batch = {k: zero.rows(x) for k, x in batch.items()}
+            whole = {"outer": zero.gather(params["outer"], zero.dims["outer"]),
+                     "shared": zero.gather(params["shared"],
+                                           zero.dims["shared"])}
+            loss, metrics = _loss(spec, whole["outer"], whole["shared"],
+                                  params["stacks"], batch,
+                                  make_param_constraint(zero))
+            return metrics["loss"], metrics
+    return _loss(spec, params["outer"], params["shared"], params["stacks"],
+                 batch, lambda name: _slice_layer)
+
+
+def _loss(spec, outer, shared, stacks, batch, layer_fn_of):
     x = spec.prologue(outer, batch)
     ctx_act = spec.pro_ctx(outer, batch)
     for name, stacked in stacks.items():
-        body = spec.bodies[name]
+        body, layer_fn = spec.bodies[name], layer_fn_of(name)
         for i in range(_n_layers(stacked)):
-            x = body(tree_map(lambda t: t[i], stacked), (shared, ctx_act), x,
-                     i)
+            x = body(layer_fn(stacked, i), (shared, ctx_act), x, i)
     return spec.epilogue(outer, x, batch)

@@ -65,7 +65,10 @@ def adalomo(cfg: Optional[_adalomo.AdaLomoConfig] = None, *,
     CUDA device; 1-D/unfactored tensors and ``backend="torch"`` use the plain
     path — same math, same state.  ``"auto"`` is ``"cuda"`` for a CUDA tensor
     and ``"torch"`` for a CPU tensor.  ``lr``/``beta``/``weight_decay``/
-    ``clip`` set the rule's *default* dynamic hparams.
+    ``clip`` set the rule's *default* dynamic hparams.  ``update`` takes
+    ``shard`` (a ``sharding.zero.TensorShard``) for one rank's ZeRO-3 shard
+    of a tensor: its statistics are then summed over the ranks (the
+    kernels' sharded entries, or ``core.adalomo.update_tensor_sharded``).
     """
     if backend not in _BACKENDS:
         raise ValueError(f"backend {backend!r} not in {_BACKENDS}")
@@ -85,18 +88,22 @@ def adalomo(cfg: Optional[_adalomo.AdaLomoConfig] = None, *,
         return backend == "cuda" or (backend == "auto" and param.is_cuda)
 
     @torch.no_grad()
-    def update_fn(param, grad, state, hp, step, *, batch_dims=0):
+    def update_fn(param, grad, state, hp, step, *, batch_dims=0, shard=None):
         if (use_kernel(param) and state.v is None
                 and param.ndim - batch_dims >= 2):
             from repro_torch.kernels.adalomo_update.ops import adalomo_update
             adalomo_update(param, grad.contiguous(), state.r, state.c,
                            hp["lr"], step, hp["beta"], hp["weight_decay"],
-                           hp["clip"], cfg=cfg)
+                           hp["clip"], cfg=cfg, shard=shard)
             return param, state
-        new_p, new_s = _adalomo.update_tensor(
-            param, grad, state, lr=hp["lr"], step=step, beta=hp["beta"],
-            weight_decay=hp["weight_decay"], clip=hp["clip"], cfg=cfg,
-            batch_dims=batch_dims)
+        kw = dict(lr=hp["lr"], step=step, beta=hp["beta"],
+                  weight_decay=hp["weight_decay"], clip=hp["clip"], cfg=cfg)
+        if shard is not None:
+            new_p, new_s = _adalomo.update_tensor_sharded(param, grad, state,
+                                                          shard=shard, **kw)
+        else:
+            new_p, new_s = _adalomo.update_tensor(param, grad, state,
+                                                  batch_dims=batch_dims, **kw)
         param.copy_(new_p)
         for old, new in zip(state, new_s):
             if old is not None:
@@ -115,15 +122,16 @@ def adalomo(cfg: Optional[_adalomo.AdaLomoConfig] = None, *,
 def sgd(*, lr: float = 1e-3) -> UpdateRule:
     """Plain SGD — the LOMO update rule (paper Eq. 1).  In place, piece by
     piece (``leading_pieces``): each piece in fp32, cast once at its write,
-    so the result is the whole-leaf update's, bit for bit."""
+    so the result is the whole-leaf update's, bit for bit.  Elementwise, so
+    a ZeRO-3 shard (``shard``) needs nothing of the other ranks."""
 
     def init_fn(param, *, factored=None, batch_dims=0):
         del factored, batch_dims
         return ()
 
     @torch.no_grad()
-    def update_fn(param, grad, state, hp, step, *, batch_dims=0):
-        del step, batch_dims
+    def update_fn(param, grad, state, hp, step, *, batch_dims=0, shard=None):
+        del step, batch_dims, shard
         for p, g in zip(leading_pieces(param), leading_pieces(grad)):
             p.copy_((p.to(_F32) - hp["lr"] * g.to(_F32)).to(p.dtype))
         return param, state
@@ -300,6 +308,10 @@ def adafactor(cfg: Optional[AdafactorConfig] = None, *, lr: float = 1e-3,
 # --------------------------------------------------------------------------
 # Registry
 # --------------------------------------------------------------------------
+
+# The rules whose update takes a ZeRO-3 shard; the others (unfused
+# baselines) run on a mesh from slice 6b of the port.
+SHARDED_RULES = ("adalomo", "lomo", "sgd")
 
 REGISTRY: dict[str, Callable[..., UpdateRule]] = {
     "adalomo": adalomo,

@@ -39,6 +39,15 @@ from repro_torch.run import hooks as hooks_lib
 # EX_TEMPFAIL: the sysexits.h "temporary failure; retry" code.
 PREEMPTED_EXIT_CODE = 75
 
+# The signal a PreemptionHook of this process has caught and not yet acted
+# on (0: none).  A sharded step sums it over the ranks into its metrics
+# (``"preempt"``), so that every rank stops at the same step boundary.
+_PENDING = [0]
+
+
+def pending_signal() -> int:
+    return _PENDING[0]
+
 _SIGNALS = (signal.SIGTERM, signal.SIGINT)
 
 
@@ -79,6 +88,7 @@ class PreemptionHook(hooks_lib.Hook):
             signal.raise_signal(signum)
             return
         self.requested = signum
+        _PENDING[0] = int(signum)
 
     def _restore(self) -> None:
         for sig, original in self._originals.items():
@@ -96,10 +106,18 @@ class PreemptionHook(hooks_lib.Hook):
                 self._originals[sig] = signal.signal(sig, self._handler)
 
     def on_step_end(self, ctx, ev: hooks_lib.StepEvent) -> None:
-        if self.requested is None:
+        if getattr(ctx.program, "zero", None) is not None:
+            # a sharded run stops where the step's sum over the ranks saw a
+            # signal, on every rank at once (a signal caught after the step
+            # read its flag counts at the next step)
+            if not ev.metrics.get("preempt", 0.0) > 0:
+                return
+            signum = self.requested or signal.SIGTERM
+        elif self.requested is None:
             return
+        else:
+            signum = self.requested
         step = ev.step + 1
-        signum = self.requested
         if self.manager is not None:
             if self.manager.latest_step() != step:
                 # off-boundary save: the whole point of the protocol
@@ -118,3 +136,4 @@ class PreemptionHook(hooks_lib.Hook):
 
     def on_exit(self, ctx) -> None:
         self._restore()
+        _PENDING[0] = 0

@@ -27,9 +27,17 @@ apply pass walks them in reverse so the re-read finds the partials pass's
 last tiles in L2.  No float atomics: the same inputs give bit-identical
 outputs.
 
+Sharded entries, for a ZeRO-3 row or column shard of a tensor whose
+statistics are summed over the ranks between launches:
+:func:`adalomo_stats_partial` (K1 with the sharded axis' sums left raw),
+:func:`adalomo_stats_fold` (the β-EMA fold of the summed vector),
+:func:`adalomo_update_partials` (K2's partials launch and their sum, a
+shard's ``(Σu², Σθ²)``) and :func:`adalomo_update_apply` (K2's apply launch
+from the global sums and the global element count).
+
 A CUDA tensor launches the kernel or raises; only a CPU tensor takes the
-plain version.  ``adalomo_stats.launches`` / ``adalomo_update.launches``
-count the kernel launches of each wrapper.
+plain version.  Each wrapper's ``launches`` attribute counts its kernel
+launches (one a call).
 """
 from __future__ import annotations
 
@@ -148,6 +156,20 @@ def _library() -> ctypes.CDLL:
     lib.adalomo_update_launch.argtypes = [vp, ci, vp, ci, vp, vp, vp, vp, cf,
                                           cf, ci, ci, ci, ci, ci, vp]
     lib.adalomo_update_launch.restype = ci
+    lib.adalomo_stats_partial_launch.argtypes = [vp, ci, vp, vp, vp, vp, vp,
+                                                 vp, cf, ci, ci, ci, ci, vp,
+                                                 ci, ci, vp]
+    lib.adalomo_stats_partial_launch.restype = ci
+    lib.adalomo_stats_fold_launch.argtypes = [vp, vp, ci, ci, ci, vp, vp]
+    lib.adalomo_stats_fold_launch.restype = ci
+    lib.adalomo_update_partials_launch.argtypes = [vp, ci, vp, ci, vp, vp, vp,
+                                                   vp, vp, cf, cf, ci, ci, ci,
+                                                   ci, ci, vp]
+    lib.adalomo_update_partials_launch.restype = ci
+    lib.adalomo_update_apply_launch.argtypes = [vp, ci, vp, ci, vp, vp, vp,
+                                                vp, ctypes.c_longlong, cf, cf,
+                                                ci, ci, ci, ci, ci, vp]
+    lib.adalomo_update_apply_launch.restype = ci
     for fn in (lib.adalomo_update_tile_rows, lib.adalomo_update_tile_cols,
                lib.adalomo_stats_tile_cols):
         fn.argtypes, fn.restype = [], ci
@@ -310,3 +332,230 @@ def adalomo_update(param: Tensor, grad: Tensor, r: Tensor, c: Tensor,
 
 
 adalomo_update.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Sharded entries: a ZeRO-3 shard of [..., m, n], rows (axis -2) or columns
+# (axis -1) split over the ranks
+# --------------------------------------------------------------------------
+
+def _axis(axis: int) -> int:
+    if axis not in (-2, -1):
+        raise ValueError(f"axis: expected -2 (a row shard) or -1 (a column "
+                         f"shard), got {axis}")
+    return axis
+
+
+def adalomo_stats_partial_ref(grad: Tensor, r: Tensor, c: Tensor, beta, *,
+                              eps_stat: float, axis: int) -> tuple:
+    """Plain PyTorch version of :func:`adalomo_stats_partial`.  Returns
+    ``(r', c', raw)``, mutating nothing."""
+    g2 = torch.square(grad.to(torch.float32)) + eps_stat
+    if _axis(axis) == -2:
+        r = beta * r + (1.0 - beta) * g2.sum(dim=-1)
+        return r, c, torch.cat([g2.sum(dim=-2), r.sum(dim=-1)[..., None]],
+                               dim=-1)
+    c = beta * c + (1.0 - beta) * g2.sum(dim=-2)
+    return r, c, g2.sum(dim=-1)
+
+
+def adalomo_stats_partial(grad: Tensor, r: Tensor, c: Tensor, beta: Tensor,
+                          *, eps_stat: float, axis: int) -> Tensor:
+    """K1 on one rank's shard ``grad [..., m, n]`` of a tensor.
+
+    ``axis=-2``, a row shard: r (``[..., m]``, this shard's rows) is folded
+    in place as by :func:`adalomo_stats`; c is left as it is, and the result
+    ``[..., n + 1]`` holds the shard's raw column sums of ``g²+eps_stat``
+    and, last, the shard's Σr'.  ``axis=-1``, a column shard: c is folded
+    in place, r left, and the result ``[..., m]`` holds the raw row sums.
+    Summed over the ranks, the result is what the whole tensor's fold needs:
+    :func:`adalomo_stats_fold` then folds it into the other state vector.
+    """
+    if not grad.is_cuda:
+        nr, nc, raw = adalomo_stats_partial_ref(grad, r, c, beta,
+                                                eps_stat=eps_stat, axis=axis)
+        r.copy_(nr)
+        c.copy_(nc)
+        return raw
+    lead, L, m, n = _geometry(grad)
+    dev = grad.device
+    _check("grad", grad, grad.shape, tuple(_DTYPE_CODE), dev)
+    _check("r", r, lead + (m,), (torch.float32,), dev)
+    _check("c", c, lead + (n,), (torch.float32,), dev)
+    _check("beta", beta, beta.shape, (torch.float32,), dev)
+    if beta.numel() != 1:
+        raise ValueError("beta: expected one element")
+    rows = _axis(axis) == -2
+    width = n + 1 if rows else m
+    raw = torch.empty(lead + (width,), dtype=torch.float32, device=dev)
+    lib = _library()
+    tiling = stats_tiling(L, m, n)
+    row_part = torch.empty(tiling.row_partials_shape(L), dtype=torch.float32,
+                           device=dev)
+    col_part = torch.empty(tiling.col_partials_shape(L), dtype=torch.float32,
+                           device=dev)
+    tickets = ticket_counters("adalomo_stats", dev, tiling.tickets(L))
+    with torch.cuda.device(dev):
+        err = lib.adalomo_stats_partial_launch(
+            grad.data_ptr(), _DTYPE_CODE[grad.dtype], r.data_ptr(),
+            c.data_ptr(), row_part.data_ptr(), col_part.data_ptr(),
+            tickets.data_ptr(), beta.data_ptr(), float(eps_stat), L, m, n,
+            tiling.rows, raw.data_ptr(), 1 if rows else 2, width,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "adalomo_stats_partial")
+    adalomo_stats_partial.launches += 1
+    if rows:
+        # the shard's sum of its folded r, packed beside the column sums so
+        # that one sum over the ranks carries both
+        raw[..., n] = torch.sum(r, dim=-1)
+    return raw
+
+
+adalomo_stats_partial.launches = 0
+
+
+def adalomo_stats_fold_ref(dst: Tensor, src: Tensor, beta) -> Tensor:
+    """Plain PyTorch version of :func:`adalomo_stats_fold`: the new dst."""
+    return beta * dst + (1.0 - beta) * src[..., :dst.shape[-1]]
+
+
+def adalomo_stats_fold(dst: Tensor, src: Tensor, beta: Tensor) -> Tensor:
+    """``dst ← β·dst + (1−β)·src[..., :k]`` **in place**, dst ``[..., k]``
+    and src ``[..., ≥ k]`` float32 (statistics summed over the ranks, read
+    from :func:`adalomo_stats_partial`'s buffer).  Returns ``dst``."""
+    if not dst.is_cuda:
+        dst.copy_(adalomo_stats_fold_ref(dst, src, beta))
+        return dst
+    dev = dst.device
+    lead, k = tuple(dst.shape[:-1]), dst.shape[-1]
+    _check("dst", dst, dst.shape, (torch.float32,), dev)
+    _check("src", src, lead + (src.shape[-1],), (torch.float32,), dev)
+    _check("beta", beta, beta.shape, (torch.float32,), dev)
+    if src.shape[-1] < k or beta.numel() != 1:
+        raise ValueError(f"src {tuple(src.shape)} does not cover dst "
+                         f"{tuple(dst.shape)}, or beta is not one element")
+    L = max(1, dst.numel() // k)
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.adalomo_stats_fold_launch(
+            dst.data_ptr(), src.data_ptr(), src.shape[-1], k, L,
+            beta.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "adalomo_stats_fold")
+    adalomo_stats_fold.launches += 1
+    return dst
+
+
+adalomo_stats_fold.launches = 0
+
+
+def _direction(param, grad, r, c, scal, eps_div, literal):
+    inv = scal[..., 0, None, None]
+    v_hat = (r[..., :, None] * c[..., None, :]) * inv
+    g = grad.to(torch.float32)
+    return g / (v_hat + eps_div) if literal else g / (torch.sqrt(v_hat)
+                                                      + eps_div)
+
+
+def adalomo_update_partials_ref(param: Tensor, grad: Tensor, r: Tensor,
+                                c: Tensor, scal: Tensor, *, eps_div: float,
+                                eps_rms: float, literal: bool) -> Tensor:
+    """Plain PyTorch version of :func:`adalomo_update_partials`."""
+    del eps_rms
+    u = _direction(param, grad, r, c, scal, eps_div, literal)
+    p = param.to(torch.float32)
+    return torch.stack([torch.sum(u * u, dim=(-2, -1)),
+                        torch.sum(p * p, dim=(-2, -1))], dim=-1)
+
+
+def adalomo_update_partials(param: Tensor, grad: Tensor, r: Tensor,
+                            c: Tensor, scal: Tensor, *, eps_div: float,
+                            eps_rms: float, literal: bool) -> Tensor:
+    """K2's first half on a shard: ``[..., 2]`` float32 = (Σu², Σθ²) over
+    each slice of the shard, added in a fixed block order; θ is not
+    written.  Arguments as :func:`adalomo_update`'s."""
+    if not param.is_cuda:
+        return adalomo_update_partials_ref(param, grad, r, c, scal,
+                                           eps_div=eps_div, eps_rms=eps_rms,
+                                           literal=literal)
+    lead, L, m, n = _geometry(param)
+    dev = param.device
+    _check("param", param, param.shape, tuple(_DTYPE_CODE), dev)
+    _check("grad", grad, param.shape, tuple(_DTYPE_CODE), dev)
+    _check("r", r, lead + (m,), (torch.float32,), dev)
+    _check("c", c, lead + (n,), (torch.float32,), dev)
+    _check("scal", scal, lead + (4,), (torch.float32,), dev)
+    lib = _library()
+    tiling = update_tiling(L, m, n)
+    partials = torch.empty(tiling.partials_shape(L), dtype=torch.float32,
+                           device=dev)
+    sums = torch.empty(lead + (2,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.adalomo_update_partials_launch(
+            param.data_ptr(), _DTYPE_CODE[param.dtype], grad.data_ptr(),
+            _DTYPE_CODE[grad.dtype], r.data_ptr(), c.data_ptr(),
+            scal.data_ptr(), partials.data_ptr(), sums.data_ptr(),
+            float(eps_div), float(eps_rms), int(bool(literal)), L, m, n,
+            tiling.blocks, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "adalomo_update_partials")
+    adalomo_update_partials.launches += 1
+    return sums
+
+
+adalomo_update_partials.launches = 0
+
+
+def adalomo_update_apply_ref(param: Tensor, grad: Tensor, r: Tensor,
+                             c: Tensor, scal: Tensor, sums: Tensor,
+                             n_total: int, *, eps_div: float, eps_rms: float,
+                             literal: bool) -> Tensor:
+    """Plain PyTorch version of :func:`adalomo_update_apply`: the new
+    parameter."""
+    _, lr, decay, clip = (scal[..., i, None, None] for i in range(4))
+    u = _direction(param, grad, r, c, scal, eps_div, literal)
+    p = param.to(torch.float32)
+    rms_u = torch.sqrt(sums[..., 0, None, None] / float(n_total))
+    rms_p = torch.sqrt(sums[..., 1, None, None] / float(n_total))
+    scale = torch.clamp_min(rms_p, eps_rms) / torch.clamp_min(rms_u / clip,
+                                                              1.0)
+    return (p * decay - lr * u * scale).to(param.dtype)
+
+
+def adalomo_update_apply(param: Tensor, grad: Tensor, r: Tensor, c: Tensor,
+                         scal: Tensor, sums: Tensor, n_total: int, *,
+                         eps_div: float, eps_rms: float,
+                         literal: bool) -> Tensor:
+    """K2's second half on a shard, θ updated **in place**: RMS(u) and
+    RMS(θ) from ``sums [..., 2]`` (the whole tensor's Σu², Σθ², summed over
+    the ranks) divided by ``n_total``, the whole tensor's element count a
+    slice — not the shard's.  Returns ``param``."""
+    if not param.is_cuda:
+        param.copy_(adalomo_update_apply_ref(
+            param, grad, r, c, scal, sums, n_total, eps_div=eps_div,
+            eps_rms=eps_rms, literal=literal))
+        return param
+    lead, L, m, n = _geometry(param)
+    dev = param.device
+    _check("param", param, param.shape, tuple(_DTYPE_CODE), dev)
+    _check("grad", grad, param.shape, tuple(_DTYPE_CODE), dev)
+    _check("r", r, lead + (m,), (torch.float32,), dev)
+    _check("c", c, lead + (n,), (torch.float32,), dev)
+    _check("scal", scal, lead + (4,), (torch.float32,), dev)
+    _check("sums", sums, lead + (2,), (torch.float32,), dev)
+    if int(n_total) < m * n:
+        raise ValueError(f"n_total {n_total} is less than the shard's "
+                         f"{m} x {n} elements")
+    lib = _library()
+    tiling = update_tiling(L, m, n)
+    with torch.cuda.device(dev):
+        err = lib.adalomo_update_apply_launch(
+            param.data_ptr(), _DTYPE_CODE[param.dtype], grad.data_ptr(),
+            _DTYPE_CODE[grad.dtype], r.data_ptr(), c.data_ptr(),
+            scal.data_ptr(), sums.data_ptr(), int(n_total), float(eps_div),
+            float(eps_rms), int(bool(literal)), L, m, n, tiling.blocks,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "adalomo_update_apply")
+    adalomo_update_apply.launches += 1
+    return param
+
+
+adalomo_update_apply.launches = 0

@@ -44,6 +44,14 @@
 // (launch, loads, fence, tickets, fold), not bandwidth (PERF.md).
 // eps_stat is added once per real element; beta is read from device memory
 // by the folding blocks only.
+//
+// Sharded entry (ZeRO-3: g is one rank's row or column shard of the
+// tensor).  The statistics of the axis the shard holds whole are folded as
+// above; those of the sharded axis are only partial on this rank, so
+// `raw_axis` = 1 (a row shard) writes the raw column sums, and 2 (a column
+// shard) the raw row sums, to `raw` [L, raw_stride] in place of the fold.
+// The caller sums them over the ranks and folds the sum with
+// adalomo_stats_fold_launch, the same expression as the fold here.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -70,10 +78,12 @@ struct StatsShape {
 // aligned; width 64, 128 or 256) in a fixed order and folds the first
 // `valid` sums into dst as dst = beta * dst + (1 - beta) * sum.  Called by
 // all threads of the block; `red` holds 4 * kThreads floats.
+// With `raw` the sums are written to dst as they are, unfolded.
 __device__ __forceinline__ void fold_partials(const float* src, size_t stride,
                                               int count, int width,
                                               float* dst, int valid,
-                                              float beta, float* red) {
+                                              float beta, float* red,
+                                              bool raw) {
   const int lanes = width / 4;              // threads a partial row
   const int groups = kThreads / lanes;
   const int t = threadIdx.x % lanes, grp = threadIdx.x / lanes;
@@ -101,8 +111,21 @@ __device__ __forceinline__ void fold_partials(const float* src, size_t stride,
   for (int e = threadIdx.x; e < valid; e += kThreads) {
     float total = 0.f;
     for (int g = 0; g < groups; ++g) total += red[g * width + e];
-    dst[e] = beta * dst[e] + (1.f - beta) * total;
+    dst[e] = raw ? total : beta * dst[e] + (1.f - beta) * total;
   }
+}
+
+// dst[l, e] = beta * dst[l, e] + (1 - beta) * src[l * src_stride + e]: the
+// fold of fold_partials, for statistics summed over the ranks.
+__global__ void __launch_bounds__(kThreads)
+fold_kernel(float* __restrict__ dst, const float* __restrict__ src,
+            int src_stride, int count, const float* __restrict__ beta_p) {
+  const int e = blockIdx.x * kThreads + threadIdx.x, l = blockIdx.y;
+  if (e >= count) return;
+  const float beta = __ldg(beta_p);
+  const float total = src[(size_t)l * src_stride + e];
+  float* d = dst + (size_t)l * count + e;
+  *d = beta * *d + (1.f - beta) * total;
 }
 
 template <typename G, bool kVector, int R>
@@ -112,7 +135,7 @@ stats_kernel(const G* __restrict__ g, float* __restrict__ r,
              float* __restrict__ c, float* __restrict__ row_part,
              float* __restrict__ col_part, int* __restrict__ tickets,
              const float* __restrict__ beta_p, float eps_stat, int m,
-             int n) {
+             int n, float* __restrict__ raw, int raw_axis, int raw_stride) {
   using Sh = StatsShape<G, kVector, R>;
   constexpr int kRowsPerWarp = Sh::kRowsPerWarp;
   constexpr int kBatch = Sh::kBatch;    // rows whose loads are in flight
@@ -193,39 +216,49 @@ stats_kernel(const G* __restrict__ g, float* __restrict__ r,
   __syncthreads();
   if (!s_last_band && !s_last_strip) return;
   const float beta = __ldg(beta_p);
-  if (s_last_band)
+  if (s_last_band) {
+    const bool rw = raw_axis == 2;
     fold_partials(row_part + (size_t)l * strips * m_pad + row0, m_pad, strips,
-                  R, r + (size_t)l * m + row0, min(R, m - row0), beta, red);
-  if (s_last_strip)
+                  R, (rw ? raw + (size_t)l * raw_stride : r + (size_t)l * m)
+                  + row0, min(R, m - row0), beta, red, rw);
+  }
+  if (s_last_strip) {
+    const bool rw = raw_axis == 1;
     fold_partials(col_part + (size_t)l * bands * n_pad + col0, n_pad, bands,
-                  kStatsCols, c + (size_t)l * n + col0,
-                  min(kStatsCols, n - col0), beta, red);
+                  kStatsCols,
+                  (rw ? raw + (size_t)l * raw_stride : c + (size_t)l * n)
+                  + col0, min(kStatsCols, n - col0), beta, red, rw);
+  }
 }
 
 template <typename G, int R>
 void launch_rows(dim3 grid, cudaStream_t s, const G* g, bool vector,
                  float* r, float* c, float* row_part, float* col_part,
                  int* tickets, const float* beta, float eps_stat, int m,
-                 int n) {
+                 int n, float* raw, int raw_axis, int raw_stride) {
   if (vector)
     stats_kernel<G, true, R><<<grid, kThreads, 0, s>>>(
-        g, r, c, row_part, col_part, tickets, beta, eps_stat, m, n);
+        g, r, c, row_part, col_part, tickets, beta, eps_stat, m, n, raw,
+        raw_axis, raw_stride);
   else
     stats_kernel<G, false, R><<<grid, kThreads, 0, s>>>(
-        g, r, c, row_part, col_part, tickets, beta, eps_stat, m, n);
+        g, r, c, row_part, col_part, tickets, beta, eps_stat, m, n, raw,
+        raw_axis, raw_stride);
 }
 
 template <typename G>
 int launch_stats(const void* g, float* r, float* c, float* row_part,
                  float* col_part, int* tickets, const float* beta,
-                 float eps_stat, int L, int m, int n, int R, cudaStream_t s) {
+                 float eps_stat, int L, int m, int n, int R, float* raw,
+                 int raw_axis, int raw_stride, cudaStream_t s) {
   const dim3 grid((n + kStatsCols - 1) / kStatsCols, (m + R - 1) / R, L);
   const G* gp = static_cast<const G*>(g);
   const bool vector = n % kVec == 0 && ((uintptr_t)g & 15) == 0;
 #define ADALOMO_ROWS(RR)                                                    \
   case RR:                                                                  \
     launch_rows<G, RR>(grid, s, gp, vector, r, c, row_part, col_part,       \
-                       tickets, beta, eps_stat, m, n);                      \
+                       tickets, beta, eps_stat, m, n, raw, raw_axis,        \
+                       raw_stride);                                         \
     break
   switch (R) {
     ADALOMO_ROWS(64);
@@ -243,6 +276,40 @@ int launch_stats(const void* g, float* r, float* c, float* row_part,
 // The columns of K1's tile; the wrapper's tiling must agree.
 extern "C" int adalomo_stats_tile_cols() { return adalomo::kStatsCols; }
 
+namespace adalomo {
+
+int stats_entry(const void* g, int g_dtype, void* r, void* c, void* row_part,
+                void* col_part, void* tickets, const void* beta,
+                float eps_stat, int L, int m, int n, int rows_per_block,
+                void* raw, int raw_axis, int raw_stride, void* stream) {
+  const int R = rows_per_block;
+  if (L < 1 || L > 65535 || m < 1 || n < 1 ||
+      (R != 64 && R != 128 && R != 256) || (m + R - 1) / R > 65535 ||
+      (((uintptr_t)row_part | (uintptr_t)col_part) & 15) != 0 ||
+      raw_axis < 0 || raw_axis > 2 ||
+      (raw_axis != 0 &&
+       (raw == nullptr || raw_stride < (raw_axis == 1 ? n : m))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* rp = static_cast<float*>(r);
+  float* cp = static_cast<float*>(c);
+  float* rpart = static_cast<float*>(row_part);
+  float* cpart = static_cast<float*>(col_part);
+  int* tk = static_cast<int*>(tickets);
+  const float* bp = static_cast<const float*>(beta);
+  float* rw = static_cast<float*>(raw);
+  if (g_dtype == kFloat32)
+    return launch_stats<float>(g, rp, cp, rpart, cpart, tk, bp, eps_stat, L,
+                               m, n, R, rw, raw_axis, raw_stride, s);
+  if (g_dtype == kBFloat16)
+    return launch_stats<__nv_bfloat16>(g, rp, cp, rpart, cpart, tk, bp,
+                                       eps_stat, L, m, n, R, rw, raw_axis,
+                                       raw_stride, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace adalomo
+
 // g [L, m, n] (g_dtype 0 = float32, 1 = bfloat16); r [L, m], c [L, n] fp32,
 // updated in place; tiles of rows_per_block (64, 128 or 256) rows x 256
 // columns, strips = ceil(n / 256), bands = ceil(m / rows_per_block);
@@ -256,24 +323,39 @@ extern "C" int adalomo_stats_launch(const void* g, int g_dtype, void* r,
                                     void* tickets, const void* beta,
                                     float eps_stat, int L, int m, int n,
                                     int rows_per_block, void* stream) {
-  using namespace adalomo;
-  const int R = rows_per_block;
-  if (L < 1 || L > 65535 || m < 1 || n < 1 ||
-      (R != 64 && R != 128 && R != 256) || (m + R - 1) / R > 65535 ||
-      (((uintptr_t)row_part | (uintptr_t)col_part) & 15) != 0)
+  return adalomo::stats_entry(g, g_dtype, r, c, row_part, col_part, tickets,
+                              beta, eps_stat, L, m, n, rows_per_block,
+                              nullptr, 0, 0, stream);
+}
+
+// The sharded entry: as adalomo_stats_launch, but with raw_axis 1 (g a row
+// shard) c is left as it is and the raw column sums go to raw[l, 0:n], and
+// with raw_axis 2 (a column shard) r is left and the raw row sums go to
+// raw[l, 0:m]; raw is [L, raw_stride] fp32.
+extern "C" int adalomo_stats_partial_launch(
+    const void* g, int g_dtype, void* r, void* c, void* row_part,
+    void* col_part, void* tickets, const void* beta, float eps_stat, int L,
+    int m, int n, int rows_per_block, void* raw, int raw_axis, int raw_stride,
+    void* stream) {
+  if (raw_axis != 1 && raw_axis != 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* rp = static_cast<float*>(r);
-  float* cp = static_cast<float*>(c);
-  float* rpart = static_cast<float*>(row_part);
-  float* cpart = static_cast<float*>(col_part);
-  int* tk = static_cast<int*>(tickets);
-  const float* bp = static_cast<const float*>(beta);
-  if (g_dtype == kFloat32)
-    return launch_stats<float>(g, rp, cp, rpart, cpart, tk, bp, eps_stat, L,
-                               m, n, R, s);
-  if (g_dtype == kBFloat16)
-    return launch_stats<__nv_bfloat16>(g, rp, cp, rpart, cpart, tk, bp,
-                                       eps_stat, L, m, n, R, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return adalomo::stats_entry(g, g_dtype, r, c, row_part, col_part, tickets,
+                              beta, eps_stat, L, m, n, rows_per_block, raw,
+                              raw_axis, raw_stride, stream);
+}
+
+// dst [L, count] = beta * dst + (1 - beta) * src[l * src_stride + e], fp32,
+// beta one fp32 value in device memory: the fold of statistics summed over
+// the ranks.  Returns cudaGetLastError().
+extern "C" int adalomo_stats_fold_launch(void* dst, const void* src,
+                                         int src_stride, int count, int L,
+                                         const void* beta, void* stream) {
+  using namespace adalomo;
+  if (L < 1 || L > 65535 || count < 1 || src_stride < count)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((count + kThreads - 1) / kThreads, L);
+  fold_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(dst), static_cast<const float*>(src), src_stride,
+      count, static_cast<const float*>(beta));
+  return static_cast<int>(cudaGetLastError());
 }

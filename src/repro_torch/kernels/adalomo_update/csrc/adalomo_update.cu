@@ -42,6 +42,15 @@
 // Every sum runs in a fixed order (a thread's tiles in walk order, the block
 // in warp order, the partials in block order) and there are no atomics: the
 // same inputs give bit-identical outputs.
+//
+// Sharded entries (ZeRO-3: theta and g are one rank's row or column shard of
+// the tensor).  RMS(u) and RMS(theta) are of the whole tensor, so the pair
+// splits at the sums: adalomo_update_partials_launch runs the partials
+// launch and adds each slice's block partials, in the apply launch's order,
+// into sums [L, 2] = (sum u^2, sum theta^2) of the shard; the caller adds
+// those over the ranks; adalomo_update_apply_launch then runs the apply
+// launch from the global sums, dividing by the global element count it is
+// given.  With one rank the two give the whole-tensor entry's bits.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -109,8 +118,9 @@ template <typename P, typename G, bool kVector, bool kApply>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
 update_kernel(P* p, const G* __restrict__ g, const float* __restrict__ r,
               const float* __restrict__ c, const float* __restrict__ scal,
-              float* partials, float eps_div, float eps_rms, int literal,
-              int m, int n) {
+              float* partials, const float* __restrict__ sums,
+              float eps_div, float eps_rms, int literal, int m, int n,
+              long long n_total) {
   // tiles whose loads are in flight together (an unroll of 4 spilled at the
   // 64 registers a thread that four blocks a SM allow)
   constexpr int kUnroll = kVector ? 2 : 1;
@@ -128,16 +138,23 @@ update_kernel(P* p, const G* __restrict__ g, const float* __restrict__ r,
 
   float scale = 0.f, lr = 0.f, decay = 0.f;
   if constexpr (kApply) {
-    // the slice's two sums, added in the same order by every block
+    // the slice's two sums, added in the same order by every block, or the
+    // global sums of a shard as the caller gives them
     float su2 = 0.f, sp2 = 0.f;
-    const float* part = partials + (size_t)l * nblk * 2;
-    for (int k = threadIdx.x; k < nblk; k += kThreads) {
-      su2 += part[2 * k];
-      sp2 += part[2 * k + 1];
+    if (sums != nullptr) {
+      su2 = sums[2 * l];
+      sp2 = sums[2 * l + 1];
+    } else {
+      const float* part = partials + (size_t)l * nblk * 2;
+      for (int k = threadIdx.x; k < nblk; k += kThreads) {
+        su2 += part[2 * k];
+        sp2 += part[2 * k + 1];
+      }
+      su2 = block_sum(su2, red);
+      sp2 = block_sum(sp2, red);
     }
-    su2 = block_sum(su2, red);
-    sp2 = block_sum(sp2, red);
-    const float n_elems = (float)((long long)m * (long long)n);
+    const float n_elems = (float)(n_total > 0 ? n_total
+                                              : (long long)m * (long long)n);
     const float rms_u = sqrtf(su2 / n_elems);
     const float rms_p = sqrtf(sp2 / n_elems);
     lr = scal[l * 4 + 1];
@@ -198,35 +215,101 @@ update_kernel(P* p, const G* __restrict__ g, const float* __restrict__ r,
   }
 }
 
+// sums[l] = the block partials of slice l added as the apply launch adds
+// them (one block a slice).
+__global__ void __launch_bounds__(kThreads)
+partials_sum_kernel(const float* __restrict__ partials,
+                    float* __restrict__ sums, int nblk) {
+  __shared__ float red[kWarps];
+  const int l = blockIdx.x;
+  float su2 = 0.f, sp2 = 0.f;
+  const float* part = partials + (size_t)l * nblk * 2;
+  for (int k = threadIdx.x; k < nblk; k += kThreads) {
+    su2 += part[2 * k];
+    sp2 += part[2 * k + 1];
+  }
+  su2 = block_sum(su2, red);
+  sp2 = block_sum(sp2, red);
+  if (threadIdx.x == 0) {
+    sums[2 * l] = su2;
+    sums[2 * l + 1] = sp2;
+  }
+}
+
+// Which launches of the pair run: both (the whole-tensor entry), the
+// partials launch and their sum (a shard's first half), or the apply launch
+// from the given sums (its second half).
+enum Stage { kBoth = 0, kPartials = 1, kApplyFromSums = 2 };
+
 template <typename P, typename G, bool kVector>
 int launch_pair(void* p, const void* g, const float* r, const float* c,
-                const float* scal, float* partials, float eps_div,
-                float eps_rms, int literal, int L, int m, int n, int nblk,
-                cudaStream_t s) {
+                const float* scal, float* partials, float* sums,
+                long long n_total, int stage, float eps_div, float eps_rms,
+                int literal, int L, int m, int n, int nblk, cudaStream_t s) {
   const dim3 grid(nblk, L);
-  update_kernel<P, G, kVector, false><<<grid, kThreads, 0, s>>>(
-      static_cast<P*>(p), static_cast<const G*>(g), r, c, scal, partials,
-      eps_div, eps_rms, literal, m, n);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (stage != kApplyFromSums) {
+    update_kernel<P, G, kVector, false><<<grid, kThreads, 0, s>>>(
+        static_cast<P*>(p), static_cast<const G*>(g), r, c, scal, partials,
+        nullptr, eps_div, eps_rms, literal, m, n, 0);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (stage == kPartials) {
+    partials_sum_kernel<<<L, kThreads, 0, s>>>(partials, sums, nblk);
+    return static_cast<int>(cudaGetLastError());
+  }
   update_kernel<P, G, kVector, true><<<grid, kThreads, 0, s>>>(
       static_cast<P*>(p), static_cast<const G*>(g), r, c, scal, partials,
-      eps_div, eps_rms, literal, m, n);
+      stage == kApplyFromSums ? sums : nullptr, eps_div, eps_rms, literal, m,
+      n, stage == kApplyFromSums ? n_total : 0);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename P, typename G>
 int launch_update(void* p, const void* g, const float* r, const float* c,
-                  const float* scal, float* partials, float eps_div,
-                  float eps_rms, int literal, int L, int m, int n, int nblk,
+                  const float* scal, float* partials, float* sums,
+                  long long n_total, int stage, float eps_div, float eps_rms,
+                  int literal, int L, int m, int n, int nblk,
                   cudaStream_t s) {
   const bool vector = n % kVec == 0 &&
                       (((uintptr_t)p | (uintptr_t)g | (uintptr_t)c) & 15) == 0;
-  return vector ? launch_pair<P, G, true>(p, g, r, c, scal, partials, eps_div,
-                                          eps_rms, literal, L, m, n, nblk, s)
-                : launch_pair<P, G, false>(p, g, r, c, scal, partials,
-                                           eps_div, eps_rms, literal, L, m, n,
-                                           nblk, s);
+  return vector ? launch_pair<P, G, true>(p, g, r, c, scal, partials, sums,
+                                          n_total, stage, eps_div, eps_rms,
+                                          literal, L, m, n, nblk, s)
+                : launch_pair<P, G, false>(p, g, r, c, scal, partials, sums,
+                                           n_total, stage, eps_div, eps_rms,
+                                           literal, L, m, n, nblk, s);
+}
+
+int update_entry(void* p, int p_dtype, const void* g, int g_dtype,
+                 const void* r, const void* c, const void* scal,
+                 void* partials, void* sums, long long n_total, int stage,
+                 float eps_div, float eps_rms, int literal, int L, int m,
+                 int n, int n_blocks, void* stream) {
+  if (L < 1 || L > 65535 || m < 1 || n < 1 || n_blocks < 1 ||
+      (stage != kBoth && sums == nullptr) ||
+      (stage == kApplyFromSums && n_total < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* rp = static_cast<const float*>(r);
+  const float* cp = static_cast<const float*>(c);
+  const float* sp = static_cast<const float*>(scal);
+  float* pp = static_cast<float*>(partials);
+  float* su = static_cast<float*>(sums);
+#define ADALOMO_LAUNCH(P, G)                                               \
+  return launch_update<P, G>(p, g, rp, cp, sp, pp, su, n_total, stage,     \
+                             eps_div, eps_rms, literal, L, m, n, n_blocks, \
+                             s)
+  if (p_dtype == kFloat32 && g_dtype == kFloat32)
+    ADALOMO_LAUNCH(float, float);
+  if (p_dtype == kFloat32 && g_dtype == kBFloat16)
+    ADALOMO_LAUNCH(float, __nv_bfloat16);
+  if (p_dtype == kBFloat16 && g_dtype == kFloat32)
+    ADALOMO_LAUNCH(__nv_bfloat16, float);
+  if (p_dtype == kBFloat16 && g_dtype == kBFloat16)
+    ADALOMO_LAUNCH(__nv_bfloat16, __nv_bfloat16);
+#undef ADALOMO_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace adalomo
@@ -246,24 +329,35 @@ extern "C" int adalomo_update_launch(void* p, int p_dtype, const void* g,
                                      float eps_rms, int literal, int L, int m,
                                      int n, int n_blocks, void* stream) {
   using namespace adalomo;
-  if (L < 1 || L > 65535 || m < 1 || n < 1 || n_blocks < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* rp = static_cast<const float*>(r);
-  const float* cp = static_cast<const float*>(c);
-  const float* sp = static_cast<const float*>(scal);
-  float* pp = static_cast<float*>(partials);
-#define ADALOMO_LAUNCH(P, G)                                               \
-  return launch_update<P, G>(p, g, rp, cp, sp, pp, eps_div, eps_rms,       \
-                             literal, L, m, n, n_blocks, s)
-  if (p_dtype == kFloat32 && g_dtype == kFloat32)
-    ADALOMO_LAUNCH(float, float);
-  if (p_dtype == kFloat32 && g_dtype == kBFloat16)
-    ADALOMO_LAUNCH(float, __nv_bfloat16);
-  if (p_dtype == kBFloat16 && g_dtype == kFloat32)
-    ADALOMO_LAUNCH(__nv_bfloat16, float);
-  if (p_dtype == kBFloat16 && g_dtype == kBFloat16)
-    ADALOMO_LAUNCH(__nv_bfloat16, __nv_bfloat16);
-#undef ADALOMO_LAUNCH
-  return static_cast<int>(cudaErrorInvalidValue);
+  return update_entry(p, p_dtype, g, g_dtype, r, c, scal, partials, nullptr,
+                      0, kBoth, eps_div, eps_rms, literal, L, m, n, n_blocks,
+                      stream);
+}
+
+// A shard's first half: the partials launch over p, g [L, m, n] (the shard)
+// and the sums of its partials into sums [L, 2] fp32 = (sum u^2,
+// sum theta^2); p is not written.  The other arguments as above.
+extern "C" int adalomo_update_partials_launch(
+    const void* p, int p_dtype, const void* g, int g_dtype, const void* r,
+    const void* c, const void* scal, void* partials, void* sums,
+    float eps_div, float eps_rms, int literal, int L, int m, int n,
+    int n_blocks, void* stream) {
+  using namespace adalomo;
+  return update_entry(const_cast<void*>(p), p_dtype, g, g_dtype, r, c, scal,
+                      partials, sums, 0, kPartials, eps_div, eps_rms, literal,
+                      L, m, n, n_blocks, stream);
+}
+
+// A shard's second half: the apply launch, p updated in place, from sums
+// [L, 2] = the whole tensor's (sum u^2, sum theta^2) and n_total, the whole
+// tensor's element count a slice, which the RMS values divide by.
+extern "C" int adalomo_update_apply_launch(
+    void* p, int p_dtype, const void* g, int g_dtype, const void* r,
+    const void* c, const void* scal, const void* sums, long long n_total,
+    float eps_div, float eps_rms, int literal, int L, int m, int n,
+    int n_blocks, void* stream) {
+  using namespace adalomo;
+  return update_entry(p, p_dtype, g, g_dtype, r, c, scal, nullptr,
+                      const_cast<void*>(sums), n_total, kApplyFromSums,
+                      eps_div, eps_rms, literal, L, m, n, n_blocks, stream);
 }

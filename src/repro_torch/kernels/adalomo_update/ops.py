@@ -11,6 +11,14 @@ reference's ``vmap``): a batch axis of the launch grid, statistics per slice.
 lr/β/decay/clip/step may be floats or 0-d tensors.  They reach the kernels
 through small fp32 device tensors: no value is read back to the host, and a
 schedule that changes them rebuilds nothing.
+
+With ``shard`` the tensors are one rank's ZeRO-3 shard (``shard.axis`` -2:
+rows, with this shard's rows of r and the whole c; -1: columns, with the
+whole r and this shard's columns of c).  The update splits where the whole
+tensor's sums are needed: K1's sharded entry, one sum over the ranks
+(``shard.sum``) of its raw statistics, the fold, K2's partials, one sum of
+the ``[..., 2]`` (Σu², Σθ²), and K2's apply from the global sums and the
+global element count ``shard.n_total``.
 """
 from __future__ import annotations
 
@@ -28,15 +36,26 @@ def adalomo_update(param: Tensor, grad: Tensor, r: Tensor, c: Tensor, lr,
                    step, beta=DEFAULT_HPARAMS["beta"],
                    weight_decay=DEFAULT_HPARAMS["weight_decay"],
                    clip=DEFAULT_HPARAMS["clip"], *,
-                   cfg: AdaLomoConfig = AdaLomoConfig()) -> tuple:
+                   cfg: AdaLomoConfig = AdaLomoConfig(),
+                   shard=None) -> tuple:
     """Fused AdaLomo step for a tensor ``[..., m, n]``; semantics ==
     ``ref.adalomo_step_ref``: decoupled weight decay scales θ at the final
     write, while the RMS(θ) trust scale is of the un-decayed θ.  Returns
     ``(param, r, c)``, the tensors passed in, updated."""
     dev = param.device
     beta_t = _scalar(beta, dev)
-    K.adalomo_stats(grad, r, c, beta_t, eps_stat=cfg.eps_stat)
-    denom = torch.clamp_min(r.sum(dim=-1), cfg.eps_stat)          # [...]
+    if shard is None:
+        K.adalomo_stats(grad, r, c, beta_t, eps_stat=cfg.eps_stat)
+        denom = torch.clamp_min(r.sum(dim=-1), cfg.eps_stat)      # [...]
+    else:
+        raw = shard.sum(K.adalomo_stats_partial(
+            grad, r, c, beta_t, eps_stat=cfg.eps_stat, axis=shard.axis))
+        if shard.axis == -2:
+            K.adalomo_stats_fold(c, raw, beta_t)
+            denom = torch.clamp_min(raw[..., -1], cfg.eps_stat)
+        else:
+            K.adalomo_stats_fold(r, raw, beta_t)
+            denom = torch.clamp_min(r.sum(dim=-1), cfg.eps_stat)
     if cfg.bias_correction:
         corr = torch.clamp_min(1.0 - beta_t ** _scalar(step, dev),
                                cfg.eps_stat)
@@ -48,6 +67,13 @@ def adalomo_update(param: Tensor, grad: Tensor, r: Tensor, c: Tensor, lr,
     scal = torch.stack(
         [inv_denom_corr, lr_t.expand_as(denom), decay.expand_as(denom),
          _scalar(clip, dev).expand_as(denom)], dim=-1)             # [..., 4]
-    K.adalomo_update(param, grad, r, c, scal, eps_div=cfg.eps_div,
-                     eps_rms=cfg.eps_rms, literal=cfg.literal_div_v)
+    kw = dict(eps_div=cfg.eps_div, eps_rms=cfg.eps_rms,
+              literal=cfg.literal_div_v)
+    if shard is None:
+        K.adalomo_update(param, grad, r, c, scal, **kw)
+    else:
+        sums = shard.sum(K.adalomo_update_partials(param, grad, r, c, scal,
+                                                   **kw))
+        K.adalomo_update_apply(param, grad, r, c, scal, sums, shard.n_total,
+                               **kw)
     return param, r, c

@@ -3,8 +3,12 @@
 ``repro.kernels.adalomo_update.ref``."""
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core.adalomo import (DEFAULT_HPARAMS, AdaLomoConfig,
                                       FactoredState, update_tensor)
+from repro_torch.core.adalomo import device_scalar as _scalar
+from repro_torch.kernels.adalomo_update import adalomo_update as K
 
 
 def adalomo_step_ref(param, grad, r, c, *, lr, step,
@@ -18,3 +22,88 @@ def adalomo_step_ref(param, grad, r, c, *, lr, step,
         param, grad, FactoredState(r=r, c=c, v=None), lr=lr, step=step,
         beta=beta, weight_decay=weight_decay, clip=clip, cfg=cfg)
     return new_param, st.r, st.c
+
+
+def fixed_order_sum(xs) -> torch.Tensor:
+    """``xs[0] + xs[1] + ...`` in index order: the sum over the ranks that
+    the collectives make (``sharding.collectives``), emulated in one
+    process."""
+    total = xs[0].clone()
+    for x in xs[1:]:
+        total += x
+    return total
+
+
+def adalomo_update_shards(params, grads, rs, cs, *, lr, step,
+                          beta=DEFAULT_HPARAMS["beta"],
+                          weight_decay=DEFAULT_HPARAMS["weight_decay"],
+                          clip=DEFAULT_HPARAMS["clip"], axis: int,
+                          cfg: AdaLomoConfig = AdaLomoConfig(),
+                          n_total=None, plain: bool = False):
+    """The sharded AdaLomo update of one tensor, its w shards (lists, rank
+    order) in one process, **in place**: K1's sharded entry on each shard,
+    a fixed-order sum of their raw statistics, the fold, K2's partials on
+    each shard, a fixed-order sum, K2's apply on each — the steps of
+    ``ops.adalomo_update(shard=...)`` with the sums over the ranks written
+    out.  ``axis`` -2: row shards (``rs`` each shard's rows, every ``cs[i]``
+    the whole c); -1: column shards.  The kernels' wrappers dispatch on the
+    device, so CUDA shards run the kernels and CPU shards their plain
+    versions; ``plain=True`` runs the plain versions on any device, to
+    hold the kernels against them on the card.  ``n_total`` (default: the
+    whole tensor's m·n) is the count the RMS values divide by.  Returns
+    ``(params, rs, cs)``."""
+    stats_partial, stats_fold, update_partials, update_apply = (
+        _PLAIN_ENTRIES if plain else
+        (K.adalomo_stats_partial, K.adalomo_stats_fold,
+         K.adalomo_update_partials, K.adalomo_update_apply))
+    dev = params[0].device
+    beta_t = _scalar(beta, dev)
+    raws = [stats_partial(g, r, c, beta_t, eps_stat=cfg.eps_stat, axis=axis)
+            for g, r, c in zip(grads, rs, cs)]
+    raw = fixed_order_sum(raws)
+    m, n = params[0].shape[-2:]
+    w = len(params)
+    if n_total is None:
+        n_total = m * n * w
+    denoms = []
+    for r, c in zip(rs, cs):
+        if axis == -2:
+            stats_fold(c, raw, beta_t)
+            denoms.append(torch.clamp_min(raw[..., -1], cfg.eps_stat))
+        else:
+            stats_fold(r, raw, beta_t)
+            denoms.append(torch.clamp_min(r.sum(dim=-1), cfg.eps_stat))
+    corr = (torch.clamp_min(1.0 - beta_t ** _scalar(step, dev),
+                            cfg.eps_stat)
+            if cfg.bias_correction else torch.ones((), device=dev))
+    lr_t = _scalar(lr, dev)
+    decay = 1.0 - lr_t * _scalar(weight_decay, dev)
+    scals = [torch.stack([1.0 / (d * corr), lr_t.expand_as(d),
+                          decay.expand_as(d), _scalar(clip, dev).expand_as(d)],
+                         dim=-1) for d in denoms]
+    kw = dict(eps_div=cfg.eps_div, eps_rms=cfg.eps_rms,
+              literal=cfg.literal_div_v)
+    sums = fixed_order_sum([update_partials(p, g, r, c, s, **kw)
+                            for p, g, r, c, s in zip(params, grads, rs, cs,
+                                                     scals)])
+    for p, g, r, c, s in zip(params, grads, rs, cs, scals):
+        update_apply(p, g, r, c, s, sums, n_total, **kw)
+    return params, rs, cs
+
+
+def _stats_partial_plain(grad, r, c, beta, *, eps_stat, axis):
+    nr, nc, raw = K.adalomo_stats_partial_ref(grad, r, c, beta,
+                                              eps_stat=eps_stat, axis=axis)
+    r.copy_(nr)
+    c.copy_(nc)
+    return raw
+
+
+# the four sharded entries' plain versions, in place as their wrappers are
+_PLAIN_ENTRIES = (
+    _stats_partial_plain,
+    lambda dst, src, beta: dst.copy_(K.adalomo_stats_fold_ref(dst, src,
+                                                              beta)),
+    K.adalomo_update_partials_ref,
+    lambda param, *a, **kw: param.copy_(K.adalomo_update_apply_ref(
+        param, *a, **kw)))

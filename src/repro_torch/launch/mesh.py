@@ -1,0 +1,147 @@
+"""Device meshes.  Counterpart of ``repro.launch.mesh``.
+
+The production layouts are pure values (nothing touches a device or a
+process group when this module is imported or they are built):
+16 × 16 ``("data", "model")`` for one pod of 256 chips and 2 × 16 × 16
+``("pod", "data", "model")`` for two.  :func:`make_mesh` builds the mesh of
+the ``torch.distributed`` world this process belongs to, one rank a device,
+with a process group for each axis (``init_device_mesh``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+AXES_BY_NDIM = {1: ("data",), 2: ("data", "model"),
+                3: ("pod", "data", "model")}
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshLayout:
+    """A mesh's shape and axis names, as a value."""
+
+    dims: tuple
+    axis_names: tuple
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.dims))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.dims)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshLayout:
+    """16×16 = 256 chips per pod; 2 pods = 512 chips multi-pod."""
+    if multi_pod:
+        return MeshLayout((2, 16, 16), ("pod", "data", "model"))
+    return MeshLayout((16, 16), ("data", "model"))
+
+
+def make_test_mesh(n: int = 8, *, multi_pod: bool = False) -> MeshLayout:
+    """Small mesh for CI-scale distribution tests."""
+    if multi_pod:
+        assert n % 2 == 0
+        return MeshLayout((2, n // 4, 2), ("pod", "data", "model"))
+    return MeshLayout((n // 2, 2), ("data", "model"))
+
+
+@dataclasses.dataclass
+class ProcessMesh:
+    """The mesh of this process's world: its layout, this rank's
+    coordinates and a process group for each axis.  ``batch_group`` spans
+    the ``pod`` and ``data`` axes (the whole world while ``model`` is 1);
+    ``device`` is this rank's device."""
+
+    layout: MeshLayout
+    device: torch.device
+    backend: str
+    device_mesh: object
+    rank: int
+    coords: dict
+    groups: dict
+
+    @property
+    def axis_names(self) -> tuple:
+        return self.layout.axis_names
+
+    @property
+    def shape(self) -> dict:
+        return self.layout.shape
+
+    @property
+    def world(self) -> int:
+        return self.layout.size
+
+    def size(self, axis: str) -> int:
+        return self.layout.shape.get(axis, 1)
+
+    def group(self, axis: str):
+        return self.groups[axis]
+
+    @property
+    def batch_group(self):
+        return self.groups["batch"]
+
+    @property
+    def batch_index(self) -> int:
+        """This rank's place along the batch axes, pod-major."""
+        return (self.coords.get("pod", 0) * self.size("data")
+                + self.coords.get("data", 0))
+
+    @property
+    def batch_size(self) -> int:
+        return self.size("pod") * self.size("data")
+
+
+def _default_backend(device: torch.device) -> str:
+    return "nccl" if device.type == "cuda" else "gloo"
+
+
+def make_mesh(shape, device="cpu", *, backend: Optional[str] = None
+              ) -> ProcessMesh:
+    """The mesh ``shape`` (1-D ``(data,)``, 2-D ``(data, model)``, 3-D
+    ``(pod, data, model)``) over this process's ``torch.distributed``
+    world, one rank a mesh position in row-major order.
+
+    A one-position mesh with no world yet gets a world of one process (on
+    a store in memory).  Raises ``ValueError`` when the world has another
+    size than ``prod(shape)``."""
+    shape = tuple(int(n) for n in shape)
+    if not 1 <= len(shape) <= 3:
+        raise ValueError(f"mesh shape must have 1-3 dims, got {shape}")
+    layout = MeshLayout(shape, AXES_BY_NDIM[len(shape)])
+    device = torch.device(device)
+    need = layout.size
+    if not dist.is_initialized():
+        if need != 1:
+            raise ValueError(
+                f"mesh shape {shape} needs {need} processes and this process "
+                f"is in no torch.distributed world (start with "
+                f"--virtual-devices {need} --device cpu, or {need} processes "
+                f"under torchrun, or shrink spec.mesh.shape)")
+        dist.init_process_group(backend or _default_backend(device),
+                                store=dist.HashStore(), rank=0,
+                                world_size=1)
+    world = dist.get_world_size()
+    if world != need:
+        raise ValueError(
+            f"mesh shape {shape} needs {need} processes, the world has "
+            f"{world} (start with --virtual-devices {need} --device cpu, or "
+            f"{need} processes under torchrun, or shrink spec.mesh.shape)")
+    backend = dist.get_backend()
+    from torch.distributed.device_mesh import init_device_mesh
+    dm = init_device_mesh("cuda" if backend == "nccl" else "cpu", shape,
+                          mesh_dim_names=layout.axis_names)
+    rank = dist.get_rank()
+    coords = {a: dm.get_local_rank(a) for a in layout.axis_names}
+    groups = {a: dm.get_group(a) for a in layout.axis_names}
+    groups["batch"] = dist.group.WORLD
+    return ProcessMesh(layout=layout, device=device, backend=backend,
+                       device_mesh=dm, rank=rank, coords=coords,
+                       groups=groups)

@@ -16,8 +16,10 @@ plus ``--device``.
 Re-invoking the same command is always safe: DONE members are skipped,
 killed or preempted members resume from their last complete checkpoint.
 The merged, ranked report lands in ``<dir>/report.json``.
-``--virtual-devices`` (a host-platform device mesh in the reference) raises:
-the port has no sharded execution yet.
+``--virtual-devices N`` reaches every member's ``repro_torch.launch.train``
+command line (with ``--device cpu``, N gloo ranks a member), so a sweep of
+sharded members runs with ``--subprocess``; the spec's ``mesh.shape`` (or
+N on the data axis) is each member's mesh.
 """
 import os
 
@@ -64,16 +66,18 @@ def main(argv=None):
                     choices=["loss", "eval_loss"],
                     help="ranking key for the report")
     ap.add_argument("--virtual-devices", type=int, default=None,
-                    help="not ported: sharded execution (scale-out) is not "
-                         "in repro_torch yet; the flag raises")
+                    help="passed to every member's launcher (subprocess "
+                         "members): that many gloo ranks a member on the "
+                         "host with --device cpu")
     ap.add_argument("--device", default="cuda",
                     help="where every member runs: cuda (default; fails "
                          "without a card), cuda:N, or cpu")
     args = ap.parse_args(argv)
-    if args.virtual_devices:
-        raise NotImplementedError(
-            "--virtual-devices: sharded execution (scale-out, a device mesh "
-            "per member) is not ported to repro_torch yet")
+    extra = (["--virtual-devices", str(args.virtual_devices)]
+             if args.virtual_devices else [])
+    if extra and not args.subprocess:
+        raise SystemExit("--virtual-devices spawns ranks a member: run the "
+                         "members with --subprocess")
 
     variants = _load_variants(args)
     with open(args.base) as f:
@@ -84,7 +88,7 @@ def main(argv=None):
     report = run_sweep(base, variants, args.dir,
                        mode="subprocess" if args.subprocess else "inproc",
                        parallel=args.parallel, objective=args.objective,
-                       device=args.device)
+                       extra_args=extra, device=args.device)
 
     done, n = report["n_done"], report["n_members"]
     print(f"\nsweep: {done}/{n} members done; report: "

@@ -38,6 +38,8 @@ from repro_torch.core.api import OptState, hparams_on_device
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import cross_entropy
+from repro_torch.sharding.act import batch_sum, current_policy, use_policy
+from repro_torch.sharding.rules import make_param_constraint
 
 Tensor = torch.Tensor
 
@@ -246,12 +248,18 @@ def _logits(outer: dict, cfg: EncDecConfig, x: Tensor) -> Tensor:
 
 def _loss_from_dec(outer: dict, cfg: EncDecConfig, x: Tensor, batch: dict
                    ) -> tuple:
+    """The masked cross entropy over the global token count (on a batch
+    split over ranks, ``sharding.act``, each rank's share of it; the
+    metrics are the global batch's)."""
     loss_sum, ntok, correct = cross_entropy(_logits(outer, cfg, x),
                                             batch["labels"])
+    ntok = batch_sum(ntok)
     denom = torch.clamp_min(ntok, 1).to(torch.float32)
     loss = loss_sum / denom
-    metrics = {"loss": loss.detach(), "ntokens": ntok.to(torch.float32),
-               "accuracy": correct.to(torch.float32) / denom}
+    report = (batch_sum(loss_sum.detach()) / denom
+              if current_policy() is not None else loss)
+    metrics = {"loss": report.detach(), "ntokens": ntok.to(torch.float32),
+               "accuracy": batch_sum(correct).to(torch.float32) / denom}
     return loss, metrics
 
 
@@ -264,16 +272,34 @@ def _vjp_of(fn, dy: Tensor, *inputs) -> list:
     return Fu._vjp([y], [dy], *req)
 
 
-def make_fused_train_step(cfg: EncDecConfig, opt):
+def make_fused_train_step(cfg: EncDecConfig, opt, *, zero=None):
     """``step(params, opt_state, batch, *, hparams)``: one fused step,
     **in place** (``batch``: ``tokens``, ``labels`` ``[B,S]`` and ``frames
     [B, n_frames, d_model]``).  Returns ``(params, opt_state, loss,
-    metrics)`` with loss and metrics 0-d tensors on the device."""
+    metrics)`` with loss and metrics 0-d tensors on the device.  ``zero``
+    (a ``sharding.zero.Zero3``): ZeRO-3 sharded, as ``core.fused``'s step —
+    the outer leaves gathered once, each layer of both stacks gathered for
+    its forward and its re-run, gradients reduce-scattered before the rule;
+    the batch handed in is this rank's rows."""
     enc_body, dec_body = make_enc_body(cfg), make_dec_body(cfg)
 
     def train_step(params, opt_state, batch, *, hparams=None):
+        if zero is None:
+            return one_step(params, opt_state, batch, hparams)
+        with use_policy(zero.policy):
+            return one_step(params, opt_state, batch, hparams)
+
+    def one_step(params, opt_state, batch, hparams):
         rule = opt.rule
         outer, stacks = params["outer"], params["stacks"]
+        seams = {name: {} for name in stacks}
+        if zero is not None:
+            outer = zero.gather(outer, zero.dims["outer"])
+            seams = {name: zero.seams(name) for name in stacks}
+
+        def fwd(name):
+            return ({"layer_fn": seams[name]["layer_fn"]} if seams[name]
+                    else {})
         hp = hparams_on_device(opt.resolve(hparams),
                                outer["tok_embed"].device)
         labels = opt.labels(params)
@@ -286,11 +312,12 @@ def make_fused_train_step(cfg: EncDecConfig, opt):
         with torch.no_grad():
             enc_res = Fu.stack_forward(enc_body, stacks["enc"], ({}, {}),
                                        (_encoder_inputs(cfg,
-                                                        batch["frames"]),))
+                                                        batch["frames"]),),
+                                       **fwd("enc"))
             enc_out = _encoder_norm(outer, cfg, enc_res.x_out[0])
             dec_res = Fu.stack_forward(
                 dec_body, stacks["dec"], ({}, enc_out),
-                (_decoder_inputs(outer, cfg, tokens),))
+                (_decoder_inputs(outer, cfg, tokens),), **fwd("dec"))
 
         # ---- epilogue forward + backward ----
         o_req = Fu._grad_leaves(outer)
@@ -298,14 +325,14 @@ def make_fused_train_step(cfg: EncDecConfig, opt):
         with torch.enable_grad():
             loss, metrics = _loss_from_dec(o_req, cfg, xd, batch)
         g_outer_epi, dxd = Fu._vjp([loss], [torch.ones_like(loss)], o_req, xd)
-        loss = loss.detach()
+        loss = loss.detach() if zero is None else metrics["loss"]
         del o_req, xd
 
         # ---- decoder sweep: inline updates; d(enc_out) summed over it ----
         (dxd0,), (_, d_enc_out), _, _ = Fu.stack_backward_update(
             dec_body, rule, stacks["dec"], m["stacks"]["dec"],
             ({}, enc_out), dec_res, (dxd,), labels=labels["stacks"]["dec"],
-            hp=hp, step=stepf, act_grad=True)
+            hp=hp, step=stepf, act_grad=True, **seams["dec"])
         del dec_res, dxd
         # ``outer`` is not updated yet: the embedding and the encoder norm
         # are re-run under autograd for their gradients
@@ -319,40 +346,49 @@ def make_fused_train_step(cfg: EncDecConfig, opt):
         Fu.stack_backward_update(
             enc_body, rule, stacks["enc"], m["stacks"]["enc"], ({}, {}),
             enc_res, (dxe,), labels=labels["stacks"]["enc"], hp=hp,
-            step=stepf)
+            step=stepf, **seams["enc"])
         del enc_res, dxe
 
         g_outer = Fu._tree_add(Fu._tree_add(g_outer_epi, g_outer_dpro),
                                g_outer_enorm)
-        Fu.apply_rule_tree(rule, outer, g_outer, m["outer"], labels["outer"],
-                           hp, stepf)
+        shards = None
+        if zero is not None:
+            del outer
+            g_outer = zero.scatter(g_outer, zero.dims["outer"])
+            shards = zero.shards(zero.dims["outer"], zero.shapes["outer"])
+        Fu.apply_rule_tree(rule, params["outer"], g_outer, m["outer"],
+                           labels["outer"], hp, stepf, shards)
         return params, OptState(step=step, moments=m), loss, metrics
 
     return train_step
 
 
-def _run_stack(body, stacked: dict, ctx, x: Tensor) -> Tensor:
+def _run_stack(body, stacked: dict, ctx, x: Tensor, layer_fn=None) -> Tensor:
     """The stack's layers one after another, with autograd as the caller
-    has it (layer ``i`` indexed out of the stack)."""
+    has it (layer ``i`` indexed out of the stack, or ``layer_fn(stacked,
+    i)``)."""
     for i in range(Fu._n_layers(stacked)):
-        x, = body(tree_map(lambda t: t[i], stacked), ctx, (x,), i)
+        p = (tree_map(lambda t: t[i], stacked) if layer_fn is None
+             else layer_fn(stacked, i))
+        x, = body(p, ctx, (x,), i)
     return x
 
 
-def _encode(cfg: EncDecConfig, params: dict, frames: Tensor) -> Tensor:
+def _encode(cfg: EncDecConfig, params: dict, frames: Tensor,
+            layer_fn=None) -> Tensor:
     """The encoder's output ``enc_out [B, n_frames, d]`` (after its final
     norm)."""
     x = _run_stack(make_enc_body(cfg), params["stacks"]["enc"], ({}, {}),
-                   _encoder_inputs(cfg, frames))
+                   _encoder_inputs(cfg, frames), layer_fn)
     return _encoder_norm(params["outer"], cfg, x)
 
 
 def _decode_stream(cfg: EncDecConfig, params: dict, enc_out: Tensor,
-                   tokens: Tensor) -> Tensor:
+                   tokens: Tensor, layer_fn=None) -> Tensor:
     """The decoder stack's output over ``tokens`` and ``enc_out``."""
     return _run_stack(make_dec_body(cfg), params["stacks"]["dec"],
                       ({}, enc_out),
-                      _decoder_inputs(params["outer"], cfg, tokens))
+                      _decoder_inputs(params["outer"], cfg, tokens), layer_fn)
 
 
 def decoder_logits(cfg: EncDecConfig, params: dict, enc_out: Tensor,
@@ -363,12 +399,26 @@ def decoder_logits(cfg: EncDecConfig, params: dict, enc_out: Tensor,
                    _decode_stream(cfg, params, enc_out, tokens))
 
 
-def loss_fn(cfg: EncDecConfig, params: dict, batch: dict) -> tuple:
+def loss_fn(cfg: EncDecConfig, params: dict, batch: dict, *, zero=None
+            ) -> tuple:
     """Unfused forward ``(loss, metrics)``, differentiable (the baselines'
-    path and the fused step's equivalence tests)."""
-    enc_out = _encode(cfg, params, batch["frames"])
-    x = _decode_stream(cfg, params, enc_out, batch["tokens"])
-    return _loss_from_dec(params["outer"], cfg, x, batch)
+    path and the fused step's equivalence tests).  ``zero``: params are
+    ZeRO-3 shards and ``batch`` global (evaluation on a mesh; the loss and
+    metrics are the global batch's)."""
+    if zero is None:
+        enc_out = _encode(cfg, params, batch["frames"])
+        x = _decode_stream(cfg, params, enc_out, batch["tokens"])
+        return _loss_from_dec(params["outer"], cfg, x, batch)
+    with use_policy(zero.policy):
+        batch = {k: zero.rows(x) for k, x in batch.items()}
+        whole = {"outer": zero.gather(params["outer"], zero.dims["outer"]),
+                 "stacks": params["stacks"]}
+        layers = make_param_constraint(zero)
+        enc_out = _encode(cfg, whole, batch["frames"], layers("enc"))
+        x = _decode_stream(cfg, whole, enc_out, batch["tokens"],
+                           layers("dec"))
+        _, metrics = _loss_from_dec(whole["outer"], cfg, x, batch)
+        return metrics["loss"], metrics
 
 
 # --------------------------------------------------------------------------

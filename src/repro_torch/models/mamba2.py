@@ -33,6 +33,7 @@ from repro_torch import resolve_device
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import _logits as logits
+from repro_torch.sharding.act import batch_sum, current_policy
 from repro_torch.models.transformer import cross_entropy
 
 Tensor = torch.Tensor
@@ -330,18 +331,25 @@ def embed(outer: dict, tokens: Tensor) -> Tensor:
 
 def make_epilogue(cfg):
     """Final norm, fp32 logits and the masked cross entropy of the carry's
-    first element; the carry's last element (an fp32 scalar) is added."""
+    first element; the carry's last element (an fp32 scalar) is added.  On
+    a batch split over ranks (``sharding.act``) the cross entropy divides
+    by the global token count and the metrics are the global batch's, as
+    the transformer family's epilogue."""
 
     def epilogue(outer, carry, batch):
         x, aux = carry[0], carry[-1]
         h = L.norm_apply(outer["final_norm"], x, kind=cfg.norm)
         loss_sum, ntok, correct = cross_entropy(logits(outer, cfg, h),
                                                 batch["labels"])
+        ntok = batch_sum(ntok)
         denom = torch.clamp_min(ntok, 1).to(torch.float32)
         loss = loss_sum / denom + aux
-        return loss, {"loss": loss.detach(),
+        report = (batch_sum(loss_sum.detach()) / denom + aux
+                  if current_policy() is not None else loss).detach()
+        return loss, {"loss": report,
                       "ntokens": ntok.to(torch.float32),
-                      "accuracy": correct.to(torch.float32) / denom}
+                      "accuracy": batch_sum(correct).to(torch.float32)
+                      / denom}
 
     return epilogue
 

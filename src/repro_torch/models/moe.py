@@ -16,8 +16,11 @@ its one host sync.  Kept ``(b, e, slot)`` triples are unique, so no two
 kept writes meet and the gathers' backward adds one value a kept slot: the
 same inputs give the same bits.
 
-Not ported: the reference's expert-parallel ``_moe_ffn_shardmap`` (it needs
-a device mesh).
+On a batch split over ranks (``sharding.act``) the load-balance loss's
+two E-vectors, means over the global batch, are averaged over the ranks
+before their product, as the reference's ``pmean`` over the mesh does;
+capacity and slots are per row, so the split drops the same tokens.  Not
+ported: the reference's expert-parallel ``_moe_ffn_shardmap`` (slice 6b).
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.sharding.act import batch_mean
 
 Tensor = torch.Tensor
 
@@ -113,9 +117,9 @@ def route(params: dict, x: Tensor, cfg: MoEConfig) -> tuple:
 
     # load-balance aux loss (Switch/GShard): E * sum_e f_e * p_e, with the
     # softmax probabilities for either router score
-    probs_mean = torch.mean(probs, dim=(0, 1))                    # [E]
-    frac_tokens = torch.mean(_one_hot(expert_idx[..., 0], E, torch.float32),
-                             dim=(0, 1))
+    probs_mean = batch_mean(torch.mean(probs, dim=(0, 1)))        # [E]
+    frac_tokens = batch_mean(torch.mean(
+        _one_hot(expert_idx[..., 0], E, torch.float32), dim=(0, 1)))
     aux = cfg.router_aux_weight * E * torch.sum(frac_tokens * probs_mean)
 
     flat_idx = expert_idx.reshape(B, S * K)

@@ -54,36 +54,55 @@ class Arch:
         return self._family_mod().init_params(seed, self.cfg, device=device)
 
     # ---- train ------------------------------------------------------------
-    def make_fused_train_step(self, opt, *, global_grad_norm=None):
+    def make_fused_train_step(self, opt, *, global_grad_norm=None,
+                              residual_constraint=None, grad_constraint=None,
+                              param_constraint=None):
         """``opt`` is a ``repro_torch.core.api.Opt``; the returned step is
         ``step(params, opt_state, batch, *, hparams)`` and updates ``params``
         and ``opt_state`` in place.  The ``encdec`` family wires its two
         stacks itself and refuses ``global_grad_norm`` with ``ValueError``
-        (the reference's drops it unread)."""
+        (the reference's drops it unread).
+
+        The reference's constraint keywords: ``param_constraint`` and
+        ``grad_constraint`` are one ``sharding.zero.Zero3`` plan, whose
+        layer gathers and gradient reduce-scatters the step then runs (the
+        params and batch handed to the step are this rank's shards and
+        rows); ``residual_constraint`` (``rules.make_residual_constraint``)
+        is the identity while the ``model`` axis is 1 and is not applied."""
         from repro_torch.core.fused import fused_train_step
+        zero = param_constraint
+        if grad_constraint is not zero:
+            raise ValueError(
+                "param_constraint and grad_constraint must be one Zero3 "
+                "plan (the gather and the scatter of the same placement)")
+        del residual_constraint
         if self.family == "encdec":
             if global_grad_norm is not None:
                 raise ValueError(
                     f"{self.arch_id}: global_grad_norm (LOMO's two-pass "
                     "clip) is not supported by the encoder-decoder fused "
                     "step")
-            return self._family_mod().make_fused_train_step(self.cfg, opt)
+            return self._family_mod().make_fused_train_step(self.cfg, opt,
+                                                            zero=zero)
         spec = self._family_mod().make_fused_spec(self.cfg)
 
         def train_step(params, opt_state, batch, *, hparams=None):
             return fused_train_step(spec, opt, params, opt_state, batch,
                                     hparams=hparams,
-                                    global_grad_norm=global_grad_norm)
+                                    global_grad_norm=global_grad_norm,
+                                    zero=zero)
 
         return train_step
 
-    def make_loss_fn(self):
-        """(params, batch) -> (loss, metrics), differentiable."""
+    def make_loss_fn(self, *, zero=None):
+        """(params, batch) -> (loss, metrics), differentiable.  ``zero``:
+        params are ZeRO-3 shards and the batch global (evaluation on a
+        mesh; ``core.fused.unfused_loss_fn``)."""
         from repro_torch.core.fused import unfused_loss_fn
         if self.family == "encdec":
-            return partial(self._family_mod().loss_fn, self.cfg)
+            return partial(self._family_mod().loss_fn, self.cfg, zero=zero)
         spec = self._family_mod().make_fused_spec(self.cfg)
-        return partial(unfused_loss_fn, spec)
+        return partial(unfused_loss_fn, spec, zero=zero)
 
     def supported_cells(self) -> list:
         """The assigned input-shape cells (``configs/shapes.py``) this

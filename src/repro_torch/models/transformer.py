@@ -38,6 +38,7 @@ from repro_torch import resolve_device
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.models import layers as L
 from repro_torch.models.moe import MoEConfig, moe_ffn, moe_init
+from repro_torch.sharding.act import batch_sum, current_policy
 
 Tensor = torch.Tensor
 
@@ -444,15 +445,25 @@ def make_epilogue(cfg: LMConfig):
         logits = _logits(outer, cfg, h)
         loss_sum, ntok, correct = cross_entropy(logits, batch["labels"],
                                                 cfg.z_loss)
+        # A batch split over ranks (sharding.act): the loss is a sum over
+        # the global batch over the global token count, so each rank's term
+        # divides by the global count and the ranks' gradients add up to
+        # the whole batch's.  Without a split batch_sum is the identity.
+        ntok = batch_sum(ntok)
         denom = torch.clamp_min(ntok, 1).to(torch.float32)
         loss = loss_sum / denom + aux_loss
+        mtp = 0.0
         if cfg.mtp:
             mtp_sum, mtp_denom = _mtp_loss(outer, cfg, h, batch)
+            mtp = batch_sum(mtp_sum.detach()) / mtp_denom
             loss = loss + cfg.mtp_weight * mtp_sum / mtp_denom
+        split = current_policy() is not None
         metrics = {
-            "loss": loss.detach(),
+            "loss": (batch_sum(loss_sum.detach()) / denom + aux_loss
+                     + cfg.mtp_weight * mtp).detach() if split
+            else loss.detach(),
             "ntokens": ntok.to(torch.float32),
-            "accuracy": correct.to(torch.float32) / denom,
+            "accuracy": batch_sum(correct).to(torch.float32) / denom,
         }
         if cfg.moe is not None:
             # the load-balance part of the loss, summed over the layers (a
@@ -460,7 +471,8 @@ def make_epilogue(cfg: LMConfig):
             metrics["aux_loss"] = aux_loss.detach()
         if cfg.mtp:
             # the MTP head's mean cross entropy (nor does it report this)
-            metrics["mtp_loss"] = (mtp_sum / mtp_denom).detach()
+            metrics["mtp_loss"] = (mtp if split
+                                   else mtp_sum / mtp_denom).detach()
         return loss, metrics
 
     return epilogue
@@ -484,7 +496,7 @@ def _mtp_loss(outer: dict, cfg: LMConfig, h: Tensor, batch: dict) -> tuple:
     x = L.norm_apply(outer["mtp_norm"], x, kind=cfg.norm)
     loss_sum, ntok, _ = cross_entropy(_logits(outer, cfg, x),
                                       batch["labels_mtp"])
-    return loss_sum, torch.clamp_min(ntok, 1).to(torch.float32)
+    return loss_sum, torch.clamp_min(batch_sum(ntok), 1).to(torch.float32)
 
 
 def make_fused_spec(cfg: LMConfig):

@@ -22,6 +22,16 @@ as a fifth item; with ``spec.observe`` enabled the optimizer-health probes
 (``repro_torch.telemetry.probes``) ride the metrics — inside the guard when
 both are on.  Either wrapper keeps one pre-step :class:`Snapshot` of params
 and moments, whose buffers the program owns from step to step.
+
+With ``zero`` (a ``sharding.zero.Zero3``, built by ``fleet.elastic`` for
+``spec.mesh.shape``) the fused step runs ZeRO-3 sharded: ``init`` returns
+this rank's resting shards, and the step takes the **global** batch, every
+rank the same, keeping its rows of each microbatch (so microbatch i is the
+single-device run's microbatch i) and agreeing on a pending preemption
+signal through the step's metrics (``"preempt"``, summed over the ranks and
+read with the step's one transfer).  The sentinel's verdict is reduced over
+the ranks inside the step (``sentinel/guard.py``), and ``loss_fn``
+(evaluation) gathers as the step does.
 """
 from __future__ import annotations
 
@@ -41,10 +51,21 @@ from repro_torch.train.schedules import constant, warmup_cosine
 def check_ported(spec: RunSpec) -> None:
     """Raise ``NotImplementedError`` for a spec that turns on a layer the
     port does not have yet, naming it."""
+    shape = spec.mesh.shape
     unported = [
-        (spec.mesh.shape is not None, "mesh.shape",
-         "sharded execution (scale-out)"),
+        (shape is not None and len(shape) >= 2 and shape[-1] > 1,
+         "mesh.shape",
+         f"a model axis of {shape[-1] if shape else 0} (tensor, sequence "
+         "and expert parallelism: slice 6b of the port)"),
     ]
+    if shape is not None:
+        unported += [
+            (spec.sentinel.enabled and spec.sentinel.trust_max > 0.0,
+             "sentinel.trust_max",
+             "the sentinel's trust guard on a mesh (slice 6b of the port)"),
+            (spec.observe.enabled, "observe",
+             "the optimizer-health probes on a mesh (slice 6b of the port)"),
+        ]
     for on, field, what in unported:
         if on:
             raise NotImplementedError(
@@ -99,18 +120,25 @@ class StepProgram:
     device: torch.device
     snapshot: Any = None
     _loss_fn: Any = None
+    zero: Any = None
 
     @property
     def loss_fn(self):
         """(params, batch) -> (loss, metrics): the arch's loss, built on
         first use (eval)."""
         if self._loss_fn is None:
-            self._loss_fn = self.arch.make_loss_fn()
+            self._loss_fn = (self.arch.make_loss_fn() if self.zero is None
+                             else self.arch.make_loss_fn(zero=self.zero))
         return self._loss_fn
 
     def init(self, seed: int = 0):
+        """Fresh ``(params, opt_state)``; on a mesh this rank's resting
+        shards (the whole model is drawn from the seed, then sharded)."""
         params = self.arch.init_params(seed, device=self.device)
-        return params, self.opt.init(params)
+        state = self.opt.init(params)
+        if self.zero is not None:
+            params, state = self.zero.shard_tree((params, state), state)
+        return params, state
 
     # ---------------- sentinel ----------------
     @property
@@ -127,7 +155,7 @@ class StepProgram:
 
 def build_step_program(spec: RunSpec, arch=None, opt: Optional[Opt] = None,
                        *, groups=None, global_grad_norm=None,
-                       device="cuda", inject=None) -> StepProgram:
+                       device="cuda", inject=None, zero=None) -> StepProgram:
     """Assemble the :class:`StepProgram` for ``spec``.
 
     ``arch`` defaults to the registry lookup of ``spec.model``.
@@ -137,7 +165,8 @@ def build_step_program(spec: RunSpec, arch=None, opt: Optional[Opt] = None,
     without a CUDA device the default raises.  ``inject`` (an
     :class:`~repro_torch.sentinel.inject.Injection`) arms the fault injector
     inside the sentinel guard — it requires ``spec.sentinel.enabled``
-    because the guard owns the injection point.
+    because the guard owns the injection point.  ``zero`` runs the step
+    ZeRO-3 sharded (module docstring; ``fleet.elastic.run_elastic``).
     """
     check_ported(spec)
     device = resolve_device(device)
@@ -167,24 +196,47 @@ def build_step_program(spec: RunSpec, arch=None, opt: Optional[Opt] = None,
         extras.  The schedule is authoritative for lr."""
         return {**extras, "lr": lr_fn(step)}
 
+    if zero is not None:
+        from repro_torch.core.optimizers import SHARDED_RULES
+        if not fused or opt.rule.name not in SHARDED_RULES:
+            raise NotImplementedError(
+                f"optimizer {spec.opt.name!r} "
+                f"({'fused' if fused else 'unfused'}) on a mesh: only the "
+                f"fused {'/'.join(SHARDED_RULES)} rules run sharded; the "
+                "others are slice 6b of the port and not ported to "
+                "repro_torch yet")
     if fused:
         step_kw = arch.make_fused_train_step(
-            opt, global_grad_norm=global_grad_norm)
+            opt, global_grad_norm=global_grad_norm, param_constraint=zero,
+            grad_constraint=zero)
+
+        def rows(b):
+            """On a mesh, this rank's rows of a global (micro)batch."""
+            return b if zero is None else {n: zero.rows(x)
+                                           for n, x in b.items()}
 
         def one_step(params, opt_state, batch, hp):
             batch = _apply_loss_mask(batch)
             if k == 1:
-                return step_kw(params, opt_state, batch, hparams=hp)
-            # LOMO-style: sequential updates per microbatch.
-            losses, metrics = [], []
-            for b in _split_microbatches(batch, k):
-                params, opt_state, loss, m = step_kw(params, opt_state, b,
-                                                     hparams=hp)
-                losses.append(loss)
-                metrics.append(m)
-            return (params, opt_state, _mean(losses),
-                    {name: _mean([m[name] for m in metrics])
-                     for name in metrics[0]})
+                out = step_kw(params, opt_state, rows(batch), hparams=hp)
+            else:
+                # LOMO-style: sequential updates per microbatch.
+                losses, metrics = [], []
+                for b in _split_microbatches(batch, k):
+                    params, opt_state, loss, m = step_kw(
+                        params, opt_state, rows(b), hparams=hp)
+                    losses.append(loss)
+                    metrics.append(m)
+                out = (params, opt_state, _mean(losses),
+                       {name: _mean([m[name] for m in metrics])
+                        for name in metrics[0]})
+            if zero is not None:
+                from repro_torch.fleet.preempt import pending_signal
+                from repro_torch.sharding import collectives as C
+                flag = torch.full((), pending_signal(), dtype=torch.float32,
+                                  device=out[2].device)
+                out[3]["preempt"] = C.all_reduce_exact(flag, zero.world)
+            return out
     else:
         if global_grad_norm is not None:
             raise ValueError("global_grad_norm requires the fused path")
@@ -233,7 +285,7 @@ def build_step_program(spec: RunSpec, arch=None, opt: Optional[Opt] = None,
         one_step = guard_step(
             one_step, opt=opt, sspec=spec.sentinel,
             ospec=spec.observe if spec.observe.enabled else None,
-            inject=inject)
+            inject=inject, zero=zero)
         snapshot = one_step.snapshot
     elif spec.observe.enabled:
         from repro_torch.telemetry.probes import instrument_step
@@ -241,4 +293,4 @@ def build_step_program(spec: RunSpec, arch=None, opt: Optional[Opt] = None,
         snapshot = one_step.snapshot
     return StepProgram(spec=spec, arch=arch, opt=opt, fused=fused,
                        step=one_step, hparams_fn=hparams_fn,
-                       device=device, snapshot=snapshot)
+                       device=device, snapshot=snapshot, zero=zero)

@@ -3,9 +3,12 @@
 Counterpart of ``repro.run.runner``: assembles arch + :class:`StepProgram` +
 data + hook pipeline from a :class:`RunSpec` and drives the loop, with
 checkpoint resume, transient-failure recovery and the training sentinel's
-host policy (skip, backoff, rollback with quarantine, budget abort).  The
-reference's elastic (``mesh.shape``) branch belongs to a later slice; a spec
-that asks for it raises ``NotImplementedError`` (``program.check_ported``).
+host policy (skip, backoff, rollback with quarantine, budget abort).  A spec
+with ``mesh.shape`` runs sharded: ``run()`` hands it to
+``fleet.elastic.run_elastic``, which builds the ZeRO-3 program and comes
+back here; on a mesh only rank 0 logs and writes the metrics stream and the
+profile (a ``model`` axis larger than 1 raises ``NotImplementedError``,
+``program.check_ported``).
 
 Default hook order (measurement before side effects; see
 ``repro_torch.run.hooks``): straggler → heartbeat → profiler → history →
@@ -71,7 +74,7 @@ class RunResult:
 
 
 def _default_hooks(spec: RunSpec, *, eval_iter, eval_factory, ckpt_manager,
-                   log_fn, user_hooks) -> tuple:
+                   log_fn, user_hooks, rank: int = 0) -> tuple:
     """The standard pipeline; a user hook of the same class replaces the
     default instance (so e.g. a caller-owned StragglerMonitor keeps
     accumulating across runs)."""
@@ -85,7 +88,7 @@ def _default_hooks(spec: RunSpec, *, eval_iter, eval_factory, ckpt_manager,
         out.append(hooks_lib.StragglerHook())
     if spec.fault.heartbeat_timeout_s > 0 and absent(hooks_lib.HeartbeatHook):
         out.append(hooks_lib.HeartbeatHook(spec.fault.heartbeat_timeout_s))
-    if spec.profile.dir and absent(hooks_lib.ProfilerHook):
+    if spec.profile.dir and rank == 0 and absent(hooks_lib.ProfilerHook):
         out.append(hooks_lib.ProfilerHook(spec.profile.dir,
                                           start=spec.profile.start,
                                           steps=spec.profile.steps))
@@ -94,7 +97,7 @@ def _default_hooks(spec: RunSpec, *, eval_iter, eval_factory, ckpt_manager,
     if spec.log_every and absent(hooks_lib.LoggingHook):
         out.append(hooks_lib.LoggingHook(spec.log_every, log_fn,
                                          total=spec.steps.total))
-    if spec.metrics_path and absent(hooks_lib.MetricsHook):
+    if spec.metrics_path and rank == 0 and absent(hooks_lib.MetricsHook):
         out.append(hooks_lib.MetricsHook(spec.metrics_path))
     if spec.eval.every and absent(hooks_lib.EvalHook):
         if eval_iter is not None:
@@ -206,6 +209,13 @@ def run(spec: RunSpec, *, arch=None, program: Optional[StepProgram] = None,
     times; a sticky CUDA error kills the context, so the restore raises and
     the run must be resumed by a new process.
     """
+    if program is None and spec.mesh.shape is not None:
+        from repro_torch.fleet.elastic import run_elastic
+        return run_elastic(spec, arch=arch, hooks=hooks, params=params,
+                           opt_state=opt_state, batch_iter=batch_iter,
+                           eval_iter=eval_iter, ckpt_manager=ckpt_manager,
+                           start_step=start_step, groups=groups,
+                           device=device, inject=inject, log_fn=log_fn)
     if program is None:
         program = build_step_program(spec, arch, groups=groups, device=device,
                                      inject=inject)
@@ -276,7 +286,9 @@ def run(spec: RunSpec, *, arch=None, program: Optional[StepProgram] = None,
     pipeline = _default_hooks(spec, eval_iter=eval_iter,
                               eval_factory=eval_factory,
                               ckpt_manager=ckpt_manager, log_fn=log_fn,
-                              user_hooks=hooks)
+                              user_hooks=hooks,
+                              rank=(program.zero.mesh.rank
+                                    if program.zero is not None else 0))
     ctx = RunContext(spec=spec, program=program, params=params,
                      opt_state=opt_state, log=log_fn, hooks=pipeline,
                      ckpt_manager=ckpt_manager, start_step=start_step,

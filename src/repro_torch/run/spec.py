@@ -2,10 +2,10 @@
 
 The port's copy of ``repro.run.spec``: the same dataclasses with the same
 fields and defaults, so ``RunSpec.to_json()`` is byte-identical in both
-packages and one spec file drives both.  The one field of a layer that is not
-ported yet, ``mesh.shape``, is kept for that reason;
-``build_step_program``/``run`` raise ``NotImplementedError`` when a spec sets
-it.
+packages and one spec file drives both.  ``mesh.shape`` runs the step ZeRO-3
+sharded over the data and pod axes (``fleet/elastic.py``); a model axis
+larger than 1 makes ``build_step_program``/``run`` raise
+``NotImplementedError``.
 
 A :class:`RunSpec` is everything the run layer needs to reconstruct a
 training (or dry-run) scenario: which architecture at which shape, the

@@ -33,6 +33,14 @@ counter included.  ``keep`` is a 0-d device bool: nothing is read back to
 the host, and the verdict rides the runner's one per-step transfer.  The
 EMA absorbs only clean steps, so one anomaly cannot drag the reference
 level toward the anomaly.
+
+On a mesh (``zero``, a ``sharding.zero.Zero3``) each rank holds shards, so
+the verdict is reduced over the ranks on the device before the commit: a
+non-finite value on any rank makes the step non-finite on every rank, and
+the update norm sums the shards' squares over the ``data`` ranks in rank
+order (whole leaves once).  Every rank then reaches the same verdict from
+the same bits, inside the step's one host sync; the trust guard and the
+probes on a mesh are slice 6b.
 """
 from __future__ import annotations
 
@@ -41,7 +49,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.api import OptState
-from repro_torch.core.tree import tree_leaves
+from repro_torch.core.tree import tree_flatten_with_path, tree_leaves
 from repro_torch.sentinel.inject import float_tensors
 from repro_torch.sentinel.spec import SentinelSpec
 from repro_torch.telemetry.probes import (Snapshot, _group_ratios,
@@ -111,7 +119,26 @@ def _f32_scalar(x: float) -> float:
     return float(torch.tensor(x, dtype=_F32))
 
 
-def guard_step(inner, *, opt, sspec: SentinelSpec, ospec=None, inject=None):
+def _mesh_verdict(zero, nonfinite, sums) -> tuple:
+    """(non-finite on any rank, the whole model's update norm), the same
+    bits on every rank."""
+    from repro_torch.sharding import collectives as C
+    flag = C.all_reduce_exact(nonfinite.to(_F32).reshape(1), zero.world)
+    dims = [d for _, d in tree_flatten_with_path(zero.dims)]
+    dev = flag.device
+    split = torch.zeros((), dtype=_F32, device=dev)
+    whole = torch.zeros((), dtype=_F32, device=dev)
+    for (_, _, dsq, _, _), d in zip(sums, dims):
+        if d is None:
+            whole = whole + dsq.sum()
+        else:
+            split = split + dsq.sum()
+    total = C.all_reduce(split.reshape(1), zero.data)[0] + whole
+    return flag[0] > 0, torch.sqrt(total)
+
+
+def guard_step(inner, *, opt, sspec: SentinelSpec, ospec=None, inject=None,
+               zero=None):
     """Wrap an in-place step ``(params, opt_state, batch, hp) -> (params',
     opt_state', loss, metrics)`` into the 5-arg guarded form ``(params,
     opt_state, batch, hp, sent) -> (params', opt_state', loss, metrics,
@@ -123,8 +150,13 @@ def guard_step(inner, *, opt, sspec: SentinelSpec, ospec=None, inject=None):
     ``inject`` (an :class:`~repro_torch.sentinel.inject.Injection`) poisons
     the batch/update keyed on ``sent.seen``.  The wrapper's ``.snapshot``
     is the :class:`~repro_torch.telemetry.probes.Snapshot` whose buffers
-    hold the pre-step values.
+    hold the pre-step values.  ``zero``: the step is ZeRO-3 sharded (module
+    docstring).
     """
+    if zero is not None and (ospec is not None or sspec.trust_max > 0.0):
+        raise NotImplementedError(
+            "the sentinel's trust guard and the optimizer-health probes on a "
+            "mesh are slice 6b of the port and not ported to repro_torch yet")
     snapshot = Snapshot()
     decay = _f32_scalar(sspec.ema_decay)
     one_m_decay = float(1.0 - torch.tensor(decay, dtype=_F32))
@@ -159,7 +191,10 @@ def guard_step(inner, *, opt, sspec: SentinelSpec, ospec=None, inject=None):
         # one pass over (snapshot, proposed params): the update norm, the
         # trust ratios and (committed) the probes all read these sums
         sums = leaf_sums(p_old, p2, par=use_trust or ospec is not None)
-        unorm = update_norm_of(sums)
+        if zero is None:
+            unorm = update_norm_of(sums)
+        else:
+            nonfinite, unorm = _mesh_verdict(zero, nonfinite, sums)
 
         n = sent.clean.to(_F32)
         ema_ref = sent.ema / torch.clamp_min(

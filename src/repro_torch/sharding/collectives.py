@@ -1,0 +1,138 @@
+"""The collectives of the sharded step, each over an explicit process group.
+
+The torch form of what GSPMD inserts in the reference: gather a ZeRO-3
+shard to the whole tensor, reduce-scatter a gradient back to the shard,
+sum small statistics and replicated leaves' gradients over the ranks.
+
+Every sum over the ranks runs in rank order (rank 0's term first), on
+every rank: the reduce-scatter is an all-to-all of the gradient's chunks
+followed by a local sum of the received chunks in rank order, and the
+all-reduce an all-gather followed by the same ordered sum.  So every rank
+gets bit-identical sums, a re-run gives the same bits, and a replicated
+leaf stays equal on every rank.  (Neither backend's own reduce-scatter or
+all-reduce promises an order of summation.)  Tensors travel in their own
+dtype (a bf16 gradient as bf16: half the bytes); each term is widened to
+fp32 exactly as it is added, the sum taken in fp32 and narrowed once,
+after it.
+
+``gloo`` takes no CUDA tensor for the all-gather and the all-to-all these
+use, so with ``gloo`` a CUDA tensor is staged through host memory (two
+ranks sharing one card): that staging is counted in :data:`STATS`
+(``staged_bytes``).  The kernels and the model still run on the card.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+Tensor = torch.Tensor
+
+# Collective calls and bytes moved since the last reset (``reset_stats``):
+# one count a call of a torch.distributed collective.
+STATS = {"calls": 0, "gather_bytes": 0, "scatter_bytes": 0,
+         "reduce_bytes": 0, "staged_bytes": 0}
+
+
+def reset_stats() -> None:
+    for k in STATS:
+        STATS[k] = 0
+
+
+def _staged(x: Tensor, group) -> bool:
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _to_wire(x: Tensor, group) -> Tensor:
+    if _staged(x, group):
+        STATS["staged_bytes"] += x.numel() * x.element_size()
+        return x.to("cpu")
+    return x
+
+
+def _from_wire(y: Tensor, like: Tensor) -> Tensor:
+    if y.device != like.device:
+        STATS["staged_bytes"] += y.numel() * y.element_size()
+        return y.to(like.device)
+    return y
+
+
+def _gather_flat(x: Tensor, group) -> Tensor:
+    """``[w, *x.shape]``: every rank's ``x``, rank order."""
+    w = dist.get_world_size(group)
+    xs = _to_wire(x.contiguous().reshape(-1), group)
+    out = torch.empty(w * xs.numel(), dtype=x.dtype, device=xs.device)
+    dist.all_gather_into_tensor(out, xs, group=group)
+    STATS["calls"] += 1
+    return _from_wire(out, x).reshape((w,) + tuple(x.shape))
+
+
+def _ordered_sum(parts: Tensor, dtype=None) -> Tensor:
+    """``parts[0] + parts[1] + ...`` over the leading dim, in index order,
+    in ``dtype`` (default ``parts``'): each term widened as it is added."""
+    total = parts[0].to(dtype or parts.dtype, copy=True)
+    for i in range(1, parts.shape[0]):
+        total += parts[i]
+    return total
+
+
+def shard(x: Tensor, dim: int, group) -> Tensor:
+    """This rank's contiguous slice of ``x`` along ``dim`` (no
+    communication); ``x.shape[dim]`` must divide by the group's size."""
+    w, k = dist.get_world_size(group), dist.get_rank(group)
+    if x.shape[dim] % w:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide "
+                         f"over {w} ranks")
+    return x.narrow(dim, k * (x.shape[dim] // w),
+                    x.shape[dim] // w).contiguous()
+
+
+def all_gather(x: Tensor, dim: int, group) -> Tensor:
+    """The whole tensor from the shards of ``group`` along ``dim``, in
+    ``x``'s dtype (a bf16 shard is gathered as bf16).  A shard split on a
+    later dim than 0 gets a layout copy after the gather."""
+    parts = _gather_flat(x, group)                   # [w, ...shard]
+    STATS["gather_bytes"] += parts.numel() * parts.element_size()
+    if dim == 0:
+        return parts.reshape((-1,) + tuple(x.shape[1:]))
+    full = list(x.shape)
+    full[dim] *= parts.shape[0]
+    return parts.movedim(0, dim).reshape(full)
+
+
+def reduce_scatter(g: Tensor, dim: int, group, *, dtype=None) -> Tensor:
+    """This rank's shard along ``dim`` of the sum over ``group`` of the
+    whole-tensor gradients ``g``: the chunks sent in ``g``'s dtype, each
+    widened to fp32 as it is added in rank order, the sum narrowed once to
+    ``dtype`` (default ``g``'s)."""
+    dtype = dtype or g.dtype
+    w = dist.get_world_size(group)
+    if g.shape[dim] % w:
+        raise ValueError(f"dim {dim} of {tuple(g.shape)} does not divide "
+                         f"over {w} ranks")
+    # [w, ...chunk] contiguous: chunk j goes to rank j (a layout copy when
+    # dim > 0)
+    chunks = g.unflatten(dim, (w, g.shape[dim] // w))
+    chunks = chunks.movedim(dim, 0).contiguous()
+    send = _to_wire(chunks, group)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    STATS["calls"] += 1
+    STATS["scatter_bytes"] += send.numel() * send.element_size()
+    return _ordered_sum(_from_wire(recv, g), torch.float32).to(dtype)
+
+
+def all_reduce(x: Tensor, group, *, dtype=None) -> Tensor:
+    """The sum over ``group`` of ``x``, in fp32 and rank order, narrowed
+    once to ``dtype`` (default ``x``'s).  Bit-identical on every rank."""
+    dtype = dtype or x.dtype
+    parts = _gather_flat(x, group)
+    STATS["reduce_bytes"] += parts.numel() * parts.element_size()
+    return _ordered_sum(parts, torch.float32).to(dtype)
+
+
+def all_reduce_exact(x: Tensor, group) -> Tensor:
+    """The sum over ``group`` of an integer or fp32 tensor in its own dtype
+    (token counts, flags), rank order."""
+    parts = _gather_flat(x, group)
+    STATS["reduce_bytes"] += parts.numel() * parts.element_size()
+    return _ordered_sum(parts)

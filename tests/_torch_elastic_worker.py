@@ -1,0 +1,183 @@
+"""The ranks of the sharded-run tests (``test_torch_elastic.py``): one
+``gloo`` world a call of :func:`run_world`, running a list of cases in
+order, each rank writing what the parent process compares.  Imports torch
+and the port only (no JAX), so that a world starts quickly."""
+import json
+import os
+import shutil
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def make_spec(arch, *, shape=None, total=6, ckpt=None, every=3,
+              packing=False, sentinel=False, eval_every=0, spec_mod=None,
+              data_cls=None):
+    """The cases' RunSpec, in either package (``spec_mod``: its
+    ``run.spec``; ``data_cls``: its ``DataConfig``)."""
+    if spec_mod is None:
+        from repro_torch.data.pipeline import DataConfig as data_cls
+        from repro_torch.run import spec as spec_mod
+    kw = {}
+    if sentinel:
+        from repro_torch.sentinel.spec import SentinelSpec
+        kw["sentinel"] = SentinelSpec(enabled=True)
+    return spec_mod.RunSpec(
+        model=spec_mod.ModelSpec(arch, smoke=True),
+        data=data_cls(vocab=0, seq_len=32, global_batch=8, seed=3,
+                      packing=packing),
+        opt=spec_mod.OptSpec(name="adalomo", lr=1e-3, schedule="constant"),
+        steps=spec_mod.StepSpec(total=total),
+        mesh=(spec_mod.MeshSpec(kind="multi", shape=tuple(shape))
+              if shape else spec_mod.MeshSpec()),
+        checkpoint=spec_mod.CheckpointSpec(dir=ckpt, every=every,
+                                           resume=True),
+        eval=spec_mod.EvalSpec(every=eval_every, n_batches=2),
+        seed=3, log_every=0, **kw)
+
+
+GGN_CLIP = 0.5        # LOMO's two-pass global-norm clip, below the norm
+
+
+def lomo_steps(spec, params, zero=None, steps=3):
+    """``steps`` fused LOMO steps with ``global_grad_norm`` through the step
+    program (``run`` takes no clip), on the global batches of ``spec``.
+    Returns the losses, the program and ``(params, opt_state)``."""
+    from repro_torch.models.registry import get_arch
+    from repro_torch.run.data import make_batch_iter
+    from repro_torch.run.program import build_step_program
+    from repro_torch.run.runner import batch_to_device
+    arch = get_arch(spec.model.arch, smoke=True)
+    program = build_step_program(spec, arch, device="cpu", zero=zero,
+                                 global_grad_norm=GGN_CLIP)
+    state = program.opt.init(params)
+    if zero is not None:
+        params, state = zero.shard_tree((params, state), state)
+    batches = make_batch_iter(spec, arch)
+    losses = []
+    for i in range(steps):
+        batch = batch_to_device(next(batches), torch.device("cpu"))
+        params, state, loss, _ = program.step(params, state, batch,
+                                              program.hparams_fn(i + 1))
+        losses.append(float(loss))
+    return losses, program, (params, state)
+
+
+def _case(case, rank):
+    from repro_torch.run import run
+    from repro_torch.run.hooks import Hook
+
+    class Capture(Hook):
+        def __init__(self):
+            self.aux, self.anomaly = [], []
+
+        def on_step_end(self, ctx, ev):
+            self.aux.append(ev.metrics.get("aux_loss"))
+            self.anomaly.append(ev.metrics.get("sentinel", {}).get(
+                "anomaly"))
+
+    kind = case["kind"]
+    out = case["out"]
+    if kind == "copy_step":
+        if rank == 0:
+            os.makedirs(case["dst"], exist_ok=True)
+            shutil.copytree(case["src"], os.path.join(
+                case["dst"], os.path.basename(case["src"])))
+        dist.barrier()
+        return
+    if kind == "ggn":
+        import dataclasses
+
+        from repro_torch.checkpoint.manager import CheckpointManager
+        from repro_torch.fleet.elastic import mesh_from_spec
+        from repro_torch.models.registry import get_arch
+        from repro_torch.run.spec import OptSpec
+        from repro_torch.sharding.zero import Zero3
+        spec = dataclasses.replace(
+            make_spec(case["arch"], shape=case["shape"]),
+            opt=OptSpec(name="lomo", lr=1e-2, schedule="constant"))
+        zero = Zero3(mesh_from_spec(spec.mesh, "cpu"), get_arch(
+            case["arch"], smoke=True).init_params(0, device="meta"))
+        losses, _, tree = lomo_steps(spec, torch.load(case["init"]), zero)
+        CheckpointManager(case["ckpt"], zero=zero).save(3, tree)
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump({"loss": losses}, f)
+        return
+    if kind == "mesh_error":
+        from repro_torch.launch.mesh import make_mesh
+        try:
+            make_mesh(tuple(case["shape"]), "cpu")
+            msg = ""
+        except ValueError as e:
+            msg = str(e)
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump({"error": msg}, f)
+        return
+    spec = make_spec(case["arch"], shape=case["shape"], total=case["total"],
+                     ckpt=case.get("ckpt"), every=case.get("every", 3),
+                     packing=case.get("packing", False),
+                     sentinel=bool(case.get("inject")),
+                     eval_every=case.get("eval_every", 0))
+    if kind == "roundtrip":
+        from repro_torch.checkpoint.manager import CheckpointManager
+        from repro_torch.fleet.elastic import mesh_from_spec
+        from repro_torch.models.registry import get_arch
+        from repro_torch.run.program import build_step_program
+        from repro_torch.sharding.zero import Zero3
+        arch = get_arch(case["arch"], smoke=True)
+        zero = Zero3(mesh_from_spec(spec.mesh, "cpu"),
+                     arch.init_params(0, device="meta"))
+        program = build_step_program(spec, arch, device="cpu", zero=zero)
+        tree = program.init(0)
+        step, _ = CheckpointManager(case["src"], zero=zero).restore_into(
+            tree, step=case["step"])
+        CheckpointManager(case["dst"], zero=zero).save(step, tree)
+        return
+    cap = Capture()
+    params = torch.load(case["init"]) if case.get("init") else None
+    inject = None
+    if case.get("inject"):
+        from repro_torch.sentinel.inject import Injection
+        kind, at = case["inject"]
+        inject = Injection(kind, at_step=at)
+    res = run(spec, params=params, device="cpu", hooks=[cap], inject=inject,
+              log_fn=lambda s: None)
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump({"loss": res.history["loss"], "aux": cap.aux,
+                       "anomaly": cap.anomaly,
+                       "eval_loss": res.history["eval_loss"],
+                       "step": res.history["step"]}, f)
+    torch.save(res.params, f"{out}.rank{rank}.pt")
+
+
+def _rank(rank, world, store, cases):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        for case in cases:
+            _case(case, rank)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_world(world: int, store: str, cases: list,
+              timeout: float = 600.0) -> None:
+    """Spawn ``world`` gloo ranks on the host that run ``cases`` in order
+    (a rank's failure fails the call; a world still running after
+    ``timeout`` seconds is killed and raises ``TimeoutError``)."""
+    ctx = mp.spawn(_rank, args=(world, store, cases), nprocs=world,
+                   join=False)
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=2.0):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise TimeoutError(f"a world of {world} ranks did not finish "
+                               f"in {timeout} s")

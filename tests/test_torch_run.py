@@ -192,13 +192,15 @@ def test_default_device_is_the_card_and_raises_without_one():
 
 
 @pytest.mark.parametrize("change", [
-    {"mesh": spec_mod.MeshSpec(kind="multi", shape=(2,))}])
+    {"mesh": spec_mod.MeshSpec(kind="multi", shape=(2, 2))}])
 def test_unported_spec_fields_raise(change):
+    """A mesh with a model axis of 2 (tensor, sequence and expert
+    parallelism) raises, naming the slice that brings it."""
     _, pspec = _specs()
     bad = dataclasses.replace(pspec, **change)
     with pytest.raises(NotImplementedError, match="not ported"):
         build_step_program(bad, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match="slice 6b"):
         run(bad, device="cpu")
 
 

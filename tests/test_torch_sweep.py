@@ -263,8 +263,9 @@ def test_subprocess_sweep_on_cpu(tmp_path):
 
 def test_launcher(tmp_path, capsys):
     """``python -m repro_torch.launch.sweep`` on the CPU: a grid of two
-    in-process members ranked in the printout; --virtual-devices raises;
-    --grid and --variants are exclusive."""
+    in-process members ranked in the printout; --virtual-devices reaches
+    each subprocess member's launcher; --grid and --variants are
+    exclusive."""
     from repro_torch.launch.sweep import main
     _, base = fleet_specs(total=2, seq=16, batch=2)
     spec_file = tmp_path / "base.json"
@@ -275,8 +276,32 @@ def test_launcher(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "sweep: 2/2 members done" in out and "#2 " in out
     assert Path(tmp_path / "sw" / "report.json").exists()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        main(args + ["--virtual-devices", "4"])
+    # --virtual-devices reaches every member's launcher command line
+    import repro_torch.fleet.sweep as fleet_sweep
+    cmds = []
+
+    class Member:
+        def __init__(self, cmd, **kw):
+            cmds.append(cmd)
+            self.pid = 0
+
+        def poll(self):
+            return 1
+
+    real = fleet_sweep.subprocess.Popen
+    fleet_sweep.subprocess.Popen = Member
+    try:
+        with pytest.raises(SystemExit):
+            main(["--base", str(spec_file), "--dir", str(tmp_path / "vd"),
+                  "--grid", json.dumps({"opt.lr": [1e-3, 3e-3]}),
+                  "--subprocess", "--virtual-devices", "4", "--device",
+                  "cpu"])
+    finally:
+        fleet_sweep.subprocess.Popen = real
+    assert len(cmds) == 2
+    for cmd in cmds:
+        assert "repro_torch.launch.train" in cmd
+        assert cmd[cmd.index("--virtual-devices") + 1] == "4"
     variants = tmp_path / "v.json"
     variants.write_text(json.dumps(VARIANTS))
     with pytest.raises(SystemExit, match="exactly one"):
