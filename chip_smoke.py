@@ -30,7 +30,16 @@ printing one JSON line:
            ranks emulated by fixed-order sums — r and c (3e-5) and theta'
            (K2's tolerance) against the whole-tensor kernels, a bitwise
            re-run, and the shard's element count in place of the tensor's
-           made to disagree; timed per shard at a 2-way split.
+           made to disagree; timed per shard at a 2-way split.  K1's mode
+           3 (a 2-D block of the model axis: both sums left raw): the same
+           four leaves split as the rules split them on (data, model) =
+           (2, 2) and (1, 2) (wq and w_gate rows over data and columns over
+           model, wo and w_down the transpose), alone and [24, m, n], bf16
+           and fp32, the grid's sums emulated by fixed-order sums
+           (``ref.adalomo_update_grid``) — against its plain version and
+           the emulated update against the whole-tensor kernels, a bitwise
+           re-run, a block's element count made to disagree; timed on one
+           rank's quarter blocks of danube's 170 matrices.
            Paged decode attention K3:
            the CPU tests' cases, a danube-shaped ragged case with and without
            a window, danube serving shapes (8 sequences, 32/8 heads, dh 80,
@@ -100,7 +109,18 @@ printing one JSON line:
            layer's fp32 gradient) and the collectives' host staging.  Elastic: the two-rank step-2
            checkpoint restored onto the one-rank world and onto no mesh,
            every leaf bitwise equal to the files, and each continued to step
-           4 with losses within 1e-5 of the two-rank run's.
+           4 with losses within 1e-5 of the two-rank run's.  The model
+           axis (sequence and expert parallelism, 2-D ZeRO-3), gloo ranks
+           sharing the card: (a) danube on (1, 2) at 4 layers, 4 x 1024,
+           4 steps, bf16 then fp32, held as the two data-axis ranks are;
+           (b) four ranks on (2, 2), fp32, 2 layers, 2 steps, at the
+           reference's tolerance (the only mesh here whose leaves are split
+           both ways: K1 mode 3 launched on every rank); (c)
+           deepseek-moe-16b on (1, 2), fp32, 2 layers, 2 x 1024, 2 steps,
+           experts expert-parallel and never gathered over model — each
+           against the unsharded run at its depth, with per-rank peaks,
+           collective calls and bytes a step, step seconds and mode-3
+           launches a step, each line printed before its checks.
   resume   ``run(spec)`` on h2o-danube-1.8b as in train, 4 steps, with
            checkpoints every 2 steps (3.67 GB each, written under the
            system temp or ``_chip_smoke_tmp/`` and removed), eval every 2
@@ -872,12 +892,15 @@ def phase_kernels() -> dict:
               and any(f"Li{d}E" in k for d in (16, 24, 256))}
     errs = {"adalomo_stats": 0.0, "adalomo_update": 0.0,
             "adalomo_stats_sharded": 0.0, "adalomo_update_sharded": 0.0,
+            "adalomo_stats_2d": 0.0,
             "paged_decode_attention": 0.0, "decode_attention": 0.0}
     progress("kernels: K1/K2 cases")
     n_cases = check_kernels(errs)
     variants = check_op_variants()
     progress("kernels: K1/K2 sharded entries at danube's shards")
     sharded_checks = check_sharded_kernels(errs)
+    progress("kernels: K1 mode 3 at danube's 2-D blocks")
+    block_checks = check_block_kernels(errs)
     progress("kernels: K1/K2 at the MoE shapes")
     moe_checks = check_moe_kernels(errs)
     progress("kernels: K1/K2 at paligemma-3b's shapes")
@@ -899,6 +922,8 @@ def phase_kernels() -> dict:
     progress("kernels: timing K1/K2's sharded entries")
     shard_rows, shard_totals = time_sharded_kernels()
     totals.update(shard_totals)
+    progress("kernels: timing K1 mode 3")
+    block_rows, totals["adalomo_stats_2d"] = time_block_kernels()
     progress("kernels: timing K3")
     k3_rows, totals["paged_decode_attention"] = time_k3()
     progress("kernels: timing K4")
@@ -917,6 +942,8 @@ def phase_kernels() -> dict:
          sharded_cases=sharded_checks,
          sharded_per_shape_2way_bf16=shard_rows,
          sharded_per_step_of_170_shards_2way=shard_totals,
+         block_cases=block_checks, block_per_shape_2x2_bf16=block_rows,
+         block_per_step_of_170_blocks_2x2=totals["adalomo_stats_2d"],
          moe_cases=moe_checks, moe_per_call=moe_rows,
          pali_cases=pali_checks, ssm_cases=ssm_checks,
          whisper_cases=whisper_checks,
@@ -1395,6 +1422,21 @@ def output_digests() -> dict:
                          eps_div=CFG.eps_div, eps_rms=CFG.eps_rms,
                          literal=False)
         out[f"adalomo_update {m}x{n}"] = digest(p)
+        # K1's sharded entry on the same g: mode 1 (rows), mode 2
+        # (columns) and, where the tree has it, mode 3 (both)
+        for axis, mode in ((-2, "mode1"), (-1, "mode2"),
+                           (getattr(K, "BOTH", None), "mode3")):
+            if axis is None:
+                out[f"adalomo_stats_partial {mode} {m}x{n}"] = \
+                    "mode not in this tree"
+                continue
+            r2, c2 = r.clone(), c.clone()
+            raw = K.adalomo_stats_partial(g, r2, c2, beta_t,
+                                          eps_stat=CFG.eps_stat, axis=axis)
+            if axis == getattr(K, "BOTH", None):
+                raw = torch.cat([raw[0], raw[1][..., :-1]])
+            out[f"adalomo_stats_partial {mode} {m}x{n}"] = digest(
+                torch.cat([r2, c2, raw.flatten()]))
     for B, W in ((8, 1024), (4, 4096), (1, 4096)):
         for wrapped, cur in ((True, W + 2047), (False, W - 200)):
             args = k4_inputs(B, W, 32, 8, 80, cur, torch.bfloat16, 70,
@@ -4755,6 +4797,175 @@ def time_sharded_kernels() -> tuple:
 
 
 # --------------------------------------------------------------------------
+# K1 mode 3: 2-D blocks of danube's leaves (the model axis)
+# --------------------------------------------------------------------------
+
+# danube's leaves as the rules split them on a (data, model) mesh: attn/wq
+# and mlp/w_gate by rows over data and columns over model, attn/wo and
+# mlp/w_down the transpose (rows over model, columns over data)
+BLOCK_CASES = {"attn/wq [2560,2560]": ((2560, 2560), "data"),
+               "mlp/w_gate [2560,6912]": ((2560, 6912), "data"),
+               "attn/wo [2560,2560]": ((2560, 2560), "model"),
+               "mlp/w_down [6912,2560]": ((6912, 2560), "model")}
+BLOCK_MESHES = ((2, 2), (1, 2))         # (data, model)
+# One rank's blocks of the 170 leaves of a step on (2, 2): every leaf is
+# split both ways there (wq, wo; wk, wv; w_gate, w_up; w_down; the embedding
+# and the head)
+BLOCKS_PER_STEP = {(1280, 1280): 48, (1280, 320): 48, (1280, 3456): 48,
+                   (3456, 1280): 24, (16000, 1280): 1, (1280, 16000): 1}
+
+
+def block_grid(mesh, rows_over):
+    """(row blocks, column blocks) of a leaf whose rows the ``rows_over``
+    axis splits, on a (data, model) mesh."""
+    data, model = mesh
+    return (data, model) if rows_over == "data" else (model, data)
+
+
+def run_blocks(p, g, r, c, R, C, *, lr, step, beta, clip=1.0, n_total=None,
+               plain=False):
+    """The R x C grid of blocks through K1's mode 3 and K2's sharded
+    entries (their kernels, or with ``plain`` their plain versions), the
+    sums over the ranks emulated by fixed-order sums in this process
+    (``ref.adalomo_update_grid``); every block of a row must fold the same
+    r and every block of a column the same c; the blocks put back
+    together."""
+    from repro_torch.kernels.adalomo_update.ref import adalomo_update_grid
+
+    def blocks(t):
+        return [[b.clone(memory_format=torch.contiguous_format)
+                 for b in rows.chunk(C, dim=-1)] for rows in t.chunk(R, -2)]
+    P, G = blocks(p), blocks(g)
+    rs = [[t.clone() for _ in range(C)] for t in r.chunk(R, dim=-1)]
+    cs = [[t.clone() for t in c.chunk(C, dim=-1)] for _ in range(R)]
+    adalomo_update_grid(P, G, rs, cs, lr=lr, step=step, beta=beta, clip=clip,
+                        n_total=n_total, plain=plain)
+    if not (all(torch.equal(t, row[0]) for row in rs for t in row) and all(
+            torch.equal(cs[i][j], cs[0][j]) for i in range(R)
+            for j in range(C))):
+        raise AssertionError("K1 mode 3: the blocks of a row or a column "
+                             "folded different bits from the same sums")
+    return (torch.cat([torch.cat(row, -1) for row in P], -2),
+            torch.cat([row[0] for row in rs], -1), torch.cat(cs[0], -1))
+
+
+def check_block_kernels(errs: dict) -> dict:
+    """K1's mode 3 (both sums raw) with K2's sharded entries on danube's
+    leaves split as the rules split them on (2, 2) and (1, 2), alone and as
+    stacked [24, m, n] leaves, bf16 and fp32: against their plain versions
+    on the same blocks (the kernels line's max_abs_err), and the emulated
+    update against the whole-tensor kernels on the same inputs, r and c
+    within TOL_RC and theta' within K2's tolerance; a bitwise re-run; and
+    one case with a block's element count in place of the tensor's, which
+    must disagree."""
+    beta, lr, step = 0.999, 5e-4, 5.0
+    cases = {}
+    for name, (shape, rows_over) in BLOCK_CASES.items():
+        for mesh in BLOCK_MESHES:
+            R, C = block_grid(mesh, rows_over)
+            for lead in ((), (N_LAYERS,)):
+                for dt in (torch.bfloat16, torch.float32):
+                    key = (f"{name} {'x'.join(map(str, lead)) or '1'} "
+                           f"{str(dt)[6:]} grid {R}x{C}")
+                    p, g, r, c = make_inputs(shape, dt, dt, shape[1] + R * C,
+                                             step, lead=lead)
+                    kw = dict(lr=lr, step=step, beta=beta)
+                    pk, rk, ck = run_blocks(p, g, r, c, R, C, **kw)
+                    pp, rp, cp = run_blocks(p, g, r, c, R, C, plain=True,
+                                            **kw)
+                    assert_close(rk, rp, what="K1 mode 3 r " + key, **TOL_RC)
+                    assert_close(ck, cp, what="K1 mode 3 c " + key, **TOL_RC)
+                    assert_close(pk, pp, rtol=TOL_P[dt], atol=TOL_P[dt],
+                                 what="K2 on blocks " + key)
+                    vs_plain = (max(max_err(rk, rp), max_err(ck, cp)),
+                                max_err(pk, pp))
+                    del pp, rp, cp
+                    pw, rw, cw = p.clone(), r.clone(), c.clone()
+                    adalomo_update(pw, g, rw, cw, lr, step, beta)
+                    for what, a, b, tol in (
+                            ("r", rk, rw, TOL_RC), ("c", ck, cw, TOL_RC),
+                            ("theta'", pk, pw, dict(rtol=TOL_P[dt],
+                                                    atol=TOL_P[dt]))):
+                        assert_close(a, b, **tol, what=f"K1 mode 3 / K2 "
+                                     f"{what} against the whole-tensor "
+                                     f"kernel {key}")
+                    again = run_blocks(p, g, r, c, R, C, **kw)
+                    rerun = all(torch.equal(a, b) for a, b in
+                                zip(again, (pk, rk, ck)))
+                    if not rerun:
+                        raise AssertionError(f"K1 mode 3 {key}: a re-run "
+                                             "gave other bits")
+                    errs["adalomo_stats_2d"] = max(errs["adalomo_stats_2d"],
+                                                   vs_plain[0])
+                    cases[key] = {
+                        "r_c_max_abs_err_vs_plain": vs_plain[0],
+                        "param_max_abs_err_vs_plain": vs_plain[1],
+                        "r_c_max_abs_err_vs_whole": max(max_err(rk, rw),
+                                                        max_err(ck, cw)),
+                        "param_max_abs_err_vs_whole": max_err(pk, pw),
+                        "rerun_bitwise": rerun}
+                    del p, g, r, c, pw, rw, cw, pk, rk, ck, again
+    # a block's m*n in place of the tensor's must move theta' away from the
+    # whole-tensor kernel's
+    shape, _ = next(iter(BLOCK_CASES.values()))
+    p, g, r, c = make_inputs(shape, torch.float32, torch.float32, 7, step)
+    pw, rw, cw = p.clone(), r.clone(), c.clone()
+    adalomo_update(pw, g, rw, cw, 5e-2, step, beta, clip=SHARD_WRONG_CLIP)
+    wrong, _, _ = run_blocks(p, g, r, c, 2, 2, lr=5e-2, step=step,
+                             beta=beta, clip=SHARD_WRONG_CLIP,
+                             n_total=shape[0] * shape[1] // 4)
+    try:
+        assert_close(wrong, pw, rtol=TOL_P[torch.float32],
+                     atol=TOL_P[torch.float32], what="wrong element count")
+    except AssertionError:
+        caught = True
+    else:
+        caught = False
+    if not caught:
+        raise AssertionError("K2 on 2-D blocks with a block's element count "
+                             "agreed with the whole tensor's update")
+    torch.cuda.synchronize()
+    return {"cases": cases, "wrong_count_disagrees": caught,
+            "wrong_count_max_abs_err": max_err(wrong, pw)}
+
+
+def time_block_kernels() -> tuple:
+    """K1's mode 3 on one rank's blocks of each danube leaf at a 2 x 2
+    split, bf16 (graph replays), its plain version and its bound, and the
+    totals over the 170 blocks of a step."""
+    beta_t = torch.full((), 0.999, device=DEV)
+    rows = []
+    for (sm, sn), count in BLOCKS_PER_STEP.items():
+        elt = 2
+        copies = min(32, max(2, math.ceil(192e6 / (sm * sn * elt))))
+        sets = [make_inputs((sm, sn), torch.bfloat16, torch.bfloat16, i, 5.0)
+                for i in range(copies)]
+        rounds = max(2, min(20, 200 // copies))
+
+        def k1(p, g, r, c):
+            return K.adalomo_stats_partial(g, r, c, beta_t,
+                                           eps_stat=CFG.eps_stat, axis=K.BOTH)
+
+        def k1_plain(p, g, r, c):
+            return K.adalomo_stats_partial_ref(g, r, c, beta_t,
+                                               eps_stat=CFG.eps_stat,
+                                               axis=K.BOTH)
+        # g read once, the raw row and column sums written once
+        nbytes = sm * sn * elt + 4 * (sm + sn)
+        rows.append({"block": [sm, sn], "dtype": "bf16", "per_step": count,
+                     "ms": time_graph_ms(k1, sets, rounds),
+                     "plain_ms": time_graph_ms(k1_plain, sets, rounds),
+                     "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                     K1_FLOP_PER_ELEM * sm * sn
+                                     / FP32_FLOP_PER_S) * 1e3})
+        del sets
+        torch.cuda.empty_cache()
+    totals = {what: sum(r[what] * r["per_step"] for r in rows)
+              for what in ("ms", "plain_ms", "bound_ms")}
+    return rows, totals
+
+
+# --------------------------------------------------------------------------
 # dist: the sharded run — a one-rank NCCL world at full size, two gloo ranks
 # sharing the card, and elastic restores between them
 # --------------------------------------------------------------------------
@@ -4784,13 +4995,15 @@ def sharded_launches() -> dict:
 def reset_launches() -> None:
     for name in SHARDED_WRAPPERS + ("adalomo_stats", "adalomo_update"):
         getattr(K, name).launches = 0
+    K.adalomo_stats_partial.both_launches = 0
 
 
-def dist_spec(steps, *, shape=None, ckpt=None, every=0):
+def dist_spec(steps, *, shape=None, ckpt=None, every=0, arch_id=ARCH_ID,
+              batch=4):
     from repro_torch.run import CheckpointSpec, MeshSpec
-    return RunSpec(model=ModelSpec(ARCH_ID, smoke=False),
-                   data=DataConfig(vocab=0, seq_len=1024, global_batch=4,
-                                   seed=0),
+    return RunSpec(model=ModelSpec(arch_id, smoke=False),
+                   data=DataConfig(vocab=0, seq_len=1024,
+                                   global_batch=batch, seed=0),
                    opt=OptSpec(name="adalomo"),
                    steps=StepSpec(total=steps), log_every=0, seed=0,
                    mesh=(MeshSpec(kind="multi", shape=shape) if shape
@@ -4799,10 +5012,10 @@ def dist_spec(steps, *, shape=None, ckpt=None, every=0):
                                              resume=True))
 
 
-def cut_arch(layers: int, dtype=None):
-    """danube at its published width, ``layers`` deep, in its own dtype
-    (bf16) unless ``dtype`` is given."""
-    arch = get_arch(ARCH_ID)
+def cut_arch(layers: int, dtype=None, arch_id=ARCH_ID):
+    """danube (or ``arch_id``) at its published width, ``layers`` deep, in
+    its own dtype (bf16) unless ``dtype`` is given."""
+    arch = get_arch(arch_id)
     return dataclasses.replace(arch, cfg=dataclasses.replace(
         arch.cfg, n_layers=layers, dtype=dtype or arch.cfg.dtype))
 
@@ -4969,29 +5182,36 @@ DIST_GLOO_RUNS = (("bfloat16", None, "ck", DIST_CKPT_STEP),
                   ("float32", torch.float32, "ck32", DIST_GLOO_STEPS))
 
 
-def dist_gloo_rank(rank: int, world: int, store: str, root: str) -> None:
-    """One of the two gloo ranks sharing the card (spawned)."""
+def dist_gloo_rank(rank: int, world: int, store: str, root: str,
+                   job=None) -> None:
+    """One of the gloo ranks sharing the card (spawned): ``job``'s runs
+    (default: the two-rank data-axis runs, ``DIST_GLOO_RUNS`` on (world,)),
+    each rank writing what it measured to ``rank{r}_{tag}{name}.json``."""
     import torch.distributed as dist
     from repro_torch.core.tree import tree_flatten_with_path
     from repro_torch.sharding import collectives as C
+    job = job or dict(shape=(world,), layers=DIST_GLOO_LAYERS,
+                      steps=DIST_GLOO_STEPS, runs=DIST_GLOO_RUNS,
+                      arch=ARCH_ID, batch=4, tag="")
     torch.cuda.set_device(DEV)
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     try:
-        for name, dtype, ck, every in DIST_GLOO_RUNS:
+        for name, dtype, ck, every in job["runs"]:
             reset_launches()
             C.reset_stats()
             timing = TimingHook()
             torch.cuda.reset_peak_memory_stats()
-            res = run(dist_spec(DIST_GLOO_STEPS, shape=(world,),
-                                ckpt=os.path.join(root, ck), every=every),
-                      arch=cut_arch(DIST_GLOO_LAYERS, dtype), hooks=[timing],
-                      device=DEV, log_fn=lambda s: None)
+            res = run(dist_spec(job["steps"], shape=tuple(job["shape"]),
+                                ckpt=os.path.join(root, ck), every=every,
+                                arch_id=job["arch"], batch=job["batch"]),
+                      arch=cut_arch(job["layers"], dtype, job["arch"]),
+                      hooks=[timing], device=DEV, log_fn=lambda s: None)
             torch.cuda.synchronize()
-            dims = [d for _, d in tree_flatten_with_path(
-                res.program.zero.dims)]
-            whole = [t for t, d in zip(tree_leaves(res.params), dims)
-                     if d is None]
+            zero = res.program.zero
+            places = [pl for _, pl in tree_flatten_with_path(zero.dims)]
+            whole = [t for t, pl in zip(tree_leaves(res.params), places)
+                     if pl.whole]
             rec = {"losses": res.history["loss"],
                    "step_seconds": timing.step_s,
                    "peak_memory_bytes": torch.cuda.max_memory_allocated(),
@@ -5001,15 +5221,36 @@ def dist_gloo_rank(rank: int, world: int, store: str, root: str) -> None:
                    "whole_leaves": len(whole),
                    "whole_digest": device_digest(whole).tolist(),
                    "collectives": dict(C.STATS),
-                   "launches": sharded_launches()}
-            with open(os.path.join(root, f"rank{rank}_{name}.json"),
-                      "w") as f:
+                   "launches": sharded_launches(),
+                   "mode3_launches": K.adalomo_stats_partial.both_launches,
+                   "gathers": {f"{a}/{k}": n for (a, k), n
+                               in sorted(zero.gathers.items())}}
+            with open(os.path.join(root, f"rank{rank}_{job['tag']}{name}"
+                                   ".json"), "w") as f:
                 json.dump(rec, f)
             del res, whole
             gc.collect()
             torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
+
+
+def spawn_gloo(world: int, root: str, job=None, timeout=DIST_GLOO_TIMEOUT_S
+               ) -> float:
+    """``world`` gloo ranks on the card running ``job`` (dist_gloo_rank),
+    killed after ``timeout`` seconds; returns the wall seconds."""
+    import torch.multiprocessing as mp
+    t0 = time.time()
+    store = os.path.join(root, f"store_{(job or {}).get('tag', '')}")
+    ctx = mp.spawn(dist_gloo_rank, args=(world, store, root, job),
+                   nprocs=world, join=False)
+    while not ctx.join(timeout=2.0):
+        if time.time() - t0 > timeout:
+            for proc in ctx.processes:
+                proc.kill()
+            raise AssertionError(f"dist gloo: the {world} ranks did not "
+                                 f"finish in {timeout} s")
+    return time.time() - t0
 
 
 def checkpoint_leaves_equal(tree, step_dir) -> bool:
@@ -5030,27 +5271,19 @@ def checkpoint_leaves_equal(tree, step_dir) -> bool:
     return True
 
 
-def dist_gloo_and_elastic(root) -> None:
+def dist_gloo_and_elastic(root) -> dict:
     """Two gloo ranks on the card against the unsharded run at the same
     depth; then the two-rank step-2 checkpoint restored onto the one-rank
     NCCL world and onto no mesh, bitwise, and continued.  Prints the two
-    lines, then fails if a check did not hold."""
-    import torch.multiprocessing as mp
+    lines, then fails if a check did not hold.  Returns the unsharded bf16
+    and fp32 runs' losses and params, ``{"bf16": (losses, params), "fp32":
+    ...}``."""
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.run.program import build_step_program
     from repro_torch.sharding.zero import Zero3
     arch = cut_arch(DIST_GLOO_LAYERS)
-    t0 = time.time()
-    ctx = mp.spawn(dist_gloo_rank, args=(2, os.path.join(root, "store"),
-                                         root), nprocs=2, join=False)
-    while not ctx.join(timeout=2.0):
-        if time.time() - t0 > DIST_GLOO_TIMEOUT_S:
-            for proc in ctx.processes:
-                proc.kill()
-            raise AssertionError(f"dist gloo: the two ranks did not finish "
-                                 f"in {DIST_GLOO_TIMEOUT_S} s")
-    spawn_s = time.time() - t0
+    spawn_s = spawn_gloo(2, root)
     ranks, ranks32 = ([json.loads(open(os.path.join(
         root, f"rank{r}_{name}.json")).read()) for r in range(2)]
         for name, *_ in DIST_GLOO_RUNS)
@@ -5109,6 +5342,9 @@ def dist_gloo_and_elastic(root) -> None:
     layer = [t[0] for t in tree_leaves(ref.params["stacks"])]
     reckoning = n_bytes // 2 + sum(t.numel() * (t.element_size() + 4)
                                    for t in layer)
+    # the unsharded runs at this depth, for the model axis' two ranks
+    refs = {"bf16": (ref_losses, ref.params),
+            "fp32": (ref32.history["loss"], ref32.params)}
     del ref, ref32, tree, leaves, layer
     gc.collect()
     torch.cuda.empty_cache()
@@ -5197,6 +5433,173 @@ def dist_gloo_and_elastic(root) -> None:
         if c["steps"] != list(range(DIST_CKPT_STEP, DIST_GLOO_STEPS)) or \
                 c["loss_max_rel_err"] > DIST_LOSS_RTOL:
             raise AssertionError(f"dist elastic {name}: {c}")
+    return refs
+
+
+# The model axis on the card: gloo ranks sharing it, each rank its rows and
+# sequence tile, 2-D ZeRO-3 blocks, K/V gathered over ``model``, the MoE
+# experts expert-parallel.  (a) danube on (1, 2), bf16 then fp32, against
+# the data-axis sub-phase's unsharded runs; (b) danube on (2, 2), fp32,
+# the only mesh of the three where a leaf is split both ways (K1 mode 3);
+# (c) deepseek-moe-16b on (1, 2), fp32.
+DIST_MODEL_JOBS = {
+    "model_1x2": dict(shape=(1, 2), layers=DIST_GLOO_LAYERS,
+                      steps=DIST_GLOO_STEPS, arch=ARCH_ID, batch=4,
+                      runs=(("bfloat16", None, "m12", DIST_GLOO_STEPS),
+                            ("float32", torch.float32, "m12_32",
+                             DIST_GLOO_STEPS))),
+    "model_2x2": dict(shape=(2, 2), layers=2, steps=2, arch=ARCH_ID, batch=4,
+                      runs=(("float32", torch.float32, "m22", 2),)),
+    "moe_1x2": dict(shape=(1, 2), layers=2, steps=2, arch=MOE_ID, batch=2,
+                    runs=(("float32", torch.float32, "moe12", 2),)),
+}
+
+
+def model_axis_readings(ranks: list, steps: int) -> dict:
+    """What each rank of a model-axis run measured, a step where it is a
+    count."""
+    return {
+        "rank_peak_memory_bytes": [r["peak_memory_bytes"] for r in ranks],
+        "rank_local_param_bytes": [r["local_param_bytes"] for r in ranks],
+        "rank_step_seconds": [r["step_seconds"] for r in ranks],
+        "collectives_per_step": [{k: v / steps for k, v in
+                                  r["collectives"].items()} for r in ranks],
+        "mode3_launches": [r["mode3_launches"] for r in ranks],
+        "mode3_launches_per_step": [r["mode3_launches"] / steps
+                                    for r in ranks],
+        "launches_per_step": [{k: v / steps for k, v in r["launches"].items()}
+                              for r in ranks],
+        "gathers": ranks[0]["gathers"],
+        "replicated_leaves": ranks[0]["whole_leaves"],
+        "replicated_bitwise_across_ranks": all(
+            r["whole_digest"] == ranks[0]["whole_digest"] for r in ranks)}
+
+
+def params_within(tree, want) -> tuple:
+    """(all within DIST_PARAM_TOL, max abs difference) leaf by leaf."""
+    ok_all, worst = True, 0.0
+    for a, b in zip(tree_leaves(tree), tree_leaves(want)):
+        ok, d = within(a, b, **DIST_PARAM_TOL)
+        ok_all &= ok
+        worst = max(worst, d)
+    return ok_all, worst
+
+
+def restored_params(root, ck, step, like):
+    from repro_torch.checkpoint.manager import CheckpointManager
+    _, tree, _ = CheckpointManager(os.path.join(root, ck)).restore(
+        step, template=(like, opt_lib.get_opt("adalomo").init(like)))
+    return tree[0]
+
+
+def dist_model_axis(root, refs) -> None:
+    """The model axis' three sub-phases (DIST_MODEL_JOBS), each printing
+    its line before it can fail."""
+    out = {}
+    # (a) danube on (1, 2): bf16 as the data axis' two ranks are held, then
+    # fp32 at the reference's sharded tolerance
+    job = dict(DIST_MODEL_JOBS["model_1x2"], tag="m12_")
+    progress("dist: model axis (a) danube on (1, 2), bf16 then fp32")
+    spawn_s = spawn_gloo(2, root, job)
+    ranks, ranks32 = ([json.loads(open(os.path.join(
+        root, f"rank{r}_m12_{name}.json")).read()) for r in range(2)]
+        for name, *_ in job["runs"])
+    (ref_l, ref_p), (ref32_l, ref32_p) = refs["bf16"], refs["fp32"]
+    losses, losses32 = ranks[0]["losses"], ranks32[0]["losses"]
+    loss_ok = all(abs(x - y) <= max(DIST_LOSS_RTOL * abs(y), abs(y - z))
+                  for x, y, z in zip(losses, ref_l, ref32_l))
+    got = restored_params(root, "m12", DIST_GLOO_STEPS, ref_p)
+    readings = bf16_gap_readings(tree_leaves(got), tree_leaves(ref_p),
+                                 tree_leaves(ref32_p))
+    del got
+    got32 = restored_params(root, "m12_32", DIST_GLOO_STEPS, ref32_p)
+    ok32, worst32 = params_within(got32, ref32_p)
+    del got32
+    loss32_err = max(abs(x - y) / abs(y) for x, y in zip(losses32, ref32_l))
+    a = {"spawn_seconds": spawn_s, "losses": losses,
+         "unsharded_losses": ref_l, "losses_within_bound": loss_ok,
+         "loss_max_rel_err": max(abs(x - y) / abs(y)
+                                 for x, y in zip(losses, ref_l)),
+         **readings, "bf16": model_axis_readings(ranks, DIST_GLOO_STEPS),
+         "float32": {"losses": losses32, "unsharded_losses": ref32_l,
+                     "loss_max_rel_err": loss32_err,
+                     "param_max_abs_diff": worst32,
+                     "params_within_tol": ok32,
+                     **model_axis_readings(ranks32, DIST_GLOO_STEPS)}}
+    emit("dist", sub="model_1x2", arch=ARCH_ID, mesh=[1, 2], batch=4,
+         seq=1024, steps=DIST_GLOO_STEPS, n_layers=DIST_GLOO_LAYERS,
+         bound="bf16 as the data axis' two ranks (each step's loss within "
+               "rtol 1e-5 or the unsharded run's bf16-vs-fp32 distance, "
+               "each leaf's RMS distance at most bf16's own); fp32 at loss "
+               "rtol 1e-5, params rtol 5e-4 / atol 1e-5", **a)
+    out["model_1x2"] = a
+    if not loss_ok or readings["max_rms_ratio_to_bf16_fp32_gap"] > 1.0:
+        raise AssertionError(f"dist model (1, 2) bf16: losses within bound "
+                             f"{loss_ok}, params' RMS ratio "
+                             f"{readings['max_rms_ratio_to_bf16_fp32_gap']}")
+    if loss32_err > DIST_LOSS_RTOL or not ok32:
+        raise AssertionError(f"dist model (1, 2) fp32: loss rel err "
+                             f"{loss32_err}, params within tolerance {ok32} "
+                             f"(max diff {worst32})")
+    if not (a["bf16"]["replicated_bitwise_across_ranks"]
+            and a["float32"]["replicated_bitwise_across_ranks"]):
+        raise AssertionError("dist model (1, 2): a whole leaf differs "
+                             "between the ranks")
+    refs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) danube on (2, 2) and (c) deepseek-moe-16b on (1, 2), fp32, each
+    # against the unsharded run at its depth
+    for sub, world, ck in (("model_2x2", 4, "m22"), ("moe_1x2", 2, "moe12")):
+        job = dict(DIST_MODEL_JOBS[sub], tag=sub + "_")
+        progress(f"dist: model axis {sub} ({job['arch']}, {world} ranks)")
+        spawn_s = spawn_gloo(world, root, job)
+        ranks = [json.loads(open(os.path.join(
+            root, f"rank{r}_{sub}_float32.json")).read())
+            for r in range(world)]
+        torch.cuda.reset_peak_memory_stats()
+        ref = run(dist_spec(job["steps"], arch_id=job["arch"],
+                            batch=job["batch"]),
+                  arch=cut_arch(job["layers"], torch.float32, job["arch"]),
+                  device=DEV, log_fn=lambda s: None)
+        ref_peak = torch.cuda.max_memory_allocated()
+        got = restored_params(root, ck, job["steps"], ref.params)
+        ok, worst = params_within(got, ref.params)
+        del got
+        losses, ref_l = ranks[0]["losses"], ref.history["loss"]
+        loss_err = max(abs(x - y) / abs(y) for x, y in zip(losses, ref_l))
+        rec = {"spawn_seconds": spawn_s, "losses": losses,
+               "unsharded_losses": ref_l, "loss_max_rel_err": loss_err,
+               "param_max_abs_diff": worst, "params_within_tol": ok,
+               "unsharded_peak_memory_bytes": ref_peak,
+               **model_axis_readings(ranks, job["steps"])}
+        emit("dist", sub=sub, arch=job["arch"], mesh=list(job["shape"]),
+             batch=job["batch"], seq=1024, steps=job["steps"],
+             n_layers=job["layers"], dtype="float32",
+             tolerance={"loss_rtol": DIST_LOSS_RTOL, **DIST_PARAM_TOL},
+             **rec)
+        out[sub] = rec
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        if loss_err > DIST_LOSS_RTOL or not ok:
+            raise AssertionError(f"dist {sub}: loss rel err {loss_err}, "
+                                 f"params within tolerance {ok} (max diff "
+                                 f"{worst})")
+        if not rec["replicated_bitwise_across_ranks"]:
+            raise AssertionError(f"dist {sub}: a whole leaf differs between "
+                                 "the ranks")
+        if sub == "model_2x2" and not all(
+                n > 0 for n in rec["mode3_launches_per_step"]):
+            raise AssertionError(f"dist {sub}: K1 mode 3 launched "
+                                 f"{rec['mode3_launches_per_step']} a step")
+        if sub == "moe_1x2" and (
+                rec["gathers"].get("model/expert", 0)
+                or not rec["gathers"].get("model/dense")):
+            raise AssertionError(f"dist {sub}: gathers {rec['gathers']}: "
+                                 "an expert stack gathered over model")
+    return out
 
 
 def phase_dist(train) -> dict:
@@ -5213,12 +5616,17 @@ def phase_dist(train) -> dict:
         progress("dist: one-rank NCCL world, full size")
         nccl = dist_nccl(train)
         progress("dist: two gloo ranks on the card, then elastic restores")
-        dist_gloo_and_elastic(root)
+        refs = dist_gloo_and_elastic(root)
+        t_model = time.time()
+        model = dist_model_axis(root, refs)
+        model_s = time.time() - t_model
     finally:
         dist.destroy_process_group()
         shutil.rmtree(root, ignore_errors=True)
-    emit("dist", sub="done", seconds=time.time() - t0)
-    return {"launches": nccl["launches"]}
+    emit("dist", sub="done", seconds=time.time() - t0,
+         model_axis_seconds=model_s)
+    return {"launches": nccl["launches"],
+            "mode3_launches": model["model_2x2"]["mode3_launches"][0]}
 
 
 # --------------------------------------------------------------------------
@@ -5523,6 +5931,18 @@ def main() -> None:
             "launches_by_wrapper": {w: dist_rec["launches"][w]
                                     for w in wrappers},
             "launches_phase": "dist (one-rank NCCL world, 3 steps)"})
+    t = kern["totals"]["adalomo_stats_2d"]
+    kernels.append({
+        "name": "adalomo_stats_2d", "route": "cuda",
+        "source": "src/repro_torch/kernels/adalomo_update/csrc/"
+                  "adalomo_stats.cu",
+        "replaces": "src/repro/kernels/adalomo_update/adalomo_update.py:68",
+        "launches": dist_rec["mode3_launches"],
+        "max_abs_err": kern["errs"]["adalomo_stats_2d"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "unit": BLOCK_UNIT,
+        "launches_phase": "dist model_2x2 (rank 0 of four gloo ranks on "
+                          "(2, 2), 2 steps)"})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5541,6 +5961,9 @@ SHARDED_UNIT = ("one rank's share of a train step at a 2-way split: the 170 "
                 "matrices of h2o-danube-1.8b, each halved along the dim the "
                 "rules split, bf16 params and grads; both launches of the "
                 "entry pair")
+BLOCK_UNIT = ("one rank's share of a train step on a (2, 2) mesh: the 170 "
+              "matrices of h2o-danube-1.8b, each a quarter block (rows and "
+              "columns halved), bf16 grads; K1's mode 3 launch alone")
 RING_UNIT = ("one decode step of h2o-danube-1.8b: 24 launches, 4 sequences "
              "over a wrapped ring of 4096 slots, window 4096, bf16")
 

@@ -32,10 +32,11 @@ Two points where tensors differ from JAX arrays:
 
 A sharded run (``zero``, a ``sharding.zero.Zero3``) keeps the format: full
 logical arrays, one ``.npy`` a leaf, so a checkpoint written from any world
-size restores onto any other.  ``save`` gathers each sharded leaf to rank 0
-in pieces of at most ``core.tree.PIECE`` elements; rank 0 alone writes
-(synchronously) and marks ``_COMPLETE``, the other ranks wait at a barrier.
-``restore_into`` has each rank read only its slice of each leaf from a
+size and mesh restores onto any other.  ``save`` gathers each sharded leaf
+(its 2-D blocks over ``data`` × ``model`` included) to rank 0 in pieces of
+at most ``core.tree.PIECE`` elements; rank 0 alone writes (synchronously)
+and marks ``_COMPLETE``, the other ranks wait at a barrier.
+``restore_into`` has each rank read only its block of each leaf from a
 memory map.  Markers and garbage collection are rank 0's.
 """
 from __future__ import annotations
@@ -192,29 +193,35 @@ class CheckpointManager:
 
     def _gather_host(self, tree) -> list:
         """Rank 0: ``[(numpy array, manifest dtype)]`` of the whole leaves
-        of a sharded ``tree``, each split leaf gathered from the ranks of
-        its ``data`` group in pieces of at most PIECE elements; the other
-        ranks take part and return []."""
+        of a sharded ``tree``, each split leaf gathered from the ranks
+        holding its blocks (``Zero3.block_group``) in pieces of at most
+        PIECE elements; the other ranks take part and return []."""
         from repro_torch.sharding import collectives as C
         zero = self.zero
         out = []
-        for x, d in zip(pytree_leaves(tree), zero.tree_dims(tree)):
-            if d is None:
+        for x, pl in zip(pytree_leaves(tree), zero.tree_dims(tree)):
+            cuts = zero.block(pl)
+            if not cuts:
                 if self.writer:
                     out.append(_host_copy(x))
                 continue
+            group = zero.block_group(pl)
             flat = x.detach().reshape(-1)
-            w = zero.mesh.size("data")
+            w = 1
+            for _, n, _ in cuts:
+                w *= n
             parts = torch.empty((w, flat.numel()), dtype=x.dtype)
             for at in range(0, flat.numel(), PIECE):
-                piece = C._gather_flat(flat[at:at + PIECE], zero.data)
+                piece = C._gather_flat(flat[at:at + PIECE], group)
                 if self.writer:
                     parts[:, at:at + piece.shape[1]].copy_(piece)
             if self.writer:
-                full = parts.reshape((w,) + tuple(x.shape)).movedim(0, d)
-                shape = list(x.shape)
-                shape[d] *= w
-                out.append(_host_copy(full.reshape(shape)))
+                blocks = list(parts.reshape((w,) + tuple(x.shape)).unbind(0))
+                for d, n, _ in reversed(cuts):
+                    # the last cut's blocks are adjacent in the group's order
+                    blocks = [torch.cat(blocks[i:i + n], dim=d)
+                              for i in range(0, len(blocks), n)]
+                out.append(_host_copy(blocks[0]))
         return out
 
     def wait(self):
@@ -392,27 +399,27 @@ class CheckpointManager:
                         ) -> tuple[int, dict]:
         step, manifest, arrays = self._read(step, mmap=True)
         live = pytree_leaves(tree)
-        dims = self.zero.tree_dims(tree)
-        w = self.zero.mesh.size("data")
-        k = self.zero.mesh.coords.get("data", 0)
+        places = self.zero.tree_dims(tree)
         if len(live) != len(arrays):
             raise ValueError(f"leaf count mismatch {len(live)} vs "
                              f"{len(arrays)}")
         t0 = time.perf_counter()
         with torch.no_grad():
-            for i, (dst, a, d, meta) in enumerate(
-                    zip(live, arrays, dims, manifest["leaves"])):
+            for i, (dst, a, pl, meta) in enumerate(
+                    zip(live, arrays, places, manifest["leaves"])):
+                cuts = self.zero.block(pl)
                 want = list(dst.shape)
-                if d is not None:
-                    want[d] *= w
+                for d, n, _ in cuts:
+                    want[d] *= n
                 if list(a.shape) != want or meta["dtype"] != _dtype_name(
                         dst.dtype):
                     raise ValueError(
                         f"leaf {i}: template {dst.dtype}{want} (whole), "
                         f"checkpoint {meta['dtype']}{list(a.shape)}")
-                if d is not None:
-                    n = dst.shape[d]
-                    a = a[(slice(None),) * d + (slice(k * n, (k + 1) * n),)]
+                idx = [slice(None)] * len(want)
+                for d, _, k in cuts:
+                    idx[d] = slice(k * dst.shape[d], (k + 1) * dst.shape[d])
+                a = a[tuple(idx)]
                 dst.copy_(_as_tensor(np.array(a), meta["dtype"]))
         if live and live[0].device.type == "cuda":
             torch.cuda.synchronize(live[0].device)

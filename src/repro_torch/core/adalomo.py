@@ -191,17 +191,19 @@ def update_tensor_sharded(param: Tensor, grad: Tensor, state: FactoredState,
                           weight_decay=DEFAULT_HPARAMS["weight_decay"],
                           clip=DEFAULT_HPARAMS["clip"], cfg: AdaLomoConfig,
                           shard) -> tuple:
-    """:func:`update_tensor` for one rank's ZeRO-3 shard of a tensor whose
+    """:func:`update_tensor` for one rank's ZeRO-3 block of a tensor whose
     trailing two dims form the matrix (leading dims independent slices).
 
-    ``shard.axis`` is the matrix dim the shard splits (-2 rows, -1
-    columns), ``shard.sum`` the fixed-order sum over the ranks holding the
-    other shards, ``shard.n_total`` the whole matrix's element count.  A
-    factored state holds this shard's part of the split axis' vector and the
-    whole other one (rows: r of the shard's rows, all of c); an unfactored
-    ``v`` is sharded as the parameter.  The statistics of the split axis,
-    Σr, Σu² and Σθ² are summed over the ranks; everything else is local.
-    Returns new ``(param, state)``; nothing is mutated."""
+    ``shard`` (a ``sharding.zero.TensorShard``) says which matrix dims the
+    block splits (``axis`` -2 rows, -1 columns, 0 both), ``over_rows`` /
+    ``over_cols`` sum over the ranks holding the other row / column blocks
+    and ``sum`` over all of them, in a fixed order; ``n_total`` is the
+    whole matrix's element count.  A factored state holds this block's part
+    of r (its rows) and of c (its columns); an unfactored ``v`` is split as
+    the parameter.  Split by both: r is folded from the row sums summed
+    over the column blocks, Σr' is summed over the row blocks beside the
+    column sums, c folded from those; Σu² and Σθ² are summed over all the
+    blocks.  Returns new ``(param, state)``; nothing is mutated."""
     dt = cfg.state_dtype
     g32 = grad.to(dt)
     g2 = torch.square(g32) + cfg.eps_stat
@@ -210,10 +212,11 @@ def update_tensor_sharded(param: Tensor, grad: Tensor, state: FactoredState,
         new_state = FactoredState(r=None, c=None,
                                   v=b * state.v + (1.0 - b) * g2)
         v = new_state.v
-    elif shard.axis == -2:
-        r = b * state.r + (1.0 - b) * torch.sum(g2, dim=-1)
-        raw = shard.sum(torch.cat([torch.sum(g2, dim=-2),
-                                   torch.sum(r, dim=-1, keepdim=True)], -1))
+    elif shard.axis != -1:      # rows split (and columns too, axis 0)
+        r = b * state.r + (1.0 - b) * shard.over_cols(torch.sum(g2, dim=-1))
+        raw = shard.over_rows(torch.cat([torch.sum(g2, dim=-2),
+                                         torch.sum(r, dim=-1, keepdim=True)],
+                                        -1))
         c = b * state.c + (1.0 - b) * raw[..., :-1]
         new_state = FactoredState(r=r, c=c, v=None)
         v = (r[..., :, None] * c[..., None, :]) / torch.clamp_min(

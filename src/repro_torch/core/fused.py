@@ -26,16 +26,20 @@ whole backward just for the global gradient norm (holding one stack's
 gradient at a time, as the reference does), pass 2 applies the clipped update.
 
 With ``zero`` (a :class:`~repro_torch.sharding.zero.Zero3`) the step runs
-ZeRO-3 sharded over the ``data`` axis, the batch split over ``pod`` ×
-``data``: ``params`` and the moments are this rank's resting shards, the
-batch this rank's rows.  The outer leaves are gathered once a step and kept
-from the prologue to the epilogue's gradient; each layer is gathered before
-its forward and again before its re-run, and dies after it; each layer's
-gradients are reduce-scattered to the resting shard (a whole leaf's summed
-over the ranks) before the rule updates the shard, summing its statistics
-over the ranks.  The loss is this rank's share of the global one (the
-model's epilogue divides by the global token count), so the gradients'
-sum over the ranks is the whole batch's gradient.
+ZeRO-3 sharded over the ``data`` and ``model`` axes, the batch split over
+``pod`` × ``data`` and the sequence over ``model`` (FSDP + sequence
+parallelism): ``params`` and the moments are this rank's resting blocks,
+the batch its rows and sequence tile, and every activation and saved
+residual its ``[B/dp, S/tp, ...]`` tile (the residual constraint checks
+each saved layer input).  The outer leaves are gathered once a step and
+kept from the prologue to the epilogue's gradient; each layer is gathered
+before its forward and again before its re-run, and dies after it (MoE
+expert stacks stay split over ``model``); each layer's gradients are
+reduce-scattered to the resting block (a whole leaf's summed over the
+ranks) before the rule updates the block, summing its statistics over the
+ranks.  The loss is this rank's share of the global one (the model's
+epilogue divides by the global token count), so the gradients' sum over
+the ranks is the whole batch's gradient.
 """
 from __future__ import annotations
 
@@ -44,7 +48,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.core.api import Opt, OptState, UpdateRule, hparams_on_device
-from repro_torch.core.tree import tree_flatten_with_path, tree_leaves, tree_map
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.sharding.rules import make_param_constraint
 
 Tensor = torch.Tensor
@@ -149,17 +153,19 @@ def _slice_layer(stacked_params, i: int):
 
 @torch.no_grad()
 def stack_forward(body: Callable, stacked_params, ctx, x, *,
-                  layer_fn: Callable = _slice_layer) -> StackResiduals:
+                  layer_fn: Callable = _slice_layer,
+                  save_fn: Callable = lambda x: x) -> StackResiduals:
     """Forward loop over a layer stack, saving layer inputs.
 
     ``body(layer_params, ctx, x, aux) -> x`` is one layer's forward on the
     carry ``x`` (a tuple of tensors); ``aux`` is the layer index.
     ``layer_fn(stacked_params, i)`` gives layer ``i``'s params (ZeRO-3:
-    gathered whole, and dropped after the layer).
+    gathered whole, and dropped after the layer); ``save_fn`` is applied to
+    each carry saved (ZeRO-3: the residual constraint).
     """
     saved = []
     for i in range(_n_layers(stacked_params)):
-        saved.append(x)
+        saved.append(save_fn(x))
         x = body(layer_fn(stacked_params, i), ctx, x, i)
     return StackResiduals(saved_x=saved, x_out=x)
 
@@ -308,19 +314,13 @@ def fused_train_step(spec: FusedSpec, opt: Opt, params, opt_state: OptState,
 
 
 def _sharded_sqsum(zero, trees_and_dims) -> Tensor:
-    """Σg² over ZeRO-3 gradients (each tree with its dims tree): the shards'
-    squares summed over the ``data`` ranks in rank order, whole leaves'
-    once — the same bits on every rank."""
-    from repro_torch.sharding import collectives as C
-    split, whole = [], []
-    for tree, dims in trees_and_dims:
-        for g, (_, d) in zip(tree_leaves(tree), tree_flatten_with_path(dims)):
-            (whole if d is None else split).append(
-                torch.sum(torch.square(g.to(torch.float32))))
-    dev = zero.mesh.device
-    part = torch.stack(split).sum() if split else torch.zeros((), device=dev)
-    total = C.all_reduce(part.reshape(1), zero.data)[0]
-    return total + (torch.stack(whole).sum() if whole else 0.0)
+    """Σg² over ZeRO-3 gradients (each tree with its places tree), each
+    element counted once (``Zero3.sum_once``): the blocks' squares summed
+    over the ranks holding other blocks in rank order, whole leaves' once —
+    the same bits on every rank."""
+    from repro_torch.sharding.zero import tree_sqsums
+    return zero.sum_once([t for tree, dims in trees_and_dims
+                          for t in tree_sqsums(tree, dims)])
 
 
 def _fused_step(spec, opt, params, opt_state, batch, hparams,
@@ -347,8 +347,8 @@ def _fused_step(spec, opt, params, opt_state, batch, hparams,
         ctx_act = spec.pro_ctx(outer, batch)
         residuals: dict = {}
         for name, stacked in stacks.items():
-            kw = ({"layer_fn": seams[name]["layer_fn"]} if name in seams
-                  else {})
+            kw = ({"layer_fn": seams[name]["layer_fn"],
+                   "save_fn": zero.residual_fn()} if name in seams else {})
             res = stack_forward(spec.bodies[name], stacked, (shared, ctx_act),
                                 x, **kw)
             residuals[name] = res

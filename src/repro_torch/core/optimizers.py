@@ -309,8 +309,8 @@ def adafactor(cfg: Optional[AdafactorConfig] = None, *, lr: float = 1e-3,
 # Registry
 # --------------------------------------------------------------------------
 
-# The rules whose update takes a ZeRO-3 shard; the others (unfused
-# baselines) run on a mesh from slice 6b of the port.
+# The rules whose update takes a ZeRO-3 shard (a 2-D block included); the
+# others (unfused baselines) run on a mesh from slice 6c of the port.
 SHARDED_RULES = ("adalomo", "lomo", "sgd")
 
 REGISTRY: dict[str, Callable[..., UpdateRule]] = {

@@ -33,7 +33,7 @@ from repro_torch.run.program import (StepProgram, build_step_program,
                                      check_ported)
 from repro_torch.run.spec import MeshSpec, RunSpec
 from repro_torch.sharding import rules as R
-from repro_torch.sharding.zero import Zero3, leaf_dims, param_dims
+from repro_torch.sharding.zero import Zero3, leaf_places, param_places
 
 
 def mesh_from_spec(mesh: MeshSpec, device="cuda") -> ProcessMesh:
@@ -48,10 +48,11 @@ def program_shardings(program: StepProgram, mesh=None) -> tuple:
     """``(params, opt_state, batch, hparams[, sentinel])`` spec trees for
     the program's abstract signature on ``mesh`` (default: the program's
     own; a ``MeshLayout`` will do — nothing is allocated or communicated):
-    rules-derived param and batch specs, the optimizer state as the sharded
-    step holds it (``sharding/zero.py``: r with its param's rows, c with its
-    columns), the hparams (and the sentinel's scalars, when the program
-    carries the guard) replicated."""
+    rules-derived param specs, the batch's rows over the batch axes and its
+    sequence over ``model`` (the sequence tile each rank trains on), the
+    optimizer state as the sharded step holds it (``sharding/zero.py``: r
+    with its param's rows, c with its columns), the hparams (and the
+    sentinel's scalars, when the program carries the guard) replicated."""
     if mesh is None:
         if program.zero is None:
             raise ValueError("program_shardings: the program has no mesh; "
@@ -60,18 +61,26 @@ def program_shardings(program: StepProgram, mesh=None) -> tuple:
     axes = R.MeshAxes(mesh)
     meta = program.arch.init_params(program.spec.seed, device="meta")
     state = program.opt.init(meta)
-    dims = param_dims(meta, axes)
+    places = param_places(meta, axes)
     n_p = len(pytree_leaves(meta))
-    o_dims = leaf_dims(dims, tree_map(lambda t: tuple(t.shape), meta),
-                       state)[n_p:]
+    o_places = leaf_places(places, tree_map(lambda t: tuple(t.shape), meta),
+                           state)[n_p:]
+
+    def spec(ndim, pl):
+        return R.P(*["data" if i == pl.data else
+                     "model" if i == pl.model else None
+                     for i in range(ndim)])
+
     o_specs = pytree_unflatten(state, [
-        R.P(*["data" if i == d else None for i in range(t.ndim)])
-        for t, d in zip(pytree_leaves(state), o_dims)])
+        spec(t.ndim, pl) for t, pl in zip(pytree_leaves(state), o_places)])
     d = program.spec.data
     batch = program.arch.train_batch_specs(d.global_batch, d.seq_len,
                                            packed=d.packing) if d else {}
     b_specs = R.batch_pspecs({k: torch.empty(shp, device="meta")
                               for k, (shp, _) in batch.items()}, axes)
+    if axes.size(axes.tp) > 1:
+        b_specs = {k: R.P(*[sp[0], "model", *sp[2:]]) if len(sp) >= 2
+                   else sp for k, sp in b_specs.items()}
     out = (R.param_pspecs(meta, axes), o_specs, b_specs,
            {k: R.P() for k in program.hparams_fn(1)})
     if program.sentinel_enabled:
@@ -109,7 +118,7 @@ def run_elastic(spec: RunSpec, *, arch=None, hooks=(), params=None,
     sharded — copies), and hands everything back to the stock loop with a
     checkpoint manager that gathers on save and restores each rank's slice.
     Only rank 0 logs and writes the metrics stream."""
-    check_ported(spec)
+    check_ported(spec, arch)
     device = resolve_device(device)
     mesh = mesh_from_spec(spec.mesh, device)
     if arch is None:

@@ -27,9 +27,9 @@ apply pass walks them in reverse so the re-read finds the partials pass's
 last tiles in L2.  No float atomics: the same inputs give bit-identical
 outputs.
 
-Sharded entries, for a ZeRO-3 row or column shard of a tensor whose
-statistics are summed over the ranks between launches:
-:func:`adalomo_stats_partial` (K1 with the sharded axis' sums left raw),
+Sharded entries, for a ZeRO-3 row, column or 2-D block shard of a tensor
+whose statistics are summed over the ranks between launches:
+:func:`adalomo_stats_partial` (K1 with the sharded axes' sums left raw),
 :func:`adalomo_stats_fold` (the β-EMA fold of the summed vector),
 :func:`adalomo_update_partials` (K2's partials launch and their sum, a
 shard's ``(Σu², Σθ²)``) and :func:`adalomo_update_apply` (K2's apply launch
@@ -340,10 +340,30 @@ adalomo_update.launches = 0
 # --------------------------------------------------------------------------
 
 def _axis(axis: int) -> int:
-    if axis not in (-2, -1):
-        raise ValueError(f"axis: expected -2 (a row shard) or -1 (a column "
-                         f"shard), got {axis}")
+    if axis not in (-2, -1, BOTH):
+        raise ValueError(f"axis: expected -2 (a row shard), -1 (a column "
+                         f"shard) or {BOTH} (a block split both ways), got "
+                         f"{axis}")
     return axis
+
+
+# ``axis`` of a block split by rows and by columns (the model axis' 2-D
+# ZeRO-3 shard; ``sharding.zero.TensorShard.axis``)
+BOTH = 0
+
+
+def _both_buffer(lead: tuple, m: int, n: int, device) -> tuple:
+    """K1 mode 3's output: one fp32 buffer, the raw row sums ``[..., m]``
+    first and the raw column sums ``[..., n + 1]`` after them (the last
+    column left for the caller's Σr': 0 on the CPU, not written on the
+    card), both views contiguous."""
+    L = 1
+    for d in lead:
+        L *= d
+    make = torch.empty if torch.device(device).type == "cuda" else torch.zeros
+    buf = make(L * (m + n + 1), dtype=torch.float32, device=device)
+    return (buf[:L * m].view(lead + (m,)),
+            buf[L * m:].view(lead + (n + 1,)))
 
 
 def adalomo_stats_partial_ref(grad: Tensor, r: Tensor, c: Tensor, beta, *,
@@ -351,7 +371,13 @@ def adalomo_stats_partial_ref(grad: Tensor, r: Tensor, c: Tensor, beta, *,
     """Plain PyTorch version of :func:`adalomo_stats_partial`.  Returns
     ``(r', c', raw)``, mutating nothing."""
     g2 = torch.square(grad.to(torch.float32)) + eps_stat
-    if _axis(axis) == -2:
+    if _axis(axis) == BOTH:
+        rows, cols = _both_buffer(tuple(grad.shape[:-2]), grad.shape[-2],
+                                  grad.shape[-1], grad.device)
+        rows.copy_(g2.sum(dim=-1))
+        cols[..., :-1] = g2.sum(dim=-2)
+        return r, c, (rows, cols)
+    if axis == -2:
         r = beta * r + (1.0 - beta) * g2.sum(dim=-1)
         return r, c, torch.cat([g2.sum(dim=-2), r.sum(dim=-1)[..., None]],
                                dim=-1)
@@ -360,7 +386,7 @@ def adalomo_stats_partial_ref(grad: Tensor, r: Tensor, c: Tensor, beta, *,
 
 
 def adalomo_stats_partial(grad: Tensor, r: Tensor, c: Tensor, beta: Tensor,
-                          *, eps_stat: float, axis: int) -> Tensor:
+                          *, eps_stat: float, axis: int):
     """K1 on one rank's shard ``grad [..., m, n]`` of a tensor.
 
     ``axis=-2``, a row shard: r (``[..., m]``, this shard's rows) is folded
@@ -370,6 +396,12 @@ def adalomo_stats_partial(grad: Tensor, r: Tensor, c: Tensor, beta: Tensor,
     in place, r left, and the result ``[..., m]`` holds the raw row sums.
     Summed over the ranks, the result is what the whole tensor's fold needs:
     :func:`adalomo_stats_fold` then folds it into the other state vector.
+    ``axis=BOTH``, a block split by rows and columns (kernel mode 3): r and
+    c are both left, and the result is ``(rows [..., m], cols [..., n +
+    1])``, views of one buffer: the raw row sums, and the raw column sums
+    with a last column for the caller to fill with Σr' (summed over the
+    column blocks, rows fold r; then, with Σr' written, cols summed over
+    the row blocks fold c).
     """
     if not grad.is_cuda:
         nr, nc, raw = adalomo_stats_partial_ref(grad, r, c, beta,
@@ -385,9 +417,14 @@ def adalomo_stats_partial(grad: Tensor, r: Tensor, c: Tensor, beta: Tensor,
     _check("beta", beta, beta.shape, (torch.float32,), dev)
     if beta.numel() != 1:
         raise ValueError("beta: expected one element")
-    rows = _axis(axis) == -2
-    width = n + 1 if rows else m
-    raw = torch.empty(lead + (width,), dtype=torch.float32, device=dev)
+    mode = {-2: 1, -1: 2, BOTH: 3}[_axis(axis)]
+    if mode == 3:
+        raw = _both_buffer(lead, m, n, dev)
+        ptr, width = raw[0].data_ptr(), n + 1
+    else:
+        width = n + 1 if mode == 1 else m
+        raw = torch.empty(lead + (width,), dtype=torch.float32, device=dev)
+        ptr = raw.data_ptr()
     lib = _library()
     tiling = stats_tiling(L, m, n)
     row_part = torch.empty(tiling.row_partials_shape(L), dtype=torch.float32,
@@ -400,11 +437,12 @@ def adalomo_stats_partial(grad: Tensor, r: Tensor, c: Tensor, beta: Tensor,
             grad.data_ptr(), _DTYPE_CODE[grad.dtype], r.data_ptr(),
             c.data_ptr(), row_part.data_ptr(), col_part.data_ptr(),
             tickets.data_ptr(), beta.data_ptr(), float(eps_stat), L, m, n,
-            tiling.rows, raw.data_ptr(), 1 if rows else 2, width,
+            tiling.rows, ptr, mode, width,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "adalomo_stats_partial")
     adalomo_stats_partial.launches += 1
-    if rows:
+    adalomo_stats_partial.both_launches += mode == 3
+    if mode == 1:
         # the shard's sum of its folded r, packed beside the column sums so
         # that one sum over the ranks carries both
         raw[..., n] = torch.sum(r, dim=-1)
@@ -412,6 +450,7 @@ def adalomo_stats_partial(grad: Tensor, r: Tensor, c: Tensor, beta: Tensor,
 
 
 adalomo_stats_partial.launches = 0
+adalomo_stats_partial.both_launches = 0     # of them, mode 3's (axis BOTH)
 
 
 def adalomo_stats_fold_ref(dst: Tensor, src: Tensor, beta) -> Tensor:

@@ -52,6 +52,11 @@
 // shard) the raw row sums, to `raw` [L, raw_stride] in place of the fold.
 // The caller sums them over the ranks and folds the sum with
 // adalomo_stats_fold_launch, the same expression as the fold here.
+// `raw_axis` = 3 (a block split by rows and by columns, the model axis'
+// 2-D ZeRO-3 shard): neither vector is folded; the raw row sums go to
+// raw[l * m + i] (an [L, m] block) and the raw column sums to
+// raw[L * m + l * raw_stride + j] (an [L, raw_stride] block after it), so
+// that each half is summed over its own group of ranks with no copy.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -217,17 +222,21 @@ stats_kernel(const G* __restrict__ g, float* __restrict__ r,
   if (!s_last_band && !s_last_strip) return;
   const float beta = __ldg(beta_p);
   if (s_last_band) {
-    const bool rw = raw_axis == 2;
+    const bool rw = raw_axis == 2 || raw_axis == 3;
+    float* dst = raw_axis == 3   ? raw + (size_t)l * m
+                 : raw_axis == 2 ? raw + (size_t)l * raw_stride
+                                 : r + (size_t)l * m;
     fold_partials(row_part + (size_t)l * strips * m_pad + row0, m_pad, strips,
-                  R, (rw ? raw + (size_t)l * raw_stride : r + (size_t)l * m)
-                  + row0, min(R, m - row0), beta, red, rw);
+                  R, dst + row0, min(R, m - row0), beta, red, rw);
   }
   if (s_last_strip) {
-    const bool rw = raw_axis == 1;
+    const bool rw = raw_axis == 1 || raw_axis == 3;
+    float* dst = raw_axis == 3   ? raw + (size_t)L * m + (size_t)l * raw_stride
+                 : raw_axis == 1 ? raw + (size_t)l * raw_stride
+                                 : c + (size_t)l * n;
     fold_partials(col_part + (size_t)l * bands * n_pad + col0, n_pad, bands,
-                  kStatsCols,
-                  (rw ? raw + (size_t)l * raw_stride : c + (size_t)l * n)
-                  + col0, min(kStatsCols, n - col0), beta, red, rw);
+                  kStatsCols, dst + col0, min(kStatsCols, n - col0), beta,
+                  red, rw);
   }
 }
 
@@ -286,9 +295,9 @@ int stats_entry(const void* g, int g_dtype, void* r, void* c, void* row_part,
   if (L < 1 || L > 65535 || m < 1 || n < 1 ||
       (R != 64 && R != 128 && R != 256) || (m + R - 1) / R > 65535 ||
       (((uintptr_t)row_part | (uintptr_t)col_part) & 15) != 0 ||
-      raw_axis < 0 || raw_axis > 2 ||
+      raw_axis < 0 || raw_axis > 3 ||
       (raw_axis != 0 &&
-       (raw == nullptr || raw_stride < (raw_axis == 1 ? n : m))))
+       (raw == nullptr || raw_stride < (raw_axis == 2 ? m : n))))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* rp = static_cast<float*>(r);
@@ -331,13 +340,16 @@ extern "C" int adalomo_stats_launch(const void* g, int g_dtype, void* r,
 // The sharded entry: as adalomo_stats_launch, but with raw_axis 1 (g a row
 // shard) c is left as it is and the raw column sums go to raw[l, 0:n], and
 // with raw_axis 2 (a column shard) r is left and the raw row sums go to
-// raw[l, 0:m]; raw is [L, raw_stride] fp32.
+// raw[l, 0:m]; raw is [L, raw_stride] fp32.  With raw_axis 3 (a block split
+// both ways) r and c are both left, the raw row sums go to raw[l * m + i]
+// and the raw column sums to raw[L * m + l * raw_stride + j]: raw holds
+// L * (m + raw_stride) fp32, raw_stride >= n.
 extern "C" int adalomo_stats_partial_launch(
     const void* g, int g_dtype, void* r, void* c, void* row_part,
     void* col_part, void* tickets, const void* beta, float eps_stat, int L,
     int m, int n, int rows_per_block, void* raw, int raw_axis, int raw_stride,
     void* stream) {
-  if (raw_axis != 1 && raw_axis != 2)
+  if (raw_axis < 1 || raw_axis > 3)
     return static_cast<int>(cudaErrorInvalidValue);
   return adalomo::stats_entry(g, g_dtype, r, c, row_part, col_part, tickets,
                               beta, eps_stat, L, m, n, rows_per_block, raw,

@@ -14,11 +14,15 @@ schedule that changes them rebuilds nothing.
 
 With ``shard`` the tensors are one rank's ZeRO-3 shard (``shard.axis`` -2:
 rows, with this shard's rows of r and the whole c; -1: columns, with the
-whole r and this shard's columns of c).  The update splits where the whole
-tensor's sums are needed: K1's sharded entry, one sum over the ranks
-(``shard.sum``) of its raw statistics, the fold, K2's partials, one sum of
-the ``[..., 2]`` (Σu², Σθ²), and K2's apply from the global sums and the
-global element count ``shard.n_total``.
+whole r and this shard's columns of c; 0: a block of both, with its rows
+of r and its columns of c).  The update splits where the whole tensor's
+sums are needed: K1's sharded entry, one sum over the ranks (``shard.sum``)
+of its raw statistics, the fold, K2's partials, one sum of the ``[..., 2]``
+(Σu², Σθ²), and K2's apply from the global sums and the global element
+count ``shard.n_total``.  A block of both takes K1's mode 3 (both sums
+raw): the row sums summed over the column blocks (``shard.over_cols``),
+the fold of r, Σr' packed beside the column sums, those summed over the
+row blocks (``shard.over_rows``), the fold of c.
 """
 from __future__ import annotations
 
@@ -47,6 +51,15 @@ def adalomo_update(param: Tensor, grad: Tensor, r: Tensor, c: Tensor, lr,
     if shard is None:
         K.adalomo_stats(grad, r, c, beta_t, eps_stat=cfg.eps_stat)
         denom = torch.clamp_min(r.sum(dim=-1), cfg.eps_stat)      # [...]
+    elif shard.axis == K.BOTH:
+        rows, cols = K.adalomo_stats_partial(grad, r, c, beta_t,
+                                             eps_stat=cfg.eps_stat,
+                                             axis=K.BOTH)
+        K.adalomo_stats_fold(r, shard.over_cols(rows), beta_t)
+        cols[..., -1] = r.sum(dim=-1)
+        cols = shard.over_rows(cols)
+        K.adalomo_stats_fold(c, cols, beta_t)
+        denom = torch.clamp_min(cols[..., -1], cfg.eps_stat)
     else:
         raw = shard.sum(K.adalomo_stats_partial(
             grad, r, c, beta_t, eps_stat=cfg.eps_stat, axis=shard.axis))

@@ -91,6 +91,70 @@ def adalomo_update_shards(params, grads, rs, cs, *, lr, step,
     return params, rs, cs
 
 
+def adalomo_update_grid(params, grads, rs, cs, *, lr, step,
+                        beta=DEFAULT_HPARAMS["beta"],
+                        weight_decay=DEFAULT_HPARAMS["weight_decay"],
+                        clip=DEFAULT_HPARAMS["clip"],
+                        cfg: AdaLomoConfig = AdaLomoConfig(), n_total=None,
+                        plain: bool = False):
+    """The sharded AdaLomo update of one tensor split into an R × C grid
+    of blocks (``params[i][j]``: row block i, column block j; ``rs[i][j]``
+    row block i's r, ``cs[i][j]`` column block j's c, each block's own
+    copy), in one process, **in place**: the steps of
+    ``ops.adalomo_update(shard=...)`` for a block of both (K1's mode 3 on
+    each block, the row sums summed over each row's blocks, the fold of r,
+    Σr' packed beside the column sums, those summed over each column's
+    blocks, the fold of c, K2's partials summed over all the blocks in
+    row-major order, K2's apply), the sums over the ranks written out as
+    fixed-order sums.  ``plain`` and ``n_total`` as
+    :func:`adalomo_update_shards`'s.  Returns ``(params, rs, cs)``."""
+    stats_partial, stats_fold, update_partials, update_apply = (
+        _PLAIN_ENTRIES if plain else
+        (K.adalomo_stats_partial, K.adalomo_stats_fold,
+         K.adalomo_update_partials, K.adalomo_update_apply))
+    R, Cn = len(params), len(params[0])
+    dev = params[0][0].device
+    beta_t = _scalar(beta, dev)
+    raw = [[stats_partial(grads[i][j], rs[i][j], cs[i][j], beta_t,
+                          eps_stat=cfg.eps_stat, axis=K.BOTH)
+            for j in range(Cn)] for i in range(R)]
+    for i in range(R):
+        rows = fixed_order_sum([raw[i][j][0] for j in range(Cn)])
+        for j in range(Cn):
+            stats_fold(rs[i][j], rows, beta_t)
+            raw[i][j][1][..., -1] = rs[i][j].sum(dim=-1)
+    denoms = [[None] * Cn for _ in range(R)]
+    for j in range(Cn):
+        cols = fixed_order_sum([raw[i][j][1] for i in range(R)])
+        for i in range(R):
+            stats_fold(cs[i][j], cols, beta_t)
+            denoms[i][j] = torch.clamp_min(cols[..., -1], cfg.eps_stat)
+    if n_total is None:
+        n_total = (sum(p.shape[-2] for p in (row[0] for row in params))
+                   * sum(p.shape[-1] for p in params[0]))
+    corr = (torch.clamp_min(1.0 - beta_t ** _scalar(step, dev),
+                            cfg.eps_stat)
+            if cfg.bias_correction else torch.ones((), device=dev))
+    lr_t = _scalar(lr, dev)
+    decay = 1.0 - lr_t * _scalar(weight_decay, dev)
+    kw = dict(eps_div=cfg.eps_div, eps_rms=cfg.eps_rms,
+              literal=cfg.literal_div_v)
+    blocks = [(i, j) for i in range(R) for j in range(Cn)]
+    scal = {}
+    for i, j in blocks:
+        d = denoms[i][j]
+        scal[i, j] = torch.stack([1.0 / (d * corr), lr_t.expand_as(d),
+                                  decay.expand_as(d),
+                                  _scalar(clip, dev).expand_as(d)], dim=-1)
+    sums = fixed_order_sum([update_partials(
+        params[i][j], grads[i][j], rs[i][j], cs[i][j], scal[i, j], **kw)
+        for i, j in blocks])
+    for i, j in blocks:
+        update_apply(params[i][j], grads[i][j], rs[i][j], cs[i][j],
+                     scal[i, j], sums, n_total, **kw)
+    return params, rs, cs
+
+
 def _stats_partial_plain(grad, r, c, beta, *, eps_stat, axis):
     nr, nc, raw = K.adalomo_stats_partial_ref(grad, r, c, beta,
                                               eps_stat=eps_stat, axis=axis)

@@ -54,9 +54,12 @@ def make_test_mesh(n: int = 8, *, multi_pod: bool = False) -> MeshLayout:
 @dataclasses.dataclass
 class ProcessMesh:
     """The mesh of this process's world: its layout, this rank's
-    coordinates and a process group for each axis.  ``batch_group`` spans
-    the ``pod`` and ``data`` axes (the whole world while ``model`` is 1);
-    ``device`` is this rank's device."""
+    coordinates and a process group for each axis, and three groups across
+    axes (``groups`` keys): ``batch`` spans ``pod`` × ``data`` at this
+    rank's ``model`` index (the ranks holding other rows of the same
+    sequence tile), ``matrix`` spans ``data`` × ``model`` in this rank's pod
+    (the ranks holding the blocks of one 2-D ZeRO-3 shard) and ``world``
+    every rank.  ``device`` is this rank's device."""
 
     layout: MeshLayout
     device: torch.device
@@ -97,6 +100,27 @@ class ProcessMesh:
     @property
     def batch_size(self) -> int:
         return self.size("pod") * self.size("data")
+
+    @property
+    def tile_index(self) -> int:
+        """This rank's sequence tile along ``model``."""
+        return self.coords.get("model", 0)
+
+
+def _subgroups(dims: tuple, keep: tuple):
+    """This rank's group of the ranks that differ from it only along the
+    axes ``keep`` (indices into ``dims``), each group in row-major rank
+    order.  Every rank makes every group, in the same order, as
+    ``new_subgroups_by_enumeration`` requires."""
+    n = math.prod(dims)
+    coords = [[(r // math.prod(dims[a + 1:])) % dims[a]
+               for a in range(len(dims))] for r in range(n)]
+    found = {}
+    for r in range(n):
+        key = tuple(c for a, c in enumerate(coords[r]) if a not in keep)
+        found.setdefault(key, []).append(r)
+    group, _ = dist.new_subgroups_by_enumeration(list(found.values()))
+    return group
 
 
 def _default_backend(device: torch.device) -> str:
@@ -141,7 +165,18 @@ def make_mesh(shape, device="cpu", *, backend: Optional[str] = None
     rank = dist.get_rank()
     coords = {a: dm.get_local_rank(a) for a in layout.axis_names}
     groups = {a: dm.get_group(a) for a in layout.axis_names}
-    groups["batch"] = dist.group.WORLD
+    names = layout.axis_names
+    groups["world"] = dist.group.WORLD
+    if layout.shape.get("model", 1) == 1:
+        groups["batch"] = dist.group.WORLD
+    elif "pod" not in names:
+        groups["batch"] = groups["data"]
+    else:
+        groups["batch"] = _subgroups(shape, (0, 1))
+    if "pod" not in names or layout.shape["pod"] == 1:
+        groups["matrix"] = dist.group.WORLD
+    else:
+        groups["matrix"] = _subgroups(shape, (1, 2))
     return ProcessMesh(layout=layout, device=device, backend=backend,
                        device_mesh=dm, rank=rank, coords=coords,
                        groups=groups)

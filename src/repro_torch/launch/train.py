@@ -16,11 +16,15 @@ A run with ``--ckpt-dir D`` that is sent SIGTERM or SIGINT checkpoints at the
 next step boundary and exits 75 (``PREEMPTED_EXIT_CODE``); the same command
 with ``--resume`` continues it.
 
-Scale-out (ZeRO-3 over the ``data`` and ``pod`` axes of ``--mesh-shape``):
+Scale-out (ZeRO-3 over the axes of ``--mesh-shape``: ``N`` is ``(data,)``,
+``DxM`` ``(data, model)``, ``PxDxM`` ``(pod, data, model)``; a model axis
+larger than 1 adds sequence and expert parallelism, for the transformer
+family):
 
   * ``--device cpu --virtual-devices N`` spawns N ``gloo`` ranks on the
     host, the counterpart of the reference's host-platform device count
-    (``--mesh-shape`` defaults to ``N``);
+    (``--mesh-shape`` defaults to ``N``; ``--virtual-devices 4
+    --mesh-shape 2x2`` is a (data, model) world of four);
   * under ``torchrun`` (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` set) each
     process joins an NCCL world on ``cuda:LOCAL_RANK`` (``gloo`` with
     ``--device cpu``);
@@ -166,7 +170,15 @@ def main(argv=None):
             except mp.ProcessExitedException as e:
                 raise SystemExit(e.exit_code)
         return
-    code = _train(args, spec, device)
+    try:
+        code = _train(args, spec, device)
+    finally:
+        # a one-position mesh made this process a world of one
+        # (``make_mesh``): close it before exit, not in the interpreter's
+        # teardown
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
     if code:
         raise SystemExit(code)
 

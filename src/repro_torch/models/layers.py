@@ -424,9 +424,12 @@ def _flash_attention(q, k, v, q_pos, kv_pos, spec, scale, q_block: int,
                             prefix_len=prefix_len)
 
 
-def _swa_gather_attention(q, k, v, q_pos, kv_pos, spec, scale, q_block: int):
+def _swa_gather_attention(q, k, v, q_pos, kv_pos, spec, scale, q_block: int,
+                          q_offset: int = 0):
     """Sliding-window path: each query block gathers only its KV window —
-    O(S·(W+qb)) work instead of O(S²)."""
+    O(S·(W+qb)) work instead of O(S²).  ``q_offset``: the KV index of the
+    first query (a sequence tile's queries against the whole sequence's
+    K/V)."""
     B, Sq, K, G, dh = q.shape
     W = spec.window
     qb = min(q_block, Sq)
@@ -445,7 +448,7 @@ def _swa_gather_attention(q, k, v, q_pos, kv_pos, spec, scale, q_block: int):
         # the window covering original [s - W, s + qb) starts at padded
         # index s + qb; like the reference's dynamic_slice, the start is
         # clamped so that the slice stays inside the padded KV
-        p0 = min((i + 1) * qb, k_pad.shape[1] - span)
+        p0 = min(q_offset + (i + 1) * qb, k_pad.shape[1] - span)
         qi = q[:, i * qb:(i + 1) * qb]
         ki = k_pad[:, p0:p0 + span]
         vi = v_pad[:, p0:p0 + span]
@@ -469,6 +472,7 @@ def attention(
     kv_seg: Optional[Tensor] = None,    # (B, Skv)
     scale: Optional[float] = None,
     force_direct: bool = False,
+    q_offset: int = 0,
 ) -> Tensor:
     """GQA attention dispatcher. Returns [B, Sq, H, dv] (dv = v head dim).
 
@@ -476,7 +480,14 @@ def attention(
     sliding window shorter than the keys less a query block, and the
     blockwise/flash branch otherwise.  A packed batch (segment ids) or a
     prefix-LM batch never takes the gather, whose windows neither mask
-    cuts; a packed batch with a prefix is refused."""
+    cuts; a packed batch with a prefix is refused.
+
+    Sequence parallelism: q may be a tile of the sequence (``q_pos`` its
+    absolute positions, ``q_offset`` the KV index of its first query) and
+    k/v the whole sequence (``kv_pos`` all positions); every branch masks
+    from the positions, so a tile attends as its rows of the whole
+    sequence's attention do, and the branch is chosen by the whole
+    sequence's length."""
     B, Sq, H, dh = q.shape
     K = k.shape[2]
     if H % K or k.shape[-1] != dh:
@@ -502,9 +513,10 @@ def attention(
     elif (spec.window is not None and not spec.has_prefix and q_seg is None
           and Skv > spec.window + _Q_BLOCK):
         out = _swa_gather_attention(qg, k, v, q_pos, kv_pos, spec, scale,
-                                    _Q_BLOCK)
+                                    _Q_BLOCK, q_offset)
     else:
-        # one query tile: the reference's seq_tiles() without a mesh
+        # one query tile: the reference's seq_tiles() without a mesh, and
+        # this rank's tile with one (its queries are the tile already)
         out = _flash_attention(qg, k, v, q_pos, kv_pos, spec, scale,
                                _Q_BLOCK, _KV_BLOCK, tiles=1, q_seg=q_seg,
                                kv_seg=kv_seg, prefix_len=prefix_len)

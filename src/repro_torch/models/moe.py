@@ -19,8 +19,15 @@ same inputs give the same bits.
 On a batch split over ranks (``sharding.act``) the load-balance loss's
 two E-vectors, means over the global batch, are averaged over the ranks
 before their product, as the reference's ``pmean`` over the mesh does;
-capacity and slots are per row, so the split drops the same tokens.  Not
-ported: the reference's expert-parallel ``_moe_ffn_shardmap`` (slice 6b).
+capacity and slots are per row, so the split drops the same tokens.
+
+With a model axis (sequence parallelism) :func:`moe_ffn` runs expert
+parallel, as the reference's ``_moe_ffn_shardmap``: each model rank holds
+E/tp experts (never gathered over ``model``), gathers its rows' sequence
+tiles whole, routes the whole sequence in fp32 exactly as one device does
+(so slots, capacity and drops are the same on every rank), dispatches only
+the tokens routed to its experts, runs them, and reduce-scatters the
+partial outputs back to its tile.  The shared experts run on the tile.
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
-from repro_torch.sharding.act import batch_mean
+from repro_torch.sharding.act import batch_mean, current_policy
 
 Tensor = torch.Tensor
 
@@ -131,21 +138,64 @@ def route(params: dict, x: Tensor, cfg: MoEConfig) -> tuple:
 
 
 def moe_ffn(params: dict, x: Tensor, cfg: MoEConfig) -> tuple:
-    """``x [B, S, d]`` (B token groups of S) -> ``(y [B, S, d], aux)``."""
+    """``x [B, S, d]`` (B token groups of S) -> ``(y [B, S, d], aux)``.
+
+    Under a policy with a model axis (expert parallelism, module
+    docstring) ``x`` is this rank's sequence tile and the expert stacks
+    hold its E/tp experts.  The routing, on the sequence gathered whole, is
+    every rank's and one device's, and so is the load-balance loss: its
+    E-vectors go through ``batch_mean``, whose backward counts the model
+    ranks' identical copies once.  Each rank's output sums only its own
+    experts' gated outputs, so its router gradient through the gates is
+    partial; the router's gradient sum over the ranks completes it."""
+    pol = current_policy()
+    if pol is None or pol.model_group is None:
+        y, aux = _routed(params, x, cfg, 0, cfg.n_routed)
+    else:
+        if cfg.n_routed % pol.tp_size:
+            raise NotImplementedError(
+                f"{cfg.n_routed} routed experts over a model axis of "
+                f"{pol.tp_size} is slice 6c of the port and not ported to "
+                "repro_torch yet")
+        from repro_torch.sharding import collectives as C
+        n = cfg.n_routed // pol.tp_size
+        y, aux = _routed(params, C.gather_seq(x, 1, pol.model_group), cfg,
+                         pol.tile_index * n, n)
+        # the experts' partial outputs summed over the ranks, landing on
+        # the tile (the backward gathers dy whole)
+        y = C.scatter_seq(y, 1, pol.model_group)
+    if cfg.n_shared:
+        y = y + L.glu_mlp(params["shared_mlp"], x)
+    return y, aux
+
+
+def _routed(params: dict, x: Tensor, cfg: MoEConfig, first: int,
+            n: int) -> tuple:
+    """The routed experts ``first .. first + n - 1`` (the expert stacks'
+    ``n``) on ``x [B, S, d]``: ``(y, aux)``, y the gated sum of those
+    experts' outputs (all of them when ``n`` is ``n_routed``)."""
     B, S, d = x.shape
-    E, K = cfg.n_routed, cfg.top_k
+    K = cfg.top_k
     C = capacity(S, cfg)
     gate_vals, idx, slot, keep, aux = route(params, x, cfg)
+    if n < cfg.n_routed:
+        # another rank's expert: not dispatched here (the waste slot) and
+        # not combined
+        idx = idx - first
+        mine = (idx >= 0) & (idx < n)
+        idx = torch.clamp(idx, 0, n - 1)
+        slot = torch.where(mine, slot, C)
+        keep = keep & mine
 
-    # one write a top-k slot into [B, E, C+1, d]; kept (b, e, slot) triples
+    # one write a top-k slot into [B, n, C+1, d]; kept (b, e, slot) triples
     # are unique, dropped tokens all land in the waste slot C (cut off)
     b_ix = torch.arange(B, device=x.device)[:, None].expand(B, S)
-    buf = x.new_zeros((B, E, C + 1, d))
+    buf = x.new_zeros((B, n, C + 1, d))
     for k in range(K):
         buf.index_put_((b_ix, idx[:, :, k], slot[:, :, k]), x)
-    buf = buf[:, :, :C]                                           # [B,E,C,d]
+    buf = buf[:, :, :C]                                           # [B,n,C,d]
 
-    # the experts, batched over E
+    # the experts, batched over n
     h = (L.ACTS["silu"](torch.einsum("becd,edf->becf", buf,
                                      params["w_gate"]))
          * torch.einsum("becd,edf->becf", buf, params["w_up"]))
@@ -158,7 +208,4 @@ def moe_ffn(params: dict, x: Tensor, cfg: MoEConfig) -> tuple:
         yk = y_buf[b_ix, idx[:, :, k], slot[:, :, k]]             # [B,S,d]
         w = (gate_vals[:, :, k] * keep[:, :, k]).to(yk.dtype)
         y = y + yk * w[..., None]
-
-    if cfg.n_shared:
-        y = y + L.glu_mlp(params["shared_mlp"], x)
     return y, aux

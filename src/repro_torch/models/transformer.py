@@ -38,7 +38,9 @@ from repro_torch import resolve_device
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.models import layers as L
 from repro_torch.models.moe import MoEConfig, moe_ffn, moe_init
-from repro_torch.sharding.act import batch_sum, current_policy
+from repro_torch.sharding.act import (batch_sum, current_policy,
+                                      gather_tiles, model_size, seq_offset,
+                                      shard_act)
 
 Tensor = torch.Tensor
 
@@ -227,9 +229,9 @@ def _qkv(p: dict, cfg: LMConfig, h: Tensor, sin: Tensor, cos: Tensor
     k and v ``[B,S,K,dh]`` (k and v are what a KV cache holds)."""
     B, S, _ = h.shape
     H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = L.dense(h, p["wq"]).reshape(B, S, H, dh)
-    k = L.dense(h, p["wk"]).reshape(B, S, K, dh)
-    v = L.dense(h, p["wv"]).reshape(B, S, K, dh)
+    q = shard_act(L.dense(h, p["wq"]).reshape(B, S, H, dh), "heads")
+    k = shard_act(L.dense(h, p["wk"]).reshape(B, S, K, dh), "heads")
+    v = shard_act(L.dense(h, p["wv"]).reshape(B, S, K, dh), "heads")
     if cfg.qk_norm:
         q = L.rmsnorm(q, p["q_norm"]["scale"])
         k = L.rmsnorm(k, p["k_norm"]["scale"])
@@ -245,19 +247,30 @@ def _mask_spec(cfg: LMConfig, seg: Optional[Tensor]) -> L.MaskSpec:
 
 def _gqa_attn_kv(p: dict, cfg: LMConfig, h: Tensor, pos: Tensor,
                  seg: Optional[Tensor] = None,
-                 prefix_len: Optional[Tensor] = None) -> tuple:
+                 prefix_len: Optional[Tensor] = None, kv_pos=None,
+                 kv_seg=None) -> tuple:
     """Causal (SWA) self-attention over the sequence; returns the block's
     attention output and this layer's roped k and v.  ``pos`` is ``(S,)``,
     or ``(B, S)`` for a packed batch, whose ``seg [B, S]`` keeps attention
     inside each document (RoPE phases restart with the positions);
-    ``prefix_len [B]`` opens each row's prefix to every query (prefix-LM)."""
+    ``prefix_len [B]`` opens each row's prefix to every query (prefix-LM).
+
+    Sequence parallelism (a model axis): ``h`` is this rank's sequence
+    tile, ``pos``/``seg`` its positions and segment ids and
+    ``kv_pos``/``kv_seg`` the whole sequence's; the tile's queries attend
+    to K/V gathered over ``model`` (``kv_full``).  The k and v returned are
+    the tile's."""
     B, S, _ = h.shape
     sin, cos = _rope_tables(cfg, pos)
     q, k, v = _qkv(p, cfg, h, sin, cos)
-    o = L.attention(q, k, v, spec=_mask_spec(cfg, seg), q_pos=pos,
-                    kv_pos=pos, prefix_len=prefix_len, q_seg=seg,
-                    kv_seg=seg)
-    return L.dense(o.reshape(B, S, -1), p["wo"]), k, v
+    o = L.attention(q, shard_act(k, "kv_full"), shard_act(v, "kv_full"),
+                    spec=_mask_spec(cfg, seg), q_pos=pos,
+                    kv_pos=pos if kv_pos is None else kv_pos,
+                    prefix_len=prefix_len, q_seg=seg,
+                    kv_seg=seg if kv_seg is None else kv_seg,
+                    q_offset=seq_offset(S))
+    o = shard_act(o, "heads")
+    return shard_act(L.dense(o.reshape(B, S, -1), p["wo"]), "hidden"), k, v
 
 
 def _mla_query(p: dict, cfg: LMConfig, h: Tensor, sin: Tensor, cos: Tensor
@@ -309,12 +322,13 @@ def _mla_attn_kv(p: dict, cfg: LMConfig, h: Tensor, pos: Tensor,
 
 def _attn_kv(p: dict, cfg: LMConfig, h: Tensor, pos: Tensor,
              seg: Optional[Tensor] = None,
-             prefix_len: Optional[Tensor] = None) -> tuple:
+             prefix_len: Optional[Tensor] = None, kv_pos=None,
+             kv_seg=None) -> tuple:
     """The block's self-attention and what this layer's cache keeps:
     ``(out, k, v)`` for GQA, ``(out, ckv, kr)`` for MLA."""
     if cfg.mla is not None:
         return _mla_attn_kv(p, cfg, h, pos, seg, prefix_len)
-    return _gqa_attn_kv(p, cfg, h, pos, seg, prefix_len)
+    return _gqa_attn_kv(p, cfg, h, pos, seg, prefix_len, kv_pos, kv_seg)
 
 
 def _ffn_residual(p: dict, cfg: LMConfig, x: Tensor) -> tuple:
@@ -346,7 +360,8 @@ def make_block_body(cfg: LMConfig):
         seg = ctx_act.get("seg")    # int segment ids of a packed batch
         prefix_len = ctx_act.get("prefix")  # int prefix lengths (prefix-LM)
         h = L.norm_apply(p["ln1"], x, kind=cfg.norm)
-        x = x + _attn_kv(p["attn"], cfg, h, pos, seg, prefix_len)[0]
+        x = x + _attn_kv(p["attn"], cfg, h, pos, seg, prefix_len,
+                         ctx_act.get("kv_pos"), ctx_act.get("kv_seg"))[0]
         x, aux = _ffn_residual(p, cfg, x)
         if aux is not None:
             aux_loss = aux_loss + aux
@@ -416,22 +431,55 @@ def make_prologue(cfg: LMConfig):
     return prologue
 
 
+def model_axis_gap(cfg: LMConfig, tp: int) -> Optional[str]:
+    """What of ``cfg`` a model axis of ``tp`` > 1 does not run yet (None:
+    it runs): GQA without a prefix or MTP, dense or MoE with ``tp``
+    dividing the routed experts (slice 6c brings the rest)."""
+    for on, what in ((cfg.mla is not None, "multi-head latent attention"),
+                     (cfg.mtp, "multi-token prediction"),
+                     (cfg.prefix_lm or cfg.n_prefix_tokens,
+                      "a prefix-LM or modality prefix"),
+                     (cfg.moe is not None and cfg.moe.n_routed % tp,
+                      f"{cfg.moe.n_routed if cfg.moe else 0} routed experts "
+                      f"over {tp} model ranks")):
+        if on:
+            return what
+    return None
+
+
 def make_pro_ctx(cfg: LMConfig):
     def pro_ctx(outer, batch):
         # Positions and segment ids travel as integers: the port
         # differentiates only the carry and the parameters, never the
-        # context.
+        # context.  With a model axis the batch is this rank's sequence
+        # tile: ``pos``/``seg`` are the tile's (its queries, RoPE) and
+        # ``kv_pos``/``kv_seg`` the whole sequence's (the gathered K/V).
+        tp = model_size()
+        gap = model_axis_gap(cfg, tp) if tp > 1 else None
+        if gap:
+            raise NotImplementedError(
+                f"{cfg.name}: {gap} on a model axis of {tp} is slice 6c of "
+                "the port and not ported to repro_torch yet")
         if "segment_ids" in batch:
             if cfg.prefix_lm or cfg.n_prefix_tokens or cfg.mtp:
                 raise ValueError(
                     "packed (segment-id) batches are not supported for "
                     "prefix-LM / modality-prefix / MTP architectures")
-            return {"pos": batch["positions"].to(torch.int32),
-                    "seg": batch["segment_ids"].to(torch.int32)}
+            ctx = {"pos": batch["positions"].to(torch.int32),
+                   "seg": batch["segment_ids"].to(torch.int32)}
+            if tp > 1:
+                ctx["kv_pos"] = gather_tiles(ctx["pos"])
+                ctx["kv_seg"] = gather_tiles(ctx["seg"])
+            return ctx
         tokens = batch["tokens"]
         S = tokens.shape[1] + cfg.n_prefix_tokens
-        return _prefix_ctx(cfg, batch, torch.arange(
-            S, dtype=torch.int32, device=tokens.device))
+        off = seq_offset(S)
+        ctx = _prefix_ctx(cfg, batch, torch.arange(
+            off, off + S, dtype=torch.int32, device=tokens.device))
+        if tp > 1:
+            ctx["kv_pos"] = torch.arange(S * tp, dtype=torch.int32,
+                                         device=tokens.device)
+        return ctx
 
     return pro_ctx
 

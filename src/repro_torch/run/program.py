@@ -48,23 +48,39 @@ from repro_torch.run.spec import RunSpec
 from repro_torch.train.schedules import constant, warmup_cosine
 
 
-def check_ported(spec: RunSpec) -> None:
+SLICE_6C = "slice 6c of the port"
+
+
+def model_axis_gap(arch, tp: int) -> Optional[str]:
+    """What of ``arch`` a model axis of ``tp`` > 1 does not run yet (None:
+    it runs): the ``transformer`` family, as its ``model_axis_gap`` says."""
+    if arch.family != "transformer":
+        return f"the {arch.family} family"
+    from repro_torch.models.transformer import model_axis_gap as gap
+    return gap(arch.cfg, tp)
+
+
+def check_ported(spec: RunSpec, arch=None) -> None:
     """Raise ``NotImplementedError`` for a spec that turns on a layer the
-    port does not have yet, naming it."""
+    port does not have yet, naming it (``arch``: the spec's, looked up when
+    not given)."""
     shape = spec.mesh.shape
-    unported = [
-        (shape is not None and len(shape) >= 2 and shape[-1] > 1,
-         "mesh.shape",
-         f"a model axis of {shape[-1] if shape else 0} (tensor, sequence "
-         "and expert parallelism: slice 6b of the port)"),
-    ]
+    tp = shape[-1] if shape is not None and len(shape) >= 2 else 1
+    unported = []
+    if tp > 1:
+        if arch is None:
+            from repro_torch.models.registry import get_arch
+            arch = get_arch(spec.model.arch, smoke=spec.model.smoke)
+        gap = model_axis_gap(arch, tp)
+        unported.append((gap is not None, "mesh.shape",
+                         f"a model axis of {tp} with {gap} ({SLICE_6C})"))
     if shape is not None:
         unported += [
             (spec.sentinel.enabled and spec.sentinel.trust_max > 0.0,
              "sentinel.trust_max",
-             "the sentinel's trust guard on a mesh (slice 6b of the port)"),
+             f"the sentinel's trust guard on a mesh ({SLICE_6C})"),
             (spec.observe.enabled, "observe",
-             "the optimizer-health probes on a mesh (slice 6b of the port)"),
+             f"the optimizer-health probes on a mesh ({SLICE_6C})"),
         ]
     for on, field, what in unported:
         if on:
@@ -168,7 +184,7 @@ def build_step_program(spec: RunSpec, arch=None, opt: Optional[Opt] = None,
     because the guard owns the injection point.  ``zero`` runs the step
     ZeRO-3 sharded (module docstring; ``fleet.elastic.run_elastic``).
     """
-    check_ported(spec)
+    check_ported(spec, arch)
     device = resolve_device(device)
     if arch is None:
         from repro_torch.models.registry import get_arch
@@ -203,7 +219,7 @@ def build_step_program(spec: RunSpec, arch=None, opt: Optional[Opt] = None,
                 f"optimizer {spec.opt.name!r} "
                 f"({'fused' if fused else 'unfused'}) on a mesh: only the "
                 f"fused {'/'.join(SHARDED_RULES)} rules run sharded; the "
-                "others are slice 6b of the port and not ported to "
+                "others are slice 6c of the port and not ported to "
                 "repro_torch yet")
     if fused:
         step_kw = arch.make_fused_train_step(

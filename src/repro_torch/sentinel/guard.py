@@ -37,10 +37,11 @@ level toward the anomaly.
 On a mesh (``zero``, a ``sharding.zero.Zero3``) each rank holds shards, so
 the verdict is reduced over the ranks on the device before the commit: a
 non-finite value on any rank makes the step non-finite on every rank, and
-the update norm sums the shards' squares over the ``data`` ranks in rank
-order (whole leaves once).  Every rank then reaches the same verdict from
-the same bits, inside the step's one host sync; the trust guard and the
-probes on a mesh are slice 6b.
+the update norm sums the blocks' squares over the ``data`` × ``model``
+ranks in rank order, each element once (whole leaves once;
+``Zero3.sum_once``).  Every rank then reaches the same verdict from the
+same bits, inside the step's one host sync; the trust guard and the probes
+on a mesh are slice 6c.
 """
 from __future__ import annotations
 
@@ -124,16 +125,9 @@ def _mesh_verdict(zero, nonfinite, sums) -> tuple:
     bits on every rank."""
     from repro_torch.sharding import collectives as C
     flag = C.all_reduce_exact(nonfinite.to(_F32).reshape(1), zero.world)
-    dims = [d for _, d in tree_flatten_with_path(zero.dims)]
-    dev = flag.device
-    split = torch.zeros((), dtype=_F32, device=dev)
-    whole = torch.zeros((), dtype=_F32, device=dev)
-    for (_, _, dsq, _, _), d in zip(sums, dims):
-        if d is None:
-            whole = whole + dsq.sum()
-        else:
-            split = split + dsq.sum()
-    total = C.all_reduce(split.reshape(1), zero.data)[0] + whole
+    places = [pl for _, pl in tree_flatten_with_path(zero.dims)]
+    total = zero.sum_once([(pl, dsq.sum()) for (_, _, dsq, _, _), pl
+                           in zip(sums, places)])
     return flag[0] > 0, torch.sqrt(total)
 
 
@@ -156,7 +150,7 @@ def guard_step(inner, *, opt, sspec: SentinelSpec, ospec=None, inject=None,
     if zero is not None and (ospec is not None or sspec.trust_max > 0.0):
         raise NotImplementedError(
             "the sentinel's trust guard and the optimizer-health probes on a "
-            "mesh are slice 6b of the port and not ported to repro_torch yet")
+            "mesh are slice 6c of the port and not ported to repro_torch yet")
     snapshot = Snapshot()
     decay = _f32_scalar(sspec.ema_decay)
     one_m_decay = float(1.0 - torch.tensor(decay, dtype=_F32))

@@ -11,14 +11,19 @@ sequence parallelism).  Kinds, as the reference's:
   vocab  — logits [B,S,V] or [B,V]      → P(dp, None, tp) / P(dp, tp)
   experts— MoE buffers [B,E,C,D]        → P(dp, tp, None, None)  (EP)
 
-The port executes the batch axes only: each rank holds its rows of every
-activation, so :func:`shard_act` and :func:`seq_tiles` are identities while
-the ``model`` axis is 1, and a policy with a larger one raises
-``NotImplementedError`` (slice 6b).  What the batch split does need is
-where a quantity is a mean or a sum over the whole batch: the loss's token
-count and the MoE router's load-balance statistics.  :func:`batch_sum` and
-:func:`batch_mean` give those over the installed policy's batch group
-(identities with no policy).
+The port runs every activation as this rank's tile — its rows of the
+batch (``pod`` × ``data``) and its sequence tile (``model``) — because the
+batch is cut so at the step's entry (``Zero3.rows``).  So :func:`shard_act`
+is the identity for the kinds a tile already is (``hidden``, ``ffn``,
+``heads``, ``q_tiled``, ``vocab``) and executes the one that moves data:
+``kv_full`` gathers K/V over ``model`` along the sequence, its backward the
+fixed-order reduce-scatter of dK/dV (a tile's K/V feed every later tile's
+queries).  ``experts`` buffers are made by the MoE layer itself
+(``models/moe.py``, expert parallelism).  Where a quantity is a sum or a
+mean over the whole batch: :func:`batch_sum` sums over every rank (each
+holds other tokens), :func:`batch_mean` averages a value that the ``model``
+ranks hold alike (the MoE router's statistics over the gathered sequence)
+over the ``pod`` × ``data`` ranks.  All are identities with no policy.
 """
 from __future__ import annotations
 
@@ -31,11 +36,6 @@ from repro_torch.sharding.rules import P
 
 _POLICY: contextvars.ContextVar = contextvars.ContextVar(
     "act_sharding_policy", default=None)
-
-SLICE_6B = ("a model axis larger than 1 (tensor, sequence and expert "
-            "parallelism) is slice 6b of the port and not ported to "
-            "repro_torch yet")
-
 
 class ActPolicy:
     def __init__(self, mesh, axes):
@@ -79,7 +79,26 @@ class ActPolicy:
 
     @property
     def batch_group(self):
+        """The ``pod`` × ``data`` ranks (other rows, this sequence tile)."""
         return getattr(self.mesh, "batch_group", None)
+
+    @property
+    def world_group(self):
+        """Every rank (every rank holds other tokens)."""
+        groups = getattr(self.mesh, "groups", {})
+        return groups.get("world", self.batch_group)
+
+    @property
+    def model_group(self):
+        """The ``model`` ranks (the other sequence tiles of these rows),
+        or None with a model axis of 1."""
+        if self.tp_size <= 1:
+            return None
+        return getattr(self.mesh, "groups", {}).get("model")
+
+    @property
+    def tile_index(self) -> int:
+        return getattr(self.mesh, "tile_index", 0)
 
 
 def install(policy: Optional[ActPolicy]):
@@ -103,38 +122,60 @@ class use_policy:
         _POLICY.reset(self.tok)
 
 
-def _check_tp(pol: ActPolicy) -> None:
-    if pol.tp_size > 1:
-        raise NotImplementedError(SLICE_6B)
-
-
 def shard_act(x, kind: str):
-    """The activation as this rank holds it: the identity (the batch split
-    is made once, at the step's entry)."""
+    """The activation as this rank holds it.  ``kv_full`` is gathered over
+    ``model`` along the sequence (dim 1), differentiably; every other kind
+    is already this rank's tile (the batch is cut at the step's entry)."""
     pol = _POLICY.get()
-    if pol is not None:
-        _check_tp(pol)
-    return x
+    if kind != "kv_full" or pol is None or pol.model_group is None:
+        return x
+    from repro_torch.sharding import collectives as C
+    return C.gather_seq(x, 1, pol.model_group)
+
+
+def gather_tiles(x: torch.Tensor) -> torch.Tensor:
+    """The whole sequence (dim 1) of an integer tile — positions, segment
+    ids — gathered over ``model`` with no gradient; ``x`` itself without a
+    model axis."""
+    pol = _POLICY.get()
+    if pol is None or pol.model_group is None:
+        return x
+    from repro_torch.sharding import collectives as C
+    return C.all_gather(x.contiguous(), 1, pol.model_group)
+
+
+def seq_offset(n_local: int) -> int:
+    """The sequence index of this rank's first token: its tile times
+    ``n_local``, the tile's length (0 without a model axis)."""
+    pol = _POLICY.get()
+    if pol is None or pol.model_group is None:
+        return 0
+    return pol.tile_index * n_local
+
+
+def model_size() -> int:
+    """The number of sequence tiles under the installed policy: its model
+    axis' size where the policy's mesh has the model group (1 with none)."""
+    pol = _POLICY.get()
+    return 1 if pol is None or pol.model_group is None else pol.tp_size
 
 
 def seq_tiles(seq_len: int) -> int:
-    """Sequence tiles of the attention's q-scan: 1 without a model axis."""
+    """Sequence tiles of the attention's q-scan, the reference's count: the
+    model axis' size when it divides ``seq_len``, else 1.  (The port's
+    attention is given this rank's tile of the queries already.)"""
     pol = _POLICY.get()
     if pol is None or pol.tp is None:
         return 1
-    _check_tp(pol)
-    return 1
-
-
-def _group():
-    pol = _POLICY.get()
-    return None if pol is None else pol.batch_group
+    return pol.tp_size if seq_len % pol.tp_size == 0 else 1
 
 
 def batch_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over the ranks of the batch split (no gradient),
-    in ``x``'s dtype and rank order; ``x`` itself with no policy."""
-    g = _group()
+    """The sum of ``x`` over every rank (each holds other tokens: its rows
+    and its sequence tile), no gradient, in ``x``'s dtype and rank order;
+    ``x`` itself with no policy."""
+    pol = _POLICY.get()
+    g = None if pol is None else pol.world_group
     if g is None:
         return x
     from repro_torch.sharding import collectives as C
@@ -143,28 +184,32 @@ def batch_sum(x: torch.Tensor) -> torch.Tensor:
 
 
 class _BatchMean(torch.autograd.Function):
-    """Forward: the mean over the batch ranks.  Backward: this rank's share
-    of the gradient (``grad / w``), which the gradient's own sum over the
-    ranks completes."""
+    """Forward: the mean over the ``pod`` × ``data`` ranks.  Backward: this
+    rank's share of the gradient, ``grad / (w · tp)``: the gradient's own
+    sum over the ``w`` batch ranks completes the mean's, and its sum over
+    the ``tp`` model ranks, which hold the same copy, counts the copy once
+    and not tp times."""
 
     @staticmethod
-    def forward(ctx, x, group):
+    def forward(ctx, x, group, tp):
         from repro_torch.sharding import collectives as C
         import torch.distributed as dist
         w = dist.get_world_size(group)
-        ctx.w = w
+        ctx.share = w * tp
         return C.all_reduce(x, group) / w
 
     @staticmethod
     def backward(ctx, grad):
-        return grad / ctx.w, None
+        return grad / ctx.share, None, None
 
 
 def batch_mean(x: torch.Tensor) -> torch.Tensor:
-    """The mean of a per-rank mean over the ranks of the batch split (each
-    rank holding as many rows), differentiable as above; ``x`` itself with
-    no policy."""
-    g = _group()
+    """The mean of a per-rank mean over the batch ranks (``pod`` ×
+    ``data``, each holding as many rows), differentiable as above; ``x``
+    itself with no policy.  ``x`` must be the same on every ``model`` rank
+    (computed from the sequence gathered whole)."""
+    pol = _POLICY.get()
+    g = None if pol is None else pol.batch_group
     if g is None:
         return x
-    return _BatchMean.apply(x, g)
+    return _BatchMean.apply(x, g, model_size())

@@ -15,6 +15,11 @@ dtype (a bf16 gradient as bf16: half the bytes); each term is widened to
 fp32 exactly as it is added, the sum taken in fp32 and narrowed once,
 after it.
 
+Along the ``model`` axis the sequence-parallel step moves activations:
+:func:`gather_seq` (an all-gather along a tensor dim whose backward is the
+fixed-order reduce-scatter of the gradient) and :func:`scatter_seq` (a
+reduce-scatter whose backward is the all-gather), both autograd-aware.
+
 ``gloo`` takes no CUDA tensor for the all-gather and the all-to-all these
 use, so with ``gloo`` a CUDA tensor is staged through host memory (two
 ranks sharing one card): that staging is counted in :data:`STATS`
@@ -136,3 +141,59 @@ def all_reduce_exact(x: Tensor, group) -> Tensor:
     parts = _gather_flat(x, group)
     STATS["reduce_bytes"] += parts.numel() * parts.element_size()
     return _ordered_sum(parts)
+
+
+def all_reduce_groups(x: Tensor, groups, *, dtype=None) -> Tensor:
+    """The sum of ``x`` over each group of ``groups`` in turn (None and
+    one-rank groups skipped), in fp32 and rank order, narrowed once to
+    ``dtype`` (default ``x``'s) after the last."""
+    dtype = dtype or x.dtype
+    live = [g for g in groups
+            if g is not None and dist.get_world_size(g) > 1]
+    for i, g in enumerate(live):
+        x = all_reduce(x, g, dtype=dtype if i == len(live) - 1
+                       else torch.float32)
+    return x.to(dtype)
+
+
+class _GatherSeq(torch.autograd.Function):
+    """Forward: the whole tensor from the ranks' pieces along ``dim``.
+    Backward: each rank's piece of the gradient summed over the ranks
+    (every rank's forward output fed another part of the model)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter(grad, ctx.dim, ctx.group), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """Forward: this rank's piece along ``dim`` of the sum over the ranks.
+    Backward: the gradient's pieces gathered whole (the sum fed every
+    rank's output)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather(grad.contiguous(), ctx.dim, ctx.group), None, None
+
+
+def gather_seq(x: Tensor, dim: int, group) -> Tensor:
+    """All-gather along ``dim`` over ``group``, differentiable: the
+    gradient goes back as a fixed-order reduce-scatter."""
+    return _GatherSeq.apply(x, dim, group)
+
+
+def scatter_seq(x: Tensor, dim: int, group) -> Tensor:
+    """Reduce-scatter along ``dim`` over ``group`` (a fixed-order fp32 sum
+    narrowed to ``x``'s dtype), differentiable: the gradient goes back as
+    an all-gather."""
+    return _ScatterSeq.apply(x, dim, group)

@@ -20,8 +20,8 @@ A spec is a :class:`P`, a tuple of axis names (or tuples of them) and
 A mesh is anything with ``axis_names`` and a ``shape`` mapping name ->
 size (``launch.mesh.MeshLayout``, ``launch.mesh.ProcessMesh``).
 
-The port executes the ``data`` and ``pod`` axes (``sharding/zero.py``);
-the ``model``-axis roles are computed here all the same.
+The port executes all three axes (``sharding/zero.py``): a leaf rests
+split along its ``data`` dim and its ``model`` dim.
 """
 from __future__ import annotations
 
@@ -227,26 +227,41 @@ def cache_pspecs(cache, axes: MeshAxes, batch_size: int):
     return tree_map(leaf_spec, cache)
 
 
-def data_dim(spec: P) -> Optional[int]:
-    """The dim a spec shards over the ``data`` axis (ZeRO-3), or None."""
+def _axis_dim(spec: P, name: str) -> Optional[int]:
     for i, ax in enumerate(spec):
-        if ax == "data" or (isinstance(ax, tuple) and "data" in ax):
+        if ax == name or (isinstance(ax, tuple) and name in ax):
             return i
     return None
+
+
+def data_dim(spec: P) -> Optional[int]:
+    """The dim a spec shards over the ``data`` axis (ZeRO-3), or None."""
+    return _axis_dim(spec, "data")
+
+
+def model_dim(spec: P) -> Optional[int]:
+    """The dim a spec shards over the ``model`` axis, or None."""
+    return _axis_dim(spec, "model")
+
+
+# Leaves whose ``model`` split is kept at use (expert parallelism): never
+# gathered over ``model``, as the reference's make_param_constraint keeps
+# their EP axis.
+EXPERT_LEAF = re.compile(r"moe/w_(gate|up|down)")
 
 
 # --------------------------------------------------------------------------
 # The reference's constraint makers: the seams of the sharded fused step.
 # Where the reference's return GSPMD sharding constraints, these take the
 # ZeRO-3 plan (``sharding/zero.py::Zero3``) and return the explicit
-# collectives; the residual constraint is the identity while the model axis
-# is 1.
+# collectives.
 # --------------------------------------------------------------------------
 
 def make_param_constraint(zero):
     """Per stack: ``fn(stack_name) -> (stacked, i -> layer i's params)``,
-    each leaf gathered whole for the layer's use (its resting shard stays
-    as it is)."""
+    each leaf gathered whole over ``data`` and ``model`` for the layer's use
+    (its resting shard stays as it is), except the MoE expert stacks
+    (:data:`EXPERT_LEAF`), which keep their expert split over ``model``."""
     def for_stack(stack_name: str):
         dims = zero.dims["stacks"][stack_name]
         return lambda stacked, i: zero.layer(stacked, dims, i)
@@ -255,22 +270,28 @@ def make_param_constraint(zero):
 
 def make_grad_constraint(zero):
     """Per stack: ``fn(stack_name) -> (layer gradients -> the resting
-    shards' gradients)``, reduce-scattered (a whole leaf's all-reduced)."""
+    shards' gradients)``, reduce-scattered over ``data`` then ``model`` (a
+    whole leaf's all-reduced over every rank; an expert stack's not summed
+    over ``model``, whose ranks hold other experts)."""
     def for_stack(stack_name: str):
         dims = zero.dims["stacks"][stack_name]
         return lambda g: zero.scatter(g, dims, drop=1)
     return for_stack
 
 
-def make_residual_constraint(mesh, axes: MeshAxes):
-    """Sequence-sharding of saved layer inputs over ``model``: the identity
-    while the model axis is 1; a larger one is slice 6b."""
-    if axes.size(axes.tp) > 1:
-        raise NotImplementedError(
-            "a model axis larger than 1 (sequence-sharded residuals) is "
-            "slice 6b of the port and not ported to repro_torch yet")
-
+def make_residual_constraint(zero):
+    """Sequence-sharding of saved layer inputs: a saved carry's activations
+    are this rank's ``[B/dp, S/tp, d]`` tile (``zero.tile``, set where the
+    batch is cut, ``Zero3.rows``).  The port's model runs on the tile, so
+    nothing moves: the constraint checks each saved tensor of three or more
+    dims and raises ``ValueError`` for one that is not the tile."""
     def constrain(x):
+        tile = zero.tile
+        for t in x:
+            if tile is not None and t.ndim >= 3 and tuple(t.shape[:2]) != tile:
+                raise ValueError(
+                    f"a saved residual {tuple(t.shape)} is not this rank's "
+                    f"[B/dp, S/tp] = {list(tile)} tile")
         return x
 
     return constrain

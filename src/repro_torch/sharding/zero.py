@@ -1,66 +1,128 @@
 """ZeRO-3 placement of a model's params and optimizer state over the
-``data`` axis of a :class:`~repro_torch.launch.mesh.ProcessMesh`, and the
-seams of the sharded fused step.
+``data`` and ``model`` axes of a
+:class:`~repro_torch.launch.mesh.ProcessMesh`, and the seams of the sharded
+fused step.
 
-At rest every param leaf that ``rules.param_pspecs`` shards over ``data``
-is held as this rank's contiguous slice along that dim; the other leaves
-(norm scales, biases, a shape-guarded head) are whole on every rank.
-Params are replicated across pods.  AdaLomo's factored state shards with
-the rows and columns it describes: a leaf split by rows keeps its rows' r
-and the whole c, one split by columns the whole r and its columns' c; an
-unfactored v is split as its param.
+At rest every param leaf is held as this rank's block: split along the dim
+that ``rules.param_pspecs`` shards over ``data`` and along the dim it shards
+over ``model`` (a :class:`Place`), whole along a dim the axis does not
+divide (the rules' shape guard).  The other leaves (norm scales, biases)
+are whole on every rank.  Params are replicated across pods.  AdaLomo's
+factored state shards with the rows and columns it describes, as the
+reference's ``opt_pspecs``: r takes its param's row split, c its column
+split; an unfactored v is split as its param.
 
 The fused step (``core/fused.py``) calls the seams:
 
   * :meth:`Zero3.gather` / :meth:`Zero3.layer` — the whole tensors of the
     outer leaves (once a step) and of one layer (before its forward and
-    before its re-run), gathered in the param dtype;
+    before its re-run), gathered in the param dtype over ``data`` and then
+    ``model``; the MoE expert stacks keep their expert split over ``model``
+    (expert parallelism) and are gathered over ``data`` only;
   * :meth:`Zero3.scatter` — a layer's (or the outer leaves') gradients
-    reduce-scattered over ``data`` to the resting shard (then summed over
-    ``pod``), a replicated leaf's summed over every rank;
-  * :meth:`Zero3.shards` — the :class:`TensorShard` of each leaf, which
-    the AdaLomo rule takes to sum its statistics over the ranks.
+    summed over the ranks whose tokens differ, landing as each leaf rests:
+    reduce-scattered over ``data`` and then ``model`` along the split dims,
+    all-reduced over an axis that does not split the leaf, then over
+    ``pod``; fp32 sums in rank order, rounded once to the gradient's dtype;
+  * :meth:`Zero3.shards` — the :class:`TensorShard` of each leaf: the
+    groups holding the other row and column blocks of its matrices, which
+    the AdaLomo rule takes to sum its statistics over the ranks;
+  * :meth:`Zero3.rows` — this rank's rows (``pod`` × ``data``) and
+    sequence tile (``model``) of a global batch leaf.
 
 Nothing here keeps a gathered tensor: a layer's whole weights live while
 its forward or its re-run does.
 """
 from __future__ import annotations
 
+import collections
+import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.core.tree import (pytree_leaves, pytree_unflatten,
-                                   tree_flatten_with_path, tree_map)
+                                   tree_flatten_with_path, tree_leaves,
+                                   tree_map)
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding.act import ActPolicy
-from repro_torch.sharding.rules import (MeshAxes, data_dim,
+from repro_torch.sharding.rules import (EXPERT_LEAF, MeshAxes, data_dim,
                                        make_grad_constraint,
-                                       make_param_constraint, param_pspecs)
+                                       make_param_constraint,
+                                       make_residual_constraint, model_dim,
+                                       param_pspecs)
 
 Tensor = torch.Tensor
 
-_REPLICATED = -1          # a dims list's mark of a leaf held whole
+
+@dataclasses.dataclass(frozen=True)
+class Place:
+    """Where a tensor rests: the dim split over ``data`` and the dim split
+    over ``model`` (None: whole along that axis); ``ep``: the ``model``
+    split is kept at use (an expert stack's expert dim)."""
+
+    data: Optional[int] = None
+    model: Optional[int] = None
+    ep: bool = False
+
+    @property
+    def whole(self) -> bool:
+        return self.data is None and self.model is None
+
+
+WHOLE = Place()
 
 
 class TensorShard(NamedTuple):
-    """One rank's place in a tensor split by rows (``axis=-2``) or columns
-    (``axis=-1``) of its matrices: ``n_total`` elements a matrix, and the
-    group whose ranks hold the other shards."""
+    """One rank's block of a tensor whose trailing two dims form the
+    matrix: ``rows`` the group holding the other row blocks of the same
+    columns (None: the rows are whole here), ``cols`` the group holding the
+    other column blocks, ``group`` the ranks holding all the blocks, and
+    ``n_total`` the whole matrix's element count."""
 
-    axis: int
+    rows: object
+    cols: object
     n_total: int
     group: object
 
+    @property
+    def axis(self) -> int:
+        """-2: split by rows only, -1: by columns only, 0: both."""
+        if self.cols is None:
+            return -2
+        return -1 if self.rows is None else 0
+
     def sum(self, t: Tensor) -> Tensor:
-        """The sum of ``t`` over the ranks holding this tensor's shards."""
+        """The sum of ``t`` over the ranks holding this tensor's blocks."""
         return C.all_reduce(t, self.group)
 
+    def over_rows(self, t: Tensor) -> Tensor:
+        """The sum of ``t`` over the ranks holding the other row blocks
+        (``t`` itself when the rows are whole)."""
+        return t if self.rows is None else C.all_reduce(t, self.rows)
 
-def _state_dims(dim: Optional[int], ndim: int, state):
-    """Dims (``_REPLICATED`` for whole) of a per-tensor state's tensors."""
+    def over_cols(self, t: Tensor) -> Tensor:
+        """The sum of ``t`` over the ranks holding the other column
+        blocks (``t`` itself when the columns are whole)."""
+        return t if self.cols is None else C.all_reduce(t, self.cols)
+
+
+def _shift(d: Optional[int], ndim: int, kind: str) -> Optional[int]:
+    """A param dim's place in its factored state: ``r`` (shape[:-1]) or
+    ``c`` (shape[:-2] + shape[-1:]); None where the state drops it."""
+    if d is None:
+        return None
+    if kind == "r":
+        return None if d == ndim - 1 else d
+    if d == ndim - 2:
+        return None
+    return ndim - 2 if d == ndim - 1 else d
+
+
+def _state_places(pl: Place, ndim: int, state):
+    """Places of a per-tensor state's tensors (a tuple, or a bare tensor)."""
     if not isinstance(state, tuple):
-        return _REPLICATED if dim is None else dim
+        return pl
     fields = getattr(state, "_fields", None)
     out = []
     for i, t in enumerate(state):
@@ -68,112 +130,183 @@ def _state_dims(dim: Optional[int], ndim: int, state):
             out.append(None)
             continue
         name = fields[i] if fields else None
-        if dim is None:
-            d = None
-        elif name == "r":         # shape[:-1]: rows' statistics
-            d = None if dim == ndim - 1 else dim
-        elif name == "c":         # shape[:-2] + shape[-1:]
-            d = ndim - 2 if dim == ndim - 1 else (
-                None if dim == ndim - 2 else dim)
+        if name in ("r", "c"):
+            out.append(Place(_shift(pl.data, ndim, name),
+                             _shift(pl.model, ndim, name), pl.ep))
         else:                     # v, moments: the param's shape
-            d = dim
-        out.append(_REPLICATED if d is None else d)
+            out.append(pl)
     return type(state)(*out) if fields else tuple(out)
 
 
-def param_dims(params, axes: MeshAxes):
-    """The data-axis dim (None: whole) of every param leaf, by the rules."""
-    return tree_map(data_dim, param_pspecs(params, axes))
+def param_places(params, axes: MeshAxes):
+    """The :class:`Place` of every param leaf, by the rules."""
+    specs = param_pspecs(params, axes)
+    return {k: _places(specs[k], k) for k in specs}
 
 
-def leaf_dims(dims, shapes, opt_state) -> list:
-    """The sharded dim (None: whole) of every tensor of ``(params,
-    opt_state)`` in ``pytree_leaves`` order, from the params' ``dims`` and
-    full ``shapes``: a state tensor follows its param (a factored r its
-    rows, c its columns); ``OptState.step`` is whole."""
-    p = [_REPLICATED if d is None else d
-         for _, d in tree_flatten_with_path(dims)]
-    s = pytree_leaves(tree_map(lambda d, shp, st: _state_dims(d, len(shp),
-                                                              st),
-                               dims, shapes, opt_state.moments))
-    return [None if d == _REPLICATED else d for d in p + [_REPLICATED] + s]
+def _places(spec, path: str):
+    if isinstance(spec, dict):
+        return {k: _places(spec[k], f"{path}/{k}") for k in spec}
+    md = model_dim(spec)
+    return Place(data_dim(spec), md,
+                 md is not None and bool(EXPERT_LEAF.search(path)))
+
+
+def leaf_places(places, shapes, opt_state) -> list:
+    """The :class:`Place` of every tensor of ``(params, opt_state)`` in
+    ``pytree_leaves`` order, from the params' ``places`` and full
+    ``shapes``: a state tensor follows its param (a factored r its rows, c
+    its columns); ``OptState.step`` is whole."""
+    p = [pl for _, pl in tree_flatten_with_path(places)]
+    s = pytree_leaves(tree_map(lambda pl, shp, st: _state_places(
+        pl, len(shp), st), places, shapes, opt_state.moments))
+    return p + [WHOLE] + s
 
 
 class Zero3:
     """The ZeRO-3 plan of one model on ``mesh``, from its full params'
-    paths and shapes (tensors of any device, ``meta`` included)."""
+    paths and shapes (tensors of any device, ``meta`` included).
+
+    ``gathers`` counts the leaves gathered by :meth:`gather`, by
+    ``(axis, "expert" | "dense")``: an expert stack is never gathered over
+    ``model``.  ``tile`` is this rank's ``(B/dp, S/tp)`` of the last batch
+    :meth:`rows` cut while the model axis is larger than 1 (else None)."""
 
     def __init__(self, mesh, params):
         self.mesh = mesh
         self.axes = MeshAxes(mesh)
-        self.dims = param_dims(params, self.axes)
+        self.dims = param_places(params, self.axes)
+        if mesh.size("model") == 1:
+            # a model axis of 1 splits nothing: the data axis' plan alone
+            self.dims = tree_map(lambda pl: Place(pl.data), self.dims)
+        elif mesh.size("data") == 1:
+            # nor does a data axis of 1 beside a model axis (its gathers
+            # and sums would be copies); a mesh of data alone keeps its
+            # one-rank split, the sharded path on one card
+            self.dims = tree_map(lambda pl: Place(None, pl.model, pl.ep),
+                                 self.dims)
         self.shapes = tree_map(lambda t: tuple(t.shape), params)
         self.data = mesh.group("data")
+        self.model = (mesh.groups.get("model") if mesh.size("model") > 1
+                      else None)
         self.pod = mesh.groups.get("pod") if mesh.size("pod") > 1 else None
-        self.world = mesh.batch_group
+        self.batch = mesh.batch_group
+        self.world = mesh.groups.get("world", mesh.batch_group)
+        self.matrix = mesh.groups.get("matrix", self.data)
+        self.tp = mesh.size("model")
         self.policy = ActPolicy(mesh, self.axes)
+        self.gathers = collections.Counter()
+        self.tile = None
 
     # ---------------- placement ----------------
     def leaf_dims(self, opt_state) -> list:
-        """The sharded dim (None: whole) of every tensor of ``(params,
-        opt_state)``, in checkpoint leaf order (``pytree_leaves``)."""
-        return leaf_dims(self.dims, self.shapes, opt_state)
+        """The :class:`Place` of every tensor of ``(params, opt_state)``,
+        in checkpoint leaf order (``pytree_leaves``)."""
+        return leaf_places(self.dims, self.shapes, opt_state)
 
     def tree_dims(self, tree) -> list:
         """:meth:`leaf_dims` of a ``(params, opt_state)`` tree."""
         return self.leaf_dims(tree[1])
 
-    def local(self, full: Tensor, dim: Optional[int]) -> Tensor:
-        return full if dim is None else C.shard(full, dim, self.data)
+    def local(self, full: Tensor, pl: Place) -> Tensor:
+        """This rank's block of a whole tensor."""
+        if pl.data is not None:
+            full = C.shard(full, pl.data, self.data)
+        if pl.model is not None and self.model is not None:
+            full = C.shard(full, pl.model, self.model)
+        return full
+
+    def block(self, pl: Place) -> tuple:
+        """``[(dim, parts, index)]``: the dims this rank's block of a
+        tensor placed at ``pl`` cuts, into how many parts, and which."""
+        out = []
+        if pl.data is not None and self.mesh.size("data") > 1:
+            out.append((pl.data, self.mesh.size("data"),
+                        self.mesh.coords.get("data", 0)))
+        if pl.model is not None and self.tp > 1:
+            out.append((pl.model, self.tp, self.mesh.tile_index))
+        return out
+
+    def block_group(self, pl: Place):
+        """The group holding the blocks of a tensor placed at ``pl``, in
+        the order of :meth:`block`'s cuts, data-major (None: whole)."""
+        cuts = self.block(pl)
+        if len(cuts) == 2:
+            return self.matrix
+        if not cuts:
+            return None
+        return self.data if cuts[0][0] == pl.data else self.model
 
     def shard_tree(self, tree, opt_state) -> tuple:
         """``(params, opt_state)`` of whole tensors -> this rank's resting
-        shards (new contiguous tensors for the split leaves)."""
+        blocks (new contiguous tensors for the split leaves)."""
         leaves = pytree_leaves(tree)
-        dims = self.leaf_dims(opt_state)
-        return pytree_unflatten(tree, [self.local(t, d)
-                                       for t, d in zip(leaves, dims)])
+        places = self.leaf_dims(opt_state)
+        return pytree_unflatten(tree, [self.local(t, pl)
+                                       for t, pl in zip(leaves, places)])
 
     # ---------------- step seams ----------------
+    def _gather_one(self, t: Tensor, pl: Place, drop: int) -> Tensor:
+        kind = "expert" if pl.ep else "dense"
+        if pl.data is not None:
+            t = C.all_gather(t, pl.data - drop, self.data)
+            self.gathers["data", kind] += 1
+        if pl.model is not None and self.model is not None and not pl.ep:
+            t = C.all_gather(t, pl.model - drop, self.model)
+            self.gathers["model", kind] += 1
+        return t
+
     def gather(self, local, dims, *, drop: int = 0):
-        """Whole tensors of a subtree (``dims`` its dims tree; ``drop``
-        leading dims already indexed away)."""
-        return tree_map(
-            lambda t, d: t if d is None else C.all_gather(t, d - drop,
-                                                          self.data),
-            local, dims)
+        """Whole tensors of a subtree (``dims`` its places tree; ``drop``
+        leading dims already indexed away), expert stacks still split over
+        ``model``."""
+        return tree_map(lambda t, pl: self._gather_one(t, pl, drop), local,
+                        dims)
 
     def layer(self, stacked, dims, i: int):
         """Layer ``i`` of a stacked subtree, whole."""
         return self.gather(tree_map(lambda t: t[i], stacked), dims, drop=1)
 
+    def _scatter_one(self, g: Tensor, pl: Place, drop: int) -> Tensor:
+        if pl.whole:
+            return C.all_reduce(g, self.world)
+        f32 = torch.float32
+        then = []                  # axes summed whole, after the scatters
+        if pl.data is not None:
+            g = C.reduce_scatter(g, pl.data - drop, self.data, dtype=f32)
+        else:
+            then.append(self.data)
+        if pl.model is None:
+            then.append(self.model)
+        elif not pl.ep and self.model is not None:
+            g = C.reduce_scatter(g, pl.model - drop, self.model, dtype=f32)
+        # (an expert stack's gradient is already its experts' whole)
+        return C.all_reduce_groups(g, then + [self.pod])
+
     def scatter(self, grads, dims, *, drop: int = 0):
-        """Whole-tensor gradients of this rank's rows -> the sum over all
-        ranks, as each leaf rests: reduce-scattered over ``data`` (then
-        summed over ``pod``) or, for a whole leaf, summed over every rank."""
-        def one(g, d):
-            if d is None:
-                return C.all_reduce(g, self.world)
-            if self.pod is None:
-                return C.reduce_scatter(g, d - drop, self.data)
-            part = C.reduce_scatter(g, d - drop, self.data,
-                                    dtype=torch.float32)
-            return C.all_reduce(part, self.pod, dtype=g.dtype)
-        return tree_map(one, grads, dims)
+        """Whole-tensor gradients of this rank's tokens -> the sum over all
+        ranks, as each leaf rests (module docstring)."""
+        return tree_map(lambda g, pl: self._scatter_one(g, pl, drop).to(
+            g.dtype), grads, dims)
 
     def shards(self, dims, shapes, *, drop: int = 0):
-        """The :class:`TensorShard` (or None: held whole, or split along an
-        independent leading dim) of every leaf of a subtree."""
-        def one(d, shp):
-            if d is None:
-                return None
+        """The :class:`TensorShard` (or None: held whole, or split along
+        independent leading dims only) of every leaf of a subtree."""
+        def one(pl, shp):
             shp = shp[drop:]
-            d -= drop
             n = len(shp)
-            if d < n - 2:
+            groups = {}
+            for d, grp in ((pl.data, self.data), (pl.model, self.model)):
+                if d is None or grp is None or d - drop < n - 2:
+                    continue      # whole, or an independent leading dim
+                groups["rows" if d - drop == n - 2 else "cols"] = grp
+            if not groups:
                 return None
-            return TensorShard(axis=d - n, n_total=shp[-2] * shp[-1],
-                               group=self.data)
+            rows, cols = groups.get("rows"), groups.get("cols")
+            both = self.matrix if rows is not None and cols is not None \
+                else (rows if cols is None else cols)
+            return TensorShard(rows=rows, cols=cols,
+                               n_total=shp[-2] * shp[-1], group=both)
         return tree_map(one, dims, shapes)
 
     def seams(self, stack: str) -> dict:
@@ -186,11 +319,58 @@ class Zero3:
                     shards=self.shards(self.dims["stacks"][stack],
                                        self.shapes["stacks"][stack], drop=1))
 
+    def residual_fn(self):
+        """``rules.make_residual_constraint``: the check that a saved
+        layer input is this rank's tile."""
+        return make_residual_constraint(self)
+
+    def sum_once(self, terms) -> Tensor:
+        """The sum over the whole model of per-leaf fp32 scalars ``terms``
+        (``[(place, value)]``, each the sum over this rank's block), each
+        element counted once: a block held by several ranks along an axis
+        that does not split it is counted on the ranks at index 0 of that
+        axis only, and one fixed-order sum over the ``matrix`` group adds
+        the blocks; whole leaves are added once, after it.  The same bits
+        on every rank."""
+        dev = self.mesh.device
+        md = self.mesh.coords.get("data", 0)
+        mm = self.mesh.tile_index
+        split, whole = [], []
+        for pl, v in terms:
+            if pl.whole:
+                whole.append(v)
+            elif (pl.data is not None or md == 0) and (
+                    pl.model is not None or mm == 0):
+                split.append(v)
+        part = (torch.stack(split).sum() if split
+                else torch.zeros((), device=dev))
+        total = C.all_reduce(part.reshape(1), self.matrix)[0]
+        return total + (torch.stack(whole).sum() if whole else 0.0)
+
     def rows(self, x: Tensor) -> Tensor:
         """This rank's rows of a global batch leaf (the leading dim split
-        over ``pod`` × ``data`` when it divides, else whole)."""
+        over ``pod`` × ``data`` when it divides, else whole) and, with a
+        model axis, its sequence tile (dim 1 split over ``model``: tokens,
+        labels, positions, segment ids, the loss mask)."""
         w = self.mesh.batch_size
-        if x.ndim == 0 or x.shape[0] % w or x.shape[0] <= 1:
-            return x
-        k = x.shape[0] // w
-        return x[self.mesh.batch_index * k:(self.mesh.batch_index + 1) * k]
+        if not (x.ndim == 0 or x.shape[0] % w or x.shape[0] <= 1):
+            k = x.shape[0] // w
+            i = self.mesh.batch_index
+            x = x[i * k:(i + 1) * k]
+        if self.tp > 1 and x.ndim >= 2:
+            if x.shape[1] % self.tp:
+                raise ValueError(
+                    f"a batch leaf {tuple(x.shape)}: its sequence dim does "
+                    f"not divide over a model axis of {self.tp}")
+            k = x.shape[1] // self.tp
+            i = self.mesh.tile_index
+            x = x[:, i * k:(i + 1) * k]
+            self.tile = tuple(x.shape[:2])
+        return x
+
+
+def tree_sqsums(tree, places) -> list:
+    """``[(place, Σg²)]`` of a gradient tree and its places tree."""
+    return [(pl, torch.sum(torch.square(g.to(torch.float32))))
+            for g, (_, pl) in zip(tree_leaves(tree),
+                                  tree_flatten_with_path(places))]

@@ -1,4 +1,5 @@
-"""The ranks of the sharded-run tests (``test_torch_elastic.py``): one
+"""The ranks of the sharded-run tests (``test_torch_elastic.py``,
+``test_torch_model_axis.py``): one
 ``gloo`` world a call of :func:`run_world`, running a list of cases in
 order, each rank writing what the parent process compares.  Imports torch
 and the port only (no JAX), so that a world starts quickly."""
@@ -107,6 +108,12 @@ def _case(case, rank):
             with open(out, "w") as f:
                 json.dump({"loss": losses}, f)
         return
+    if kind == "shard_act":
+        _shard_act_case(case, rank)
+        return
+    if kind == "tiles":
+        _tiles_case(case, rank)
+        return
     if kind == "mesh_error":
         from repro_torch.launch.mesh import make_mesh
         try:
@@ -139,21 +146,101 @@ def _case(case, rank):
         CheckpointManager(case["dst"], zero=zero).save(step, tree)
         return
     cap = Capture()
+    arch = None
+    if case.get("aux_weight") is not None:
+        arch = aux_arch(case["arch"], case["aux_weight"])
     params = torch.load(case["init"]) if case.get("init") else None
     inject = None
     if case.get("inject"):
         from repro_torch.sentinel.inject import Injection
         kind, at = case["inject"]
         inject = Injection(kind, at_step=at)
-    res = run(spec, params=params, device="cpu", hooks=[cap], inject=inject,
-              log_fn=lambda s: None)
+    res = run(spec, arch=arch, params=params, device="cpu", hooks=[cap],
+              inject=inject, log_fn=lambda s: None)
+    gathers = res.program.zero.gathers if res.program.zero else {}
     if rank == 0:
         with open(out, "w") as f:
             json.dump({"loss": res.history["loss"], "aux": cap.aux,
                        "anomaly": cap.anomaly,
                        "eval_loss": res.history["eval_loss"],
-                       "step": res.history["step"]}, f)
+                       "step": res.history["step"],
+                       "gathers": [[a, k, n] for (a, k), n
+                                   in sorted(gathers.items())]}, f)
     torch.save(res.params, f"{out}.rank{rank}.pt")
+
+
+def aux_arch(arch_id, weight):
+    """The smoke config of ``arch_id`` (MoE) with the router's load-balance
+    weight set to ``weight``."""
+    import dataclasses
+
+    from repro_torch.models.registry import get_arch
+    arch = get_arch(arch_id, smoke=True)
+    moe = dataclasses.replace(arch.cfg.moe, router_aux_weight=weight)
+    return dataclasses.replace(arch, cfg=dataclasses.replace(arch.cfg,
+                                                             moe=moe))
+
+
+def _shard_act_case(case, rank):
+    """Each kind of ``shard_act`` on this rank's tile of a seeded
+    ``[B, S, ...]`` activation on a (1, w) mesh, and ``kv_full``'s
+    backward: the gradient of ``Σ(weights · gathered)`` at the tile."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import act, rules
+    mesh = make_mesh(tuple(case["shape"]), "cpu")
+    x = torch.from_numpy(np.load(case["x"]))
+    wts = torch.from_numpy(np.load(case["w"]))
+    tp, k = mesh.size("model"), mesh.tile_index
+    n = x.shape[1] // tp
+    tile = x[:, k * n:(k + 1) * n].clone().requires_grad_(True)
+    out = {}
+    with act.use_policy(act.ActPolicy(mesh, rules.MeshAxes(mesh))):
+        for kind in ("hidden", "ffn", "heads", "q_tiled", "vocab",
+                     "experts", "kv_full"):
+            out[kind] = act.shard_act(tile, kind).detach().numpy()
+        y = act.shard_act(tile, "kv_full")
+        (g,) = torch.autograd.grad((y * wts[rank]).sum(), tile)
+        out["kv_full_grad"] = g.numpy()
+        out["seq_tiles"] = np.array(act.seq_tiles(x.shape[1]))
+        out["offset"] = np.array(act.seq_offset(n))
+    np.savez(f"{case['out']}.rank{rank}.npz", **out)
+
+
+def _tiles_case(case, rank):
+    """One fused step of ``case["arch"]`` on the case's mesh, recording the
+    shapes of the saved layer inputs (the residual constraint's input),
+    the tile the batch was cut to, and the gathers by axis and kind."""
+    from repro_torch.fleet.elastic import mesh_from_spec
+    from repro_torch.models.registry import get_arch
+    from repro_torch.run.data import make_batch_iter
+    from repro_torch.run.program import build_step_program
+    from repro_torch.run.runner import batch_to_device
+    from repro_torch.sharding.zero import Zero3
+    spec = make_spec(case["arch"], shape=case["shape"])
+    arch = get_arch(case["arch"], smoke=True)
+    zero = Zero3(mesh_from_spec(spec.mesh, "cpu"),
+                 arch.init_params(0, device="meta"))
+    saved = []
+    check = zero.residual_fn()
+
+    def recording():
+        def save(carry):
+            saved.append([list(t.shape) for t in carry if t.ndim >= 3])
+            return check(carry)
+        return save
+
+    zero.residual_fn = recording
+    program = build_step_program(spec, arch, device="cpu", zero=zero)
+    params, state = program.init(0)
+    batch = batch_to_device(next(make_batch_iter(spec, arch)),
+                            torch.device("cpu"))
+    program.step(params, state, batch, program.hparams_fn(1))
+    if rank == 0:
+        with open(case["out"], "w") as f:
+            json.dump({"saved": saved, "tile": list(zero.tile),
+                       "global": list(batch["tokens"].shape),
+                       "gathers": [[a, k, n] for (a, k), n
+                                   in sorted(zero.gathers.items())]}, f)
 
 
 def _rank(rank, world, store, cases):

@@ -192,16 +192,43 @@ def test_default_device_is_the_card_and_raises_without_one():
 
 
 @pytest.mark.parametrize("change", [
-    {"mesh": spec_mod.MeshSpec(kind="multi", shape=(2, 2))}])
+    {"mesh": spec_mod.MeshSpec(kind="multi", shape=(2, 2)),
+     "model": spec_mod.ModelSpec("mamba2-1.3b", smoke=True)}])
 def test_unported_spec_fields_raise(change):
-    """A mesh with a model axis of 2 (tensor, sequence and expert
-    parallelism) raises, naming the slice that brings it."""
+    """A model axis of 2 on a family the model axis does not run yet
+    (mamba2's sequence-split SSD) raises before any world is formed,
+    naming the slice that brings it."""
     _, pspec = _specs()
     bad = dataclasses.replace(pspec, **change)
     with pytest.raises(NotImplementedError, match="not ported"):
         build_step_program(bad, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6b"):
+    with pytest.raises(NotImplementedError, match="slice 6c"):
         run(bad, device="cpu")
+
+
+@pytest.mark.parametrize("arch,shape,gap", [
+    ("deepseek-v3-671b", (1, 2), "multi-head latent attention"),
+    ("paligemma-3b", (2, 2), "prefix"),
+    ("whisper-base", (1, 2), "encdec family"),
+    ("zamba2-1.2b", (1, 2, 2), "hybrid family"),
+    ("deepseek-moe-16b", (1, 3), "8 routed experts over 3"),
+    ("h2o-danube-1.8b", (2, 2), None),
+    ("deepseek-moe-16b", (1, 2), None)])
+def test_model_axis_gaps_name_slice_6c(arch, shape, gap):
+    """A model axis larger than 1 runs the transformer family's GQA
+    configs, dense or MoE with the axis dividing the routed experts; every
+    other family and feature raises before any world is formed, naming
+    what is missing and slice 6c."""
+    from repro_torch.run.program import check_ported
+    _, pspec = _specs()
+    spec = dataclasses.replace(
+        pspec, model=spec_mod.ModelSpec(arch, smoke=True),
+        mesh=spec_mod.MeshSpec(kind="multi", shape=shape))
+    if gap is None:
+        check_ported(spec)
+        return
+    with pytest.raises(NotImplementedError, match=f"{gap}.*slice 6c"):
+        check_ported(spec)
 
 
 def test_hooks_pipeline_and_step_event():

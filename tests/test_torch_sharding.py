@@ -7,6 +7,9 @@ The rules are fed the same paths and shapes in both packages, from
 production layouts 16 x 16 and 2 x 16 x 16 and on (4, 2).  The reference's
 ``MeshAxes`` gets a stand-in mesh with ``axis_names`` and ``shape``, all it
 reads."""
+import re
+import threading
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,9 +23,12 @@ from repro.sharding import act as ref_act
 from repro.sharding import rules as ref_rules
 from repro_torch.core.adalomo import AdaLomoConfig
 from repro_torch.core.optimizers import get_opt
-from repro_torch.kernels.adalomo_update.ref import adalomo_update_shards
+from repro_torch.kernels.adalomo_update.ref import (adalomo_update_grid,
+                                                    adalomo_update_shards)
 from repro_torch.launch.mesh import (MeshLayout, make_production_mesh,
                                      make_test_mesh)
+from repro_torch.core.tree import (pytree_leaves, tree_flatten_with_path,
+                                   tree_map)
 from repro_torch.sharding import act, rules
 
 LAYOUTS = {"16x16": make_production_mesh(),
@@ -131,13 +137,30 @@ def test_act_policy_spec_matches_reference(layout):
 
 
 def test_model_axis_policy_raises_slice_6b():
+    """The model-axis policy (the guard of slice 6b, which it no longer
+    raises) against the reference's: ``shard_act`` of every kind gives the
+    reference's values (its constraint is the identity on values; with no
+    world the port's tile is the whole activation, and ``kv_full``'s
+    gather over the model ranks is tested in ``test_torch_model_axis.py``),
+    ``seq_tiles`` the reference's count, and with no policy the batch sums
+    and means are identities."""
     mesh = MeshLayout((2, 2), ("data", "model"))
+    ref_pol = ref_act.ActPolicy(StandIn(mesh),
+                                ref_rules.MeshAxes(StandIn(mesh)))
+    x = torch.arange(2 * 4 * 8, dtype=torch.float32).reshape(2, 4, 8)
     with act.use_policy(act.ActPolicy(mesh, rules.MeshAxes(mesh))):
-        with pytest.raises(NotImplementedError, match="slice 6b"):
-            act.shard_act(torch.zeros(2, 4, 8), "hidden")
+        for kind in KINDS:
+            assert torch.equal(act.shard_act(x, kind),
+                               torch.from_numpy(np.asarray(
+                                   ref_act.shard_act(x.numpy(), kind))))
+        with ref_act.use_policy(ref_pol):
+            for n in (64, 63, 2):
+                assert act.seq_tiles(n) == ref_act.seq_tiles(n)
+        # a layout, no world: no model group, so one tile, the whole
+        assert act.seq_offset(16) == 0 and act.model_size() == 1
     assert act.current_policy() is None
     x = torch.zeros(2, 3)
-    assert act.shard_act(x, "hidden") is x and act.seq_tiles(64) == 1
+    assert act.shard_act(x, "kv_full") is x and act.seq_tiles(64) == 1
     assert act.batch_sum(x) is x and act.batch_mean(x) is x
 
 
@@ -262,6 +285,204 @@ def test_plain_entries_are_the_wrappers_cpu_path(axis):
     for a, b in zip(_sharded(p, g, r, c, 4, axis, **kw),
                     _sharded(p, g, r, c, 4, axis, plain=True, **kw)):
         assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# 2-D blocks (the model axis): R x C grids of [3, m, n], each block's sums
+# over the other row and column blocks emulated in one process
+# --------------------------------------------------------------------------
+
+class _Group:
+    """A group of threads whose ``all_reduce`` is the collectives' (the
+    members' tensors widened to fp32 and added in member order, narrowed
+    once), so that ``update_tensor_sharded`` runs per block as on a rank."""
+
+    def __init__(self, n):
+        self.bar = threading.Barrier(n)
+        self.buf = [None] * n
+
+    def all_reduce(self, idx, t):
+        self.buf[idx] = t
+        self.bar.wait()
+        out = self.buf[0].to(torch.float32, copy=True)
+        for x in self.buf[1:]:
+            out += x
+        self.bar.wait()
+        return out.to(t.dtype)
+
+
+class _BlockShard:
+    """``sharding.zero.TensorShard``'s interface for block (i, j) of an
+    R x C grid of thread groups."""
+
+    def __init__(self, rows, cols, both, i, j, C, n_total):
+        self.rows, self.cols, self.both = rows, cols, both
+        self.i, self.j, self.C, self.n_total = i, j, C, n_total
+
+    @property
+    def axis(self):
+        if self.cols is None:
+            return -2
+        return -1 if self.rows is None else 0
+
+    def sum(self, t):
+        return self.both.all_reduce(self.i * self.C + self.j, t)
+
+    def over_rows(self, t):
+        return t if self.rows is None else self.rows.all_reduce(self.i, t)
+
+    def over_cols(self, t):
+        return t if self.cols is None else self.cols.all_reduce(self.j, t)
+
+
+def _grid_blocks(x, R, C):
+    """[.., m, n] -> R x C contiguous blocks."""
+    return [[b.contiguous() for b in rows.chunk(C, dim=-1)]
+            for rows in x.chunk(R, dim=-2)]
+
+
+def _grid_plain(p, g, r, c, R, C, *, lr, step, wd):
+    """``core.adalomo.update_tensor_sharded`` on each block of an R x C
+    grid, one thread a block; the blocks put back together."""
+    from repro_torch.core.adalomo import FactoredState, update_tensor_sharded
+    P, Gr = _grid_blocks(_torch(p), R, C), _grid_blocks(_torch(g), R, C)
+    rs = list(_torch(r).chunk(R, dim=-1))
+    cs = list(_torch(c).chunk(C, dim=-1))
+    m, n = p.shape[-2:]
+    col_groups = [_Group(C) for _ in range(R)] if C > 1 else [None] * R
+    row_groups = [_Group(R) for _ in range(C)] if R > 1 else [None] * C
+    both = _Group(R * C)
+    out = {}
+
+    def one(i, j):
+        shard = _BlockShard(row_groups[j], col_groups[i], both, i, j, C,
+                            m * n)
+        out[i, j] = update_tensor_sharded(
+            P[i][j], Gr[i][j], FactoredState(r=rs[i], c=cs[j], v=None),
+            lr=lr, step=step, weight_decay=wd, cfg=AdaLomoConfig(),
+            shard=shard)
+
+    threads = [threading.Thread(target=one, args=(i, j))
+               for i in range(R) for j in range(C)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for i in range(R):          # every block of a row folds the same r
+        for j in range(1, C):
+            assert torch.equal(out[i, j][1].r, out[i, 0][1].r)
+    new_p = torch.cat([torch.cat([out[i, j][0] for j in range(C)], -1)
+                       for i in range(R)], -2)
+    return (new_p, torch.cat([out[i, 0][1].r for i in range(R)], -1),
+            torch.cat([out[0, j][1].c for j in range(C)], -1))
+
+
+def _grid_kernels_plain(p, g, r, c, R, C, *, lr, step, wd):
+    """K1 mode 3's and K2's sharded entries' plain versions on each block
+    (``ref.adalomo_update_grid``); the blocks put back together."""
+    P, Gr = _grid_blocks(_torch(p), R, C), _grid_blocks(_torch(g), R, C)
+    rs = [[t.clone() for _ in range(C)] for t in _torch(r).chunk(R, -1)]
+    cs = [[t.clone() for t in _torch(c).chunk(C, -1)] for _ in range(R)]
+    adalomo_update_grid(P, Gr, rs, cs, lr=lr, step=step, weight_decay=wd,
+                        plain=True)
+    return (torch.cat([torch.cat(row, -1) for row in P], -2),
+            torch.cat([row[0] for row in rs], -1),
+            torch.cat(cs[0], -1))
+
+
+@pytest.mark.parametrize("impl", ["update_tensor_sharded", "k1_mode3"])
+@pytest.mark.parametrize("grid", [(2, 2), (1, 2)])
+@pytest.mark.parametrize("shape", [(64, 128), (96, 300)])   # 300: ragged
+@pytest.mark.parametrize("pdt", [jnp.float32, jnp.bfloat16])
+def test_2d_block_update_matches_reference(shape, grid, impl, pdt):
+    """A tensor split into an R x C grid of blocks (2 x 2: rows over data,
+    columns over model; 1 x 2: columns only), updated block by block with
+    the sums over the other row and column blocks: against the reference's
+    ``update_tensor`` on the whole tensor."""
+    m, n = shape
+    R, C = grid
+    fn = _grid_plain if impl == "update_tensor_sharded" else \
+        _grid_kernels_plain
+    for step, wd in ((1.0, 0.0), (5.0, 0.01)):
+        p, g, r, c = _inputs(m, n, pdt, step, seed=m + n + R)
+        pk, rk, ck = fn(p, g, r, c, R, C, lr=5e-4, step=step, wd=wd)
+        pr, rr, cr = _reference(p, g, r, c, lr=5e-4, step=step, wd=wd)
+        tol = 1e-5 if pdt == jnp.float32 else 5e-3
+        np.testing.assert_allclose(_np(pk), np.asarray(pr, np.float32),
+                                   rtol=tol, atol=tol)
+        np.testing.assert_allclose(_np(rk), np.asarray(rr), rtol=3e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(_np(ck), np.asarray(cr), rtol=3e-5,
+                                   atol=1e-5)
+
+
+def test_single_axis_grid_keeps_the_single_axis_bits():
+    """K1 mode 3's path on a 2 x 1 and a 1 x 2 grid (one way split) gives
+    the bits of the single-axis entries (modes 1 and 2) on the same
+    shards, plain versions both."""
+    p, g, r, c = _inputs(96, 160, jnp.bfloat16, 5.0, seed=4)
+    kw = dict(lr=5e-4, step=5.0, wd=0.01)
+    for grid, axis in (((2, 1), -2), ((1, 2), -1)):
+        a = _grid_kernels_plain(p, g, r, c, *grid, **kw)
+        b = _sharded(p, g, r, c, 2, axis, plain=True, **kw)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y), grid
+
+
+@pytest.mark.parametrize("arch_id", ARCH_IDS)
+def test_zero3_places_match_reference_specs(arch_id):
+    """``sharding.zero``'s 2-D places of every config at full width on
+    (4, 2) against the reference's ``param_pspecs``: the data dim and the
+    model dim of each leaf, the expert stacks' model split kept at use;
+    and each factored state's places against the reference's
+    ``opt_pspecs`` (r the param's row split, c its column split) wherever
+    the reference's shape table is unambiguous (two params of one shape
+    but other specs share its entry there)."""
+    from repro_torch.sharding.zero import leaf_places, param_places
+    _, abstract = _abstract(arch_id)
+    mesh = LAYOUTS["4x2"]
+    ref_axes, axes = ref_rules.MeshAxes(StandIn(mesh)), rules.MeshAxes(mesh)
+    params = _meta(abstract)
+    ref_p = ref_rules.param_pspecs(abstract, ref_axes)
+    places = param_places(params, axes)
+
+    def dim_of(spec, name):
+        for i, a in enumerate(spec):
+            if a == name or (isinstance(a, tuple) and name in a):
+                return i
+        return None
+
+    got = [pl for _, pl in tree_flatten_with_path(places)]
+    ref_leaves = _ref_specs(ref_p)
+    paths = [("/".join(kp)) for kp, _ in tree_flatten_with_path(places)]
+    assert len(got) == len(ref_leaves)
+    for path, pl, spec in zip(paths, got, ref_leaves):
+        assert (pl.data, pl.model) == (dim_of(spec, "data"),
+                                       dim_of(spec, "model")), path
+        assert pl.ep == (pl.model is not None and bool(re.search(
+            r"moe/w_(gate|up|down)", path))), path
+    state = get_opt("adalomo").init(params)
+    shapes = tree_map(lambda t: tuple(t.shape), params)
+    o_places = leaf_places(places, shapes, state)[len(got) + 1:]
+    ref_o = _ref_specs(ref_rules.opt_pspecs(
+        jax.eval_shape(ref_get_opt("adalomo").init, abstract), abstract,
+        ref_p, ref_axes))
+    by_shape = {}
+    for leaf, spec in zip(pytree_leaves(params), ref_leaves):
+        by_shape.setdefault(tuple(leaf.shape), set()).add(spec)
+    ambiguous = {shp for shp, specs in by_shape.items() if len(specs) > 1}
+    compared = 0
+    for t, pl, spec in zip(pytree_leaves(state.moments), o_places,
+                           ref_o[1:]):                  # after the step
+        sh = tuple(t.shape)
+        near = [s for s in by_shape if s == sh or s[:-1] == sh
+                or s[:-2] + s[-1:] == sh]
+        if any(s in ambiguous for s in near) or len(near) != 1:
+            continue
+        compared += 1
+        assert (pl.data, pl.model) == (dim_of(spec, "data"),
+                                       dim_of(spec, "model")), sh
+    assert compared > 0
 
 
 def test_cfg_default_matches_reference():
