@@ -120,7 +120,28 @@ printing one JSON line:
            experts expert-parallel and never gathered over model — each
            against the unsharded run at its depth, with per-rank peaks,
            collective calls and bytes a step, step seconds and mode-3
-           launches a step, each line printed before its checks.
+           launches a step, each line printed before its checks.  The
+           optimizer side of a mesh (``optimizers``), two gloo ranks on
+           (2,): Table 1's four arms (fused AdaLomo and LOMO, unfused
+           Adafactor and AdamW) on danube at 4 layers in bf16, 4 x 1024,
+           2 steps each, memory freed and asserted between arms — per
+           rank the peak, the params' and state's bytes after init, the
+           collectives a step, step seconds, K1/K2's sharded launches
+           (the AdaLomo arm only); peaks AdaLomo ~ LOMO (5 %) < Adafactor
+           < AdamW, AdamW's state 8 B a param of the rank's blocks, one
+           host sync a step outside the gloo staging.  Unfused AdamW and
+           Adafactor in fp32 at 2 layers, 2 steps, each rank's blocks
+           against the same arm unsharded on the card (loss rtol 1e-5;
+           params rtol 5e-4, atol 1e-5; AdamW's near-zero-gradient
+           elements counted apart within 2 lr a step, at most 1e-6 of the
+           params).  Fused AdaLomo under the sentinel (skip + backoff, the
+           trust guard) with every probe (the factored ones every 2), fp32
+           at 2 layers, 4 steps, a 100x update at step 3: skipped there on
+           both ranks and in the unsharded run, every probe value and
+           verdict the same bits on both ranks and within rtol 1e-4 /
+           atol 1e-5 of the unsharded run's (histogram counts exactly),
+           K1/K2's sharded entries launched, one host sync a step outside
+           the staging.
   resume   ``run(spec)`` on h2o-danube-1.8b as in train, 4 steps, with
            checkpoints every 2 steps (3.67 GB each, written under the
            system temp or ``_chip_smoke_tmp/`` and removed), eval every 2
@@ -5235,14 +5256,15 @@ def dist_gloo_rank(rank: int, world: int, store: str, root: str,
         dist.destroy_process_group()
 
 
-def spawn_gloo(world: int, root: str, job=None, timeout=DIST_GLOO_TIMEOUT_S
-               ) -> float:
-    """``world`` gloo ranks on the card running ``job`` (dist_gloo_rank),
-    killed after ``timeout`` seconds; returns the wall seconds."""
+def spawn_gloo(world: int, root: str, job=None, timeout=DIST_GLOO_TIMEOUT_S,
+               target=None) -> float:
+    """``world`` gloo ranks on the card running ``job`` (``target``,
+    default dist_gloo_rank), killed after ``timeout`` seconds; returns the
+    wall seconds."""
     import torch.multiprocessing as mp
     t0 = time.time()
     store = os.path.join(root, f"store_{(job or {}).get('tag', '')}")
-    ctx = mp.spawn(dist_gloo_rank, args=(world, store, root, job),
+    ctx = mp.spawn(target or dist_gloo_rank, args=(world, store, root, job),
                    nprocs=world, join=False)
     while not ctx.join(timeout=2.0):
         if time.time() - t0 > timeout:
@@ -5602,6 +5624,397 @@ def dist_model_axis(root, refs) -> None:
     return out
 
 
+# The optimizer side of a mesh: two gloo ranks sharing the card on (2,).
+# Table 1's four arms in danube's bf16 at 4 layers; unfused AdamW and
+# Adafactor in fp32 at 2 layers against the same arms unsharded; fused
+# AdaLomo under the sentinel (skip + backoff, the trust guard) and every
+# probe, fp32 at 2 layers, a 100x update at step 3.
+DIST_OPT_STEPS = 2
+DIST_OPT_LAYERS = 2                 # parity and the guard, fp32
+DIST_OPT_PARITY = ("adamw", "adafactor")
+DIST_OPT_GUARD_STEPS = 4
+DIST_OPT_SPIKE_AT = 3
+DIST_OPT_TRUST_MAX = 1.0            # above every group ratio: read, held
+# lr 3e-4 puts AdaLomo's clipped relative update at log10 = -3.52, clear of
+# the histogram's half-decade edges
+DIST_OPT_GUARD_LR = 3e-4
+PROBE_TOL = dict(rtol=1e-4, atol=1e-5)
+# AdamW's update divides by sqrt(v): an element whose summed gradient is
+# within fp32 rounding of 0 moves by up to 2 lr differently under another
+# order of the sum over the ranks.  Such elements (beyond DIST_PARAM_TOL,
+# within 2 lr a step) are counted apart, at most this share of the params.
+NEAR_ZERO_SHARE = 1e-6
+DIST_OPT_TIMEOUT_S = 240
+
+
+def dist_opt_spec(name, steps, *, shape=None, fused=None, guard=False,
+                  lr=None):
+    from repro_torch.run import MeshSpec, ObservabilitySpec
+    from repro_torch.sentinel import SentinelSpec
+    kw = {}
+    if guard:
+        kw = dict(sentinel=SentinelSpec(enabled=True,
+                                        ladder=("skip", "backoff"), warmup=2,
+                                        trust_max=DIST_OPT_TRUST_MAX),
+                  observe=ObservabilitySpec(optimizer_every=1,
+                                            factored_every=2))
+    return RunSpec(model=ModelSpec(ARCH_ID, smoke=False),
+                   data=DataConfig(vocab=0, seq_len=1024, global_batch=4,
+                                   seed=0),
+                   opt=OptSpec(name=name, lr=lr),
+                   steps=StepSpec(total=steps, fused=fused), log_every=0,
+                   seed=0, mesh=(MeshSpec(kind="multi", shape=shape)
+                                 if shape else MeshSpec()), **kw)
+
+
+def own_syncs(caught: list) -> int:
+    """Synchronising host transfers outside the collectives' gloo staging
+    of CUDA tensors (which is a copy through host memory by nature, counted
+    in ``collectives.STATS["staged_bytes"]``)."""
+    return sum("synchroniz" in str(w.message)
+               and os.path.basename(w.filename) != "collectives.py"
+               for w in caught)
+
+
+def flat_probes(metrics: dict) -> dict:
+    """A step's probe values and the guard's verdict, flat and host-side:
+    ``{"group_ratio/<group>": x, "eff_lr/counts": [...], "factored/<key>":
+    x, "sentinel/<key>": x}``."""
+    out = {}
+    for part, vals in metrics.get("opt_health", {}).items():
+        for k, v in vals.items():
+            out[f"{part}/{k}"] = v.tolist() if hasattr(v, "tolist") else v
+    for k, v in metrics.get("sentinel", {}).items():
+        out[f"sentinel/{k}"] = v
+    return out
+
+
+def dist_opt_watch(caught: list):
+    """A hook keeping each step's flat probes and verdict and the host
+    syncs outside the staging (from its own end at the previous step)."""
+    from repro_torch.run import Hook
+
+    class Watch(Hook):
+        def __init__(self):
+            self.values, self.syncs, self._mark = [], [], 0
+
+        def on_run_start(self, ctx):
+            self._mark = own_syncs(caught)
+
+        def on_step_end(self, ctx, ev):
+            self.syncs.append(own_syncs(caught) - self._mark)
+            self.values.append(flat_probes(ev.metrics))
+            self._mark = own_syncs(caught)
+
+    return Watch()
+
+
+def dist_opt_arm(name, fused, base, arch, world) -> dict:
+    """One arm of Table 1 on this rank of a (world,) mesh: its program and
+    this rank's shards first (bytes after init), then ``run(spec)``, K1/K2
+    counts and the collectives' stats set to 0 before it and read after,
+    host syncs outside the staging counted; then everything freed."""
+    from repro_torch.core.tree import pytree_leaves, tree_flatten_with_path
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.run import build_step_program
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.zero import Zero3
+    spec = dist_opt_spec(name, DIST_OPT_STEPS, shape=(world,), fused=fused)
+    torch.cuda.reset_peak_memory_stats()
+    zero = Zero3(make_mesh((world,), DEV), arch.init_params(0, device="meta"))
+    program = build_step_program(spec, arch, device=DEV, zero=zero)
+    params, state = program.init(spec.seed)
+    shapes = [shp for _, shp in tree_flatten_with_path(zero.shapes)]
+    places = [pl for _, pl in tree_flatten_with_path(zero.dims)]
+    n_split = sum(math.prod(s) for s, pl in zip(shapes, places)
+                  if not pl.whole)
+    n_whole = sum(math.prod(s) for s, pl in zip(shapes, places) if pl.whole)
+    rec = {"optimizer": name, "engine": "fused" if fused else "unfused",
+           "n_params": n_split + n_whole, "n_params_whole_leaves": n_whole,
+           "local_param_bytes": tree_bytes(params),
+           "local_state_bytes": sum(t.numel() * t.element_size() for t in
+                                    pytree_leaves(state.moments)),
+           "init_allocated_bytes": held_bytes() - base}
+    if name == "adamw":
+        # fp32 m and v: 8 bytes for each param of this rank's blocks
+        rec["state_bytes_expected"] = 8 * (n_split // world + n_whole)
+    timing = TimingHook()
+    reset_launches()
+    C.reset_stats()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            result = run(spec, program=program, params=params,
+                         opt_state=state, hooks=[timing],
+                         log_fn=lambda s: None)
+            launches = sharded_launches()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    rec.update(
+        losses=result.history["loss"], step_seconds=timing.step_s,
+        launches=launches,
+        collectives_per_step={k: v / DIST_OPT_STEPS
+                              for k, v in C.STATS.items()},
+        host_syncs=own_syncs(caught),
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        params_finite=all_finite(result.params))
+    del result, params, state, program, zero
+    rec["allocated_after_free_bytes"] = held_bytes()
+    return rec
+
+
+def dist_opt_rank(rank: int, world: int, store: str, root: str,
+                  job=None) -> None:
+    """One of the two gloo ranks of ``dist_optimizers`` (spawned): Table
+    1's arms, the fp32 parity arms (this rank's blocks saved), the guarded
+    and probed run; what it measured to ``rank{r}_opt.json``."""
+    import torch.distributed as dist
+    from repro_torch.sentinel import Injection
+    from repro_torch.sharding import collectives as C
+    del job
+    torch.cuda.set_device(DEV)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    out = {"arms": [], "parity": {}}
+    try:
+        base = held_bytes()
+        out["base_bytes"] = base
+        arch = cut_arch(DIST_GLOO_LAYERS)
+        for name, fused in BASELINE_ARMS:
+            out["arms"].append(dist_opt_arm(name, fused, base, arch, world))
+        arch32 = cut_arch(DIST_OPT_LAYERS, torch.float32)
+        for name in DIST_OPT_PARITY:
+            timing = TimingHook()
+            res = run(dist_opt_spec(name, DIST_OPT_STEPS, shape=(world,)),
+                      arch=arch32, device=DEV, hooks=[timing],
+                      log_fn=lambda s: None)
+            torch.save(tree_map(lambda t: t.cpu(), res.params),
+                       os.path.join(root, f"opt_{name}_rank{rank}.pt"))
+            out["parity"][name] = {"losses": res.history["loss"],
+                                   "step_seconds": timing.step_s}
+            del res
+            gc.collect()
+            torch.cuda.empty_cache()
+        timing = TimingHook()
+        reset_launches()
+        C.reset_stats()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                watch = dist_opt_watch(caught)
+                res = run(dist_opt_spec("adalomo", DIST_OPT_GUARD_STEPS,
+                                        shape=(world,), guard=True,
+                                        lr=DIST_OPT_GUARD_LR),
+                          arch=arch32, device=DEV, hooks=[timing, watch],
+                          inject=Injection("spike", at_step=DIST_OPT_SPIKE_AT,
+                                           scale=100.0),
+                          log_fn=lambda s: None)
+                launches = sharded_launches()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        out["guard"] = {
+            "losses": res.history["loss"], "step_seconds": timing.step_s,
+            "values": watch.values, "host_syncs_per_step": watch.syncs,
+            "launches": launches,
+            "collectives_per_step": {k: v / DIST_OPT_GUARD_STEPS
+                                     for k, v in C.STATS.items()},
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        del res
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(root, f"rank{rank}_opt.json"), "w") as f:
+        json.dump(out, f)
+
+
+def rank_block(full: torch.Tensor, pl, rank: int, world: int):
+    """Rank ``rank``'s block of a whole tensor placed at ``pl`` on a
+    (world,) mesh."""
+    if pl.data is None:
+        return full
+    k = full.shape[pl.data] // world
+    return full.narrow(pl.data, rank * k, k)
+
+
+def near_zero_parity(blocks, whole, places, rank, world, lr) -> dict:
+    """This rank's blocks against the unsharded run's params: elements
+    beyond DIST_PARAM_TOL, those of them within 2 lr a step, the largest
+    difference."""
+    out = {"outside": 0, "within_2lr_a_step": 0, "max_abs_diff": 0.0}
+    for a, b, pl in zip(blocks, whole, places):
+        b = rank_block(b, pl, rank, world).to(torch.float32).cpu()
+        diff = (a.to(torch.float32) - b).abs()
+        bad = diff > DIST_PARAM_TOL["atol"] + DIST_PARAM_TOL["rtol"] * b.abs()
+        out["outside"] += int(bad.sum())
+        out["within_2lr_a_step"] += int(
+            (bad & (diff <= 2 * lr * DIST_OPT_STEPS)).sum())
+        out["max_abs_diff"] = max(out["max_abs_diff"], float(diff.max()))
+    return out
+
+
+def dist_optimizers(root) -> dict:
+    """The optimizer side of a mesh on the card (``dist_optimizers``): two
+    gloo ranks on (2,), then the unsharded fp32 arms and guarded run in
+    this process.  Prints its line, then fails if a check did not hold."""
+    from repro_torch.core.tree import tree_flatten_with_path
+    from repro_torch.launch.mesh import MeshLayout
+    from repro_torch.sentinel import Injection
+    from repro_torch.sharding.rules import MeshAxes
+    from repro_torch.sharding.zero import param_places
+    t0 = time.time()
+    world = 2
+    spawn_s = spawn_gloo(world, root, dict(tag="opt"),
+                         timeout=DIST_OPT_TIMEOUT_S, target=dist_opt_rank)
+    ranks = [json.loads(open(os.path.join(root, f"rank{r}_opt.json")).read())
+             for r in range(world)]
+    checks = {}
+    by = [{a["optimizer"]: a for a in r["arms"]} for r in ranks]
+    for r, arms in enumerate(by):
+        peak = {k: a["peak_memory_bytes"] for k, a in arms.items()}
+        checks[f"rank {r} peaks AdaLomo ~ LOMO (5 %) < Adafactor < AdamW"] = (
+            abs(peak["adalomo"] - peak["lomo"]) <= 0.05 * peak["lomo"]
+            and max(peak["adalomo"], peak["lomo"]) < peak["adafactor"]
+            < peak["adamw"])
+        checks[f"rank {r} AdamW state 8 B a param of its blocks"] = (
+            arms["adamw"]["local_state_bytes"]
+            == arms["adamw"]["state_bytes_expected"])
+        ada = arms["adalomo"]["launches"]
+        checks[f"rank {r} K1/K2 sharded entries in the AdaLomo arm only"] = (
+            all(ada[k] > 0 for k in SHARDED_WRAPPERS)
+            and ada["adalomo_stats"] == ada["adalomo_update"] == 0
+            and all(sum(arms[k]["launches"].values()) == 0
+                    for k in ("lomo", "adafactor", "adamw")))
+        checks[f"rank {r} one host sync a step in every arm"] = all(
+            a["host_syncs"] == DIST_OPT_STEPS for a in arms.values())
+        checks[f"rank {r} memory freed after every arm"] = all(
+            a["allocated_after_free_bytes"] == ranks[r]["base_bytes"]
+            for a in arms.values())
+        checks[f"rank {r} finite losses and params"] = all(
+            a["params_finite"] and all(math.isfinite(x) for x in a["losses"])
+            for a in arms.values())
+    # fp32 parity: the same arms unsharded on the card
+    arch32 = cut_arch(DIST_OPT_LAYERS, torch.float32)
+    meta = arch32.init_params(0, device="meta")
+    places = [pl for _, pl in tree_flatten_with_path(param_places(
+        meta, MeshAxes(MeshLayout((world,), ("data",)))))]
+    parity = {}
+    for name in DIST_OPT_PARITY:
+        spec = dist_opt_spec(name, DIST_OPT_STEPS)
+        res = run(spec, arch=arch32, device=DEV, log_fn=lambda s: None)
+        whole = tree_leaves(res.params)
+        lr = spec.opt.resolved_lr()
+        rec = {"losses": ranks[0]["parity"][name]["losses"],
+               "unsharded_losses": res.history["loss"],
+               "loss_max_rel_err": max(
+                   abs(x - y) / abs(y) for x, y in
+                   zip(ranks[0]["parity"][name]["losses"],
+                       res.history["loss"])),
+               "rank_step_seconds": [r["parity"][name]["step_seconds"]
+                                     for r in ranks], "lr": lr}
+        for r in range(world):
+            blocks = tree_leaves(torch.load(
+                os.path.join(root, f"opt_{name}_rank{r}.pt")))
+            rec[f"rank{r}"] = near_zero_parity(blocks, whole, places, r,
+                                               world, lr)
+        n = sum(t.numel() for t in whole)
+        allowed = NEAR_ZERO_SHARE * n if name == "adamw" else 0
+        checks[f"{name} fp32 parity"] = (
+            rec["loss_max_rel_err"] <= DIST_LOSS_RTOL and all(
+                rec[f"rank{r}"]["outside"]
+                == rec[f"rank{r}"]["within_2lr_a_step"]
+                and rec[f"rank{r}"]["outside"] <= allowed
+                for r in range(world)))
+        parity[name] = rec
+        del res, whole
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the guard and the probes: bitwise across the ranks, within PROBE_TOL
+    # of the unsharded guarded run
+    caught: list = []
+    watch = dist_opt_watch(caught)
+    res = run(dist_opt_spec("adalomo", DIST_OPT_GUARD_STEPS, guard=True,
+                            lr=DIST_OPT_GUARD_LR),
+              arch=arch32, device=DEV, hooks=[watch],
+              inject=Injection("spike", at_step=DIST_OPT_SPIKE_AT,
+                               scale=100.0), log_fn=lambda s: None)
+    want = watch.values
+    del res
+    got = [r["guard"]["values"] for r in ranks]
+    worst, counts_equal = 0.0, True
+    for a, b in zip(got[0], want):
+        for k, v in a.items():
+            if k.endswith("counts"):
+                counts_equal &= v == b.get(k)
+            elif k.startswith(("group_ratio/", "eff_lr/", "factored/")) or \
+                    k == "sentinel/trust_worst":
+                lim = PROBE_TOL["atol"] + PROBE_TOL["rtol"] * abs(b[k])
+                worst = max(worst, abs(v - b[k]) / lim)
+    anomaly = [[v["sentinel/anomaly"] for v in g] for g in got]
+    spike_at = [float(i == DIST_OPT_SPIKE_AT)
+                for i in range(DIST_OPT_GUARD_STEPS)]
+    checks.update({
+        "guard: the spike skipped at step 3 only, on both ranks": all(
+            a == spike_at for a in anomaly) and all(
+            [v["sentinel/spike"] for v in g] == spike_at for g in got),
+        "guard: the unsharded run skips the same step":
+            [v["sentinel/anomaly"] for v in want] == spike_at,
+        "guard: every probe value and verdict bitwise across the ranks":
+            got[0] == got[1],
+        "guard: probes within PROBE_TOL of the unsharded run":
+            worst <= 1.0 and counts_equal
+            and all(a.keys() == b.keys() for a, b in zip(got[0], want)),
+        "guard: one host sync a step on both ranks": all(
+            r["guard"]["host_syncs_per_step"] == [1] * DIST_OPT_GUARD_STEPS
+            for r in ranks),
+        "guard: K1/K2 sharded entries launched": all(
+            all(r["guard"]["launches"][k] > 0 for k in SHARDED_WRAPPERS)
+            for r in ranks)})
+    arms_out = {name: {
+        "rank_peak_memory_bytes": [b[name]["peak_memory_bytes"] for b in by],
+        "rank_local_param_bytes": [b[name]["local_param_bytes"] for b in by],
+        "rank_local_state_bytes": [b[name]["local_state_bytes"] for b in by],
+        "rank_init_allocated_bytes": [b[name]["init_allocated_bytes"]
+                                      for b in by],
+        "rank_step_seconds": [b[name]["step_seconds"] for b in by],
+        "rank_collectives_per_step": [b[name]["collectives_per_step"]
+                                      for b in by],
+        "rank_launches": [b[name]["launches"] for b in by],
+        "losses": by[0][name]["losses"]} for name, _ in BASELINE_ARMS}
+    guard = {"losses": ranks[0]["guard"]["losses"],
+             "unsharded_anomalies": [v["sentinel/anomaly"] for v in want],
+             "rank_anomalies": anomaly,
+             "trust_worst": [v.get("sentinel/trust_worst") for v in got[0]],
+             "probe_max_ratio_to_tol": worst,
+             "rank_host_syncs_per_step": [r["guard"]["host_syncs_per_step"]
+                                          for r in ranks],
+             "rank_launches": [r["guard"]["launches"] for r in ranks],
+             "rank_collectives_per_step": [r["guard"]["collectives_per_step"]
+                                           for r in ranks],
+             "rank_step_seconds": [r["guard"]["step_seconds"] for r in ranks],
+             "rank_peak_memory_bytes": [r["guard"]["peak_memory_bytes"]
+                                        for r in ranks]}
+    failed = [k for k, ok in checks.items() if not ok]
+    emit("dist", sub="optimizers", arch=ARCH_ID, mesh=[world], batch=4,
+         seq=1024, n_params=by[0]["adamw"]["n_params"],
+         table1={"n_layers": DIST_GLOO_LAYERS, "dtype": "bfloat16",
+                 "steps": DIST_OPT_STEPS, "arms": arms_out},
+         parity={"n_layers": DIST_OPT_LAYERS, "dtype": "float32",
+                 "tolerance": {"loss_rtol": DIST_LOSS_RTOL, **DIST_PARAM_TOL,
+                               "near_zero_share": NEAR_ZERO_SHARE},
+                 **parity},
+         guard={"n_layers": DIST_OPT_LAYERS, "dtype": "float32",
+                "steps": DIST_OPT_GUARD_STEPS, "spike_at": DIST_OPT_SPIKE_AT,
+                "trust_max": DIST_OPT_TRUST_MAX, "lr": DIST_OPT_GUARD_LR,
+                "probe_tolerance": PROBE_TOL, **guard},
+         spawn_seconds=spawn_s, seconds=time.time() - t0, checks=checks)
+    if failed:
+        raise AssertionError(f"dist optimizers: {failed}")
+    return {"seconds": time.time() - t0}
+
+
 def phase_dist(train) -> dict:
     """The sharded run on the card (module docstring)."""
     import torch.distributed as dist
@@ -5620,11 +6033,13 @@ def phase_dist(train) -> dict:
         t_model = time.time()
         model = dist_model_axis(root, refs)
         model_s = time.time() - t_model
+        progress("dist: the optimizer side of a mesh, two gloo ranks")
+        opt = dist_optimizers(root)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(root, ignore_errors=True)
     emit("dist", sub="done", seconds=time.time() - t0,
-         model_axis_seconds=model_s)
+         model_axis_seconds=model_s, optimizers_seconds=opt["seconds"])
     return {"launches": nccl["launches"],
             "mode3_launches": model["model_2x2"]["mode3_launches"][0]}
 

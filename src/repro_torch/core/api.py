@@ -265,11 +265,15 @@ class Opt:
                         moments=tree_map(lambda _: next(it), params))
 
     @torch.no_grad()
-    def step(self, params, grads, state: OptState, hparams=None) -> tuple:
+    def step(self, params, grads, state: OptState, hparams=None, *,
+             shards=None) -> tuple:
         """One unfused optimizer step, **in place**: θ, s ← rule(θ, g, s, hp)
         per tensor, stacks with ``batch_dims=1`` so the math is identical to
-        the fused path.  Returns ``(params, new_state)``; ``params`` and the
-        moments are the objects that were passed in."""
+        the fused path.  ``shards`` (a tree of ``sharding.zero.TensorShard``
+        or None, ``Zero3.tree_shards``) marks the leaves that are one rank's
+        ZeRO-3 block of a tensor; the rule gets each as ``shard=``, as the
+        fused engine gives it.  Returns ``(params, new_state)``; ``params``
+        and the moments are the objects that were passed in."""
         flat, infos, labels = self._flat_infos(params)
         if not flat:
             return params, state
@@ -277,12 +281,15 @@ class Opt:
         hp = hparams_on_device(self.resolve(hparams), device)
         g_flat = [g for _, g in tree_flatten_with_path(grads)]
         s_flat = [s for _, s in tree_flatten_with_path(state.moments)]
+        sh_flat = ([None] * len(flat) if shards is None
+                   else [sh for _, sh in tree_flatten_with_path(shards)])
         new_step = state.step + 1
         stepf = new_step.to(torch.float32)
-        for (_, p), g, s, info, lab in zip(flat, g_flat, s_flat, infos,
-                                           labels):
+        for (_, p), g, s, sh, info, lab in zip(flat, g_flat, s_flat, sh_flat,
+                                               infos, labels):
+            kw = {} if sh is None else {"shard": sh}
             self.rule.update(p, g, s, hp[lab], stepf,
-                             batch_dims=int(info.stacked))
+                             batch_dims=int(info.stacked), **kw)
         return params, OptState(step=new_step, moments=state.moments)
 
     # ---------------- introspection ----------------

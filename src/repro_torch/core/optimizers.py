@@ -149,15 +149,16 @@ class MomentumState(NamedTuple):
 
 def sgd_momentum(*, lr: float = 1e-3, beta1: float = 0.9,
                  bias_correction: bool = True) -> UpdateRule:
-    """First-moment-only ablation (paper Eq. 3)."""
+    """First-moment-only ablation (paper Eq. 3).  Elementwise, so a ZeRO-3
+    shard (``shard``) needs nothing of the other ranks."""
 
     def init_fn(param, *, factored=None, batch_dims=0):
         del factored, batch_dims
         return MomentumState(m=_zeros32(param))
 
     @torch.no_grad()
-    def update_fn(param, grad, state, hp, step, *, batch_dims=0):
-        del batch_dims
+    def update_fn(param, grad, state, hp, step, *, batch_dims=0, shard=None):
+        del batch_dims, shard          # elementwise: a shard is whole to it
         b1 = hp["beta1"]
         m = state.m.mul_(b1).add_((1.0 - b1) * grad.to(_F32))
         m_hat = m / (1.0 - b1 ** step) if bias_correction else m
@@ -176,15 +177,16 @@ def sgd_variance(*, lr: float = 1e-3, beta2: float = 0.999,
                  eps: float = 1e-8,
                  bias_correction: bool = True) -> UpdateRule:
     """Second-moment-only ablation (paper Eq. 4) — the 'SGD with variance'
-    curve in Fig. 1/6 that motivates AdaLomo."""
+    curve in Fig. 1/6 that motivates AdaLomo.  Elementwise, as
+    :func:`sgd_momentum`."""
 
     def init_fn(param, *, factored=None, batch_dims=0):
         del factored, batch_dims
         return VarianceState(v=_zeros32(param))
 
     @torch.no_grad()
-    def update_fn(param, grad, state, hp, step, *, batch_dims=0):
-        del batch_dims
+    def update_fn(param, grad, state, hp, step, *, batch_dims=0, shard=None):
+        del batch_dims, shard          # elementwise: a shard is whole to it
         b2 = hp["beta2"]
         g32 = grad.to(_F32)
         v = state.v.mul_(b2).add_((1.0 - b2) * torch.square(g32))
@@ -209,15 +211,16 @@ class AdamState(NamedTuple):
 def adamw(*, lr: float = 1e-3, beta1: float = 0.9, beta2: float = 0.999,
           eps: float = 1e-8, weight_decay: float = 0.0) -> UpdateRule:
     """AdamW: fp32 m and v (8 bytes a parameter); the fp32 copy of θ is
-    decayed before the update is subtracted."""
+    decayed before the update is subtracted.  Elementwise, as
+    :func:`sgd_momentum`."""
 
     def init_fn(param, *, factored=None, batch_dims=0):
         del factored, batch_dims
         return AdamState(m=_zeros32(param), v=_zeros32(param))
 
     @torch.no_grad()
-    def update_fn(param, grad, state, hp, step, *, batch_dims=0):
-        del batch_dims
+    def update_fn(param, grad, state, hp, step, *, batch_dims=0, shard=None):
+        del batch_dims, shard          # elementwise: a shard is whole to it
         b1, b2, lr = hp["beta1"], hp["beta2"], hp["lr"]
         g32 = grad.to(_F32)
         # the moments are updated in place: the same products and sums as
@@ -259,7 +262,14 @@ def adafactor(cfg: Optional[AdafactorConfig] = None, *, lr: float = 1e-3,
     """Adafactor: row and column *means* of g², folded by
     ``beta2t = 1 - step^(-decay_rate)``; its own arithmetic, never AdaLomo's
     sums, β-EMA or kernels.  AdaLomo's state container and init are shared,
-    with Adafactor's factoring thresholds."""
+    with Adafactor's factoring thresholds.
+
+    ``update`` takes ``shard`` (a ``sharding.zero.TensorShard``) for one
+    rank's ZeRO-3 block of a matrix: the row means are the row sums summed
+    over the column blocks over the whole n, the column means likewise over
+    the row blocks and the whole m, ``reconstruct_v``'s Σr is summed over
+    the row blocks, and the two RMS values (the clip on u, and θ's scale)
+    sum their squares over all the blocks and divide by ``n_total``."""
     cfg = cfg or AdafactorConfig()
     al_cfg = _adalomo.AdaLomoConfig(
         min_dim_size_to_factor=cfg.min_dim_size_to_factor,
@@ -270,12 +280,30 @@ def adafactor(cfg: Optional[AdafactorConfig] = None, *, lr: float = 1e-3,
             al_cfg, factored=factored)
         return _adalomo.init_state(param, c, batch_dims=batch_dims)
 
+    def moment_sharded(g2, state, beta2t, shard):
+        """(new state, v̂) of one block: the means and Σr over the ranks
+        holding the other blocks."""
+        if state.v is not None:
+            v = beta2t * state.v + (1.0 - beta2t) * g2
+            return _adalomo.FactoredState(r=None, c=None, v=v), v
+        m, n = shard.whole_mn(g2.shape[-2], g2.shape[-1])
+        r = beta2t * state.r + (1.0 - beta2t) * (
+            shard.over_cols(torch.sum(g2, dim=-1)) / n)
+        raw = shard.over_rows(torch.cat(
+            [torch.sum(g2, dim=-2), torch.sum(r, dim=-1, keepdim=True)], -1))
+        c = beta2t * state.c + (1.0 - beta2t) * (raw[..., :-1] / m)
+        v = (r[..., :, None] * c[..., None, :]) / torch.clamp_min(
+            raw[..., -1:, None], cfg.eps_stat)
+        return _adalomo.FactoredState(r=r, c=c, v=None), v
+
     @torch.no_grad()
-    def update_fn(param, grad, state, hp, step, *, batch_dims=0):
+    def update_fn(param, grad, state, hp, step, *, batch_dims=0, shard=None):
         g32 = grad.to(_F32)
         g2 = torch.square(g32) + cfg.eps_stat
         beta2t = 1.0 - step ** (-hp["decay_rate"])
-        if state.v is not None:
+        if shard is not None:
+            new, v = moment_sharded(g2, state, beta2t, shard)
+        elif state.v is not None:
             new = _adalomo.FactoredState(
                 r=None, c=None, v=beta2t * state.v + (1.0 - beta2t) * g2)
         else:
@@ -284,15 +312,26 @@ def adafactor(cfg: Optional[AdafactorConfig] = None, *, lr: float = 1e-3,
                 c=beta2t * state.c + (1.0 - beta2t) * torch.mean(g2, dim=-2),
                 v=None)
         del g2
-        u = g32 * torch.rsqrt(_adalomo.reconstruct_v(new, al_cfg)
-                              + cfg.eps_stat)
-        del g32
-        # per layer slice: the trailing one or two dims form "the matrix"
-        axes = _adalomo._matrix_axes(u.ndim - batch_dims)
-        u = u / torch.clamp_min(_adalomo._rms(u, axes) / hp["clip"], 1.0)
+        if shard is None:
+            v = _adalomo.reconstruct_v(new, al_cfg)
+        u = g32 * torch.rsqrt(v + cfg.eps_stat)
+        del g32, v
         p32 = param.to(_F32)
+        if shard is None:
+            # per layer slice: the trailing one or two dims form "the matrix"
+            axes = _adalomo._matrix_axes(u.ndim - batch_dims)
+            rms_u = _adalomo._rms(u, axes)
+            rms_p = _adalomo._rms(p32, axes) if cfg.relative_step_scale \
+                else None
+        else:
+            sq = shard.sum(torch.stack(
+                [torch.sum(torch.square(u), dim=(-2, -1)),
+                 torch.sum(torch.square(p32), dim=(-2, -1))], dim=-1))
+            rms_u = torch.sqrt(sq[..., 0, None, None] / shard.n_total)
+            rms_p = torch.sqrt(sq[..., 1, None, None] / shard.n_total)
+        u = u / torch.clamp_min(rms_u / hp["clip"], 1.0)
         if cfg.relative_step_scale:
-            u = u * torch.clamp_min(_adalomo._rms(p32, axes), cfg.eps_rms)
+            u = u * torch.clamp_min(rms_p, cfg.eps_rms)
         p32 = p32 * (1.0 - hp["lr"] * hp["weight_decay"])
         param.copy_((p32 - hp["lr"] * u).to(param.dtype))
         for old, x in zip(state, new):
@@ -309,10 +348,8 @@ def adafactor(cfg: Optional[AdafactorConfig] = None, *, lr: float = 1e-3,
 # Registry
 # --------------------------------------------------------------------------
 
-# The rules whose update takes a ZeRO-3 shard (a 2-D block included); the
-# others (unfused baselines) run on a mesh from slice 6c of the port.
-SHARDED_RULES = ("adalomo", "lomo", "sgd")
-
+# Every rule's update takes ``shard`` (a ZeRO-3 block of a tensor, 2-D
+# blocks included), so every rule runs on a mesh, fused or unfused.
 REGISTRY: dict[str, Callable[..., UpdateRule]] = {
     "adalomo": adalomo,
     "lomo": sgd,       # LOMO == fused SGD

@@ -19,7 +19,8 @@ with ``--resume`` continues it.
 Scale-out (ZeRO-3 over the axes of ``--mesh-shape``: ``N`` is ``(data,)``,
 ``DxM`` ``(data, model)``, ``PxDxM`` ``(pod, data, model)``; a model axis
 larger than 1 adds sequence and expert parallelism, for the transformer
-family):
+family; every ``--optimizer``, fused or unfused, with ``--sentinel*`` and
+``--observe-*``):
 
   * ``--device cpu --virtual-devices N`` spawns N ``gloo`` ranks on the
     host, the counterpart of the reference's host-platform device count

@@ -24,14 +24,23 @@ both are on.  Either wrapper keeps one pre-step :class:`Snapshot` of params
 and moments, whose buffers the program owns from step to step.
 
 With ``zero`` (a ``sharding.zero.Zero3``, built by ``fleet.elastic`` for
-``spec.mesh.shape``) the fused step runs ZeRO-3 sharded: ``init`` returns
-this rank's resting shards, and the step takes the **global** batch, every
-rank the same, keeping its rows of each microbatch (so microbatch i is the
-single-device run's microbatch i) and agreeing on a pending preemption
-signal through the step's metrics (``"preempt"``, summed over the ranks and
-read with the step's one transfer).  The sentinel's verdict is reduced over
-the ranks inside the step (``sentinel/guard.py``), and ``loss_fn``
-(evaluation) gathers as the step does.
+``spec.mesh.shape``) the step runs ZeRO-3 sharded, fused or unfused:
+``init`` returns this rank's resting shards, and the step takes the
+**global** batch, every rank the same, keeping its rows and sequence tile
+of each microbatch (so microbatch i is the single-device run's microbatch
+i) and agreeing on a pending preemption signal through the step's metrics
+(``"preempt"``, summed over the ranks and read with the step's one
+transfer).  The unfused step gathers the whole params once a step
+(``Zero3.gather``: the MoE expert stacks stay split over ``model``), takes
+``torch.autograd.grad`` of this rank's share of the loss (the model's own
+normalisation by the global token count, under the mesh's activation
+policy), lands each microbatch's gradients as the leaves rest
+(``Zero3.scatter``: rank-ordered fp32 sums), accumulates the shards and
+steps them (``Opt.step(shards=)``).  Its memory a rank: the whole params
+and one microbatch's whole gradients, beside the sharded params and
+state.  The sentinel's verdict and the probes are reduced over the ranks
+inside the step (``sentinel/guard.py``, ``telemetry/probes.py``), and
+``loss_fn`` (evaluation) gathers as the step does.
 """
 from __future__ import annotations
 
@@ -45,6 +54,7 @@ from repro_torch.core import optimizers as opt_lib
 from repro_torch.core.api import Opt, no_decay_1d
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.run.spec import RunSpec
+from repro_torch.sharding.act import use_policy
 from repro_torch.train.schedules import constant, warmup_cosine
 
 
@@ -66,26 +76,16 @@ def check_ported(spec: RunSpec, arch=None) -> None:
     not given)."""
     shape = spec.mesh.shape
     tp = shape[-1] if shape is not None and len(shape) >= 2 else 1
-    unported = []
-    if tp > 1:
-        if arch is None:
-            from repro_torch.models.registry import get_arch
-            arch = get_arch(spec.model.arch, smoke=spec.model.smoke)
-        gap = model_axis_gap(arch, tp)
-        unported.append((gap is not None, "mesh.shape",
-                         f"a model axis of {tp} with {gap} ({SLICE_6C})"))
-    if shape is not None:
-        unported += [
-            (spec.sentinel.enabled and spec.sentinel.trust_max > 0.0,
-             "sentinel.trust_max",
-             f"the sentinel's trust guard on a mesh ({SLICE_6C})"),
-            (spec.observe.enabled, "observe",
-             f"the optimizer-health probes on a mesh ({SLICE_6C})"),
-        ]
-    for on, field, what in unported:
-        if on:
-            raise NotImplementedError(
-                f"RunSpec.{field}: {what} is not ported to repro_torch yet")
+    if tp == 1:
+        return
+    if arch is None:
+        from repro_torch.models.registry import get_arch
+        arch = get_arch(spec.model.arch, smoke=spec.model.smoke)
+    gap = model_axis_gap(arch, tp)
+    if gap is not None:
+        raise NotImplementedError(
+            f"RunSpec.mesh.shape: a model axis of {tp} with {gap} "
+            f"({SLICE_6C}) is not ported to repro_torch yet")
 
 
 def _split_microbatches(batch: dict, k: int) -> list:
@@ -212,24 +212,25 @@ def build_step_program(spec: RunSpec, arch=None, opt: Optional[Opt] = None,
         extras.  The schedule is authoritative for lr."""
         return {**extras, "lr": lr_fn(step)}
 
-    if zero is not None:
-        from repro_torch.core.optimizers import SHARDED_RULES
-        if not fused or opt.rule.name not in SHARDED_RULES:
-            raise NotImplementedError(
-                f"optimizer {spec.opt.name!r} "
-                f"({'fused' if fused else 'unfused'}) on a mesh: only the "
-                f"fused {'/'.join(SHARDED_RULES)} rules run sharded; the "
-                "others are slice 6c of the port and not ported to "
-                "repro_torch yet")
+    def rows(b):
+        """On a mesh, this rank's rows and tile of a global (micro)batch."""
+        return b if zero is None else {n: zero.rows(x) for n, x in b.items()}
+
+    def with_preempt(params, opt_state, loss, metrics):
+        """On a mesh, the pending preemption signal summed over the ranks
+        into the metrics (read with the step's one transfer)."""
+        if zero is not None:
+            from repro_torch.fleet.preempt import pending_signal
+            from repro_torch.sharding import collectives as C
+            flag = torch.full((), pending_signal(), dtype=torch.float32,
+                              device=loss.device)
+            metrics["preempt"] = C.all_reduce_exact(flag, zero.world)
+        return params, opt_state, loss, metrics
+
     if fused:
         step_kw = arch.make_fused_train_step(
             opt, global_grad_norm=global_grad_norm, param_constraint=zero,
             grad_constraint=zero)
-
-        def rows(b):
-            """On a mesh, this rank's rows of a global (micro)batch."""
-            return b if zero is None else {n: zero.rows(x)
-                                           for n, x in b.items()}
 
         def one_step(params, opt_state, batch, hp):
             batch = _apply_loss_mask(batch)
@@ -246,37 +247,44 @@ def build_step_program(spec: RunSpec, arch=None, opt: Optional[Opt] = None,
                 out = (params, opt_state, _mean(losses),
                        {name: _mean([m[name] for m in metrics])
                         for name in metrics[0]})
-            if zero is not None:
-                from repro_torch.fleet.preempt import pending_signal
-                from repro_torch.sharding import collectives as C
-                flag = torch.full((), pending_signal(), dtype=torch.float32,
-                                  device=out[2].device)
-                out[3]["preempt"] = C.all_reduce_exact(flag, zero.world)
-            return out
+            return with_preempt(*out)
     else:
         if global_grad_norm is not None:
             raise ValueError("global_grad_norm requires the fused path")
         loss_fn = arch.make_loss_fn()
+        shards = None if zero is None else zero.tree_shards()
 
         def loss_and_grads(params, batch):
+            """(loss, metrics, grads) of one (micro)batch; on a mesh
+            ``params`` are the whole tensors gathered for the step, the
+            batch is cut to this rank's rows and tile, and the gradients
+            land as each leaf rests, summed over the ranks."""
             p_req = tree_map(lambda t: t.detach().requires_grad_(True),
                              params)
-            with torch.enable_grad():
-                loss, metrics = loss_fn(p_req, batch)
-            leaves = tree_leaves(p_req)
-            grads = torch.autograd.grad(loss, leaves)
+            policy = None if zero is None else zero.policy
+            with torch.enable_grad(), use_policy(policy):
+                loss, metrics = loss_fn(p_req, rows(batch))
+                grads = torch.autograd.grad(loss, tree_leaves(p_req))
+            metrics = {n: v.detach() for n, v in metrics.items()}
             it = iter(grads)
-            return (loss.detach(), {n: v.detach() for n, v in metrics.items()},
-                    tree_map(lambda _: next(it), p_req))
+            grads = tree_map(lambda _: next(it), p_req)
+            if zero is None:
+                return loss.detach(), metrics, grads
+            return metrics["loss"], metrics, zero.scatter(grads, zero.dims)
 
         def one_step(params, opt_state, batch, hp):
             batch = _apply_loss_mask(batch)
+            # on a mesh the whole params, gathered once for the step
+            whole = params if zero is None else zero.gather(params,
+                                                            zero.dims)
             if k == 1:
-                loss, metrics, grads = loss_and_grads(params, batch)
+                loss, metrics, grads = loss_and_grads(whole, batch)
             else:
+                # the gradients of each microbatch are scattered before
+                # the next one runs: the shards accumulate
                 losses, ms, grads = [], [], None
                 for b in _split_microbatches(batch, k):
-                    loss, m, g = loss_and_grads(params, b)
+                    loss, m, g = loss_and_grads(whole, b)
                     losses.append(loss)
                     ms.append(m)
                     grads = g if grads is None else tree_map(torch.add,
@@ -285,8 +293,10 @@ def build_step_program(spec: RunSpec, arch=None, opt: Optional[Opt] = None,
                 loss = _mean(losses)
                 metrics = {name: _mean([m[name] for m in ms])
                            for name in ms[0]}
-            params, opt_state = opt.step(params, grads, opt_state, hp)
-            return params, opt_state, loss, metrics
+            del whole              # before the update's temporaries
+            params, opt_state = opt.step(params, grads, opt_state, hp,
+                                         shards=shards)
+            return with_preempt(params, opt_state, loss, metrics)
 
     if inject is not None and not spec.sentinel.enabled:
         raise ValueError("fault injection requires spec.sentinel.enabled "
@@ -305,7 +315,8 @@ def build_step_program(spec: RunSpec, arch=None, opt: Optional[Opt] = None,
         snapshot = one_step.snapshot
     elif spec.observe.enabled:
         from repro_torch.telemetry.probes import instrument_step
-        one_step = instrument_step(one_step, opt=opt, ospec=spec.observe)
+        one_step = instrument_step(one_step, opt=opt, ospec=spec.observe,
+                                   zero=zero)
         snapshot = one_step.snapshot
     return StepProgram(spec=spec, arch=arch, opt=opt, fused=fused,
                        step=one_step, hparams_fn=hparams_fn,

@@ -37,11 +37,12 @@ level toward the anomaly.
 On a mesh (``zero``, a ``sharding.zero.Zero3``) each rank holds shards, so
 the verdict is reduced over the ranks on the device before the commit: a
 non-finite value on any rank makes the step non-finite on every rank, and
-the update norm sums the blocks' squares over the ``data`` × ``model``
-ranks in rank order, each element once (whole leaves once;
-``Zero3.sum_once``).  Every rank then reaches the same verdict from the
-same bits, inside the step's one host sync; the trust guard and the probes
-on a mesh are slice 6c.
+the per-unit sums of squares that the update norm, the trust ratios and the
+probes read are summed over the ``data`` × ``model`` ranks in rank order,
+each element once (``telemetry.probes.mesh_sums``), the trust ratios
+counting the whole leaves' elements.  Every rank then reaches the same
+verdict and the same probe values from the same bits, inside the step's
+one host sync.
 """
 from __future__ import annotations
 
@@ -50,11 +51,11 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.api import OptState
-from repro_torch.core.tree import tree_flatten_with_path, tree_leaves
 from repro_torch.sentinel.inject import float_tensors
 from repro_torch.sentinel.spec import SentinelSpec
 from repro_torch.telemetry.probes import (Snapshot, _group_ratios,
-                                          committed_sums, leaf_sums,
+                                          committed_sums, group_labels,
+                                          leaf_sums, mesh_sums,
                                           optimizer_health, update_norm_of)
 
 _TINY = 1e-30
@@ -120,15 +121,10 @@ def _f32_scalar(x: float) -> float:
     return float(torch.tensor(x, dtype=_F32))
 
 
-def _mesh_verdict(zero, nonfinite, sums) -> tuple:
-    """(non-finite on any rank, the whole model's update norm), the same
-    bits on every rank."""
+def _any_rank(zero, flag) -> torch.Tensor:
+    """0-d bool: ``flag`` is set on any rank (the same on every rank)."""
     from repro_torch.sharding import collectives as C
-    flag = C.all_reduce_exact(nonfinite.to(_F32).reshape(1), zero.world)
-    places = [pl for _, pl in tree_flatten_with_path(zero.dims)]
-    total = zero.sum_once([(pl, dsq.sum()) for (_, _, dsq, _, _), pl
-                           in zip(sums, places)])
-    return flag[0] > 0, torch.sqrt(total)
+    return C.all_reduce_exact(flag.to(_F32).reshape(1), zero.world)[0] > 0
 
 
 def guard_step(inner, *, opt, sspec: SentinelSpec, ospec=None, inject=None,
@@ -147,10 +143,6 @@ def guard_step(inner, *, opt, sspec: SentinelSpec, ospec=None, inject=None,
     hold the pre-step values.  ``zero``: the step is ZeRO-3 sharded (module
     docstring).
     """
-    if zero is not None and (ospec is not None or sspec.trust_max > 0.0):
-        raise NotImplementedError(
-            "the sentinel's trust guard and the optimizer-health probes on a "
-            "mesh are slice 6c of the port and not ported to repro_torch yet")
     snapshot = Snapshot()
     decay = _f32_scalar(sspec.ema_decay)
     one_m_decay = float(1.0 - torch.tensor(decay, dtype=_F32))
@@ -185,10 +177,10 @@ def guard_step(inner, *, opt, sspec: SentinelSpec, ospec=None, inject=None,
         # one pass over (snapshot, proposed params): the update norm, the
         # trust ratios and (committed) the probes all read these sums
         sums = leaf_sums(p_old, p2, par=use_trust or ospec is not None)
-        if zero is None:
-            unorm = update_norm_of(sums)
-        else:
-            nonfinite, unorm = _mesh_verdict(zero, nonfinite, sums)
+        if zero is not None:
+            nonfinite = _any_rank(zero, nonfinite)
+            sums = mesh_sums(sums, zero)
+        unorm = update_norm_of(sums)
 
         n = sent.clean.to(_F32)
         ema_ref = sent.ema / torch.clamp_min(
@@ -202,7 +194,7 @@ def guard_step(inner, *, opt, sspec: SentinelSpec, ospec=None, inject=None,
         trust_worst = torch.zeros((), dtype=_F32, device=dev)
         trust = torch.zeros((), dtype=torch.bool, device=dev)
         if use_trust:
-            ratios = _group_ratios(sums, tree_leaves(opt.labels(p_old)),
+            ratios = _group_ratios(sums, group_labels(opt, p_old, zero),
                                    opt)
             trust_worst = torch.max(torch.stack(list(ratios.values())))
             trust = trust_worst > trust_max
@@ -249,7 +241,7 @@ def guard_step(inner, *, opt, sspec: SentinelSpec, ospec=None, inject=None,
         if ospec is not None:
             metrics["opt_health"] = optimizer_health(
                 p_old, p2, s_old, s_out, hp_eff, opt=opt, ospec=ospec,
-                sums=committed_sums(sums, keep))
+                sums=committed_sums(sums, keep), zero=zero)
 
         return p2, s_out, loss, metrics, sent_out
 

@@ -40,6 +40,7 @@ import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.tree import (pytree_leaves, pytree_unflatten,
                                    tree_flatten_with_path, tree_leaves,
@@ -105,6 +106,11 @@ class TensorShard(NamedTuple):
         """The sum of ``t`` over the ranks holding the other column
         blocks (``t`` itself when the columns are whole)."""
         return t if self.cols is None else C.all_reduce(t, self.cols)
+
+    def whole_mn(self, m: int, n: int) -> tuple:
+        """The whole matrix's ``(rows, columns)`` from this block's."""
+        size = lambda g: 1 if g is None else dist.get_world_size(g)  # noqa
+        return m * size(self.rows), n * size(self.cols)
 
 
 def _shift(d: Optional[int], ndim: int, kind: str) -> Optional[int]:
@@ -309,6 +315,15 @@ class Zero3:
                                n_total=shp[-2] * shp[-1], group=both)
         return tree_map(one, dims, shapes)
 
+    def tree_shards(self):
+        """:meth:`shards` of the whole params tree (``Opt.step``'s
+        ``shards``): a stack's leaves by their per-layer shape."""
+        return {key: ({name: self.shards(self.dims[key][name],
+                                         self.shapes[key][name], drop=1)
+                       for name in self.dims[key]} if key == "stacks"
+                      else self.shards(self.dims[key], self.shapes[key]))
+                for key in self.dims}
+
     def seams(self, stack: str) -> dict:
         """The keywords of ``core.fused.stack_backward_update`` for one
         stack: ``layer_fn`` (the gather, ``rules.make_param_constraint``),
@@ -324,28 +339,56 @@ class Zero3:
         layer input is this rank's tile."""
         return make_residual_constraint(self)
 
-    def sum_once(self, terms) -> Tensor:
+    def sum_once(self, terms, *, per_term: bool = False):
         """The sum over the whole model of per-leaf fp32 scalars ``terms``
         (``[(place, value)]``, each the sum over this rank's block), each
         element counted once: a block held by several ranks along an axis
         that does not split it is counted on the ranks at index 0 of that
         axis only, and one fixed-order sum over the ``matrix`` group adds
-        the blocks; whole leaves are added once, after it.  The same bits
-        on every rank."""
-        dev = self.mesh.device
+        the blocks; whole leaves are added once, after it.  ``per_term``:
+        the values are fp32 vectors of any fixed lengths, and the result is
+        each term's own sum over the ranks (a list in the terms' order),
+        all in one collective.  The same bits on every rank."""
         md = self.mesh.coords.get("data", 0)
         mm = self.mesh.tile_index
+
+        def counted(pl):
+            return (pl.data is not None or md == 0) and (
+                pl.model is not None or mm == 0)
+
+        if per_term:
+            return self._sum_each(terms, counted)
         split, whole = [], []
         for pl, v in terms:
             if pl.whole:
                 whole.append(v)
-            elif (pl.data is not None or md == 0) and (
-                    pl.model is not None or mm == 0):
+            elif counted(pl):
                 split.append(v)
         part = (torch.stack(split).sum() if split
-                else torch.zeros((), device=dev))
+                else torch.zeros((), device=self.mesh.device))
         total = C.all_reduce(part.reshape(1), self.matrix)[0]
         return total + (torch.stack(whole).sum() if whole else 0.0)
+
+    def _sum_each(self, terms, counted) -> list:
+        """:meth:`sum_once`'s ``per_term`` form: the split terms' vectors
+        (zeros where not counted) joined, summed over ``matrix`` at once
+        and cut apart again; whole terms as they are."""
+        split = [i for i, (pl, _) in enumerate(terms) if not pl.whole]
+        out = [v for _, v in terms]
+        if not split:
+            return out
+        parts = []
+        for i in split:
+            pl, v = terms[i]
+            parts.append((v if counted(pl) else torch.zeros_like(v))
+                         .reshape(-1))
+        total = C.all_reduce(torch.cat(parts), self.matrix)
+        pos = 0
+        for i in split:
+            n = out[i].numel()
+            out[i] = total[pos:pos + n].reshape(out[i].shape)
+            pos += n
+        return out
 
     def rows(self, x: Tensor) -> Tensor:
         """This rank's rows of a global batch leaf (the leading dim split

@@ -25,9 +25,22 @@ elements (a layer slice, or a block of rows of a reconstructed moment), in a
 fixed order: the fp32 temporaries stay far below a layer's activations on the
 largest stacked leaves, and a re-run is bitwise the same.  Nothing is read
 back to the host: the probe values ride the runner's one per-step transfer.
+
+On a mesh (``zero``, a ``sharding.zero.Zero3``) each rank holds blocks, so
+the sums are reduced over the ranks inside the step and every rank reaches
+the same bits: each leaf's per-unit vectors are summed over the ranks
+holding its other blocks, each element counted once, in one collective
+(:func:`mesh_sums`, ``Zero3.sum_once(per_term=True)``), and the element
+counts are the whole leaves' (``zero.shapes``).  The factored residuals
+sample tensors by their whole size and sum a block's statistics over its
+row, column or block group (the leaf's ``TensorShard``).  A block cuts its
+own ``_CHUNK`` pieces, so the sharded sums round differently from the
+unsharded ones (fp32 rounding of the order of the sums, ~1e-7 relative); on
+a one-rank mesh they are the unsharded values, bit for bit.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 
@@ -35,7 +48,8 @@ import torch
 
 from repro_torch.core.adalomo import FactoredState
 from repro_torch.core.api import STACKS_KEY, OptState, path_str
-from repro_torch.core.tree import tree_flatten_with_path, tree_leaves
+from repro_torch.core.tree import (tree_flatten_with_path, tree_leaves,
+                                   tree_map)
 
 _TINY = 1e-30
 # Relative updates are measured against max(RMS(θ), _RMS_FLOOR) — the
@@ -228,6 +242,25 @@ def leaf_sums(p_old, p_new, *, par: bool = True) -> list:
     return out
 
 
+def mesh_sums(sums: list, zero) -> list:
+    """:func:`leaf_sums` of the whole model from those of this rank's
+    blocks: each leaf's per-unit vectors summed over the ranks holding its
+    other blocks, each element once (one collective), and the elements a
+    unit of the whole leaf.  A stacked leaf's units are its layers, which
+    no block splits.  The same bits on every rank."""
+    places = [pl for _, pl in tree_flatten_with_path(zero.dims)]
+    shapes = [shp for _, shp in tree_flatten_with_path(zero.shapes)]
+    terms = [(pl, dsq if osq is None else torch.cat([dsq, osq]))
+             for (_, _, dsq, osq, _), pl in zip(sums, places)]
+    out = []
+    for (path, st, dsq, osq, _), v, shp in zip(
+            sums, zero.sum_once(terms, per_term=True), shapes):
+        u = dsq.numel()
+        out.append((path, st, v[:u], None if osq is None else v[u:],
+                    math.prod(shp) // u))
+    return out
+
+
 def update_norm_of(sums: list) -> torch.Tensor:
     """Global ‖Δθ‖ from :func:`leaf_sums`."""
     return torch.sqrt(torch.cat([dsq for _, _, dsq, _, _ in sums]).sum())
@@ -325,7 +358,26 @@ def _lead_row_blocks(lead: int, m: int, n: int) -> list:
             for l in range(lead) for i in range(0, m, rows)]
 
 
-def transition_residual(r_old, c_old, r_new, c_new, beta):
+def _reducers(shard) -> tuple:
+    """(sum over the row group, over the column group, over the block
+    group) of a mesh block's ``TensorShard``; identities off a mesh."""
+    if shard is None:
+        same = lambda t: t                                      # noqa: E731
+        return same, same, same
+    return shard.over_rows, shard.over_cols, shard.sum
+
+
+def _unit_mean(x: torch.Tensor, units, n_units: int) -> torch.Tensor:
+    """The mean of per-unit values ``x`` over the whole leaf's units
+    (``units``: the group holding its other units, or None)."""
+    if units is None:
+        return torch.mean(x)
+    from repro_torch.sharding import collectives as C
+    return C.all_reduce(torch.sum(x), units) / n_units
+
+
+def transition_residual(r_old, c_old, r_new, c_new, beta, *, shard=None,
+                        units=None, n_units=None):
     """Rank-1 transition residual of the factored EMA:
     ‖v̂ₜ − (β v̂ₜ₋₁ + (1−β) v̂(R,C))‖_F / ‖v̂ₜ‖_F, mean over leading dims,
     with the implied statistics ``R = max(rₜ − β rₜ₋₁, 0)/(1−β)`` (C
@@ -335,7 +387,15 @@ def transition_residual(r_old, c_old, r_new, c_new, beta):
     each ``1/Σr_k`` folded into the column vectors; it is built a block of
     rows at a time (one product, two fused multiply-adds) and reduced by a
     norm, so no ``[m, n]`` matrix exists whole.  ``‖v̂ₜ‖_F = ‖rₜ‖‖cₜ‖/Σrₜ``
-    exactly, a product of two vector norms."""
+    exactly, a product of two vector norms.
+
+    On a mesh ``r`` and ``c`` are this rank's blocks of a matrix whose
+    ``shard`` (a ``TensorShard``) names the groups holding the others: the
+    Σr and ‖r‖² are summed over the row group, ‖c‖² over the column group
+    and the squared residual of each block over the block group; ``units``
+    is the group holding the leaf's other leading slices (an expert stack
+    split over ``model``), of ``n_units`` in all."""
+    rows, cols, blocks = _reducers(shard)
     dev = r_new.device
     b = beta.to(device=dev, dtype=_F32) if isinstance(beta, torch.Tensor) \
         else torch.full((), beta, dtype=_F32, device=dev)
@@ -345,12 +405,16 @@ def transition_residual(r_old, c_old, r_new, c_new, beta):
     m, n = r_new.shape[-1], c_new.shape[-1]
     lead = math.prod(r_new.shape[:-1])
     rs = [x.reshape(lead, m) for x in (r_new, r_old, r_imp)]
-    dens = [torch.clamp_min(torch.sum(r, dim=-1), _TINY) for r in rs]
+    r_sums = rows(torch.stack(
+        [torch.sum(r, dim=-1) for r in rs]
+        + [torch.linalg.vector_norm(rs[0], dim=-1).square()], dim=-1))
+    dens = [torch.clamp_min(r_sums[:, k], _TINY) for k in range(3)]
     weights = (1.0, -b, -(1.0 - b))
     cs = [x.reshape(lead, n) * (w / d)[:, None] for x, w, d in
           zip((c_new, c_old, c_imp), weights, dens)]
-    vn = (torch.linalg.vector_norm(rs[0], dim=-1)
-          * torch.linalg.vector_norm(cs[0], dim=-1))
+    vn = (torch.sqrt(r_sums[:, 3])
+          * torch.sqrt(cols(torch.linalg.vector_norm(cs[0], dim=-1)
+                            .square())))
     norms = []
     for l0, l1, i0, i1 in _lead_row_blocks(lead, m, n):
         x = rs[0][l0:l1, i0:i1, None] * cs[0][l0:l1, None, :]
@@ -358,20 +422,25 @@ def transition_residual(r_old, c_old, r_new, c_new, beta):
             x.addcmul_(rs[k][l0:l1, i0:i1, None], cs[k][l0:l1, None, :])
         norms.append(torch.linalg.vector_norm(x, dim=(-2, -1)))
         del x
-    res = torch.sqrt(_fold(norms, lead))
-    return torch.mean(res / torch.clamp_min(vn, _TINY))
+    res = torch.sqrt(blocks(_fold(norms, lead)))
+    return _unit_mean(res / torch.clamp_min(vn, _TINY), units, n_units)
 
 
-def factorization_error(v):
+def factorization_error(v, *, shard=None, units=None, n_units=None):
     """Literal ‖v − v_r v_cᵀ/Σv_r‖_F / ‖v‖_F for a materialized v (>= 2-D)
     — the error a rank-1 factorization of this tensor WOULD incur now;
-    reduced a block of rows at a time."""
+    reduced a block of rows at a time.  On a mesh (``shard``, ``units`` as
+    :func:`transition_residual`'s) v is this rank's block: the row sums
+    are summed over the column group, the column sums and Σv_r over the
+    row group, the squared norms over the block group."""
+    rows, cols, blocks = _reducers(shard)
     m, n = v.shape[-2], v.shape[-1]
     lead = math.prod(v.shape[:-2])
     v3 = v.reshape(lead, m, n)
-    r = torch.sum(v3, dim=-1)
-    c = torch.sum(v3, dim=-2) / torch.clamp_min(
-        torch.sum(r, dim=-1), _TINY)[:, None]
+    r = cols(torch.sum(v3, dim=-1))
+    c_sums = rows(torch.cat([torch.sum(v3, dim=-2),
+                             torch.sum(r, dim=-1, keepdim=True)], dim=-1))
+    c = c_sums[:, :-1] / torch.clamp_min(c_sums[:, -1:], _TINY)
     res, vn = [], []
     for l0, l1, i0, i1 in _lead_row_blocks(lead, m, n):
         vb = v3[l0:l1, i0:i1].to(_F32)
@@ -379,8 +448,8 @@ def factorization_error(v):
         res.append(torch.linalg.vector_norm(d, dim=(-2, -1)))
         vn.append(torch.linalg.vector_norm(vb, dim=(-2, -1)))
         del vb, d
-    return torch.mean(torch.sqrt(_fold(res, lead)) / torch.clamp_min(
-        torch.sqrt(_fold(vn, lead)), _TINY))
+    return _unit_mean(torch.sqrt(blocks(_fold(res, lead))) / torch.clamp_min(
+        torch.sqrt(blocks(_fold(vn, lead))), _TINY), units, n_units)
 
 
 def _moment_leaves(moments) -> list:
@@ -403,61 +472,104 @@ def _recon_size(st: FactoredState) -> int:
     return lead * int(st.r.shape[-1]) * int(st.c.shape[-1])
 
 
-def factored_health(s_old, s_new, beta, ospec: ObservabilitySpec) -> dict:
+def _mesh_kw(zero) -> dict:
+    """``{path: keywords}`` of the residual probes for each leaf of a
+    mesh's params: its ``TensorShard`` and, for an expert stack split over
+    ``model``, the group holding its other experts and its slice count."""
+    shards = dict((path_str(kp), sh) for kp, sh in
+                  tree_flatten_with_path(zero.tree_shards()))
+    out = {}
+    for (kp, pl), (_, shp) in zip(tree_flatten_with_path(zero.dims),
+                                  tree_flatten_with_path(zero.shapes)):
+        path = path_str(kp)
+        ep = pl.ep and zero.model is not None
+        out[path] = {"shard": shards[path],
+                     "units": zero.model if ep else None,
+                     "n_units": math.prod(shp[:-2]) if ep else None}
+    return out
+
+
+def factored_health(s_old, s_new, beta, ospec: ObservabilitySpec,
+                    zero=None) -> dict:
     """Reconstruction-error probes over sampled moment tensors.  Returns
     ``{"recon/<path>": residual}`` (+ ``"fact_err/<path>"`` for tensors
     carrying an explicit v).  Empty when the rule's state is not the
-    AdaLomo factored layout or ``beta`` is unavailable."""
+    AdaLomo factored layout or ``beta`` is unavailable.  On a mesh
+    (``zero``) the tensors are sampled by their whole size and each
+    rank's blocks reduced with the others (module docstring)."""
     out: dict = {}
     if beta is None:
         return out
     old = dict(_moment_leaves(s_old))
     new = dict(_moment_leaves(s_new))
-    fact = [(p, _recon_size(st)) for p, st in new.items()
+    if zero is None:
+        size = lambda p, st: (_recon_size(st) if st.v is None    # noqa: E731
+                              else int(st.v.numel()))
+        kw = collections.defaultdict(dict)
+    else:
+        whole = {path_str(kp): math.prod(shp)
+                 for kp, shp in tree_flatten_with_path(zero.shapes)}
+        size = lambda p, st: whole[p]                           # noqa: E731
+        kw = _mesh_kw(zero)
+    fact = [(p, size(p, st)) for p, st in new.items()
             if st.r is not None and st.c is not None and p in old]
     for p, _sz in _sample(fact, ospec.sample_tensors):
         so, sn = old[p], new[p]
         out[f"recon/{p}"] = transition_residual(so.r, so.c, sn.r, sn.c,
-                                                beta)
-    dense = [(p, int(st.v.numel())) for p, st in new.items()
+                                                beta, **kw[p])
+    dense = [(p, size(p, st)) for p, st in new.items()
              if st.v is not None and st.v.ndim >= 2]
     for p, _sz in _sample(dense, ospec.sample_tensors):
-        out[f"fact_err/{p}"] = factorization_error(new[p].v)
+        out[f"fact_err/{p}"] = factorization_error(new[p].v, **kw[p])
     return out
 
 
 def optimizer_health(p_old, p_new, s_old, s_new, hp, *, opt,
-                     ospec: ObservabilitySpec, sums=None) -> dict:
+                     ospec: ObservabilitySpec, sums=None, zero=None) -> dict:
     """The full per-step health dict (fp32 0-d device tensors, one
     ``[hist_bins]`` histogram, and the histogram's host constants).  One
     pass over ``(p_old, p_new)`` (or the caller's :func:`leaf_sums` of
     them) feeds both the group ratios and the histogram.  Its structure
-    depends only on (params, opt, ospec)."""
+    depends only on (params, opt, ospec).  On a mesh (``zero``) the values
+    are the whole model's, the same bits on every rank; ``sums`` are then
+    :func:`mesh_sums`' when given."""
     beta = opt.resolve(hp)[0].get("beta")
     if sums is None:
         sums = leaf_sums(p_old, p_new)
+        if zero is not None:
+            sums = mesh_sums(sums, zero)
     return {
-        "group_ratio": _group_ratios(sums, tree_leaves(opt.labels(p_old)),
+        "group_ratio": _group_ratios(sums, group_labels(opt, p_old, zero),
                                      opt),
         "eff_lr": _eff_lr(sums, ospec),
         "factored": factored_health(s_old.moments, s_new.moments, beta,
-                                    ospec),
+                                    ospec, zero),
     }
 
 
-def instrument_step(inner, *, opt, ospec: ObservabilitySpec):
+def group_labels(opt, params, zero=None) -> list:
+    """The group index of each leaf, in leaf order; on a mesh labelled by
+    the whole leaves' shapes (``zero.shapes``), as the unsharded run's."""
+    if zero is not None:
+        params = tree_map(lambda shp: torch.empty(shp, device="meta"),
+                          zero.shapes)
+    return tree_leaves(opt.labels(params))
+
+
+def instrument_step(inner, *, opt, ospec: ObservabilitySpec, zero=None):
     """Wrap an in-place step callable ``(params, opt_state, batch, hp) ->
     (params', opt_state', loss, metrics)`` so metrics additionally carries
     ``"opt_health"``: the pre-step values are captured into a
     :class:`Snapshot` (the wrapper's ``.snapshot``, kept across steps)
-    before ``inner`` runs."""
+    before ``inner`` runs.  ``zero``: the step is ZeRO-3 sharded, and the
+    probes are reduced over the ranks (module docstring)."""
     snapshot = Snapshot()
 
     def instrumented(params, opt_state, batch, hp):
         p_old, s_old = snapshot.capture(params, opt_state)
         p2, s2, loss, metrics = inner(params, opt_state, batch, hp)
         health = optimizer_health(p_old, p2, s_old, s2, hp, opt=opt,
-                                  ospec=ospec)
+                                  ospec=ospec, zero=zero)
         return p2, s2, loss, {**metrics, "opt_health": health}
 
     instrumented.snapshot = snapshot

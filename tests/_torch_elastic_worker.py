@@ -1,5 +1,6 @@
 """The ranks of the sharded-run tests (``test_torch_elastic.py``,
-``test_torch_model_axis.py``): one
+``test_torch_model_axis.py``, ``test_torch_mesh_optimizers.py``,
+``test_torch_sharded_bf16.py``): one
 ``gloo`` world a call of :func:`run_world`, running a list of cases in
 order, each rank writing what the parent process compares.  Imports torch
 and the port only (no JAX), so that a world starts quickly."""
@@ -16,22 +17,32 @@ import torch.multiprocessing as mp
 
 def make_spec(arch, *, shape=None, total=6, ckpt=None, every=3,
               packing=False, sentinel=False, eval_every=0, spec_mod=None,
-              data_cls=None):
+              data_cls=None, opt="adalomo", lr=1e-3, microbatches=1,
+              trust_max=0.0, observe=0, factored_every=0, guard_mod=None,
+              probes_mod=None):
     """The cases' RunSpec, in either package (``spec_mod``: its
-    ``run.spec``; ``data_cls``: its ``DataConfig``)."""
+    ``run.spec``; ``data_cls``: its ``DataConfig``; ``guard_mod`` /
+    ``probes_mod``: the modules of its ``SentinelSpec`` and
+    ``ObservabilitySpec``).  ``trust_max`` > 0 turns the sentinel on with
+    its trust guard; ``observe`` > 0 the probes at that cadence."""
     if spec_mod is None:
         from repro_torch.data.pipeline import DataConfig as data_cls
         from repro_torch.run import spec as spec_mod
+        from repro_torch.sentinel import spec as guard_mod
+        from repro_torch.telemetry import probes as probes_mod
     kw = {}
-    if sentinel:
-        from repro_torch.sentinel.spec import SentinelSpec
-        kw["sentinel"] = SentinelSpec(enabled=True)
+    if sentinel or trust_max:
+        kw["sentinel"] = guard_mod.SentinelSpec(enabled=True,
+                                                trust_max=trust_max)
+    if observe:
+        kw["observe"] = probes_mod.ObservabilitySpec(
+            optimizer_every=observe, factored_every=factored_every)
     return spec_mod.RunSpec(
         model=spec_mod.ModelSpec(arch, smoke=True),
         data=data_cls(vocab=0, seq_len=32, global_batch=8, seed=3,
                       packing=packing),
-        opt=spec_mod.OptSpec(name="adalomo", lr=1e-3, schedule="constant"),
-        steps=spec_mod.StepSpec(total=total),
+        opt=spec_mod.OptSpec(name=opt, lr=lr, schedule="constant"),
+        steps=spec_mod.StepSpec(total=total, microbatches=microbatches),
         mesh=(spec_mod.MeshSpec(kind="multi", shape=tuple(shape))
               if shape else spec_mod.MeshSpec()),
         checkpoint=spec_mod.CheckpointSpec(dir=ckpt, every=every,
@@ -73,12 +84,13 @@ def _case(case, rank):
 
     class Capture(Hook):
         def __init__(self):
-            self.aux, self.anomaly = [], []
+            self.aux, self.anomaly, self.probes = [], [], []
 
         def on_step_end(self, ctx, ev):
             self.aux.append(ev.metrics.get("aux_loss"))
-            self.anomaly.append(ev.metrics.get("sentinel", {}).get(
-                "anomaly"))
+            sent = ev.metrics.get("sentinel", {})
+            self.anomaly.append(sent.get("anomaly"))
+            self.probes.append(probe_values(ev.metrics))
 
     kind = case["kind"]
     out = case["out"]
@@ -108,6 +120,9 @@ def _case(case, rank):
             with open(out, "w") as f:
                 json.dump({"loss": losses}, f)
         return
+    if kind == "one_rank_probes":
+        _one_rank_probes_case(case)
+        return
     if kind == "shard_act":
         _shard_act_case(case, rank)
         return
@@ -129,7 +144,13 @@ def _case(case, rank):
                      ckpt=case.get("ckpt"), every=case.get("every", 3),
                      packing=case.get("packing", False),
                      sentinel=bool(case.get("inject")),
-                     eval_every=case.get("eval_every", 0))
+                     eval_every=case.get("eval_every", 0),
+                     opt=case.get("opt", "adalomo"),
+                     lr=case.get("lr", 1e-3),
+                     microbatches=case.get("microbatches", 1),
+                     trust_max=case.get("trust_max", 0.0),
+                     observe=case.get("observe", 0),
+                     factored_every=case.get("factored_every", 0))
     if kind == "roundtrip":
         from repro_torch.checkpoint.manager import CheckpointManager
         from repro_torch.fleet.elastic import mesh_from_spec
@@ -149,6 +170,8 @@ def _case(case, rank):
     arch = None
     if case.get("aux_weight") is not None:
         arch = aux_arch(case["arch"], case["aux_weight"])
+    if case.get("dtype"):
+        arch = dtype_arch(case["arch"], getattr(torch, case["dtype"]))
     params = torch.load(case["init"]) if case.get("init") else None
     inject = None
     if case.get("inject"):
@@ -167,6 +190,53 @@ def _case(case, rank):
                        "gathers": [[a, k, n] for (a, k), n
                                    in sorted(gathers.items())]}, f)
     torch.save(res.params, f"{out}.rank{rank}.pt")
+    with open(f"{out}.rank{rank}.probes.json", "w") as f:
+        json.dump(cap.probes, f)
+
+
+def _one_rank_probes_case(case):
+    """The probed run of each of ``case["runs"]`` (``make_spec`` keywords)
+    on a one-rank ``(1,)`` mesh and on no mesh, from one set of weights:
+    whether every probe value and ``trust_worst`` is the same bits."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.run import run
+    from repro_torch.run.hooks import Hook
+
+    class Probes(Hook):
+        def __init__(self):
+            self.values = []
+
+        def on_step_end(self, ctx, ev):
+            self.values.append(probe_values(ev.metrics))
+
+    params = torch.load(case["init"])
+    out = {}
+    for name, kw in case["runs"].items():
+        got = []
+        for shape in ((1,), None):
+            hook = Probes()
+            run(make_spec(case["arch"], shape=shape, **kw),
+                params=tree_map(torch.clone, params), device="cpu",
+                hooks=[hook], log_fn=lambda s: None)
+            got.append(hook.values)
+        out[name] = {"equal": got[0] == got[1], "n_values": sum(
+            len(v) for v in got[0]), "steps": len(got[0])}
+    with open(case["out"], "w") as f:
+        json.dump(out, f)
+
+
+def probe_values(metrics: dict) -> dict:
+    """The probe values and the trust guard's ``trust_worst`` of one
+    step's host metrics, flat: ``{"group_ratio/<group>": x,
+    "eff_lr/counts": [...], "factored/<key>": x, ...}``."""
+    out = {}
+    health = metrics.get("opt_health", {})
+    for part, vals in health.items():
+        for k, v in vals.items():
+            out[f"{part}/{k}"] = v.tolist() if hasattr(v, "tolist") else v
+    if "trust_worst" in metrics.get("sentinel", {}):
+        out["trust_worst"] = metrics["sentinel"]["trust_worst"]
+    return out
 
 
 def aux_arch(arch_id, weight):
@@ -179,6 +249,16 @@ def aux_arch(arch_id, weight):
     moe = dataclasses.replace(arch.cfg.moe, router_aux_weight=weight)
     return dataclasses.replace(arch, cfg=dataclasses.replace(arch.cfg,
                                                              moe=moe))
+
+
+def dtype_arch(arch_id, dtype):
+    """The smoke config of ``arch_id`` in ``dtype`` (a torch dtype)."""
+    import dataclasses
+
+    from repro_torch.models.registry import get_arch
+    arch = get_arch(arch_id, smoke=True)
+    return dataclasses.replace(arch, cfg=dataclasses.replace(arch.cfg,
+                                                             dtype=dtype))
 
 
 def _shard_act_case(case, rank):
@@ -254,17 +334,28 @@ def _rank(rank, world, store, cases):
         dist.destroy_process_group()
 
 
-def run_world(world: int, store: str, cases: list,
-              timeout: float = 600.0) -> None:
-    """Spawn ``world`` gloo ranks on the host that run ``cases`` in order
-    (a rank's failure fails the call; a world still running after
-    ``timeout`` seconds is killed and raises ``TimeoutError``)."""
+def start_world(world: int, store: str, cases: list,
+                timeout: float = 600.0):
+    """Spawn ``world`` gloo ranks on the host that run ``cases`` in order,
+    and return ``wait()``, which returns when they have finished (a rank's
+    failure raises; a world still running ``timeout`` seconds after the
+    start is killed and raises ``TimeoutError``)."""
     ctx = mp.spawn(_rank, args=(world, store, cases), nprocs=world,
                    join=False)
     deadline = time.monotonic() + timeout
-    while not ctx.join(timeout=2.0):
-        if time.monotonic() > deadline:
-            for proc in ctx.processes:
-                proc.kill()
-            raise TimeoutError(f"a world of {world} ranks did not finish "
-                               f"in {timeout} s")
+
+    def wait() -> None:
+        while not ctx.join(timeout=2.0):
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise TimeoutError(f"a world of {world} ranks did not "
+                                   f"finish in {timeout} s")
+
+    return wait
+
+
+def run_world(world: int, store: str, cases: list,
+              timeout: float = 600.0) -> None:
+    """:func:`start_world` and wait for it."""
+    start_world(world, store, cases, timeout)()

@@ -8,6 +8,8 @@ tree (stacked ``[L, ...]`` and unstacked leaves) for 1 and 3 steps against
 port and the reference's fused step; the grouped no-decay hparams, the
 Table-1 state-byte ordering, the registry's errors and bf16 parameters are
 held as the reference's own tests hold them."""
+import threading
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -397,3 +399,142 @@ def test_lomo_updates_in_pieces_bitwise_as_the_whole_leaf(shape, dtype,
                              torch.tensor(1.0))
     assert out is p and p.data_ptr() == before and state == ()
     assert torch.equal(p, want)
+
+
+# --------------------------------------------------------------------------
+# Adafactor on ZeRO-3 blocks: an R x C grid of blocks of [L, m, n], each
+# updated with the sums over the other row and column blocks, emulated in
+# one process (a thread a block)
+# --------------------------------------------------------------------------
+
+class _Group:
+    """Threads whose ``all_reduce`` is the collectives': the members'
+    tensors widened to fp32 and added in member order, narrowed once."""
+
+    def __init__(self, n):
+        self.bar = threading.Barrier(n)
+        self.buf = [None] * n
+
+    def all_reduce(self, idx, t):
+        self.buf[idx] = t
+        self.bar.wait()
+        out = self.buf[0].to(torch.float32, copy=True)
+        for x in self.buf[1:]:
+            out += x
+        self.bar.wait()
+        return out.to(t.dtype)
+
+
+class _BlockShard:
+    """``sharding.zero.TensorShard``'s interface for block (i, j) of an
+    R x C grid."""
+
+    def __init__(self, rows, cols, both, i, j, R, C, n_total):
+        self.rows, self.cols, self.both = rows, cols, both
+        self.i, self.j, self.R, self.C = i, j, R, C
+        self.n_total = n_total
+
+    def sum(self, t):
+        return self.both.all_reduce(self.i * self.C + self.j, t)
+
+    def over_rows(self, t):
+        return t if self.rows is None else self.rows.all_reduce(self.i, t)
+
+    def over_cols(self, t):
+        return t if self.cols is None else self.cols.all_reduce(self.j, t)
+
+    def whole_mn(self, m, n):
+        return m * self.R, n * self.C
+
+
+def _adafactor_on_grid(p, g_steps, R, C, hp):
+    """Port Adafactor on each block of an R x C grid of the stacked
+    ``[L, m, n]`` tensor ``p`` (torch), a thread a block, for each gradient
+    of ``g_steps``; the blocks' params and state put back together."""
+    rule = opt_lib.adafactor()
+    m, n = p.shape[-2:]
+    blocks = [[b.contiguous() for b in row.chunk(C, -1)]
+              for row in p.chunk(R, -2)]
+    whole = rule.init(p, batch_dims=1)
+    if whole.v is None:
+        states = [[type(whole)(r=whole.r.chunk(R, -1)[i].clone(),
+                               c=whole.c.chunk(C, -1)[j].clone(), v=None)
+                   for j in range(C)] for i in range(R)]
+    else:
+        states = [[type(whole)(r=None, c=None, v=blocks[i][j].new_zeros(
+            blocks[i][j].shape, dtype=torch.float32)) for j in range(C)]
+            for i in range(R)]
+    hp_dev = api.hparams_on_device((hp,), CPU)[0]
+    for k, g in enumerate(g_steps):
+        gb = [[b.contiguous() for b in row.chunk(C, -1)]
+              for row in g.chunk(R, -2)]
+        cols = [_Group(C) for _ in range(R)] if C > 1 else [None] * R
+        rows = [_Group(R) for _ in range(C)] if R > 1 else [None] * C
+        both = _Group(R * C)
+
+        def one(i, j):
+            shard = _BlockShard(rows[j], cols[i], both, i, j, R, C, m * n)
+            rule.update(blocks[i][j], gb[i][j], states[i][j], hp_dev,
+                        torch.tensor(float(k + 1)), batch_dims=1,
+                        shard=shard)
+
+        threads = [threading.Thread(target=one, args=(i, j))
+                   for i in range(R) for j in range(C)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    out = torch.cat([torch.cat(row, -1) for row in blocks], -2)
+    if whole.v is not None:
+        return out, (None, None, torch.cat(
+            [torch.cat([s.v for s in row], -1) for row in states], -2))
+    for i in range(R):              # every block of a row folds the same r
+        for j in range(1, C):
+            assert torch.equal(states[i][j].r, states[i][0].r)
+    return out, (torch.cat([row[0].r for row in states], -1),
+                 torch.cat([s.c for s in states[0]], -1), None)
+
+
+@pytest.mark.parametrize("grid", [(2, 1), (1, 2), (2, 2)],
+                         ids=["rows", "cols", "both"])
+@pytest.mark.parametrize("shape", [(3, 64, 96), (3, 34, 38), (3, 12, 40)],
+                         ids=["even", "ragged", "unfactored"])
+@pytest.mark.parametrize("pdt", [jnp.float32, jnp.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_adafactor_on_blocks_matches_whole_tensor_reference(grid, shape,
+                                                            pdt):
+    """Adafactor on the blocks of a matrix split by rows, by columns or
+    both (a ZeRO-3 shard on ``(2,)``, ``(1, 2)``, ``(2, 2)``): the row and
+    column means summed over the other blocks over the whole n and m, Σr
+    over the row blocks, the RMS of u and θ over every block; 3 steps
+    against the reference's whole-tensor ``adafactor`` (vmapped over L) on
+    the joined blocks, at the tolerances of the port's own Adafactor tests
+    (fp32: the unfused step's; bf16: one rounding at the write).  The
+    ragged shape splits into 17 x 19 blocks; the unfactored one (12 < 16)
+    keeps a dense v split as θ."""
+    rng = np.random.default_rng(sum(shape) + grid[0] * 3 + grid[1])
+    p = (rng.standard_normal(shape) * 0.1).astype(np.float32)
+    gs = [(rng.standard_normal(shape) * 0.3).astype(np.float32)
+          for _ in range(3)]
+    hp = {**ref_opt.adafactor().hparams, **_hp("adafactor")}
+    rrule = ref_opt.adafactor()
+    rp = jnp.asarray(p).astype(pdt)
+    rs = jax.vmap(rrule.init)(rp)
+    for k, g in enumerate(gs):
+        rp, rs = jax.vmap(lambda pi, gi, si: rrule.update(
+            pi, gi, si, hp, jnp.float32(k + 1)))(
+                rp, jnp.asarray(g).astype(pdt), rs)
+    tdt = torch.float32 if pdt == jnp.float32 else torch.bfloat16
+    got, state = _adafactor_on_grid(
+        torch.from_numpy(p).to(tdt),
+        [torch.from_numpy(g).to(tdt) for g in gs], *grid, hp)
+    assert got.dtype == tdt
+    if pdt == jnp.float32:
+        np.testing.assert_allclose(np_f32(got), np_f32(rp), **UNFUSED_TOL)
+    else:
+        np.testing.assert_allclose(np_f32(got), np_f32(rp), rtol=BF16_TOL,
+                                   atol=BF16_TOL)
+    for a, b in zip(state, rs):
+        assert (a is None) == (b is None)
+        if a is not None:
+            np.testing.assert_allclose(np_f32(a), np_f32(b), **STATE_TOL)

@@ -521,3 +521,44 @@ def test_program_shardings_place_state_with_its_rows_and_columns():
     assert all(tuple(v) == () for v in hp.values())
     with pytest.raises(ValueError, match="no mesh"):
         program_shardings(program)
+
+
+@pytest.mark.parametrize("layout", [(2,), (2, 2)], ids=["2", "2x2"])
+@pytest.mark.parametrize("opt", ["adamw", "sgd_momentum", "sgd_variance"])
+def test_unfused_state_places_match_reference_opt_pspecs(opt, layout):
+    """The places of the unfused rules' state (``AdamState`` m and v,
+    ``MomentumState`` m, ``VarianceState`` v: each its param's shape) on
+    smoke danube at (2,) and (2, 2) against the reference's
+    ``opt_pspecs``: each moment rests split as its param, wherever the
+    reference's table of shapes is unambiguous (two params of one shape
+    but other specs share its entry there)."""
+    from repro_torch.sharding.zero import leaf_places, param_places
+    arch = ref_get_arch("h2o-danube-1.8b", smoke=True)
+    abstract = jax.eval_shape(arch.init_params, jax.random.PRNGKey(0))
+    mesh = MeshLayout(layout, ("data", "model")[:len(layout)])
+    ref_axes, axes = ref_rules.MeshAxes(StandIn(mesh)), rules.MeshAxes(mesh)
+    params = _meta(abstract)
+    ref_p = ref_rules.param_pspecs(abstract, ref_axes)
+    places = param_places(params, axes)
+    state = get_opt(opt).init(params)
+    n_p = len(pytree_leaves(params))
+    o_places = leaf_places(places, tree_map(lambda t: tuple(t.shape),
+                                            params), state)[n_p + 1:]
+    ref_o = _ref_specs(ref_rules.opt_pspecs(
+        jax.eval_shape(ref_get_opt(opt).init, abstract), abstract, ref_p,
+        ref_axes))[1:]                                   # after the step
+    by_shape = {}
+    for leaf, spec in zip(pytree_leaves(params), _ref_specs(ref_p)):
+        by_shape.setdefault(tuple(leaf.shape), set()).add(spec)
+    moments = pytree_leaves(state.moments)
+    assert len(moments) == len(o_places) == len(ref_o)
+    compared = split = 0
+    for t, pl, spec in zip(moments, o_places, ref_o):
+        if len(by_shape[tuple(t.shape)]) > 1:
+            continue
+        compared += 1
+        split += not pl.whole
+        got = tuple("data" if i == pl.data else "model" if i == pl.model
+                    else None for i in range(t.ndim))
+        assert got == tuple(spec) + (None,) * (t.ndim - len(spec)), t.shape
+    assert split > 0 and compared > split

@@ -55,6 +55,19 @@ def assert_trees_close(port_tree, ref_tree, *, rtol, atol, what=""):
                                    err_msg=f"{what} {path}")
 
 
+def bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """The spacing of bfloat16 values at ``x`` (8 significant bits)."""
+    e = np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** -126)))
+    return np.exp2(e - 7)
+
+
+def bf16_outside(got: list, want: list, *, rtol=5e-4, atol=1e-5) -> int:
+    """Elements of the float32 arrays ``got`` beyond ``atol + rtol |b| +
+    ulp_bf16(b)`` of ``want``'s ``b``."""
+    return int(sum(np.sum(np.abs(a - b) > atol + rtol * np.abs(b)
+                          + bf16_ulp(b)) for a, b in zip(got, want)))
+
+
 def smoke_archs(arch_id: str = ARCH_ID, **overrides):
     """A smoke config (danube's by default) in both packages, with the same
     overrides."""
