@@ -120,7 +120,21 @@ printing one JSON line:
            experts expert-parallel and never gathered over model — each
            against the unsharded run at its depth, with per-rank peaks,
            collective calls and bytes a step, step seconds and mode-3
-           launches a step, each line printed before its checks.  The
+           launches a step, each line printed before its checks.  (d)
+           ``model_mla``: deepseek-v3-671b at its published width, 1
+           layer, bf16, 1 x 1024 on (1, 2), 2 steps (MLA on the tiles, the
+           latent gathered over model, the MTP head on the tiles, 128
+           experts a rank) against the unsharded run, run first in a
+           process of its own and read back from its checkpoint: losses
+           and MTP losses within 1e-3, each rank's blocks counted beyond
+           rtol 5e-4 / atol 1e-5 plus one bf16 ulp, no expert stack
+           gathered over model, the per-rank peak beside its reckoning
+           (``rank_reckoning``).  (e) ``model_moe_1x3``: deepseek-moe-16b,
+           2 layers, fp32, 2 x 768 on (1, 3), 2 steps (64 experts over 3
+           ranks: every rank runs all of them on the gathered sequence)
+           at the reference's sharded tolerance, nothing gathered over
+           model.  ``--phases dist`` without ``train`` runs (d) and (e)
+           alone.  The
            optimizer side of a mesh (``optimizers``), two gloo ranks on
            (2,): Table 1's four arms (fused AdaLomo and LOMO, unfused
            Adafactor and AdamW) on danube at 4 layers in bf16, 4 x 1024,
@@ -335,8 +349,8 @@ printing one JSON line:
            teacher-forced decoder forward's over the prefill's encoder
            output.  ``Engine`` refuses the family (it is served by its step
            functions).
-  sweep    ``repro_torch.fleet.sweep.run_sweep`` in subprocess mode, one
-           member in flight, on mamba2-1.3b at full size, 2 x 512 tokens,
+  sweep    ``repro_torch.fleet.sweep.run_sweep`` in subprocess mode, the
+           three members at once, on mamba2-1.3b at full size, 2 x 512 tokens,
            2 steps a member: AdaLomo at lr 5e-4 and 1e-3 and LOMO, each
            member ``python -m repro_torch.launch.train --spec ... --device
            cuda`` — every member done, ``report.json`` ranked by final
@@ -5020,10 +5034,10 @@ def reset_launches() -> None:
 
 
 def dist_spec(steps, *, shape=None, ckpt=None, every=0, arch_id=ARCH_ID,
-              batch=4):
+              batch=4, seq=1024):
     from repro_torch.run import CheckpointSpec, MeshSpec
     return RunSpec(model=ModelSpec(arch_id, smoke=False),
-                   data=DataConfig(vocab=0, seq_len=1024,
+                   data=DataConfig(vocab=0, seq_len=seq,
                                    global_batch=batch, seed=0),
                    opt=OptSpec(name="adalomo"),
                    steps=StepSpec(total=steps), log_every=0, seed=0,
@@ -5207,7 +5221,10 @@ def dist_gloo_rank(rank: int, world: int, store: str, root: str,
                    job=None) -> None:
     """One of the gloo ranks sharing the card (spawned): ``job``'s runs
     (default: the two-rank data-axis runs, ``DIST_GLOO_RUNS`` on (world,)),
-    each rank writing what it measured to ``rank{r}_{tag}{name}.json``."""
+    each rank writing what it measured to ``rank{r}_{tag}{name}.json``.
+    ``job["against"]``: the step directory of an unsharded run's
+    checkpoint, which each rank's final blocks are counted against
+    (:func:`blocks_against`)."""
     import torch.distributed as dist
     from repro_torch.core.tree import tree_flatten_with_path
     from repro_torch.sharding import collectives as C
@@ -5221,13 +5238,15 @@ def dist_gloo_rank(rank: int, world: int, store: str, root: str,
         for name, dtype, ck, every in job["runs"]:
             reset_launches()
             C.reset_stats()
-            timing = TimingHook()
+            timing, watch = TimingHook(), moe_watch(-1)
             torch.cuda.reset_peak_memory_stats()
             res = run(dist_spec(job["steps"], shape=tuple(job["shape"]),
                                 ckpt=os.path.join(root, ck), every=every,
-                                arch_id=job["arch"], batch=job["batch"]),
+                                arch_id=job["arch"], batch=job["batch"],
+                                seq=job.get("seq", 1024)),
                       arch=cut_arch(job["layers"], dtype, job["arch"]),
-                      hooks=[timing], device=DEV, log_fn=lambda s: None)
+                      hooks=[timing, watch], device=DEV,
+                      log_fn=lambda s: None)
             torch.cuda.synchronize()
             zero = res.program.zero
             places = [pl for _, pl in tree_flatten_with_path(zero.dims)]
@@ -5245,7 +5264,12 @@ def dist_gloo_rank(rank: int, world: int, store: str, root: str,
                    "launches": sharded_launches(),
                    "mode3_launches": K.adalomo_stats_partial.both_launches,
                    "gathers": {f"{a}/{k}": n for (a, k), n
-                               in sorted(zero.gathers.items())}}
+                               in sorted(zero.gathers.items())},
+                   "aux_losses": watch.aux, "mtp_losses": watch.mtp,
+                   "allocated_at_run_start_bytes": watch.start_bytes}
+            if job.get("against"):
+                rec["against"] = blocks_against(res.params, zero,
+                                                job["against"])
             with open(os.path.join(root, f"rank{rank}_{job['tag']}{name}"
                                    ".json"), "w") as f:
                 json.dump(rec, f)
@@ -5474,6 +5498,11 @@ DIST_MODEL_JOBS = {
                       runs=(("float32", torch.float32, "m22", 2),)),
     "moe_1x2": dict(shape=(1, 2), layers=2, steps=2, arch=MOE_ID, batch=2,
                     runs=(("float32", torch.float32, "moe12", 2),)),
+    # (e) 64 experts over 3 model ranks: every rank runs all of them; the
+    # sequence (768 = 3 x 256) divides over the ranks
+    "model_moe_1x3": dict(shape=(1, 3), layers=2, steps=2, arch=MOE_ID,
+                          batch=2, seq=768,
+                          runs=(("float32", torch.float32, "moe13", 2),)),
 }
 
 
@@ -5573,8 +5602,19 @@ def dist_model_axis(root, refs) -> None:
 
     # (b) danube on (2, 2) and (c) deepseek-moe-16b on (1, 2), fp32, each
     # against the unsharded run at its depth
-    for sub, world, ck in (("model_2x2", 4, "m22"), ("moe_1x2", 2, "moe12")):
+    out.update(dist_model_runs(root, ("model_2x2", "moe_1x2")))
+    return out
+
+
+def dist_model_runs(root, subs) -> dict:
+    """The fp32 model-axis sub-phases ``subs`` (DIST_MODEL_JOBS), each
+    against the unsharded run at its depth at the reference's sharded
+    tolerance, printing its line before it can fail."""
+    out = {}
+    for sub in subs:
         job = dict(DIST_MODEL_JOBS[sub], tag=sub + "_")
+        world, (_, _, ck, _) = math.prod(job["shape"]), job["runs"][0]
+        seq = job.get("seq", 1024)
         progress(f"dist: model axis {sub} ({job['arch']}, {world} ranks)")
         spawn_s = spawn_gloo(world, root, job)
         ranks = [json.loads(open(os.path.join(
@@ -5582,7 +5622,7 @@ def dist_model_axis(root, refs) -> None:
             for r in range(world)]
         torch.cuda.reset_peak_memory_stats()
         ref = run(dist_spec(job["steps"], arch_id=job["arch"],
-                            batch=job["batch"]),
+                            batch=job["batch"], seq=seq),
                   arch=cut_arch(job["layers"], torch.float32, job["arch"]),
                   device=DEV, log_fn=lambda s: None)
         ref_peak = torch.cuda.max_memory_allocated()
@@ -5596,8 +5636,13 @@ def dist_model_axis(root, refs) -> None:
                "param_max_abs_diff": worst, "params_within_tol": ok,
                "unsharded_peak_memory_bytes": ref_peak,
                **model_axis_readings(ranks, job["steps"])}
+        if sub == "model_moe_1x3":
+            rec["rank_reckoning"] = rank_reckoning(
+                cut_arch(job["layers"], torch.float32, job["arch"]),
+                job["shape"])
+            rec["aux_losses"] = ranks[0]["aux_losses"]
         emit("dist", sub=sub, arch=job["arch"], mesh=list(job["shape"]),
-             batch=job["batch"], seq=1024, steps=job["steps"],
+             batch=job["batch"], seq=seq, steps=job["steps"],
              n_layers=job["layers"], dtype="float32",
              tolerance={"loss_rtol": DIST_LOSS_RTOL, **DIST_PARAM_TOL},
              **rec)
@@ -5621,6 +5666,243 @@ def dist_model_axis(root, refs) -> None:
                 or not rec["gathers"].get("model/dense")):
             raise AssertionError(f"dist {sub}: gathers {rec['gathers']}: "
                                  "an expert stack gathered over model")
+        if sub == "model_moe_1x3" and any(
+                k.startswith("model/") for k in rec["gathers"]):
+            # 64 experts, d_model 2048 and the vocabulary do not divide
+            # by 3: every leaf rests whole, nothing is gathered over model
+            raise AssertionError(f"dist {sub}: gathers {rec['gathers']}: "
+                                 "a leaf gathered over model")
+    return out
+
+
+# deepseek-v3-671b on a model axis (d): two gloo ranks on (1, 2) at its
+# published width, 1 layer (the depth the unsharded run fits at), bf16,
+# 1 x 1024 (a tile of 512), 2 fused AdaLomo steps: MLA on the tiles with
+# the latent gathered over model, the MTP head on the tiles, the 256
+# routed experts 128 a rank.  Held against the unsharded run of the same
+# seed, run first in a process of its own (57.3 GB), whose final params
+# are read back from its checkpoint (27.4 GB of files, removed after).
+DIST_MLA_JOB = dict(shape=(1, 2), layers=MLA_TRAIN_LAYERS, steps=2,
+                    arch=MLA_ID, batch=1, seq=1024, tag="mla12_",
+                    runs=(("bfloat16", None, "mla12", 0),))
+# No fp32 run fits on the card at this width (13.7 G params), so the bf16
+# bound is stated: each step's loss and MTP loss within 1e-3 of the
+# unsharded run's, a quarter of bf16's own relative step (2^-8) and about
+# 40x the distance danube's (1, 2) bf16 sub-phase keeps (2.3e-5 on an
+# H100 80GB HBM3).  The
+# params beyond the reference's sharded tolerance plus one bf16 ulp are
+# counted, not held (two ranks' partial sums rounded once in fp32 leave
+# some a second ulp away, as on the data axis).
+DIST_MLA_LOSS_RTOL = 1e-3
+# the unsharded checkpoint's files, with room to spare
+DIST_MLA_MIN_FREE = 32 * 10 ** 9
+BLOCK_PIECE = 1 << 26
+
+
+def rank_reckoning(arch, dims) -> dict:
+    """A rank's bytes on a (data, model) mesh of ``dims``, reckoned from
+    shapes on the meta device by the rules' places (as ``Zero3`` rests
+    them): its resting blocks, the outer leaves gathered whole (once a
+    step) and their whole gradients, one layer gathered (its expert stacks
+    as the rank holds them) and that layer's gradients.  Activations, the
+    factored state (a few MB) and the collectives' staging are left out."""
+    from repro_torch.launch.mesh import MeshLayout
+    from repro_torch.sharding.rules import MeshAxes
+    from repro_torch.sharding.zero import param_places
+    dp, tp = dims
+    meta = arch.init_params(0, device="meta")
+    places = param_places(meta, MeshAxes(MeshLayout(tuple(dims),
+                                                    ("data", "model"))))
+    out = dict.fromkeys(("resting", "outer_gathered", "outer_grads",
+                         "layer_gathered", "layer_grads"), 0)
+    for key in meta:
+        for t, pl in zip(tree_leaves(meta[key]), tree_leaves(places[key])):
+            full = t.numel() * t.element_size()
+            parts = ((dp if pl.data is not None else 1)
+                     * (tp if pl.model is not None else 1))
+            out["resting"] += full // parts
+            use = full // tp if pl.ep else full     # an expert stack's
+            # a gather makes a new tensor; an expert stack is not gathered
+            # over model
+            copy = use if ((pl.data is not None and dp > 1) or (
+                pl.model is not None and tp > 1 and not pl.ep)) else 0
+            n = t.shape[0] if key == "stacks" else 1    # [L, ...]: a layer
+            where = "layer" if key == "stacks" else "outer"
+            out[where + "_gathered"] += copy // n
+            out[where + "_grads"] += use // n
+    out["total"] = sum(out.values())
+    return out
+
+
+def index_runs(shape, piece=BLOCK_PIECE):
+    """Index tuples that cover an array of ``shape`` once, in order: runs
+    of at most ``piece`` elements along its leading dim (an index whose
+    sub-array is larger is cut further along the next)."""
+    if len(shape) <= 1 or math.prod(shape) <= piece:
+        yield ()
+        return
+    row = math.prod(shape[1:])
+    if row > piece:
+        for i in range(shape[0]):
+            for rest in index_runs(shape[1:], piece):
+                yield (i,) + rest
+        return
+    for i in range(0, shape[0], piece // row):
+        yield (slice(i, i + piece // row),)
+
+
+def blocks_against(params, zero, step_dir) -> dict:
+    """This rank's param blocks against the whole params in an unsharded
+    run's checkpoint (``step_dir``): each leaf's file memory-mapped, this
+    rank's block of it read in pieces and compared on the card.  The
+    elements beyond DIST_PARAM_TOL plus one bf16 ulp (as
+    ``bf16_gap_readings`` counts them), the largest difference, and the
+    elements compared."""
+    from repro_torch.core.tree import tree_flatten_with_path
+    with open(os.path.join(step_dir, "manifest.json")) as f:
+        files = [leaf["file"] for leaf in json.load(f)["leaves"]]
+    places = [pl for _, pl in tree_flatten_with_path(zero.dims)]
+    out = {"elements": 0, "outside": 0, "max_abs_diff": 0.0}
+    for t, pl, name in zip(tree_leaves(params), places, files):
+        whole = np.load(os.path.join(step_dir, name), mmap_mode="r")
+        if t.dtype == torch.bfloat16:
+            whole = whole.view(np.int16)    # raw 16-bit words (<V2)
+        idx = [slice(None)] * whole.ndim
+        for dim, parts, k in zero.block(pl):
+            n = whole.shape[dim] // parts
+            idx[dim] = slice(k * n, (k + 1) * n)
+        want = whole[tuple(idx)]
+        if want.shape != tuple(t.shape):
+            raise AssertionError(f"{name}: block {want.shape}, param "
+                                 f"{tuple(t.shape)}")
+        for sl in index_runs(want.shape):
+            b = torch.from_numpy(np.array(want[sl])).to(DEV)
+            b32 = (b.view(torch.bfloat16) if t.dtype == torch.bfloat16
+                   else b).to(torch.float32)
+            diff = (t[sl].to(torch.float32) - b32).abs()
+            lim = DIST_PARAM_TOL["atol"] + DIST_PARAM_TOL["rtol"] * b32.abs()
+            if t.dtype == torch.bfloat16:
+                lim += bf16_ulp(b32)
+            out["outside"] += int((diff > lim).sum())
+            out["max_abs_diff"] = max(out["max_abs_diff"],
+                                      float(diff.max()))
+            out["elements"] += diff.numel()
+            del b, b32, diff, lim
+    return out
+
+
+def dist_unsharded_proc(rank, world, store, root, job) -> None:
+    """The unsharded run of ``job`` in a process of its own (spawned), so
+    that its memory is the card's again when it ends: losses, MTP and aux
+    losses, peak and step seconds to ``{tag}unsharded.json``, and its final
+    params and state in a checkpoint under ``{tag}unsharded/``."""
+    del rank, world, store
+    torch.cuda.set_device(DEV)
+    timing, watch = TimingHook(), moe_watch(-1)
+    torch.cuda.reset_peak_memory_stats()
+    res = run(dist_spec(job["steps"], ckpt=os.path.join(
+                  root, job["tag"] + "unsharded"), every=job["steps"],
+                  arch_id=job["arch"], batch=job["batch"], seq=job["seq"]),
+              arch=cut_arch(job["layers"], None, job["arch"]),
+              hooks=[timing, watch], device=DEV, log_fn=lambda s: None)
+    torch.cuda.synchronize()
+    with open(os.path.join(root, job["tag"] + "unsharded.json"), "w") as f:
+        json.dump({"losses": res.history["loss"], "aux_losses": watch.aux,
+                   "mtp_losses": watch.mtp, "step_seconds": timing.step_s,
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                   "launches": sharded_launches()}, f)
+
+
+def dist_model_mla(root) -> dict:
+    """(d) deepseek-v3-671b on (1, 2) (``DIST_MLA_JOB``) against its
+    unsharded run, printing its line before it can fail."""
+    job = DIST_MLA_JOB
+    free = shutil.disk_usage(root).free
+    if free < DIST_MLA_MIN_FREE:
+        raise AssertionError(f"dist model_mla: {free} bytes free in {root}, "
+                             f"need {DIST_MLA_MIN_FREE}")
+    arch = cut_arch(job["layers"], None, job["arch"])
+    reckoning = rank_reckoning(arch, job["shape"])
+    progress("dist: model axis model_mla, the unsharded run in its own "
+             "process")
+    unsharded_s = spawn_gloo(1, root, job, target=dist_unsharded_proc)
+    ref = json.loads(open(os.path.join(root, job["tag"] + "unsharded.json"
+                                       )).read())
+    step_dir = os.path.join(root, job["tag"] + "unsharded",
+                            f"step_{job['steps']:09d}")
+    progress("dist: model axis model_mla, two gloo ranks on (1, 2)")
+    # the ranks' allocators grow their segments rather than keep many:
+    # two 35 GB ranks share the card
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        spawn_s = spawn_gloo(2, root, dict(job, against=step_dir))
+    finally:
+        if conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    shutil.rmtree(os.path.join(root, job["tag"] + "unsharded"),
+                  ignore_errors=True)
+    ranks = [json.loads(open(os.path.join(
+        root, f"rank{r}_{job['tag']}bfloat16.json")).read())
+        for r in range(2)]
+
+    def rel(got, want):
+        return max(abs(x - y) / abs(y) for x, y in zip(got, want))
+
+    loss_err = rel(ranks[0]["losses"], ref["losses"])
+    mtp_err = rel(ranks[0]["mtp_losses"], ref["mtp_losses"])
+    rec = {"unsharded_seconds": unsharded_s, "spawn_seconds": spawn_s,
+           "losses": ranks[0]["losses"], "unsharded_losses": ref["losses"],
+           "loss_max_rel_err": loss_err,
+           "mtp_losses": ranks[0]["mtp_losses"],
+           "unsharded_mtp_losses": ref["mtp_losses"],
+           "mtp_loss_max_rel_err": mtp_err,
+           "aux_losses": ranks[0]["aux_losses"],
+           "unsharded_aux_losses": ref["aux_losses"],
+           "params_against_unsharded": [r["against"] for r in ranks],
+           "unsharded_peak_memory_bytes": ref["peak_memory_bytes"],
+           "unsharded_step_seconds": ref["step_seconds"],
+           "unsharded_launches": ref["launches"],
+           "rank_reckoning": reckoning,
+           "rank_allocated_at_run_start_bytes": [
+               r["allocated_at_run_start_bytes"] for r in ranks],
+           **model_axis_readings(ranks, job["steps"])}
+    emit("dist", sub="model_mla", arch=job["arch"], mesh=list(job["shape"]),
+         batch=job["batch"], seq=job["seq"], steps=job["steps"],
+         n_layers=job["layers"], dtype="bfloat16",
+         tolerance={"loss_rtol": DIST_MLA_LOSS_RTOL,
+                    "mtp_loss_rtol": DIST_MLA_LOSS_RTOL,
+                    "params_counted": dict(DIST_PARAM_TOL, ulp=1)},
+         **rec)
+    failed = []
+    if loss_err > DIST_MLA_LOSS_RTOL or mtp_err > DIST_MLA_LOSS_RTOL:
+        failed.append(f"loss rel err {loss_err}, mtp {mtp_err}")
+    if not all(a > 0 for a in ranks[0]["aux_losses"]):
+        failed.append(f"aux losses {ranks[0]['aux_losses']}")
+    if not rec["replicated_bitwise_across_ranks"]:
+        failed.append("a whole leaf differs between the ranks")
+    if (rec["gathers"].get("model/expert", 0)
+            or not rec["gathers"].get("model/dense")):
+        failed.append(f"gathers {rec['gathers']}: an expert stack gathered "
+                      "over model")
+    if not all(sum(n.values()) > 0 for n in rec["launches_per_step"]):
+        failed.append(f"K1/K2 launches {rec['launches_per_step']}")
+    if failed:
+        raise AssertionError(f"dist model_mla: {failed}")
+    return rec
+
+
+def dist_deepseek(root) -> dict:
+    """The model-axis sub-phases of slice 6c-2: (d) deepseek-v3-671b on
+    (1, 2) and (e) deepseek-moe-16b on (1, 3); their seconds."""
+    t0 = time.time()
+    out = {"model_mla": dist_model_mla(root)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(dist_model_runs(root, ("model_moe_1x3",)))
+    out["seconds"] = time.time() - t0
     return out
 
 
@@ -6016,13 +6298,21 @@ def dist_optimizers(root) -> dict:
 
 
 def phase_dist(train) -> dict:
-    """The sharded run on the card (module docstring)."""
+    """The sharded run on the card (module docstring).  Without the train
+    phase (``--phases dist``) only the sub-phases that are not held against
+    its run: deepseek-v3-671b and deepseek-moe-16b on a model axis
+    (``dist_deepseek``); then it returns None."""
     import torch.distributed as dist
-    if train is None:
-        raise SystemExit("chip_smoke: the dist phase is held against the "
-                         "train phase's run: --phases ...,train,dist")
     t0 = time.time()
     root = resume_root("chip_smoke_dist_")
+    if train is None:
+        try:
+            deepseek = dist_deepseek(root)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        emit("dist", sub="done", seconds=time.time() - t0,
+             deepseek_seconds=deepseek["seconds"])
+        return None
     dist.init_process_group("nccl", init_method=f"tcp://localhost:"
                             f"{free_port()}", rank=0, world_size=1)
     try:
@@ -6033,13 +6323,15 @@ def phase_dist(train) -> dict:
         t_model = time.time()
         model = dist_model_axis(root, refs)
         model_s = time.time() - t_model
+        deepseek = dist_deepseek(root)
         progress("dist: the optimizer side of a mesh, two gloo ranks")
         opt = dist_optimizers(root)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(root, ignore_errors=True)
     emit("dist", sub="done", seconds=time.time() - t0,
-         model_axis_seconds=model_s, optimizers_seconds=opt["seconds"])
+         model_axis_seconds=model_s, deepseek_seconds=deepseek["seconds"],
+         optimizers_seconds=opt["seconds"])
     return {"launches": nccl["launches"],
             "mode3_launches": model["model_2x2"]["mode3_launches"][0]}
 
@@ -6053,16 +6345,17 @@ SWEEP_DATA = (2, 512)
 SWEEP_STEPS = 2
 SWEEP_VARIANTS = [{"opt.lr": 5e-4}, {"opt.lr": 1e-3},
                   {"opt.name": "lomo", "opt.lr": 1e-2}]
+SWEEP_PARALLEL = len(SWEEP_VARIANTS)
 
 
 def phase_sweep() -> dict:
-    """``run_sweep`` in subprocess mode, one member in flight, on
-    mamba2-1.3b at its published width and depth (2 x 512 tokens, 2 steps a
-    member, a checkpoint at the last step): AdaLomo at two learning rates
-    and LOMO, each ``python -m repro_torch.launch.train --spec ...
-    --device cuda``.  Every member done, ``report.json`` ranked by final
-    loss; a second call skips all three (``DONE.json``).  Reports each
-    member's wall seconds; the members' directories are removed."""
+    """``run_sweep`` in subprocess mode, all three members in flight at
+    once on the card (for the whole script's time limit), on mamba2-1.3b at its published width and depth (2 x 512
+    tokens, 2 steps a member, a checkpoint at the last step): AdaLomo at
+    two learning rates and LOMO, each ``python -m repro_torch.launch.train
+    --spec ... --device cuda``.  Every member done, ``report.json`` ranked
+    by final loss; a second call skips all three (``DONE.json``).  Reports
+    each member's wall seconds; the members' directories are removed."""
     from repro_torch.fleet.sweep import run_sweep
     from repro_torch.run import CheckpointSpec
     t0 = time.perf_counter()
@@ -6086,9 +6379,10 @@ def phase_sweep() -> dict:
     try:
         progress("sweep: 3 subprocess members")
         report = run_sweep(base, SWEEP_VARIANTS, sweep_dir,
-                           mode="subprocess", parallel=1, log_fn=log)
+                           mode="subprocess", parallel=SWEEP_PARALLEL,
+                           log_fn=log)
         again = run_sweep(base, SWEEP_VARIANTS, sweep_dir,
-                          mode="subprocess", parallel=1,
+                          mode="subprocess", parallel=SWEEP_PARALLEL,
                           log_fn=again_logs.append)
         with open(os.path.join(sweep_dir, "report.json")) as f:
             on_disk = json.load(f)
@@ -6125,7 +6419,7 @@ def phase_sweep() -> dict:
             or again["ranking"] != report["ranking"]):
         failed.append(f"second call: {again_logs}")
     emit("sweep", arch=SWEEP_ID, batch=B, seq=T, steps=SWEEP_STEPS,
-         mode="subprocess", parallel=1, variants=SWEEP_VARIANTS,
+         mode="subprocess", parallel=SWEEP_PARALLEL, variants=SWEEP_VARIANTS,
          ranking=report["ranking"],
          members={n: {"status": r["status"], "final_loss":
                       r.get("final_loss"), "steps_done": r.get("steps_done"),
@@ -6161,7 +6455,9 @@ def main() -> None:
                          "layer or the checkpoints, kernels,train,dist "
                          "after touching the sharded step, the "
                          "collectives, the checkpoints or K1/K2's sharded "
-                         "entries, kernels,train,sentinel "
+                         "entries (dist alone: deepseek-v3-671b and "
+                         "deepseek-moe-16b on a model axis), "
+                         "kernels,train,sentinel "
                          "after touching the sentinel or the probes, "
                          "kernels,baselines "
                          "after touching an optimizer rule, "

@@ -22,12 +22,17 @@ before their product, as the reference's ``pmean`` over the mesh does;
 capacity and slots are per row, so the split drops the same tokens.
 
 With a model axis (sequence parallelism) :func:`moe_ffn` runs expert
-parallel, as the reference's ``_moe_ffn_shardmap``: each model rank holds
-E/tp experts (never gathered over ``model``), gathers its rows' sequence
-tiles whole, routes the whole sequence in fp32 exactly as one device does
-(so slots, capacity and drops are the same on every rank), dispatches only
-the tokens routed to its experts, runs them, and reduce-scatters the
-partial outputs back to its tile.  The shared experts run on the tile.
+parallel, as the reference's ``_moe_ffn_shardmap``, where the axis divides
+the routed experts: each model rank holds E/tp experts (never gathered
+over ``model``), gathers its rows' sequence tiles whole, routes the whole
+sequence in fp32 exactly as one device does (so slots, capacity and drops
+are the same on every rank), dispatches only the tokens routed to its
+experts, runs them, and reduce-scatters the partial outputs back to its
+tile.  Where the axis does not divide them, it takes the reference's
+fallback (``_moe_ffn_local`` under GSPMD): the expert stacks rest whole on
+every model rank (the rules' shape guard), each rank runs every expert on
+the whole sequence and keeps its tile's rows.  The shared experts run on
+the tile.
 """
 from __future__ import annotations
 
@@ -140,30 +145,40 @@ def route(params: dict, x: Tensor, cfg: MoEConfig) -> tuple:
 def moe_ffn(params: dict, x: Tensor, cfg: MoEConfig) -> tuple:
     """``x [B, S, d]`` (B token groups of S) -> ``(y [B, S, d], aux)``.
 
-    Under a policy with a model axis (expert parallelism, module
-    docstring) ``x`` is this rank's sequence tile and the expert stacks
-    hold its E/tp experts.  The routing, on the sequence gathered whole, is
+    Under a policy with a model axis (module docstring) ``x`` is this
+    rank's sequence tile.  The routing, on the sequence gathered whole, is
     every rank's and one device's, and so is the load-balance loss: its
     E-vectors go through ``batch_mean``, whose backward counts the model
-    ranks' identical copies once.  Each rank's output sums only its own
-    experts' gated outputs, so its router gradient through the gates is
-    partial; the router's gradient sum over the ranks completes it."""
+    ranks' identical copies once.
+
+    Expert parallel (``tp`` divides the experts): the stacks hold this
+    rank's E/tp experts, and its output sums only their gated outputs, so
+    its router gradient through the gates is partial; the router's
+    gradient sum over the ranks completes it.
+
+    Indivisible experts: the output is the whole sequence's slice at the
+    tile, so its gradient is zero outside the tile, and each rank's expert
+    and router gradients are those of its own tile's tokens, partial sums
+    that ``Zero3.scatter`` adds over ``model`` as for any leaf the axis
+    does not split; the gathered input's gradient goes back through
+    ``gather_seq``'s reduce-scatter.  The slice moves nothing, where a
+    ``scatter_seq`` of ``y / tp`` would sum tp equal copies, rounded."""
     pol = current_policy()
     if pol is None or pol.model_group is None:
         y, aux = _routed(params, x, cfg, 0, cfg.n_routed)
     else:
-        if cfg.n_routed % pol.tp_size:
-            raise NotImplementedError(
-                f"{cfg.n_routed} routed experts over a model axis of "
-                f"{pol.tp_size} is slice 6c of the port and not ported to "
-                "repro_torch yet")
         from repro_torch.sharding import collectives as C
-        n = cfg.n_routed // pol.tp_size
-        y, aux = _routed(params, C.gather_seq(x, 1, pol.model_group), cfg,
-                         pol.tile_index * n, n)
-        # the experts' partial outputs summed over the ranks, landing on
-        # the tile (the backward gathers dy whole)
-        y = C.scatter_seq(y, 1, pol.model_group)
+        whole = C.gather_seq(x, 1, pol.model_group)
+        if cfg.n_routed % pol.tp_size:
+            S = x.shape[1]
+            y, aux = _routed(params, whole, cfg, 0, cfg.n_routed)
+            y = y[:, pol.tile_index * S:(pol.tile_index + 1) * S]
+        else:
+            n = cfg.n_routed // pol.tp_size
+            y, aux = _routed(params, whole, cfg, pol.tile_index * n, n)
+            # the experts' partial outputs summed over the ranks, landing
+            # on the tile (the backward gathers dy whole)
+            y = C.scatter_seq(y, 1, pol.model_group)
     if cfg.n_shared:
         y = y + L.glu_mlp(params["shared_mlp"], x)
     return y, aux

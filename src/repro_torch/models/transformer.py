@@ -23,7 +23,11 @@ never crosses one.  Prefix-LM configs (paligemma-3b) prepend the batch's
 token embeddings and open the first ``prefix_len`` positions to every
 query; the legacy ring serves them, the paged halves refuse them, as the
 reference's do.  ``glu=False`` configs take the plain two-layer MLP with
-biases (``layers.mlp``) in place of the GLU.
+biases (``layers.mlp``) in place of the GLU.  On a model axis (sequence
+parallelism) the train half runs on this rank's sequence tile: GQA gathers
+K/V over ``model``, MLA its per-token latent, and the MTP head's block
+attends as the main blocks do; only a prefix is not ported there yet
+(:func:`model_axis_gap`).
 """
 from __future__ import annotations
 
@@ -298,25 +302,39 @@ def _mla_latent(p: dict, cfg: LMConfig, h: Tensor, sin: Tensor, cos: Tensor
 
 def _mla_attn_kv(p: dict, cfg: LMConfig, h: Tensor, pos: Tensor,
                  seg: Optional[Tensor] = None,
-                 prefix_len: Optional[Tensor] = None) -> tuple:
+                 prefix_len: Optional[Tensor] = None, kv_pos=None,
+                 kv_seg=None) -> tuple:
     """MLA over the sequence (the train and prefill path): the latent KV is
     up-projected per head, k = [k_nope ; kr] with kr broadcast over the
     heads, and the dispatcher runs q/k head dim d_nope + d_rope against v
     head dim d_v at scale (d_nope + d_rope)^-1/2.  Returns the block's
-    attention output and this layer's ``ckv`` and ``kr``."""
+    attention output and this layer's ``ckv`` and ``kr``.
+
+    Sequence parallelism, as in :func:`_gqa_attn_kv`: the query and the
+    latent are roped at the tile's positions ``pos``, and the per-token
+    latent (``ckv`` and ``kr``, kv_lora_rank + d_rope numbers a token) is
+    gathered over ``model`` (``kv_full``), never the up-projected k and v
+    (n_heads x (d_nope + d_v) a token); every rank up-projects the whole
+    sequence.  The ``ckv`` and ``kr`` returned are the tile's."""
     m = cfg.mla
     B, S, _ = h.shape
     H = cfg.n_heads
     sin, cos = _rope_tables(cfg, pos)
     q_nope, q_rope = _mla_query(p, cfg, h, sin, cos)
     ckv, kr = _mla_latent(p, cfg, h, sin, cos)
-    k_nope = L.dense(ckv, p["w_uk"]).reshape(B, S, H, m.d_nope)
-    v = L.dense(ckv, p["w_uv"]).reshape(B, S, H, m.d_v)
-    k = torch.cat([k_nope, kr[:, :, None].expand(B, S, H, m.d_rope)], dim=-1)
+    ckv_all, kr_all = shard_act(ckv, "kv_full"), shard_act(kr, "kv_full")
+    T = ckv_all.shape[1]
+    k_nope = L.dense(ckv_all, p["w_uk"]).reshape(B, T, H, m.d_nope)
+    v = L.dense(ckv_all, p["w_uv"]).reshape(B, T, H, m.d_v)
+    k = torch.cat([k_nope, kr_all[:, :, None].expand(B, T, H, m.d_rope)],
+                  dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     o = L.attention(q, k, v, spec=_mask_spec(cfg, seg), q_pos=pos,
-                    kv_pos=pos, prefix_len=prefix_len, q_seg=seg,
-                    kv_seg=seg, scale=(m.d_nope + m.d_rope) ** -0.5)
+                    kv_pos=pos if kv_pos is None else kv_pos,
+                    prefix_len=prefix_len, q_seg=seg,
+                    kv_seg=seg if kv_seg is None else kv_seg,
+                    scale=(m.d_nope + m.d_rope) ** -0.5,
+                    q_offset=seq_offset(S))
     return L.dense(o.reshape(B, S, H * m.d_v), p["wo"]), ckv, kr
 
 
@@ -326,9 +344,8 @@ def _attn_kv(p: dict, cfg: LMConfig, h: Tensor, pos: Tensor,
              kv_seg=None) -> tuple:
     """The block's self-attention and what this layer's cache keeps:
     ``(out, k, v)`` for GQA, ``(out, ckv, kr)`` for MLA."""
-    if cfg.mla is not None:
-        return _mla_attn_kv(p, cfg, h, pos, seg, prefix_len)
-    return _gqa_attn_kv(p, cfg, h, pos, seg, prefix_len, kv_pos, kv_seg)
+    fn = _mla_attn_kv if cfg.mla is not None else _gqa_attn_kv
+    return fn(p, cfg, h, pos, seg, prefix_len, kv_pos, kv_seg)
 
 
 def _ffn_residual(p: dict, cfg: LMConfig, x: Tensor) -> tuple:
@@ -431,20 +448,26 @@ def make_prologue(cfg: LMConfig):
     return prologue
 
 
-def model_axis_gap(cfg: LMConfig, tp: int) -> Optional[str]:
-    """What of ``cfg`` a model axis of ``tp`` > 1 does not run yet (None:
-    it runs): GQA without a prefix or MTP, dense or MoE with ``tp``
-    dividing the routed experts (slice 6c brings the rest)."""
-    for on, what in ((cfg.mla is not None, "multi-head latent attention"),
-                     (cfg.mtp, "multi-token prediction"),
-                     (cfg.prefix_lm or cfg.n_prefix_tokens,
-                      "a prefix-LM or modality prefix"),
-                     (cfg.moe is not None and cfg.moe.n_routed % tp,
-                      f"{cfg.moe.n_routed if cfg.moe else 0} routed experts "
-                      f"over {tp} model ranks")):
-        if on:
-            return what
+def model_axis_gap(cfg: LMConfig) -> Optional[str]:
+    """What of ``cfg`` a model axis larger than 1 does not run yet (None:
+    it runs): a prefix-LM or modality prefix (slice 6c-3 brings it)."""
+    if cfg.prefix_lm or cfg.n_prefix_tokens:
+        return "a prefix-LM or modality prefix"
     return None
+
+
+def _seq_ctx(S: int, device) -> dict:
+    """The positions of an unpacked tile of ``S`` tokens: ``pos`` its own
+    (absolute: the tile's offset on), and with a model axis ``kv_pos``
+    the whole sequence's."""
+    tp = model_size()
+    off = seq_offset(S)
+    ctx = {"pos": torch.arange(off, off + S, dtype=torch.int32,
+                               device=device)}
+    if tp > 1:
+        ctx["kv_pos"] = torch.arange(S * tp, dtype=torch.int32,
+                                     device=device)
+    return ctx
 
 
 def make_pro_ctx(cfg: LMConfig):
@@ -455,7 +478,7 @@ def make_pro_ctx(cfg: LMConfig):
         # tile: ``pos``/``seg`` are the tile's (its queries, RoPE) and
         # ``kv_pos``/``kv_seg`` the whole sequence's (the gathered K/V).
         tp = model_size()
-        gap = model_axis_gap(cfg, tp) if tp > 1 else None
+        gap = model_axis_gap(cfg) if tp > 1 else None
         if gap:
             raise NotImplementedError(
                 f"{cfg.name}: {gap} on a model axis of {tp} is slice 6c of "
@@ -472,14 +495,8 @@ def make_pro_ctx(cfg: LMConfig):
                 ctx["kv_seg"] = gather_tiles(ctx["seg"])
             return ctx
         tokens = batch["tokens"]
-        S = tokens.shape[1] + cfg.n_prefix_tokens
-        off = seq_offset(S)
-        ctx = _prefix_ctx(cfg, batch, torch.arange(
-            off, off + S, dtype=torch.int32, device=tokens.device))
-        if tp > 1:
-            ctx["kv_pos"] = torch.arange(S * tp, dtype=torch.int32,
-                                         device=tokens.device)
-        return ctx
+        ctx = _seq_ctx(tokens.shape[1] + cfg.n_prefix_tokens, tokens.device)
+        return {**_prefix_ctx(cfg, batch, ctx["pos"]), **ctx}
 
     return pro_ctx
 
@@ -531,15 +548,17 @@ def _mtp_loss(outer: dict, cfg: LMConfig, h: Tensor, batch: dict) -> tuple:
     token count (at least 1, fp32).  The reference's comment reads
     ``[h_t ; emb(token_{t+1})]``, but its code embeds ``batch["tokens"]``
     unshifted, i.e. ``emb(token_t)``: the port takes the code's meaning.
-    ``h`` is the final-normed hidden state; the block gets positions 0..S-1
-    of its own."""
+    ``h`` is the final-normed hidden state.  The block attends as the main
+    blocks do: at the tile's absolute positions, over the whole sequence's
+    latent with a model axis.  ``labels_mtp`` is cut to the tile with the
+    batch (``Zero3.rows``) after it was built on the whole sequence, so no
+    label crosses a tile edge.  The sum is this rank's tokens' and the
+    count every rank's (``batch_sum``), as the main loss's."""
     tokens = batch["tokens"]
     x = L.dense(torch.cat([h, _embed(outer, cfg, tokens)], dim=-1),
                 outer["mtp_proj"])
-    pos = torch.arange(tokens.shape[1], dtype=torch.int32,
-                       device=tokens.device)
     x, _ = make_block_body(_mtp_cfg(cfg))(
-        outer["mtp_block"], ({}, {"pos": pos}),
+        outer["mtp_block"], ({}, _seq_ctx(tokens.shape[1], tokens.device)),
         (x, torch.zeros((), dtype=torch.float32, device=x.device)), 0)
     x = L.norm_apply(outer["mtp_norm"], x, kind=cfg.norm)
     loss_sum, ntok, _ = cross_entropy(_logits(outer, cfg, x),

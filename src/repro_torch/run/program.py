@@ -61,13 +61,13 @@ from repro_torch.train.schedules import constant, warmup_cosine
 SLICE_6C = "slice 6c of the port"
 
 
-def model_axis_gap(arch, tp: int) -> Optional[str]:
-    """What of ``arch`` a model axis of ``tp`` > 1 does not run yet (None:
+def model_axis_gap(arch) -> Optional[str]:
+    """What of ``arch`` a model axis larger than 1 does not run yet (None:
     it runs): the ``transformer`` family, as its ``model_axis_gap`` says."""
     if arch.family != "transformer":
         return f"the {arch.family} family"
     from repro_torch.models.transformer import model_axis_gap as gap
-    return gap(arch.cfg, tp)
+    return gap(arch.cfg)
 
 
 def check_ported(spec: RunSpec, arch=None) -> None:
@@ -81,7 +81,7 @@ def check_ported(spec: RunSpec, arch=None) -> None:
     if arch is None:
         from repro_torch.models.registry import get_arch
         arch = get_arch(spec.model.arch, smoke=spec.model.smoke)
-    gap = model_axis_gap(arch, tp)
+    gap = model_axis_gap(arch)
     if gap is not None:
         raise NotImplementedError(
             f"RunSpec.mesh.shape: a model axis of {tp} with {gap} "
@@ -149,11 +149,17 @@ class StepProgram:
 
     def init(self, seed: int = 0):
         """Fresh ``(params, opt_state)``; on a mesh this rank's resting
-        shards (the whole model is drawn from the seed, then sharded)."""
+        shards (the whole model is drawn from the seed, then cut leaf by
+        leaf, each whole tensor freed as its block is made, and on the
+        card the freed memory handed back, for the other ranks of a
+        shared card)."""
         params = self.arch.init_params(seed, device=self.device)
         state = self.opt.init(params)
         if self.zero is not None:
-            params, state = self.zero.shard_tree((params, state), state)
+            params, state = self.zero.shard_tree((params, state), state,
+                                                 in_place=True)
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
         return params, state
 
     # ---------------- sentinel ----------------

@@ -81,14 +81,17 @@ def _ordered_sum(parts: Tensor, dtype=None) -> Tensor:
 
 
 def shard(x: Tensor, dim: int, group) -> Tensor:
-    """This rank's contiguous slice of ``x`` along ``dim`` (no
-    communication); ``x.shape[dim]`` must divide by the group's size."""
+    """This rank's slice of ``x`` along ``dim`` (no communication), a
+    contiguous tensor of its own: never a view, which would keep the whole
+    of ``x`` alive (a slice along the leading dims is contiguous already);
+    ``x.shape[dim]`` must divide by the group's size."""
     w, k = dist.get_world_size(group), dist.get_rank(group)
     if x.shape[dim] % w:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide "
                          f"over {w} ranks")
     return x.narrow(dim, k * (x.shape[dim] // w),
-                    x.shape[dim] // w).contiguous()
+                    x.shape[dim] // w).clone(
+                        memory_format=torch.contiguous_format)
 
 
 def all_gather(x: Tensor, dim: int, group) -> Tensor:

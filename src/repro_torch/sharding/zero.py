@@ -243,13 +243,32 @@ class Zero3:
             return None
         return self.data if cuts[0][0] == pl.data else self.model
 
-    def shard_tree(self, tree, opt_state) -> tuple:
+    def shard_tree(self, tree, opt_state, *, in_place: bool = False
+                   ) -> tuple:
         """``(params, opt_state)`` of whole tensors -> this rank's resting
-        blocks (new contiguous tensors for the split leaves)."""
-        leaves = pytree_leaves(tree)
+        blocks (new contiguous tensors for the split leaves).
+        ``in_place``: the params' own dicts take the blocks, leaf by leaf,
+        so each whole tensor goes as its block is cut and the whole model
+        and every block are never alive at once (for a caller that owns
+        the dicts, as ``StepProgram.init``)."""
         places = self.leaf_dims(opt_state)
-        return pytree_unflatten(tree, [self.local(t, pl)
-                                       for t, pl in zip(leaves, places)])
+        if not in_place:
+            return pytree_unflatten(tree, [
+                self.local(t, pl)
+                for t, pl in zip(pytree_leaves(tree), places)])
+        params, state = tree
+        self._cut_in_place(params, self.dims)
+        n = len(pytree_leaves(params))
+        return params, pytree_unflatten(state, [
+            self.local(t, pl)
+            for t, pl in zip(pytree_leaves(state), places[n:])])
+
+    def _cut_in_place(self, params: dict, dims: dict) -> None:
+        for k in sorted(params):
+            if isinstance(params[k], dict):
+                self._cut_in_place(params[k], dims[k])
+            else:
+                params[k] = self.local(params[k], dims[k])
 
     # ---------------- step seams ----------------
     def _gather_one(self, t: Tensor, pl: Place, drop: int) -> Tensor:

@@ -19,7 +19,7 @@ def make_spec(arch, *, shape=None, total=6, ckpt=None, every=3,
               packing=False, sentinel=False, eval_every=0, spec_mod=None,
               data_cls=None, opt="adalomo", lr=1e-3, microbatches=1,
               trust_max=0.0, observe=0, factored_every=0, guard_mod=None,
-              probes_mod=None):
+              probes_mod=None, seq_len=32):
     """The cases' RunSpec, in either package (``spec_mod``: its
     ``run.spec``; ``data_cls``: its ``DataConfig``; ``guard_mod`` /
     ``probes_mod``: the modules of its ``SentinelSpec`` and
@@ -39,7 +39,7 @@ def make_spec(arch, *, shape=None, total=6, ckpt=None, every=3,
             optimizer_every=observe, factored_every=factored_every)
     return spec_mod.RunSpec(
         model=spec_mod.ModelSpec(arch, smoke=True),
-        data=data_cls(vocab=0, seq_len=32, global_batch=8, seed=3,
+        data=data_cls(vocab=0, seq_len=seq_len, global_batch=8, seed=3,
                       packing=packing),
         opt=spec_mod.OptSpec(name=opt, lr=lr, schedule="constant"),
         steps=spec_mod.StepSpec(total=total, microbatches=microbatches),
@@ -84,10 +84,11 @@ def _case(case, rank):
 
     class Capture(Hook):
         def __init__(self):
-            self.aux, self.anomaly, self.probes = [], [], []
+            self.aux, self.mtp, self.anomaly, self.probes = [], [], [], []
 
         def on_step_end(self, ctx, ev):
             self.aux.append(ev.metrics.get("aux_loss"))
+            self.mtp.append(ev.metrics.get("mtp_loss"))
             sent = ev.metrics.get("sentinel", {})
             self.anomaly.append(sent.get("anomaly"))
             self.probes.append(probe_values(ev.metrics))
@@ -129,6 +130,9 @@ def _case(case, rank):
     if kind == "tiles":
         _tiles_case(case, rank)
         return
+    if kind == "mtp_positions":
+        _mtp_positions_case(case, rank)
+        return
     if kind == "mesh_error":
         from repro_torch.launch.mesh import make_mesh
         try:
@@ -150,7 +154,8 @@ def _case(case, rank):
                      microbatches=case.get("microbatches", 1),
                      trust_max=case.get("trust_max", 0.0),
                      observe=case.get("observe", 0),
-                     factored_every=case.get("factored_every", 0))
+                     factored_every=case.get("factored_every", 0),
+                     seq_len=case.get("seq", 32))
     if kind == "roundtrip":
         from repro_torch.checkpoint.manager import CheckpointManager
         from repro_torch.fleet.elastic import mesh_from_spec
@@ -184,6 +189,7 @@ def _case(case, rank):
     if rank == 0:
         with open(out, "w") as f:
             json.dump({"loss": res.history["loss"], "aux": cap.aux,
+                       "mtp": cap.mtp,
                        "anomaly": cap.anomaly,
                        "eval_loss": res.history["eval_loss"],
                        "step": res.history["step"],
@@ -321,6 +327,54 @@ def _tiles_case(case, rank):
                        "global": list(batch["tokens"].shape),
                        "gathers": [[a, k, n] for (a, k), n
                                    in sorted(zero.gathers.items())]}, f)
+
+
+def _mtp_positions_case(case, rank):
+    """One fused step of ``case["arch"]`` (an MTP config) on the case's
+    mesh, recording the positions the MTP head's block is given on each
+    rank: ``pos`` (its queries) and ``kv_pos`` (the keys); and, after
+    ``program.init``, whether every resting block owns its memory (its
+    storage no larger than itself: no view of a whole leaf)."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.fleet.elastic import mesh_from_spec
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_arch
+    from repro_torch.run.data import make_batch_iter
+    from repro_torch.run.program import build_step_program
+    from repro_torch.run.runner import batch_to_device
+    from repro_torch.sharding.zero import Zero3
+    spec = make_spec(case["arch"], shape=case["shape"], seq_len=case["seq"])
+    arch = get_arch(case["arch"], smoke=True)
+    seen = []
+    body_of = T.make_block_body
+
+    def recording(cfg):
+        body = body_of(cfg)
+        if cfg.mtp or not arch.cfg.mtp:
+            return body
+
+        def mtp_body(p, ctx, carry, aux_idx):
+            seen.append({k: ctx[1][k].tolist() for k in ("pos", "kv_pos")
+                         if k in ctx[1]})
+            return body(p, ctx, carry, aux_idx)
+        return mtp_body
+
+    T.make_block_body = recording
+    try:
+        zero = Zero3(mesh_from_spec(spec.mesh, "cpu"),
+                     arch.init_params(0, device="meta"))
+        program = build_step_program(spec, arch, device="cpu", zero=zero)
+        params, state = program.init(0)
+        owned = [t.untyped_storage().nbytes() == t.numel() * t.element_size()
+                 for t in tree_leaves(params)]
+        batch = batch_to_device(next(make_batch_iter(spec, arch)),
+                                torch.device("cpu"))
+        program.step(params, state, batch, program.hparams_fn(1))
+    finally:
+        T.make_block_body = body_of
+    with open(f"{case['out']}.rank{rank}.json", "w") as f:
+        json.dump({"seen": seen, "tile": list(zero.tile), "owned": owned},
+                  f)
 
 
 def _rank(rank, world, store, cases):

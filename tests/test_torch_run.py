@@ -207,18 +207,20 @@ def test_unported_spec_fields_raise(change):
 
 
 @pytest.mark.parametrize("arch,shape,gap", [
-    ("deepseek-v3-671b", (1, 2), "multi-head latent attention"),
+    ("deepseek-v3-671b", (1, 2), None),
     ("paligemma-3b", (2, 2), "prefix"),
     ("whisper-base", (1, 2), "encdec family"),
     ("zamba2-1.2b", (1, 2, 2), "hybrid family"),
-    ("deepseek-moe-16b", (1, 3), "8 routed experts over 3"),
+    ("deepseek-moe-16b", (1, 3), None),
     ("h2o-danube-1.8b", (2, 2), None),
-    ("deepseek-moe-16b", (1, 2), None)])
+    ("deepseek-moe-16b", (1, 2), None),
+    ("deepseek-v3-671b", (1, 3), None)])
 def test_model_axis_gaps_name_slice_6c(arch, shape, gap):
-    """A model axis larger than 1 runs the transformer family's GQA
-    configs, dense or MoE with the axis dividing the routed experts; every
-    other family and feature raises before any world is formed, naming
-    what is missing and slice 6c."""
+    """A model axis larger than 1 runs the transformer family's configs
+    without a prefix: GQA or MLA, with or without MTP, dense or MoE
+    whether or not the axis divides the routed experts; the prefix-LM and
+    modality-prefix configs and every other family raise before any world
+    is formed, naming what is missing and slice 6c."""
     from repro_torch.run.program import check_ported
     _, pspec = _specs()
     spec = dataclasses.replace(
