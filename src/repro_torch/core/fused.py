@@ -445,7 +445,7 @@ def unfused_loss_fn(spec: FusedSpec, params, batch, *, zero=None):
     if zero is not None:
         from repro_torch.sharding.act import use_policy
         with use_policy(zero.policy):
-            batch = {k: zero.rows(x) for k, x in batch.items()}
+            batch = zero.rows(batch)
             whole = {"outer": zero.gather(params["outer"], zero.dims["outer"]),
                      "shared": zero.gather(params["shared"],
                                            zero.dims["shared"])}

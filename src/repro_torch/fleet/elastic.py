@@ -8,10 +8,10 @@ migration: change ``spec.mesh.shape`` and resume.  The pieces:
   * :func:`mesh_from_spec` — the ``ProcessMesh`` of ``MeshSpec.shape`` over
     this process's ``torch.distributed`` world (``launch/mesh.py``);
   * :func:`program_shardings` — the placements of the program's
-    ``(params, opt_state, batch, hparams[, sentinel])``: the param and batch
-    specs of ``sharding/rules.py``, and the optimizer state as the sharded
-    step holds it (AdaLomo's r with its param's rows, c with its columns;
-    ``sharding/zero.py``);
+    ``(params, opt_state, batch, hparams[, sentinel])``: the params and
+    the optimizer state as the sharded step holds them (AdaLomo's r with
+    its param's rows, c with its columns; ``sharding/zero.py``) and the
+    batch specs of ``sharding/rules.py`` with the sequence tiles;
   * :class:`ElasticCheckpoints` — the run's checkpoint manager, saving by
     gathering shards to rank 0 and restoring each rank's slice;
   * :func:`run_elastic` — builds the ZeRO-3 sharded program and drives it
@@ -33,7 +33,7 @@ from repro_torch.run.program import (StepProgram, build_step_program,
                                      check_ported)
 from repro_torch.run.spec import MeshSpec, RunSpec
 from repro_torch.sharding import rules as R
-from repro_torch.sharding.zero import Zero3, leaf_places, param_places
+from repro_torch.sharding.zero import Zero3, leaf_places, rest_places
 
 
 def mesh_from_spec(mesh: MeshSpec, device="cuda") -> ProcessMesh:
@@ -48,11 +48,19 @@ def program_shardings(program: StepProgram, mesh=None) -> tuple:
     """``(params, opt_state, batch, hparams[, sentinel])`` spec trees for
     the program's abstract signature on ``mesh`` (default: the program's
     own; a ``MeshLayout`` will do — nothing is allocated or communicated):
-    rules-derived param specs, the batch's rows over the batch axes and its
-    sequence over ``model`` (the sequence tile each rank trains on), the
-    optimizer state as the sharded step holds it (``sharding/zero.py``: r
-    with its param's rows, c with its columns), the hparams (and the
-    sentinel's scalars, when the program carries the guard) replicated."""
+    the params as the sharded step rests them (``zero.rest_places``: the
+    rules' places, a vector whole over ``model``), the optimizer state with
+    them (r with its param's rows, c with its columns), the batch's rows
+    over the batch axes and, with a model axis, dim 1 of every sequence
+    leaf over ``model``, the hparams (and the sentinel's scalars, when the
+    program carries the guard) replicated.
+
+    With a modality prefix of ``P`` rows the model axis tiles the ``P + S``
+    rows of ``prefix_embed`` and the tokens together, evenly (``Zero3.rows``:
+    tile ``i`` is rows ``[iT, (i+1)T)``, ``T = (P + S) / tp``), so the
+    split of each of those leaves along dim 1 is uneven and a tile may hold
+    none of a leaf's rows: ``"model"`` there names the axis, not an even
+    split.  ``prefix_len`` is split by rows only."""
     if mesh is None:
         if program.zero is None:
             raise ValueError("program_shardings: the program has no mesh; "
@@ -61,7 +69,7 @@ def program_shardings(program: StepProgram, mesh=None) -> tuple:
     axes = R.MeshAxes(mesh)
     meta = program.arch.init_params(program.spec.seed, device="meta")
     state = program.opt.init(meta)
-    places = param_places(meta, axes)
+    places = rest_places(meta, axes)
     n_p = len(pytree_leaves(meta))
     o_places = leaf_places(places, tree_map(lambda t: tuple(t.shape), meta),
                            state)[n_p:]
@@ -71,6 +79,10 @@ def program_shardings(program: StepProgram, mesh=None) -> tuple:
                      "model" if i == pl.model else None
                      for i in range(ndim)])
 
+    # the rules' specs less the splits the resting places drop
+    p_specs = tree_map(lambda sp, pl: R.P(*[
+        ax if i in (pl.data, pl.model) else None
+        for i, ax in enumerate(sp)]), R.param_pspecs(meta, axes), places)
     o_specs = pytree_unflatten(state, [
         spec(t.ndim, pl) for t, pl in zip(pytree_leaves(state), o_places)])
     d = program.spec.data
@@ -81,7 +93,7 @@ def program_shardings(program: StepProgram, mesh=None) -> tuple:
     if axes.size(axes.tp) > 1:
         b_specs = {k: R.P(*[sp[0], "model", *sp[2:]]) if len(sp) >= 2
                    else sp for k, sp in b_specs.items()}
-    out = (R.param_pspecs(meta, axes), o_specs, b_specs,
+    out = (p_specs, o_specs, b_specs,
            {k: R.P() for k in program.hparams_fn(1)})
     if program.sentinel_enabled:
         out += (R.P(),)
@@ -124,7 +136,8 @@ def run_elastic(spec: RunSpec, *, arch=None, hooks=(), params=None,
     if arch is None:
         from repro_torch.models.registry import get_arch
         arch = get_arch(spec.model.arch, smoke=spec.model.smoke)
-    zero = Zero3(mesh, arch.init_params(spec.seed, device="meta"))
+    zero = Zero3(mesh, arch.init_params(spec.seed, device="meta"),
+                 prefix=getattr(arch.cfg, "n_prefix_tokens", 0))
     program = build_step_program(spec, arch, groups=groups, device=device,
                                  inject=inject, zero=zero)
     if params is None:

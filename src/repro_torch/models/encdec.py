@@ -410,7 +410,7 @@ def loss_fn(cfg: EncDecConfig, params: dict, batch: dict, *, zero=None
         x = _decode_stream(cfg, params, enc_out, batch["tokens"])
         return _loss_from_dec(params["outer"], cfg, x, batch)
     with use_policy(zero.policy):
-        batch = {k: zero.rows(x) for k, x in batch.items()}
+        batch = zero.rows(batch)
         whole = {"outer": zero.gather(params["outer"], zero.dims["outer"]),
                  "stacks": params["stacks"]}
         layers = make_param_constraint(zero)

@@ -11,7 +11,11 @@ On the fused engine (``core/fused.py``) the shared weights live under
 the shared weights' own dtype as the reference's ``zeros_like`` does, and
 they are updated once a step; ``x0`` rides in the carry, so its gradient
 reaches the embedding.  The reference's ``lax.cond`` on the layer index is
-a Python ``if``.  Serving keeps each layer's conv window and SSM state and,
+a Python ``if``.  On a model axis every layer runs on this rank's
+sequence tile: the mamba mixer on the sequence gathered whole
+(``mamba2._mix_tile``), the shared block's queries at the tile's absolute
+positions against K/V gathered over ``model``, and ``x0`` the tile's own
+embedding.  Serving keeps each layer's conv window and SSM state and,
 for each application of the shared block, a K/V ring sized to the prompt;
 the decode step's attention over that ring (positions shared by the batch)
 is ``kernels.decode_attention.ops.decode_attention``: K4 on a CUDA tensor.
@@ -28,6 +32,8 @@ from repro_torch import resolve_device
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
+from repro_torch.models.transformer import _seq_ctx
+from repro_torch.sharding.act import seq_offset, shard_act
 
 Tensor = torch.Tensor
 
@@ -149,17 +155,23 @@ def init_params(seed: int, cfg: HybridConfig, *, device="cuda") -> dict:
 
 def _shared_attn(shared: dict, p: dict, cfg: HybridConfig, x: Tensor,
                  x0: Tensor, pos: Tensor, cache=None, cur=None,
-                 use_kernel=None) -> tuple:
+                 use_kernel=None, kv_pos=None) -> tuple:
     """Shared attention block on ``concat(x, x0)`` with this layer's LoRA.
 
     Train form (``cache`` None): causal attention over the sequence at
     ``pos`` (``(S,)`` int); returns ``(x, (k, v))`` with this application's
-    roped k and v ``[B,S,K,dh]`` (what a prefill records).  Decode form:
-    ``cache = (kc, vc, pos_tab)``, the ring ``[B,W,K,dh]`` and its slot
-    positions ``[W]`` (this token's already marked), ``cur`` the 0-d int32
-    position; this token's k and v go into slot ``cur % W`` in place, and
-    the attention over the ring is ``ops.decode_attention`` (K4 on a CUDA
-    tensor unless ``use_kernel=False``); returns ``(x, None)``."""
+    roped k and v ``[B,S,K,dh]`` (what a prefill records).  On a model
+    axis ``x`` and ``x0`` are this rank's sequence tile, ``pos`` its
+    absolute positions and ``kv_pos`` the whole sequence's: the tile's
+    queries attend to K/V gathered over ``model`` (``kv_full``), as the
+    transformer family's do; the k and v returned are the tile's.
+
+    Decode form: ``cache = (kc, vc, pos_tab)``, the ring ``[B,W,K,dh]``
+    and its slot positions ``[W]`` (this token's already marked), ``cur``
+    the 0-d int32 position; this token's k and v go into slot ``cur % W``
+    in place, and the attention over the ring is ``ops.decode_attention``
+    (K4 on a CUDA tensor unless ``use_kernel=False``); returns
+    ``(x, None)``."""
     B, S, _ = x.shape
     H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     hN = L.norm_apply(shared["in_ln"], torch.cat([x, x0], dim=-1),
@@ -176,8 +188,10 @@ def _shared_attn(shared: dict, p: dict, cfg: HybridConfig, x: Tensor,
     q = L.apply_rope(q, sin, cos)
     k = L.apply_rope(k, sin, cos)
     if cache is None:
-        o = L.attention(q, k, v, spec=L.MaskSpec(causal=True), q_pos=pos,
-                        kv_pos=pos)
+        o = L.attention(q, shard_act(k, "kv_full"), shard_act(v, "kv_full"),
+                        spec=L.MaskSpec(causal=True), q_pos=pos,
+                        kv_pos=pos if kv_pos is None else kv_pos,
+                        q_offset=seq_offset(S))
         kv = (k, v)
     else:
         from repro_torch.kernels.decode_attention.ops import decode_attention
@@ -213,7 +227,8 @@ def make_block_body(cfg: HybridConfig):
         h = L.norm_apply(p["mamba"]["ln"], x, kind=cfg.norm)
         x = x + M2.mamba2_mix(p["mamba"], mc, h)
         if idx in with_attn:
-            x = _shared_attn(shared, p, cfg, x, x0, ctx_act["pos"])[0]
+            x = _shared_attn(shared, p, cfg, x, x0, ctx_act["pos"],
+                             kv_pos=ctx_act.get("kv_pos"))[0]
         return (x, x0, aux)
 
     return body
@@ -228,10 +243,10 @@ def make_fused_spec(cfg: HybridConfig):
 
     def pro_ctx(outer, batch):
         # int positions: the port differentiates the carry and the
-        # parameters, never the context
+        # parameters, never the context; on a model axis the tile's own
+        # (absolute) and the whole sequence's (``kv_pos``)
         tokens = batch["tokens"]
-        return {"pos": torch.arange(tokens.shape[1], dtype=torch.int32,
-                                    device=tokens.device)}
+        return _seq_ctx(tokens.shape[1], tokens.device)
 
     return FusedSpec(prologue=prologue,
                      bodies={"blocks": make_block_body(cfg)},

@@ -19,6 +19,12 @@ reference's; the gradients equal the reference's wherever those are
 finite.  A second one: a prefill over fewer than ``d_conv - 1`` tokens
 raises ``ValueError`` (the reference returns a conv tail of the wrong
 shape, and its next decode step fails on it).
+
+On a model axis (sequence parallelism) the train mixer gathers its tile's
+normed input over ``model``, runs the whole sequence on every rank and
+keeps the tile's rows (:func:`_mix_tile`): ``model``-fold duplicated work,
+safe for parity.  A sequence-split SSD passing chunk states along the ranks
+is not ported.
 """
 from __future__ import annotations
 
@@ -33,8 +39,9 @@ from repro_torch import resolve_device
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import _logits as logits
-from repro_torch.sharding.act import batch_sum, current_policy
 from repro_torch.models.transformer import cross_entropy
+from repro_torch.sharding.act import (batch_sum, current_policy, model_size,
+                                      seq_offset, shard_act)
 
 Tensor = torch.Tensor
 
@@ -280,14 +287,33 @@ def _mix_seq(p: dict, cfg: Mamba2Config, h: Tensor, *, return_state: bool):
     return out, xBC[:, S - (cfg.d_conv - 1):], s_final
 
 
+def _mix_tile(p: dict, cfg: Mamba2Config, h: Tensor) -> Tensor:
+    """The train mixer on a model axis: ``h [B, S/tp, d]`` is this rank's
+    sequence tile, and the chunked SSD and the causal conv run along the
+    whole sequence, so the tile's normed input is gathered over ``model``
+    (``kv_full``: an all-gather forward, a fixed-order reduce-scatter of
+    its gradient backward), every rank runs the mixer on the whole
+    sequence, and keeps its own rows of the output.  The parameters'
+    gradients a rank takes are its tile's rows' share, which the ZeRO-3
+    scatter sums over ``model``.  ``h`` is gathered and not ``in_proj``'s
+    output, about four times wider."""
+    S = h.shape[1]
+    off = seq_offset(S)
+    out = _mix_seq(p, cfg, shard_act(h, "kv_full"), return_state=False)
+    return out[:, off:off + S]
+
+
 def mamba2_mix(p: dict, cfg: Mamba2Config, h: Tensor,
                conv_state: Optional[Tensor] = None,
                ssm_state: Optional[Tensor] = None,
                decode: bool = False):
-    """The mamba2 mixer.  Train/prefill: full-sequence chunked SSD.
-    Decode (S == 1): the recurrent update; takes conv_state [B,k-1,C] and
-    ssm_state [B,H,P,N] and returns (y, new_conv_state, new_ssm_state)."""
+    """The mamba2 mixer.  Train/prefill: full-sequence chunked SSD (on a
+    model axis, :func:`_mix_tile`).  Decode (S == 1): the recurrent
+    update; takes conv_state [B,k-1,C] and ssm_state [B,H,P,N] and returns
+    (y, new_conv_state, new_ssm_state)."""
     if not decode:
+        if model_size() > 1:
+            return _mix_tile(p, cfg, h)
         return _mix_seq(p, cfg, h, return_state=False)
     B = h.shape[0]
     di, G, N, H, P = (cfg.d_inner, cfg.n_groups, cfg.d_state, cfg.n_heads,

@@ -26,8 +26,10 @@ reference's do.  ``glu=False`` configs take the plain two-layer MLP with
 biases (``layers.mlp``) in place of the GLU.  On a model axis (sequence
 parallelism) the train half runs on this rank's sequence tile: GQA gathers
 K/V over ``model``, MLA its per-token latent, and the MTP head's block
-attends as the main blocks do; only a prefix is not ported there yet
-(:func:`model_axis_gap`).
+attends as the main blocks do.  A modality prefix counts in the tiled
+sequence: the ``P + S`` rows are tiled evenly, so a tile holds prefix
+rows, token rows or both (``sharding/zero.py::Zero3.rows``), attends at its
+absolute positions, and scores only its token rows.
 """
 from __future__ import annotations
 
@@ -402,10 +404,17 @@ def _embed(outer: dict, cfg: LMConfig, tokens: Tensor) -> Tensor:
 def _with_prefix(cfg: LMConfig, x: Tensor, batch: dict) -> Tensor:
     """``x`` after the batch's ``prefix_embed [B, n_prefix_tokens, d]``
     (the stubbed modality frontend's patch embeddings, cast to x's dtype and
-    not scaled), for a config with a modality prefix."""
+    not scaled), for a config with a modality prefix.  On a model axis both
+    are this rank's tile's rows: its prefix rows, then its token rows."""
     if not cfg.n_prefix_tokens:
         return x
     return torch.cat([batch["prefix_embed"].to(x.dtype), x], dim=1)
+
+
+def _n_prefix(cfg: LMConfig, batch: dict) -> int:
+    """The batch's prefix rows: ``n_prefix_tokens``, or on a model axis
+    those of this rank's tile (``Zero3.rows`` cut ``prefix_embed``)."""
+    return batch["prefix_embed"].shape[1] if cfg.n_prefix_tokens else 0
 
 
 def _prefix_ctx(cfg: LMConfig, batch: dict, pos: Tensor) -> dict:
@@ -448,18 +457,10 @@ def make_prologue(cfg: LMConfig):
     return prologue
 
 
-def model_axis_gap(cfg: LMConfig) -> Optional[str]:
-    """What of ``cfg`` a model axis larger than 1 does not run yet (None:
-    it runs): a prefix-LM or modality prefix (slice 6c-3 brings it)."""
-    if cfg.prefix_lm or cfg.n_prefix_tokens:
-        return "a prefix-LM or modality prefix"
-    return None
-
-
 def _seq_ctx(S: int, device) -> dict:
-    """The positions of an unpacked tile of ``S`` tokens: ``pos`` its own
-    (absolute: the tile's offset on), and with a model axis ``kv_pos``
-    the whole sequence's."""
+    """The positions of an unpacked tile of ``S`` rows (a modality prefix's
+    included): ``pos`` its own (absolute: the tile's offset on), and with a
+    model axis ``kv_pos`` the whole sequence's."""
     tp = model_size()
     off = seq_offset(S)
     ctx = {"pos": torch.arange(off, off + S, dtype=torch.int32,
@@ -478,11 +479,6 @@ def make_pro_ctx(cfg: LMConfig):
         # tile: ``pos``/``seg`` are the tile's (its queries, RoPE) and
         # ``kv_pos``/``kv_seg`` the whole sequence's (the gathered K/V).
         tp = model_size()
-        gap = model_axis_gap(cfg) if tp > 1 else None
-        if gap:
-            raise NotImplementedError(
-                f"{cfg.name}: {gap} on a model axis of {tp} is slice 6c of "
-                "the port and not ported to repro_torch yet")
         if "segment_ids" in batch:
             if cfg.prefix_lm or cfg.n_prefix_tokens or cfg.mtp:
                 raise ValueError(
@@ -495,7 +491,7 @@ def make_pro_ctx(cfg: LMConfig):
                 ctx["kv_seg"] = gather_tiles(ctx["seg"])
             return ctx
         tokens = batch["tokens"]
-        ctx = _seq_ctx(tokens.shape[1] + cfg.n_prefix_tokens, tokens.device)
+        ctx = _seq_ctx(tokens.shape[1] + _n_prefix(cfg, batch), tokens.device)
         return {**_prefix_ctx(cfg, batch, ctx["pos"]), **ctx}
 
     return pro_ctx
@@ -504,8 +500,9 @@ def make_pro_ctx(cfg: LMConfig):
 def make_epilogue(cfg: LMConfig):
     def epilogue(outer, carry, batch):
         x, aux_loss = carry
-        if cfg.n_prefix_tokens:
-            x = x[:, cfg.n_prefix_tokens:]
+        # the prefix rows score nothing (on a model axis, the tile's own;
+        # a tile of prefix rows alone has no label and sums to zero)
+        x = x[:, _n_prefix(cfg, batch):]
         h = L.norm_apply(outer["final_norm"], x, kind=cfg.norm)
         logits = _logits(outer, cfg, h)
         loss_sum, ntok, correct = cross_entropy(logits, batch["labels"],

@@ -63,11 +63,10 @@ SLICE_6C = "slice 6c of the port"
 
 def model_axis_gap(arch) -> Optional[str]:
     """What of ``arch`` a model axis larger than 1 does not run yet (None:
-    it runs): the ``transformer`` family, as its ``model_axis_gap`` says."""
-    if arch.family != "transformer":
+    it runs): the ``encdec`` family (slice 6c-5 brings it)."""
+    if arch.family == "encdec":
         return f"the {arch.family} family"
-    from repro_torch.models.transformer import model_axis_gap as gap
-    return gap(arch.cfg)
+    return None
 
 
 def check_ported(spec: RunSpec, arch=None) -> None:
@@ -220,7 +219,7 @@ def build_step_program(spec: RunSpec, arch=None, opt: Optional[Opt] = None,
 
     def rows(b):
         """On a mesh, this rank's rows and tile of a global (micro)batch."""
-        return b if zero is None else {n: zero.rows(x) for n, x in b.items()}
+        return b if zero is None else zero.rows(b)
 
     def with_preempt(params, opt_state, loss, metrics):
         """On a mesh, the pending preemption signal summed over the ranks

@@ -145,8 +145,9 @@ def gather_tiles(x: torch.Tensor) -> torch.Tensor:
 
 
 def seq_offset(n_local: int) -> int:
-    """The sequence index of this rank's first token: its tile times
-    ``n_local``, the tile's length (0 without a model axis)."""
+    """The sequence index of this rank's first row: its tile times
+    ``n_local``, the tile's length, a modality prefix's rows included (0
+    without a model axis)."""
     pol = _POLICY.get()
     if pol is None or pol.model_group is None:
         return 0

@@ -281,8 +281,9 @@ def make_grad_constraint(zero):
 
 def make_residual_constraint(zero):
     """Sequence-sharding of saved layer inputs: a saved carry's activations
-    are this rank's ``[B/dp, S/tp, d]`` tile (``zero.tile``, set where the
-    batch is cut, ``Zero3.rows``).  The port's model runs on the tile, so
+    are this rank's ``[B/dp, T, d]`` tile, ``T = (P + S) / tp`` with a
+    modality prefix of ``P`` rows (``zero.tile``, set where the batch is
+    cut, ``Zero3.rows``).  The port's model runs on the tile, so
     nothing moves: the constraint checks each saved tensor of three or more
     dims and raises ``ValueError`` for one that is not the tile."""
     def constrain(x):
@@ -291,7 +292,7 @@ def make_residual_constraint(zero):
             if tile is not None and t.ndim >= 3 and tuple(t.shape[:2]) != tile:
                 raise ValueError(
                     f"a saved residual {tuple(t.shape)} is not this rank's "
-                    f"[B/dp, S/tp] = {list(tile)} tile")
+                    f"[B/dp, T] = {list(tile)} tile")
         return x
 
     return constrain

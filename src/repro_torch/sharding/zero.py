@@ -6,8 +6,9 @@ fused step.
 At rest every param leaf is held as this rank's block: split along the dim
 that ``rules.param_pspecs`` shards over ``data`` and along the dim it shards
 over ``model`` (a :class:`Place`), whole along a dim the axis does not
-divide (the rules' shape guard).  The other leaves (norm scales, biases)
-are whole on every rank.  Params are replicated across pods.  AdaLomo's
+divide (the rules' shape guard).  The other leaves (norm scales, biases,
+and a vector the rules would split over ``model``, mamba's conv bias) are
+whole on every rank.  Params are replicated across pods.  AdaLomo's
 factored state shards with the rows and columns it describes, as the
 reference's ``opt_pspecs``: r takes its param's row split, c its column
 split; an unfactored v is split as its param.
@@ -28,7 +29,8 @@ The fused step (``core/fused.py``) calls the seams:
     groups holding the other row and column blocks of its matrices, which
     the AdaLomo rule takes to sum its statistics over the ranks;
   * :meth:`Zero3.rows` — this rank's rows (``pod`` × ``data``) and
-    sequence tile (``model``) of a global batch leaf.
+    sequence tile (``model``) of a global batch, a modality prefix's rows
+    counted ahead of the tokens'.
 
 Nothing here keeps a gathered tensor: a layer's whole weights live while
 its forward or its re-run does.
@@ -158,6 +160,32 @@ def _places(spec, path: str):
                  md is not None and bool(EXPERT_LEAF.search(path)))
 
 
+def _vectors_whole(places, shapes, lead: int):
+    """``places`` with every vector (one dim past the ``lead`` stacked
+    ones: mamba's conv bias) whole over ``model``: the optimizer rules'
+    sharded forms take matrices, and a vector is a few kB."""
+    return tree_map(lambda pl, shp: pl if pl.model is None
+                    or len(shp) - lead >= 2 else Place(pl.data, None, pl.ep),
+                    places, shapes)
+
+
+def rest_places(params, axes: MeshAxes):
+    """The :class:`Place` every param leaf rests at on the mesh of
+    ``axes``: the rules' places, where a model axis of 1 splits nothing
+    (the data axis' plan alone), nor does a data axis of 1 beside a model
+    axis (its gathers and sums would be copies; a mesh of data alone keeps
+    its one-rank split, the sharded path on one card), and every vector
+    rests whole over ``model``."""
+    dims = param_places(params, axes)
+    if axes.size(axes.tp) == 1:
+        dims = tree_map(lambda pl: Place(pl.data), dims)
+    elif axes.size(axes.fsdp) == 1:
+        dims = tree_map(lambda pl: Place(None, pl.model, pl.ep), dims)
+    shapes = tree_map(lambda t: tuple(t.shape), params)
+    return {key: _vectors_whole(dims[key], shapes[key], int(key == "stacks"))
+            for key in dims}
+
+
 def leaf_places(places, shapes, opt_state) -> list:
     """The :class:`Place` of every tensor of ``(params, opt_state)`` in
     ``pytree_leaves`` order, from the params' ``places`` and full
@@ -175,22 +203,17 @@ class Zero3:
 
     ``gathers`` counts the leaves gathered by :meth:`gather`, by
     ``(axis, "expert" | "dense")``: an expert stack is never gathered over
-    ``model``.  ``tile`` is this rank's ``(B/dp, S/tp)`` of the last batch
-    :meth:`rows` cut while the model axis is larger than 1 (else None)."""
+    ``model``.  ``tile`` is this rank's ``(B/dp, T)`` of the last batch
+    :meth:`rows` cut while the model axis is larger than 1 (else None):
+    ``T = (prefix + S) / tp`` rows, where ``prefix`` is the model's
+    modality prefix (``n_prefix_tokens``, 0 without one), whose rows come
+    before the tokens' in the sequence ``model`` tiles."""
 
-    def __init__(self, mesh, params):
+    def __init__(self, mesh, params, *, prefix: int = 0):
         self.mesh = mesh
+        self.prefix = prefix
         self.axes = MeshAxes(mesh)
-        self.dims = param_places(params, self.axes)
-        if mesh.size("model") == 1:
-            # a model axis of 1 splits nothing: the data axis' plan alone
-            self.dims = tree_map(lambda pl: Place(pl.data), self.dims)
-        elif mesh.size("data") == 1:
-            # nor does a data axis of 1 beside a model axis (its gathers
-            # and sums would be copies); a mesh of data alone keeps its
-            # one-rank split, the sharded path on one card
-            self.dims = tree_map(lambda pl: Place(None, pl.model, pl.ep),
-                                 self.dims)
+        self.dims = rest_places(params, self.axes)
         self.shapes = tree_map(lambda t: tuple(t.shape), params)
         self.data = mesh.group("data")
         self.model = (mesh.groups.get("model") if mesh.size("model") > 1
@@ -409,26 +432,63 @@ class Zero3:
             pos += n
         return out
 
-    def rows(self, x: Tensor) -> Tensor:
-        """This rank's rows of a global batch leaf (the leading dim split
-        over ``pod`` × ``data`` when it divides, else whole) and, with a
-        model axis, its sequence tile (dim 1 split over ``model``: tokens,
-        labels, positions, segment ids, the loss mask)."""
+    def rows(self, batch: dict) -> dict:
+        """This rank's rows and sequence tile of every leaf of a global
+        batch: the leading dim split over ``pod`` × ``data`` when it
+        divides (else whole) and, with a model axis, the sequence tiled
+        over ``model``.  The tiled sequence is the model's whole input, a
+        modality prefix's ``prefix`` rows (``prefix_embed``) before the
+        ``S`` tokens: tile ``i`` is its rows ``[iT, (i+1)T)``,
+        ``T = (prefix + S) / tp``, so it takes ``prefix_embed``'s rows
+        ``[iT, min((i+1)T, prefix))`` and the token leaves' (tokens,
+        labels, positions, segment ids, the loss mask) rows
+        ``[max(iT - prefix, 0), max((i+1)T - prefix, 0))``; either may be
+        empty.  A 1-D leaf (``prefix_len``) keeps its rows only.  Raises
+        ``ValueError`` where ``tp`` does not divide ``prefix + S``, or a
+        ``prefix_embed`` is not ``prefix`` rows long."""
+        out = {k: self._batch_rows(x) for k, x in batch.items()}
+        if self.tp == 1:
+            return out
+        P = self.prefix
+        pre = out.get("prefix_embed")
+        if (pre is None) != (P == 0) or (pre is not None
+                                         and pre.shape[1] != P):
+            raise ValueError(
+                f"a batch's prefix_embed "
+                f"{None if pre is None else tuple(pre.shape)} does not hold "
+                f"the {P} prefix rows the plan tiles")
+        lo, hi = self._span(out["tokens"].shape)
+        for k, x in out.items():
+            if k == "prefix_embed":
+                out[k] = x[:, min(lo, P):min(hi, P)]
+            elif x.ndim >= 2:
+                out[k] = x[:, max(lo - P, 0):max(hi - P, 0)]
+        self.tile = (out["tokens"].shape[0], hi - lo)
+        return out
+
+    def _batch_rows(self, x: Tensor) -> Tensor:
+        """This rank's rows of a batch leaf's leading dim (``pod`` ×
+        ``data``), whole where the dim does not divide."""
         w = self.mesh.batch_size
-        if not (x.ndim == 0 or x.shape[0] % w or x.shape[0] <= 1):
-            k = x.shape[0] // w
-            i = self.mesh.batch_index
-            x = x[i * k:(i + 1) * k]
-        if self.tp > 1 and x.ndim >= 2:
-            if x.shape[1] % self.tp:
-                raise ValueError(
-                    f"a batch leaf {tuple(x.shape)}: its sequence dim does "
-                    f"not divide over a model axis of {self.tp}")
-            k = x.shape[1] // self.tp
-            i = self.mesh.tile_index
-            x = x[:, i * k:(i + 1) * k]
-            self.tile = tuple(x.shape[:2])
-        return x
+        if x.ndim == 0 or x.shape[0] % w or x.shape[0] <= 1:
+            return x
+        k = x.shape[0] // w
+        i = self.mesh.batch_index
+        return x[i * k:(i + 1) * k]
+
+    def _span(self, shape) -> tuple:
+        """``[iT, (i+1)T)``: this rank's tile of the ``prefix + S`` rows
+        of the batch whose tokens are ``shape`` (``S = shape[1]``)."""
+        S = shape[1]
+        n = self.prefix + S
+        if n % self.tp:
+            raise ValueError(
+                f"a batch leaf {tuple(shape)}: its sequence of P + S = "
+                f"{self.prefix} + {S} = {n} rows does not divide over a "
+                f"model axis of {self.tp}")
+        T = n // self.tp
+        i = self.mesh.tile_index
+        return i * T, (i + 1) * T
 
 
 def tree_sqsums(tree, places) -> list:

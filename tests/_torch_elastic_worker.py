@@ -1,5 +1,5 @@
 """The ranks of the sharded-run tests (``test_torch_elastic.py``,
-``test_torch_model_axis.py``, ``test_torch_mesh_optimizers.py``,
+``test_torch_model_axis*.py``, ``test_torch_mesh_optimizers.py``,
 ``test_torch_sharded_bf16.py``): one
 ``gloo`` world a call of :func:`run_world`, running a list of cases in
 order, each rank writing what the parent process compares.  Imports torch
@@ -133,6 +133,9 @@ def _case(case, rank):
     if kind == "mtp_positions":
         _mtp_positions_case(case, rank)
         return
+    if kind == "prefix_rows":
+        _prefix_rows_case(case, rank)
+        return
     if kind == "mesh_error":
         from repro_torch.launch.mesh import make_mesh
         try:
@@ -177,6 +180,14 @@ def _case(case, rank):
         arch = aux_arch(case["arch"], case["aux_weight"])
     if case.get("dtype"):
         arch = dtype_arch(case["arch"], getattr(torch, case["dtype"]))
+    batch_iter = None
+    if case.get("overrides"):
+        # the registered config's batches under the overridden model (a
+        # causal modality prefix takes the prefix-LM config's prefix leaves)
+        from repro_torch.models.registry import get_arch
+        from repro_torch.run.data import make_batch_iter
+        arch = cfg_arch(case["arch"], **case["overrides"])
+        batch_iter = make_batch_iter(spec, get_arch(case["arch"], smoke=True))
     params = torch.load(case["init"]) if case.get("init") else None
     inject = None
     if case.get("inject"):
@@ -184,7 +195,7 @@ def _case(case, rank):
         kind, at = case["inject"]
         inject = Injection(kind, at_step=at)
     res = run(spec, arch=arch, params=params, device="cpu", hooks=[cap],
-              inject=inject, log_fn=lambda s: None)
+              batch_iter=batch_iter, inject=inject, log_fn=lambda s: None)
     gathers = res.program.zero.gathers if res.program.zero else {}
     if rank == 0:
         with open(out, "w") as f:
@@ -259,12 +270,17 @@ def aux_arch(arch_id, weight):
 
 def dtype_arch(arch_id, dtype):
     """The smoke config of ``arch_id`` in ``dtype`` (a torch dtype)."""
+    return cfg_arch(arch_id, dtype=dtype)
+
+
+def cfg_arch(arch_id, **overrides):
+    """The smoke config of ``arch_id`` with ``overrides`` of its fields."""
     import dataclasses
 
     from repro_torch.models.registry import get_arch
     arch = get_arch(arch_id, smoke=True)
     return dataclasses.replace(arch, cfg=dataclasses.replace(arch.cfg,
-                                                             dtype=dtype))
+                                                             **overrides))
 
 
 def _shard_act_case(case, rank):
@@ -375,6 +391,41 @@ def _mtp_positions_case(case, rank):
     with open(f"{case['out']}.rank{rank}.json", "w") as f:
         json.dump({"seen": seen, "tile": list(zero.tile), "owned": owned},
                   f)
+
+
+def _prefix_rows_case(case, rank):
+    """``Zero3.rows`` of a global batch whose leaves hold their own
+    positions (``prefix_embed[b, j] = j``, ``tokens[b, t] = P + t``,
+    ``labels[b, t] = -(P + t)``) for each ``(P, S)`` of ``case["cuts"]``
+    on the case's mesh: this rank's rows of each leaf and its tile, or the
+    ``ValueError``'s message."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import get_arch
+    from repro_torch.sharding.zero import Zero3
+    mesh = make_mesh(tuple(case["shape"]), "cpu")
+    meta = get_arch(case["arch"], smoke=True).init_params(0, device="meta")
+    got = []
+    for P, S in case["cuts"]:
+        B = 4
+        batch = {"tokens": torch.arange(P, P + S).repeat(B, 1),
+                 "labels": -torch.arange(P, P + S).repeat(B, 1),
+                 "prefix_len": torch.full((B,), P),
+                 "prefix_embed": torch.arange(P, dtype=torch.float32)[
+                     None, :, None].repeat(B, 1, 2)}
+        zero = Zero3(mesh, meta, prefix=P)
+        try:
+            cut = zero.rows(batch)
+        except ValueError as e:
+            got.append({"error": str(e)})
+            continue
+        got.append({"tile": list(zero.tile),
+                    "rows": cut["tokens"].shape[0],
+                    "tokens": cut["tokens"][0].tolist(),
+                    "labels": cut["labels"][0].tolist(),
+                    "prefix_len": cut["prefix_len"].tolist(),
+                    "prefix_embed": cut["prefix_embed"][0, :, 0].tolist()})
+    with open(f"{case['out']}.rank{rank}.json", "w") as f:
+        json.dump(got, f)
 
 
 def _rank(rank, world, store, cases):

@@ -31,7 +31,8 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core.optimizers import get_opt
 from repro_torch.core.tree import tree_map
 from repro_torch.run import run
-from torch_parity import port_flat, jax_flat, ref_params_and_copy, smoke_archs
+from torch_parity import (params_close, port_flat, ref_params_and_copy,
+                          smoke_archs)
 from _torch_elastic_worker import make_spec, probe_values, start_world
 
 DANUBE, MOE = "h2o-danube-1.8b", "deepseek-moe-16b"
@@ -144,34 +145,11 @@ def _ckpt_params(runs, ckpt, step, opt, name="danube"):
     return tree[0]
 
 
-# AdamW and SGD-variance divide by √v̂: an element whose gradient sum is
-# within fp32 rounding of 0 in some step (its first step is lr·sign(g))
-# moves by up to 2·lr differently under another summation order of the
-# gradient over the ranks.  Such elements are counted apart: beyond the
-# tolerance but within 2·lr of the reference, at most NEAR_ZERO_MAX of
-# them in the model; every other element is held at PARAM_TOL.
-NORMALISED = ("adamw", "sgd_variance")
-NEAR_ZERO_MAX = 4
-
-
-def _params_close(got, want, what, *, opt=None, lr=1e-3):
+def _params_close(got, want, what, *, opt=None):
     """Leaf by leaf at the reference's sharded tolerance, under the
-    near-zero-gradient rule above for the rules that divide by √v̂."""
-    assert [p for p, _ in port_flat(got)] == [p for p, _ in jax_flat(want)]
-    apart = {}
-    for (path, a), (_, b) in zip(port_flat(got), jax_flat(want)):
-        diff = np.abs(a - b)
-        bad = diff > PARAM_TOL["atol"] + PARAM_TOL["rtol"] * np.abs(b)
-        if not bad.any():
-            continue
-        assert opt in NORMALISED, (what, path, int(bad.sum()))
-        assert (diff[bad] <= 2 * lr).all(), (what, path, diff[bad].max())
-        apart[path] = [(tuple(int(i) for i in ix), float(diff[tuple(ix)]))
-                       for ix in np.argwhere(bad)]
-    n = sum(len(v) for v in apart.values())
-    print(f"{what}: {n} near-zero-gradient elements beyond the tolerance "
-          f"and within 2 lr: {apart}")
-    assert n <= NEAR_ZERO_MAX, (what, apart)
+    near-zero-gradient rule for the rules that divide by √v̂
+    (``torch_parity.params_close``)."""
+    params_close(got, want, what, opt=opt, **PARAM_TOL)
 
 
 @pytest.mark.parametrize("name", list(RULES) + ["adafactor_mb2"])

@@ -193,10 +193,10 @@ def test_default_device_is_the_card_and_raises_without_one():
 
 @pytest.mark.parametrize("change", [
     {"mesh": spec_mod.MeshSpec(kind="multi", shape=(2, 2)),
-     "model": spec_mod.ModelSpec("mamba2-1.3b", smoke=True)}])
+     "model": spec_mod.ModelSpec("whisper-base", smoke=True)}])
 def test_unported_spec_fields_raise(change):
     """A model axis of 2 on a family the model axis does not run yet
-    (mamba2's sequence-split SSD) raises before any world is formed,
+    (the encoder-decoder family) raises before any world is formed,
     naming the slice that brings it."""
     _, pspec = _specs()
     bad = dataclasses.replace(pspec, **change)
@@ -208,19 +208,21 @@ def test_unported_spec_fields_raise(change):
 
 @pytest.mark.parametrize("arch,shape,gap", [
     ("deepseek-v3-671b", (1, 2), None),
-    ("paligemma-3b", (2, 2), "prefix"),
+    ("paligemma-3b", (2, 2), None),
     ("whisper-base", (1, 2), "encdec family"),
-    ("zamba2-1.2b", (1, 2, 2), "hybrid family"),
+    ("zamba2-1.2b", (1, 2, 2), None),
+    ("mamba2-1.3b", (1, 2), None),
     ("deepseek-moe-16b", (1, 3), None),
     ("h2o-danube-1.8b", (2, 2), None),
     ("deepseek-moe-16b", (1, 2), None),
     ("deepseek-v3-671b", (1, 3), None)])
 def test_model_axis_gaps_name_slice_6c(arch, shape, gap):
-    """A model axis larger than 1 runs the transformer family's configs
-    without a prefix: GQA or MLA, with or without MTP, dense or MoE
-    whether or not the axis divides the routed experts; the prefix-LM and
-    modality-prefix configs and every other family raise before any world
-    is formed, naming what is missing and slice 6c."""
+    """A model axis larger than 1 runs every decoder-only family: the
+    transformer family's configs (GQA or MLA, with or without MTP, dense
+    or MoE whether or not the axis divides the routed experts, with or
+    without a modality prefix), mamba2 and the hybrid; the encoder-decoder
+    family raises before any world is formed, naming what is missing and
+    slice 6c."""
     from repro_torch.run.program import check_ported
     _, pspec = _specs()
     spec = dataclasses.replace(

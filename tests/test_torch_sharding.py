@@ -523,6 +523,64 @@ def test_program_shardings_place_state_with_its_rows_and_columns():
         program_shardings(program)
 
 
+@pytest.mark.parametrize("arch_id,layout", [("mamba2-1.3b", (2, 2)),
+                                            ("paligemma-3b", (1, 2))])
+def test_program_shardings_on_a_model_axis_as_the_step_rests_them(arch_id,
+                                                                  layout):
+    """``program_shardings`` on a (data, model) layout: each param spec
+    names the dims its resting place splits (``zero.rest_places``, which
+    ``Zero3`` rests by: mamba2's per-layer ``conv_b``, which the rules split
+    over ``model``, whole; a data axis of 1 splitting nothing), its state
+    with it, the sequence leaves' dim 1 over ``model`` (paligemma's
+    ``prefix_embed`` tiled with the tokens) and ``prefix_len`` by rows
+    only."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.fleet.elastic import program_shardings
+    from repro_torch.run import ModelSpec, OptSpec, RunSpec, StepSpec
+    from repro_torch.run.program import build_step_program
+    from repro_torch.sharding.zero import leaf_places, rest_places
+    spec = RunSpec(model=ModelSpec(arch_id, smoke=True),
+                   data=DataConfig(vocab=0, seq_len=16, global_batch=8),
+                   opt=OptSpec(name="adalomo"), steps=StepSpec(total=1))
+    program = build_step_program(spec, device="cpu")
+    mesh = MeshLayout(layout, ("data", "model"))
+    p, o, b, _ = program_shardings(program, mesh)
+    meta = program.arch.init_params(0, device="meta")
+    places = rest_places(meta, rules.MeshAxes(mesh))
+
+    def named(sp, pl):
+        return tuple("data" if i == pl.data else "model" if i == pl.model
+                     else None for i in range(len(sp)))
+
+    got = tree_flatten_with_path(p)
+    rest = [pl for _, pl in tree_flatten_with_path(places)]
+    assert [path for path, _ in got] == [
+        path for path, _ in tree_flatten_with_path(meta)]
+    for (path, sp), pl in zip(got, rest):
+        assert tuple(sp) == named(sp, pl), path
+    if layout[0] == 1:
+        assert not any("data" in sp for _, sp in got)
+    state = program.opt.init(meta)
+    o_places = leaf_places(places, tree_map(lambda t: tuple(t.shape), meta),
+                           state)[len(got):]
+    o_specs = _port_specs(o)
+    assert len(o_specs) == len(o_places)
+    for sp, pl in zip(o_specs, o_places):
+        assert sp == named(sp, pl)
+    split = [sp for _, sp in got if "model" in sp]
+    assert split
+    if arch_id == "mamba2-1.3b":
+        conv_b = dict(got)[("stacks", "blocks", "conv_b")]
+        assert "model" not in conv_b
+        assert "model" in rules.param_pspecs(meta, rules.MeshAxes(mesh))[
+            "stacks"]["blocks"]["conv_b"]
+        assert tuple(b["tokens"]) == ("data", "model")
+    else:
+        assert tuple(b["prefix_embed"]) == ("data", "model", None)
+        assert tuple(b["tokens"]) == tuple(b["labels"]) == ("data", "model")
+        assert tuple(b["prefix_len"]) == ("data",)
+
+
 @pytest.mark.parametrize("layout", [(2,), (2, 2)], ids=["2", "2x2"])
 @pytest.mark.parametrize("opt", ["adamw", "sgd_momentum", "sgd_variance"])
 def test_unfused_state_places_match_reference_opt_pspecs(opt, layout):
