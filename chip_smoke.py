@@ -148,8 +148,16 @@ printing one JSON line:
            mamba2-1.3b, 2 layers, 4 x 1024, each rank's mixer on the
            sequence gathered over model; (h) ``model_hybrid_1x2``:
            zamba2-1.2b, 7 layers (the shared block at layers 0 and 6), 4 x
-           1024.  ``--phases dist`` without ``train`` runs (b) to (h)
-           alone.  The
+           1024; and the encoder-decoder family, (i) ``model_encdec_1x2``:
+           whisper-base at full depth (6 + 6 layers), 4 x 448 tokens over
+           1500 frames, the frames tiled apart from the tokens (each rank
+           750 frames and 224 tokens, both tiles checked), the encoder's
+           output gathered once a step and its gradient reduce-scattered
+           back to the frame tile, the per-rank peak beside
+           ``rank_reckoning`` of the two stacks, the collectives and K1/K2's
+           sharded and whole-tensor launches a step a rank, the
+           sub-phase's seconds.  ``--phases dist`` without ``train`` runs
+           (b) to (i) alone (``--subs`` picks among them).  The
            optimizer side of a mesh (``optimizers``), two gloo ranks on
            (2,): Table 1's four arms (fused AdaLomo and LOMO, unfused
            Adafactor and AdamW) on danube at 4 layers in bf16, 4 x 1024,
@@ -5063,11 +5071,14 @@ def dist_spec(steps, *, shape=None, ckpt=None, every=0, arch_id=ARCH_ID,
 
 
 def cut_arch(layers: int, dtype=None, arch_id=ARCH_ID):
-    """danube (or ``arch_id``) at its published width, ``layers`` deep, in
-    its own dtype (bf16) unless ``dtype`` is given."""
+    """danube (or ``arch_id``) at its published width, ``layers`` deep
+    (an encoder-decoder: ``layers`` in each stack), in its own dtype (bf16)
+    unless ``dtype`` is given."""
     arch = get_arch(arch_id)
+    depth = ({"n_enc_layers": layers, "n_dec_layers": layers}
+             if arch.family == "encdec" else {"n_layers": layers})
     return dataclasses.replace(arch, cfg=dataclasses.replace(
-        arch.cfg, n_layers=layers, dtype=dtype or arch.cfg.dtype))
+        arch.cfg, **depth, dtype=dtype or arch.cfg.dtype))
 
 
 def within(a, b, *, rtol, atol) -> tuple:
@@ -5255,6 +5266,7 @@ def dist_gloo_rank(rank: int, world: int, store: str, root: str,
             C.reset_stats()
             timing, watch = TimingHook(), moe_watch(-1)
             torch.cuda.reset_peak_memory_stats()
+            t_job = time.time()
             res = run(dist_spec(job["steps"], shape=tuple(job["shape"]),
                                 ckpt=os.path.join(root, ck), every=every,
                                 arch_id=job["arch"], batch=job["batch"],
@@ -5281,6 +5293,8 @@ def dist_gloo_rank(rank: int, world: int, store: str, root: str,
                    "gathers": {f"{a}/{k}": n for (a, k), n
                                in sorted(zero.gathers.items())},
                    "tile": zero.tile and list(zero.tile),
+                   "frame_tile": zero.frame_tile and list(zero.frame_tile),
+                   "run_seconds": time.time() - t_job,
                    "aux_losses": watch.aux, "mtp_losses": watch.mtp,
                    "allocated_at_run_start_bytes": watch.start_bytes}
             if job.get("against"):
@@ -5539,9 +5553,16 @@ DIST_MODEL_JOBS = {
     "model_hybrid_1x2": dict(shape=(1, 2), layers=7, steps=2,
                              arch=SSM_IDS[1], batch=4, tile=[4, 512],
                              runs=(("float32", torch.float32, "hyb12", 2),)),
+    # (i) whisper-base at full depth (6 + 6): 448 tokens over 1500 frames,
+    # each sequence tiled in two along its own length
+    "model_encdec_1x2": dict(shape=(1, 2), layers=6, steps=2, arch=ENCDEC_ID,
+                             batch=4, seq=ENCDEC_TRAIN[1], tile=[4, 224],
+                             frame_tile=[4, 750],
+                             runs=(("float32", torch.float32, "enc12", 2),)),
 }
-# every decoder-only family beside the transformer's on a model axis
-FAMILY_SUBS = ("model_prefix_1x2", "model_ssm_1x2", "model_hybrid_1x2")
+# every family beside the transformer's on a model axis
+FAMILY_SUBS = ("model_prefix_1x2", "model_ssm_1x2", "model_hybrid_1x2",
+               "model_encdec_1x2")
 # the fp32 sub-phases each held against its own unsharded run
 # (dist_model_runs): (b), (c), (f)-(h) and (e), one world for each mesh
 MODEL_RUN_SUBS = ("model_2x2", "moe_1x2", *FAMILY_SUBS, "model_moe_1x3")
@@ -5563,6 +5584,8 @@ def model_axis_readings(ranks: list, steps: int) -> dict:
                               for r in ranks],
         "gathers": ranks[0]["gathers"],
         "rank_tiles": [r["tile"] for r in ranks],
+        "rank_frame_tiles": [r["frame_tile"] for r in ranks],
+        "rank_run_seconds": [r["run_seconds"] for r in ranks],
         "replicated_leaves": ranks[0]["whole_leaves"],
         "replicated_bitwise_across_ranks": all(
             r["whole_digest"] == ranks[0]["whole_digest"] for r in ranks)}
@@ -5668,6 +5691,7 @@ def dist_model_check(root, sub, job, spawn_s, group) -> dict:
     """One fp32 model-axis sub-phase of :func:`dist_model_runs`, its ranks
     run in the world of ``group``: the unsharded run, the line, the
     checks."""
+    t0 = time.time()
     world, (_, _, ck, _) = math.prod(job["shape"]), job["runs"][0]
     seq = job.get("seq", 1024)
     ranks = [json.loads(open(os.path.join(
@@ -5697,6 +5721,9 @@ def dist_model_check(root, sub, job, spawn_s, group) -> dict:
             job["shape"])
     if sub == "model_moe_1x3":
         rec["aux_losses"] = ranks[0]["aux_losses"]
+    # the ranks' runs in the world and this process's unsharded run and
+    # checks
+    rec["seconds"] = max(rec["rank_run_seconds"]) + time.time() - t0
     emit("dist", sub=sub, arch=job["arch"], mesh=list(job["shape"]),
          batch=job["batch"], seq=seq, steps=job["steps"],
          n_layers=job["layers"], dtype="float32",
@@ -5732,12 +5759,14 @@ def dist_model_check(root, sub, job, spawn_s, group) -> dict:
         # sharded entries on every rank (the leaves split over model)
         sharded = [sum(n[k] for k in SHARDED_WRAPPERS)
                    for n in rec["launches_per_step"]]
-        if rec["rank_tiles"] != [job["tile"]] * world or not all(
-                sharded) or not rec["gathers"].get("model/dense"):
+        if (rec["rank_tiles"] != [job["tile"]] * world
+                or rec["rank_frame_tiles"] != [job.get("frame_tile")] * world
+                or not all(sharded) or not rec["gathers"].get("model/dense")):
             raise AssertionError(
                 f"dist {sub}: tiles {rec['rank_tiles']} (expected "
-                f"{job['tile']}), sharded K1/K2 launches a step "
-                f"{sharded}, gathers {rec['gathers']}")
+                f"{job['tile']}), frame tiles {rec['rank_frame_tiles']} "
+                f"(expected {job.get('frame_tile')}), sharded K1/K2 "
+                f"launches a step {sharded}, gathers {rec['gathers']}")
     return rec
 
 
@@ -5770,10 +5799,12 @@ BLOCK_PIECE = 1 << 26
 def rank_reckoning(arch, dims) -> dict:
     """A rank's bytes on a (data, model) mesh of ``dims``, reckoned from
     shapes on the meta device at the places ``Zero3`` rests them at
-    (``zero.rest_places``): its resting blocks, the outer leaves gathered whole (once a
-    step) and their whole gradients, one layer gathered (its expert stacks
-    as the rank holds them) and that layer's gradients.  Activations, the
-    factored state (a few MB) and the collectives' staging are left out."""
+    (``zero.rest_places``): its resting blocks, the outer leaves gathered
+    whole (once a step) and their whole gradients, one layer gathered (its
+    expert stacks as the rank holds them) and that layer's gradients —
+    with two stacks (an encoder's and a decoder's, which run one after the
+    other) the larger stack's layer.  Activations, the factored state (a
+    few MB) and the collectives' staging are left out."""
     from repro_torch.launch.mesh import MeshLayout
     from repro_torch.sharding.rules import MeshAxes
     from repro_torch.sharding.zero import rest_places
@@ -5781,10 +5812,10 @@ def rank_reckoning(arch, dims) -> dict:
     meta = arch.init_params(0, device="meta")
     places = rest_places(meta, MeshAxes(MeshLayout(tuple(dims),
                                                    ("data", "model"))))
-    out = dict.fromkeys(("resting", "outer_gathered", "outer_grads",
-                         "layer_gathered", "layer_grads"), 0)
-    for key in meta:
-        for t, pl in zip(tree_leaves(meta[key]), tree_leaves(places[key])):
+
+    def reckon(tree, where, n_of=lambda t: 1) -> dict:
+        out = {"resting": 0, where + "_gathered": 0, where + "_grads": 0}
+        for t, pl in zip(tree_leaves(tree[0]), tree_leaves(tree[1])):
             full = t.numel() * t.element_size()
             parts = ((dp if pl.data is not None else 1)
                      * (tp if pl.model is not None else 1))
@@ -5794,10 +5825,28 @@ def rank_reckoning(arch, dims) -> dict:
             # over model
             copy = use if ((pl.data is not None and dp > 1) or (
                 pl.model is not None and tp > 1 and not pl.ep)) else 0
-            n = t.shape[0] if key == "stacks" else 1    # [L, ...]: a layer
-            where = "layer" if key == "stacks" else "outer"
+            n = n_of(t)
             out[where + "_gathered"] += copy // n
             out[where + "_grads"] += use // n
+        return out
+
+    out = dict.fromkeys(("resting", "outer_gathered", "outer_grads",
+                         "layer_gathered", "layer_grads"), 0)
+    for key in meta:
+        if key != "stacks":
+            part = reckon((meta[key], places[key]), "outer")
+            for k, v in part.items():
+                out[k] += v
+            continue
+        layers = [reckon((meta[key][name], places[key][name]), "layer",
+                         lambda t: t.shape[0])     # [L, ...]: a layer
+                  for name in meta[key]]
+        for part in layers:
+            out["resting"] += part["resting"]
+        top = max(layers, key=lambda part: part["layer_gathered"]
+                  + part["layer_grads"], default=None)
+        for k in ("layer_gathered", "layer_grads"):
+            out[k] = top[k] if top else 0
     out["total"] = sum(out.values())
     return out
 
@@ -6362,21 +6411,25 @@ def dist_optimizers(root) -> dict:
     return {"seconds": time.time() - t0}
 
 
-def phase_dist(train) -> dict:
+def phase_dist(train, subs=None) -> dict:
     """The sharded run on the card (module docstring).  Without the train
     phase (``--phases dist``) only the sub-phases that are not held against
     its run: deepseek-v3-671b on a model axis (``dist_model_mla``), then
     the fp32 ones each held against its own unsharded run
-    (``MODEL_RUN_SUBS``); then it returns None."""
+    (``MODEL_RUN_SUBS``), or those of them ``subs`` names (``model_mla``
+    among them); then it returns None."""
     import torch.distributed as dist
     t0 = time.time()
     root = resume_root("chip_smoke_dist_")
     if train is None:
+        subs = subs or ("model_mla",) + MODEL_RUN_SUBS
         try:
             t_mla = time.time()
-            dist_model_mla(root)
+            if "model_mla" in subs:
+                dist_model_mla(root)
             mla_s = time.time() - t_mla
-            dist_model_runs(root, MODEL_RUN_SUBS)
+            dist_model_runs(root, [sub for sub in MODEL_RUN_SUBS
+                                   if sub in subs])
         finally:
             shutil.rmtree(root, ignore_errors=True)
         emit("dist", sub="done", seconds=time.time() - t0,
@@ -6533,8 +6586,8 @@ def main() -> None:
                          "after touching the sharded step, the "
                          "collectives, the checkpoints or K1/K2's sharded "
                          "entries (dist alone: deepseek-v3-671b, "
-                         "deepseek-moe-16b, paligemma-3b, mamba2-1.3b and "
-                         "zamba2-1.2b on a model axis), "
+                         "deepseek-moe-16b, paligemma-3b, mamba2-1.3b, "
+                         "zamba2-1.2b and whisper-base on a model axis), "
                          "kernels,train,sentinel "
                          "after touching the sentinel or the probes, "
                          "kernels,baselines "
@@ -6555,6 +6608,10 @@ def main() -> None:
                          "default) qwen3-32b's fused LOMO step; timing "
                          "(not in the default) times the kernels without "
                          "checking them and prints their outputs' digests")
+    ap.add_argument("--subs", default="",
+                    help="with --phases dist and no train: the comma-joined "
+                         "dist sub-phases to run, of model_mla," +
+                         ",".join(MODEL_RUN_SUBS) + " (default: all)")
     ap.add_argument("--src", default=SRC,
                     help="the src directory to import repro_torch from "
                          "(default: this checkout's); another tree's, to "
@@ -6583,7 +6640,11 @@ def main() -> None:
     if "parity" in phases:
         phase_parity()
         torch.cuda.empty_cache()
-    dist_rec = phase_dist(train) if "dist" in phases else None
+    subs = [s for s in args.subs.split(",") if s]
+    unknown = sorted(set(subs) - {"model_mla", *MODEL_RUN_SUBS})
+    if unknown or (subs and "train" in phases):
+        ap.error(f"--subs {args.subs}: unknown {unknown}, or with train")
+    dist_rec = phase_dist(train, subs) if "dist" in phases else None
     if train is not None:
         train.pop("params_cpu", None)
     gc.collect()

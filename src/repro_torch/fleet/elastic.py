@@ -29,8 +29,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.tree import pytree_leaves, pytree_unflatten, tree_map
 from repro_torch.launch.mesh import ProcessMesh, make_mesh
-from repro_torch.run.program import (StepProgram, build_step_program,
-                                     check_ported)
+from repro_torch.run.program import StepProgram, build_step_program
 from repro_torch.run.spec import MeshSpec, RunSpec
 from repro_torch.sharding import rules as R
 from repro_torch.sharding.zero import Zero3, leaf_places, rest_places
@@ -50,17 +49,10 @@ def program_shardings(program: StepProgram, mesh=None) -> tuple:
     own; a ``MeshLayout`` will do — nothing is allocated or communicated):
     the params as the sharded step rests them (``zero.rest_places``: the
     rules' places, a vector whole over ``model``), the optimizer state with
-    them (r with its param's rows, c with its columns), the batch's rows
-    over the batch axes and, with a model axis, dim 1 of every sequence
-    leaf over ``model``, the hparams (and the sentinel's scalars, when the
-    program carries the guard) replicated.
-
-    With a modality prefix of ``P`` rows the model axis tiles the ``P + S``
-    rows of ``prefix_embed`` and the tokens together, evenly (``Zero3.rows``:
-    tile ``i`` is rows ``[iT, (i+1)T)``, ``T = (P + S) / tp``), so the
-    split of each of those leaves along dim 1 is uneven and a tile may hold
-    none of a leaf's rows: ``"model"`` there names the axis, not an even
-    split.  ``prefix_len`` is split by rows only."""
+    them (r with its param's rows, c with its columns), the batch's as
+    ``rules.batch_pspecs`` gives them (the leading dim over the batch axes;
+    the model axis' tiles are ``Zero3.rows``'s), the hparams (and the
+    sentinel's scalars, when the program carries the guard) replicated."""
     if mesh is None:
         if program.zero is None:
             raise ValueError("program_shardings: the program has no mesh; "
@@ -90,9 +82,6 @@ def program_shardings(program: StepProgram, mesh=None) -> tuple:
                                            packed=d.packing) if d else {}
     b_specs = R.batch_pspecs({k: torch.empty(shp, device="meta")
                               for k, (shp, _) in batch.items()}, axes)
-    if axes.size(axes.tp) > 1:
-        b_specs = {k: R.P(*[sp[0], "model", *sp[2:]]) if len(sp) >= 2
-                   else sp for k, sp in b_specs.items()}
     out = (p_specs, o_specs, b_specs,
            {k: R.P() for k in program.hparams_fn(1)})
     if program.sentinel_enabled:
@@ -130,7 +119,6 @@ def run_elastic(spec: RunSpec, *, arch=None, hooks=(), params=None,
     sharded — copies), and hands everything back to the stock loop with a
     checkpoint manager that gathers on save and restores each rank's slice.
     Only rank 0 logs and writes the metrics stream."""
-    check_ported(spec, arch)
     device = resolve_device(device)
     mesh = mesh_from_spec(spec.mesh, device)
     if arch is None:

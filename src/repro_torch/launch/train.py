@@ -9,8 +9,7 @@ Runs on the card; ``--device cpu`` asks for the CPU.  The flags are the
 reference launcher's (``repro.launch.train``), so one command line or spec
 file drives both packages — ``--sentinel*`` (the step guard and its policy
 ladder) and ``--observe-*`` (the optimizer-health probes, recorded in the
-``--metrics-path`` stream) included; a flag of a layer that is not ported
-yet raises ``NotImplementedError``.
+``--metrics-path`` stream) included.
 
 A run with ``--ckpt-dir D`` that is sent SIGTERM or SIGINT checkpoints at the
 next step boundary and exits 75 (``PREEMPTED_EXIT_CODE``); the same command
@@ -18,8 +17,8 @@ with ``--resume`` continues it.
 
 Scale-out (ZeRO-3 over the axes of ``--mesh-shape``: ``N`` is ``(data,)``,
 ``DxM`` ``(data, model)``, ``PxDxM`` ``(pod, data, model)``; a model axis
-larger than 1 adds sequence and expert parallelism, for the transformer
-family; every ``--optimizer``, fused or unfused, with ``--sentinel*`` and
+larger than 1 adds sequence and expert parallelism, for every family;
+every ``--optimizer``, fused or unfused, with ``--sentinel*`` and
 ``--observe-*``):
 
   * ``--device cpu --virtual-devices N`` spawns N ``gloo`` ranks on the

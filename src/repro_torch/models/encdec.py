@@ -15,6 +15,18 @@ born.  ``outer`` (the tied embedding and both final norms) is updated once,
 from the logits', the decoder embedding's and the encoder norm's gradients
 summed in the reference's order.
 
+On a model axis (``sharding/zero.py``) each rank holds a tile of the
+frames and a tile of the tokens, each sequence tiled along its own length
+(``Zero3.rows``).  Both stacks run on their tiles at the tiles' absolute
+positions (the sinusoids included), their self-attention's queries against
+K/V gathered over ``model`` (``kv_full``).  The encoder's output is
+gathered whole once a step (``kv_full``) and every decoder layer
+cross-attends to all of it; its gradient, summed over the decoder's layers
+on each rank, holds only that rank's tokens' share, so it is summed over
+``model`` and cut to the rank's frame tile (``act.sum_to_tile``: a
+fixed-order fp32 reduce-scatter) before the encoder norm's VJP and the
+encoder's sweep.
+
 Serving encodes the frames once (``make_prefill_step``), keeps each decoder
 layer's cross K/V over every frame and a self-attention ring of
 ``max_decode_len`` slots, and decodes one token a step; both attentions of a
@@ -37,8 +49,9 @@ from repro_torch.core import fused as Fu
 from repro_torch.core.api import OptState, hparams_on_device
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import cross_entropy
-from repro_torch.sharding.act import batch_sum, current_policy, use_policy
+from repro_torch.models.transformer import _seq_ctx, cross_entropy
+from repro_torch.sharding.act import (batch_sum, current_policy, seq_offset,
+                                      shard_act, sum_to_tile, use_policy)
 from repro_torch.sharding.rules import make_param_constraint
 
 Tensor = torch.Tensor
@@ -87,9 +100,10 @@ def _sinusoid_at(pos: Tensor, d: int) -> Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def _sinusoid(S: int, d: int, device) -> Tensor:
-    """The fp32 table ``[S, d]`` of positions 0..S-1."""
-    pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
+def _sinusoid(S: int, d: int, device, start: int = 0) -> Tensor:
+    """The fp32 table ``[S, d]`` of positions ``start..start+S-1``."""
+    pos = torch.arange(start, start + S, dtype=torch.float32,
+                       device=device)[:, None]
     return _sinusoid_at(pos, d)
 
 
@@ -166,17 +180,22 @@ def init_params(seed: int, cfg: EncDecConfig, *, device="cuda") -> dict:
 # --------------------------------------------------------------------------
 
 def _mha(p: dict, cfg: EncDecConfig, hq: Tensor, hkv: Tensor, *,
-         causal: bool, q_pos: Tensor, kv_pos: Tensor) -> Tensor:
+         causal: bool, q_pos: Tensor, kv_pos: Tensor,
+         gather: bool = False) -> Tensor:
     """Attention of ``hq [B,Sq,d]`` over ``hkv [B,Skv,d]`` through the
-    dispatcher (the direct branch up to 2048 tokens)."""
+    dispatcher (the direct branch up to 2048 tokens).  ``gather``: a
+    self-attention on a sequence tile, whose K/V are gathered over
+    ``model`` (``kv_full``), ``kv_pos`` the whole sequence's positions."""
     B, Sq, _ = hq.shape
     Skv = hkv.shape[1]
     H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = L.dense(hq, p["wq"], p["bq"]).reshape(B, Sq, H, dh)
     k = L.dense(hkv, p["wk"]).reshape(B, Skv, K, dh)
     v = L.dense(hkv, p["wv"], p["bv"]).reshape(B, Skv, K, dh)
+    if gather:
+        k, v = shard_act(k, "kv_full"), shard_act(v, "kv_full")
     o = L.attention(q, k, v, spec=L.MaskSpec(causal=causal), q_pos=q_pos,
-                    kv_pos=kv_pos)
+                    kv_pos=kv_pos, q_offset=seq_offset(Sq) if gather else 0)
     return L.dense(o.reshape(B, Sq, H * dh), p["wo"], p["bo"])
 
 
@@ -184,14 +203,22 @@ def _positions(n: int, device) -> Tensor:
     return torch.arange(n, dtype=torch.int32, device=device)
 
 
+def _tile_positions(n: int, device) -> tuple:
+    """``(pos, kv_pos)``: the absolute positions of this rank's tile of
+    ``n`` rows, and of the whole sequence the model axis tiles (both
+    ``0..n-1`` without one)."""
+    ctx = _seq_ctx(n, device)
+    return ctx["pos"], ctx.get("kv_pos", ctx["pos"])
+
+
 def make_enc_body(cfg: EncDecConfig):
     def body(p, ctx, carry, aux_idx):
         del ctx, aux_idx
         x, = carry
-        pos = _positions(x.shape[1], x.device)
+        pos, kv_pos = _tile_positions(x.shape[1], x.device)
         h = L.norm_apply(p["ln1"], x, kind=cfg.norm)
         x = x + _mha(p["attn"], cfg, h, h, causal=False, q_pos=pos,
-                     kv_pos=pos)
+                     kv_pos=kv_pos, gather=True)
         h = L.norm_apply(p["ln2"], x, kind=cfg.norm)
         return (x + L.mlp(p["mlp"], h, cfg.act),)
 
@@ -201,13 +228,13 @@ def make_enc_body(cfg: EncDecConfig):
 def make_dec_body(cfg: EncDecConfig):
     def body(p, ctx, carry, aux_idx):
         del aux_idx
-        _, enc_out = ctx
+        _, enc_out = ctx          # every frame (gathered on a model axis)
         x, = carry
-        pos = _positions(x.shape[1], x.device)
+        pos, kv_pos = _tile_positions(x.shape[1], x.device)
         epos = _positions(enc_out.shape[1], x.device)
         h = L.norm_apply(p["ln1"], x, kind=cfg.norm)
         x = x + _mha(p["self_attn"], cfg, h, h, causal=True, q_pos=pos,
-                     kv_pos=pos)
+                     kv_pos=kv_pos, gather=True)
         h = L.norm_apply(p["ln_x"], x, kind=cfg.norm)
         x = x + _mha(p["cross_attn"], cfg, h, enc_out, causal=False,
                      q_pos=pos, kv_pos=epos)
@@ -222,8 +249,11 @@ def make_dec_body(cfg: EncDecConfig):
 # --------------------------------------------------------------------------
 
 def _encoder_inputs(cfg: EncDecConfig, frames: Tensor) -> Tensor:
+    # a model axis' tile at its absolute positions
+    n = frames.shape[1]
     x = frames.to(cfg.dtype)
-    return x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(cfg.dtype)
+    return x + _sinusoid(n, cfg.d_model, x.device, seq_offset(n)).to(
+        cfg.dtype)
 
 
 def _encoder_norm(outer: dict, cfg: EncDecConfig, x: Tensor) -> Tensor:
@@ -235,7 +265,9 @@ def _decoder_inputs(outer: dict, cfg: EncDecConfig, tokens: Tensor
     # F.embedding: a sorted, fixed-order backward on CUDA (see
     # transformer._embed)
     x = F.embedding(tokens, outer["tok_embed"])
-    return x + _sinusoid(tokens.shape[1], cfg.d_model, x.device).to(x.dtype)
+    n = tokens.shape[1]
+    return x + _sinusoid(n, cfg.d_model, x.device, seq_offset(n)).to(
+        x.dtype)
 
 
 def _logits(outer: dict, cfg: EncDecConfig, x: Tensor) -> Tensor:
@@ -280,7 +312,8 @@ def make_fused_train_step(cfg: EncDecConfig, opt, *, zero=None):
     (a ``sharding.zero.Zero3``): ZeRO-3 sharded, as ``core.fused``'s step —
     the outer leaves gathered once, each layer of both stacks gathered for
     its forward and its re-run, gradients reduce-scattered before the rule;
-    the batch handed in is this rank's rows."""
+    the batch handed in is this rank's rows and its tiles of the frames and
+    the tokens (module docstring)."""
     enc_body, dec_body = make_enc_body(cfg), make_dec_body(cfg)
 
     def train_step(params, opt_state, batch, *, hparams=None):
@@ -314,7 +347,9 @@ def make_fused_train_step(cfg: EncDecConfig, opt, *, zero=None):
                                        (_encoder_inputs(cfg,
                                                         batch["frames"]),),
                                        **fwd("enc"))
-            enc_out = _encoder_norm(outer, cfg, enc_res.x_out[0])
+            # the frame tile's output, gathered whole once a step
+            enc_out = shard_act(_encoder_norm(outer, cfg, enc_res.x_out[0]),
+                                "kv_full")
             dec_res = Fu.stack_forward(
                 dec_body, stacks["dec"], ({}, enc_out),
                 (_decoder_inputs(outer, cfg, tokens),), **fwd("dec"))
@@ -334,6 +369,9 @@ def make_fused_train_step(cfg: EncDecConfig, opt, *, zero=None):
             ({}, enc_out), dec_res, (dxd,), labels=labels["stacks"]["dec"],
             hp=hp, step=stepf, act_grad=True, **seams["dec"])
         del dec_res, dxd
+        # this rank's tokens' share of every frame's gradient: summed over
+        # ``model``, cut to the frame tile
+        d_enc_out = sum_to_tile(d_enc_out)
         # ``outer`` is not updated yet: the embedding and the encoder norm
         # are re-run under autograd for their gradients
         g_outer_dpro, = _vjp_of(lambda o: _decoder_inputs(o, cfg, tokens),
@@ -399,25 +437,33 @@ def decoder_logits(cfg: EncDecConfig, params: dict, enc_out: Tensor,
                    _decode_stream(cfg, params, enc_out, tokens))
 
 
+def _loss(cfg: EncDecConfig, params: dict, batch: dict, layers=None
+          ) -> tuple:
+    """``(loss, metrics)`` of a batch, differentiable; on a model axis
+    (an installed policy, the batch this rank's tiles) the encoder's
+    output gathered whole (``kv_full``, its backward the sum over the
+    tiles).  ``layers``: ``stack -> layer_fn`` (ZeRO-3's gathers)."""
+    enc_out = _encode(cfg, params, batch["frames"],
+                      layers and layers("enc"))
+    x = _decode_stream(cfg, params, shard_act(enc_out, "kv_full"),
+                       batch["tokens"], layers and layers("dec"))
+    return _loss_from_dec(params["outer"], cfg, x, batch)
+
+
 def loss_fn(cfg: EncDecConfig, params: dict, batch: dict, *, zero=None
             ) -> tuple:
     """Unfused forward ``(loss, metrics)``, differentiable (the baselines'
-    path and the fused step's equivalence tests).  ``zero``: params are
-    ZeRO-3 shards and ``batch`` global (evaluation on a mesh; the loss and
-    metrics are the global batch's)."""
+    path and the fused step's equivalence tests; the unfused step on a
+    mesh calls it under the mesh's policy on this rank's tiles).
+    ``zero``: params are ZeRO-3 shards and ``batch`` global (evaluation on
+    a mesh; the loss and metrics are the global batch's)."""
     if zero is None:
-        enc_out = _encode(cfg, params, batch["frames"])
-        x = _decode_stream(cfg, params, enc_out, batch["tokens"])
-        return _loss_from_dec(params["outer"], cfg, x, batch)
+        return _loss(cfg, params, batch)
     with use_policy(zero.policy):
         batch = zero.rows(batch)
         whole = {"outer": zero.gather(params["outer"], zero.dims["outer"]),
                  "stacks": params["stacks"]}
-        layers = make_param_constraint(zero)
-        enc_out = _encode(cfg, whole, batch["frames"], layers("enc"))
-        x = _decode_stream(cfg, whole, enc_out, batch["tokens"],
-                           layers("dec"))
-        _, metrics = _loss_from_dec(whole["outer"], cfg, x, batch)
+        _, metrics = _loss(cfg, whole, batch, make_param_constraint(zero))
         return metrics["loss"], metrics
 
 

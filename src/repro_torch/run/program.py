@@ -58,35 +58,6 @@ from repro_torch.sharding.act import use_policy
 from repro_torch.train.schedules import constant, warmup_cosine
 
 
-SLICE_6C = "slice 6c of the port"
-
-
-def model_axis_gap(arch) -> Optional[str]:
-    """What of ``arch`` a model axis larger than 1 does not run yet (None:
-    it runs): the ``encdec`` family (slice 6c-5 brings it)."""
-    if arch.family == "encdec":
-        return f"the {arch.family} family"
-    return None
-
-
-def check_ported(spec: RunSpec, arch=None) -> None:
-    """Raise ``NotImplementedError`` for a spec that turns on a layer the
-    port does not have yet, naming it (``arch``: the spec's, looked up when
-    not given)."""
-    shape = spec.mesh.shape
-    tp = shape[-1] if shape is not None and len(shape) >= 2 else 1
-    if tp == 1:
-        return
-    if arch is None:
-        from repro_torch.models.registry import get_arch
-        arch = get_arch(spec.model.arch, smoke=spec.model.smoke)
-    gap = model_axis_gap(arch)
-    if gap is not None:
-        raise NotImplementedError(
-            f"RunSpec.mesh.shape: a model axis of {tp} with {gap} "
-            f"({SLICE_6C}) is not ported to repro_torch yet")
-
-
 def _split_microbatches(batch: dict, k: int) -> list:
     """[k*b, ...] -> k batches of [b, ...], with a clear divisibility
     error."""
@@ -189,7 +160,6 @@ def build_step_program(spec: RunSpec, arch=None, opt: Optional[Opt] = None,
     because the guard owns the injection point.  ``zero`` runs the step
     ZeRO-3 sharded (module docstring; ``fleet.elastic.run_elastic``).
     """
-    check_ported(spec, arch)
     device = resolve_device(device)
     if arch is None:
         from repro_torch.models.registry import get_arch

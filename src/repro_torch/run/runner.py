@@ -7,8 +7,7 @@ host policy (skip, backoff, rollback with quarantine, budget abort).  A spec
 with ``mesh.shape`` runs sharded: ``run()`` hands it to
 ``fleet.elastic.run_elastic``, which builds the ZeRO-3 program and comes
 back here; on a mesh only rank 0 logs and writes the metrics stream and the
-profile (a ``model`` axis larger than 1 on a config it does not run yet
-raises ``NotImplementedError``, ``program.check_ported``).
+profile.
 
 Default hook order (measurement before side effects; see
 ``repro_torch.run.hooks``): straggler → heartbeat → profiler → history →

@@ -3,10 +3,8 @@
 The port's copy of ``repro.run.spec``: the same dataclasses with the same
 fields and defaults, so ``RunSpec.to_json()`` is byte-identical in both
 packages and one spec file drives both.  ``mesh.shape`` runs the step ZeRO-3
-sharded (``fleet/elastic.py``), any optimizer rule, fused or unfused; a
-model axis larger than 1 on a config the model axis does not run yet makes
-``build_step_program``/``run`` raise ``NotImplementedError``
-(``program.check_ported``).
+sharded (``fleet/elastic.py``), any optimizer rule, fused or unfused, on
+any config.
 
 A :class:`RunSpec` is everything the run layer needs to reconstruct a
 training (or dry-run) scenario: which architecture at which shape, the

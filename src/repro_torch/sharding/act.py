@@ -133,6 +133,19 @@ def shard_act(x, kind: str):
     return C.gather_seq(x, 1, pol.model_group)
 
 
+def sum_to_tile(x: torch.Tensor) -> torch.Tensor:
+    """This rank's tile (dim 1) of the sum over ``model`` of a
+    whole-sequence tensor each model rank holds a share of (the gradient
+    of an activation gathered by ``kv_full`` outside autograd): the
+    fixed-order fp32 reduce-scatter of ``kv_full``'s backward; ``x`` itself
+    without a model axis."""
+    pol = _POLICY.get()
+    if pol is None or pol.model_group is None:
+        return x
+    from repro_torch.sharding import collectives as C
+    return C.reduce_scatter(x, 1, pol.model_group)
+
+
 def gather_tiles(x: torch.Tensor) -> torch.Tensor:
     """The whole sequence (dim 1) of an integer tile — positions, segment
     ids — gathered over ``model`` with no gradient; ``x`` itself without a

@@ -30,7 +30,8 @@ The fused step (``core/fused.py``) calls the seams:
     the AdaLomo rule takes to sum its statistics over the ranks;
   * :meth:`Zero3.rows` — this rank's rows (``pod`` × ``data``) and
     sequence tile (``model``) of a global batch, a modality prefix's rows
-    counted ahead of the tokens'.
+    counted ahead of the tokens', an encoder's frames tiled apart from
+    them.
 
 Nothing here keeps a gathered tensor: a layer's whole weights live while
 its forward or its re-run does.
@@ -207,7 +208,8 @@ class Zero3:
     :meth:`rows` cut while the model axis is larger than 1 (else None):
     ``T = (prefix + S) / tp`` rows, where ``prefix`` is the model's
     modality prefix (``n_prefix_tokens``, 0 without one), whose rows come
-    before the tokens' in the sequence ``model`` tiles."""
+    before the tokens' in the sequence ``model`` tiles; ``frame_tile`` is
+    its ``(B/dp, F/tp)`` of an encoder's frames (None without them)."""
 
     def __init__(self, mesh, params, *, prefix: int = 0):
         self.mesh = mesh
@@ -226,6 +228,7 @@ class Zero3:
         self.policy = ActPolicy(mesh, self.axes)
         self.gathers = collections.Counter()
         self.tile = None
+        self.frame_tile = None
 
     # ---------------- placement ----------------
     def leaf_dims(self, opt_state) -> list:
@@ -443,9 +446,12 @@ class Zero3:
         ``[iT, min((i+1)T, prefix))`` and the token leaves' (tokens,
         labels, positions, segment ids, the loss mask) rows
         ``[max(iT - prefix, 0), max((i+1)T - prefix, 0))``; either may be
-        empty.  A 1-D leaf (``prefix_len``) keeps its rows only.  Raises
-        ``ValueError`` where ``tp`` does not divide ``prefix + S``, or a
-        ``prefix_embed`` is not ``prefix`` rows long."""
+        empty.  An encoder's ``frames [B, F, d]`` are a sequence of their
+        own, tiled along their own length: tile ``i`` is frames
+        ``[iF/tp, (i+1)F/tp)``.  A 1-D leaf (``prefix_len``) keeps its rows
+        only.  Raises ``ValueError``, naming the leaf, where ``tp`` does
+        not divide ``prefix + S`` or ``F``, or a ``prefix_embed`` is not
+        ``prefix`` rows long."""
         out = {k: self._batch_rows(x) for k, x in batch.items()}
         if self.tp == 1:
             return out
@@ -457,13 +463,22 @@ class Zero3:
                 f"a batch's prefix_embed "
                 f"{None if pre is None else tuple(pre.shape)} does not hold "
                 f"the {P} prefix rows the plan tiles")
-        lo, hi = self._span(out["tokens"].shape)
+        tokens, frames = out["tokens"].shape, out.get("frames")
+        lo, hi = self._span(P + tokens[1], "tokens", tokens,
+                            f"their sequence of P + S = {P} + {tokens[1]} "
+                            f"= {P + tokens[1]} rows")
+        if frames is not None:
+            flo, fhi = self._span(frames.shape[1], "frames", frames.shape,
+                                  f"their {frames.shape[1]} frames")
         for k, x in out.items():
             if k == "prefix_embed":
                 out[k] = x[:, min(lo, P):min(hi, P)]
+            elif k == "frames":
+                out[k] = x[:, flo:fhi]
             elif x.ndim >= 2:
                 out[k] = x[:, max(lo - P, 0):max(hi - P, 0)]
-        self.tile = (out["tokens"].shape[0], hi - lo)
+        self.tile = (tokens[0], hi - lo)
+        self.frame_tile = None if frames is None else (tokens[0], fhi - flo)
         return out
 
     def _batch_rows(self, x: Tensor) -> Tensor:
@@ -476,16 +491,13 @@ class Zero3:
         i = self.mesh.batch_index
         return x[i * k:(i + 1) * k]
 
-    def _span(self, shape) -> tuple:
-        """``[iT, (i+1)T)``: this rank's tile of the ``prefix + S`` rows
-        of the batch whose tokens are ``shape`` (``S = shape[1]``)."""
-        S = shape[1]
-        n = self.prefix + S
+    def _span(self, n: int, leaf: str, shape, rows: str) -> tuple:
+        """``[iT, (i+1)T)``, ``T = n / tp``: this rank's tile of a
+        sequence of ``n`` rows, that of the batch leaf ``leaf`` of
+        ``shape`` (``rows`` says what they are, for the error)."""
         if n % self.tp:
-            raise ValueError(
-                f"a batch leaf {tuple(shape)}: its sequence of P + S = "
-                f"{self.prefix} + {S} = {n} rows does not divide over a "
-                f"model axis of {self.tp}")
+            raise ValueError(f"a batch's {leaf} {tuple(shape)}: {rows} do "
+                             f"not divide over a model axis of {self.tp}")
         T = n // self.tp
         i = self.mesh.tile_index
         return i * T, (i + 1) * T

@@ -9,9 +9,10 @@ Writes ``ref.json``: the losses, the element count of the params, and
 after each step of ``STEPS`` the count of elements beyond the tolerance of
 the sharded run against the unsharded.
 
-    python tests/_torch_bf16_reference.py OUT_DIR [ARCH MESH STEPS]
+    python tests/_torch_bf16_reference.py OUT_DIR [ARCH MESH STEPS [SEQ]]
 
-``MESH`` as ``1x2``, ``STEPS`` as ``2,4``.
+``MESH`` as ``1x2``, ``STEPS`` as ``2,4``, ``SEQ`` the tokens a row (32
+when not given).
 """
 import os
 
@@ -38,7 +39,7 @@ def bf16_arch(arch_id="h2o-danube-1.8b"):
 
 
 def main(out_dir: str, arch_id="h2o-danube-1.8b", mesh=(2,),
-         steps=STEPS) -> None:
+         steps=STEPS, seq=32) -> None:
     from repro.data.pipeline import DataConfig
     from repro.run import spec as spec_mod
     from repro.run.hooks import Hook
@@ -61,7 +62,7 @@ def main(out_dir: str, arch_id="h2o-danube-1.8b", mesh=(2,),
     for name, shape in (("single", None), ("sharded", mesh)):
         cap = Capture()
         spec = make_spec(arch_id, shape=shape, total=steps[-1],
-                         spec_mod=spec_mod, data_cls=DataConfig)
+                         spec_mod=spec_mod, data_cls=DataConfig, seq_len=seq)
         res = run(spec, arch=arch, params=jax.tree.map(jnp.copy, params),
                   hooks=[cap], log_fn=lambda s: None)
         got[name] = (cap.at, res.history["loss"])
@@ -79,6 +80,7 @@ if __name__ == "__main__":
     if len(sys.argv) > 2:
         main(sys.argv[1], sys.argv[2],
              tuple(int(n) for n in sys.argv[3].split("x")),
-             tuple(int(n) for n in sys.argv[4].split(",")))
+             tuple(int(n) for n in sys.argv[4].split(",")),
+             *(int(n) for n in sys.argv[5:6]))
     else:
         main(sys.argv[1])

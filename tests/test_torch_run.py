@@ -191,48 +191,53 @@ def test_default_device_is_the_card_and_raises_without_one():
     assert build_step_program(pspec, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("change", [
-    {"mesh": spec_mod.MeshSpec(kind="multi", shape=(2, 2)),
-     "model": spec_mod.ModelSpec("whisper-base", smoke=True)}])
-def test_unported_spec_fields_raise(change):
-    """A model axis of 2 on a family the model axis does not run yet
-    (the encoder-decoder family) raises before any world is formed,
-    naming the slice that brings it."""
-    _, pspec = _specs()
-    bad = dataclasses.replace(pspec, **change)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_step_program(bad, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6c"):
-        run(bad, device="cpu")
-
-
-@pytest.mark.parametrize("arch,shape,gap", [
-    ("deepseek-v3-671b", (1, 2), None),
-    ("paligemma-3b", (2, 2), None),
-    ("whisper-base", (1, 2), "encdec family"),
-    ("zamba2-1.2b", (1, 2, 2), None),
-    ("mamba2-1.3b", (1, 2), None),
-    ("deepseek-moe-16b", (1, 3), None),
-    ("h2o-danube-1.8b", (2, 2), None),
-    ("deepseek-moe-16b", (1, 2), None),
-    ("deepseek-v3-671b", (1, 3), None)])
-def test_model_axis_gaps_name_slice_6c(arch, shape, gap):
-    """A model axis larger than 1 runs every decoder-only family: the
-    transformer family's configs (GQA or MLA, with or without MTP, dense
-    or MoE whether or not the axis divides the routed experts, with or
-    without a modality prefix), mamba2 and the hybrid; the encoder-decoder
-    family raises before any world is formed, naming what is missing and
-    slice 6c."""
-    from repro_torch.run.program import check_ported
-    _, pspec = _specs()
-    spec = dataclasses.replace(
-        pspec, model=spec_mod.ModelSpec(arch, smoke=True),
-        mesh=spec_mod.MeshSpec(kind="multi", shape=shape))
-    if gap is None:
-        check_ported(spec)
-        return
-    with pytest.raises(NotImplementedError, match=f"{gap}.*slice 6c"):
-        check_ported(spec)
+@pytest.mark.parametrize("arch_id,shape", [
+    ("deepseek-v3-671b", (1, 2)),
+    ("paligemma-3b", (2, 2)),
+    ("whisper-base", (1, 2)),
+    ("zamba2-1.2b", (1, 2, 2)),
+    ("mamba2-1.3b", (1, 2)),
+    ("deepseek-moe-16b", (1, 3)),
+    ("h2o-danube-1.8b", (2, 2)),
+    ("deepseek-moe-16b", (1, 2)),
+    ("deepseek-v3-671b", (1, 3))])
+def test_zero3_plan_tiles_every_family_on_a_model_axis(arch_id, shape):
+    """Every family's ZeRO-3 plan on a model axis, built on the meta device
+    with no world (``torch_parity.plan_mesh``), as ``run(spec)`` builds it
+    for a spec of that mesh: each rank's rows and tiles of a global batch
+    of 8 rows (every value its own index) put back together, the model
+    ranks' along the sequence and the batch ranks' along the rows, are the
+    global batch; a modality prefix's rows come ahead of the tokens' and an
+    encoder's frames are a sequence of their own; ``tile`` and
+    ``frame_tile`` are each rank's."""
+    from repro_torch.models.registry import get_arch
+    from repro_torch.sharding.zero import Zero3
+    from torch_parity import plan_mesh
+    arch = get_arch(arch_id, smoke=True)
+    meta = arch.init_params(0, device="meta")
+    P = getattr(arch.cfg, "n_prefix_tokens", 0)
+    tp, dp = shape[-1], int(np.prod(shape[:-1]))
+    B, S = 8, 24 if tp == 3 else 16
+    batch = {k: torch.arange(int(np.prod(shp)), dtype=torch.float64)
+             .reshape(shp)
+             for k, (shp, _) in arch.train_batch_specs(B, S).items()}
+    assert ("frames" in batch) == (arch.family == "encdec")
+    got = {}
+    for rank in range(int(np.prod(shape))):
+        mesh = plan_mesh(shape, rank)
+        zero = Zero3(mesh, meta, prefix=P)
+        got[mesh.batch_index, mesh.tile_index] = zero.rows(batch)
+        assert zero.tile == (B // dp, (P + S) // tp)
+        assert zero.frame_tile == (None if "frames" not in batch else
+                                   (B // dp, batch["frames"].shape[1] // tp))
+    for k in batch:
+        whole = torch.cat([
+            torch.cat([got[i, j][k] for j in range(tp)], dim=1)
+            if batch[k].ndim >= 2 else got[i, 0][k] for i in range(dp)])
+        assert torch.equal(whole, batch[k]), k
+        if batch[k].ndim < 2:
+            assert all(torch.equal(got[i, j][k], got[i, 0][k])
+                       for i in range(dp) for j in range(tp)), k
 
 
 def test_hooks_pipeline_and_step_event():

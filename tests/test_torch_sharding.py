@@ -524,16 +524,18 @@ def test_program_shardings_place_state_with_its_rows_and_columns():
 
 
 @pytest.mark.parametrize("arch_id,layout", [("mamba2-1.3b", (2, 2)),
-                                            ("paligemma-3b", (1, 2))])
+                                            ("paligemma-3b", (1, 2)),
+                                            ("whisper-base", (1, 2))])
 def test_program_shardings_on_a_model_axis_as_the_step_rests_them(arch_id,
                                                                   layout):
     """``program_shardings`` on a (data, model) layout: each param spec
     names the dims its resting place splits (``zero.rest_places``, which
     ``Zero3`` rests by: mamba2's per-layer ``conv_b``, which the rules split
     over ``model``, whole; a data axis of 1 splitting nothing), its state
-    with it, the sequence leaves' dim 1 over ``model`` (paligemma's
-    ``prefix_embed`` tiled with the tokens) and ``prefix_len`` by rows
-    only."""
+    with it, and the batch's specs the reference's ``batch_pspecs`` on the
+    same layout (the leading dim over the batch axes; the model axis'
+    tiles, paligemma's prefix with its tokens and whisper's frames apart
+    from them, are ``Zero3.rows``'s and no spec's)."""
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.fleet.elastic import program_shardings
     from repro_torch.run import ModelSpec, OptSpec, RunSpec, StepSpec
@@ -574,11 +576,17 @@ def test_program_shardings_on_a_model_axis_as_the_step_rests_them(arch_id,
         assert "model" not in conv_b
         assert "model" in rules.param_pspecs(meta, rules.MeshAxes(mesh))[
             "stacks"]["blocks"]["conv_b"]
-        assert tuple(b["tokens"]) == ("data", "model")
-    else:
-        assert tuple(b["prefix_embed"]) == ("data", "model", None)
-        assert tuple(b["tokens"]) == tuple(b["labels"]) == ("data", "model")
-        assert tuple(b["prefix_len"]) == ("data",)
+    d = spec.data
+    shapes = program.arch.train_batch_specs(d.global_batch, d.seq_len)
+    if arch_id == "whisper-base":
+        assert shapes["frames"][0] == (8, 24, 64)
+    ref_b = ref_rules.batch_pspecs(
+        {k: jax.ShapeDtypeStruct(shp, jnp.float32)
+         for k, (shp, _) in shapes.items()},
+        ref_rules.MeshAxes(StandIn(mesh)))
+    assert sorted(b) == sorted(ref_b)
+    for k in b:
+        assert tuple(b[k]) == tuple(ref_b[k]), k
 
 
 @pytest.mark.parametrize("layout", [(2,), (2, 2)], ids=["2", "2x2"])

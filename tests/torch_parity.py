@@ -165,9 +165,26 @@ def params_close(got, want, what, *, opt=None, lr=1e-3, rtol, atol):
     assert n <= NEAR_ZERO_MAX, (what, apart)
 
 
+def plan_mesh(dims: tuple, rank: int):
+    """A ``launch.mesh.ProcessMesh`` of the layout ``dims`` (``(data,
+    model)`` or ``(pod, data, model)``) as rank ``rank`` of it would hold
+    it, with no world and no groups: enough for a ``Zero3`` plan's places
+    and :meth:`~repro_torch.sharding.zero.Zero3.rows`, which communicate
+    nothing."""
+    from repro_torch.launch.mesh import AXES_BY_NDIM, MeshLayout, ProcessMesh
+    names = AXES_BY_NDIM[len(dims)]
+    coords = {a: (rank // int(np.prod(dims[i + 1:]))) % dims[i]
+              for i, a in enumerate(names)}
+    return ProcessMesh(layout=MeshLayout(tuple(dims), names), device=CPU,
+                       backend="gloo", device_mesh=None, rank=rank,
+                       coords=coords,
+                       groups=dict.fromkeys(names + ("batch", "matrix",
+                                                     "world")))
+
+
 __all__ = ["CPU", "ARCH_ID", "np_f32", "jax_flat", "port_flat",
            "assert_trees_close", "params_close", "smoke_archs",
            "tiny_llama_archs",
            "ref_params_and_copy", "patch_attention_thresholds",
            "convert_opt_state", "make_batch", "jax_batch", "torch_batch",
-           "to_numpy"]
+           "to_numpy", "plan_mesh"]
