@@ -85,6 +85,12 @@ printing one JSON line:
            the backward pass, batch 4 x 1024 tokens, 3 steps.  Launch counts
            are set to 0 just before and read just after: 170 tensors a step
            go through each kernel.  One device-to-host transfer a step.
+           The same spec traced on the meta device (the dry run,
+           ``repro_torch/launch/dryrun.py``): its K1/K2 launches equal the
+           card's every step, its step peak within 15 % of the card's;
+           each ``dist`` sub-phase's ranks trace their own spec so too
+           (counts equal every step; peaks printed, held in
+           ``gloo_2rank``), the ``dry`` key of each line.
   parity   one fused step at full width and 2 layers, CUDA kernels against the
            plain PyTorch update, from the same weights and batch.
   dist     the sharded run (ZeRO-3 over the data axis), one JSON line a
@@ -1553,6 +1559,7 @@ def phase_timing() -> None:
 # --------------------------------------------------------------------------
 
 def phase_train(steps: int = 3) -> dict:
+    dry_warmup()
     spec = RunSpec(model=ModelSpec(ARCH_ID, smoke=False),
                    data=DataConfig(vocab=0, seq_len=1024, global_batch=4,
                                    seed=0),
@@ -1560,10 +1567,10 @@ def phase_train(steps: int = 3) -> dict:
                    steps=StepSpec(total=steps), log_every=1, seed=0)
     timing = TimingHook()
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     torch.cuda.set_sync_debug_mode("warn")
     try:
-        with warnings.catch_warnings(record=True) as caught:
+        with warnings.catch_warnings(record=True) as caught, \
+                StepMeter() as meter:
             warnings.simplefilter("always")
             K.adalomo_stats.launches = 0
             K.adalomo_update.launches = 0
@@ -1574,6 +1581,8 @@ def phase_train(steps: int = 3) -> dict:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+    # the same spec traced on the meta device
+    dry = dry_reading(spec, meter)
     syncs = [w for w in caught if "synchroniz" in str(w.message)]
     losses = result.history["loss"]
     params = tree_leaves(result.params)
@@ -1586,7 +1595,7 @@ def phase_train(steps: int = 3) -> dict:
          host_sync_sites=sorted({f"{os.path.basename(w.filename)}:{w.lineno}"
                                  for w in syncs}),
          opt_step=int(result.opt_state.step),
-         peak_memory_bytes=torch.cuda.max_memory_allocated())
+         peak_memory_bytes=meter.run_peak(), dry=dry)
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"train: losses not finite: {losses}")
     if not finite:
@@ -1599,8 +1608,14 @@ def phase_train(steps: int = 3) -> dict:
         raise AssertionError(
             f"train: {len(syncs)} synchronising host transfers in {steps} "
             "steps, expected one a step")
+    failed = dry_failures("train", [dry], hold_peak=True)
+    if dry["dry_step"]["launches"] != {"adalomo_stats": TENSORS_PER_STEP,
+                                       "adalomo_update": TENSORS_PER_STEP}:
+        failed.append(f"train: dry launches {dry['dry_step']['launches']}")
+    if failed:
+        raise AssertionError("; ".join(failed))
     return {"launches": launches, "step_seconds": timing.step_s,
-            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "peak_memory_bytes": meter.run_peak(),
             "losses": losses,
             # the dist phase's one-rank world is held against these
             "params_cpu": [t.to("cpu") for t in params]}
@@ -2277,11 +2292,13 @@ def tree_bytes(tree) -> int:
 
 
 def ticket_bytes() -> int:
-    """Bytes of the kernels' integer ticket counters: allocated once a
-    device and kernel and kept for the life of the process."""
+    """Bytes of the kernels' integer ticket counters on the card: allocated
+    once a device and kernel and kept for the life of the process (a dry
+    trace's, on the meta device, hold nothing)."""
     from repro_torch.kernels import tickets
     return sum(t.numel() * t.element_size()
-               for bufs in tickets._BUFFERS.values() for t in bufs)
+               for bufs in tickets._BUFFERS.values() for t in bufs
+               if t.is_cuda)
 
 
 def held_bytes() -> int:
@@ -3185,17 +3202,23 @@ def moe_watch(digest_at: int):
 
 
 def reckoned_bytes(arch_id: str) -> dict:
-    """Table 1's unfused rules on ``arch_id``, reckoned, not run: params,
-    one gradient a parameter in its dtype (all alive at once), and the
-    state ``Opt.state_bytes`` gives, from shapes on the meta device."""
-    meta = get_arch(arch_id).init_params(0, device="meta")
-    params = tree_bytes(meta)
+    """Table 1's unfused rules on ``arch_id``, reckoned, not run: the dry
+    run's resting bytes of each (params and optimizer state, traced at
+    full depth on the meta device, ``launch/dryrun.py``) and one gradient
+    a parameter in its dtype (all alive at once)."""
+    from repro_torch.launch import dryrun as D
+    arch = get_arch(arch_id)
+    params = tree_bytes(arch.init_params(0, device="meta"))
     out = {}
     for name in ("adamw", "adafactor"):
-        state = opt_lib.get_opt(name).state_bytes(meta)
+        spec = RunSpec(model=ModelSpec(arch_id, smoke=False),
+                       data=DataConfig(vocab=0, seq_len=1024, global_batch=1),
+                       opt=OptSpec(name=name),
+                       steps=StepSpec(total=1, fused=False))
+        resting = D.trace_train(spec, arch=arch, steps=0).resting_bytes
         out[name] = {"param_bytes": params, "grad_bytes": params,
-                     "state_bytes": state,
-                     "total_bytes": 2 * params + state}
+                     "state_bytes": resting - params,
+                     "total_bytes": resting + params}
     return out
 
 
@@ -5152,6 +5175,148 @@ class HostProbe:
                 **{k: stats.get(k, 0) - v for k, v in self.before.items()}}
 
 
+# --------------------------------------------------------------------------
+# the dry run beside the card: the same spec traced on the meta device
+# (repro_torch/launch/dryrun.py) in the process that ran it
+# --------------------------------------------------------------------------
+
+# the dry trace's step peak held within this share of the card's, in train
+# and in the data axis' gloo_2rank
+DRY_PEAK_RTOL = 0.15
+DRY_STAT_KEYS = ("calls", "gather_bytes", "scatter_bytes", "reduce_bytes")
+
+
+_DRY_WARM = []
+
+
+def dry_warmup() -> None:
+    """Start importing, beside this process's live run, what its first dry
+    trace would import (``torch._dynamo``, which the meta device's
+    reference kernels load at their first use: a few seconds), so that the
+    readings cost the traces' own time."""
+    import importlib
+    import threading
+    th = threading.Thread(target=importlib.import_module,
+                          args=("torch._dynamo",), daemon=True)
+    th.start()
+    _DRY_WARM.append(th)
+
+
+def launch_counts() -> dict:
+    out = sharded_launches()
+    out["mode3"] = K.adalomo_stats_partial.both_launches
+    return out
+
+
+class StepMeter:
+    """While active (a context), each step of the programs ``run`` builds
+    (and of those given to :meth:`attach`): what it added to the
+    collectives' STATS (``DRY_STAT_KEYS``: gloo's host staging apart) and
+    to the K1/K2 counts, and the allocator's peak over the step (it is
+    reset before each step; :meth:`run_peak` is the peak since the meter
+    started, as one reading of ``max_memory_allocated`` would give it).
+    ``base`` is what the process held when the meter started."""
+
+    def __init__(self):
+        from repro_torch.fleet import elastic
+        from repro_torch.run import runner
+        self.steps = []
+        self._peak = 0
+        self._mods = (elastic, runner)
+
+    def __enter__(self):
+        self.base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        self._orig = self._mods[0].build_step_program
+
+        def build(*a, **k):
+            return self.attach(self._orig(*a, **k))
+
+        for m in self._mods:
+            m.build_step_program = build
+        return self
+
+    def __exit__(self, *exc):
+        for m in self._mods:
+            m.build_step_program = self._orig
+        self._peak = self.run_peak()
+        self._done = True
+
+    def attach(self, program):
+        from repro_torch.sharding import collectives as C
+        inner = program.step
+
+        def step(*a, **k):
+            s0, l0 = dict(C.STATS), launch_counts()
+            self._peak = max(self._peak, torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            out = inner(*a, **k)
+            l1 = launch_counts()
+            self.steps.append({
+                "stats": {k: C.STATS[k] - s0[k] for k in DRY_STAT_KEYS},
+                "launches": {k: l1[k] - l0[k] for k in l1 if l1[k] - l0[k]},
+                "peak_bytes": torch.cuda.max_memory_allocated()})
+            return out
+
+        program.step = step
+        return program
+
+    def run_peak(self) -> int:
+        if getattr(self, "_done", False):
+            return self._peak
+        return max(self._peak, torch.cuda.max_memory_allocated())
+
+
+def dry_reading(spec, meter, *, arch=None, mesh=None, rank=0) -> dict:
+    """Rank ``rank`` of ``spec`` traced on the meta device, its first
+    step (each step of the card held to it: these specs' steps are alike),
+    beside what ``meter`` measured of the same run on the card:
+    ``counts_equal`` (every step's collectives and K1/K2 launches), the
+    step peaks (the card's less what the process held before the run) and
+    the run's peaks (the dry one the larger of the init's and the
+    steps')."""
+    from repro_torch.launch import dryrun as D
+    for th in _DRY_WARM:
+        th.join()
+    t0 = time.time()
+    tr = D.trace_train(spec, arch=arch, mesh=mesh, rank=rank, steps=1)
+    dry = [{"stats": {k: p["stats"][k] for k in DRY_STAT_KEYS},
+            "launches": p["launches"]} for p in tr.per_step]
+    live = [{k: s[k] for k in ("stats", "launches")} for s in meter.steps]
+    if len(dry) < len(live):
+        dry = dry + [dry[-1]] * (len(live) - len(dry))
+    step_peak = max(s["peak_bytes"] for s in meter.steps) - meter.base
+    peak = max(tr.peak_bytes, tr.init_peak_bytes)
+    out = {"counts_equal": dry == live, "steps": len(live),
+           "dry_step": dry[0], "card_step": live[0],
+           "step_peak_bytes": step_peak, "dry_step_peak_bytes": tr.peak_bytes,
+           "step_peak_ratio": tr.peak_bytes / step_peak,
+           "run_peak_bytes": meter.run_peak() - meter.base,
+           "dry_peak_bytes": peak,
+           "peak_ratio": peak / (meter.run_peak() - meter.base),
+           "dry_resting_bytes": tr.resting_bytes,
+           "base_bytes": meter.base, "dry_seconds": time.time() - t0}
+    if not out["counts_equal"]:
+        out["dry_steps"], out["card_steps"] = dry, live
+    return out
+
+
+def dry_failures(where: str, readings, *, hold_peak: bool) -> list:
+    """What a sub-phase's dry readings (one a rank) fail: counts that are
+    not the card's, or (``hold_peak``) a step peak beyond DRY_PEAK_RTOL."""
+    out = []
+    for r, d in enumerate(readings):
+        if not d["counts_equal"]:
+            out.append(f"{where} rank {r}: the dry plan's collectives or "
+                       f"launches {d.get('dry_steps')} are not the card's "
+                       f"{d.get('card_steps')}")
+        if hold_peak and abs(d["step_peak_ratio"] - 1) > DRY_PEAK_RTOL:
+            out.append(f"{where} rank {r}: dry step peak "
+                       f"{d['dry_step_peak_bytes']} against the card's "
+                       f"{d['step_peak_bytes']}")
+    return out
+
+
 def dist_nccl(train) -> dict:
     """run(spec) on a one-rank NCCL world at full width and depth, twice,
     against the train phase's unsharded run of the same seed."""
@@ -5163,11 +5328,11 @@ def dist_nccl(train) -> dict:
         C.reset_stats()
         timing = TimingHook()
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         torch.cuda.set_sync_debug_mode("warn")
         probe = HostProbe()
         try:
-            with warnings.catch_warnings(record=True) as caught:
+            with warnings.catch_warnings(record=True) as caught, \
+                    StepMeter() as meter:
                 warnings.simplefilter("always")
                 res = run(dist_spec(DIST_STEPS, shape=(1,)), hooks=[timing],
                           device=DEV,
@@ -5178,7 +5343,7 @@ def dist_nccl(train) -> dict:
             torch.cuda.set_sync_debug_mode("default")
             host.append(probe.close(step_seconds=timing.step_s))
         torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated()     # before the checks
+        peak = meter.run_peak()                     # before the checks
         digests.append(device_digest((res.params, res.opt_state)))
         if attempt == 0:
             syncs = n_syncs(caught)
@@ -5205,7 +5370,9 @@ def dist_nccl(train) -> dict:
                    "step_seconds": timing.step_s,
                    "train_step_seconds": train["step_seconds"],
                    "peak_memory_bytes": peak,
-                   "train_peak_memory_bytes": train["peak_memory_bytes"]}
+                   "train_peak_memory_bytes": train["peak_memory_bytes"],
+                   "dry": dry_reading(dist_spec(DIST_STEPS, shape=(1,)),
+                                      meter, mesh=(1,))}
         del res
         gc.collect()
         torch.cuda.empty_cache()
@@ -5233,6 +5400,9 @@ def dist_nccl(train) -> dict:
             out["launches"]["adalomo_update"]:
         raise AssertionError(f"dist nccl: launches {out['launches']}, "
                              f"expected {want} of each sharded entry")
+    failed = dry_failures("dist nccl", [out["dry"]], hold_peak=False)
+    if failed:
+        raise AssertionError("; ".join(failed))
     return out
 
 
@@ -5256,6 +5426,7 @@ def dist_gloo_rank(rank: int, world: int, store: str, root: str,
     import torch.distributed as dist
     from repro_torch.core.tree import tree_flatten_with_path
     from repro_torch.sharding import collectives as C
+    dry_warmup()
     torch.cuda.set_device(DEV)
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
@@ -5265,15 +5436,15 @@ def dist_gloo_rank(rank: int, world: int, store: str, root: str,
             reset_launches()
             C.reset_stats()
             timing, watch = TimingHook(), moe_watch(-1)
-            torch.cuda.reset_peak_memory_stats()
             t_job = time.time()
-            res = run(dist_spec(job["steps"], shape=tuple(job["shape"]),
-                                ckpt=os.path.join(root, ck), every=every,
-                                arch_id=job["arch"], batch=job["batch"],
-                                seq=job.get("seq", 1024)),
-                      arch=cut_arch(job["layers"], dtype, job["arch"]),
-                      hooks=[timing, watch], device=DEV,
-                      log_fn=lambda s: None)
+            spec = dist_spec(job["steps"], shape=tuple(job["shape"]),
+                             ckpt=os.path.join(root, ck), every=every,
+                             arch_id=job["arch"], batch=job["batch"],
+                             seq=job.get("seq", 1024))
+            arch = cut_arch(job["layers"], dtype, job["arch"])
+            with StepMeter() as meter:
+                res = run(spec, arch=arch, hooks=[timing, watch], device=DEV,
+                          log_fn=lambda s: None)
             torch.cuda.synchronize()
             zero = res.program.zero
             places = [pl for _, pl in tree_flatten_with_path(zero.dims)]
@@ -5281,7 +5452,7 @@ def dist_gloo_rank(rank: int, world: int, store: str, root: str,
                      if pl.whole]
             rec = {"losses": res.history["loss"],
                    "step_seconds": timing.step_s,
-                   "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                   "peak_memory_bytes": meter.run_peak(),
                    "local_param_bytes": sum(
                        t.numel() * t.element_size()
                        for t in tree_leaves(res.params)),
@@ -5300,6 +5471,8 @@ def dist_gloo_rank(rank: int, world: int, store: str, root: str,
             if job.get("against"):
                 rec["against"] = blocks_against(res.params, zero,
                                                 job["against"])
+            rec["dry"] = dry_reading(spec, meter, arch=arch,
+                                     mesh=tuple(job["shape"]), rank=rank)
             with open(os.path.join(root, f"rank{rank}_{job['tag']}{name}"
                                    ".json"), "w") as f:
                 json.dump(rec, f)
@@ -5416,7 +5589,8 @@ def dist_gloo_and_elastic(root) -> dict:
             "rank_peak_memory_bytes": [r["peak_memory_bytes"]
                                        for r in ranks32],
             "rank_step_seconds": [r["step_seconds"] for r in ranks32],
-            "rank_collectives": [r["collectives"] for r in ranks32]}
+            "rank_collectives": [r["collectives"] for r in ranks32],
+            "dry": [r["dry"] for r in ranks32]}
     del tree32
     leaves = tree_leaves(ref.params)
     n_bytes = sum(t.numel() * t.element_size() for t in leaves)
@@ -5485,6 +5659,7 @@ def dist_gloo_and_elastic(root) -> dict:
         "rank_step_seconds": [r["step_seconds"] for r in ranks],
         "rank_collectives": [r["collectives"] for r in ranks],
         "rank_launches": [r["launches"] for r in ranks],
+        "dry": [r["dry"] for r in ranks],
         "float32": fp32,
         "elastic": {"checkpoint_step": DIST_CKPT_STEP,
                     "restore_onto_one_rank_bitwise": onto_one,
@@ -5511,6 +5686,11 @@ def dist_gloo_and_elastic(root) -> dict:
     if not (onto_one and onto_none):
         raise AssertionError(f"dist elastic: restore bitwise onto one rank "
                              f"{onto_one}, onto no mesh {onto_none}")
+    failed = (dry_failures("dist gloo_2rank", out["dry"], hold_peak=True)
+              + dry_failures("dist gloo_2rank fp32", fp32["dry"],
+                             hold_peak=False))
+    if failed:
+        raise AssertionError("; ".join(failed))
     for name, c in cont.items():
         if c["steps"] != list(range(DIST_CKPT_STEP, DIST_GLOO_STEPS)) or \
                 c["loss_max_rel_err"] > DIST_LOSS_RTOL:
@@ -5588,7 +5768,8 @@ def model_axis_readings(ranks: list, steps: int) -> dict:
         "rank_run_seconds": [r["run_seconds"] for r in ranks],
         "replicated_leaves": ranks[0]["whole_leaves"],
         "replicated_bitwise_across_ranks": all(
-            r["whole_digest"] == ranks[0]["whole_digest"] for r in ranks)}
+            r["whole_digest"] == ranks[0]["whole_digest"] for r in ranks),
+        "dry": [r["dry"] for r in ranks]}
 
 
 def params_within(tree, want) -> tuple:
@@ -5659,6 +5840,12 @@ def dist_model_axis(root, refs) -> None:
             and a["float32"]["replicated_bitwise_across_ranks"]):
         raise AssertionError("dist model (1, 2): a whole leaf differs "
                              "between the ranks")
+    failed = (dry_failures("dist model_1x2", a["bf16"]["dry"],
+                           hold_peak=False)
+              + dry_failures("dist model_1x2 fp32", a["float32"]["dry"],
+                             hold_peak=False))
+    if failed:
+        raise AssertionError("; ".join(failed))
     refs.clear()
     gc.collect()
     torch.cuda.empty_cache()
@@ -5717,8 +5904,9 @@ def dist_model_check(root, sub, job, spawn_s, group) -> dict:
            **model_axis_readings(ranks, job["steps"])}
     if sub == "model_moe_1x3" or sub in FAMILY_SUBS:
         rec["rank_reckoning"] = rank_reckoning(
-            cut_arch(job["layers"], torch.float32, job["arch"]),
-            job["shape"])
+            dist_spec(job["steps"], shape=tuple(job["shape"]),
+                      arch_id=job["arch"], batch=job["batch"], seq=seq),
+            cut_arch(job["layers"], torch.float32, job["arch"]))
     if sub == "model_moe_1x3":
         rec["aux_losses"] = ranks[0]["aux_losses"]
     # the ranks' runs in the world and this process's unsharded run and
@@ -5739,6 +5927,9 @@ def dist_model_check(root, sub, job, spawn_s, group) -> dict:
     if not rec["replicated_bitwise_across_ranks"]:
         raise AssertionError(f"dist {sub}: a whole leaf differs between "
                              "the ranks")
+    failed = dry_failures(f"dist {sub}", rec["dry"], hold_peak=False)
+    if failed:
+        raise AssertionError("; ".join(failed))
     if sub == "model_2x2" and not all(
             n > 0 for n in rec["mode3_launches_per_step"]):
         raise AssertionError(f"dist {sub}: K1 mode 3 launched "
@@ -5796,59 +5987,16 @@ DIST_MLA_MIN_FREE = 32 * 10 ** 9
 BLOCK_PIECE = 1 << 26
 
 
-def rank_reckoning(arch, dims) -> dict:
-    """A rank's bytes on a (data, model) mesh of ``dims``, reckoned from
-    shapes on the meta device at the places ``Zero3`` rests them at
-    (``zero.rest_places``): its resting blocks, the outer leaves gathered
-    whole (once a step) and their whole gradients, one layer gathered (its
-    expert stacks as the rank holds them) and that layer's gradients —
-    with two stacks (an encoder's and a decoder's, which run one after the
-    other) the larger stack's layer.  Activations, the factored state (a
-    few MB) and the collectives' staging are left out."""
-    from repro_torch.launch.mesh import MeshLayout
-    from repro_torch.sharding.rules import MeshAxes
-    from repro_torch.sharding.zero import rest_places
-    dp, tp = dims
-    meta = arch.init_params(0, device="meta")
-    places = rest_places(meta, MeshAxes(MeshLayout(tuple(dims),
-                                                   ("data", "model"))))
-
-    def reckon(tree, where, n_of=lambda t: 1) -> dict:
-        out = {"resting": 0, where + "_gathered": 0, where + "_grads": 0}
-        for t, pl in zip(tree_leaves(tree[0]), tree_leaves(tree[1])):
-            full = t.numel() * t.element_size()
-            parts = ((dp if pl.data is not None else 1)
-                     * (tp if pl.model is not None else 1))
-            out["resting"] += full // parts
-            use = full // tp if pl.ep else full     # an expert stack's
-            # a gather makes a new tensor; an expert stack is not gathered
-            # over model
-            copy = use if ((pl.data is not None and dp > 1) or (
-                pl.model is not None and tp > 1 and not pl.ep)) else 0
-            n = n_of(t)
-            out[where + "_gathered"] += copy // n
-            out[where + "_grads"] += use // n
-        return out
-
-    out = dict.fromkeys(("resting", "outer_gathered", "outer_grads",
-                         "layer_gathered", "layer_grads"), 0)
-    for key in meta:
-        if key != "stacks":
-            part = reckon((meta[key], places[key]), "outer")
-            for k, v in part.items():
-                out[k] += v
-            continue
-        layers = [reckon((meta[key][name], places[key][name]), "layer",
-                         lambda t: t.shape[0])     # [L, ...]: a layer
-                  for name in meta[key]]
-        for part in layers:
-            out["resting"] += part["resting"]
-        top = max(layers, key=lambda part: part["layer_gathered"]
-                  + part["layer_grads"], default=None)
-        for k in ("layer_gathered", "layer_grads"):
-            out[k] = top[k] if top else 0
-    out["total"] = sum(out.values())
-    return out
+def rank_reckoning(spec, arch) -> dict:
+    """A rank's bytes on the mesh of ``spec``, reckoned by the dry run
+    (``launch/dryrun.py``): rank 0 of the spec's first step traced on the
+    meta device, its resting blocks, the init's peak (the whole model is
+    drawn, then cut) and the step's."""
+    from repro_torch.launch import dryrun as D
+    tr = D.trace_train(spec, arch=arch, mesh=spec.mesh.shape, steps=1)
+    return {"resting": tr.resting_bytes, "init_peak": tr.init_peak_bytes,
+            "step_peak": tr.peak_bytes,
+            "total": max(tr.peak_bytes, tr.init_peak_bytes)}
 
 
 def index_runs(shape, piece=BLOCK_PIECE):
@@ -5941,7 +6089,10 @@ def dist_model_mla(root) -> dict:
         raise AssertionError(f"dist model_mla: {free} bytes free in {root}, "
                              f"need {DIST_MLA_MIN_FREE}")
     arch = cut_arch(job["layers"], None, job["arch"])
-    reckoning = rank_reckoning(arch, job["shape"])
+    reckoning = rank_reckoning(
+        dist_spec(job["steps"], shape=tuple(job["shape"]),
+                  arch_id=job["arch"], batch=job["batch"], seq=job["seq"]),
+        arch)
     progress("dist: model axis model_mla, the unsharded run in its own "
              "process")
     unsharded_s = spawn_gloo(1, root, [job], target=dist_unsharded_proc)
@@ -6015,6 +6166,7 @@ def dist_model_mla(root) -> dict:
                       "over model")
     if not all(sum(n.values()) > 0 for n in rec["launches_per_step"]):
         failed.append(f"K1/K2 launches {rec['launches_per_step']}")
+    failed += dry_failures("dist model_mla", rec["dry"], hold_peak=False)
     if failed:
         raise AssertionError(f"dist model_mla: {failed}")
     return rec
@@ -6116,9 +6268,10 @@ def dist_opt_arm(name, fused, base, arch, world) -> dict:
     from repro_torch.sharding import collectives as C
     from repro_torch.sharding.zero import Zero3
     spec = dist_opt_spec(name, DIST_OPT_STEPS, shape=(world,), fused=fused)
-    torch.cuda.reset_peak_memory_stats()
+    meter = StepMeter().__enter__()
     zero = Zero3(make_mesh((world,), DEV), arch.init_params(0, device="meta"))
-    program = build_step_program(spec, arch, device=DEV, zero=zero)
+    program = meter.attach(build_step_program(spec, arch, device=DEV,
+                                              zero=zero))
     params, state = program.init(spec.seed)
     shapes = [shp for _, shp in tree_flatten_with_path(zero.shapes)]
     places = [pl for _, pl in tree_flatten_with_path(zero.dims)]
@@ -6147,6 +6300,7 @@ def dist_opt_arm(name, fused, base, arch, world) -> dict:
             launches = sharded_launches()
     finally:
         torch.cuda.set_sync_debug_mode("default")
+        meter.__exit__(None, None, None)
     torch.cuda.synchronize()
     rec.update(
         losses=result.history["loss"], step_seconds=timing.step_s,
@@ -6154,8 +6308,10 @@ def dist_opt_arm(name, fused, base, arch, world) -> dict:
         collectives_per_step={k: v / DIST_OPT_STEPS
                               for k, v in C.STATS.items()},
         host_syncs=own_syncs(caught),
-        peak_memory_bytes=torch.cuda.max_memory_allocated(),
-        params_finite=all_finite(result.params))
+        peak_memory_bytes=meter.run_peak(),
+        params_finite=all_finite(result.params),
+        dry=dry_reading(spec, meter, arch=arch, mesh=(world,),
+                        rank=zero.mesh.rank))
     del result, params, state, program, zero
     rec["allocated_after_free_bytes"] = held_bytes()
     return rec
@@ -6170,6 +6326,7 @@ def dist_opt_rank(rank: int, world: int, store: str, root: str,
     from repro_torch.sentinel import Injection
     from repro_torch.sharding import collectives as C
     del jobs
+    dry_warmup()
     torch.cuda.set_device(DEV)
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
@@ -6291,6 +6448,9 @@ def dist_optimizers(root) -> dict:
         checks[f"rank {r} finite losses and params"] = all(
             a["params_finite"] and all(math.isfinite(x) for x in a["losses"])
             for a in arms.values())
+        checks[f"rank {r} every arm's dry plan: the card's collectives and "
+               f"launches"] = all(a["dry"]["counts_equal"]
+                                 for a in arms.values())
     # fp32 parity: the same arms unsharded on the card
     arch32 = cut_arch(DIST_OPT_LAYERS, torch.float32)
     meta = arch32.init_params(0, device="meta")
@@ -6370,6 +6530,7 @@ def dist_optimizers(root) -> dict:
             for r in ranks)})
     arms_out = {name: {
         "rank_peak_memory_bytes": [b[name]["peak_memory_bytes"] for b in by],
+        "rank_dry": [b[name]["dry"] for b in by],
         "rank_local_param_bytes": [b[name]["local_param_bytes"] for b in by],
         "rank_local_state_bytes": [b[name]["local_state_bytes"] for b in by],
         "rank_init_allocated_bytes": [b[name]["init_allocated_bytes"]

@@ -80,12 +80,15 @@ def adalomo(cfg: Optional[_adalomo.AdaLomoConfig] = None, *,
         return _adalomo.init_state(param, c, batch_dims=batch_dims)
 
     def use_kernel(param) -> bool:
-        if backend == "cuda" and not param.is_cuda:
+        # a meta tensor takes the card's path (the dry run records the
+        # kernels' launches, kernels/dry.py)
+        on_card = param.is_cuda or param.device.type == "meta"
+        if backend == "cuda" and not on_card:
             raise ValueError(
                 "adalomo(backend='cuda') was given a tensor on "
                 f"{param.device}; the CUDA kernels take CUDA tensors only "
                 "(use backend='torch' or 'auto' on the CPU)")
-        return backend == "cuda" or (backend == "auto" and param.is_cuda)
+        return backend == "cuda" or (backend == "auto" and on_card)
 
     @torch.no_grad()
     def update_fn(param, grad, state, hp, step, *, batch_dims=0, shard=None):

@@ -35,6 +35,35 @@ from repro_torch.sharding import rules as R
 from repro_torch.sharding.zero import Zero3, leaf_places, rest_places
 
 
+# the ROADMAP's item for MeshSpec.optimized=False on a mesh
+BASELINE_ITEM = ("ROADMAP.md Queue A 8b: the paper-faithful baseline "
+                 "sharding (MeshSpec.optimized=False, the reference's "
+                 "dry-run --baseline)")
+
+
+def check_optimized(spec: RunSpec) -> None:
+    """Raise ``NotImplementedError`` for ``spec.mesh.optimized=False``."""
+    if not spec.mesh.optimized:
+        raise NotImplementedError(
+            f"MeshSpec.optimized=False on a mesh: the port runs the "
+            f"optimized sharded step only; the baseline is {BASELINE_ITEM}")
+
+
+def sharded_program(spec: RunSpec, mesh: ProcessMesh, *, arch,
+                    groups=None, device="cuda", inject=None) -> StepProgram:
+    """The ZeRO-3 sharded program of ``spec`` on ``mesh`` (a live or a dry
+    mesh): the plan :class:`Zero3` makes of the model's meta params, and
+    the step program over it.  ``run_elastic`` trains it and the dry run
+    (``launch/dryrun.py``) traces it.  Raises ``NotImplementedError`` for
+    ``spec.mesh.optimized=False``: the port has one sharded step, the
+    optimized one."""
+    check_optimized(spec)
+    zero = Zero3(mesh, arch.init_params(spec.seed, device="meta"),
+                 prefix=getattr(arch.cfg, "n_prefix_tokens", 0))
+    return build_step_program(spec, arch, groups=groups, device=device,
+                              inject=inject, zero=zero)
+
+
 def mesh_from_spec(mesh: MeshSpec, device="cuda") -> ProcessMesh:
     """The mesh ``mesh.shape`` names, over this process's world (a world of
     one process is made for a one-position mesh)."""
@@ -120,14 +149,14 @@ def run_elastic(spec: RunSpec, *, arch=None, hooks=(), params=None,
     checkpoint manager that gathers on save and restores each rank's slice.
     Only rank 0 logs and writes the metrics stream."""
     device = resolve_device(device)
+    check_optimized(spec)            # before any world is joined
     mesh = mesh_from_spec(spec.mesh, device)
     if arch is None:
         from repro_torch.models.registry import get_arch
         arch = get_arch(spec.model.arch, smoke=spec.model.smoke)
-    zero = Zero3(mesh, arch.init_params(spec.seed, device="meta"),
-                 prefix=getattr(arch.cfg, "n_prefix_tokens", 0))
-    program = build_step_program(spec, arch, groups=groups, device=device,
-                                 inject=inject, zero=zero)
+    program = sharded_program(spec, mesh, arch=arch, groups=groups,
+                              device=device, inject=inject)
+    zero = program.zero
     if params is None:
         params, opt_state = program.init(spec.seed)
     else:

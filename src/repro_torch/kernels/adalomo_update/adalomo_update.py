@@ -36,8 +36,9 @@ shard's ``(Σu², Σθ²)``) and :func:`adalomo_update_apply` (K2's apply launch
 from the global sums and the global element count).
 
 A CUDA tensor launches the kernel or raises; only a CPU tensor takes the
-plain version.  Each wrapper's ``launches`` attribute counts its kernel
-launches (one a call).
+plain version.  A meta tensor takes the CUDA tensor's path up to the launch
+and records the launch instead (``kernels/dry.py``, the dry run).  Each
+wrapper's ``launches`` attribute counts its kernel launches (one a call).
 """
 from __future__ import annotations
 
@@ -47,6 +48,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import dry
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.tickets import ticket_counters
 
@@ -238,7 +240,7 @@ def adalomo_stats(grad: Tensor, r: Tensor, c: Tensor, beta: Tensor, *,
     ``ticket_counters``, so launches on two streams at once must not
     overlap.
     """
-    if not grad.is_cuda:
+    if dry.plain(grad):
         nr, nc = adalomo_stats_ref(grad, r, c, beta, eps_stat=eps_stat)
         r.copy_(nr)
         c.copy_(nc)
@@ -251,20 +253,23 @@ def adalomo_stats(grad: Tensor, r: Tensor, c: Tensor, beta: Tensor, *,
     _check("beta", beta, beta.shape, (torch.float32,), dev)
     if beta.numel() != 1:
         raise ValueError("beta: expected one element")
-    lib = _library()
     tiling = stats_tiling(L, m, n)
     row_part = torch.empty(tiling.row_partials_shape(L), dtype=torch.float32,
                            device=dev)
     col_part = torch.empty(tiling.col_partials_shape(L), dtype=torch.float32,
                            device=dev)
     tickets = ticket_counters("adalomo_stats", dev, tiling.tickets(L))
-    with torch.cuda.device(dev):
-        err = lib.adalomo_stats_launch(
-            grad.data_ptr(), _DTYPE_CODE[grad.dtype], r.data_ptr(),
-            c.data_ptr(), row_part.data_ptr(), col_part.data_ptr(),
-            tickets.data_ptr(), beta.data_ptr(), float(eps_stat), L, m, n,
-            tiling.rows, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "adalomo_stats")
+    if dry.is_dry(grad):
+        dry.adalomo("adalomo_stats", grad, grad)
+    else:
+        lib = _library()
+        with torch.cuda.device(dev):
+            err = lib.adalomo_stats_launch(
+                grad.data_ptr(), _DTYPE_CODE[grad.dtype], r.data_ptr(),
+                c.data_ptr(), row_part.data_ptr(), col_part.data_ptr(),
+                tickets.data_ptr(), beta.data_ptr(), float(eps_stat), L, m,
+                n, tiling.rows, torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(err, "adalomo_stats")
     adalomo_stats.launches += 1
     return r, c
 
@@ -303,7 +308,7 @@ def adalomo_update(param: Tensor, grad: Tensor, r: Tensor, c: Tensor,
     scal ``[..., 4]`` float32 = (inv_denom_corr, lr, decay, clip) per slice.
     Returns ``param``.
     """
-    if not param.is_cuda:
+    if dry.plain(param):
         param.copy_(adalomo_update_ref(param, grad, r, c, scal,
                                        eps_div=eps_div, eps_rms=eps_rms,
                                        literal=literal))
@@ -315,18 +320,21 @@ def adalomo_update(param: Tensor, grad: Tensor, r: Tensor, c: Tensor,
     _check("r", r, lead + (m,), (torch.float32,), dev)
     _check("c", c, lead + (n,), (torch.float32,), dev)
     _check("scal", scal, lead + (4,), (torch.float32,), dev)
-    lib = _library()
     tiling = update_tiling(L, m, n)
     partials = torch.empty(tiling.partials_shape(L), dtype=torch.float32,
                            device=dev)
-    with torch.cuda.device(dev):
-        err = lib.adalomo_update_launch(
-            param.data_ptr(), _DTYPE_CODE[param.dtype], grad.data_ptr(),
-            _DTYPE_CODE[grad.dtype], r.data_ptr(), c.data_ptr(),
-            scal.data_ptr(), partials.data_ptr(), float(eps_div),
-            float(eps_rms), int(bool(literal)), L, m, n, tiling.blocks,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "adalomo_update")
+    if dry.is_dry(param):
+        dry.adalomo("adalomo_update", param, grad)
+    else:
+        lib = _library()
+        with torch.cuda.device(dev):
+            err = lib.adalomo_update_launch(
+                param.data_ptr(), _DTYPE_CODE[param.dtype], grad.data_ptr(),
+                _DTYPE_CODE[grad.dtype], r.data_ptr(), c.data_ptr(),
+                scal.data_ptr(), partials.data_ptr(), float(eps_div),
+                float(eps_rms), int(bool(literal)), L, m, n, tiling.blocks,
+                torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(err, "adalomo_update")
     adalomo_update.launches += 1
     return param
 
@@ -360,7 +368,8 @@ def _both_buffer(lead: tuple, m: int, n: int, device) -> tuple:
     L = 1
     for d in lead:
         L *= d
-    make = torch.empty if torch.device(device).type == "cuda" else torch.zeros
+    make = (torch.empty if torch.device(device).type in ("cuda", "meta")
+            else torch.zeros)
     buf = make(L * (m + n + 1), dtype=torch.float32, device=device)
     return (buf[:L * m].view(lead + (m,)),
             buf[L * m:].view(lead + (n + 1,)))
@@ -403,7 +412,7 @@ def adalomo_stats_partial(grad: Tensor, r: Tensor, c: Tensor, beta: Tensor,
     column blocks, rows fold r; then, with Σr' written, cols summed over
     the row blocks fold c).
     """
-    if not grad.is_cuda:
+    if dry.plain(grad):
         nr, nc, raw = adalomo_stats_partial_ref(grad, r, c, beta,
                                                 eps_stat=eps_stat, axis=axis)
         r.copy_(nr)
@@ -425,21 +434,25 @@ def adalomo_stats_partial(grad: Tensor, r: Tensor, c: Tensor, beta: Tensor,
         width = n + 1 if mode == 1 else m
         raw = torch.empty(lead + (width,), dtype=torch.float32, device=dev)
         ptr = raw.data_ptr()
-    lib = _library()
     tiling = stats_tiling(L, m, n)
     row_part = torch.empty(tiling.row_partials_shape(L), dtype=torch.float32,
                            device=dev)
     col_part = torch.empty(tiling.col_partials_shape(L), dtype=torch.float32,
                            device=dev)
     tickets = ticket_counters("adalomo_stats", dev, tiling.tickets(L))
-    with torch.cuda.device(dev):
-        err = lib.adalomo_stats_partial_launch(
-            grad.data_ptr(), _DTYPE_CODE[grad.dtype], r.data_ptr(),
-            c.data_ptr(), row_part.data_ptr(), col_part.data_ptr(),
-            tickets.data_ptr(), beta.data_ptr(), float(eps_stat), L, m, n,
-            tiling.rows, ptr, mode, width,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "adalomo_stats_partial")
+    if dry.is_dry(grad):
+        dry.adalomo("adalomo_stats_partial", grad, grad,
+                    extra=4 * L * (m + n + 1 if mode == 3 else width))
+    else:
+        lib = _library()
+        with torch.cuda.device(dev):
+            err = lib.adalomo_stats_partial_launch(
+                grad.data_ptr(), _DTYPE_CODE[grad.dtype], r.data_ptr(),
+                c.data_ptr(), row_part.data_ptr(), col_part.data_ptr(),
+                tickets.data_ptr(), beta.data_ptr(), float(eps_stat), L, m,
+                n, tiling.rows, ptr, mode, width,
+                torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(err, "adalomo_stats_partial")
     adalomo_stats_partial.launches += 1
     adalomo_stats_partial.both_launches += mode == 3
     if mode == 1:
@@ -462,7 +475,7 @@ def adalomo_stats_fold(dst: Tensor, src: Tensor, beta: Tensor) -> Tensor:
     """``dst ← β·dst + (1−β)·src[..., :k]`` **in place**, dst ``[..., k]``
     and src ``[..., ≥ k]`` float32 (statistics summed over the ranks, read
     from :func:`adalomo_stats_partial`'s buffer).  Returns ``dst``."""
-    if not dst.is_cuda:
+    if dry.plain(dst):
         dst.copy_(adalomo_stats_fold_ref(dst, src, beta))
         return dst
     dev = dst.device
@@ -474,12 +487,15 @@ def adalomo_stats_fold(dst: Tensor, src: Tensor, beta: Tensor) -> Tensor:
         raise ValueError(f"src {tuple(src.shape)} does not cover dst "
                          f"{tuple(dst.shape)}, or beta is not one element")
     L = max(1, dst.numel() // k)
-    lib = _library()
-    with torch.cuda.device(dev):
-        err = lib.adalomo_stats_fold_launch(
-            dst.data_ptr(), src.data_ptr(), src.shape[-1], k, L,
-            beta.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "adalomo_stats_fold")
+    if dry.is_dry(dst):
+        dry.stats_fold(dst, src)
+    else:
+        lib = _library()
+        with torch.cuda.device(dev):
+            err = lib.adalomo_stats_fold_launch(
+                dst.data_ptr(), src.data_ptr(), src.shape[-1], k, L,
+                beta.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(err, "adalomo_stats_fold")
     adalomo_stats_fold.launches += 1
     return dst
 
@@ -512,7 +528,7 @@ def adalomo_update_partials(param: Tensor, grad: Tensor, r: Tensor,
     """K2's first half on a shard: ``[..., 2]`` float32 = (Σu², Σθ²) over
     each slice of the shard, added in a fixed block order; θ is not
     written.  Arguments as :func:`adalomo_update`'s."""
-    if not param.is_cuda:
+    if dry.plain(param):
         return adalomo_update_partials_ref(param, grad, r, c, scal,
                                            eps_div=eps_div, eps_rms=eps_rms,
                                            literal=literal)
@@ -523,19 +539,22 @@ def adalomo_update_partials(param: Tensor, grad: Tensor, r: Tensor,
     _check("r", r, lead + (m,), (torch.float32,), dev)
     _check("c", c, lead + (n,), (torch.float32,), dev)
     _check("scal", scal, lead + (4,), (torch.float32,), dev)
-    lib = _library()
     tiling = update_tiling(L, m, n)
     partials = torch.empty(tiling.partials_shape(L), dtype=torch.float32,
                            device=dev)
     sums = torch.empty(lead + (2,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.adalomo_update_partials_launch(
-            param.data_ptr(), _DTYPE_CODE[param.dtype], grad.data_ptr(),
-            _DTYPE_CODE[grad.dtype], r.data_ptr(), c.data_ptr(),
-            scal.data_ptr(), partials.data_ptr(), sums.data_ptr(),
-            float(eps_div), float(eps_rms), int(bool(literal)), L, m, n,
-            tiling.blocks, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "adalomo_update_partials")
+    if dry.is_dry(param):
+        dry.adalomo("adalomo_update_partials", param, grad)
+    else:
+        lib = _library()
+        with torch.cuda.device(dev):
+            err = lib.adalomo_update_partials_launch(
+                param.data_ptr(), _DTYPE_CODE[param.dtype], grad.data_ptr(),
+                _DTYPE_CODE[grad.dtype], r.data_ptr(), c.data_ptr(),
+                scal.data_ptr(), partials.data_ptr(), sums.data_ptr(),
+                float(eps_div), float(eps_rms), int(bool(literal)), L, m, n,
+                tiling.blocks, torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(err, "adalomo_update_partials")
     adalomo_update_partials.launches += 1
     return sums
 
@@ -567,7 +586,7 @@ def adalomo_update_apply(param: Tensor, grad: Tensor, r: Tensor, c: Tensor,
     RMS(θ) from ``sums [..., 2]`` (the whole tensor's Σu², Σθ², summed over
     the ranks) divided by ``n_total``, the whole tensor's element count a
     slice — not the shard's.  Returns ``param``."""
-    if not param.is_cuda:
+    if dry.plain(param):
         param.copy_(adalomo_update_apply_ref(
             param, grad, r, c, scal, sums, n_total, eps_div=eps_div,
             eps_rms=eps_rms, literal=literal))
@@ -583,16 +602,19 @@ def adalomo_update_apply(param: Tensor, grad: Tensor, r: Tensor, c: Tensor,
     if int(n_total) < m * n:
         raise ValueError(f"n_total {n_total} is less than the shard's "
                          f"{m} x {n} elements")
-    lib = _library()
     tiling = update_tiling(L, m, n)
-    with torch.cuda.device(dev):
-        err = lib.adalomo_update_apply_launch(
-            param.data_ptr(), _DTYPE_CODE[param.dtype], grad.data_ptr(),
-            _DTYPE_CODE[grad.dtype], r.data_ptr(), c.data_ptr(),
-            scal.data_ptr(), sums.data_ptr(), int(n_total), float(eps_div),
-            float(eps_rms), int(bool(literal)), L, m, n, tiling.blocks,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "adalomo_update_apply")
+    if dry.is_dry(param):
+        dry.adalomo("adalomo_update_apply", param, grad)
+    else:
+        lib = _library()
+        with torch.cuda.device(dev):
+            err = lib.adalomo_update_apply_launch(
+                param.data_ptr(), _DTYPE_CODE[param.dtype], grad.data_ptr(),
+                _DTYPE_CODE[grad.dtype], r.data_ptr(), c.data_ptr(),
+                scal.data_ptr(), sums.data_ptr(), int(n_total),
+                float(eps_div), float(eps_rms), int(bool(literal)), L, m, n,
+                tiling.blocks, torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(err, "adalomo_update_apply")
     adalomo_update_apply.launches += 1
     return param
 

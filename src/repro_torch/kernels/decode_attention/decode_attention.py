@@ -26,7 +26,9 @@ order, all in one launch; K3's lanes load the page ids a step ahead.  No
 float atomics: the same inputs give bit-identical outputs.
 
 A CUDA tensor launches the kernel or raises; only a CPU tensor takes the
-plain version.  Each wrapper's ``.launches`` counts its kernel's launches.
+plain version.  A meta tensor takes the CUDA tensor's path up to the launch
+and records the launch instead (``kernels/dry.py``, the dry run).  Each
+wrapper's ``.launches`` counts its kernel's launches.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import dry
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.tickets import ticket_counters
 from repro_torch.kernels.decode_attention.ref import (
@@ -52,6 +55,10 @@ HEAD_DIMS = (16, 24, 32, 64, 80, 120, 128, 160, 256)
 _STEP = 16                  # slots a warp takes in one step
 _RING_STEP = 64             # slots a K4 block's four warps take in one round
 _BLOCKS = 132 * 2           # K3 and K4 aim at about two blocks on each SM
+# the largest query group a KV head the kernels take (kMaxG of
+# csrc/decode_tiles.cuh, read from the library on the card; the meta
+# device's dry launches use this copy)
+MAX_GROUP = 8
 
 
 def ring_split(B: int, K: int, W: int) -> tuple:
@@ -172,7 +179,7 @@ def paged_decode_attention(q: Tensor, k_pages: Tensor, v_pages: Tensor,
     in run order (tickets from ``paged_counters``), so launches on two
     streams at once must not overlap.
     """
-    if not q.is_cuda:
+    if dry.plain(q):
         return paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
                                           seq_lens, window=window,
                                           scale=scale)
@@ -187,16 +194,21 @@ def paged_decode_attention(q: Tensor, k_pages: Tensor, v_pages: Tensor,
     _check("seq_lens", seq_lens, (B,), (torch.int32,), dev)
     if dh not in HEAD_DIMS:
         raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
-    lib = _library()
-    if H % K or H // K > lib.max_group:
+    max_group = MAX_GROUP if dry.is_dry(q) else _library().max_group
+    if H % K or H // K > max_group:
         raise ValueError(f"{H} query heads over {K} KV heads: the kernel "
-                         f"takes groups of 1..{lib.max_group}")
+                         f"takes groups of 1..{max_group}")
     scale = scale if scale is not None else dh ** -0.5
     S = paged_split(B, K, P, ps)
     part = torch.empty(B * K * S * (H // K) * (dh + 2), dtype=torch.float32,
                        device=dev)
     counters = paged_counters(dev, B * K)
     out = torch.empty_like(q)
+    if dry.is_dry(q):
+        dry.paged(q, k_pages, block_tables)
+        paged_decode_attention.launches += 1
+        return out
+    lib = _library()
     with torch.cuda.device(dev):
         err = lib.paged_decode_attention_launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -232,15 +244,16 @@ def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
     tickets are per device: launches on two streams at once must not
     overlap.
     """
-    if not q.is_cuda:
+    if dry.plain(q):
         return ring_decode_attention_ref(q, k_cache, v_cache, kv_pos, q_pos,
                                          window=window, scale=scale)
     B, H, dh = q.shape
     W, K = k_cache.shape[1], k_cache.shape[2]
     dev = q.device
     if not isinstance(q_pos, Tensor):
-        q_pos = torch.tensor(int(q_pos), dtype=torch.int32).pin_memory().to(
-            dev, non_blocking=True)
+        q_pos = torch.tensor(int(q_pos), dtype=torch.int32)
+        q_pos = (q_pos.to(dev) if dry.is_dry(q) else
+                 q_pos.pin_memory().to(dev, non_blocking=True))
     _check("q", q, (B, H, dh), tuple(_DTYPE_CODE), dev)
     _check("k_cache", k_cache, (B, W, K, dh), (q.dtype,), dev)
     _check("v_cache", v_cache, (B, W, K, dh), (q.dtype,), dev)
@@ -248,16 +261,21 @@ def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
     _check("q_pos", q_pos, (), (torch.int32,), dev)
     if dh not in HEAD_DIMS:
         raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
-    lib = _library()
-    if H % K or H // K > lib.max_group:
+    max_group = MAX_GROUP if dry.is_dry(q) else _library().max_group
+    if H % K or H // K > max_group:
         raise ValueError(f"{H} query heads over {K} KV heads: the kernel "
-                         f"takes groups of 1..{lib.max_group}")
+                         f"takes groups of 1..{max_group}")
     scale = scale if scale is not None else dh ** -0.5
     S, span = ring_split(B, K, W)
     part = torch.empty(B * K * S * (H // K) * (dh + 2), dtype=torch.float32,
                        device=dev)
     counters = ring_counters(dev, B * K)
     out = torch.empty_like(q)
+    if dry.is_dry(q):
+        dry.ring(q, k_cache, v_cache, kv_pos, q_pos)
+        decode_attention.launches += 1
+        return out
+    lib = _library()
     with torch.cuda.device(dev):
         err = lib.decode_attention_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),

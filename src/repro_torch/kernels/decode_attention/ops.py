@@ -2,8 +2,9 @@
 ``repro.kernels.decode_attention.ops``: ``decode_attention`` over a ring
 cache (K4) and ``paged_decode_attention`` over a page pool (K3).
 
-``use_kernel=None`` takes the CUDA kernel for a CUDA tensor and the plain
-PyTorch oracle for a CPU tensor; ``False`` asks for the oracle on any device
+``use_kernel=None`` takes the CUDA kernel for a CUDA tensor (and records its
+launch for a meta tensor, ``kernels/dry.py``) and the plain PyTorch oracle
+for a CPU tensor; ``False`` asks for the oracle on any device
 (the reference's own switch, ``PagedServeConfig.use_kernel``); ``True`` asks
 for the kernel and raises on a CPU tensor.  Nothing falls back.
 """
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+from repro_torch.kernels import dry
 from repro_torch.kernels.decode_attention import decode_attention as K
 from repro_torch.kernels.decode_attention.ref import (
     paged_decode_attention_ref, ring_decode_attention_ref)
@@ -18,8 +20,8 @@ from repro_torch.kernels.decode_attention.ref import (
 
 def _kernel_wanted(q, use_kernel: Optional[bool], what: str) -> bool:
     if use_kernel is None:
-        return q.is_cuda
-    if use_kernel and not q.is_cuda:
+        return not dry.plain(q)
+    if use_kernel and dry.plain(q):
         raise ValueError(f"{what}: use_kernel=True needs CUDA tensors; the "
                          "kernel has no CPU version (use_kernel=None picks "
                          "the plain one there)")

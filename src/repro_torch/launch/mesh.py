@@ -5,7 +5,11 @@ process group when this module is imported or they are built):
 16 × 16 ``("data", "model")`` for one pod of 256 chips and 2 × 16 × 16
 ``("pod", "data", "model")`` for two.  :func:`make_mesh` builds the mesh of
 the ``torch.distributed`` world this process belongs to, one rank a device,
-with a process group for each axis (``init_device_mesh``).
+with a process group for each axis (``init_device_mesh``);
+:func:`make_dry_mesh` the same mesh as one rank of it sees it, on the meta
+device, its groups stand-ins that communicate nothing
+(``sharding.collectives.DryGroup``): the dry run's counterpart of the
+reference's ``--xla_force_host_platform_device_count``.
 """
 from __future__ import annotations
 
@@ -15,6 +19,8 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.sharding import collectives as C
 
 AXES_BY_NDIM = {1: ("data",), 2: ("data", "model"),
                 3: ("pod", "data", "model")}
@@ -107,14 +113,28 @@ class ProcessMesh:
         return self.coords.get("model", 0)
 
 
+def _coords(dims: tuple, r: int) -> list:
+    """Rank ``r``'s index along each axis of ``dims``, row-major."""
+    return [(r // math.prod(dims[a + 1:])) % dims[a]
+            for a in range(len(dims))]
+
+
+def _peers(dims: tuple, keep: tuple, rank: int) -> list:
+    """The ranks that differ from ``rank`` only along the axes ``keep``
+    (indices into ``dims``), in row-major rank order."""
+    mine = _coords(dims, rank)
+    return [r for r in range(math.prod(dims))
+            if all(c == mine[a] for a, c in enumerate(_coords(dims, r))
+                   if a not in keep)]
+
+
 def _subgroups(dims: tuple, keep: tuple):
     """This rank's group of the ranks that differ from it only along the
     axes ``keep`` (indices into ``dims``), each group in row-major rank
     order.  Every rank makes every group, in the same order, as
     ``new_subgroups_by_enumeration`` requires."""
     n = math.prod(dims)
-    coords = [[(r // math.prod(dims[a + 1:])) % dims[a]
-               for a in range(len(dims))] for r in range(n)]
+    coords = [_coords(dims, r) for r in range(n)]
     found = {}
     for r in range(n):
         key = tuple(c for a, c in enumerate(coords[r]) if a not in keep)
@@ -177,6 +197,63 @@ def make_mesh(shape, device="cpu", *, backend: Optional[str] = None
         groups["matrix"] = dist.group.WORLD
     else:
         groups["matrix"] = _subgroups(shape, (1, 2))
+    for role, axes in _group_axes(layout).items():
+        C.name_group(groups[role], axes)
     return ProcessMesh(layout=layout, device=device, backend=backend,
                        device_mesh=dm, rank=rank, coords=coords,
                        groups=groups)
+
+
+def _group_axes(layout: MeshLayout) -> dict:
+    """The mesh axes of more than one position each of a mesh's groups
+    spans, by its role in ``ProcessMesh.groups`` (the collectives' log
+    names a group so: two roles that share a group span the same
+    ranks)."""
+    names = layout.axis_names
+    out = {a: (a,) for a in names}
+    out["world"] = names
+    if layout.shape.get("model", 1) == 1:
+        out["batch"] = names
+    else:
+        out["batch"] = tuple(a for a in names if a != "model")
+    out["matrix"] = (names if "pod" not in names
+                     or layout.shape["pod"] == 1 else ("data", "model"))
+    return {role: tuple(a for a in axes if layout.shape[a] > 1)
+            for role, axes in out.items()}
+
+
+def make_dry_mesh(shape, rank: int = 0) -> ProcessMesh:
+    """The mesh ``shape`` (1-, 2- or 3-D, as :func:`make_mesh` takes it,
+    the production layouts included) as rank ``rank`` of it sees it, with
+    no world: on ``torch.device("meta")``, ``backend="dry"``, and a
+    ``DryGroup`` for every axis and for ``batch``, ``matrix`` and
+    ``world``, shared between roles as :func:`make_mesh` shares its
+    groups."""
+    shape = tuple(int(n) for n in shape)
+    if not 1 <= len(shape) <= 3:
+        raise ValueError(f"mesh shape must have 1-3 dims, got {shape}")
+    layout = MeshLayout(shape, AXES_BY_NDIM[len(shape)])
+    if not 0 <= rank < layout.size:
+        raise ValueError(f"rank {rank} is not in a mesh of {layout.size}")
+    names = layout.axis_names
+    axes = _group_axes(layout)
+
+    def group(role, keep):
+        return C.DryGroup(_peers(shape, keep, rank), rank, axes[role])
+
+    groups = {a: group(a, (i,)) for i, a in enumerate(names)}
+    groups["world"] = group("world", tuple(range(len(shape))))
+    if layout.shape.get("model", 1) == 1:
+        groups["batch"] = groups["world"]
+    elif "pod" not in names:
+        groups["batch"] = groups["data"]
+    else:
+        groups["batch"] = group("batch", (0, 1))
+    if "pod" not in names or layout.shape["pod"] == 1:
+        groups["matrix"] = groups["world"]
+    else:
+        groups["matrix"] = group("matrix", (1, 2))
+    coords = dict(zip(names, _coords(shape, rank)))
+    return ProcessMesh(layout=layout, device=torch.device("meta"),
+                       backend="dry", device_mesh=None, rank=rank,
+                       coords=coords, groups=groups)

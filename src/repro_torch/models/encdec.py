@@ -25,7 +25,12 @@ cross-attends to all of it; its gradient, summed over the decoder's layers
 on each rank, holds only that rank's tokens' share, so it is summed over
 ``model`` and cut to the rank's frame tile (``act.sum_to_tile``: a
 fixed-order fp32 reduce-scatter) before the encoder norm's VJP and the
-encoder's sweep.
+encoder's sweep.  Where the model axis does not divide the frames, every
+rank holds them whole and runs the encoder whole, under no activation
+policy (:func:`_encoder_scope`): its output needs no gather, and its
+gradient, each rank's tokens' share, goes through the encoder's sweep as
+it is, the sum over ``model`` made by the scatter of the encoder's
+parameter gradients (a sum of the shares' VJPs is the VJP of their sum).
 
 Serving encodes the frames once (``make_prefill_step``), keeps each decoder
 layer's cross K/V over every frame and a self-attention ring of
@@ -37,6 +42,7 @@ every frame is visible.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any
@@ -50,8 +56,9 @@ from repro_torch.core.api import OptState, hparams_on_device
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import _seq_ctx, cross_entropy
-from repro_torch.sharding.act import (batch_sum, current_policy, seq_offset,
-                                      shard_act, sum_to_tile, use_policy)
+from repro_torch.sharding.act import (batch_sum, current_policy, model_size,
+                                      seq_offset, shard_act, sum_to_tile,
+                                      use_policy)
 from repro_torch.sharding.rules import make_param_constraint
 
 Tensor = torch.Tensor
@@ -256,6 +263,16 @@ def _encoder_inputs(cfg: EncDecConfig, frames: Tensor) -> Tensor:
         cfg.dtype)
 
 
+def _encoder_scope(cfg: EncDecConfig, frames: Tensor):
+    """The activation policy the encoder runs under: the installed one
+    where a model axis tiles the frames, none where every rank holds them
+    whole (the axis does not divide them, ``Zero3.rows``; module
+    docstring)."""
+    if model_size() > 1 and frames.shape[1] == cfg.n_frames:
+        return use_policy(None)
+    return contextlib.nullcontext()
+
+
 def _encoder_norm(outer: dict, cfg: EncDecConfig, x: Tensor) -> Tensor:
     return L.norm_apply(outer["enc_norm"], x, kind=cfg.norm)
 
@@ -341,15 +358,18 @@ def make_fused_train_step(cfg: EncDecConfig, opt, *, zero=None):
         m = opt_state.moments
         tokens = batch["tokens"]
 
+        def enc_scope():
+            return _encoder_scope(cfg, batch["frames"])
+
         # ---- forward (layer inputs saved, nothing else) ----
         with torch.no_grad():
-            enc_res = Fu.stack_forward(enc_body, stacks["enc"], ({}, {}),
-                                       (_encoder_inputs(cfg,
-                                                        batch["frames"]),),
-                                       **fwd("enc"))
-            # the frame tile's output, gathered whole once a step
-            enc_out = shard_act(_encoder_norm(outer, cfg, enc_res.x_out[0]),
-                                "kv_full")
+            with enc_scope():
+                enc_res = Fu.stack_forward(
+                    enc_body, stacks["enc"], ({}, {}),
+                    (_encoder_inputs(cfg, batch["frames"]),), **fwd("enc"))
+                # the frame tile's output, gathered whole once a step
+                enc_out = shard_act(
+                    _encoder_norm(outer, cfg, enc_res.x_out[0]), "kv_full")
             dec_res = Fu.stack_forward(
                 dec_body, stacks["dec"], ({}, enc_out),
                 (_decoder_inputs(outer, cfg, tokens),), **fwd("dec"))
@@ -371,7 +391,8 @@ def make_fused_train_step(cfg: EncDecConfig, opt, *, zero=None):
         del dec_res, dxd
         # this rank's tokens' share of every frame's gradient: summed over
         # ``model``, cut to the frame tile
-        d_enc_out = sum_to_tile(d_enc_out)
+        with enc_scope():
+            d_enc_out = sum_to_tile(d_enc_out)
         # ``outer`` is not updated yet: the embedding and the encoder norm
         # are re-run under autograd for their gradients
         g_outer_dpro, = _vjp_of(lambda o: _decoder_inputs(o, cfg, tokens),
@@ -381,10 +402,11 @@ def make_fused_train_step(cfg: EncDecConfig, opt, *, zero=None):
         del d_enc_out, dxd0, enc_out
 
         # ---- encoder sweep (the frames are inputs: nothing upstream) ----
-        Fu.stack_backward_update(
-            enc_body, rule, stacks["enc"], m["stacks"]["enc"], ({}, {}),
-            enc_res, (dxe,), labels=labels["stacks"]["enc"], hp=hp,
-            step=stepf, **seams["enc"])
+        with enc_scope():
+            Fu.stack_backward_update(
+                enc_body, rule, stacks["enc"], m["stacks"]["enc"], ({}, {}),
+                enc_res, (dxe,), labels=labels["stacks"]["enc"], hp=hp,
+                step=stepf, **seams["enc"])
         del enc_res, dxe
 
         g_outer = Fu._tree_add(Fu._tree_add(g_outer_epi, g_outer_dpro),
@@ -443,10 +465,11 @@ def _loss(cfg: EncDecConfig, params: dict, batch: dict, layers=None
     (an installed policy, the batch this rank's tiles) the encoder's
     output gathered whole (``kv_full``, its backward the sum over the
     tiles).  ``layers``: ``stack -> layer_fn`` (ZeRO-3's gathers)."""
-    enc_out = _encode(cfg, params, batch["frames"],
-                      layers and layers("enc"))
-    x = _decode_stream(cfg, params, shard_act(enc_out, "kv_full"),
-                       batch["tokens"], layers and layers("dec"))
+    with _encoder_scope(cfg, batch["frames"]):
+        enc_out = shard_act(_encode(cfg, params, batch["frames"],
+                                    layers and layers("enc")), "kv_full")
+    x = _decode_stream(cfg, params, enc_out, batch["tokens"],
+                       layers and layers("dec"))
     return _loss_from_dec(params["outer"], cfg, x, batch)
 
 

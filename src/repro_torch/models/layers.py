@@ -601,16 +601,15 @@ def normal_init(gen, shape: tuple, std: float, *, dtype, device,
     written into ``out`` (a tensor of ``shape``, e.g. one layer of a stack)
     where one is given.  A tensor of at most ``_NORMAL_WHOLE_MAX`` elements
     is one fp32 draw; a larger one is drawn in ``leading_pieces``, so no fp32
-    copy of the whole tensor exists.  On the meta device (shape bookkeeping)
-    nothing is drawn."""
-    if torch.device(device).type == "meta":
-        return torch.empty(shape, dtype=dtype, device=device)
+    copy of the whole tensor exists.  On the meta device (shape bookkeeping,
+    the dry run) the same tensors are made and nothing is drawn."""
     if out is None:
         out = torch.empty(shape, dtype=dtype, device=device)
     whole = math.prod(shape) <= _NORMAL_WHOLE_MAX
     for part in [out] if whole else leading_pieces(out):
         draw = torch.empty(part.shape, dtype=torch.float32, device=device)
-        part.copy_(draw.normal_(generator=gen).mul_(std))
+        if draw.device.type != "meta":
+            part.copy_(draw.normal_(generator=gen).mul_(std))
     return out
 
 
@@ -659,14 +658,17 @@ def stacked_blocks(n_layers: int, block_init, gen, device) -> dict:
     """The ``[n_layers, ...]`` layer stack, allocated once with each layer
     drawn straight into it by ``block_init(gen, device, out)`` (``out``:
     views of that layer of the stack; None and the meta device give the
-    shapes), in layer order, so no copy of a layer is ever made."""
+    shapes, the meta device drawing nothing), in layer order, so no copy of
+    a layer is ever made."""
+    # the shapes, taken off a block made on the meta device (and dropped
+    # before the stack is made: a dry run counts meta tensors as the card's)
+    shapes = tree_map(lambda t: (t.shape, t.dtype),
+                      block_init(None, torch.device("meta"), None))
     blocks = tree_map(
-        lambda t: torch.empty((n_layers,) + t.shape, dtype=t.dtype,
-                              device=device),
-        block_init(None, torch.device("meta"), None))
-    if torch.device(device).type != "meta":
-        for i in range(n_layers):
-            block_init(gen, device, tree_map(lambda t: t[i], blocks))
+        lambda s: torch.empty((n_layers,) + s[0], dtype=s[1], device=device),
+        shapes)
+    for i in range(n_layers):
+        block_init(gen, device, tree_map(lambda t: t[i], blocks))
     return blocks
 
 

@@ -18,7 +18,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.configs.shapes import cells_for
+from repro_torch.configs.shapes import SHAPES, cells_for
 
 _CONFIG_MODULES = {
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
@@ -153,6 +153,28 @@ class Arch:
         if getattr(self.cfg, "mtp", False) and labels:
             out["labels_mtp"] = ((B, S), torch.int32)
         return out
+
+    def input_specs(self, shape_name: str, *, packed: bool = False) -> dict:
+        """``{leaf: (shape, dtype)}`` of the batch of an assigned shape
+        (``configs/shapes.py``): a train or prefill cell's
+        (:meth:`train_batch_specs`, labels for train only, ``packed`` for
+        train only), a decode cell's one new token a sequence."""
+        sh = SHAPES[shape_name]
+        if sh.kind in ("train", "prefill"):
+            return self.train_batch_specs(sh.global_batch, sh.seq_len,
+                                          labels=sh.kind == "train",
+                                          packed=packed and
+                                          sh.kind == "train")
+        return {"tokens": ((sh.global_batch, 1), torch.int32)}
+
+    def cache_specs(self, shape_name: str):
+        """The decode cache of an assigned decode shape, built on the meta
+        device (nothing is allocated)."""
+        sh = SHAPES[shape_name]
+        if sh.kind != "decode":
+            raise ValueError(f"{shape_name} is a {sh.kind} cell; a cache "
+                             "belongs to a decode cell")
+        return self.init_cache(sh.global_batch, sh.seq_len, device="meta")
 
     # ---- legacy serve (ring-buffer cache) -----------------------------------
     def make_prefill_step(self, **kw):

@@ -144,6 +144,29 @@ class StepProgram:
         from repro_torch.sentinel.guard import init_sentinel_state
         return init_sentinel_state(self.device)
 
+    # ---------------- introspection ----------------
+    def abstract_args(self) -> tuple:
+        """``(params, opt_state, batch, hparams[, sentinel])`` on the meta
+        device: the step's signature from the spec, nothing allocated.  The
+        params and state are the whole model's (as the reference's
+        ``ShapeDtypeStruct``s), the batch the global batch, each hparam a
+        0-d float32; the sentinel slot only when the guard is on."""
+        if self.spec.data is None:
+            raise ValueError("abstract_args requires spec.data")
+        meta = torch.device("meta")
+        params = self.arch.init_params(self.spec.seed, device=meta)
+        state = self.opt.init(params)
+        d = self.spec.data
+        batch = {k: torch.empty(shape, dtype=dt, device=meta)
+                 for k, (shape, dt) in self.arch.train_batch_specs(
+                     d.global_batch, d.seq_len, packed=d.packing).items()}
+        hp = {k: torch.empty((), dtype=torch.float32, device=meta)
+              for k in self.hparams_fn(1)}
+        if self.sentinel_enabled:
+            from repro_torch.sentinel.guard import init_sentinel_state
+            return params, state, batch, hp, init_sentinel_state(meta)
+        return params, state, batch, hp
+
 
 def build_step_program(spec: RunSpec, arch=None, opt: Optional[Opt] = None,
                        *, groups=None, global_grad_norm=None,

@@ -207,8 +207,7 @@ class _BatchMean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, tp):
         from repro_torch.sharding import collectives as C
-        import torch.distributed as dist
-        w = dist.get_world_size(group)
+        w = C.world_size(group)
         ctx.share = w * tp
         return C.all_reduce(x, group) / w
 

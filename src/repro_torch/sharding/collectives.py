@@ -24,8 +24,22 @@ reduce-scatter whose backward is the all-gather), both autograd-aware.
 use, so with ``gloo`` a CUDA tensor is staged through host memory (two
 ranks sharing one card): that staging is counted in :data:`STATS`
 (``staged_bytes``).  The kernels and the model still run on the card.
+
+A :class:`DryGroup` stands in for a process group on a dry mesh
+(``launch/mesh.py::make_dry_mesh``): one process plays one rank of a
+layout of any size, with meta tensors.  Every collective takes it, makes
+the output the live call would make (gathered, scattered, or as it was for
+the sums) and adds to :data:`STATS` what the live call adds, and calls
+nothing in ``torch.distributed``.  Inside :func:`recording` every call,
+dry or live, is logged (:data:`LOG`): its kind, operand shape and dtype,
+the mesh axes of its group, its operand bytes, its wire bytes under the
+reference dry run's factors (all-gather: the result; all-reduce: twice
+the result; reduce-scatter: the operand) and the function that called it.
 """
 from __future__ import annotations
+
+import contextlib
+import sys
 
 import torch
 import torch.distributed as dist
@@ -43,8 +57,107 @@ def reset_stats() -> None:
         STATS[k] = 0
 
 
+class DryGroup:
+    """A process group of the ranks ``ranks`` (global ranks, in the
+    group's order) in which this process is global rank ``rank``; ``axes``
+    are the mesh axes the group spans.  Nothing is communicated: the
+    collectives of this module make the outputs a live call would make."""
+
+    def __init__(self, ranks, rank: int, axes: tuple = ()):
+        self.ranks = tuple(int(r) for r in ranks)
+        if rank not in self.ranks:
+            raise ValueError(f"rank {rank} is not in the group {self.ranks}")
+        self.rank = int(rank)
+        self.axes = tuple(axes)
+
+    def size(self) -> int:
+        return len(self.ranks)
+
+    def index(self) -> int:
+        return self.ranks.index(self.rank)
+
+
+def world_size(group) -> int:
+    """The number of ranks in ``group`` (a process group or a
+    :class:`DryGroup`)."""
+    if isinstance(group, DryGroup):
+        return group.size()
+    return dist.get_world_size(group)
+
+
+def rank_in(group) -> int:
+    """This process's place in ``group``."""
+    if isinstance(group, DryGroup):
+        return group.index()
+    return dist.get_rank(group)
+
+
+# the mesh axes of each live group, set by ``launch.mesh.make_mesh``
+_AXES: dict = {}
+
+
+def name_group(group, axes: tuple) -> None:
+    """Record the mesh axes ``group`` spans, for :func:`recording`'s log
+    (a newer mesh's name for a group replaces an older one's)."""
+    if not isinstance(group, DryGroup):
+        _AXES[id(group)] = (group, tuple(axes))
+
+
+def group_axes(group) -> tuple:
+    if isinstance(group, DryGroup):
+        return group.axes
+    return _AXES.get(id(group), (None, ()))[1]
+
+
+# the calls made inside ``recording()``, oldest first; None outside it
+LOG = None
+
+
+@contextlib.contextmanager
+def recording():
+    """Log every collective call made inside the block (dry or live) into
+    the list this yields (module docstring)."""
+    global LOG
+    outer, LOG = LOG, []
+    try:
+        yield LOG
+    finally:
+        LOG = outer
+
+
+_WIRE = {"all_gather": lambda op, res: res,
+         "all_reduce": lambda op, res: 2 * res,
+         "reduce_scatter": lambda op, res: op}
+
+
+def _caller() -> str:
+    """``module:function`` of the nearest frame outside this module and
+    autograd's machinery."""
+    f = sys._getframe(2)
+    while f is not None and (f.f_globals.get("__name__") == __name__
+                             or f.f_globals.get("__name__", "").startswith(
+                                 "torch.")):
+        f = f.f_back
+    if f is None:
+        return "?"
+    return (f"{f.f_globals.get('__name__', '?').rsplit('.', 1)[-1]}:"
+            f"{f.f_code.co_name}")
+
+
+def _log(kind: str, x: Tensor, group, operand: int, result: int) -> None:
+    if LOG is None:
+        return
+    LOG.append({"kind": kind, "shape": list(x.shape),
+                "dtype": str(x.dtype).replace("torch.", ""),
+                "axes": list(group_axes(group)), "operand_bytes": operand,
+                "result_bytes": result,
+                "wire_bytes": _WIRE[kind](operand, result),
+                "tag": _caller()})
+
+
 def _staged(x: Tensor, group) -> bool:
-    return x.is_cuda and dist.get_backend(group) == "gloo"
+    return (x.is_cuda and not isinstance(group, DryGroup)
+            and dist.get_backend(group) == "gloo")
 
 
 def _to_wire(x: Tensor, group) -> Tensor:
@@ -61,13 +174,18 @@ def _from_wire(y: Tensor, like: Tensor) -> Tensor:
     return y
 
 
-def _gather_flat(x: Tensor, group) -> Tensor:
-    """``[w, *x.shape]``: every rank's ``x``, rank order."""
-    w = dist.get_world_size(group)
+def _gather_flat(x: Tensor, group, kind: str = "all_gather") -> Tensor:
+    """``[w, *x.shape]``: every rank's ``x``, rank order (``kind``: what
+    the call is part of, for the log)."""
+    w = world_size(group)
     xs = _to_wire(x.contiguous().reshape(-1), group)
     out = torch.empty(w * xs.numel(), dtype=x.dtype, device=xs.device)
-    dist.all_gather_into_tensor(out, xs, group=group)
+    if not isinstance(group, DryGroup):
+        dist.all_gather_into_tensor(out, xs, group=group)
     STATS["calls"] += 1
+    nbytes = x.numel() * x.element_size()
+    _log(kind, x, group, nbytes, w * nbytes if kind == "all_gather"
+         else nbytes)
     return _from_wire(out, x).reshape((w,) + tuple(x.shape))
 
 
@@ -85,7 +203,7 @@ def shard(x: Tensor, dim: int, group) -> Tensor:
     contiguous tensor of its own: never a view, which would keep the whole
     of ``x`` alive (a slice along the leading dims is contiguous already);
     ``x.shape[dim]`` must divide by the group's size."""
-    w, k = dist.get_world_size(group), dist.get_rank(group)
+    w, k = world_size(group), rank_in(group)
     if x.shape[dim] % w:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide "
                          f"over {w} ranks")
@@ -113,7 +231,7 @@ def reduce_scatter(g: Tensor, dim: int, group, *, dtype=None) -> Tensor:
     widened to fp32 as it is added in rank order, the sum narrowed once to
     ``dtype`` (default ``g``'s)."""
     dtype = dtype or g.dtype
-    w = dist.get_world_size(group)
+    w = world_size(group)
     if g.shape[dim] % w:
         raise ValueError(f"dim {dim} of {tuple(g.shape)} does not divide "
                          f"over {w} ranks")
@@ -123,9 +241,12 @@ def reduce_scatter(g: Tensor, dim: int, group, *, dtype=None) -> Tensor:
     chunks = chunks.movedim(dim, 0).contiguous()
     send = _to_wire(chunks, group)
     recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
+    if not isinstance(group, DryGroup):
+        dist.all_to_all_single(recv, send, group=group)
     STATS["calls"] += 1
     STATS["scatter_bytes"] += send.numel() * send.element_size()
+    nbytes = g.numel() * g.element_size()
+    _log("reduce_scatter", g, group, nbytes, nbytes // w)
     return _ordered_sum(_from_wire(recv, g), torch.float32).to(dtype)
 
 
@@ -133,7 +254,7 @@ def all_reduce(x: Tensor, group, *, dtype=None) -> Tensor:
     """The sum over ``group`` of ``x``, in fp32 and rank order, narrowed
     once to ``dtype`` (default ``x``'s).  Bit-identical on every rank."""
     dtype = dtype or x.dtype
-    parts = _gather_flat(x, group)
+    parts = _gather_flat(x, group, "all_reduce")
     STATS["reduce_bytes"] += parts.numel() * parts.element_size()
     return _ordered_sum(parts, torch.float32).to(dtype)
 
@@ -141,7 +262,7 @@ def all_reduce(x: Tensor, group, *, dtype=None) -> Tensor:
 def all_reduce_exact(x: Tensor, group) -> Tensor:
     """The sum over ``group`` of an integer or fp32 tensor in its own dtype
     (token counts, flags), rank order."""
-    parts = _gather_flat(x, group)
+    parts = _gather_flat(x, group, "all_reduce")
     STATS["reduce_bytes"] += parts.numel() * parts.element_size()
     return _ordered_sum(parts)
 
@@ -152,7 +273,7 @@ def all_reduce_groups(x: Tensor, groups, *, dtype=None) -> Tensor:
     ``dtype`` (default ``x``'s) after the last."""
     dtype = dtype or x.dtype
     live = [g for g in groups
-            if g is not None and dist.get_world_size(g) > 1]
+            if g is not None and world_size(g) > 1]
     for i, g in enumerate(live):
         x = all_reduce(x, g, dtype=dtype if i == len(live) - 1
                        else torch.float32)

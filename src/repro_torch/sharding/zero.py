@@ -43,7 +43,6 @@ import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.core.tree import (pytree_leaves, pytree_unflatten,
                                    tree_flatten_with_path, tree_leaves,
@@ -112,7 +111,7 @@ class TensorShard(NamedTuple):
 
     def whole_mn(self, m: int, n: int) -> tuple:
         """The whole matrix's ``(rows, columns)`` from this block's."""
-        size = lambda g: 1 if g is None else dist.get_world_size(g)  # noqa
+        size = lambda g: 1 if g is None else C.world_size(g)  # noqa
         return m * size(self.rows), n * size(self.cols)
 
 
@@ -448,10 +447,12 @@ class Zero3:
         ``[max(iT - prefix, 0), max((i+1)T - prefix, 0))``; either may be
         empty.  An encoder's ``frames [B, F, d]`` are a sequence of their
         own, tiled along their own length: tile ``i`` is frames
-        ``[iF/tp, (i+1)F/tp)``.  A 1-D leaf (``prefix_len``) keeps its rows
-        only.  Raises ``ValueError``, naming the leaf, where ``tp`` does
-        not divide ``prefix + S`` or ``F``, or a ``prefix_embed`` is not
-        ``prefix`` rows long."""
+        ``[iF/tp, (i+1)F/tp)``; where ``tp`` does not divide ``F`` (whisper's
+        1500 frames on a model axis of 16) every rank keeps them whole.  A
+        1-D leaf (``prefix_len``) keeps its rows only.  Raises
+        ``ValueError``, naming the leaf, where ``tp`` does not divide
+        ``prefix + S``, or a ``prefix_embed`` is not ``prefix`` rows
+        long."""
         out = {k: self._batch_rows(x) for k, x in batch.items()}
         if self.tp == 1:
             return out
@@ -468,8 +469,10 @@ class Zero3:
                             f"their sequence of P + S = {P} + {tokens[1]} "
                             f"= {P + tokens[1]} rows")
         if frames is not None:
-            flo, fhi = self._span(frames.shape[1], "frames", frames.shape,
-                                  f"their {frames.shape[1]} frames")
+            flo, fhi = ((0, frames.shape[1]) if frames.shape[1] % self.tp
+                        else self._span(frames.shape[1], "frames",
+                                        frames.shape,
+                                        f"their {frames.shape[1]} frames"))
         for k, x in out.items():
             if k == "prefix_embed":
                 out[k] = x[:, min(lo, P):min(hi, P)]

@@ -136,6 +136,9 @@ def _case(case, rank):
     if kind == "prefix_rows":
         _prefix_rows_case(case, rank)
         return
+    if kind == "dry_vs_live":
+        _dry_vs_live_case(case, rank)
+        return
     if kind == "mesh_error":
         from repro_torch.launch.mesh import make_mesh
         try:
@@ -426,6 +429,83 @@ def _prefix_rows_case(case, rank):
                     "prefix_embed": cut["prefix_embed"][0, :, 0].tolist()})
     with open(f"{case['out']}.rank{rank}.json", "w") as f:
         json.dump(got, f)
+
+
+def _storage_bytes(tree) -> int:
+    from torch.utils._pytree import tree_flatten
+    seen = {}
+    for t in tree_flatten(tree)[0]:
+        if isinstance(t, torch.Tensor):
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+# the kernel launches the card's path makes for one factored update: whole
+# (K1, K2), a row or column shard, a block split both ways (K1 mode 3)
+_ENTRIES = {None: {"adalomo_stats": 1, "adalomo_update": 1},
+            -2: {"adalomo_stats_partial": 1, "adalomo_stats_fold": 1,
+                 "adalomo_update_partials": 1, "adalomo_update_apply": 1},
+            0: {"adalomo_stats_partial": 1, "adalomo_stats_fold": 2,
+                "adalomo_update_partials": 1, "adalomo_update_apply": 1,
+                "mode3": 1}}
+_ENTRIES[-1] = _ENTRIES[-2]
+
+
+def _dry_vs_live_case(case, rank):
+    """One fused AdaLomo step of ``case["arch"]``'s smoke config on
+    ``case["shape"]``, live in this world under the collectives' log, and
+    this rank's dry trace of the same spec: each rank writes both (the
+    live updates counted as the kernel entries the card would launch for
+    them: on the CPU the plain versions run)."""
+    import collections
+
+    from repro_torch.core import adalomo as A
+    from repro_torch.fleet.elastic import mesh_from_spec, sharded_program
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models.registry import get_arch
+    from repro_torch.run.data import make_batch_iter
+    from repro_torch.run.runner import batch_to_device
+    from repro_torch.sharding import collectives as C
+    spec = make_spec(case["arch"], shape=case["shape"], total=1)
+    arch = get_arch(case["arch"], smoke=True)
+    prog = sharded_program(spec, mesh_from_spec(spec.mesh, "cpu"),
+                           arch=arch, device="cpu")
+    params, state = prog.init(spec.seed)
+    resting = _storage_bytes((params, state))
+    batch = batch_to_device(next(make_batch_iter(spec, arch)),
+                            torch.device("cpu"))
+    launches = collections.Counter()
+    whole, sharded = A.update_tensor, A.update_tensor_sharded
+
+    def count(entries, st):
+        if st.v is None:
+            launches.update(entries)
+
+    def spy_whole(param, grad, st, **kw):
+        count(_ENTRIES[None], st)
+        return whole(param, grad, st, **kw)
+
+    def spy_sharded(param, grad, st, *, shard, **kw):
+        count(_ENTRIES[shard.axis], st)
+        return sharded(param, grad, st, shard=shard, **kw)
+
+    A.update_tensor, A.update_tensor_sharded = spy_whole, spy_sharded
+    C.reset_stats()
+    try:
+        with C.recording() as log:
+            prog.step(params, state, batch, prog.hparams_fn(1))
+    finally:
+        A.update_tensor, A.update_tensor_sharded = whole, sharded
+    live = {"log": log, "stats": dict(C.STATS), "launches": launches,
+            "resting": resting}
+    tr = D.trace_train(spec, arch=arch, mesh=tuple(case["shape"]),
+                       rank=rank)
+    dry = {"log": tr.log, "stats": tr.stats,
+           "launches": tr.launches,
+           "resting": tr.resting_bytes}
+    with open(f"{case['out']}.rank{rank}.json", "w") as f:
+        json.dump({"live": live, "dry": dry}, f)
 
 
 def _rank(rank, world, store, cases):

@@ -11,13 +11,15 @@ over ``model``; the encoder's output is gathered whole once a step for the
 decoder's cross-attention, and its gradient, each rank's tokens' share, is
 summed over ``model`` and cut to the frame tile before the encoder's
 sweep.  Fused AdaLomo on (1, 2), (2, 2) and (1, 4), fused LOMO and unfused
-AdamW on (1, 2), with evaluation (``loss_fn(zero=)``) on (1, 2); and fused
+AdamW on (1, 2), with evaluation (``loss_fn(zero=)``) on (1, 2); fused
+AdaLomo on (1, 5) at 20 tokens, where 5 does not divide the 24 frames:
+every rank holds them whole and runs the encoder whole; and fused
 AdaLomo in bf16 on (1, 2), held as ``test_torch_model_axis_families.py``
 holds zamba2: the elements beyond the sharded tolerance plus one bf16 ulp,
 each package's sharded run against its own unsharded run, the port's no
 more than the reference's GSPMD run's.
 
-One world of two ranks and one of four
+One world of two ranks, one of four and one of five
 (``_torch_elastic_worker.start_world``) run every case; the reference's
 bf16 runs are made in a subprocess and its fp32 runs in this process
 meanwhile.  Tolerances are the reference's own for its sharded run
@@ -27,9 +29,9 @@ counted apart (``torch_parity.params_close``).
 
 ``Zero3.rows`` at whisper-base's full size (1500 frames, 448 tokens) is
 held on the meta device with no world (``torch_parity.plan_mesh``): the
-frames tiled apart from the tokens on (1, 2) and (1, 4), and a
-``ValueError`` naming the leaf a model axis of 3 (the tokens) or 8 (the
-frames) does not divide."""
+frames tiled apart from the tokens on (1, 2) and (1, 4), a ``ValueError``
+naming the tokens a model axis of 3 does not divide, and the frames kept
+whole on every rank of a model axis of 8, which does not divide them."""
 import dataclasses
 import json
 import math
@@ -69,7 +71,10 @@ CASES = {
     "adalomo_1x4": ((1, 4), "adalomo", False),
     "lomo_1x2": ((1, 2), "lomo", False),
     "adamw_1x2": ((1, 2), "adamw", False),
+    "adalomo_1x5": ((1, 5), "adalomo", False),
 }
+# the tokens of a case, where not SEQ: 5 divides 20 tokens, not 24 frames
+CASE_SEQ = {"adalomo_1x5": 20}
 # The most elements of whisper's smoke params (bf16, 3 steps on (1, 2))
 # either package may leave beyond the sharded tolerance plus one ulp, of
 # 175 488: twice the reference's count on the CPU (79).
@@ -98,7 +103,8 @@ def runs(tmp_path_factory):
     for name, (shape, opt, evaluate) in CASES.items():
         worlds.setdefault(math.prod(shape), []).append(dict(
             kind="run", arch=WHISPER, shape=list(shape), total=STEPS,
-            seq=SEQ, opt=opt, ckpt=str(d / name), init=str(d / "init.pt"),
+            seq=CASE_SEQ.get(name, SEQ), opt=opt, ckpt=str(d / name),
+            init=str(d / "init.pt"),
             eval_every=EVAL_EVERY if evaluate else 0,
             out=str(d / f"{name}.json")))
     worlds[2].append(dict(
@@ -108,10 +114,11 @@ def runs(tmp_path_factory):
     waits = [start_world(w, str(d / f"store{w}"), cases)
              for w, cases in sorted(worlds.items())]
     ref = {}
-    for opt, evaluate in sorted({(o, e) for _, o, e in CASES.values()}):
-        ref[opt, evaluate] = ref_run(
+    for opt, evaluate, seq in sorted({(o, e, CASE_SEQ.get(n, SEQ))
+                                      for n, (_, o, e) in CASES.items()}):
+        ref[opt, evaluate, seq] = ref_run(
             make_spec(WHISPER, spec_mod=ref_spec_mod, data_cls=RefDataConfig,
-                      total=STEPS, seq_len=SEQ, opt=opt,
+                      total=STEPS, seq_len=seq, opt=opt,
                       eval_every=EVAL_EVERY if evaluate else 0),
             arch=ref_arch,
             params=jax.tree.map(lambda x: x.copy(), ref_params),
@@ -141,7 +148,7 @@ def test_whisper_on_a_model_axis_matches_reference(runs, name):
     the cross-attention over every frame, the encoder's gradient summed
     over the tiles, the parameter gradients summed over the ranks."""
     shape, opt, evaluate = CASES[name]
-    ref = runs["ref"][opt, evaluate]
+    ref = runs["ref"][opt, evaluate, CASE_SEQ.get(name, SEQ)]
     h = json.loads((runs["dir"] / f"{name}.json").read_text())
     assert h["step"] == list(range(STEPS))
     np.testing.assert_allclose(h["loss"], ref.history["loss"], **LOSS_TOL)
@@ -154,7 +161,8 @@ def test_whisper_on_a_model_axis_matches_reference(runs, name):
         STEPS, template=(port, get_opt(opt).init(port)))
     params_close(tree[0], ref.params, name, opt=opt, **PARAM_TOL)
     gathers = {(a, k): n for a, k, n in h["gathers"]}
-    assert gathers.get(("model", "dense"), 0) > 0
+    # 5 divides no dim of the smoke config: every leaf rests whole there
+    assert (gathers.get(("model", "dense"), 0) > 0) == (shape[1] != 5)
 
 
 def test_whisper_bf16_on_1x2_within_the_reference_band(runs):
@@ -214,10 +222,17 @@ def test_rows_tile_the_frames_apart_from_the_tokens(meta_params, tp):
 @pytest.mark.parametrize("tp,leaf", [(3, "tokens"), (8, "frames")])
 def test_rows_name_the_sequence_a_model_axis_does_not_divide(meta_params,
                                                              tp, leaf):
-    """A model axis of 3 divides the 1500 frames but not the 448 tokens,
-    one of 8 the tokens but not the frames: ``rows`` raises, naming the
-    leaf, on every rank."""
+    """A model axis of 3 divides the 1500 frames but not the 448 tokens:
+    ``rows`` raises, naming the leaf, on every rank.  One of 8 divides the
+    tokens but not the frames: every rank keeps the frames whole (its
+    encoder runs whole) and tiles the tokens."""
     for i in range(tp):
         zero = Zero3(plan_mesh((1, tp), i), meta_params)
-        with pytest.raises(ValueError, match=f"a batch's {leaf} "):
-            zero.rows(_global_batch())
+        if leaf == "tokens":
+            with pytest.raises(ValueError, match=f"a batch's {leaf} "):
+                zero.rows(_global_batch())
+            continue
+        cut = zero.rows(_global_batch())
+        assert tuple(cut["frames"].shape) == (B, FRAMES, D)
+        assert zero.frame_tile == (B, FRAMES)
+        assert zero.tile == (B, TOKENS // tp)
