@@ -162,8 +162,18 @@ printing one JSON line:
            back to the frame tile, the per-rank peak beside
            ``rank_reckoning`` of the two stacks, the collectives and K1/K2's
            sharded and whole-tensor launches a step a rank, the
-           sub-phase's seconds.  ``--phases dist`` without ``train`` runs
-           (b) to (i) alone (``--subs`` picks among them).  The
+           sub-phase's seconds.  (j) ``baseline_1x2``, in (c)'s world:
+           the paper-faithful baseline sharding (``MeshSpec.optimized=
+           False``: each rank its rows' whole sequence, every whole
+           gradient all-reduced, params and state resting as in the
+           optimized plan), danube at 2 layers, fp32, 4 x 1024, 2 steps,
+           against the unsharded run at the reference's sharded
+           tolerance; then the optimized plan at the same depth, whose
+           per-rank peak, collectives and K1/K2 launches a step are
+           printed beside the baseline's (the same launches, no tile, no
+           reduce-scatter, or the phase fails).  ``--phases dist``
+           without ``train`` runs (b) to (j) alone (``--subs`` picks
+           among them).  The
            optimizer side of a mesh (``optimizers``), two gloo ranks on
            (2,): Table 1's four arms (fused AdaLomo and LOMO, unfused
            Adafactor and AdamW) on danube at 4 layers in bf16, 4 x 1024,
@@ -5080,14 +5090,15 @@ def reset_launches() -> None:
 
 
 def dist_spec(steps, *, shape=None, ckpt=None, every=0, arch_id=ARCH_ID,
-              batch=4, seq=1024):
+              batch=4, seq=1024, optimized=True):
     from repro_torch.run import CheckpointSpec, MeshSpec
     return RunSpec(model=ModelSpec(arch_id, smoke=False),
                    data=DataConfig(vocab=0, seq_len=seq,
                                    global_batch=batch, seed=0),
                    opt=OptSpec(name="adalomo"),
                    steps=StepSpec(total=steps), log_every=0, seed=0,
-                   mesh=(MeshSpec(kind="multi", shape=shape) if shape
+                   mesh=(MeshSpec(kind="multi", shape=shape,
+                                  optimized=optimized) if shape
                          else MeshSpec()),
                    checkpoint=CheckpointSpec(dir=ckpt, every=every,
                                              resume=True))
@@ -5420,9 +5431,11 @@ def dist_gloo_rank(rank: int, world: int, store: str, root: str,
                    jobs: list) -> None:
     """One of the gloo ranks sharing the card (spawned): the runs of each
     of ``jobs`` in turn, in one world, each rank writing what it measured
-    to ``rank{r}_{tag}{name}.json``.  ``job["against"]``: the step
-    directory of an unsharded run's checkpoint, which each rank's final
-    blocks are counted against (:func:`blocks_against`)."""
+    to ``rank{r}_{tag}{name}.json``.  A run's fifth item, where it has
+    one, is its plan's ``MeshSpec.optimized`` (False: the baseline).
+    ``job["against"]``: the step directory of an unsharded run's
+    checkpoint, which each rank's final blocks are counted against
+    (:func:`blocks_against`)."""
     import torch.distributed as dist
     from repro_torch.core.tree import tree_flatten_with_path
     from repro_torch.sharding import collectives as C
@@ -5431,7 +5444,7 @@ def dist_gloo_rank(rank: int, world: int, store: str, root: str,
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     try:
-        for job, (name, dtype, ck, every) in [
+        for job, (name, dtype, ck, every, *plan) in [
                 (j, r) for j in jobs for r in j["runs"]]:
             reset_launches()
             C.reset_stats()
@@ -5440,7 +5453,8 @@ def dist_gloo_rank(rank: int, world: int, store: str, root: str,
             spec = dist_spec(job["steps"], shape=tuple(job["shape"]),
                              ckpt=os.path.join(root, ck), every=every,
                              arch_id=job["arch"], batch=job["batch"],
-                             seq=job.get("seq", 1024))
+                             seq=job.get("seq", 1024),
+                             optimized=plan[0] if plan else True)
             arch = cut_arch(job["layers"], dtype, job["arch"])
             with StepMeter() as meter:
                 res = run(spec, arch=arch, hooks=[timing, watch], device=DEV,
@@ -5739,13 +5753,24 @@ DIST_MODEL_JOBS = {
                              batch=4, seq=ENCDEC_TRAIN[1], tile=[4, 224],
                              frame_tile=[4, 750],
                              runs=(("float32", torch.float32, "enc12", 2),)),
+    # (j) the paper-faithful baseline sharding (MeshSpec.optimized=False):
+    # danube at 2 layers, each rank its rows' whole sequence, whole
+    # gradients all-reduced; then the optimized plan at the same depth,
+    # for its peak and collectives beside the baseline's
+    "baseline_1x2": dict(shape=(1, 2), layers=2, steps=2, arch=ARCH_ID,
+                         batch=4,
+                         runs=(("float32", torch.float32, "base12", 2, False),
+                               ("optimized", torch.float32, "base12o", 2,
+                                True))),
 }
 # every family beside the transformer's on a model axis
 FAMILY_SUBS = ("model_prefix_1x2", "model_ssm_1x2", "model_hybrid_1x2",
                "model_encdec_1x2")
 # the fp32 sub-phases each held against its own unsharded run
-# (dist_model_runs): (b), (c), (f)-(h) and (e), one world for each mesh
-MODEL_RUN_SUBS = ("model_2x2", "moe_1x2", *FAMILY_SUBS, "model_moe_1x3")
+# (dist_model_runs): (b), (c), (f)-(i), (j) and (e), one world for each
+# mesh
+MODEL_RUN_SUBS = ("model_2x2", "moe_1x2", *FAMILY_SUBS, "baseline_1x2",
+                  "model_moe_1x3")
 
 
 def model_axis_readings(ranks: list, steps: int) -> dict:
@@ -5879,7 +5904,7 @@ def dist_model_check(root, sub, job, spawn_s, group) -> dict:
     run in the world of ``group``: the unsharded run, the line, the
     checks."""
     t0 = time.time()
-    world, (_, _, ck, _) = math.prod(job["shape"]), job["runs"][0]
+    world, (_, _, ck, *_) = math.prod(job["shape"]), job["runs"][0]
     seq = job.get("seq", 1024)
     ranks = [json.loads(open(os.path.join(
         root, f"rank{r}_{sub}_float32.json")).read())
@@ -5909,6 +5934,8 @@ def dist_model_check(root, sub, job, spawn_s, group) -> dict:
             cut_arch(job["layers"], torch.float32, job["arch"]))
     if sub == "model_moe_1x3":
         rec["aux_losses"] = ranks[0]["aux_losses"]
+    if sub == "baseline_1x2":
+        rec["optimized"] = optimized_beside(root, sub, job, world, ref_l)
     # the ranks' runs in the world and this process's unsharded run and
     # checks
     rec["seconds"] = max(rec["rank_run_seconds"]) + time.time() - t0
@@ -5939,6 +5966,8 @@ def dist_model_check(root, sub, job, spawn_s, group) -> dict:
             or not rec["gathers"].get("model/dense")):
         raise AssertionError(f"dist {sub}: gathers {rec['gathers']}: "
                              "an expert stack gathered over model")
+    if sub == "baseline_1x2":
+        baseline_failures(rec)
     if sub == "model_moe_1x3" and any(
             k.startswith("model/") for k in rec["gathers"]):
         # 64 experts, d_model 2048 and the vocabulary do not divide
@@ -5959,6 +5988,55 @@ def dist_model_check(root, sub, job, spawn_s, group) -> dict:
                 f"(expected {job.get('frame_tile')}), sharded K1/K2 "
                 f"launches a step {sharded}, gathers {rec['gathers']}")
     return rec
+
+
+def optimized_beside(root, sub, job, world, ref_losses) -> dict:
+    """The optimized plan's run of ``job`` (``baseline_1x2``'s second
+    run) on each rank: its peak, collectives and K1/K2 launches a step,
+    tiles and dry readings, beside the baseline's; its losses' distance
+    from the unsharded run's."""
+    ranks = [json.loads(open(os.path.join(
+        root, f"rank{r}_{sub}_optimized.json")).read())
+        for r in range(world)]
+    got = model_axis_readings(ranks, job["steps"])
+    losses = ranks[0]["losses"]
+    return {"losses": losses,
+            "loss_max_rel_err": max(abs(x - y) / abs(y)
+                                    for x, y in zip(losses, ref_losses)),
+            **{k: got[k] for k in (
+                "rank_peak_memory_bytes", "rank_local_param_bytes",
+                "rank_step_seconds", "collectives_per_step",
+                "launches_per_step", "gathers", "rank_tiles",
+                "rank_run_seconds", "dry")}}
+
+
+def baseline_failures(rec) -> None:
+    """``baseline_1x2``'s own checks: every rank ran its rows' whole
+    sequence (no tile) and reduce-scattered nothing, the optimized plan
+    ran its tiles, both plans launched the same K1/K2 entries a step, the
+    optimized run is within the loss tolerance too, and its dry counts
+    equal its card's.  Raises on a miss."""
+    opt = rec["optimized"]
+    tile = [4, 1024 // 2]
+    scattered = [c["scatter_bytes"] for c in rec["collectives_per_step"]]
+    sharded = [sum(n[k] for k in SHARDED_WRAPPERS)
+               for n in rec["launches_per_step"]]
+    if (rec["rank_tiles"] != [None] * len(rec["rank_tiles"])
+            or opt["rank_tiles"] != [tile] * len(opt["rank_tiles"])
+            or any(scattered) or not all(sharded)
+            or rec["launches_per_step"] != opt["launches_per_step"]):
+        raise AssertionError(
+            f"dist baseline_1x2: tiles {rec['rank_tiles']} (optimized "
+            f"{opt['rank_tiles']}), scattered bytes a step {scattered}, "
+            f"K1/K2 a step {rec['launches_per_step']} (optimized "
+            f"{opt['launches_per_step']})")
+    if opt["loss_max_rel_err"] > DIST_LOSS_RTOL:
+        raise AssertionError(f"dist baseline_1x2: the optimized plan's "
+                             f"loss rel err {opt['loss_max_rel_err']}")
+    failed = dry_failures("dist baseline_1x2 optimized", opt["dry"],
+                          hold_peak=False)
+    if failed:
+        raise AssertionError("; ".join(failed))
 
 
 # deepseek-v3-671b on a model axis (d): two gloo ranks on (1, 2) at its

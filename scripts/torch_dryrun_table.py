@@ -5,8 +5,14 @@ bytes, and the three roofline terms at the H100's spec-sheet rates
 
   PYTHONPATH=src python scripts/torch_dryrun_table.py \\
       [--dir runs/dryrun_torch] [--shape train_4k] [--mesh single]
+  PYTHONPATH=src python scripts/torch_dryrun_table.py --against \\
+      runs/dryrun_torch_baseline
 
-Reads the cells' JSON that ``python -m repro_torch.launch.dryrun`` wrote.
+Reads the cells' JSON that ``python -m repro_torch.launch.dryrun`` wrote
+(``--baseline`` for the second directory).  ``--against DIR``: each cell
+beside the same cell in ``DIR`` (the optimized plan against the baseline
+plan): a rank's resting bytes, its step peak, the collectives' wire bytes
+and the HBM bytes a device, and the memory and collective terms.
 """
 import argparse
 import json
@@ -16,12 +22,47 @@ from repro_torch.launch.dryrun import ARTIFACT_DIR, roofline_terms
 from repro_torch.models.registry import ARCH_IDS
 
 
+def _cell(d, arch_id, args):
+    path = Path(d) / f"{arch_id}__{args.shape}__{args.mesh}.json"
+    return json.loads(path.read_text()) if path.exists() else None
+
+
+def compare(args) -> None:
+    """Each cell of ``--dir`` beside the same cell of ``--against``."""
+    print("| config | resting GB | step peak GB | wire GB | HBM GB a "
+          "device | memory s | collective s |")
+    print("|---|---|---|---|---|---|---|")
+    for arch_id in ARCH_IDS:
+        a, b = (_cell(d, arch_id, args) for d in (args.dir, args.against))
+        if a is None or b is None:
+            print(f"| {arch_id} | not traced |")
+            continue
+        ta, tb = roofline_terms(a), roofline_terms(b)
+        cols = [(a["memory"]["resting_bytes"], b["memory"]["resting_bytes"],
+                 1e9, 3),
+                (a["memory"]["step_peak_bytes"],
+                 b["memory"]["step_peak_bytes"], 1e9, 2),
+                (a["collectives"]["total_wire_bytes"],
+                 b["collectives"]["total_wire_bytes"], 1e9, 2),
+                (a["hbm_bytes_per_device"], b["hbm_bytes_per_device"], 1e9,
+                 1),
+                (ta["memory_s"], tb["memory_s"], 1, 3),
+                (ta["collective_s"], tb["collective_s"], 1, 3)]
+        print(f"| {arch_id} | " + " | ".join(
+            f"{x / s:.{n}f} / {y / s:.{n}f}" for x, y, s, n in cols) + " |")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--dir", default=str(ARTIFACT_DIR))
     ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--mesh", default="single")
+    ap.add_argument("--against", default=None,
+                    help="a second artifact directory to set beside --dir")
     args = ap.parse_args(argv)
+    if args.against:
+        compare(args)
+        return
     print("| config | resting GB | init peak GB | step peak GB | TFLOP "
           "a device | HBM GB a device | wire GB | compute s | memory s | "
           "collective s | trace s |")

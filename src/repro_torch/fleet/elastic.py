@@ -14,7 +14,9 @@ migration: change ``spec.mesh.shape`` and resume.  The pieces:
     batch specs of ``sharding/rules.py`` with the sequence tiles;
   * :class:`ElasticCheckpoints` — the run's checkpoint manager, saving by
     gathering shards to rank 0 and restoring each rank's slice;
-  * :func:`run_elastic` — builds the ZeRO-3 sharded program and drives it
+  * :func:`run_elastic` — builds the ZeRO-3 sharded program (the
+    optimized plan, or with ``MeshSpec.optimized=False`` the baseline
+    plan, where the reference's live run reads no such flag) and drives it
     through the stock ``run()`` loop, so resume, preemption, fault recovery
     and hooks behave as in the single-process path.
 
@@ -35,31 +37,18 @@ from repro_torch.sharding import rules as R
 from repro_torch.sharding.zero import Zero3, leaf_places, rest_places
 
 
-# the ROADMAP's item for MeshSpec.optimized=False on a mesh
-BASELINE_ITEM = ("ROADMAP.md Queue A 8b: the paper-faithful baseline "
-                 "sharding (MeshSpec.optimized=False, the reference's "
-                 "dry-run --baseline)")
-
-
-def check_optimized(spec: RunSpec) -> None:
-    """Raise ``NotImplementedError`` for ``spec.mesh.optimized=False``."""
-    if not spec.mesh.optimized:
-        raise NotImplementedError(
-            f"MeshSpec.optimized=False on a mesh: the port runs the "
-            f"optimized sharded step only; the baseline is {BASELINE_ITEM}")
-
-
 def sharded_program(spec: RunSpec, mesh: ProcessMesh, *, arch,
                     groups=None, device="cuda", inject=None) -> StepProgram:
     """The ZeRO-3 sharded program of ``spec`` on ``mesh`` (a live or a dry
     mesh): the plan :class:`Zero3` makes of the model's meta params, and
     the step program over it.  ``run_elastic`` trains it and the dry run
-    (``launch/dryrun.py``) traces it.  Raises ``NotImplementedError`` for
-    ``spec.mesh.optimized=False``: the port has one sharded step, the
-    optimized one."""
-    check_optimized(spec)
+    (``launch/dryrun.py``) traces it.  ``spec.mesh.optimized=False``
+    builds the paper-faithful baseline plan (``Zero3(optimized=False)``:
+    no sequence tile, whole gradients all-reduced), whose params and
+    state rest as the optimized plan's."""
     zero = Zero3(mesh, arch.init_params(spec.seed, device="meta"),
-                 prefix=getattr(arch.cfg, "n_prefix_tokens", 0))
+                 prefix=getattr(arch.cfg, "n_prefix_tokens", 0),
+                 optimized=spec.mesh.optimized)
     return build_step_program(spec, arch, groups=groups, device=device,
                               inject=inject, zero=zero)
 
@@ -149,7 +138,6 @@ def run_elastic(spec: RunSpec, *, arch=None, hooks=(), params=None,
     checkpoint manager that gathers on save and restores each rank's slice.
     Only rank 0 logs and writes the metrics stream."""
     device = resolve_device(device)
-    check_optimized(spec)            # before any world is joined
     mesh = mesh_from_spec(spec.mesh, device)
     if arch is None:
         from repro_torch.models.registry import get_arch

@@ -43,6 +43,7 @@ wrapper's ``launches`` attribute counts its kernel launches (one a call).
 from __future__ import annotations
 
 import ctypes
+import math
 from pathlib import Path
 from typing import NamedTuple
 
@@ -486,7 +487,7 @@ def adalomo_stats_fold(dst: Tensor, src: Tensor, beta: Tensor) -> Tensor:
     if src.shape[-1] < k or beta.numel() != 1:
         raise ValueError(f"src {tuple(src.shape)} does not cover dst "
                          f"{tuple(dst.shape)}, or beta is not one element")
-    L = max(1, dst.numel() // k)
+    L = max(1, math.prod(lead))
     if dry.is_dry(dst):
         dry.stats_fold(dst, src)
     else:

@@ -24,6 +24,16 @@ every call with its bytes.
     ``rules.param_pspecs`` and ``rules.cache_pspecs``, reckoned, not
     traced.
 
+``--baseline`` (``optimized=False``) traces the train cells under the
+paper-faithful baseline plan, as the reference's ``--baseline`` lowers
+them with no activation policy and no gradient constraint: the spec's
+``MeshSpec(optimized=False)``, whose sharded program
+(``Zero3(optimized=False)``) runs every rank's rows' whole sequence and
+all-reduces whole gradients, with params and state resting as in the
+optimized plan.  Serving cells are the same in both modes (until the port
+traces a per-rank serving step).  Baseline artifacts go to
+``runs/dryrun_torch_baseline/``.
+
 Usage::
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-32b \\
@@ -31,6 +41,8 @@ Usage::
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--mesh single]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch \\
       h2o-danube-1.8b --shape train_4k --mesh 2x2 --rank 3
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch \\
+      h2o-danube-1.8b --shape train_4k --mesh single --baseline
 
 Artifacts: ``runs/dryrun_torch/{arch}__{shape}__{mesh}.json`` (with
 ``.runspec.json`` for train cells, the aggregated op trace
@@ -56,6 +68,7 @@ from pathlib import Path
 import torch
 
 ARTIFACT_DIR = Path(__file__).resolve().parents[3] / "runs" / "dryrun_torch"
+BASELINE_DIR = ARTIFACT_DIR.parent / "dryrun_torch_baseline"
 
 # NVIDIA H100 80GB HBM3, 700 W (nvidia-smi's name and power limit on the
 # card these cells are for): spec-sheet figures, per card, for the
@@ -285,10 +298,12 @@ def cell_meta(arch, arch_id: str, shape_name: str) -> dict:
 
 
 def train_spec(arch, arch_id: str, shape_name: str, mesh, *,
-               packed: bool = False, smoke: bool = False):
+               packed: bool = False, smoke: bool = False,
+               optimized: bool = True):
     """The reference's train-cell ``RunSpec`` (``dryrun.py``: fused
     AdaLomo, constant schedule, one step), with the mesh's shape, so that
-    ``run(spec)`` trains the traced program."""
+    ``run(spec)`` trains the traced program (``optimized=False``: the
+    baseline plan)."""
     from repro_torch.configs.shapes import SHAPES
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.run.spec import (MeshSpec, ModelSpec, OptSpec, RunSpec,
@@ -302,7 +317,7 @@ def train_spec(arch, arch_id: str, shape_name: str, mesh, *,
                         global_batch=sh.global_batch, packing=packed),
         opt=OptSpec(name="adalomo", schedule="constant"),
         steps=StepSpec(total=1, fused=True),
-        mesh=MeshSpec(kind=kind, shape=mesh))
+        mesh=MeshSpec(kind=kind, shape=mesh, optimized=optimized))
 
 
 def pspec_bytes(tree, specs, shape: dict) -> int:
@@ -324,12 +339,13 @@ def pspec_bytes(tree, specs, shape: dict) -> int:
 
 def build_cell(arch_id: str, shape_name: str, mesh=None, *,
                packed: bool = False, rank: int = 0,
-               smoke: bool = False) -> dict:
+               smoke: bool = False, optimized: bool = True) -> dict:
     """Trace one cell (module docstring) and return its result: ``meta``,
     ``trace`` (a :class:`Trace`), and for a train cell ``spec`` and
     ``program``; for a serving cell on a mesh ``reckoned`` (its param and
     cache bytes a device).  ``smoke``: the config's smoke width and depth
-    at the cell's shapes (a quick check of the path)."""
+    at the cell's shapes (a quick check of the path).  ``optimized=False``:
+    a train cell's baseline plan (a serving cell is the same in both)."""
     from repro_torch.configs.shapes import SHAPES
     from repro_torch.models.registry import get_arch
     arch = get_arch(arch_id, smoke=smoke)
@@ -337,7 +353,7 @@ def build_cell(arch_id: str, shape_name: str, mesh=None, *,
     meta = cell_meta(arch, arch_id, shape_name)
     if sh.kind == "train":
         spec = train_spec(arch, arch_id, shape_name, mesh, packed=packed,
-                          smoke=smoke)
+                          smoke=smoke, optimized=optimized)
         meta["run_spec"] = spec.to_dict()
         meta["packed"] = bool(packed)
         tr = trace_train(spec, arch=arch, mesh=mesh, rank=rank)
@@ -446,15 +462,21 @@ def save_cell(res: dict, tr: Trace, out_path: Path) -> None:
 
 def run_cell(arch_id: str, shape_name: str, mesh_kind: str, *,
              force: bool = False, save: bool = True, packed: bool = False,
-             artifact_dir=None, rank: int = 0, smoke: bool = False) -> dict:
-    adir = Path(artifact_dir) if artifact_dir else ARTIFACT_DIR
+             artifact_dir=None, rank: int = 0, smoke: bool = False,
+             optimized: bool = True) -> dict:
+    """One cell's result (:func:`cell_result`), read from its artifact
+    when there is one (unless ``force``), else traced and saved under
+    ``artifact_dir`` (default :data:`ARTIFACT_DIR`, or
+    :data:`BASELINE_DIR` with ``optimized=False``)."""
+    adir = (Path(artifact_dir) if artifact_dir else
+            ARTIFACT_DIR if optimized else BASELINE_DIR)
     out_path = adir / (_cell_name(arch_id, shape_name, mesh_kind, packed,
                                   rank, smoke) + ".json")
     if out_path.exists() and not force:
         return json.loads(out_path.read_text())
     mesh = mesh_shape(mesh_kind)
     cell = build_cell(arch_id, shape_name, mesh, packed=packed, rank=rank,
-                      smoke=smoke)
+                      smoke=smoke, optimized=optimized)
     res = cell_result(cell, mesh_kind, mesh)
     res["rank"] = rank
     if save:
@@ -509,6 +531,10 @@ def main(argv=None):
     ap.add_argument("--packed", action="store_true",
                     help="trace train cells on the segment-packed batch "
                          "layout; other and non-packable cells are skipped")
+    ap.add_argument("--baseline", action="store_true",
+                    help="the paper-faithful baseline sharding (no "
+                         "activation policy, whole gradients all-reduced); "
+                         "writes to runs/dryrun_torch_baseline/")
     ap.add_argument("--artifact-dir", default=None)
     args = ap.parse_args(argv)
 
@@ -539,11 +565,14 @@ def main(argv=None):
             tag = f"{arch_id} × {shape_name} × {mk}"
             if args.packed:
                 tag += " × packed"
+            if args.baseline:
+                tag += " × baseline"
             try:
                 res = run_cell(arch_id, shape_name, mk, force=args.force,
                                packed=args.packed, rank=args.rank,
                                artifact_dir=args.artifact_dir,
-                               smoke=args.smoke)
+                               smoke=args.smoke,
+                               optimized=not args.baseline)
                 terms = roofline_terms(res)
                 print(f"OK   {tag:55s} trace={res['trace_s']:7.1f}s "
                       f"peak={res['memory']['peak_bytes'] / 2**30:9.2f}GiB "

@@ -397,6 +397,7 @@ def _embed(outer: dict, cfg: LMConfig, tokens: Tensor) -> Tensor:
     if cfg.embed_scale:
         # the factor in the embedding's dtype, as the reference casts it
         # (sqrt(2048) is 45.25 in bf16)
+        # repro-lint: disable=T2 — a CPU tensor made here: no card read
         x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
     return x
 

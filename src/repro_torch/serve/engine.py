@@ -412,6 +412,7 @@ class PagedEngine:
         tok, n, budget, done, toks = self._decode_chunk(tok, n, budget, done,
                                                         tables_d)
         # ONE transfer per chunk boundary: all post-chunk state together.
+        # repro-lint: disable=T2 — this IS the sanctioned single sync.
         host = torch.cat([tok, n, budget, done.to(torch.int32),
                           toks.reshape(-1)]).cpu().numpy()
         self._tok, self._n, self._budget = (host[:B].copy(),

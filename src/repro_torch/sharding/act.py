@@ -38,17 +38,23 @@ _POLICY: contextvars.ContextVar = contextvars.ContextVar(
     "act_sharding_policy", default=None)
 
 class ActPolicy:
-    def __init__(self, mesh, axes):
+    def __init__(self, mesh, axes, *, tiles: bool = True):
         """axes: repro_torch.sharding.rules.MeshAxes; ``mesh`` a
         ``launch.mesh.MeshLayout`` or ``ProcessMesh`` (the batch group is
-        read from the latter)."""
+        read from the latter).  ``tiles=False``: the baseline plan's
+        policy (``Zero3(optimized=False)``), which shards no activation:
+        no sequence tile (the model axis is left out, as if of size 1), so
+        every ``model`` rank runs its rows' whole sequence, and the
+        batch's sums and means are over the ``pod`` × ``data`` ranks
+        alone (the ``model`` ranks hold the same rows)."""
         self.mesh = mesh
         self.axes = axes
+        self.tiles = tiles
         self.dp = axes.batch if len(axes.batch) > 1 else (
             axes.batch[0] if axes.batch else None)
-        self.tp = axes.tp[0] if axes.tp else None
+        self.tp = axes.tp[0] if axes.tp and tiles else None
         self.dp_size = axes.size(axes.batch)
-        self.tp_size = axes.size(axes.tp)
+        self.tp_size = axes.size(axes.tp) if tiles else 1
 
     def _ok(self, dim: int, size: int) -> bool:
         return size > 1 and dim % size == 0 and dim > 1
@@ -84,7 +90,10 @@ class ActPolicy:
 
     @property
     def world_group(self):
-        """Every rank (every rank holds other tokens)."""
+        """Every rank (every rank holds other tokens); without tiles the
+        batch ranks (the ``model`` ranks hold the same tokens)."""
+        if not self.tiles:
+            return self.batch_group
         groups = getattr(self.mesh, "groups", {})
         return groups.get("world", self.batch_group)
 
@@ -98,7 +107,7 @@ class ActPolicy:
 
     @property
     def tile_index(self) -> int:
-        return getattr(self.mesh, "tile_index", 0)
+        return getattr(self.mesh, "tile_index", 0) if self.tiles else 0
 
 
 def install(policy: Optional[ActPolicy]):

@@ -35,6 +35,26 @@ The fused step (``core/fused.py``) calls the seams:
 
 Nothing here keeps a gathered tensor: a layer's whole weights live while
 its forward or its re-run does.
+
+``Zero3(optimized=False)`` is the paper-faithful baseline plan, the
+counterpart of the reference's ``MeshSpec.optimized=False`` (its dry run
+installs no activation policy and passes no gradient or param
+constraint).  Params and optimizer state rest where the optimized plan
+rests them; what changes:
+
+  * no sequence tile: :meth:`Zero3.rows` cuts the rows over ``pod`` ×
+    ``data`` only, and every ``model`` rank runs its rows' whole sequence
+    (its policy, ``ActPolicy(tiles=False)``, shards no activation; it
+    keeps the batch's sums and means over the ``pod`` × ``data`` ranks,
+    which the loss's global token count and the MoE router's statistics
+    need);
+  * the expert stacks are gathered whole over ``model`` too (every rank
+    runs every expert on its rows);
+  * :meth:`Zero3.scatter` all-reduces each whole gradient over the ranks
+    whose rows differ (``pod`` × ``data``: the ``model`` ranks computed the
+    same gradient, so it is summed over the batch ranks only) and keeps
+    this rank's block of the sum.  The AdaLomo update then runs on the
+    block through K1/K2's sharded entries, as in the optimized plan.
 """
 from __future__ import annotations
 
@@ -208,11 +228,15 @@ class Zero3:
     ``T = (prefix + S) / tp`` rows, where ``prefix`` is the model's
     modality prefix (``n_prefix_tokens``, 0 without one), whose rows come
     before the tokens' in the sequence ``model`` tiles; ``frame_tile`` is
-    its ``(B/dp, F/tp)`` of an encoder's frames (None without them)."""
+    its ``(B/dp, F/tp)`` of an encoder's frames (None without them).
+    ``optimized=False``: the baseline plan (module docstring), whose
+    ``tile`` and ``frame_tile`` stay None."""
 
-    def __init__(self, mesh, params, *, prefix: int = 0):
+    def __init__(self, mesh, params, *, prefix: int = 0,
+                 optimized: bool = True):
         self.mesh = mesh
         self.prefix = prefix
+        self.optimized = optimized
         self.axes = MeshAxes(mesh)
         self.dims = rest_places(params, self.axes)
         self.shapes = tree_map(lambda t: tuple(t.shape), params)
@@ -224,7 +248,7 @@ class Zero3:
         self.world = mesh.groups.get("world", mesh.batch_group)
         self.matrix = mesh.groups.get("matrix", self.data)
         self.tp = mesh.size("model")
-        self.policy = ActPolicy(mesh, self.axes)
+        self.policy = ActPolicy(mesh, self.axes, tiles=optimized)
         self.gathers = collections.Counter()
         self.tile = None
         self.frame_tile = None
@@ -301,7 +325,8 @@ class Zero3:
         if pl.data is not None:
             t = C.all_gather(t, pl.data - drop, self.data)
             self.gathers["data", kind] += 1
-        if pl.model is not None and self.model is not None and not pl.ep:
+        if pl.model is not None and self.model is not None and (
+                not pl.ep or not self.optimized):
             t = C.all_gather(t, pl.model - drop, self.model)
             self.gathers["model", kind] += 1
         return t
@@ -309,7 +334,7 @@ class Zero3:
     def gather(self, local, dims, *, drop: int = 0):
         """Whole tensors of a subtree (``dims`` its places tree; ``drop``
         leading dims already indexed away), expert stacks still split over
-        ``model``."""
+        ``model`` in the optimized plan."""
         return tree_map(lambda t, pl: self._gather_one(t, pl, drop), local,
                         dims)
 
@@ -318,6 +343,14 @@ class Zero3:
         return self.gather(tree_map(lambda t: t[i], stacked), dims, drop=1)
 
     def _scatter_one(self, g: Tensor, pl: Place, drop: int) -> Tensor:
+        if not self.optimized:
+            # the whole sum (fp32, rank order, rounded once), then this
+            # rank's block of it as a tensor of its own
+            g = C.all_reduce_groups(g, [self.batch])
+            for dim, parts, k in self.block(pl):
+                n = g.shape[dim - drop] // parts
+                g = g.narrow(dim - drop, k * n, n)
+            return g.clone(memory_format=torch.contiguous_format)
         if pl.whole:
             return C.all_reduce(g, self.world)
         f32 = torch.float32
@@ -454,7 +487,7 @@ class Zero3:
         ``prefix + S``, or a ``prefix_embed`` is not ``prefix`` rows
         long."""
         out = {k: self._batch_rows(x) for k, x in batch.items()}
-        if self.tp == 1:
+        if self.tp == 1 or not self.optimized:
             return out
         P = self.prefix
         pre = out.get("prefix_embed")

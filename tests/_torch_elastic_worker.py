@@ -19,12 +19,13 @@ def make_spec(arch, *, shape=None, total=6, ckpt=None, every=3,
               packing=False, sentinel=False, eval_every=0, spec_mod=None,
               data_cls=None, opt="adalomo", lr=1e-3, microbatches=1,
               trust_max=0.0, observe=0, factored_every=0, guard_mod=None,
-              probes_mod=None, seq_len=32):
+              probes_mod=None, seq_len=32, optimized=True):
     """The cases' RunSpec, in either package (``spec_mod``: its
     ``run.spec``; ``data_cls``: its ``DataConfig``; ``guard_mod`` /
     ``probes_mod``: the modules of its ``SentinelSpec`` and
     ``ObservabilitySpec``).  ``trust_max`` > 0 turns the sentinel on with
-    its trust guard; ``observe`` > 0 the probes at that cadence."""
+    its trust guard; ``observe`` > 0 the probes at that cadence;
+    ``optimized=False`` the mesh's baseline plan."""
     if spec_mod is None:
         from repro_torch.data.pipeline import DataConfig as data_cls
         from repro_torch.run import spec as spec_mod
@@ -43,7 +44,8 @@ def make_spec(arch, *, shape=None, total=6, ckpt=None, every=3,
                       packing=packing),
         opt=spec_mod.OptSpec(name=opt, lr=lr, schedule="constant"),
         steps=spec_mod.StepSpec(total=total, microbatches=microbatches),
-        mesh=(spec_mod.MeshSpec(kind="multi", shape=tuple(shape))
+        mesh=(spec_mod.MeshSpec(kind="multi", shape=tuple(shape),
+                                optimized=optimized)
               if shape else spec_mod.MeshSpec()),
         checkpoint=spec_mod.CheckpointSpec(dir=ckpt, every=every,
                                            resume=True),
@@ -161,7 +163,8 @@ def _case(case, rank):
                      trust_max=case.get("trust_max", 0.0),
                      observe=case.get("observe", 0),
                      factored_every=case.get("factored_every", 0),
-                     seq_len=case.get("seq", 32))
+                     seq_len=case.get("seq", 32),
+                     optimized=case.get("optimized", True))
     if kind == "roundtrip":
         from repro_torch.checkpoint.manager import CheckpointManager
         from repro_torch.fleet.elastic import mesh_from_spec
@@ -208,7 +211,9 @@ def _case(case, rank):
                        "eval_loss": res.history["eval_loss"],
                        "step": res.history["step"],
                        "gathers": [[a, k, n] for (a, k), n
-                                   in sorted(gathers.items())]}, f)
+                                   in sorted(gathers.items())],
+                       "tile": (res.program.zero.tile
+                                if res.program.zero else None)}, f)
     torch.save(res.params, f"{out}.rank{rank}.pt")
     with open(f"{out}.rank{rank}.probes.json", "w") as f:
         json.dump(cap.probes, f)
@@ -454,7 +459,8 @@ _ENTRIES[-1] = _ENTRIES[-2]
 
 def _dry_vs_live_case(case, rank):
     """One fused AdaLomo step of ``case["arch"]``'s smoke config on
-    ``case["shape"]``, live in this world under the collectives' log, and
+    ``case["shape"]`` (the baseline plan with ``case["optimized"]``
+    False), live in this world under the collectives' log, and
     this rank's dry trace of the same spec: each rank writes both (the
     live updates counted as the kernel entries the card would launch for
     them: on the CPU the plain versions run)."""
@@ -467,7 +473,8 @@ def _dry_vs_live_case(case, rank):
     from repro_torch.run.data import make_batch_iter
     from repro_torch.run.runner import batch_to_device
     from repro_torch.sharding import collectives as C
-    spec = make_spec(case["arch"], shape=case["shape"], total=1)
+    spec = make_spec(case["arch"], shape=case["shape"], total=1,
+                     optimized=case.get("optimized", True))
     arch = get_arch(case["arch"], smoke=True)
     prog = sharded_program(spec, mesh_from_spec(spec.mesh, "cpu"),
                            arch=arch, device="cpu")

@@ -13,6 +13,7 @@ import os
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -241,16 +242,45 @@ def test_dry_cell_allocates_nothing_off_the_meta_device(arch_id,
     assert cpu.peak == 0 and cell["trace"].n_ops > 0
 
 
-def test_optimized_false_raises_naming_the_roadmap_item():
+def test_run_optimized_false_on_one_position_mesh_matches_reference():
+    """``run(spec)`` with ``MeshSpec(shape=(1,), optimized=False)`` trains
+    the baseline plan on a world of one process, as the reference's
+    ``run()`` trains that spec (its live path reads no such flag): losses
+    and params at the reference's sharded tolerance.  The same spec's dry
+    trace on (2,) is the baseline plan's."""
+    import torch.distributed as dist
+
+    from repro.data.pipeline import DataConfig as RefDataConfig
+    from repro.run import MeshSpec as RefMeshSpec
+    from repro.run.runner import run as ref_run
+    from torch_parity import (assert_trees_close, ref_params_and_copy,
+                              smoke_archs)
+    kw = dict(steps=StepSpec(total=2), log_every=0)
     spec = RunSpec(model=ModelSpec(DANUBE, smoke=True),
                    data=DataConfig(vocab=0, seq_len=16, global_batch=4),
                    mesh=MeshSpec(kind="single", shape=(1,),
-                                 optimized=False),
-                   steps=StepSpec(total=1))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A 8b"):
-        run(spec, device="cpu", log_fn=lambda s: None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A 8b"):
-        D.trace_train(spec, mesh=(2,))
+                                 optimized=False), **kw)
+    ref_spec = RefRunSpec(model=RefModelSpec(DANUBE, smoke=True),
+                          data=RefDataConfig(vocab=0, seq_len=16,
+                                             global_batch=4),
+                          mesh=RefMeshSpec(kind="single", shape=(1,),
+                                           optimized=False),
+                          steps=RefStepSpec(total=2), log_every=0)
+    ref_params, params = ref_params_and_copy(smoke_archs(DANUBE)[0])
+    ref = ref_run(ref_spec, params=ref_params, log_fn=lambda s: None)
+    owned = not dist.is_initialized()
+    try:
+        got = run(spec, params=params, device="cpu", log_fn=lambda s: None)
+        assert got.program.zero is not None
+        assert not got.program.zero.optimized
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
+    np.testing.assert_allclose(got.history["loss"], ref.history["loss"],
+                               rtol=1e-5, atol=1e-5)
+    assert_trees_close(got.params, ref.params, rtol=5e-4, atol=1e-5)
+    tr = D.trace_train(spec, mesh=(2,))
+    assert not tr.program.zero.optimized and tr.program.zero.tile is None
 
 
 # ---------------------------------------------------------------------
@@ -286,15 +316,9 @@ def _state_share(shape, pl, name, sizes) -> int:
     return parts
 
 
-@pytest.mark.parametrize("layout", sorted(LAYOUTS))
-@pytest.mark.parametrize("arch_id", ARCH_IDS)
-def test_resting_bytes_match_reference_pspecs(arch_id, layout):
-    """A rank's resting bytes (params and AdaLomo state, traced on the
-    meta device) are the reference's params under ``param_pspecs``, but
-    for the named vectors rested whole over model, plus the state as the
-    port rests it: each state tensor with its own param (r its rows, c its
-    columns), where the reference's ``opt_pspecs`` matches state to params
-    by shape alone and leaves most of it replicated."""
+def _reference_resting(arch_id, layout) -> int:
+    """A rank's resting bytes on ``layout`` reckoned from the reference's
+    ``param_pspecs`` (module helpers above; the test below says how)."""
     lay = LAYOUTS[layout]
     ref, abstract = _ref_abstract(arch_id)
     axes = ref_rules.MeshAxes(StandIn(lay))
@@ -328,9 +352,42 @@ def test_resting_bytes_match_reference_pspecs(arch_id, layout):
                 state_bytes += (s.numel() * s.element_size()
                                 // _state_share(tuple(t.shape), pl, name,
                                                 lay.shape))
-    spec = D.train_spec(arch, arch_id, "train_4k", lay.dims)
-    got = D.trace_train(spec, arch=arch, mesh=lay.dims, steps=0)
-    assert got.resting_bytes == ref_params + reckoned + state_bytes
+    return ref_params + reckoned + state_bytes
+
+
+def _dry_resting(arch_id, layout, *, optimized=True) -> int:
+    lay = LAYOUTS[layout]
+    arch = get_arch(arch_id)
+    spec = D.train_spec(arch, arch_id, "train_4k", lay.dims,
+                        optimized=optimized)
+    return D.trace_train(spec, arch=arch, mesh=lay.dims,
+                         steps=0).resting_bytes
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("arch_id", ARCH_IDS)
+def test_resting_bytes_match_reference_pspecs(arch_id, layout):
+    """A rank's resting bytes (params and AdaLomo state, traced on the
+    meta device) are the reference's params under ``param_pspecs``, but
+    for the named vectors rested whole over model, plus the state as the
+    port rests it: each state tensor with its own param (r its rows, c its
+    columns), where the reference's ``opt_pspecs`` matches state to params
+    by shape alone and leaves most of it replicated."""
+    assert _dry_resting(arch_id, layout) == _reference_resting(arch_id,
+                                                               layout)
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("arch_id", ARCH_IDS)
+def test_baseline_resting_bytes_equal_optimized_and_reference(arch_id,
+                                                              layout):
+    """The baseline plan (``--baseline``) rests params and state where the
+    optimized plan does, as the reference keeps ``p_shard``/``o_shard``
+    in both modes: its dry cell's resting bytes equal the optimized
+    cell's and the reckoning from the reference's ``param_pspecs``."""
+    got = _dry_resting(arch_id, layout, optimized=False)
+    assert got == _dry_resting(arch_id, layout) == _reference_resting(
+        arch_id, layout)
 
 
 def _leaf(tree, path: tuple):
@@ -400,3 +457,36 @@ def test_main_reanalyze_and_breakdown(smoke_cell, tmp_path):
     assert sum(r[0] for r in rows) == res["collectives"]["total_wire_bytes"]
     assert sum(r[1] for r in rows) == sum(
         res["collectives"]["counts"].values())
+
+
+def test_main_baseline_traces_the_baseline_plan(smoke_cell, tmp_path,
+                                                monkeypatch, capsys):
+    """``main --baseline``: the same cell under the baseline plan, written
+    to the baseline directory (``BASELINE_DIR`` by default): its spec
+    carries ``optimized=False``, its resting bytes and K1/K2 launches are
+    the optimized cell's, and it reduce-scatters nothing; the script's
+    table sets the two cells side by side."""
+    monkeypatch.setattr(D, "BASELINE_DIR", tmp_path / "baseline")
+    D.main(["--arch", DANUBE, "--shape", "train_4k", "--mesh", "2x2",
+            "--smoke", "--baseline"])
+    path = tmp_path / "baseline" / f"{DANUBE}__train_4k__2x2__smoke.json"
+    base, opt = json.loads(path.read_text()), smoke_cell[1]
+    assert not base["run_spec"]["mesh"]["optimized"]
+    assert opt["run_spec"]["mesh"]["optimized"]
+    assert base["memory"]["resting_bytes"] == opt["memory"]["resting_bytes"]
+    assert base["kernel_launches"] == opt["kernel_launches"]
+    assert base["collective_stats"]["scatter_bytes"] == 0 < \
+        opt["collective_stats"]["scatter_bytes"]
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_dryrun_table", os.path.join(os.path.dirname(__file__),
+                                           os.pardir, "scripts",
+                                           "torch_dryrun_table.py"))
+    table = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(table)
+    capsys.readouterr()
+    table.main(["--dir", str(smoke_cell[0].parent), "--against",
+                str(path.parent), "--mesh", "2x2__smoke"])
+    row = [r for r in capsys.readouterr().out.splitlines()
+           if r.startswith(f"| {DANUBE} |")]
+    assert len(row) == 1 and row[0].count(" / ") == 6
