@@ -68,7 +68,17 @@ printing one JSON line:
            self-attention ring (16 x 448: partly filled at 40, wrapped at
            479) and its cross-attention over 16 x 1500 frames (every slot
            valid, query position 2**30; W not a multiple of 16), each
-           with a bitwise re-run.  The ptxas
+           with a bitwise re-run.  K4's partial entry (a rank's block of
+           a ring split over ranks: o and the log-sum-exp in fp32): each
+           half of every K4 case's ring against its plain version, fp32
+           and bf16, halves with no valid slot among them (lse -inf, o
+           0), the two halves merged against one whole-ring K4 launch
+           (fp32 2e-5, bf16 3e-2), bitwise re-runs; timed at
+           ``serve_1x2``'s block beside its bound and SDPA's time for o
+           alone; the library call that computes the same (o, lse),
+           flex_attention with enable_gqa and the log-sum-exp, compiled,
+           is timed at the end of the run, after every other phase.  The
+           ptxas
            register and spill lines of the decode kernels at dh 16, 24 and
            256 are reported per template instance.  Then
            times kernel and plain version (CUDA events, after warm-up, inputs
@@ -119,7 +129,9 @@ printing one JSON line:
            2 with losses within 1e-5 of the two-rank run's.  The model
            axis (sequence and expert parallelism, 2-D ZeRO-3), gloo ranks
            sharing the card, the sub-phases of one mesh run in one world
-           of ranks: (a) danube on (1, 2) at 4 layers, 4 x 1024, 2 steps,
+           of ranks (on (1, 2) two worlds side by side, for the time
+           limit: (c), (i) and (k) in one, (f), (g), (h) and (j) in the
+           other): (a) danube on (1, 2) at 4 layers, 4 x 1024, 2 steps,
            bf16 then fp32, in the data-axis ranks' world after their runs
            and held as they are;
            (b) four ranks on (2, 2), fp32, 2 layers, 2 steps, at the
@@ -144,7 +156,7 @@ printing one JSON line:
            ranks: every rank runs all of them on the gathered sequence)
            at the reference's sharded tolerance, nothing gathered over
            model.  Every decoder-only family on a model axis, two gloo
-           ranks on (1, 2) in (c)'s world, fp32, 2 steps each, against the
+           ranks on (1, 2), fp32, 2 steps each, against the
            unsharded run at its depth (loss rtol 1e-5; params rtol 5e-4,
            atol 1e-5), K1/K2 through their sharded entries on every rank,
            each rank's tile checked, its peak beside ``rank_reckoning``:
@@ -162,7 +174,7 @@ printing one JSON line:
            back to the frame tile, the per-rank peak beside
            ``rank_reckoning`` of the two stacks, the collectives and K1/K2's
            sharded and whole-tensor launches a step a rank, the
-           sub-phase's seconds.  (j) ``baseline_1x2``, in (c)'s world:
+           sub-phase's seconds.  (j) ``baseline_1x2``, in (f)'s world:
            the paper-faithful baseline sharding (``MeshSpec.optimized=
            False``: each rank its rows' whole sequence, every whole
            gradient all-reduced, params and state resting as in the
@@ -171,11 +183,25 @@ printing one JSON line:
            tolerance; then the optimized plan at the same depth, whose
            per-rank peak, collectives and K1/K2 launches a step are
            printed beside the baseline's (the same launches, no tile, no
-           reduce-scatter, or the phase fails).  ``--phases dist``
-           without ``train`` runs (b) to (j) alone (``--subs`` picks
-           among them).  The
+           reduce-scatter, or the phase fails).  (k) ``serve_1x2``, in
+           (c)'s world: per-rank prefill and decode
+           (``repro_torch/serve/sharded.py``), danube at 2 layers, fp32,
+           4 x 6136 tokens into a ring of 4096 slots, 2048 a rank, then
+           16 greedy decode steps whose writes cross from rank 0's block
+           into rank 1's at step 9 — each rank's logits within 2e-4 of
+           the unsharded legacy steps', tokens equal, both ranks' logits
+           bitwise equal, each rank's cache block within 2e-4 of its
+           slice of the unsharded cache, K4's partial entry once a layer
+           a decode step; per rank the peak beside its param and cache
+           blocks and their reckoning, collectives and staged bytes a
+           prefill and a decode step, seconds, and the dry trace's counts
+           equal the card's every step.  ``--phases dist`` without
+           ``train`` runs (b) to (k) alone (``--subs`` picks among them).
+           The
            optimizer side of a mesh (``optimizers``), two gloo ranks on
-           (2,): Table 1's four arms (fused AdaLomo and LOMO, unfused
+           (2,), started before the worlds of (b) to (k) and run beside
+           them (for the time limit; its wall and step seconds are taken
+           so, its peaks are its own processes'): Table 1's four arms (fused AdaLomo and LOMO, unfused
            Adafactor and AdamW) on danube at 4 layers in bf16, 4 x 1024,
            2 steps each, memory freed and asserted between arms — per
            rank the peak, the params' and state's bytes after init, the
@@ -967,7 +993,8 @@ def phase_kernels() -> dict:
     errs = {"adalomo_stats": 0.0, "adalomo_update": 0.0,
             "adalomo_stats_sharded": 0.0, "adalomo_update_sharded": 0.0,
             "adalomo_stats_2d": 0.0,
-            "paged_decode_attention": 0.0, "decode_attention": 0.0}
+            "paged_decode_attention": 0.0, "decode_attention": 0.0,
+            "decode_attention_partial": 0.0}
     progress("kernels: K1/K2 cases")
     n_cases = check_kernels(errs)
     variants = check_op_variants()
@@ -991,6 +1018,8 @@ def phase_kernels() -> dict:
     k3_cases, k3_bitwise = check_k3(errs)
     progress("kernels: K4 cases")
     k4_cases, k4_bitwise = check_k4(errs)
+    progress("kernels: K4's partial entry, and halves merged")
+    partial_checks = check_k4_partial(errs)
     progress("kernels: timing K1/K2")
     rows, totals, moe_rows = time_kernels()
     progress("kernels: timing K1/K2's sharded entries")
@@ -1002,8 +1031,12 @@ def phase_kernels() -> dict:
     k3_rows, totals["paged_decode_attention"] = time_k3()
     progress("kernels: timing K4")
     k4_rows, totals["decode_attention"] = time_k4()
+    progress("kernels: timing K4's partial entry")
+    partial_rows = time_k4_partial()
+    totals["decode_attention_partial"] = partial_rows["float32"]
     emit("kernels", kernels=["adalomo_stats", "adalomo_update",
-                             "paged_decode_attention", "decode_attention"],
+                             "paged_decode_attention", "decode_attention",
+                             "decode_attention_partial"],
          build_seconds=build_s, ptxas=usage,
          ptxas_decode_dh16_24_256=new_dh, cases=n_cases,
          max_abs_err=errs, op_variants=variants,
@@ -1030,10 +1063,13 @@ def phase_kernels() -> dict:
          paged_per_decode_step_B8_n1024=totals["paged_decode_attention"],
          ring_cases=k4_cases, ring_rerun_bitwise=k4_bitwise,
          ring_per_shape_bf16=k4_rows,
-         ring_per_decode_step_B4_W4096=totals["decode_attention"])
+         ring_per_decode_step_B4_W4096=totals["decode_attention"],
+         partial_cases=partial_checks,
+         partial_per_launch_serve_1x2_block=partial_rows)
     return {"errs": errs, "totals": totals,
             "rows": {"paged_decode_attention": k3_rows,
-                     "decode_attention": k4_rows}}
+                     "decode_attention": k4_rows,
+                     "decode_attention_partial": partial_rows}}
 
 
 # --------------------------------------------------------------------------
@@ -1467,6 +1503,260 @@ def time_k4() -> tuple:
     total = {k: step[k] * N_LAYERS
              for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
     return rows, total
+
+
+# K4's partial entry (one rank's block of a ring split over ranks): held
+# against its plain version at every K4 case; the halves of each case's ring
+# merged (serve/sharded.py::combine_partials) and held against one
+# whole-ring K4 launch at the reference kernel tests' tolerances (fp32 2e-5,
+# bf16 3e-2); timed at serve_1x2's block, danube's heads over 4 x 2048 of
+# the ring's 4096 slots, every slot valid
+PARTIAL_MERGE_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+PARTIAL_BLOCK = (4, 2048)
+
+
+def partial_close(got, want, tol, what) -> float:
+    """K4's partial ``(o, lse)`` against the plain version's: ``lse``'s
+    -inf where the plain one's is (a head with no valid slot, whose o must
+    be 0), both within ``tol`` elsewhere.  Returns the largest error."""
+    (o, lse), (o_w, lse_w) = got, want
+    empty = torch.isneginf(lse_w)
+    if not torch.equal(torch.isneginf(lse), empty) or bool(
+            empty.any() and o[empty].abs().max() != 0):
+        raise AssertionError(f"{what}: the heads with no valid slot differ")
+    assert_close(o, o_w, rtol=tol, atol=tol, what=f"{what} o")
+    fin = ~empty
+    assert_close(lse[fin], lse_w[fin], rtol=tol, atol=tol,
+                 what=f"{what} lse")
+    return max(max_err(o, o_w), max_err(lse[fin], lse_w[fin])
+               if fin.any() else 0.0)
+
+
+def check_k4_partial(errs: dict) -> dict:
+    """K4's partial entry at every K4 case, fp32 and bf16: each half of the
+    case's ring (the second half of a partly filled ring has no valid
+    slot) against the plain version; the halves merged against one
+    whole-ring K4 launch; bitwise re-runs at K4's re-run shapes."""
+    from repro_torch.kernels.decode_attention.ref import (
+        ring_decode_attention_partial_ref)
+    from repro_torch.serve.sharded import combine_partials
+    n, empty, merge_err = 0, 0, 0.0
+    for i, (B, W, H, Kh, dh, window, cur, wrapped) in enumerate(k4_cases()):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kc, vc, pos, q_pos = k4_inputs(B, W, H, Kh, dh, cur, dtype,
+                                              200 + i, wrapped)
+            halves = []
+            for lo, hi in ((0, W // 2), (W // 2, W)):
+                # copies of their own: the kernel takes 16-byte aligned
+                # operands, which a slice at slot W // 2 need not be
+                args = (q, kc[:, lo:hi].clone(), vc[:, lo:hi].clone(),
+                        pos[lo:hi].clone(), q_pos)
+                got = KD.decode_attention_partial(*args, window=window)
+                want = ring_decode_attention_partial_ref(*args,
+                                                         window=window)
+                errs["decode_attention_partial"] = max(
+                    errs["decode_attention_partial"],
+                    partial_close(got, want, K3_TOL[dtype],
+                                  f"decode_attention_partial case {i} "
+                                  f"[{lo}, {hi}) {dtype}"))
+                empty += int(torch.isneginf(got[1]).all())
+                halves.append(got)
+                n += 1
+            merged = combine_partials(
+                torch.stack([o for o, _ in halves]),
+                torch.stack([lse for _, lse in halves])).to(dtype)
+            whole = KD.decode_attention(q, kc, vc, pos, q_pos,
+                                        window=window)
+            tol = PARTIAL_MERGE_TOL[dtype]
+            assert_close(merged, whole, rtol=tol, atol=tol,
+                         what=f"decode_attention_partial case {i} {dtype}: "
+                              "two halves merged against the whole ring")
+            merge_err = max(merge_err, max_err(merged, whole))
+    reruns = [(4, 4096, 32, 8, 80, SERVE_WINDOW)] + [
+        (4, 4096) + heads for heads in NEW_HEADS.values()]
+    for B, W, H, Kh, dh, window in reruns:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = k4_inputs(B, W, H, Kh, dh, W + 2047, dtype, 8, True)
+            a = KD.decode_attention_partial(*args, window=window)
+            b = KD.decode_attention_partial(*args, window=window)
+            torch.cuda.synchronize()
+            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+                raise AssertionError(
+                    f"decode_attention_partial B{B} W{W} {H}/{Kh} dh {dh} "
+                    f"{dtype}: a re-run gave other bits")
+    if not empty:
+        raise AssertionError("decode_attention_partial: no case had a "
+                             "block without a valid slot")
+    return {"cases": n, "blocks_without_a_valid_slot": empty,
+            "merge_max_abs_err": merge_err, "rerun_bitwise": True,
+            "merge_tolerance": {str(k)[6:]: v
+                                for k, v in PARTIAL_MERGE_TOL.items()}}
+
+
+def k4_partial_bound_ms(B, H, Kh, dh, W, n_valid, elt) -> float:
+    """K4's bound with the partial entry's result: o and lse in fp32."""
+    nbytes = (B * n_valid * Kh * dh * 2 * elt + B * H * dh * elt
+              + 4 * B * H * (dh + 1) + 4 * W + 4)
+    ops = B * n_valid * H * (4 * dh + 4)
+    return max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S) * 1e3
+
+
+# the PartialLibraryWarmup that phase_dist starts beside its worlds, if any
+LIBRARY_WARMUP = []
+
+
+def k4_partial_library():
+    """The one PyTorch call that computes K4's partial entry on the same
+    inputs: flex_attention with enable_gqa, returning the log-sum-exp
+    beside o, compiled (its Triton kernel is the library's; the compile is
+    made by the first call, outside any timed region).  ``fn(q [B,H,1,dh],
+    k, v [B,K,W,dh]) -> (o [B,H,1,dh], lse [B,H,1])``; no block mask, so
+    every slot is attended to."""
+    import torch._inductor.config as inductor_config
+    from torch.nn.attention import flex_attention as FA
+    inductor_config.compile_threads = 1   # no pool of compile workers
+    compiled = torch.compile(FA.flex_attention, dynamic=False)
+    if hasattr(FA, "AuxRequest"):
+        def fn(q, k, v):
+            o, aux = compiled(q, k, v, enable_gqa=True,
+                              return_aux=FA.AuxRequest(lse=True))
+            return o, aux.lse
+        return fn
+    return lambda q, k, v: compiled(q, k, v, enable_gqa=True,
+                                    return_lse=True)
+
+
+def k4_partial_sets(dtype) -> tuple:
+    """The timing inputs at serve_1x2's block (danube's 32/8 heads, dh 80,
+    window 4096, 4 rows over a block of 2048 slots, every slot valid):
+    ``(sets, rounds, valid)``, the same from the same seeds at every call."""
+    (B, W), (H, Kh, dh) = PARTIAL_BLOCK, (32, 8, 80)
+    elt = torch.finfo(dtype).bits // 8
+    cur = W + 2047
+    copies = min(16, max(2, math.ceil(200e6 / (2 * B * W * Kh * dh * elt))))
+    sets = [k4_inputs(B, W, H, Kh, dh, cur, dtype, 90 + c, True)
+            for c in range(copies)]
+    pos = sets[0][3]
+    valid = (pos >= 0) & (pos <= cur) & (cur - pos < SERVE_WINDOW)
+    return sets, max(2, 64 // copies), valid
+
+
+def k4_partial_kernel(q, kc, vc, pos, qp):
+    return KD.decode_attention_partial(q, kc, vc, pos, qp,
+                                       window=SERVE_WINDOW)
+
+
+def time_k4_partial() -> dict:
+    """K4's partial entry at ``k4_partial_sets``' block, fp32 (the
+    sub-phase's) and bf16: kernel, plain version and bound a launch (graph
+    replays, as K4's), and scaled_dot_product_attention's time for ``o``
+    alone on the same inputs.  The library call is timed at the end of the
+    run (``time_k4_partial_library``)."""
+    from repro_torch.kernels.decode_attention.ref import (
+        ring_decode_attention_partial_ref)
+    (B, W), (H, Kh, dh) = PARTIAL_BLOCK, (32, 8, 80)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        sets, rounds, valid = k4_partial_sets(dtype)
+        ms = time_graph_ms(k4_partial_kernel, sets, rounds)
+        plain = time_graph_ms(
+            lambda q, kc, vc, pos, qp: ring_decode_attention_partial_ref(
+                q, kc, vc, pos, qp, window=SERVE_WINDOW), sets, rounds)
+        lib_sets = [(q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+                     valid.view(1, 1, 1, W)) for q, kc, vc, _, _ in sets]
+        sdpa = time_graph_ms(
+            lambda q, k, v, m: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=m, enable_gqa=True), lib_sets, rounds)
+        n_valid = int(valid.sum())
+        rows[str(dtype)[6:]] = {
+            "heads": [H, Kh, dh], "window": SERVE_WINDOW, "B": B, "W": W,
+            "valid_slots": n_valid, "ms": ms, "plain_ms": plain,
+            "library_ms": None, "sdpa_o_only_ms": sdpa,
+            "eager_ms": time_ms(k4_partial_kernel, sets, rounds),
+            "bound_ms": k4_partial_bound_ms(B, H, Kh, dh, W, n_valid,
+                                            torch.finfo(dtype).bits // 8)}
+        del sets, lib_sets
+        torch.cuda.empty_cache()
+    return rows
+
+
+class PartialLibraryWarmup:
+    """``k4_partial_library`` compiled in a thread of its own, each dtype's
+    compile made by one call on an input of ``k4_partial_sets``' shapes, so
+    that the compile overlaps ``phase_dist``'s waits on its worlds of ranks
+    (the main thread polls them) and ``time_k4_partial_library`` only
+    times.  ``result()``: the compiled call, or the thread's exception."""
+
+    def __init__(self):
+        import threading
+        self.fn, self.error, self.seconds = None, None, None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        t0 = time.time()
+        try:
+            torch.cuda.set_device(DEV)
+            fn = k4_partial_library()
+            (B, W), (H, Kh, dh) = PARTIAL_BLOCK, (32, 8, 80)
+            for dtype in (torch.float32, torch.bfloat16):
+                q, kc, vc, _, _ = k4_inputs(B, W, H, Kh, dh, W + 2047, dtype,
+                                            90, True)
+                fn(q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2))
+            torch.cuda.synchronize()
+            self.fn = fn
+        except Exception as e:   # raised again by result()
+            self.error = e
+        self.seconds = time.time() - t0
+
+    def result(self):
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.fn
+
+
+def time_k4_partial_library(rows: dict, warm=None) -> None:
+    """The library call of K4's partial entry (``k4_partial_library``) on
+    ``k4_partial_sets``' inputs, fp32 and bf16, a launch (graph replays),
+    into ``rows`` (``time_k4_partial``'s) beside the kernel's time, with its
+    largest difference from the kernel's (o, lse); emitted as its own line.
+    Timed last, after every other phase; compiled by ``warm`` (a
+    ``PartialLibraryWarmup``) where one was started, else here."""
+    t0 = time.time()
+    compile_s, thread_error, library_fn = None, None, None
+    if warm is not None:
+        try:
+            library_fn, compile_s = warm.result(), warm.seconds
+        except Exception as e:   # compiled again here, the error reported
+            thread_error = repr(e)
+    if library_fn is None:
+        library_fn = k4_partial_library()
+    for dtype in (torch.float32, torch.bfloat16):
+        sets, rounds, valid = k4_partial_sets(dtype)
+        if int(valid.sum()) != valid.numel():
+            raise AssertionError("time_k4_partial_library: a slot is not "
+                                 "valid; the library call takes no mask")
+        lib_sets = [(q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2))
+                    for q, kc, vc, _, _ in sets]
+        row = rows[str(dtype)[6:]]
+        row["library_ms"] = time_graph_ms(library_fn, lib_sets, rounds)
+        row["library_call"] = ("flex_attention(enable_gqa, log-sum-exp), "
+                               "compiled")
+        o_lib, lse_lib = library_fn(*lib_sets[0])
+        o_k, lse_k = k4_partial_kernel(*sets[0])
+        row["library_vs_kernel_max_abs_diff"] = {
+            "o": max_err(o_lib[:, :, 0].float(), o_k),
+            "lse": max_err(lse_lib[:, :, 0].float(), lse_k)}
+        del sets, lib_sets, o_lib, lse_lib, o_k, lse_k
+        torch.cuda.empty_cache()
+    emit("kernels_library", kernel="decode_attention_partial",
+         seconds=time.time() - t0, compiled_beside_dist_seconds=compile_s,
+         compile_thread_error=thread_error,
+         rows={k: {key: r[key] for key in (
+             "ms", "library_ms", "library_call",
+             "library_vs_kernel_max_abs_diff", "sdpa_o_only_ms")}
+             for k, r in rows.items()})
 
 
 # --------------------------------------------------------------------------
@@ -5446,6 +5736,9 @@ def dist_gloo_rank(rank: int, world: int, store: str, root: str,
     try:
         for job, (name, dtype, ck, every, *plan) in [
                 (j, r) for j in jobs for r in j["runs"]]:
+            if job.get("serve"):
+                serve_rank(rank, job, root)
+                continue
             reset_launches()
             C.reset_stats()
             timing, watch = TimingHook(), moe_watch(-1)
@@ -5497,23 +5790,40 @@ def dist_gloo_rank(rank: int, world: int, store: str, root: str,
         dist.destroy_process_group()
 
 
-def spawn_gloo(world: int, root: str, jobs: list,
-               timeout=DIST_GLOO_TIMEOUT_S, target=None) -> float:
+def start_gloo(world: int, root: str, jobs: list, target=None) -> tuple:
     """``world`` gloo ranks on the card running ``jobs`` in turn
-    (``target``, default dist_gloo_rank), killed after ``timeout``
-    seconds; returns the wall seconds."""
+    (``target``, default dist_gloo_rank), started and not waited for:
+    ``(world, context, start time)`` for :func:`wait_gloo`."""
     import torch.multiprocessing as mp
     t0 = time.time()
     store = os.path.join(root, f"store_{jobs[0]['tag']}")
     ctx = mp.spawn(target or dist_gloo_rank, args=(world, store, root, jobs),
                    nprocs=world, join=False)
-    while not ctx.join(timeout=2.0):
-        if time.time() - t0 > timeout:
-            for proc in ctx.processes:
+    return world, ctx, t0
+
+
+def wait_gloo(started: tuple, timeout=DIST_GLOO_TIMEOUT_S) -> float:
+    """The ranks of :func:`start_gloo` joined, killed if they are not done
+    ``timeout`` seconds after their start; returns their wall seconds."""
+    world, ctx, t0 = started
+    try:
+        while not ctx.join(timeout=2.0):
+            if time.time() - t0 > timeout:
+                raise AssertionError(f"dist gloo: the {world} ranks did not "
+                                     f"finish in {timeout} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
                 proc.kill()
-            raise AssertionError(f"dist gloo: the {world} ranks did not "
-                                 f"finish in {timeout} s")
     return time.time() - t0
+
+
+def spawn_gloo(world: int, root: str, jobs: list,
+               timeout=DIST_GLOO_TIMEOUT_S, target=None) -> float:
+    """``world`` gloo ranks on the card running ``jobs`` in turn
+    (``target``, default dist_gloo_rank), killed after ``timeout``
+    seconds; returns the wall seconds."""
+    return wait_gloo(start_gloo(world, root, jobs, target), timeout)
 
 
 def checkpoint_leaves_equal(tree, step_dir) -> bool:
@@ -5735,16 +6045,18 @@ DIST_MODEL_JOBS = {
                           runs=(("float32", torch.float32, "moe13", 2),)),
     # (f) paligemma-3b's prefix on the tiles: the 256 + 1024 rows tiled in
     # two, tile 0 the 256 patches and 384 tokens, tile 1 640 tokens
-    "model_prefix_1x2": dict(shape=(1, 2), layers=2, steps=2, arch=PALI_ID,
+    "model_prefix_1x2": dict(shape=(1, 2), side=1, layers=2, steps=2,
+                             arch=PALI_ID,
                              batch=4, tile=[4, 640],
                              runs=(("float32", torch.float32, "pre12", 2),)),
     # (g) mamba2-1.3b: each rank's mixer on the sequence gathered whole
-    "model_ssm_1x2": dict(shape=(1, 2), layers=2, steps=2, arch=SSM_IDS[0],
+    "model_ssm_1x2": dict(shape=(1, 2), side=1, layers=2, steps=2,
+                          arch=SSM_IDS[0],
                           batch=4, tile=[4, 512],
                           runs=(("float32", torch.float32, "ssm12", 2),)),
     # (h) zamba2-1.2b at 7 layers: its shared block applied at layers 0 and
     # 6, its gradients summed over both on each rank before the scatter
-    "model_hybrid_1x2": dict(shape=(1, 2), layers=7, steps=2,
+    "model_hybrid_1x2": dict(shape=(1, 2), side=1, layers=7, steps=2,
                              arch=SSM_IDS[1], batch=4, tile=[4, 512],
                              runs=(("float32", torch.float32, "hyb12", 2),)),
     # (i) whisper-base at full depth (6 + 6): 448 tokens over 1500 frames,
@@ -5757,20 +6069,28 @@ DIST_MODEL_JOBS = {
     # danube at 2 layers, each rank its rows' whole sequence, whole
     # gradients all-reduced; then the optimized plan at the same depth,
     # for its peak and collectives beside the baseline's
-    "baseline_1x2": dict(shape=(1, 2), layers=2, steps=2, arch=ARCH_ID,
+    "baseline_1x2": dict(shape=(1, 2), side=1, layers=2, steps=2,
+                         arch=ARCH_ID,
                          batch=4,
                          runs=(("float32", torch.float32, "base12", 2, False),
                                ("optimized", torch.float32, "base12o", 2,
                                 True))),
+    # (k) per-rank prefill and decode (serve/sharded.py): danube at 2
+    # layers, fp32, 4 x 6136 tokens into a ring of 4096 slots, 2048 a rank;
+    # the first decode slot is 2040, so the 16 greedy steps' writes cross
+    # from rank 0's block into rank 1's at step 9
+    "serve_1x2": dict(shape=(1, 2), layers=2, steps=16, arch=ARCH_ID,
+                      batch=4, seq=6136, serve=True,
+                      runs=(("float32", torch.float32, "serve12", 0),)),
 }
 # every family beside the transformer's on a model axis
 FAMILY_SUBS = ("model_prefix_1x2", "model_ssm_1x2", "model_hybrid_1x2",
                "model_encdec_1x2")
 # the fp32 sub-phases each held against its own unsharded run
-# (dist_model_runs): (b), (c), (f)-(i), (j) and (e), one world for each
-# mesh
+# (dist_model_runs): (b), (c), (f)-(i), (j), (k) and (e), one world for
+# each mesh, two side by side on (1, 2) (``side``)
 MODEL_RUN_SUBS = ("model_2x2", "moe_1x2", *FAMILY_SUBS, "baseline_1x2",
-                  "model_moe_1x3")
+                  "serve_1x2", "model_moe_1x3")
 
 
 def model_axis_readings(ranks: list, steps: int) -> dict:
@@ -5876,26 +6196,46 @@ def dist_model_axis(root, refs) -> None:
     torch.cuda.empty_cache()
 
 
-def dist_model_runs(root, subs) -> dict:
+def dist_model_runs(root, subs, before_checks=None) -> dict:
     """The fp32 model-axis sub-phases ``subs`` (DIST_MODEL_JOBS), each
     against the unsharded run at its depth at the reference's sharded
     tolerance, printing its line before it can fail.  The sub-phases of
     one mesh run in one world, one after the other (one spawn, whose wall
     seconds each line's ``spawn_seconds`` gives), and are then checked in
-    turn."""
+    turn.  Where sub-phases of one mesh carry ``side`` (DIST_MODEL_JOBS),
+    each side is a world of its own, the worlds side by side (for the time
+    limit).  ``before_checks`` (if given) is called before the first
+    check."""
     out = {}
     jobs = {sub: dict(DIST_MODEL_JOBS[sub], tag=sub + "_") for sub in subs}
     meshes = {}
     for sub in subs:
-        meshes.setdefault(tuple(jobs[sub]["shape"]), []).append(sub)
-    for shape, group in meshes.items():
+        groups = meshes.setdefault(tuple(jobs[sub]["shape"]), {})
+        groups.setdefault(jobs[sub].get("side", 0), []).append(sub)
+    for shape, groups in meshes.items():
         world = math.prod(shape)
-        progress(f"dist: model axis {', '.join(group)} on {shape}, one "
-                 f"world of {world} ranks")
-        spawn_s = spawn_gloo(world, root, [jobs[sub] for sub in group],
-                             timeout=DIST_GLOO_TIMEOUT_S * len(group))
-        for sub in group:
-            out[sub] = dist_model_check(root, sub, jobs[sub], spawn_s, group)
+        groups = list(groups.values())
+        progress(f"dist: model axis on {shape}, "
+                 + " beside ".join(f"[{', '.join(g)}]" for g in groups)
+                 + f", each one world of {world} ranks")
+        started = []
+        try:
+            for group in groups:
+                started.append(start_gloo(world, root,
+                                          [jobs[sub] for sub in group]))
+            spawn_s = [wait_gloo(st, timeout=DIST_GLOO_TIMEOUT_S * len(g))
+                       for st, g in zip(started, groups)]
+        finally:
+            for _, ctx, _ in started:
+                for proc in ctx.processes:
+                    if proc.is_alive():
+                        proc.kill()
+        if before_checks is not None:
+            before_checks()
+            before_checks = None
+        for group, s in zip(groups, spawn_s):
+            for sub in group:
+                out[sub] = dist_model_check(root, sub, jobs[sub], s, group)
     return out
 
 
@@ -5903,6 +6243,8 @@ def dist_model_check(root, sub, job, spawn_s, group) -> dict:
     """One fp32 model-axis sub-phase of :func:`dist_model_runs`, its ranks
     run in the world of ``group``: the unsharded run, the line, the
     checks."""
+    if job.get("serve"):
+        return serve_check(root, sub, job, spawn_s, group)
     t0 = time.time()
     world, (_, _, ck, *_) = math.prod(job["shape"]), job["runs"][0]
     seq = job.get("seq", 1024)
@@ -6037,6 +6379,231 @@ def baseline_failures(rec) -> None:
                           hold_peak=False)
     if failed:
         raise AssertionError("; ".join(failed))
+
+
+# serve_1x2's logits and cache against the unsharded legacy steps: the
+# port's prefill-vs-decode tolerance (tests/test_torch_legacy_serve.py)
+SERVE_TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def serve_prompt(arch, job) -> torch.Tensor:
+    """serve_1x2's global prompt, ``batch`` x ``seq`` tokens from a seed."""
+    g = torch.Generator().manual_seed(5)
+    return torch.randint(1, arch.cfg.vocab, (job["batch"], job["seq"]),
+                         generator=g, dtype=torch.int32).to(DEV)
+
+
+def serve_rank(rank: int, job: dict, root: str) -> None:
+    """One rank of serve_1x2 (spawned, in the world of the (1, 2)
+    sub-phases): its param blocks from the whole params of seed 0, the
+    prefill of the global prompt and ``steps`` greedy decode steps
+    (``serve/sharded.py``), each step's collectives, K4 partial launches
+    and seconds, with the counts set to 0 just before the run; its peak
+    beside its param and cache blocks and their reckoning under the rules;
+    then its dry trace of the same steps.  Writes its logits, tokens and
+    final cache block (``serve12_rank{r}.pt``) and its record
+    (``rank{r}_{tag}float32.json``)."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import AXES_BY_NDIM, MeshLayout, make_mesh
+    from repro_torch.serve.sharded import sharded_serving
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding import rules as R
+    t_job = time.time()
+    arch = cut_arch(job["layers"], torch.float32, job["arch"])
+    shape = tuple(job["shape"])
+    srv = sharded_serving(arch, make_mesh(shape, DEV))
+    params = srv.zero.place_params(arch.init_params(0, device=DEV))
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompt = serve_prompt(arch, job)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    steps, logits_all, tokens = [], [], []
+
+    def counted(fn, *args):
+        torch.cuda.synchronize()
+        s0, n0 = dict(C.STATS), KD.decode_attention_partial.launches
+        t0 = time.time()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        n = KD.decode_attention_partial.launches - n0
+        steps.append({"stats": {k: C.STATS[k] - s0[k] for k in DRY_STAT_KEYS},
+                      "launches": {"decode_attention_partial": n} if n else {},
+                      "staged_bytes": C.STATS["staged_bytes"]
+                      - s0["staged_bytes"],
+                      "seconds": time.time() - t0})
+        return out
+
+    C.reset_stats()
+    KD.decode_attention_partial.launches = 0
+    t_run = time.time()
+    logits, cache = counted(srv.prefill_step, params, {"tokens": prompt})
+    logits_all.append(logits.cpu())
+    for _ in range(job["steps"]):
+        tok = torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
+        tokens.append(tok[:, 0].cpu())
+        logits, cache = counted(srv.decode_step, params, cache,
+                                {"tokens": tok})
+        logits_all.append(logits.cpu())
+    run_s = time.time() - t_run
+    launches = KD.decode_attention_partial.launches
+    peak = torch.cuda.max_memory_allocated() - base
+    nbytes = lambda tree: sum(t.numel() * t.element_size()  # noqa: E731
+                              for t in tree_leaves(tree))
+    layout = MeshLayout(shape, AXES_BY_NDIM[len(shape)])
+    axes = R.MeshAxes(layout)
+    meta = arch.init_params(0, device="meta")
+    whole = arch.init_cache(job["batch"], job["seq"], device="meta")
+    reckoned = {"param_bytes": D.pspec_bytes(meta, R.param_pspecs(meta, axes),
+                                             layout.shape),
+                "cache_bytes": D.pspec_bytes(whole, R.cache_pspecs(
+                    whole, axes, job["batch"]), layout.shape)}
+    torch.save({"logits": torch.stack(logits_all),
+                "tokens": torch.stack(tokens),
+                "cache": {k: v.cpu() for k, v in cache.items()},
+                "slots": list(srv.zero.slot_block(cache["pos"].shape[0]))},
+               os.path.join(root, f"serve12_rank{rank}.pt"))
+    for th in _DRY_WARM:
+        th.join()
+    t_dry = time.time()
+    dry_block, tr = D.trace_serving(
+        arch, shape, rank=rank, prompt={"tokens": (tuple(prompt.shape),
+                                                   torch.int32)},
+        decode_steps=job["steps"])
+    dry = [{"stats": {k: p["stats"][k] for k in DRY_STAT_KEYS},
+            "launches": p["launches"]} for p in tr.per_step]
+    card = [{k: st[k] for k in ("stats", "launches")} for st in steps]
+    rec = {"peak_memory_bytes": peak, "base_bytes": base,
+           "param_block_bytes": nbytes(params),
+           "cache_block_bytes": nbytes(cache), "reckoned": reckoned,
+           "steps": steps, "partial_launches": launches,
+           "tile": srv.zero.tile and list(srv.zero.tile),
+           "run_seconds": run_s,
+           "dry": {"counts_equal": dry == card, "dry_steps": dry,
+                   "step_peak_bytes": tr.peak_bytes,
+                   "resting_bytes": tr.resting_bytes,
+                   "cache_block_bytes": nbytes(dry_block),
+                   "dry_seconds": time.time() - t_dry},
+           "seconds": time.time() - t_job}
+    with open(os.path.join(root, f"rank{rank}_{job['tag']}float32.json"),
+              "w") as f:
+        json.dump(rec, f)
+    del params, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_check(root, sub, job, spawn_s, group) -> dict:
+    """serve_1x2's check: the unsharded legacy prefill and decode steps of
+    the same weights and prompt on the card (K4 whole), then each rank's
+    logits every step within SERVE_TOL of them, its greedy tokens equal,
+    both ranks' logits bitwise equal, each rank's cache block within
+    SERVE_TOL of its slice of the unsharded cache (``pos``, ``cur``
+    equal), K4's partial entry launched once a layer a decode step and
+    never in the prefill, and the dry counts equal the card's every step.
+    Prints its line before it can fail."""
+    t0 = time.time()
+    world = math.prod(job["shape"])
+    ranks = [json.loads(open(os.path.join(
+        root, f"rank{r}_{sub}_float32.json")).read()) for r in range(world)]
+    got = [torch.load(os.path.join(root, f"serve12_rank{r}.pt"))
+           for r in range(world)]
+    arch = cut_arch(job["layers"], torch.float32, job["arch"])
+    params = arch.init_params(0, device=DEV)
+    prompt = serve_prompt(arch, job)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t_ref = time.time()
+    logits, cache = arch.make_prefill_step()(params, {"tokens": prompt})
+    want, tokens = [logits.cpu()], []
+    decode = arch.make_decode_step()
+    for _ in range(job["steps"]):
+        tok = torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
+        tokens.append(tok[:, 0].cpu())
+        logits, cache = decode(params, cache, {"tokens": tok})
+        want.append(logits.cpu())
+    torch.cuda.synchronize()
+    ref_s = time.time() - t_ref
+    ref_peak = torch.cuda.max_memory_allocated() - base
+    want, tokens = torch.stack(want), torch.stack(tokens)
+    logit_ok, logit_err, cache_ok, cache_err = True, 0.0, True, 0.0
+    for g in got:
+        ok, d = within(g["logits"], want, **SERVE_TOL)
+        logit_ok, logit_err = logit_ok and ok, max(logit_err, d)
+        lo, hi = g["slots"]
+        for k, v in cache.items():
+            if v.ndim >= 3:
+                ok, d = within(g["cache"][k], v[:, :, lo:hi].cpu(),
+                               **SERVE_TOL)
+            else:
+                ok, d = bool(torch.equal(g["cache"][k], v.cpu())), 0.0
+            cache_ok, cache_err = cache_ok and ok, max(cache_err, d)
+    layers = job["layers"]
+    prefill = [r["steps"][0] for r in ranks]
+    decode_steps = [r["steps"][1:] for r in ranks]
+    rec = {
+        "spawn_seconds": spawn_s, "world": list(group),
+        "ring_slots": int(cache["pos"].shape[0]),
+        "rank_slots": [g["slots"] for g in got],
+        "first_decode_slot": job["seq"] % int(cache["pos"].shape[0]),
+        "logits_max_abs_diff": logit_err, "logits_within_tol": logit_ok,
+        "tokens_equal": all(torch.equal(g["tokens"], tokens) for g in got),
+        "ranks_logits_bitwise": all(torch.equal(g["logits"],
+                                                got[0]["logits"])
+                                    for g in got),
+        "cache_max_abs_diff": cache_err, "cache_blocks_within_tol": cache_ok,
+        "rank_peak_memory_bytes": [r["peak_memory_bytes"] for r in ranks],
+        "rank_param_block_bytes": [r["param_block_bytes"] for r in ranks],
+        "rank_cache_block_bytes": [r["cache_block_bytes"] for r in ranks],
+        "rank_reckoned": [r["reckoned"] for r in ranks],
+        "unsharded_peak_memory_bytes": ref_peak,
+        "unsharded_seconds": ref_s,
+        "collectives_prefill": [p["stats"] for p in prefill],
+        "staged_bytes_prefill": [p["staged_bytes"] for p in prefill],
+        "collectives_decode_step": [d[0]["stats"] for d in decode_steps],
+        "staged_bytes_decode_step": [d[0]["staged_bytes"]
+                                     for d in decode_steps],
+        "decode_steps_alike": all(s["stats"] == d[0]["stats"]
+                                  for d in decode_steps for s in d),
+        "partial_launches_prefill": [p["launches"].get(
+            "decode_attention_partial", 0) for p in prefill],
+        "partial_launches_per_decode_step": [
+            [s["launches"].get("decode_attention_partial", 0) for s in d]
+            for d in decode_steps],
+        "partial_launches": [r["partial_launches"] for r in ranks],
+        "rank_prefill_seconds": [p["seconds"] for p in prefill],
+        "rank_decode_step_seconds": [
+            sum(s["seconds"] for s in d) / len(d) for d in decode_steps],
+        "rank_tiles": [r["tile"] for r in ranks],
+        "rank_run_seconds": [r["run_seconds"] for r in ranks],
+        "dry": [r["dry"] for r in ranks]}
+    rec["seconds"] = max(r["seconds"] for r in ranks) + time.time() - t0
+    emit("dist", sub=sub, arch=job["arch"], mesh=list(job["shape"]),
+         batch=job["batch"], prompt=job["seq"], decode_steps=job["steps"],
+         n_layers=layers, dtype="float32", tolerance=SERVE_TOL, **rec)
+    del params, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (logit_ok and cache_ok and rec["tokens_equal"]
+            and rec["ranks_logits_bitwise"]):
+        raise AssertionError(
+            f"dist {sub}: logits within tolerance {logit_ok} (max diff "
+            f"{logit_err}), tokens equal {rec['tokens_equal']}, ranks "
+            f"bitwise {rec['ranks_logits_bitwise']}, cache blocks within "
+            f"tolerance {cache_ok} (max diff {cache_err})")
+    if any(rec["partial_launches_prefill"]) or any(
+            n != layers for d in rec["partial_launches_per_decode_step"]
+            for n in d):
+        raise AssertionError(f"dist {sub}: K4 partial launches, prefill "
+                             f"{rec['partial_launches_prefill']}, a decode "
+                             f"step {rec['partial_launches_per_decode_step']}")
+    bad = [r for r, d in enumerate(rec["dry"]) if not d["counts_equal"]]
+    if bad:
+        raise AssertionError(f"dist {sub}: ranks {bad}: the dry plan's "
+                             "collectives or launches are not the card's")
+    return rec
 
 
 # deepseek-v3-671b on a model axis (d): two gloo ranks on (1, 2) at its
@@ -6270,7 +6837,7 @@ PROBE_TOL = dict(rtol=1e-4, atol=1e-5)
 # order of the sum over the ranks.  Such elements (beyond DIST_PARAM_TOL,
 # within 2 lr a step) are counted apart, at most this share of the params.
 NEAR_ZERO_SHARE = 1e-6
-DIST_OPT_TIMEOUT_S = 240
+DIST_OPT_TIMEOUT_S = 600   # from their start, beside the model-axis worlds
 
 
 def dist_opt_spec(name, steps, *, shape=None, fused=None, guard=False,
@@ -6486,19 +7053,26 @@ def near_zero_parity(blocks, whole, places, rank, world, lr) -> dict:
     return out
 
 
-def dist_optimizers(root) -> dict:
-    """The optimizer side of a mesh on the card (``dist_optimizers``): two
-    gloo ranks on (2,), then the unsharded fp32 arms and guarded run in
-    this process.  Prints its line, then fails if a check did not hold."""
+def start_dist_optimizers(root) -> tuple:
+    """The two gloo ranks of :func:`dist_optimizers`, started: they run
+    beside the model-axis worlds (``phase_dist``), for the script's time
+    limit; each rank's readings are its own process's."""
+    return start_gloo(2, root, [dict(tag="opt")], target=dist_opt_rank)
+
+
+def dist_optimizers(root, started: tuple) -> dict:
+    """The optimizer side of a mesh on the card (``dist_optimizers``): the
+    two gloo ranks on (2,) ``started`` (:func:`start_dist_optimizers`)
+    waited for, then the unsharded fp32 arms and guarded run in this
+    process.  Prints its line, then fails if a check did not hold."""
     from repro_torch.core.tree import tree_flatten_with_path
     from repro_torch.launch.mesh import MeshLayout
     from repro_torch.sentinel import Injection
     from repro_torch.sharding.rules import MeshAxes
     from repro_torch.sharding.zero import param_places
-    t0 = time.time()
-    world = 2
-    spawn_s = spawn_gloo(world, root, [dict(tag="opt")],
-                         timeout=DIST_OPT_TIMEOUT_S, target=dist_opt_rank)
+    t0 = started[2]
+    world = started[0]
+    spawn_s = wait_gloo(started, timeout=DIST_OPT_TIMEOUT_S)
     ranks = [json.loads(open(os.path.join(root, f"rank{r}_opt.json")).read())
              for r in range(world)]
     checks = {}
@@ -6650,7 +7224,7 @@ def dist_optimizers(root) -> dict:
     return {"seconds": time.time() - t0}
 
 
-def phase_dist(train, subs=None) -> dict:
+def phase_dist(train, subs=None, warm_library=False) -> dict:
     """The sharded run on the card (module docstring).  Without the train
     phase (``--phases dist``) only the sub-phases that are not held against
     its run: deepseek-v3-671b on a model axis (``dist_model_mla``), then
@@ -6676,6 +7250,7 @@ def phase_dist(train, subs=None) -> dict:
         return None
     dist.init_process_group("nccl", init_method=f"tcp://localhost:"
                             f"{free_port()}", rank=0, world_size=1)
+    opt_ranks = None
     try:
         progress("dist: one-rank NCCL world, full size")
         nccl = dist_nccl(train)
@@ -6690,19 +7265,34 @@ def phase_dist(train, subs=None) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         mla_s = time.time() - t_mla
+        progress("dist: the optimizer side of a mesh, two gloo ranks, "
+                 "started beside the model-axis worlds")
+        opt_ranks = start_dist_optimizers(root)
+        if warm_library:
+            LIBRARY_WARMUP.append(PartialLibraryWarmup())
         t_runs = time.time()
-        runs = dist_model_runs(root, MODEL_RUN_SUBS)
+        # the compile's thread joined before the checks' unsharded runs,
+        # which draw from the process's random state
+        runs = dist_model_runs(
+            root, MODEL_RUN_SUBS,
+            before_checks=LIBRARY_WARMUP[0].thread.join if LIBRARY_WARMUP
+            else None)
         runs_s = time.time() - t_runs
-        progress("dist: the optimizer side of a mesh, two gloo ranks")
-        opt = dist_optimizers(root)
+        progress("dist: the optimizer side of a mesh, its ranks joined")
+        opt = dist_optimizers(root, opt_ranks)
     finally:
+        if opt_ranks is not None:
+            for proc in opt_ranks[1].processes:
+                if proc.is_alive():
+                    proc.kill()
         dist.destroy_process_group()
         shutil.rmtree(root, ignore_errors=True)
     emit("dist", sub="done", seconds=time.time() - t0,
          gloo_and_model_1x2_seconds=gloo_s, mla_seconds=mla_s,
          model_runs_seconds=runs_s, optimizers_seconds=opt["seconds"])
     return {"launches": nccl["launches"],
-            "mode3_launches": runs["model_2x2"]["mode3_launches"][0]}
+            "mode3_launches": runs["model_2x2"]["mode3_launches"][0],
+            "partial_launches": runs["serve_1x2"]["partial_launches"][0]}
 
 
 # --------------------------------------------------------------------------
@@ -6883,7 +7473,8 @@ def main() -> None:
     unknown = sorted(set(subs) - {"model_mla", *MODEL_RUN_SUBS})
     if unknown or (subs and "train" in phases):
         ap.error(f"--subs {args.subs}: unknown {unknown}, or with train")
-    dist_rec = phase_dist(train, subs) if "dist" in phases else None
+    dist_rec = (phase_dist(train, subs, warm_library=kern is not None)
+                if "dist" in phases else None)
     if train is not None:
         train.pop("params_cpu", None)
     gc.collect()
@@ -6938,6 +7529,11 @@ def main() -> None:
         phase_sweep()
     if "configs_lomo" in phases:
         phase_configs_lomo()
+    if kern is not None:
+        progress("kernels: the library call of K4's partial entry")
+        time_k4_partial_library(kern["rows"]["decode_attention_partial"],
+                                LIBRARY_WARMUP[0] if LIBRARY_WARMUP
+                                else None)
     if set(phases) != set(PHASES):
         print("chip_smoke: partial run (--phases); no result line")
         sys.exit(3)
@@ -7032,6 +7628,20 @@ def main() -> None:
         "bound_by": "bytes", "library_ms": None, "unit": BLOCK_UNIT,
         "launches_phase": "dist model_2x2 (rank 0 of four gloo ranks on "
                           "(2, 2), 2 steps)"})
+    t = kern["totals"]["decode_attention_partial"]
+    kernels.append({
+        "name": "decode_attention_partial", "route": "cuda",
+        "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                  "decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/"
+                    "decode_attention.py:163",
+        "launches": dist_rec["partial_launches"],
+        "max_abs_err": kern["errs"]["decode_attention_partial"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": "bytes", "library_ms": t["library_ms"],
+        "sdpa_o_only_ms": t["sdpa_o_only_ms"], "unit": PARTIAL_UNIT,
+        "launches_phase": "dist serve_1x2 (rank 0 of two gloo ranks on "
+                          "(1, 2): a prefill and 16 decode steps)"})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -7053,6 +7663,12 @@ SHARDED_UNIT = ("one rank's share of a train step at a 2-way split: the 170 "
 BLOCK_UNIT = ("one rank's share of a train step on a (2, 2) mesh: the 170 "
               "matrices of h2o-danube-1.8b, each a quarter block (rows and "
               "columns halved), bf16 grads; K1's mode 3 launch alone")
+PARTIAL_UNIT = ("one launch of K4's partial entry at serve_1x2's block: "
+                "h2o-danube-1.8b's 32/8 heads, dh 80, 4 sequences over a "
+                "block of 2048 of a ring's 4096 slots, every slot valid, "
+                "fp32; library_ms: flex_attention with enable_gqa and the "
+                "log-sum-exp, compiled (sdpa_o_only_ms: SDPA's time for o "
+                "alone)")
 RING_UNIT = ("one decode step of h2o-danube-1.8b: 24 launches, 4 sequences "
              "over a wrapped ring of 4096 slots, window 4096, bf16")
 

@@ -7,24 +7,68 @@ bytes, and the three roofline terms at the H100's spec-sheet rates
       [--dir runs/dryrun_torch] [--shape train_4k] [--mesh single]
   PYTHONPATH=src python scripts/torch_dryrun_table.py --against \\
       runs/dryrun_torch_baseline
+  PYTHONPATH=src python scripts/torch_dryrun_table.py --serving \\
+      [--mesh single]
 
 Reads the cells' JSON that ``python -m repro_torch.launch.dryrun`` wrote
 (``--baseline`` for the second directory).  ``--against DIR``: each cell
 beside the same cell in ``DIR`` (the optimized plan against the baseline
 plan): a rank's resting bytes, its step peak, the collectives' wire bytes
 and the HBM bytes a device, and the memory and collective terms.
+``--serving``: the transformer family's serving cells on ``--mesh``, one
+rank's trace each, beside the same cell traced on one device (``--mesh
+one``) divided by the mesh's size: the bytes held when the step starts
+(params, a decode cell's cache, the batch), the step peak, FLOPs, HBM
+bytes and the collectives' wire bytes a device, and K4's launches (the
+rank's partial entry, the device's whole-ring entry).
 """
 import argparse
 import json
 from pathlib import Path
 
 from repro_torch.launch.dryrun import ARTIFACT_DIR, roofline_terms
-from repro_torch.models.registry import ARCH_IDS
+from repro_torch.models.registry import ARCH_IDS, get_arch
 
 
-def _cell(d, arch_id, args):
-    path = Path(d) / f"{arch_id}__{args.shape}__{args.mesh}.json"
+def _cell(d, arch_id, args, shape=None, mesh=None):
+    path = Path(d) / (f"{arch_id}__{shape or args.shape}__"
+                      f"{mesh or args.mesh}.json")
     return json.loads(path.read_text()) if path.exists() else None
+
+
+def serving(args) -> None:
+    """The transformer family's serving cells, a rank's on ``--mesh``
+    beside the one-device cell over the mesh's size (module docstring)."""
+    print("| config | cell | held GB | step peak GB | TFLOP a device | "
+          "HBM GB a device | wire GB a device | K4 launches |")
+    print("|---|---|---|---|---|---|---|---|")
+    for arch_id in ARCH_IDS:
+        arch = get_arch(arch_id, smoke=True)
+        if arch.family != "transformer":
+            continue
+        for shape in arch.supported_cells():
+            if shape == "train_4k":
+                continue
+            a = _cell(args.dir, arch_id, args, shape)
+            one = _cell(args.dir, arch_id, args, shape, "one")
+            if a is None or one is None:
+                print(f"| {arch_id} | {shape} | not traced |")
+                continue
+            n = a["n_chips"]
+            cols = [(a["memory"]["argument_bytes"],
+                     one["memory"]["argument_bytes"], 1e9, 3),
+                    (a["memory"]["step_peak_bytes"],
+                     one["memory"]["step_peak_bytes"], 1e9, 2),
+                    (a["flops_per_device"], one["flops_per_device"], 1e12,
+                     3),
+                    (a["hbm_bytes_per_device"], one["hbm_bytes_per_device"],
+                     1e9, 2)]
+            k4 = (a["kernel_launches"].get("decode_attention_partial", 0),
+                  one["kernel_launches"].get("decode_attention", 0))
+            print(f"| {arch_id} | {shape} | " + " | ".join(
+                f"{x / s:.{d}f} / {y / n / s:.{d}f}" for x, y, s, d in cols)
+                + f" | {a['collectives']['total_wire_bytes'] / 1e9:.2f} | "
+                f"{k4[0]} / {k4[1]} |")
 
 
 def compare(args) -> None:
@@ -59,9 +103,15 @@ def main(argv=None):
     ap.add_argument("--mesh", default="single")
     ap.add_argument("--against", default=None,
                     help="a second artifact directory to set beside --dir")
+    ap.add_argument("--serving", action="store_true",
+                    help="the transformer family's serving cells, a rank's "
+                         "beside the one-device cell over the mesh's size")
     args = ap.parse_args(argv)
     if args.against:
         compare(args)
+        return
+    if args.serving:
+        serving(args)
         return
     print("| config | resting GB | init peak GB | step peak GB | TFLOP "
           "a device | HBM GB a device | wire GB | compute s | memory s | "

@@ -41,6 +41,10 @@
 // the counter back to 0 for the next launch (decode_mma.cuh's
 // last_run_done and combine_runs).  The atomic decides only which block
 // combines, never an order of float sums: a re-run is bit-identical.
+//
+// The partial entry (decode_attention_partial_launch) runs the same blocks
+// over one rank's block of a ring split over ranks, and returns o in fp32
+// and each head's log-sum-exp, for a merge over the ranks.
 #include "decode_mma.cuh"
 
 namespace rda {
@@ -75,6 +79,14 @@ __device__ __forceinline__ RingRows ring_rows(const int* kv_pos,
                   (size_t)b * W * tok_stride + (size_t)kh * dh, tok_stride};
 }
 
+// Both entries launch the kernels below: K4's with lse null and out of q's
+// type; the partial entry (decode_attention_partial_launch), over one rank's
+// block of a ring split over ranks, with out o in fp32 and lse set, where the
+// combining block writes each query head's log-sum-exp of its scores over
+// the block's valid slots, lse = m + log l (-inf and o = 0 for a head with no
+// valid slot).  The ranks holding the other blocks of the ring merge their
+// (o, lse) in rank order outside the kernel.
+
 // ---- fp32: the SIMT tile loop ----------------------------------------------
 
 // Block (kh, b, run): slots [run * span, min(W, (run + 1) * span)).
@@ -85,24 +97,27 @@ ring_decode_kernel(const float* __restrict__ q,
                    const float* __restrict__ v_cache,
                    const int* __restrict__ kv_pos,
                    const int* __restrict__ q_pos, float* __restrict__ part,
-                   int* __restrict__ counters, float* __restrict__ out, int H,
-                   int K, int G, int W, int span, float scale, int window) {
+                   int* __restrict__ counters, float* __restrict__ out,
+                   float* __restrict__ lse, int H, int K, int G, int W,
+                   int span, float scale, int window) {
   const int kh = blockIdx.x, b = blockIdx.y, run = blockIdx.z, S = gridDim.z;
   const RingRows rows = ring_rows(kv_pos, q_pos, window, b, kh, W, K, DH);
   const int t_lo = run * span;
-  const size_t q_base = ((size_t)b * H + (size_t)kh * G) * DH;
+  const size_t h_base = (size_t)b * H + (size_t)kh * G;
   float* p0 = part + ((size_t)b * K + kh) * S * G * (DH + 2);
-  decode_tiles<DH>(q, k_cache, v_cache, q_base, G, scale, t_lo,
+  decode_tiles<DH>(q, k_cache, v_cache, h_base * DH, G, scale, t_lo,
                    min(W, t_lo + span), rows,
                    p0 + (size_t)run * G * (DH + 2));
   if (last_run_done(counters + (size_t)b * K + kh, S))
-    combine_runs<float>(p0, out + q_base, G, DH, S);
+    combine_runs<float>(p0, out + h_base * DH, G, DH, S,
+                        lse == nullptr ? nullptr : lse + h_base);
 }
 
 // ---- bf16: cp.async stages and tensor-core products ------------------------
 
-// Block (kh, b, run): slots [run * span, min(W, (run + 1) * span)).
-template <int DH>
+// Block (kh, b, run): slots [run * span, min(W, (run + 1) * span)); out is
+// bf16 (K4) or fp32 (the partial entry).
+template <int DH, typename TOut>
 __global__ void __launch_bounds__(kThreads)
 ring_decode_kernel_mma(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k_cache,
@@ -110,17 +125,19 @@ ring_decode_kernel_mma(const __nv_bfloat16* __restrict__ q,
                        const int* __restrict__ kv_pos,
                        const int* __restrict__ q_pos,
                        float* __restrict__ part, int* __restrict__ counters,
-                       __nv_bfloat16* __restrict__ out, int H, int K, int G,
-                       int W, int span, float scale, int window) {
+                       TOut* __restrict__ out, float* __restrict__ lse, int H,
+                       int K, int G, int W, int span, float scale,
+                       int window) {
   const int kh = blockIdx.x, b = blockIdx.y, run = blockIdx.z, S = gridDim.z;
   const RingRows rows = ring_rows(kv_pos, q_pos, window, b, kh, W, K, DH);
   const int t_lo = run * span;
-  const size_t q_base = ((size_t)b * H + (size_t)kh * G) * DH;
+  const size_t h_base = (size_t)b * H + (size_t)kh * G;
   float* p0 = part + ((size_t)b * K + kh) * S * G * (DH + 2);
-  decode_run_mma<DH>(q, k_cache, v_cache, rows, q_base, G, scale, t_lo,
+  decode_run_mma<DH>(q, k_cache, v_cache, rows, h_base * DH, G, scale, t_lo,
                      min(W, t_lo + span), p0 + (size_t)run * G * (DH + 2));
   if (last_run_done(counters + (size_t)b * K + kh, S))
-    combine_runs<__nv_bfloat16>(p0, out + q_base, G, DH, S);
+    combine_runs<TOut>(p0, out + h_base * DH, G, DH, S,
+                       lse == nullptr ? nullptr : lse + h_base);
 }
 
 // static: the flags below must be this library's own (a function-local
@@ -129,9 +146,9 @@ template <int DH>
 static cudaError_t launch_f32(dim3 grid, cudaStream_t s, const void* q,
                               const void* kc, const void* vc,
                               const int* kv_pos, const int* q_pos,
-                              float* part, int* counters, void* out, int H,
-                              int K, int G, int W, int span, float scale,
-                              int window) {
+                              float* part, int* counters, void* out,
+                              float* lse, int H, int K, int G, int W,
+                              int span, float scale, int window) {
   constexpr size_t smem = TilesShape<DH>::kSmemBytes;
   static bool sized = false;   // the attribute is set once a process
   const cudaError_t err = size_smem_once(sized, ring_decode_kernel<DH>, smem);
@@ -139,27 +156,68 @@ static cudaError_t launch_f32(dim3 grid, cudaStream_t s, const void* q,
   ring_decode_kernel<DH><<<grid, kThreads, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(kc),
       static_cast<const float*>(vc), kv_pos, q_pos, part, counters,
-      static_cast<float*>(out), H, K, G, W, span, scale, window);
+      static_cast<float*>(out), lse, H, K, G, W, span, scale, window);
   return cudaGetLastError();
 }
 
-template <int DH>
+template <int DH, typename TOut>
 static cudaError_t launch_bf16(dim3 grid, cudaStream_t s, const void* q,
-                        const void* kc, const void* vc, const int* kv_pos,
-                        const int* q_pos, float* part, int* counters,
-                        void* out, int H, int K, int G, int W, int span,
-                        float scale, int window) {
+                               const void* kc, const void* vc,
+                               const int* kv_pos, const int* q_pos,
+                               float* part, int* counters, void* out,
+                               float* lse, int H, int K, int G, int W,
+                               int span, float scale, int window) {
   constexpr size_t smem = MmaShape<DH>::kSmemBytes;
   static bool sized = false;   // the attribute is set once a process
   const cudaError_t err =
-      size_smem_once(sized, ring_decode_kernel_mma<DH>, smem);
+      size_smem_once(sized, ring_decode_kernel_mma<DH, TOut>, smem);
   if (err != cudaSuccess) return err;
-  ring_decode_kernel_mma<DH><<<grid, kThreads, smem, s>>>(
+  ring_decode_kernel_mma<DH, TOut><<<grid, kThreads, smem, s>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(kc),
       static_cast<const __nv_bfloat16*>(vc), kv_pos, q_pos, part, counters,
-      static_cast<__nv_bfloat16*>(out), H, K, G, W, span, scale, window);
+      static_cast<TOut*>(out), lse, H, K, G, W, span, scale, window);
   return cudaGetLastError();
+}
+
+// Either entry (module comment): the arguments checked, the dtype and head
+// dim dispatched; BOut is out's type for bf16 inputs.
+template <typename BOut>
+static int ring_launch(const void* q, const void* k_cache,
+                       const void* v_cache, const void* kv_pos,
+                       const void* q_pos, void* part, void* counters,
+                       void* out, float* lse, int dtype, int B, int H, int K,
+                       int dh, int W, int S, int span, float scale,
+                       int window, void* stream) {
+  if (B < 1 || B > 65535 || K < 1 || K > 65535 || H % K != 0 ||
+      H / K > kMaxG || W < 1 || S < 1 || S > 65535 || span < 1 ||
+      span % kBlockStep != 0 || (long long)S * span < W ||
+      (long long)(S - 1) * span >= W)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int G = H / K;
+  const dim3 grid(K, B, S);
+  const int* kp = static_cast<const int*>(kv_pos);
+  const int* qp = static_cast<const int*>(q_pos);
+  float* ws = static_cast<float*>(part);
+  int* cnt = static_cast<int*>(counters);
+  cudaError_t launched = cudaSuccess;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == kFloat32) {
+    err = with_head_dim(dh, [&](auto d) {
+      launched = launch_f32<decltype(d)::value>(
+          grid, s, q, k_cache, v_cache, kp, qp, ws, cnt, out, lse, H, K, G,
+          W, span, scale, window);
+    });
+  } else if (dtype == kBFloat16) {
+    err = with_head_dim(dh, [&](auto d) {
+      launched = launch_bf16<decltype(d)::value, BOut>(
+          grid, s, q, k_cache, v_cache, kp, qp, ws, cnt, out, lse, H, K, G,
+          W, span, scale, window);
+    });
+  }
+  if (err == cudaSuccess) err = launched;
+  return static_cast<int>(err);
 }
 
 }  // namespace rda
@@ -184,34 +242,25 @@ extern "C" int decode_attention_launch(const void* q, const void* k_cache,
                                        int dtype, int B, int H, int K, int dh,
                                        int W, int S, int span, float scale,
                                        int window, void* stream) {
-  using namespace rda;
-  if (B < 1 || B > 65535 || K < 1 || K > 65535 || H % K != 0 ||
-      H / K > kMaxG || W < 1 || S < 1 || S > 65535 || span < 1 ||
-      span % kBlockStep != 0 || (long long)S * span < W ||
-      (long long)(S - 1) * span >= W)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int G = H / K;
-  const dim3 grid(K, B, S);
-  const int* kp = static_cast<const int*>(kv_pos);
-  const int* qp = static_cast<const int*>(q_pos);
-  float* ws = static_cast<float*>(part);
-  int* cnt = static_cast<int*>(counters);
-  cudaError_t launched = cudaSuccess;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == kFloat32) {
-    err = with_head_dim(dh, [&](auto d) {
-      launched = launch_f32<decltype(d)::value>(
-          grid, s, q, k_cache, v_cache, kp, qp, ws, cnt, out, H, K, G, W,
-          span, scale, window);
-    });
-  } else if (dtype == kBFloat16) {
-    err = with_head_dim(dh, [&](auto d) {
-      launched = launch_bf16<decltype(d)::value>(
-          grid, s, q, k_cache, v_cache, kp, qp, ws, cnt, out, H, K, G, W,
-          span, scale, window);
-    });
-  }
-  if (err == cudaSuccess) err = launched;
-  return static_cast<int>(err);
+  return rda::ring_launch<__nv_bfloat16>(
+      q, k_cache, v_cache, kv_pos, q_pos, part, counters, out, nullptr,
+      dtype, B, H, K, dh, W, S, span, scale, window, stream);
+}
+
+// K4's partial entry, over one rank's block of W slots of a ring whose other
+// blocks other ranks hold: as decode_attention_launch (the same arguments,
+// checks, runs, workspace and tickets), but out is replaced by o [B, H, dh]
+// float32 (the attention over the block's valid slots, 0 where there is
+// none) and lse [B, H] float32 (the log-sum-exp of each head's scaled scores
+// over them, -inf where there is none).
+// Returns the launch's cudaError_t (0 = launched).
+extern "C" int decode_attention_partial_launch(
+    const void* q, const void* k_cache, const void* v_cache,
+    const void* kv_pos, const void* q_pos, void* part, void* counters,
+    void* o, void* lse, int dtype, int B, int H, int K, int dh, int W, int S,
+    int span, float scale, int window, void* stream) {
+  return rda::ring_launch<float>(
+      q, k_cache, v_cache, kv_pos, q_pos, part, counters, o,
+      static_cast<float*>(lse), dtype, B, H, K, dh, W, S, span, scale,
+      window, stream);
 }

@@ -68,10 +68,14 @@ __device__ __forceinline__ bool last_run_done(int* counter, int S) {
 // The S run states of (b, kh) at p0 (stride G * (dh + 2) floats), combined
 // in run order into out_bh (the G heads' rows of out): for each output
 // element one pass over the runs, the running maximum rescaling the sums as
-// the online softmax does, eight runs' loads in flight.
+// the online softmax does, eight runs' loads in flight.  With lse_bh (K4's
+// partial entry) each head's log-sum-exp of its scores over the runs' slots,
+// m + log l, goes there too; a head with no valid slot gets 0 in out_bh and
+// -inf in lse_bh.
 template <typename T>
 __device__ __forceinline__ void combine_runs(const float* p0, T* out_bh,
-                                             int G, int dh, int S) {
+                                             int G, int dh, int S,
+                                             float* lse_bh = nullptr) {
   const size_t stride = (size_t)G * (dh + 2);
   for (int e = threadIdx.x; e < G * dh; e += blockDim.x) {
     const float* pm = p0 + G * dh + e / dh;    // m of run s at pm[s * stride]
@@ -88,6 +92,8 @@ __device__ __forceinline__ void combine_runs(const float* p0, T* out_bh,
       m = mn;
     }
     out_bh[e] = from_f32<T>(a / fmaxf(l, 1e-30f));
+    if (lse_bh != nullptr && e % dh == 0)
+      lse_bh[e / dh] = l > 0.f ? m + logf(l) : -__int_as_float(0x7f800000);
   }
 }
 

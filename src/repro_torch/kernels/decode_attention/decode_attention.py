@@ -10,7 +10,9 @@ window:
   ``_paged_decode_kernel``) over a shared page pool, for ``PagedEngine``;
 * K4 ``decode_attention`` (``decode_attention_pallas`` / ``_decode_kernel``)
   over a contiguous ring cache with positions shared by the batch, for the
-  legacy ``Engine``.
+  legacy ``Engine``; its partial entry ``decode_attention_partial`` over one
+  rank's block of a ring split over ranks (``serve/sharded.py``), returning
+  the fp32 output and each head's log-sum-exp for a merge over the ranks.
 
 Sources: ``csrc/paged_decode_attention.cu`` and ``csrc/decode_attention.cu``
 over the warp loop of ``csrc/decode_mma.cuh`` (bf16) and the tile loop of
@@ -42,7 +44,8 @@ from repro_torch.kernels import dry
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.tickets import ticket_counters
 from repro_torch.kernels.decode_attention.ref import (
-    paged_decode_attention_ref, ring_decode_attention_ref)
+    paged_decode_attention_ref, ring_decode_attention_partial_ref,
+    ring_decode_attention_ref)
 
 Tensor = torch.Tensor
 
@@ -131,6 +134,10 @@ def _library() -> ctypes.CDLL:
         vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cf,
         ci, vp]
     lib.decode_attention_launch.restype = ci
+    lib.decode_attention_partial_launch.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
+        cf, ci, vp]
+    lib.decode_attention_partial_launch.restype = ci
     for fn in (lib.decode_attention_block_step, lib.paged_decode_step):
         fn.argtypes, fn.restype = [], ci
     if lib.decode_attention_block_step() != _RING_STEP:
@@ -226,27 +233,13 @@ def paged_decode_attention(q: Tensor, k_pages: Tensor, v_pages: Tensor,
 paged_decode_attention.launches = 0
 
 
-def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
-                     kv_pos: Tensor, q_pos, *, scale: Optional[float] = None,
-                     window: Optional[int] = None) -> Tensor:
-    """Flash-decoding over a ring cache whose slot positions the batch shares.
-
-    q ``[B,H,dh]``; k_cache/v_cache ``[B,W,K,dh]``, all float32 or all
-    bfloat16; kv_pos ``[W]`` int32 absolute position of each slot (-1 =
-    empty); q_pos the query's position, a 0-d int32 tensor on q's device or
-    a Python int (uploaded once, without blocking the host).  Slot t is
-    attended to when ``0 <= kv_pos[t] <= q_pos`` and, with a window,
-    ``q_pos - kv_pos[t] < window``.  Returns ``[B,H,dh]`` in q's dtype; a
-    row with no valid slot gets 0 (the plain version gives mean(V) there).
-    One launch over the slot runs of ``ring_split``: the last run of each
-    (sequence, KV head) to finish combines the runs' states, kept in an fp32
-    workspace made here, in run order (tickets from ``ring_counters``).  The
-    tickets are per device: launches on two streams at once must not
-    overlap.
-    """
-    if dry.plain(q):
-        return ring_decode_attention_ref(q, k_cache, v_cache, kv_pos, q_pos,
-                                         window=window, scale=scale)
+def _ring_args(q: Tensor, k_cache: Tensor, v_cache: Tensor, kv_pos: Tensor,
+               q_pos, scale) -> tuple:
+    """K4's checks and launch decisions, shared by its two entries: ``(B,
+    H, dh, K, W, S, span, scale, q_pos, part, counters)``, ``q_pos`` a 0-d
+    int32 tensor on q's device (an int is uploaded once, without blocking
+    the host), the runs of ``ring_split``, the fp32 workspace and the
+    tickets."""
     B, H, dh = q.shape
     W, K = k_cache.shape[1], k_cache.shape[2]
     dev = q.device
@@ -269,7 +262,34 @@ def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
     S, span = ring_split(B, K, W)
     part = torch.empty(B * K * S * (H // K) * (dh + 2), dtype=torch.float32,
                        device=dev)
-    counters = ring_counters(dev, B * K)
+    return (B, H, dh, K, W, S, span, scale, q_pos, part,
+            ring_counters(dev, B * K))
+
+
+def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
+                     kv_pos: Tensor, q_pos, *, scale: Optional[float] = None,
+                     window: Optional[int] = None) -> Tensor:
+    """Flash-decoding over a ring cache whose slot positions the batch shares.
+
+    q ``[B,H,dh]``; k_cache/v_cache ``[B,W,K,dh]``, all float32 or all
+    bfloat16; kv_pos ``[W]`` int32 absolute position of each slot (-1 =
+    empty); q_pos the query's position, a 0-d int32 tensor on q's device or
+    a Python int (uploaded once, without blocking the host).  Slot t is
+    attended to when ``0 <= kv_pos[t] <= q_pos`` and, with a window,
+    ``q_pos - kv_pos[t] < window``.  Returns ``[B,H,dh]`` in q's dtype; a
+    row with no valid slot gets 0 (the plain version gives mean(V) there).
+    One launch over the slot runs of ``ring_split``: the last run of each
+    (sequence, KV head) to finish combines the runs' states, kept in an fp32
+    workspace made here, in run order (tickets from ``ring_counters``).  The
+    tickets are per device: launches on two streams at once must not
+    overlap.
+    """
+    if dry.plain(q):
+        return ring_decode_attention_ref(q, k_cache, v_cache, kv_pos, q_pos,
+                                         window=window, scale=scale)
+    B, H, dh, K, W, S, span, scale, q_pos, part, counters = _ring_args(
+        q, k_cache, v_cache, kv_pos, q_pos, scale)
+    dev = q.device
     out = torch.empty_like(q)
     if dry.is_dry(q):
         dry.ring(q, k_cache, v_cache, kv_pos, q_pos)
@@ -290,3 +310,46 @@ def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
 
 
 decode_attention.launches = 0
+
+
+def decode_attention_partial(q: Tensor, k_cache: Tensor, v_cache: Tensor,
+                             kv_pos: Tensor, q_pos, *,
+                             scale: Optional[float] = None,
+                             window: Optional[int] = None) -> tuple:
+    """K4 over one block of a ring's slots (a rank's block of a ring split
+    over ranks): ``(o [B,H,dh], lse [B,H])``, both float32 — the attention
+    over the block's valid slots, kept in fp32, and the log-sum-exp of each
+    head's scaled scores over them; a head with no valid slot gets ``o = 0``
+    and ``lse = -inf``.  Arguments, checks, runs and tickets as
+    :func:`decode_attention` (``kv_pos [W]`` the block's slot positions).
+    The blocks' pairs merge as ``sum_r e^(lse_r - M) o_r / sum_r e^(lse_r -
+    M)``, ``M = max_r lse_r`` (``serve/sharded.py::combine_partials``)."""
+    if dry.plain(q):
+        return ring_decode_attention_partial_ref(q, k_cache, v_cache, kv_pos,
+                                                 q_pos, window=window,
+                                                 scale=scale)
+    B, H, dh, K, W, S, span, scale, q_pos, part, counters = _ring_args(
+        q, k_cache, v_cache, kv_pos, q_pos, scale)
+    dev = q.device
+    o = torch.empty((B, H, dh), dtype=torch.float32, device=dev)
+    lse = torch.empty((B, H), dtype=torch.float32, device=dev)
+    if dry.is_dry(q):
+        dry.ring_partial(q, k_cache, v_cache, kv_pos, q_pos)
+        decode_attention_partial.launches += 1
+        return o, lse
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.decode_attention_partial_launch(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            kv_pos.data_ptr(), q_pos.data_ptr(), part.data_ptr(),
+            counters.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            _DTYPE_CODE[q.dtype], B, H, K, dh, W, S, span, float(scale),
+            int(window or 0), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention_partial: CUDA error {err} at "
+                           "launch")
+    decode_attention_partial.launches += 1
+    return o, lse
+
+
+decode_attention_partial.launches = 0

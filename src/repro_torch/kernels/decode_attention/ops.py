@@ -1,6 +1,8 @@
 """Decode attention with kernel/oracle dispatch.  Counterpart of
 ``repro.kernels.decode_attention.ops``: ``decode_attention`` over a ring
-cache (K4) and ``paged_decode_attention`` over a page pool (K3).
+cache (K4), ``decode_attention_partial`` over one rank's block of a ring
+split over ranks (K4's partial entry) and ``paged_decode_attention`` over a
+page pool (K3).
 
 ``use_kernel=None`` takes the CUDA kernel for a CUDA tensor (and records its
 launch for a meta tensor, ``kernels/dry.py``) and the plain PyTorch oracle
@@ -15,7 +17,8 @@ from typing import Optional
 from repro_torch.kernels import dry
 from repro_torch.kernels.decode_attention import decode_attention as K
 from repro_torch.kernels.decode_attention.ref import (
-    paged_decode_attention_ref, ring_decode_attention_ref)
+    paged_decode_attention_ref, ring_decode_attention_partial_ref,
+    ring_decode_attention_ref)
 
 
 def _kernel_wanted(q, use_kernel: Optional[bool], what: str) -> bool:
@@ -46,6 +49,21 @@ def decode_attention(q, k_cache, v_cache, kv_pos, q_pos, *, scale=None,
     out = ring_decode_attention_ref(q[:, 0], k_cache, v_cache, kv_pos, q_pos,
                                     window=window, scale=scale)
     return out[:, None]
+
+
+def decode_attention_partial(q, k_cache, v_cache, kv_pos, q_pos, *,
+                             scale=None, window: Optional[int] = None,
+                             use_kernel: Optional[bool] = None):
+    """``decode_attention`` over one block of a ring's slots: q ``[B,1,H,dh]``
+    -> ``(o [B,H,dh], lse [B,H])`` in fp32, for a merge over the blocks
+    (``serve/sharded.py``); a head with no valid slot gets ``o = 0`` and
+    ``lse = -inf``."""
+    if _kernel_wanted(q, use_kernel, "decode_attention_partial"):
+        return K.decode_attention_partial(q[:, 0], k_cache, v_cache, kv_pos,
+                                          q_pos, scale=scale, window=window)
+    return ring_decode_attention_partial_ref(q[:, 0], k_cache, v_cache,
+                                             kv_pos, q_pos, window=window,
+                                             scale=scale)
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens, *,

@@ -31,6 +31,36 @@ def ring_decode_attention_ref(q, k_cache, v_cache, kv_pos, q_pos, *,
                                 scale=scale)
 
 
+def ring_decode_attention_partial_ref(q, k_cache, v_cache, kv_pos, q_pos, *,
+                                      window=None, scale=None):
+    """Plain version of K4's partial entry, over one block of a ring's slots
+    (``kv_pos [W]`` their positions): ``(o [B,H,dh], lse [B,H])``, both
+    float32.  ``o`` is the softmax-weighted sum of the block's valid V rows
+    in fp32 and ``lse`` the log-sum-exp of each head's scaled scores over
+    them; a head with no valid slot gets ``o = 0`` and ``lse = -inf`` (not
+    the dense oracle's mean of V), so that a merge weighs it 0."""
+    B, H, dh = q.shape
+    K = k_cache.shape[2]
+    G = H // K
+    scale = scale if scale is not None else dh ** -0.5
+    q_pos = torch.as_tensor(q_pos, dtype=torch.int32, device=q.device)
+    s = torch.einsum("bkgd,bwkd->bkgw",
+                     q.reshape(B, K, G, dh).to(torch.float32),
+                     k_cache.to(torch.float32)) * scale
+    valid = (kv_pos >= 0) & (kv_pos <= q_pos)
+    if window is not None:
+        valid = valid & (q_pos - kv_pos < window)
+    s = torch.where(valid, s, -torch.inf)
+    m = torch.clamp_min(torch.amax(s, dim=-1, keepdim=True),
+                        torch.finfo(torch.float32).min)
+    p = torch.exp(s - m)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    o = torch.einsum("bkgw,bwkd->bkgd", p, v_cache.to(torch.float32))
+    o = o / torch.clamp_min(l, 1e-30)
+    lse = torch.where(l > 0, m + torch.log(l), -torch.inf)
+    return o.reshape(B, H, dh), lse.reshape(B, H)
+
+
 def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, seq_lens,
                                *, window=None, scale=None):
     """Dense oracle for the paged kernel: gather each sequence's pages into

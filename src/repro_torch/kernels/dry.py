@@ -31,7 +31,9 @@ Costs, from ``repro_torch.telemetry.kernels`` (the reference's counters):
     ``P`` pages a sequence: on the meta device no sequence length is
     known, so the count is the most the launch could need;
   * K4 has no counter there: its FLOPs are its two products,
-    4·B·Hq·W·dh, and its bytes its operands plus its result.
+    4·B·Hq·W·dh, and its bytes its operands plus its result; its partial
+    entry (``decode_attention_partial``, a rank's block of W slots) the
+    same over the block, its result the fp32 ``o`` and ``lse``.
 """
 from __future__ import annotations
 
@@ -137,3 +139,14 @@ def ring(q: Tensor, k_cache: Tensor, *operands) -> None:
     launch("decode_attention",
            {"B": B, "H": H, "K": k_cache.shape[2], "dh": dh, "W": W},
            4.0 * B * H * W * dh, _nbytes(q, k_cache, *operands) + _nbytes(q))
+
+
+def ring_partial(q: Tensor, k_cache: Tensor, *operands) -> None:
+    """K4's partial entry: as :func:`ring` over the block's slots, its
+    result ``o [B,H,dh]`` and ``lse [B,H]`` in fp32."""
+    B, H, dh = q.shape
+    W = k_cache.shape[1]
+    launch("decode_attention_partial",
+           {"B": B, "H": H, "K": k_cache.shape[2], "dh": dh, "W": W},
+           4.0 * B * H * W * dh,
+           _nbytes(q, k_cache, *operands) + 4 * B * H * (dh + 1))

@@ -17,12 +17,21 @@ every call with its bytes.
     constant schedule, one step) with the mesh's shape, and the program
     ``run(spec)`` trains: ``build_step_program`` and, on a mesh, the
     ZeRO-3 plan of ``fleet.elastic.sharded_program``;
-  * a **prefill** or **decode** cell traces ``make_prefill_step`` or
-    ``make_decode_step`` on one device (the port has no sharded serving
-    step; the reference serves on one device too).  On a mesh layout the
-    cell adds each device's param and cache bytes under
-    ``rules.param_pspecs`` and ``rules.cache_pspecs``, reckoned, not
-    traced.
+  * a **prefill** or **decode** cell of the transformer family on a mesh
+    traces rank ``r``'s serving step (``serve/sharded.py``, the reference's
+    GSPMD partition of ``make_prefill_step`` / ``make_decode_step``): its
+    param blocks and its block of the ring cache (decode) at their places,
+    a prefill on the global batch (its rows and sequence tile), a decode
+    step of one token a row; ``n_chips`` is the mesh's size, so the costs
+    are a device's.  The cell keeps each device's param and cache bytes
+    under ``rules.param_pspecs`` and ``rules.cache_pspecs``, reckoned, as
+    a cross-check of the traced resting bytes.  The other families'
+    serving cells (mamba2's state, zamba2's shared ring and whisper's cross
+    cache split otherwise under ``cache_pspecs``: ROADMAP's item 8c-2)
+    trace ``make_prefill_step`` or ``make_decode_step`` on one device, the
+    same for every mesh, beside the reckoning;
+  * ``--mesh one`` traces any cell on one device, with no mesh (a serving
+    cell's one-device step, to set beside a rank's).
 
 ``--baseline`` (``optimized=False``) traces the train cells under the
 paper-faithful baseline plan, as the reference's ``--baseline`` lowers
@@ -30,9 +39,9 @@ them with no activation policy and no gradient constraint: the spec's
 ``MeshSpec(optimized=False)``, whose sharded program
 (``Zero3(optimized=False)``) runs every rank's rows' whole sequence and
 all-reduces whole gradients, with params and state resting as in the
-optimized plan.  Serving cells are the same in both modes (until the port
-traces a per-rank serving step).  Baseline artifacts go to
-``runs/dryrun_torch_baseline/``.
+optimized plan; and the transformer family's serving cells on a mesh
+under the same plan (no sequence tile in the prefill, expert stacks
+gathered whole).  Baseline artifacts go to ``runs/dryrun_torch_baseline/``.
 
 Usage::
 
@@ -77,15 +86,16 @@ PEAK_FLOPS = 989e12        # dense bf16 tensor-core FLOP/s
 HBM_BW = 3.35e12           # B/s
 LINK_BW = 450e9            # NVLink B/s per direction
 
-MESH_SHAPES = {"single": (16, 16), "multi": (2, 16, 16)}
+MESH_SHAPES = {"single": (16, 16), "multi": (2, 16, 16), "one": None}
 KERNELS = ("adalomo_stats", "adalomo_update", "adalomo_stats_partial",
            "adalomo_stats_fold", "adalomo_update_partials",
            "adalomo_update_apply", "paged_decode_attention",
-           "decode_attention")
+           "decode_attention", "decode_attention_partial")
 
 
 def mesh_shape(kind: str) -> tuple:
-    """``single`` (16 × 16), ``multi`` (2 × 16 × 16) or any ``AxB[xC]``."""
+    """``single`` (16 × 16), ``multi`` (2 × 16 × 16), ``one`` (None: one
+    device, no mesh) or any ``AxB[xC]``."""
     if kind in MESH_SHAPES:
         return MESH_SHAPES[kind]
     try:
@@ -272,6 +282,59 @@ def trace_train(spec, *, arch=None, mesh=None, rank: int = 0,
     return tr
 
 
+def trace_serving(arch, mesh, *, rank: int = 0, optimized: bool = True,
+                  prompt=None, cache=None, decode_steps: int = 1) -> tuple:
+    """Rank ``rank``'s sharded serving steps of ``arch`` (the transformer
+    family, ``serve/sharded.py``) on a dry mesh of shape ``mesh``, traced
+    on the meta device: the prefill of a global batch of the specs
+    ``prompt`` (``{leaf: (shape, dtype)}``) and then ``decode_steps``
+    decode steps from its cache, or, given ``cache`` (a whole ring cache on
+    the meta device, ``Arch.cache_specs``), ``decode_steps`` decode steps
+    from this rank's block of it.  Returns ``(the final cache block,
+    Trace)``: ``per_step`` the prefill's and then each decode step's
+    ``stats`` and ``launches``; ``resting_bytes`` the rank's param blocks
+    and, given ``cache``, its cache block."""
+    from repro_torch.launch.mesh import make_dry_mesh
+    from repro_torch.serve.sharded import sharded_serving
+    srv = sharded_serving(arch, make_dry_mesh(mesh, rank),
+                          optimized=optimized)
+    B = (prompt["tokens"][0][0] if cache is None
+         else next(iter(cache.values())).shape[1])
+    # the rank's cache block, cut before the trace: the whole cache is no
+    # rank's memory
+    block = None if cache is None else srv.zero.cache_block(cache, B)
+    per_step = []
+
+    def init():
+        params = srv.zero.place_params(arch.init_params(0, device="meta"))
+        if cache is None:
+            return params, meta_batch(prompt)
+        return (params, block), None
+
+    def counted(fn, *args):
+        before = _counts()
+        out = fn(*args)
+        stats, launches = _since(before)
+        per_step.append({"stats": stats, "launches": launches})
+        return out
+
+    def steps(resting, batch):
+        if cache is None:
+            params = resting
+            _, held = counted(srv.prefill_step, params, batch)
+        else:
+            params, held = resting
+        tokens = torch.empty((B, 1), dtype=torch.int32, device="meta")
+        for _ in range(decode_steps):
+            _, held = counted(srv.decode_step, params, held,
+                              {"tokens": tokens})
+        return held
+
+    held, tr = trace(init, steps)
+    tr.per_step = per_step
+    return held, tr
+
+
 # --------------------------------------------------------------------------
 # cells
 # --------------------------------------------------------------------------
@@ -341,11 +404,13 @@ def build_cell(arch_id: str, shape_name: str, mesh=None, *,
                packed: bool = False, rank: int = 0,
                smoke: bool = False, optimized: bool = True) -> dict:
     """Trace one cell (module docstring) and return its result: ``meta``,
-    ``trace`` (a :class:`Trace`), and for a train cell ``spec`` and
-    ``program``; for a serving cell on a mesh ``reckoned`` (its param and
-    cache bytes a device).  ``smoke``: the config's smoke width and depth
-    at the cell's shapes (a quick check of the path).  ``optimized=False``:
-    a train cell's baseline plan (a serving cell is the same in both)."""
+    ``trace`` (a :class:`Trace`), ``n_chips`` (the devices whose one the
+    trace is: the mesh's size, or 1 for a one-device trace), and for a
+    train cell ``spec`` and ``program``; for a serving cell on a mesh
+    ``reckoned`` (its param and cache bytes a device).  ``smoke``: the
+    config's smoke width and depth at the cell's shapes (a quick check of
+    the path).  ``optimized=False``: the baseline plan of a train cell and
+    of a transformer-family serving cell on a mesh."""
     from repro_torch.configs.shapes import SHAPES
     from repro_torch.models.registry import get_arch
     arch = get_arch(arch_id, smoke=smoke)
@@ -358,9 +423,20 @@ def build_cell(arch_id: str, shape_name: str, mesh=None, *,
         meta["packed"] = bool(packed)
         tr = trace_train(spec, arch=arch, mesh=mesh, rank=rank)
         return {"meta": meta, "trace": tr, "spec": spec,
-                "program": tr.program}
-    tr = _serving_trace(arch_id, shape_name, smoke)
-    out = {"meta": meta, "trace": tr}
+                "program": tr.program,
+                "n_chips": 1 if mesh is None else math.prod(mesh)}
+    if mesh is not None and arch.family == "transformer":
+        _, tr = trace_serving(
+            arch, mesh, rank=rank, optimized=optimized,
+            prompt=(arch.input_specs(shape_name) if sh.kind == "prefill"
+                    else None),
+            cache=(arch.cache_specs(shape_name) if sh.kind == "decode"
+                   else None),
+            decode_steps=int(sh.kind == "decode"))
+        out = {"meta": meta, "trace": tr, "n_chips": math.prod(mesh)}
+    else:
+        out = {"meta": meta, "n_chips": 1,
+               "trace": _serving_trace(arch_id, shape_name, smoke)}
     if mesh is not None:
         params = arch.init_params(0, device="meta")
         cache = (arch.cache_specs(shape_name) if sh.kind == "decode"
@@ -411,12 +487,10 @@ def cell_result(cell: dict, mesh_kind: str, mesh) -> dict:
     ``kernel_launches``."""
     tr = cell["trace"]
     cost = tr.cost()
-    traced_chips = 1 if "reckoned" in cell or mesh is None else math.prod(
-        mesh)
     res = {
         **cell["meta"],
         "mesh": mesh_kind, "mesh_shape": list(mesh) if mesh else None,
-        "n_chips": int(traced_chips),
+        "n_chips": int(cell["n_chips"]),
         "trace_s": round(tr.seconds, 2),
         "memory": {"resting_bytes": tr.resting_bytes,
                    "argument_bytes": tr.argument_bytes,
@@ -520,8 +594,8 @@ def main(argv=None):
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
     ap.add_argument("--mesh", default="both",
-                    help="single (16x16), multi (2x16x16), both, or any "
-                         "AxB[xC]")
+                    help="single (16x16), multi (2x16x16), both, one (a "
+                         "single device, no mesh), or any AxB[xC]")
     ap.add_argument("--rank", type=int, default=0,
                     help="the rank of the mesh this process plays")
     ap.add_argument("--smoke", action="store_true",
@@ -533,8 +607,9 @@ def main(argv=None):
                          "layout; other and non-packable cells are skipped")
     ap.add_argument("--baseline", action="store_true",
                     help="the paper-faithful baseline sharding (no "
-                         "activation policy, whole gradients all-reduced); "
-                         "writes to runs/dryrun_torch_baseline/")
+                         "activation policy, whole gradients all-reduced, "
+                         "expert stacks gathered whole); writes to "
+                         "runs/dryrun_torch_baseline/")
     ap.add_argument("--artifact-dir", default=None)
     args = ap.parse_args(argv)
 

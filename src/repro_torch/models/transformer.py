@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -254,7 +254,7 @@ def _mask_spec(cfg: LMConfig, seg: Optional[Tensor]) -> L.MaskSpec:
 def _gqa_attn_kv(p: dict, cfg: LMConfig, h: Tensor, pos: Tensor,
                  seg: Optional[Tensor] = None,
                  prefix_len: Optional[Tensor] = None, kv_pos=None,
-                 kv_seg=None) -> tuple:
+                 kv_seg=None, whole_kv: bool = False) -> tuple:
     """Causal (SWA) self-attention over the sequence; returns the block's
     attention output and this layer's roped k and v.  ``pos`` is ``(S,)``,
     or ``(B, S)`` for a packed batch, whose ``seg [B, S]`` keeps attention
@@ -265,11 +265,15 @@ def _gqa_attn_kv(p: dict, cfg: LMConfig, h: Tensor, pos: Tensor,
     tile, ``pos``/``seg`` its positions and segment ids and
     ``kv_pos``/``kv_seg`` the whole sequence's; the tile's queries attend
     to K/V gathered over ``model`` (``kv_full``).  The k and v returned are
-    the tile's."""
+    the tile's, or with ``whole_kv`` the whole sequence's (what a sharded
+    prefill cuts its cache block from, ``serve/sharded.py``)."""
     B, S, _ = h.shape
     sin, cos = _rope_tables(cfg, pos)
     q, k, v = _qkv(p, cfg, h, sin, cos)
-    o = L.attention(q, shard_act(k, "kv_full"), shard_act(v, "kv_full"),
+    k_all, v_all = shard_act(k, "kv_full"), shard_act(v, "kv_full")
+    if whole_kv:
+        k, v = k_all, v_all
+    o = L.attention(q, k_all, v_all,
                     spec=_mask_spec(cfg, seg), q_pos=pos,
                     kv_pos=pos if kv_pos is None else kv_pos,
                     prefix_len=prefix_len, q_seg=seg,
@@ -305,7 +309,7 @@ def _mla_latent(p: dict, cfg: LMConfig, h: Tensor, sin: Tensor, cos: Tensor
 def _mla_attn_kv(p: dict, cfg: LMConfig, h: Tensor, pos: Tensor,
                  seg: Optional[Tensor] = None,
                  prefix_len: Optional[Tensor] = None, kv_pos=None,
-                 kv_seg=None) -> tuple:
+                 kv_seg=None, whole_kv: bool = False) -> tuple:
     """MLA over the sequence (the train and prefill path): the latent KV is
     up-projected per head, k = [k_nope ; kr] with kr broadcast over the
     heads, and the dispatcher runs q/k head dim d_nope + d_rope against v
@@ -317,7 +321,8 @@ def _mla_attn_kv(p: dict, cfg: LMConfig, h: Tensor, pos: Tensor,
     latent (``ckv`` and ``kr``, kv_lora_rank + d_rope numbers a token) is
     gathered over ``model`` (``kv_full``), never the up-projected k and v
     (n_heads x (d_nope + d_v) a token); every rank up-projects the whole
-    sequence.  The ``ckv`` and ``kr`` returned are the tile's."""
+    sequence.  The ``ckv`` and ``kr`` returned are the tile's, or with
+    ``whole_kv`` the whole sequence's."""
     m = cfg.mla
     B, S, _ = h.shape
     H = cfg.n_heads
@@ -325,6 +330,8 @@ def _mla_attn_kv(p: dict, cfg: LMConfig, h: Tensor, pos: Tensor,
     q_nope, q_rope = _mla_query(p, cfg, h, sin, cos)
     ckv, kr = _mla_latent(p, cfg, h, sin, cos)
     ckv_all, kr_all = shard_act(ckv, "kv_full"), shard_act(kr, "kv_full")
+    if whole_kv:
+        ckv, kr = ckv_all, kr_all
     T = ckv_all.shape[1]
     k_nope = L.dense(ckv_all, p["w_uk"]).reshape(B, T, H, m.d_nope)
     v = L.dense(ckv_all, p["w_uv"]).reshape(B, T, H, m.d_v)
@@ -343,11 +350,12 @@ def _mla_attn_kv(p: dict, cfg: LMConfig, h: Tensor, pos: Tensor,
 def _attn_kv(p: dict, cfg: LMConfig, h: Tensor, pos: Tensor,
              seg: Optional[Tensor] = None,
              prefix_len: Optional[Tensor] = None, kv_pos=None,
-             kv_seg=None) -> tuple:
+             kv_seg=None, whole_kv: bool = False) -> tuple:
     """The block's self-attention and what this layer's cache keeps:
-    ``(out, k, v)`` for GQA, ``(out, ckv, kr)`` for MLA."""
+    ``(out, k, v)`` for GQA, ``(out, ckv, kr)`` for MLA (``whole_kv``: of
+    the whole sequence on a model axis)."""
     fn = _mla_attn_kv if cfg.mla is not None else _gqa_attn_kv
-    return fn(p, cfg, h, pos, seg, prefix_len, kv_pos, kv_seg)
+    return fn(p, cfg, h, pos, seg, prefix_len, kv_pos, kv_seg, whole_kv)
 
 
 def _ffn_residual(p: dict, cfg: LMConfig, x: Tensor) -> tuple:
@@ -750,35 +758,57 @@ def _decode_gqa(p: dict, cfg: LMConfig, h: Tensor, kc: Tensor, vc: Tensor,
     return L.dense(o.reshape(B, 1, -1), p["wo"])
 
 
-def _decode_mla(p: dict, cfg: LMConfig, h: Tensor, ckv_c: Tensor,
-                kr_c: Tensor, pos_tab: Tensor, cur: Tensor, slot: Tensor,
-                rope: tuple) -> Tensor:
-    """Absorbed-matmul MLA decode of ``h [B,1,d]``: writes this token's
-    latent and RoPE key into ring slot ``slot`` of ``ckv_c [B,W,r]`` and
-    ``kr_c [B,W,d_rope]`` in place, folds ``W_uk`` into the query
-    (``q_lat [B,H,r]``), scores in latent space plus the RoPE part, softmaxes
-    in fp32 over the slots with ``0 <= pos <= cur``, casts the
-    probabilities to the cache dtype (as the reference does) before the
-    latent weighted sum, and up-projects through ``W_uv``.  Plain PyTorch:
-    the reference's is ``jnp`` outside any Pallas kernel."""
+def _mla_decode_scores(p: dict, cfg: LMConfig, h: Tensor, ckv_c: Tensor,
+                       kr_c: Tensor, write: Callable, valid: Tensor,
+                       rope: tuple) -> Tensor:
+    """The absorbed-matmul MLA decode's scores of ``h [B,1,d]`` over the
+    latent slots ``ckv_c [B,W,r]`` and ``kr_c [B,W,d_rope]``, after this
+    token's latent and RoPE key went in through ``write(cache, x)``:
+    ``W_uk`` folded into the query (``q_lat [B,H,r]``), scored in latent
+    space plus the RoPE part, scaled in fp32, ``L.NEG_INF`` where the slot
+    is not ``valid [W]``.  ``[B,H,W]`` fp32.  Shared by the single-device
+    step and a rank's block of slots (``serve/sharded.py``)."""
     m = cfg.mla
-    B, H, r = h.shape[0], cfg.n_heads, m.kv_lora_rank
+    H, r = cfg.n_heads, m.kv_lora_rank
     q_nope, q_rope = _mla_query(p, cfg, h, *rope)
     ckv, kr = _mla_latent(p, cfg, h, *rope)
-    ckv_c.index_copy_(1, slot, ckv)
-    kr_c.index_copy_(1, slot, kr)
+    write(ckv_c, ckv)
+    write(kr_c, kr)
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0],
                          p["w_uk"].reshape(r, H, m.d_nope))
     s_nope = torch.einsum("bhr,bwr->bhw", q_lat, ckv_c)
     s_rope = torch.einsum("bhd,bwd->bhw", q_rope[:, 0], kr_c)
     logits = (s_nope + s_rope).to(torch.float32) * (m.d_nope + m.d_rope
                                                      ) ** -0.5
-    valid = (pos_tab >= 0) & (pos_tab <= cur)
-    logits = torch.where(valid[None, None, :], logits, L.NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(ckv_c.dtype)
-    o_lat = torch.einsum("bhw,bwr->bhr", probs, ckv_c)
-    o = torch.einsum("bhr,rhv->bhv", o_lat, p["w_uv"].reshape(r, H, m.d_v))
+    return torch.where(valid[None, None, :], logits, L.NEG_INF)
+
+
+def _mla_decode_out(p: dict, cfg: LMConfig, o_lat: Tensor) -> Tensor:
+    """The latent attention output ``o_lat [B,H,r]`` up-projected through
+    ``W_uv`` and ``wo``: ``[B,1,d]``."""
+    m = cfg.mla
+    B, H = o_lat.shape[:2]
+    o = torch.einsum("bhr,rhv->bhv", o_lat,
+                     p["w_uv"].reshape(m.kv_lora_rank, H, m.d_v))
     return L.dense(o.reshape(B, 1, H * m.d_v), p["wo"])
+
+
+def _decode_mla(p: dict, cfg: LMConfig, h: Tensor, ckv_c: Tensor,
+                kr_c: Tensor, pos_tab: Tensor, cur: Tensor, slot: Tensor,
+                rope: tuple) -> Tensor:
+    """Absorbed-matmul MLA decode of ``h [B,1,d]``: writes this token's
+    latent and RoPE key into ring slot ``slot`` of ``ckv_c [B,W,r]`` and
+    ``kr_c [B,W,d_rope]`` in place, scores (``_mla_decode_scores``),
+    softmaxes in fp32 over the slots with ``0 <= pos <= cur``, casts the
+    probabilities to the cache dtype (as the reference does) before the
+    latent weighted sum, and up-projects through ``W_uv``.  Plain PyTorch:
+    the reference's is ``jnp`` outside any Pallas kernel."""
+    logits = _mla_decode_scores(
+        p, cfg, h, ckv_c, kr_c, lambda c, x: c.index_copy_(1, slot, x),
+        (pos_tab >= 0) & (pos_tab <= cur), rope)
+    probs = torch.softmax(logits, dim=-1).to(ckv_c.dtype)
+    return _mla_decode_out(p, cfg,
+                           torch.einsum("bhw,bwr->bhr", probs, ckv_c))
 
 
 def make_decode_step(cfg: LMConfig, *, use_kernel=None):

@@ -33,6 +33,11 @@ The fused step (``core/fused.py``) calls the seams:
     counted ahead of the tokens', an encoder's frames tiled apart from
     them.
 
+The sharded serving steps (``serve/sharded.py``) take the same gathers and
+rows, and a ring cache rests as ``rules.cache_pspecs`` places it
+(:meth:`Zero3.cache_block`, :meth:`Zero3.slot_block`): rows over ``pod`` ×
+``data`` and slots over ``model``.
+
 Nothing here keeps a gathered tensor: a layer's whole weights live while
 its forward or its re-run does.
 
@@ -69,7 +74,8 @@ from repro_torch.core.tree import (pytree_leaves, pytree_unflatten,
                                    tree_map)
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding.act import ActPolicy
-from repro_torch.sharding.rules import (EXPERT_LEAF, MeshAxes, data_dim,
+from repro_torch.sharding.rules import (EXPERT_LEAF, MeshAxes,
+                                       cache_pspecs, data_dim,
                                        make_grad_constraint,
                                        make_param_constraint,
                                        make_residual_constraint, model_dim,
@@ -312,6 +318,13 @@ class Zero3:
             self.local(t, pl)
             for t, pl in zip(pytree_leaves(state), places[n:])])
 
+    def place_params(self, params):
+        """Whole params -> this rank's resting blocks, cut leaf by leaf in
+        the params' own dicts (so no whole model and its blocks are held at
+        once), which are returned."""
+        self._cut_in_place(params, self.dims)
+        return params
+
     def _cut_in_place(self, params: dict, dims: dict) -> None:
         for k in sorted(params):
             if isinstance(params[k], dict):
@@ -515,6 +528,37 @@ class Zero3:
                 out[k] = x[:, max(lo - P, 0):max(hi - P, 0)]
         self.tile = (tokens[0], hi - lo)
         self.frame_tile = None if frames is None else (tokens[0], fhi - flo)
+        return out
+
+    def slot_block(self, W: int) -> tuple:
+        """``(lo, hi)``: this rank's slots of a ring of ``W`` slots, split
+        over ``model`` where the axis divides ``W`` (``rules.cache_pspecs``),
+        else all of them."""
+        if self.tp > 1 and W % self.tp == 0 and W > 1:
+            n = W // self.tp
+            return self.mesh.tile_index * n, (self.mesh.tile_index + 1) * n
+        return 0, W
+
+    def cache_block(self, cache: dict, batch_size: int) -> dict:
+        """This rank's block of a whole ring cache of ``batch_size`` rows
+        (the ``[L, B, W, ...]`` tensors, ``pos [W]``, ``cur``), where
+        ``rules.cache_pspecs`` places it: the rows (dim 1) over ``pod`` ×
+        ``data`` and the slots (dim 2) over ``model``, each where it
+        divides; ``pos`` and ``cur`` whole.  A split leaf's block is a
+        tensor of its own."""
+        specs = cache_pspecs(cache, self.axes, batch_size)
+        out = {}
+        for key, t in cache.items():
+            block = t
+            for dim, ax in enumerate(specs[key]):
+                parts, i = ((self.tp, self.mesh.tile_index) if ax == "model"
+                            else (self.mesh.batch_size,
+                                  self.mesh.batch_index))
+                if ax is not None and parts > 1:
+                    n = block.shape[dim] // parts
+                    block = block.narrow(dim, i * n, n)
+            out[key] = (t if block is t else
+                        block.clone(memory_format=torch.contiguous_format))
         return out
 
     def _batch_rows(self, x: Tensor) -> Tensor:

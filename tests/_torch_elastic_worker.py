@@ -1,6 +1,6 @@
 """The ranks of the sharded-run tests (``test_torch_elastic.py``,
 ``test_torch_model_axis*.py``, ``test_torch_mesh_optimizers.py``,
-``test_torch_sharded_bf16.py``): one
+``test_torch_sharded_bf16.py``, ``test_torch_dryrun_world.py``): one
 ``gloo`` world a call of :func:`run_world`, running a list of cases in
 order, each rank writing what the parent process compares.  Imports torch
 and the port only (no JAX), so that a world starts quickly."""
@@ -140,6 +140,9 @@ def _case(case, rank):
         return
     if kind == "dry_vs_live":
         _dry_vs_live_case(case, rank)
+        return
+    if kind == "serve":
+        _serve_case(case, rank)
         return
     if kind == "mesh_error":
         from repro_torch.launch.mesh import make_mesh
@@ -513,6 +516,94 @@ def _dry_vs_live_case(case, rank):
            "resting": tr.resting_bytes}
     with open(f"{case['out']}.rank{rank}.json", "w") as f:
         json.dump({"live": live, "dry": dry}, f)
+
+
+def _serve_case(case, rank):
+    """The sharded serving steps (``serve/sharded.py``) of ``case["arch"]``'s
+    smoke config on ``case["shape"]`` (the baseline plan with
+    ``case["optimized"]`` False), from the weights at ``case["init"]``:
+    the prefill of the global prompt at ``case["prompt"]`` (an ``.npz``)
+    and ``case["steps"]`` greedy decode steps, each step's next tokens
+    those of the rows' logits gathered over the batch ranks (outside the
+    steps), live in this world under the collectives' log; then this
+    rank's dry trace of the same steps.  Each rank writes its rows' logits
+    a step, the greedy tokens, its cache block after the prefill and after
+    the last step, its rows and slots, and both runs' counts a step (the
+    live run's plain partial attentions counted as the K4 partial launches
+    the card's path makes for them)."""
+    import collections
+
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import get_arch
+    from repro_torch.serve.sharded import sharded_serving
+    from repro_torch.sharding import collectives as C
+    arch = get_arch(case["arch"], smoke=True)
+    mesh = make_mesh(tuple(case["shape"]), "cpu")
+    optimized = case.get("optimized", True)
+    srv = sharded_serving(arch, mesh, optimized=optimized)
+    params = srv.zero.place_params(torch.load(case["init"]))
+    prompt = {k: torch.from_numpy(v)
+              for k, v in np.load(case["prompt"]).items()}
+    launches = collections.Counter()
+    partial = ops.decode_attention_partial
+    steps, log = [], []
+
+    def spy(*args, **kw):
+        launches["decode_attention_partial"] += 1
+        return partial(*args, **kw)
+
+    def measured(fn, *args):
+        C.reset_stats()
+        launches.clear()
+        with C.recording() as calls:
+            out = fn(*args)
+        steps.append({"stats": dict(C.STATS), "launches": dict(launches)})
+        log.extend(calls)
+        return out
+
+    def block(cache):
+        return {k: v.clone().numpy() for k, v in cache.items()}
+
+    ops.decode_attention_partial = spy
+    try:
+        logits, cache = measured(srv.prefill_step, params, prompt)
+        got = {"logits": [logits.numpy()], "tokens": []}
+        first = block(cache)
+        cache_bytes = sum(v.numel() * v.element_size()
+                          for v in cache.values())
+        for _ in range(case["steps"]):
+            tok = torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
+            if mesh.batch_size > 1:
+                tok = C.all_gather(tok, 0, srv.zero.batch)
+            got["tokens"].append(tok[:, 0].numpy())
+            logits, cache = measured(srv.decode_step, params, cache,
+                                     {"tokens": tok})
+            got["logits"].append(logits.numpy())
+    finally:
+        ops.decode_attention_partial = partial
+    rows = logits.shape[0]
+    W = cache["pos"].shape[0]
+    live = {"log": log, "steps": steps, "resting": _storage_bytes(params),
+            "cache": cache_bytes}
+    specs = {k: (tuple(v.shape), v.dtype) for k, v in prompt.items()}
+    dry_block, tr = D.trace_serving(arch, tuple(case["shape"]), rank=rank,
+                                    optimized=optimized, prompt=specs,
+                                    decode_steps=case["steps"])
+    dry = {"log": tr.log, "steps": tr.per_step, "resting": tr.resting_bytes,
+           "cache": sum(t.numel() * t.element_size()
+                        for t in dry_block.values())}
+    np.savez(f"{case['out']}.rank{rank}.npz",
+             logits=np.stack(got["logits"]), tokens=np.stack(got["tokens"]),
+             **{f"first_{k}": v for k, v in first.items()},
+             **{f"last_{k}": v for k, v in block(cache).items()})
+    with open(f"{case['out']}.rank{rank}.json", "w") as f:
+        json.dump({"live": live, "dry": dry,
+                   "rows": [mesh.batch_index * rows,
+                            (mesh.batch_index + 1) * rows],
+                   "slots": list(srv.zero.slot_block(W)),
+                   "tile": srv.zero.tile and list(srv.zero.tile)}, f)
 
 
 def _rank(rank, world, store, cases):

@@ -18,7 +18,19 @@ reference's weights, while this process runs the reference's
 single-device run of the same specs.  The baseline holds the reference
 and the optimized plan at the reference's sharded tolerance
 (``tests/distribution/_dist_script.py``): loss rtol 1e-5; params rtol
-5e-4, atol 1e-5."""
+5e-4, atol 1e-5.
+
+Last, the same world serves (``serve/sharded.py``): danube,
+deepseek-moe-16b, deepseek-v3-671b (MLA) and paligemma-3b (a modality
+prefix) on (1, 2), danube on (2,) and danube on (1, 2) under the baseline
+plan, a prefill and greedy decode steps enough for the slot writes to
+cross every block boundary of the ring, against the reference's
+single-device ``make_prefill_step`` / ``make_decode_step`` from the same
+weights (``tests/test_torch_legacy_serve.py``'s tolerance: rtol = atol =
+1e-5): each rank's rows' logits, the greedy tokens, each rank's cache
+block against its slice of the reference's cache, both ``model`` ranks'
+logits bitwise equal; and each rank's dry trace of the same steps
+against the live run."""
 import json
 
 import numpy as np
@@ -35,6 +47,7 @@ from torch_parity import assert_trees_close, ref_params_and_copy, smoke_archs
 from _torch_elastic_worker import make_spec, start_world
 
 DANUBE, MOE = "h2o-danube-1.8b", "deepseek-moe-16b"
+MLA, PREFIX = "deepseek-v3-671b", "paligemma-3b"
 # name: (mesh, optimized)
 MESHES = {"2": ((2,), True), "1x2": ((1, 2), True),
           "2-baseline": ((2,), False), "1x2-baseline": ((1, 2), False)}
@@ -45,6 +58,18 @@ RUNS = {"danube-2-baseline": (DANUBE, (2,), False),
         "danube-1x2": (DANUBE, (1, 2), True),
         "moe-1x2-baseline": (MOE, (1, 2), False)}
 STEPS = 4
+# the served cases: name: (arch, mesh, optimized, prompt tokens); each
+# prompt's ring has W slots (danube's window 8, else the prompt, a modality
+# prefix's 8 rows included), and W + 2 decode steps cross every block
+# boundary of it and its wrap
+SERVE = {"danube-1x2": (DANUBE, (1, 2), True, 12),
+         "moe-1x2": (MOE, (1, 2), True, 8),
+         "mla-1x2": (MLA, (1, 2), True, 8),
+         "prefix-1x2": (PREFIX, (1, 2), True, 4),
+         "danube-2": (DANUBE, (2,), True, 12),
+         "danube-1x2-baseline": (DANUBE, (1, 2), False, 12)}
+SERVE_B = 2
+SERVE_TOL = dict(rtol=1e-5, atol=1e-5)
 LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
 PARAM_TOL = dict(rtol=5e-4, atol=1e-5)
 
@@ -53,7 +78,7 @@ PARAM_TOL = dict(rtol=5e-4, atol=1e-5)
 def world(tmp_path_factory):
     d = tmp_path_factory.mktemp("dry_world")
     init, ref = {}, {}
-    for arch in (DANUBE, MOE):
+    for arch in (DANUBE, MOE, MLA, PREFIX):
         ref_params, port_params = ref_params_and_copy(smoke_archs(arch)[0])
         init[arch] = (str(d / f"init_{arch}.pt"), port_params, ref_params)
         torch.save(port_params, init[arch][0])
@@ -65,8 +90,22 @@ def world(tmp_path_factory):
                "ckpt": str(d / name), "init": init[arch][0],
                "out": str(d / f"{name}.json")}
               for name, (arch, shape, optimized) in RUNS.items()]
+    prompts = {}
+    for name, (arch, shape, optimized, S) in SERVE.items():
+        prompts[name] = _prompt(arch, S)
+        np.savez(d / f"prompt_{name}.npz", **prompts[name])
+        cases.append({"kind": "serve", "arch": arch, "shape": list(shape),
+                      "optimized": optimized, "init": init[arch][0],
+                      "prompt": str(d / f"prompt_{name}.npz"),
+                      "steps": _ring(arch, S) + 2,
+                      "out": str(d / f"serve_{name}")})
     wait = start_world(2, str(d / "store"), cases)
-    # the reference's single-device runs while the ranks run
+    # the reference's single-device runs while the ranks run (the served
+    # ones first: a run consumes its params)
+    served = {}
+    for name, (arch, _, _, S) in SERVE.items():
+        served[name] = _ref_serve(arch, init[arch][2], prompts[name],
+                                  _ring(arch, S) + 2)
     for arch in (DANUBE, MOE):
         ref[arch] = ref_run(make_spec(arch, total=STEPS,
                                       spec_mod=ref_spec_mod,
@@ -76,6 +115,59 @@ def world(tmp_path_factory):
     out = {(name, r): json.loads(open(d / f"{name}.rank{r}.json").read())
            for name in MESHES for r in range(2)}
     out["dir"], out["init"], out["ref"] = d, init, ref
+    for name in SERVE:
+        for r in range(2):
+            base = f"serve_{name}.rank{r}"
+            out["serve", name, r] = (
+                json.loads((d / f"{base}.json").read_text()),
+                dict(np.load(d / f"{base}.npz")))
+    out["served"] = served
+    return out
+
+
+def _ring(arch_id, S) -> int:
+    """The slots of the ring a prompt of ``S`` tokens fills."""
+    cfg = smoke_archs(arch_id)[1].cfg
+    n = S + cfg.n_prefix_tokens
+    return min(cfg.window, n) if cfg.window else n
+
+
+def _prompt(arch_id, S) -> dict:
+    """A global batch of ``SERVE_B`` prompts of ``S`` tokens (and a
+    modality prefix's leaves), made with numpy from a seed."""
+    cfg = smoke_archs(arch_id)[1].cfg
+    rng = np.random.default_rng(S + len(arch_id))
+    out = {"tokens": rng.integers(1, cfg.vocab, (SERVE_B, S)).astype(
+        np.int32)}
+    if cfg.n_prefix_tokens:
+        out["prefix_embed"] = rng.standard_normal(
+            (SERVE_B, cfg.n_prefix_tokens, cfg.d_model)).astype(np.float32)
+        out["prefix_len"] = np.full((SERVE_B,), cfg.n_prefix_tokens,
+                                    np.int32)
+    return out
+
+
+def _ref_serve(arch_id, params, prompt, steps) -> dict:
+    """The reference's single-device prefill and ``steps`` greedy decode
+    steps: each step's logits, the greedy tokens, and the cache after the
+    prefill and after the last step (numpy)."""
+    import jax
+    import jax.numpy as jnp
+    ref = smoke_archs(arch_id)[0]
+    logits, cache = jax.jit(ref.make_prefill_step())(
+        params, {k: jnp.asarray(v) for k, v in prompt.items()})
+    host = lambda c: {k: np.asarray(v, np.float32)  # noqa: E731
+                      for k, v in c.items()}
+    out = {"logits": [np.asarray(logits)], "tokens": [],
+           "first": host(cache)}
+    decode = jax.jit(ref.make_decode_step())
+    for _ in range(steps):
+        tok = np.asarray(jnp.argmax(logits, -1)).astype(np.int32)
+        out["tokens"].append(tok)
+        logits, cache = decode(params, cache,
+                               {"tokens": jnp.asarray(tok[:, None])})
+        out["logits"].append(np.asarray(logits))
+    out["last"] = host(cache)
     return out
 
 
@@ -199,3 +291,83 @@ def test_moe_baseline_counts_the_router_once(world):
     assert gathers.get(("model", "expert"), 0) > 0
     assert_trees_close(_ckpt_params(world, name, MOE), ref.params,
                        what=name, **PARAM_TOL)
+
+
+# ---------------------------------------------------------------------
+# sharded serving against the reference's single-device steps
+# ---------------------------------------------------------------------
+
+SERVE_RANKS = [(name, r) for name in SERVE for r in range(2)]
+
+
+@pytest.mark.parametrize("name,rank", SERVE_RANKS)
+def test_serve_logits_match_reference(world, name, rank):
+    """Each rank's rows' last logits after the prefill and after every
+    decode step."""
+    meta, got = world["serve", name, rank]
+    want = np.stack(world["served"][name]["logits"])
+    lo, hi = meta["rows"]
+    assert got["logits"].shape == want[:, lo:hi].shape
+    np.testing.assert_allclose(got["logits"], want[:, lo:hi], **SERVE_TOL)
+
+
+@pytest.mark.parametrize("name", SERVE)
+def test_serve_greedy_tokens_equal_reference(world, name):
+    want = np.stack(world["served"][name]["tokens"])
+    for r in range(2):
+        np.testing.assert_array_equal(world["serve", name, r][1]["tokens"],
+                                      want)
+
+
+@pytest.mark.parametrize("name", [n for n in SERVE if len(SERVE[n][1]) == 2])
+def test_serve_model_ranks_bitwise_equal(world, name):
+    """The ``model`` ranks hold the same rows: their logits are the same
+    bits every step (the decode merge is one fixed-order sum on each)."""
+    a, b = (world["serve", name, r][1]["logits"] for r in range(2))
+    assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("name,rank", SERVE_RANKS)
+def test_serve_cache_block_matches_reference(world, name, rank):
+    """Each rank's block of the ring (rows over the batch axes, slots over
+    ``model``) after the prefill and after the last decode step, against
+    its slice of the reference's cache; ``pos`` and ``cur`` whole."""
+    meta, got = world["serve", name, rank]
+    (r0, r1), (s0, s1) = meta["rows"], meta["slots"]
+    W = world["served"][name]["first"]["pos"].shape[0]
+    if SERVE[name][1] == (1, 2):
+        assert (s0, s1) == (rank * W // 2, (rank + 1) * W // 2)
+    for when in ("first", "last"):
+        want = world["served"][name][when]
+        for k, v in want.items():
+            g = got[f"{when}_{k}"]
+            if v.ndim >= 3:
+                np.testing.assert_allclose(g, v[:, r0:r1, s0:s1],
+                                           **SERVE_TOL, err_msg=f"{when} {k}")
+            else:
+                np.testing.assert_array_equal(g, v, err_msg=f"{when} {k}")
+
+
+@pytest.mark.parametrize("name,rank", SERVE_RANKS)
+def test_serve_dry_equals_live(world, name, rank):
+    """The dry trace of a rank's serving steps against its live run: the
+    collectives call for call, each step's ``STATS`` and K4 partial
+    launches (GQA: one a layer a decode step; MLA's partial softmax is
+    plain), the resting param blocks and the cache block's bytes."""
+    meta, _ = world["serve", name, rank]
+    live, dry = meta["live"], meta["dry"]
+    assert _calls(dry["log"]) == _calls(live["log"]) and live["log"]
+    assert [c["wire_bytes"] for c in dry["log"]] == \
+        [c["wire_bytes"] for c in live["log"]]
+    for d, lv in zip(dry["steps"], live["steps"], strict=True):
+        d = dict(d, stats={k: v for k, v in d["stats"].items()
+                           if k != "staged_bytes"})
+        lv = dict(lv, stats={k: v for k, v in lv["stats"].items()
+                             if k != "staged_bytes"})
+        assert d == lv
+    layers = smoke_archs(SERVE[name][0])[1].cfg.n_layers
+    want = 0 if name.startswith("mla") else layers
+    assert [s["launches"].get("decode_attention_partial", 0)
+            for s in live["steps"]] == [0] + [want] * (len(live["steps"]) - 1)
+    assert dry["resting"] == live["resting"] > 0
+    assert dry["cache"] == live["cache"] > 0
