@@ -130,8 +130,8 @@ printing one JSON line:
            axis (sequence and expert parallelism, 2-D ZeRO-3), gloo ranks
            sharing the card, the sub-phases of one mesh run in one world
            of ranks (on (1, 2) two worlds side by side, for the time
-           limit: (c), (i) and (k) in one, (f), (g), (h) and (j) in the
-           other): (a) danube on (1, 2) at 4 layers, 4 x 1024, 2 steps,
+           limit: (c), (i), (k) and (m) in one, (f), (g), (h), (j) and
+           (l) in the other): (a) danube on (1, 2) at 4 layers, 4 x 1024, 2 steps,
            bf16 then fp32, in the data-axis ranks' world after their runs
            and held as they are;
            (b) four ranks on (2, 2), fp32, 2 layers, 2 steps, at the
@@ -195,11 +195,25 @@ printing one JSON line:
            a decode step; per rank the peak beside its param and cache
            blocks and their reckoning, collectives and staged bytes a
            prefill and a decode step, seconds, and the dry trace's counts
-           equal the card's every step.  ``--phases dist`` without
-           ``train`` runs (b) to (k) alone (``--subs`` picks among them).
+           equal the card's every step.  (l) ``serve_ssm_1x2``, in (g)'s
+           world, the same checks a model, one line each: mamba2-1.3b at
+           2 layers, 4 x 1024 tokens, 8 decode steps (its 64 SSM heads 32
+           a rank, their outputs gathered before the out norm; no K4),
+           then zamba2-1.2b at 7 layers, 4 x 1016 tokens into a ring of
+           1024 slots, 512 a rank, 10 decode steps (the first 8 fill rank
+           1's slots 1016-1023, the 9th wraps into rank 0's slot 0; K4's
+           partial entry twice a step, once a shared-block application).
+           (m) ``serve_encdec_1x2``, in (i)'s world: whisper-base at full
+           depth, 4 x 1500 frames encoded on tiles of 750, the cross
+           cache 750 frames a rank, a self ring of 16 slots, 8 a rank
+           (rank 1's empty until the 9th step), 12 decode steps from the
+           start token, the encoder's output within 2e-4 too; K4's
+           partial entry 12 times a step (6 self, 6 cross).
+           ``--phases dist`` without ``train`` runs (b) to (m) alone
+           (``--subs`` picks among them).
            The
            optimizer side of a mesh (``optimizers``), two gloo ranks on
-           (2,), started before the worlds of (b) to (k) and run beside
+           (2,), started before the worlds of (b) to (m) and run beside
            them (for the time limit; its wall and step seconds are taken
            so, its peaks are its own processes'): Table 1's four arms (fused AdaLomo and LOMO, unfused
            Adafactor and AdamW) on danube at 4 layers in bf16, 4 x 1024,
@@ -5737,7 +5751,8 @@ def dist_gloo_rank(rank: int, world: int, store: str, root: str,
         for job, (name, dtype, ck, every, *plan) in [
                 (j, r) for j in jobs for r in j["runs"]]:
             if job.get("serve"):
-                serve_rank(rank, job, root)
+                for part in serve_parts(job):
+                    serve_rank(rank, part, root)
                 continue
             reset_launches()
             C.reset_stats()
@@ -6082,15 +6097,37 @@ DIST_MODEL_JOBS = {
     "serve_1x2": dict(shape=(1, 2), layers=2, steps=16, arch=ARCH_ID,
                       batch=4, seq=6136, serve=True,
                       runs=(("float32", torch.float32, "serve12", 0),)),
+    # (l) the state-space families' per-rank serving, in (g)'s world:
+    # mamba2-1.3b at 2 layers (its 64 SSM heads 32 a rank), 4 x 1024
+    # tokens, 8 decode steps; zamba2-1.2b at 7 layers, 4 x 1016 tokens into
+    # a ring of 1024 slots, 512 a rank: the first 8 decode writes fill rank
+    # 1's slots 1016-1023, the 9th wraps into rank 0's slot 0
+    "serve_ssm_1x2": dict(shape=(1, 2), side=1, batch=4, serve=True,
+                          parts=(dict(model="mamba2", arch=SSM_IDS[0],
+                                      layers=2, seq=1024, steps=8),
+                                 dict(model="zamba2", arch=SSM_IDS[1],
+                                      layers=7, seq=1016, steps=10,
+                                      prefill=dict(max_len=1024))),
+                          runs=(("float32", torch.float32, "servessm12", 0),)),
+    # (m) whisper-base at full depth, in (i)'s world: 4 x 1500 frames, 750
+    # a rank (the cross cache split over model), a self ring of 16 slots,
+    # 8 a rank: rank 1's empty until the 9th of 12 decode steps
+    "serve_encdec_1x2": dict(shape=(1, 2), batch=4, serve=True,
+                             parts=(dict(model="whisper", arch=ENCDEC_ID,
+                                         layers=6, steps=12,
+                                         prefill=dict(max_decode_len=16)),),
+                             runs=(("float32", torch.float32, "serveenc12",
+                                    0),)),
 }
 # every family beside the transformer's on a model axis
 FAMILY_SUBS = ("model_prefix_1x2", "model_ssm_1x2", "model_hybrid_1x2",
                "model_encdec_1x2")
 # the fp32 sub-phases each held against its own unsharded run
-# (dist_model_runs): (b), (c), (f)-(i), (j), (k) and (e), one world for
-# each mesh, two side by side on (1, 2) (``side``)
+# (dist_model_runs): (b), (c), (f)-(i), (j), (k), (l), (m) and (e), one
+# world for each mesh, two side by side on (1, 2) (``side``)
 MODEL_RUN_SUBS = ("model_2x2", "moe_1x2", *FAMILY_SUBS, "baseline_1x2",
-                  "serve_1x2", "model_moe_1x3")
+                  "serve_1x2", "serve_ssm_1x2", "serve_encdec_1x2",
+                  "model_moe_1x3")
 
 
 def model_axis_readings(ranks: list, steps: int) -> dict:
@@ -6381,37 +6418,78 @@ def baseline_failures(rec) -> None:
         raise AssertionError("; ".join(failed))
 
 
-# serve_1x2's logits and cache against the unsharded legacy steps: the
-# port's prefill-vs-decode tolerance (tests/test_torch_legacy_serve.py)
+# the serving sub-phases' logits and caches against the unsharded legacy
+# steps: the port's prefill-vs-decode tolerance
+# (tests/test_torch_legacy_serve.py)
 SERVE_TOL = dict(rtol=2e-4, atol=2e-4)
 
 
-def serve_prompt(arch, job) -> torch.Tensor:
-    """serve_1x2's global prompt, ``batch`` x ``seq`` tokens from a seed."""
+def serve_parts(job) -> list:
+    """The models a serving sub-phase serves one after the other, each a
+    dict of :func:`serve_rank`'s keys (the job's, a part's own over them):
+    ``arch``, ``layers``, ``batch``, ``seq`` (prompt tokens; none for an
+    encoder-decoder, whose prompt is its frames), ``steps`` (greedy decode
+    steps), ``prefill`` (the prefill's keywords), ``shape`` and ``key``
+    (its files' name)."""
+    if "parts" not in job:
+        return [dict(job, key="serve12", model=None, prefill={})]
+    return [{**job, "prefill": {}, **part,
+             "key": f"{job['tag']}{part['model']}"} for part in job["parts"]]
+
+
+def serve_prompt(arch, job) -> dict:
+    """A serving part's global prefill batch from a seed: ``batch`` x
+    ``seq`` tokens, or an encoder-decoder's ``batch`` frames."""
+    if arch.family == "encdec":
+        return {"frames": encdec_frames(arch.cfg, job["batch"], 5)}
     g = torch.Generator().manual_seed(5)
-    return torch.randint(1, arch.cfg.vocab, (job["batch"], job["seq"]),
-                         generator=g, dtype=torch.int32).to(DEV)
+    return {"tokens": torch.randint(1, arch.cfg.vocab,
+                                    (job["batch"], job["seq"]), generator=g,
+                                    dtype=torch.int32).to(DEV)}
+
+
+def serve_ring(job) -> int:
+    """The slots of a serving part's ring (its whole cache's ``max_len``):
+    the prefill's ``max_len`` or ``max_decode_len``, else the prompt's."""
+    kw = job["prefill"]
+    return kw.get("max_len") or kw.get("max_decode_len") or job["seq"]
+
+
+def serve_tokens(arch, job, logits, step: int) -> torch.Tensor:
+    """A decode step's tokens ``[B, 1]``: greedy from the last logits, an
+    encoder-decoder's start token at step 0."""
+    if arch.family == "encdec" and step == 0:
+        return torch.full((job["batch"], 1), ENCDEC_SOT, dtype=torch.int32,
+                          device=DEV)
+    return torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
+
+
+def serve_launches() -> dict:
+    """K4's two entries' launch counts as they stand."""
+    return {"decode_attention_partial": KD.decode_attention_partial.launches,
+            "decode_attention": KD.decode_attention.launches}
 
 
 def serve_rank(rank: int, job: dict, root: str) -> None:
-    """One rank of serve_1x2 (spawned, in the world of the (1, 2)
-    sub-phases): its param blocks from the whole params of seed 0, the
-    prefill of the global prompt and ``steps`` greedy decode steps
-    (``serve/sharded.py``), each step's collectives, K4 partial launches
-    and seconds, with the counts set to 0 just before the run; its peak
-    beside its param and cache blocks and their reckoning under the rules;
-    then its dry trace of the same steps.  Writes its logits, tokens and
-    final cache block (``serve12_rank{r}.pt``) and its record
-    (``rank{r}_{tag}float32.json``)."""
+    """One rank of a serving part (spawned, in the world of the (1, 2)
+    sub-phases; :func:`serve_parts`): its param blocks from the whole
+    params of seed 0, the prefill of the global prompt and ``steps``
+    greedy decode steps (``serve/sharded.py``), each step's collectives,
+    K4 launches and seconds, with the counts set to 0 just before the run;
+    its peak beside its param and cache blocks and their reckoning under
+    the rules; then its dry trace of the same steps.  Writes its logits,
+    tokens, final cache block (and an encoder-decoder's prefill output) to
+    ``{key}_rank{r}.pt`` and its record to ``rank{r}_{key}.json``."""
     from repro_torch.launch import dryrun as D
     from repro_torch.launch.mesh import AXES_BY_NDIM, MeshLayout, make_mesh
     from repro_torch.serve.sharded import sharded_serving
     from repro_torch.sharding import collectives as C
     from repro_torch.sharding import rules as R
+    from repro_torch.sharding import zero as Z
     t_job = time.time()
     arch = cut_arch(job["layers"], torch.float32, job["arch"])
     shape = tuple(job["shape"])
-    srv = sharded_serving(arch, make_mesh(shape, DEV))
+    srv = sharded_serving(arch, make_mesh(shape, DEV), **job["prefill"])
     params = srv.zero.place_params(arch.init_params(0, device=DEV))
     gc.collect()
     torch.cuda.empty_cache()
@@ -6423,13 +6501,13 @@ def serve_rank(rank: int, job: dict, root: str) -> None:
 
     def counted(fn, *args):
         torch.cuda.synchronize()
-        s0, n0 = dict(C.STATS), KD.decode_attention_partial.launches
+        s0, n0 = dict(C.STATS), serve_launches()
         t0 = time.time()
         out = fn(*args)
         torch.cuda.synchronize()
-        n = KD.decode_attention_partial.launches - n0
+        n = {k: v - n0[k] for k, v in serve_launches().items() if v > n0[k]}
         steps.append({"stats": {k: C.STATS[k] - s0[k] for k in DRY_STAT_KEYS},
-                      "launches": {"decode_attention_partial": n} if n else {},
+                      "launches": n,
                       "staged_bytes": C.STATS["staged_bytes"]
                       - s0["staged_bytes"],
                       "seconds": time.time() - t0})
@@ -6437,48 +6515,53 @@ def serve_rank(rank: int, job: dict, root: str) -> None:
 
     C.reset_stats()
     KD.decode_attention_partial.launches = 0
+    KD.decode_attention.launches = 0
     t_run = time.time()
-    logits, cache = counted(srv.prefill_step, params, {"tokens": prompt})
-    logits_all.append(logits.cpu())
-    for _ in range(job["steps"]):
-        tok = torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
+    out, cache = counted(srv.prefill_step, params, prompt)
+    enc_out = out.cpu() if arch.family == "encdec" else None
+    logits = out
+    if enc_out is None:
+        logits_all.append(out.cpu())
+    for i in range(job["steps"]):
+        tok = serve_tokens(arch, job, logits, i)
         tokens.append(tok[:, 0].cpu())
         logits, cache = counted(srv.decode_step, params, cache,
                                 {"tokens": tok})
         logits_all.append(logits.cpu())
     run_s = time.time() - t_run
-    launches = KD.decode_attention_partial.launches
+    launches = serve_launches()
     peak = torch.cuda.max_memory_allocated() - base
     nbytes = lambda tree: sum(t.numel() * t.element_size()  # noqa: E731
                               for t in tree_leaves(tree))
     layout = MeshLayout(shape, AXES_BY_NDIM[len(shape)])
     axes = R.MeshAxes(layout)
     meta = arch.init_params(0, device="meta")
-    whole = arch.init_cache(job["batch"], job["seq"], device="meta")
-    reckoned = {"param_bytes": D.pspec_bytes(meta, R.param_pspecs(meta, axes),
-                                             layout.shape),
+    whole = arch.init_cache(job["batch"], serve_ring(job), device="meta")
+    reckoned = {"param_bytes": D.pspec_bytes(
+                    meta, Z.rest_pspecs(meta, axes), layout.shape),
                 "cache_bytes": D.pspec_bytes(whole, R.cache_pspecs(
                     whole, axes, job["batch"]), layout.shape)}
     torch.save({"logits": torch.stack(logits_all),
-                "tokens": torch.stack(tokens),
-                "cache": {k: v.cpu() for k, v in cache.items()},
-                "slots": list(srv.zero.slot_block(cache["pos"].shape[0]))},
-               os.path.join(root, f"serve12_rank{rank}.pt"))
+                "tokens": torch.stack(tokens), "enc_out": enc_out,
+                "cache": {k: v.cpu() for k, v in cache.items()}},
+               os.path.join(root, f"{job['key']}_rank{rank}.pt"))
     for th in _DRY_WARM:
         th.join()
     t_dry = time.time()
     dry_block, tr = D.trace_serving(
-        arch, shape, rank=rank, prompt={"tokens": (tuple(prompt.shape),
-                                                   torch.int32)},
-        decode_steps=job["steps"])
+        arch, shape, rank=rank,
+        prompt={k: (tuple(v.shape), v.dtype) for k, v in prompt.items()},
+        decode_steps=job["steps"], **job["prefill"])
     dry = [{"stats": {k: p["stats"][k] for k in DRY_STAT_KEYS},
             "launches": p["launches"]} for p in tr.per_step]
     card = [{k: st[k] for k in ("stats", "launches")} for st in steps]
     rec = {"peak_memory_bytes": peak, "base_bytes": base,
            "param_block_bytes": nbytes(params),
            "cache_block_bytes": nbytes(cache), "reckoned": reckoned,
-           "steps": steps, "partial_launches": launches,
+           "steps": steps, "launches": launches,
+           "partial_launches": launches["decode_attention_partial"],
            "tile": srv.zero.tile and list(srv.zero.tile),
+           "frame_tile": srv.zero.frame_tile and list(srv.zero.frame_tile),
            "run_seconds": run_s,
            "dry": {"counts_equal": dry == card, "dry_steps": dry,
                    "step_peak_bytes": tr.peak_bytes,
@@ -6486,28 +6569,73 @@ def serve_rank(rank: int, job: dict, root: str) -> None:
                    "cache_block_bytes": nbytes(dry_block),
                    "dry_seconds": time.time() - t_dry},
            "seconds": time.time() - t_job}
-    with open(os.path.join(root, f"rank{rank}_{job['tag']}float32.json"),
+    with open(os.path.join(root, f"rank{rank}_{job['key']}.json"),
               "w") as f:
         json.dump(rec, f)
-    del params, cache, logits
+    del params, cache, logits, out
     gc.collect()
     torch.cuda.empty_cache()
 
 
+def serve_decode_launches(arch, shape) -> dict:
+    """K4's launches one decode step makes on a rank of ``shape``: the
+    partial entry once a GQA layer (none for MLA or mamba2), once an
+    application of the hybrid's shared block, once a whisper decoder layer
+    for its self ring and once more for its cross cache where the model
+    axis divides the frames, else the whole-ring entry once."""
+    cfg = arch.cfg
+    if arch.family == "mamba2" or getattr(cfg, "mla", None) is not None:
+        return {}
+    if arch.family == "hybrid":
+        return {"decode_attention_partial": cfg.n_attn_applications()}
+    if arch.family == "encdec":
+        n = cfg.n_dec_layers
+        if cfg.n_frames % shape[-1] == 0:
+            return {"decode_attention_partial": 2 * n}
+        return {"decode_attention_partial": n, "decode_attention": n}
+    return {"decode_attention_partial": cfg.n_layers}
+
+
+def dim2_block(n: int, shape, rank: int) -> tuple:
+    """``rules.cache_pspecs``' block of a cache leaf's dim 2 of ``n`` (a
+    ring's slots, mamba's heads or conv taps, whisper's frames) on rank
+    ``rank`` of a (1, tp) mesh: split over ``model`` where it divides."""
+    tp = shape[-1]
+    if tp > 1 and n % tp == 0 and n > 1:
+        k = n // tp
+        return rank * k, (rank + 1) * k
+    return 0, n
+
+
 def serve_check(root, sub, job, spawn_s, group) -> dict:
-    """serve_1x2's check: the unsharded legacy prefill and decode steps of
-    the same weights and prompt on the card (K4 whole), then each rank's
-    logits every step within SERVE_TOL of them, its greedy tokens equal,
-    both ranks' logits bitwise equal, each rank's cache block within
-    SERVE_TOL of its slice of the unsharded cache (``pos``, ``cur``
-    equal), K4's partial entry launched once a layer a decode step and
-    never in the prefill, and the dry counts equal the card's every step.
-    Prints its line before it can fail."""
-    t0 = time.time()
+    """A serving sub-phase's check, each of its parts (:func:`serve_parts`)
+    in turn: the unsharded legacy prefill and decode steps of the same
+    weights and prompt on the card (K4 whole), then each rank's logits
+    every step (and an encoder-decoder's prefill output) within SERVE_TOL
+    of them, its greedy tokens equal, both ranks' logits bitwise equal,
+    each rank's cache block within SERVE_TOL of its slice of the
+    unsharded cache (``pos``, ``cur`` equal), K4 launched as
+    :func:`serve_decode_launches` says a decode step and never in the
+    prefill, and the dry counts equal the card's every step.  Prints a
+    line a part before any check can fail; returns the record (a
+    sub-phase of parts: ``{"parts": {model: record}}``)."""
     world = math.prod(job["shape"])
+    recs, failed = {}, []
+    for part in serve_parts(job):
+        rec, why = serve_part_check(root, sub, part, spawn_s, group, world)
+        recs[part["model"]] = rec
+        failed += why
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return recs[None] if None in recs else {"parts": recs}
+
+
+def serve_part_check(root, sub, job, spawn_s, group, world) -> tuple:
+    """One part of :func:`serve_check`: its record and what failed."""
+    t0 = time.time()
     ranks = [json.loads(open(os.path.join(
-        root, f"rank{r}_{sub}_float32.json")).read()) for r in range(world)]
-    got = [torch.load(os.path.join(root, f"serve12_rank{r}.pt"))
+        root, f"rank{r}_{job['key']}.json")).read()) for r in range(world)]
+    got = [torch.load(os.path.join(root, f"{job['key']}_rank{r}.pt"))
            for r in range(world)]
     arch = cut_arch(job["layers"], torch.float32, job["arch"])
     params = arch.init_params(0, device=DEV)
@@ -6516,11 +6644,14 @@ def serve_check(root, sub, job, spawn_s, group) -> dict:
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t_ref = time.time()
-    logits, cache = arch.make_prefill_step()(params, {"tokens": prompt})
-    want, tokens = [logits.cpu()], []
+    out, cache = arch.make_prefill_step(**job["prefill"])(params, prompt)
+    enc_out = out.cpu() if arch.family == "encdec" else None
+    want, tokens, logits = [], [], out
+    if enc_out is None:
+        want.append(out.cpu())
     decode = arch.make_decode_step()
-    for _ in range(job["steps"]):
-        tok = torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
+    for i in range(job["steps"]):
+        tok = serve_tokens(arch, job, logits, i)
         tokens.append(tok[:, 0].cpu())
         logits, cache = decode(params, cache, {"tokens": tok})
         want.append(logits.cpu())
@@ -6529,25 +6660,35 @@ def serve_check(root, sub, job, spawn_s, group) -> dict:
     ref_peak = torch.cuda.max_memory_allocated() - base
     want, tokens = torch.stack(want), torch.stack(tokens)
     logit_ok, logit_err, cache_ok, cache_err = True, 0.0, True, 0.0
-    for g in got:
+    enc_ok, enc_err = True, 0.0
+    shape = tuple(job["shape"])
+    for r, g in enumerate(got):
         ok, d = within(g["logits"], want, **SERVE_TOL)
         logit_ok, logit_err = logit_ok and ok, max(logit_err, d)
-        lo, hi = g["slots"]
+        if enc_out is not None:
+            ok, d = within(g["enc_out"], enc_out, **SERVE_TOL)
+            enc_ok, enc_err = enc_ok and ok, max(enc_err, d)
         for k, v in cache.items():
             if v.ndim >= 3:
+                lo, hi = dim2_block(v.shape[2], shape, r)
                 ok, d = within(g["cache"][k], v[:, :, lo:hi].cpu(),
                                **SERVE_TOL)
             else:
                 ok, d = bool(torch.equal(g["cache"][k], v.cpu())), 0.0
             cache_ok, cache_err = cache_ok and ok, max(cache_err, d)
-    layers = job["layers"]
+    per_step = serve_decode_launches(arch, shape)
     prefill = [r["steps"][0] for r in ranks]
     decode_steps = [r["steps"][1:] for r in ranks]
+    W = int(cache["pos"].shape[0]) if "pos" in cache else None
     rec = {
         "spawn_seconds": spawn_s, "world": list(group),
-        "ring_slots": int(cache["pos"].shape[0]),
-        "rank_slots": [g["slots"] for g in got],
-        "first_decode_slot": job["seq"] % int(cache["pos"].shape[0]),
+        "ring_slots": W,
+        "rank_slots": [W and list(dim2_block(W, shape, r))
+                       for r in range(world)],
+        "rank_blocks": {k: [list(dim2_block(v.shape[2], shape, r))
+                            for r in range(world)]
+                        for k, v in cache.items() if v.ndim >= 3},
+        "first_decode_slot": W and (job["seq"] if "seq" in job else 0) % W,
         "logits_max_abs_diff": logit_err, "logits_within_tol": logit_ok,
         "tokens_equal": all(torch.equal(g["tokens"], tokens) for g in got),
         "ranks_logits_bitwise": all(torch.equal(g["logits"],
@@ -6567,43 +6708,55 @@ def serve_check(root, sub, job, spawn_s, group) -> dict:
                                      for d in decode_steps],
         "decode_steps_alike": all(s["stats"] == d[0]["stats"]
                                   for d in decode_steps for s in d),
+        "launches_per_decode_step_expected": per_step,
+        "launches_prefill": [p["launches"] for p in prefill],
         "partial_launches_prefill": [p["launches"].get(
             "decode_attention_partial", 0) for p in prefill],
         "partial_launches_per_decode_step": [
             [s["launches"].get("decode_attention_partial", 0) for s in d]
             for d in decode_steps],
+        "launches_per_decode_step": [[s["launches"] for s in d]
+                                     for d in decode_steps],
         "partial_launches": [r["partial_launches"] for r in ranks],
         "rank_prefill_seconds": [p["seconds"] for p in prefill],
         "rank_decode_step_seconds": [
             sum(s["seconds"] for s in d) / len(d) for d in decode_steps],
         "rank_tiles": [r["tile"] for r in ranks],
+        "rank_frame_tiles": [r.get("frame_tile") for r in ranks],
         "rank_run_seconds": [r["run_seconds"] for r in ranks],
         "dry": [r["dry"] for r in ranks]}
+    if enc_out is not None:
+        rec.update(enc_out_max_abs_diff=enc_err, enc_out_within_tol=enc_ok)
     rec["seconds"] = max(r["seconds"] for r in ranks) + time.time() - t0
-    emit("dist", sub=sub, arch=job["arch"], mesh=list(job["shape"]),
-         batch=job["batch"], prompt=job["seq"], decode_steps=job["steps"],
-         n_layers=layers, dtype="float32", tolerance=SERVE_TOL, **rec)
-    del params, cache, logits
+    emit("dist", sub=sub, model=job["model"], arch=job["arch"],
+         mesh=list(shape), batch=job["batch"], prompt=job.get("seq"),
+         decode_steps=job["steps"], n_layers=job["layers"], dtype="float32",
+         prefill_keywords=job["prefill"], tolerance=SERVE_TOL, **rec)
+    del params, cache, logits, out
     gc.collect()
     torch.cuda.empty_cache()
-    if not (logit_ok and cache_ok and rec["tokens_equal"]
+    failed = []
+    what = f"dist {sub}" + (f" {job['model']}" if job["model"] else "")
+    if not (logit_ok and cache_ok and enc_ok and rec["tokens_equal"]
             and rec["ranks_logits_bitwise"]):
-        raise AssertionError(
-            f"dist {sub}: logits within tolerance {logit_ok} (max diff "
-            f"{logit_err}), tokens equal {rec['tokens_equal']}, ranks "
+        failed.append(
+            f"{what}: logits within tolerance {logit_ok} (max diff "
+            f"{logit_err}), encoder output within tolerance {enc_ok} (max "
+            f"diff {enc_err}), tokens equal {rec['tokens_equal']}, ranks "
             f"bitwise {rec['ranks_logits_bitwise']}, cache blocks within "
             f"tolerance {cache_ok} (max diff {cache_err})")
-    if any(rec["partial_launches_prefill"]) or any(
-            n != layers for d in rec["partial_launches_per_decode_step"]
+    if any(rec["launches_prefill"]) or any(
+            n != per_step for d in rec["launches_per_decode_step"]
             for n in d):
-        raise AssertionError(f"dist {sub}: K4 partial launches, prefill "
-                             f"{rec['partial_launches_prefill']}, a decode "
-                             f"step {rec['partial_launches_per_decode_step']}")
+        failed.append(f"{what}: K4 launches, prefill "
+                      f"{rec['launches_prefill']}, a decode step "
+                      f"{rec['launches_per_decode_step']} (expected "
+                      f"{per_step})")
     bad = [r for r, d in enumerate(rec["dry"]) if not d["counts_equal"]]
     if bad:
-        raise AssertionError(f"dist {sub}: ranks {bad}: the dry plan's "
-                             "collectives or launches are not the card's")
-    return rec
+        failed.append(f"{what}: ranks {bad}: the dry plan's collectives or "
+                      "launches are not the card's")
+    return rec, failed
 
 
 # deepseek-v3-671b on a model axis (d): two gloo ranks on (1, 2) at its

@@ -15,12 +15,14 @@ Reads the cells' JSON that ``python -m repro_torch.launch.dryrun`` wrote
 beside the same cell in ``DIR`` (the optimized plan against the baseline
 plan): a rank's resting bytes, its step peak, the collectives' wire bytes
 and the HBM bytes a device, and the memory and collective terms.
-``--serving``: the transformer family's serving cells on ``--mesh``, one
-rank's trace each, beside the same cell traced on one device (``--mesh
-one``) divided by the mesh's size: the bytes held when the step starts
-(params, a decode cell's cache, the batch), the step peak, FLOPs, HBM
-bytes and the collectives' wire bytes a device, and K4's launches (the
-rank's partial entry, the device's whole-ring entry).
+``--serving``: every family's serving cells on ``--mesh``, one rank's
+trace each, beside the same cell traced on one device (``--mesh one``)
+divided by the mesh's size: the resting bytes (params, a decode cell's
+cache), the bytes held when the step starts (the batch too), the step
+peak, FLOPs, HBM bytes and the collectives' wire bytes a device, and K4's
+launches (the rank's partial entry plus its whole-ring entry, whisper's
+cross cache where the model axis does not divide the frames; the device's
+whole-ring entry).
 """
 import argparse
 import json
@@ -37,16 +39,13 @@ def _cell(d, arch_id, args, shape=None, mesh=None):
 
 
 def serving(args) -> None:
-    """The transformer family's serving cells, a rank's on ``--mesh``
-    beside the one-device cell over the mesh's size (module docstring)."""
-    print("| config | cell | held GB | step peak GB | TFLOP a device | "
-          "HBM GB a device | wire GB a device | K4 launches |")
-    print("|---|---|---|---|---|---|---|---|")
+    """The serving cells, a rank's on ``--mesh`` beside the one-device
+    cell over the mesh's size (module docstring)."""
+    print("| config | cell | resting GB | held GB | step peak GB | TFLOP a "
+          "device | HBM GB a device | wire GB a device | K4 launches |")
+    print("|---|---|---|---|---|---|---|---|---|")
     for arch_id in ARCH_IDS:
-        arch = get_arch(arch_id, smoke=True)
-        if arch.family != "transformer":
-            continue
-        for shape in arch.supported_cells():
+        for shape in get_arch(arch_id, smoke=True).supported_cells():
             if shape == "train_4k":
                 continue
             a = _cell(args.dir, arch_id, args, shape)
@@ -55,7 +54,9 @@ def serving(args) -> None:
                 print(f"| {arch_id} | {shape} | not traced |")
                 continue
             n = a["n_chips"]
-            cols = [(a["memory"]["argument_bytes"],
+            cols = [(a["memory"]["resting_bytes"],
+                     one["memory"]["resting_bytes"], 1e9, 3),
+                    (a["memory"]["argument_bytes"],
                      one["memory"]["argument_bytes"], 1e9, 3),
                     (a["memory"]["step_peak_bytes"],
                      one["memory"]["step_peak_bytes"], 1e9, 2),
@@ -63,12 +64,13 @@ def serving(args) -> None:
                      3),
                     (a["hbm_bytes_per_device"], one["hbm_bytes_per_device"],
                      1e9, 2)]
-            k4 = (a["kernel_launches"].get("decode_attention_partial", 0),
-                  one["kernel_launches"].get("decode_attention", 0))
+            k4 = a["kernel_launches"]
             print(f"| {arch_id} | {shape} | " + " | ".join(
                 f"{x / s:.{d}f} / {y / n / s:.{d}f}" for x, y, s, d in cols)
                 + f" | {a['collectives']['total_wire_bytes'] / 1e9:.2f} | "
-                f"{k4[0]} / {k4[1]} |")
+                f"{k4.get('decode_attention_partial', 0)}+"
+                f"{k4.get('decode_attention', 0)} / "
+                f"{one['kernel_launches'].get('decode_attention', 0)} |")
 
 
 def compare(args) -> None:
@@ -104,8 +106,8 @@ def main(argv=None):
     ap.add_argument("--against", default=None,
                     help="a second artifact directory to set beside --dir")
     ap.add_argument("--serving", action="store_true",
-                    help="the transformer family's serving cells, a rank's "
-                         "beside the one-device cell over the mesh's size")
+                    help="the serving cells, a rank's beside the "
+                         "one-device cell over the mesh's size")
     args = ap.parse_args(argv)
     if args.against:
         compare(args)

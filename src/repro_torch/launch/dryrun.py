@@ -17,19 +17,22 @@ every call with its bytes.
     constant schedule, one step) with the mesh's shape, and the program
     ``run(spec)`` trains: ``build_step_program`` and, on a mesh, the
     ZeRO-3 plan of ``fleet.elastic.sharded_program``;
-  * a **prefill** or **decode** cell of the transformer family on a mesh
-    traces rank ``r``'s serving step (``serve/sharded.py``, the reference's
-    GSPMD partition of ``make_prefill_step`` / ``make_decode_step``): its
-    param blocks and its block of the ring cache (decode) at their places,
-    a prefill on the global batch (its rows and sequence tile), a decode
-    step of one token a row; ``n_chips`` is the mesh's size, so the costs
-    are a device's.  The cell keeps each device's param and cache bytes
-    under ``rules.param_pspecs`` and ``rules.cache_pspecs``, reckoned, as
-    a cross-check of the traced resting bytes.  The other families'
-    serving cells (mamba2's state, zamba2's shared ring and whisper's cross
-    cache split otherwise under ``cache_pspecs``: ROADMAP's item 8c-2)
-    trace ``make_prefill_step`` or ``make_decode_step`` on one device, the
-    same for every mesh, beside the reckoning;
+  * a **prefill** or **decode** cell on a mesh traces rank ``r``'s
+    serving step (``serve/sharded.py``, the reference's GSPMD partition of
+    ``make_prefill_step`` / ``make_decode_step``), every family's: its
+    param blocks and its block of the cache (decode) at their places —
+    a ring's slots, mamba's SSM heads and whisper's cross frames over
+    ``model`` where the axis divides them — a prefill on the global batch
+    (its rows and sequence tile; whisper's frames alone, tiled where the
+    axis divides them), a decode step of one token a row; ``n_chips`` is
+    the mesh's size, so the costs are a device's.  The cell keeps each
+    device's param and cache bytes under ``sharding/zero.py::rest_pspecs``
+    and ``rules.cache_pspecs``, reckoned, as a cross-check of the traced
+    resting bytes.  ``rest_pspecs`` is the rule ``Zero3`` rests params by:
+    the reference's ``param_pspecs`` with every vector whole over
+    ``model``, where the reference splits mamba's conv bias (on 16 × 16
+    and 2 × 16 × 16, 391,680 more bytes a device for mamba2-1.3b and
+    300,960 for zamba2-1.2b; nothing for the other configs);
   * ``--mesh one`` traces any cell on one device, with no mesh (a serving
     cell's one-device step, to set beside a rank's).
 
@@ -39,9 +42,9 @@ them with no activation policy and no gradient constraint: the spec's
 ``MeshSpec(optimized=False)``, whose sharded program
 (``Zero3(optimized=False)``) runs every rank's rows' whole sequence and
 all-reduces whole gradients, with params and state resting as in the
-optimized plan; and the transformer family's serving cells on a mesh
-under the same plan (no sequence tile in the prefill, expert stacks
-gathered whole).  Baseline artifacts go to ``runs/dryrun_torch_baseline/``.
+optimized plan; and the serving cells on a mesh under the same plan (no
+sequence tile in the prefill, expert stacks gathered whole).  Baseline
+artifacts go to ``runs/dryrun_torch_baseline/``.
 
 Usage::
 
@@ -65,7 +68,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
-import functools
 import gzip
 import json
 import math
@@ -283,23 +285,28 @@ def trace_train(spec, *, arch=None, mesh=None, rank: int = 0,
 
 
 def trace_serving(arch, mesh, *, rank: int = 0, optimized: bool = True,
-                  prompt=None, cache=None, decode_steps: int = 1) -> tuple:
-    """Rank ``rank``'s sharded serving steps of ``arch`` (the transformer
-    family, ``serve/sharded.py``) on a dry mesh of shape ``mesh``, traced
-    on the meta device: the prefill of a global batch of the specs
-    ``prompt`` (``{leaf: (shape, dtype)}``) and then ``decode_steps``
-    decode steps from its cache, or, given ``cache`` (a whole ring cache on
-    the meta device, ``Arch.cache_specs``), ``decode_steps`` decode steps
-    from this rank's block of it.  Returns ``(the final cache block,
-    Trace)``: ``per_step`` the prefill's and then each decode step's
-    ``stats`` and ``launches``; ``resting_bytes`` the rank's param blocks
-    and, given ``cache``, its cache block."""
+                  prompt=None, cache=None, decode_steps: int = 1,
+                  **prefill_kw) -> tuple:
+    """Rank ``rank``'s sharded serving steps of ``arch``
+    (``serve/sharded.py``, any family) on a dry mesh of shape ``mesh``,
+    traced on the meta device: the prefill of a global batch of the specs
+    ``prompt`` (``{leaf: (shape, dtype)}``: ``tokens``, or an
+    encoder-decoder's ``frames``) and then ``decode_steps`` decode steps
+    from its cache, or, given ``cache`` (a whole cache on the meta device,
+    ``Arch.cache_specs``), ``decode_steps`` decode steps from this rank's
+    block of it.  ``prefill_kw``: the family's prefill keywords
+    (``sharded_serving``).  Returns ``(the final cache block, Trace)``:
+    ``per_step`` the prefill's and then each decode step's ``stats`` and
+    ``launches``; ``resting_bytes`` the rank's param blocks and, given
+    ``cache``, its cache block."""
     from repro_torch.launch.mesh import make_dry_mesh
     from repro_torch.serve.sharded import sharded_serving
     srv = sharded_serving(arch, make_dry_mesh(mesh, rank),
-                          optimized=optimized)
-    B = (prompt["tokens"][0][0] if cache is None
-         else next(iter(cache.values())).shape[1])
+                          optimized=optimized, **prefill_kw)
+    if cache is None:
+        B = prompt["tokens" if "tokens" in prompt else "frames"][0][0]
+    else:
+        B = next(t for t in cache.values() if t.ndim >= 3).shape[1]
     # the rank's cache block, cut before the trace: the whole cache is no
     # rank's memory
     block = None if cache is None else srv.zero.cache_block(cache, B)
@@ -410,7 +417,7 @@ def build_cell(arch_id: str, shape_name: str, mesh=None, *,
     ``reckoned`` (its param and cache bytes a device).  ``smoke``: the
     config's smoke width and depth at the cell's shapes (a quick check of
     the path).  ``optimized=False``: the baseline plan of a train cell and
-    of a transformer-family serving cell on a mesh."""
+    of a serving cell on a mesh."""
     from repro_torch.configs.shapes import SHAPES
     from repro_torch.models.registry import get_arch
     arch = get_arch(arch_id, smoke=smoke)
@@ -425,41 +432,40 @@ def build_cell(arch_id: str, shape_name: str, mesh=None, *,
         return {"meta": meta, "trace": tr, "spec": spec,
                 "program": tr.program,
                 "n_chips": 1 if mesh is None else math.prod(mesh)}
-    if mesh is not None and arch.family == "transformer":
-        _, tr = trace_serving(
-            arch, mesh, rank=rank, optimized=optimized,
-            prompt=(arch.input_specs(shape_name) if sh.kind == "prefill"
-                    else None),
-            cache=(arch.cache_specs(shape_name) if sh.kind == "decode"
-                   else None),
-            decode_steps=int(sh.kind == "decode"))
-        out = {"meta": meta, "trace": tr, "n_chips": math.prod(mesh)}
-    else:
-        out = {"meta": meta, "n_chips": 1,
-               "trace": _serving_trace(arch_id, shape_name, smoke)}
-    if mesh is not None:
-        params = arch.init_params(0, device="meta")
-        cache = (arch.cache_specs(shape_name) if sh.kind == "decode"
-                 else None)
-        from repro_torch.launch.mesh import AXES_BY_NDIM, MeshLayout
-        from repro_torch.sharding import rules as R
-        layout = MeshLayout(tuple(mesh), AXES_BY_NDIM[len(mesh)])
-        axes = R.MeshAxes(layout)
-        out["reckoned"] = {
-            "param_bytes_per_device": pspec_bytes(
-                params, R.param_pspecs(params, axes), layout.shape),
-            "cache_bytes_per_device": (0 if cache is None else pspec_bytes(
-                cache, R.cache_pspecs(cache, axes, sh.global_batch),
-                layout.shape)),
-            "how": "reckoned under rules.param_pspecs / cache_pspecs, "
-                   "not traced"}
-    return out
+    if mesh is None:
+        return {"meta": meta, "n_chips": 1,
+                "trace": _serving_trace(arch_id, shape_name, smoke)}
+    prompt = None
+    if sh.kind == "prefill":
+        prompt = arch.input_specs(shape_name)
+        if arch.family == "encdec":
+            prompt = {"frames": prompt["frames"]}    # what it reads
+    _, tr = trace_serving(
+        arch, mesh, rank=rank, optimized=optimized, prompt=prompt,
+        cache=(arch.cache_specs(shape_name) if sh.kind == "decode"
+               else None),
+        decode_steps=int(sh.kind == "decode"))
+    params = arch.init_params(0, device="meta")
+    cache = arch.cache_specs(shape_name) if sh.kind == "decode" else None
+    from repro_torch.launch.mesh import AXES_BY_NDIM, MeshLayout
+    from repro_torch.sharding import rules as R
+    from repro_torch.sharding.zero import rest_pspecs
+    layout = MeshLayout(tuple(mesh), AXES_BY_NDIM[len(mesh)])
+    axes = R.MeshAxes(layout)
+    reckoned = {
+        "param_bytes_per_device": pspec_bytes(
+            params, rest_pspecs(params, axes), layout.shape),
+        "cache_bytes_per_device": (0 if cache is None else pspec_bytes(
+            cache, R.cache_pspecs(cache, axes, sh.global_batch),
+            layout.shape)),
+        "how": "reckoned under zero.rest_pspecs (rules.param_pspecs, "
+               "vectors whole over model) / cache_pspecs, not traced"}
+    return {"meta": meta, "trace": tr, "n_chips": math.prod(mesh),
+            "reckoned": reckoned}
 
 
-@functools.lru_cache(maxsize=2)
 def _serving_trace(arch_id: str, shape_name: str, smoke: bool) -> Trace:
-    """A prefill or decode cell's trace on one device (the same for every
-    mesh layout: kept for the next layout of the cell)."""
+    """A prefill or decode cell's trace on one device (``--mesh one``)."""
     from repro_torch.configs.shapes import SHAPES
     from repro_torch.models.registry import get_arch
     arch = get_arch(arch_id, smoke=smoke)

@@ -147,7 +147,7 @@ def _default_backend(device: torch.device) -> str:
     return "nccl" if device.type == "cuda" else "gloo"
 
 
-def make_mesh(shape, device="cpu", *, backend: Optional[str] = None
+def make_mesh(shape, device="cuda", *, backend: Optional[str] = None
               ) -> ProcessMesh:
     """The mesh ``shape`` (1-D ``(data,)``, 2-D ``(data, model)``, 3-D
     ``(pod, data, model)``) over this process's ``torch.distributed``

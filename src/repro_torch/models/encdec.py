@@ -45,7 +45,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
@@ -537,6 +537,45 @@ def make_prefill_step(cfg: EncDecConfig, max_decode_len: int = 448):
     return prefill_step
 
 
+def decoder_token(outer: dict, cfg: EncDecConfig, tokens: Tensor,
+                  cur: Tensor) -> Tensor:
+    """The decoder's input ``[B,1,d]`` of one token a row at position
+    ``cur`` (a 0-d int32): its embedding plus row ``min(cur, 2**16 - 1)``
+    of the reference's sinusoid table, computed alone on the device."""
+    x = F.embedding(tokens, outer["tok_embed"])           # [B,1,d]
+    row = torch.clamp_max(cur, _POS_ROWS - 1).to(torch.float32)
+    return x + _sinusoid_at(row.reshape(1, 1), cfg.d_model).to(x.dtype)
+
+
+def decoder_layer(p: dict, cfg: EncDecConfig, x: Tensor, cache: dict,
+                  i: int, write: Callable, attend_self: Callable,
+                  attend_cross: Callable) -> Tensor:
+    """Decoder layer ``i`` on one token a row ``x [B,1,d]``: its self K
+    and V put into ``cache``'s rings by ``write(ring, kv [B,1,K,dh])``,
+    the self-attention ``attend_self(q [B,1,H,dh], self_k, self_v)`` and
+    the cross-attention ``attend_cross(q, cross_k, cross_v)`` over layer
+    ``i``'s blocks of the cache (each ``-> [B,H,dh]``), and the MLP, each
+    a residual sum."""
+    B = x.shape[0]
+    H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    sa, ca = p["self_attn"], p["cross_attn"]
+
+    def attend(pa, h, fn, kc, vc):
+        q = L.dense(h, pa["wq"], pa["bq"]).reshape(B, 1, H, dh)
+        o = fn(q, kc[i], vc[i])
+        return L.dense(o.reshape(B, 1, H * dh), pa["wo"], pa["bo"])
+
+    h = L.norm_apply(p["ln1"], x, kind=cfg.norm)
+    write(cache["self_k"][i], L.dense(h, sa["wk"]).reshape(B, 1, K, dh))
+    write(cache["self_v"][i],
+          L.dense(h, sa["wv"], sa["bv"]).reshape(B, 1, K, dh))
+    x = x + attend(sa, h, attend_self, cache["self_k"], cache["self_v"])
+    h = L.norm_apply(p["ln_x"], x, kind=cfg.norm)
+    x = x + attend(ca, h, attend_cross, cache["cross_k"], cache["cross_v"])
+    h = L.norm_apply(p["ln2"], x, kind=cfg.norm)
+    return x + L.mlp(p["mlp"], h, cfg.act)
+
+
 def make_decode_step(cfg: EncDecConfig, *, use_kernel=None):
     """decode_step(params, cache, batch{'tokens': [B,1]}) -> (logits, cache).
 
@@ -551,7 +590,6 @@ def make_decode_step(cfg: EncDecConfig, *, use_kernel=None):
     position ``2**30``, device tensors made once per device.  Nothing is
     read back to the host."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
-    H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cross_pos: dict = {}
 
     def cross_positions(T: int, device) -> tuple:
@@ -561,40 +599,33 @@ def make_decode_step(cfg: EncDecConfig, *, use_kernel=None):
                 (), _CROSS_Q_POS, dtype=torch.int32, device=device))
         return cross_pos[key]
 
-    def attend(p, h, kc, vc, kv_pos, q_pos):
-        B = h.shape[0]
-        q = L.dense(h, p["wq"], p["bq"]).reshape(B, 1, H, dh)
-        o = decode_attention(q, kc, vc, kv_pos, q_pos, use_kernel=use_kernel)
-        return L.dense(o.reshape(B, 1, H * dh), p["wo"], p["bo"])
-
     @torch.no_grad()
     def decode_step(params, cache, batch):
         outer = params["outer"]
         tokens = batch["tokens"]
-        B = tokens.shape[0]
         cur = cache["cur"]
-        x = F.embedding(tokens, outer["tok_embed"])           # [B,1,d]
-        row = torch.clamp_max(cur, _POS_ROWS - 1).to(torch.float32)
-        x = x + _sinusoid_at(row.reshape(1, 1), cfg.d_model).to(x.dtype)
+        x = decoder_token(outer, cfg, tokens, cur)
         slot = torch.remainder(cur, cache["pos"].shape[0]).to(
             torch.int64).reshape(1)
         cache["pos"].index_copy_(0, slot, cur.reshape(1))
         kv_cross, q_cross = cross_positions(cache["cross_k"].shape[2],
                                             tokens.device)
+
+        def write(ring, kv):
+            ring.index_copy_(1, slot, kv)
+
+        def attend_self(q, kc, vc):
+            return decode_attention(q, kc, vc, cache["pos"], cur,
+                                    use_kernel=use_kernel)
+
+        def attend_cross(q, kc, vc):
+            return decode_attention(q, kc, vc, kv_cross, q_cross,
+                                    use_kernel=use_kernel)
+
         dec = params["stacks"]["dec"]
         for i in range(cfg.n_dec_layers):
-            p = tree_map(lambda t: t[i], dec)
-            sa, kc, vc = p["self_attn"], cache["self_k"][i], cache["self_v"][i]
-            h = L.norm_apply(p["ln1"], x, kind=cfg.norm)
-            kc.index_copy_(1, slot, L.dense(h, sa["wk"]).reshape(B, 1, K, dh))
-            vc.index_copy_(1, slot, L.dense(h, sa["wv"], sa["bv"]).reshape(
-                B, 1, K, dh))
-            x = x + attend(sa, h, kc, vc, cache["pos"], cur)
-            h = L.norm_apply(p["ln_x"], x, kind=cfg.norm)
-            x = x + attend(p["cross_attn"], h, cache["cross_k"][i],
-                           cache["cross_v"][i], kv_cross, q_cross)
-            h = L.norm_apply(p["ln2"], x, kind=cfg.norm)
-            x = x + L.mlp(p["mlp"], h, cfg.act)
+            x = decoder_layer(tree_map(lambda t: t[i], dec), cfg, x,
+                              cache, i, write, attend_self, attend_cross)
         logits = _logits(outer, cfg, x)[:, 0]
         cur.add_(1)
         return logits, cache

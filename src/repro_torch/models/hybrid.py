@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -155,7 +155,8 @@ def init_params(seed: int, cfg: HybridConfig, *, device="cuda") -> dict:
 
 def _shared_attn(shared: dict, p: dict, cfg: HybridConfig, x: Tensor,
                  x0: Tensor, pos: Tensor, cache=None, cur=None,
-                 use_kernel=None, kv_pos=None) -> tuple:
+                 use_kernel=None, kv_pos=None, whole_kv: bool = False
+                 ) -> tuple:
     """Shared attention block on ``concat(x, x0)`` with this layer's LoRA.
 
     Train form (``cache`` None): causal attention over the sequence at
@@ -164,7 +165,8 @@ def _shared_attn(shared: dict, p: dict, cfg: HybridConfig, x: Tensor,
     axis ``x`` and ``x0`` are this rank's sequence tile, ``pos`` its
     absolute positions and ``kv_pos`` the whole sequence's: the tile's
     queries attend to K/V gathered over ``model`` (``kv_full``), as the
-    transformer family's do; the k and v returned are the tile's.
+    transformer family's do; the k and v returned are the tile's
+    (``whole_kv``: the whole sequence's, as gathered).
 
     Decode form: ``cache = (kc, vc, pos_tab)``, the ring ``[B,W,K,dh]``
     and its slot positions ``[W]`` (this token's already marked), ``cur``
@@ -172,6 +174,29 @@ def _shared_attn(shared: dict, p: dict, cfg: HybridConfig, x: Tensor,
     in place, and the attention over the ring is ``ops.decode_attention``
     (K4 on a CUDA tensor unless ``use_kernel=False``); returns
     ``(x, None)``."""
+    S = x.shape[1]
+    q, k, v = shared_qkv(shared, p, cfg, x, x0, pos)
+    if cache is None:
+        kg, vg = shard_act(k, "kv_full"), shard_act(v, "kv_full")
+        o = L.attention(q, kg, vg, spec=L.MaskSpec(causal=True), q_pos=pos,
+                        kv_pos=pos if kv_pos is None else kv_pos,
+                        q_offset=seq_offset(S))
+        kv = (kg, vg) if whole_kv else (k, v)
+    else:
+        from repro_torch.kernels.decode_attention.ops import decode_attention
+        kc, vc, pos_tab = cache
+        slot = torch.remainder(cur, kc.shape[1]).to(torch.int64).reshape(1)
+        kc.index_copy_(1, slot, k)
+        vc.index_copy_(1, slot, v)
+        o = decode_attention(q, kc, vc, pos_tab, cur, use_kernel=use_kernel)
+        kv = None
+    return shared_out(shared, cfg, x, o), kv
+
+
+def shared_qkv(shared: dict, p: dict, cfg: HybridConfig, x: Tensor,
+               x0: Tensor, pos: Tensor) -> tuple:
+    """The shared block's roped ``q [B,S,H,dh]``, ``k`` and ``v [B,S,K,dh]``
+    of ``concat(x, x0)`` at ``pos``, with this layer's LoRA deltas."""
     B, S, _ = x.shape
     H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     hN = L.norm_apply(shared["in_ln"], torch.cat([x, x0], dim=-1),
@@ -185,27 +210,19 @@ def _shared_attn(shared: dict, p: dict, cfg: HybridConfig, x: Tensor,
     k = proj("k").reshape(B, S, K, dh)
     v = proj("v").reshape(B, S, K, dh)
     sin, cos = L.rope_sincos(pos, dh, cfg.rope_theta)
-    q = L.apply_rope(q, sin, cos)
-    k = L.apply_rope(k, sin, cos)
-    if cache is None:
-        o = L.attention(q, shard_act(k, "kv_full"), shard_act(v, "kv_full"),
-                        spec=L.MaskSpec(causal=True), q_pos=pos,
-                        kv_pos=pos if kv_pos is None else kv_pos,
-                        q_offset=seq_offset(S))
-        kv = (k, v)
-    else:
-        from repro_torch.kernels.decode_attention.ops import decode_attention
-        kc, vc, pos_tab = cache
-        slot = torch.remainder(cur, kc.shape[1]).to(torch.int64).reshape(1)
-        kc.index_copy_(1, slot, k)
-        vc.index_copy_(1, slot, v)
-        o = decode_attention(q, kc, vc, pos_tab, cur, use_kernel=use_kernel)
-        kv = None
-    x = x + L.dense(o.reshape(B, S, H * dh), shared["wo"])
+    return L.apply_rope(q, sin, cos), L.apply_rope(k, sin, cos), v
+
+
+def shared_out(shared: dict, cfg: HybridConfig, x: Tensor, o: Tensor
+               ) -> Tensor:
+    """``x`` plus the shared block's output projection of the attention
+    ``o [B,S,H,dh]``, then plus its MLP."""
+    B, S, _ = x.shape
+    x = x + L.dense(o.reshape(B, S, cfg.n_heads * cfg.head_dim),
+                    shared["wo"])
     hM = L.norm_apply(shared["mlp_ln"], x, kind=cfg.norm)
-    x = x + L.glu_mlp({"w_gate": shared["w_gate"], "w_up": shared["w_up"],
-                       "w_down": shared["w_down"]}, hM)
-    return x, kv
+    return x + L.glu_mlp({"w_gate": shared["w_gate"], "w_up": shared["w_up"],
+                          "w_down": shared["w_down"]}, hM)
 
 
 def attn_layers(cfg: HybridConfig) -> frozenset:
@@ -274,6 +291,29 @@ def init_cache(cfg: HybridConfig, batch: int, max_len: int, *,
     return cache
 
 
+def prefill_layers(cfg: HybridConfig, shared: dict, x0: Tensor, pos: Tensor,
+                   layer: Callable, mix: Callable, keep_kv: Callable, *,
+                   kv_pos=None, whole_kv: bool = False) -> Tensor:
+    """The prefill's layers from the embedding ``x0``: layer ``i``'s
+    params ``layer(i)``, its mamba mixer ``mix(p["mamba"], h, i)`` on the
+    normed ``h`` (which keeps the layer's conv tail and SSM state), and
+    after each application ``a`` of the shared block (:func:`_shared_attn`
+    at ``pos``, ``kv_pos`` and ``whole_kv``) its K/V handed to
+    ``keep_kv(a, k, v)``; returns the last hidden state."""
+    with_attn = attn_layers(cfg)
+    x, a = x0, 0
+    for i in range(cfg.n_layers):
+        p = layer(i)
+        h = L.norm_apply(p["mamba"]["ln"], x, kind=cfg.norm)
+        x = x + mix(p["mamba"], h, i)
+        if i in with_attn:
+            x, (k, v) = _shared_attn(shared, p, cfg, x, x0, pos,
+                                     kv_pos=kv_pos, whole_kv=whole_kv)
+            keep_kv(a, k, v)
+            a += 1
+    return x
+
+
 def make_prefill_step(cfg: HybridConfig, max_len: Optional[int] = None):
     """prefill_step(params, batch{'tokens': [B,S]}) -> (last_logits, cache):
     the full-sequence forward, a Python loop over the layers keeping each
@@ -281,7 +321,6 @@ def make_prefill_step(cfg: HybridConfig, max_len: Optional[int] = None):
     ring of ``W = max_len or S`` slots (slot j holds position j; the tail
     past S is empty, position -1); ``cur`` is S."""
     mc = cfg.mamba_cfg()
-    with_attn = attn_layers(cfg)
 
     @torch.no_grad()
     def prefill_step(params, batch):
@@ -291,22 +330,22 @@ def make_prefill_step(cfg: HybridConfig, max_len: Optional[int] = None):
         M2.check_prompt(cfg, S)
         W = max_len or S
         x0 = M2.embed(outer, tokens)
-        x = x0
         pos = torch.arange(S, dtype=torch.int32, device=tokens.device)
         cache = init_cache(cfg, B, W, device=tokens.device)
-        shared, blocks = params["shared"], params["stacks"]["blocks"]
-        a = 0
-        for i in range(cfg.n_layers):
-            p = tree_map(lambda t: t[i], blocks)
-            h = L.norm_apply(p["mamba"]["ln"], x, kind=cfg.norm)
+        blocks = params["stacks"]["blocks"]
+
+        def mix(pm, h, i):
             y, cache["conv"][i], cache["ssm"][i] = M2._mix_seq(
-                p["mamba"], mc, h, return_state=True)
-            x = x + y
-            if i in with_attn:
-                x, (k, v) = _shared_attn(shared, p, cfg, x, x0, pos)
-                cache["attn_k"][a, :, :S] = k
-                cache["attn_v"][a, :, :S] = v
-                a += 1
+                pm, mc, h, return_state=True)
+            return y
+
+        def keep_kv(a, k, v):
+            cache["attn_k"][a, :, :S] = k
+            cache["attn_v"][a, :, :S] = v
+
+        x = prefill_layers(cfg, params["shared"], x0, pos,
+                           lambda i: tree_map(lambda t: t[i], blocks), mix,
+                           keep_kv)
         cache["pos"][:S] = pos
         cache["cur"].fill_(S)
         h = L.norm_apply(outer["final_norm"], x[:, -1:], kind=cfg.norm)

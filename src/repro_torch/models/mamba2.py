@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -306,11 +306,17 @@ def _mix_tile(p: dict, cfg: Mamba2Config, h: Tensor) -> Tensor:
 def mamba2_mix(p: dict, cfg: Mamba2Config, h: Tensor,
                conv_state: Optional[Tensor] = None,
                ssm_state: Optional[Tensor] = None,
-               decode: bool = False):
+               decode: bool = False, *, tap_lo: int = 0, head_lo: int = 0,
+               gather: Optional[Callable] = None):
     """The mamba2 mixer.  Train/prefill: full-sequence chunked SSD (on a
     model axis, :func:`_mix_tile`).  Decode (S == 1): the recurrent
-    update; takes conv_state [B,k-1,C] and ssm_state [B,H,P,N] and returns
-    (y, new_conv_state, new_ssm_state)."""
+    update; takes conv_state [B,t,C] (the conv window's taps ``tap_lo`` to
+    ``tap_lo + t`` of k-1) and ssm_state [B,h,P,N] (heads ``head_lo`` to
+    ``head_lo + h``) and returns (y, new_conv_state, new_ssm_state) of
+    those taps and heads.  A block short of its whole dim (a rank's on a
+    model axis, ``serve/sharded.py``) is joined with the other ranks'
+    blocks in rank order by ``gather(x, dim)``: the taps before the conv,
+    the heads' outputs before the gated norm over all of ``d_inner``."""
     if not decode:
         if model_size() > 1:
             return _mix_tile(p, cfg, h)
@@ -320,20 +326,25 @@ def mamba2_mix(p: dict, cfg: Mamba2Config, h: Tensor,
                       cfg.headdim)
     xBC, gate, dt = _split_proj(L.dense(h, p["in_proj"]), cfg)
     dt, A = _dt_and_A(p, dt)
-    window = torch.cat([conv_state, xBC[:, :1]], dim=1)      # [B,k,C]
+    t = conv_state.shape[1]
+    taps = conv_state if t == cfg.d_conv - 1 else gather(conv_state, 1)
+    window = torch.cat([taps, xBC[:, :1]], dim=1)           # [B,k,C]
     conv = torch.sum(window * p["conv_w"].T, dim=1) + p["conv_b"]
     x, Bm, Cm = torch.split(L.ACTS["silu"](conv), [di, G * N, G * N], dim=-1)
-    x = x.reshape(B, H, P).to(torch.float32)
+    hs = slice(head_lo, head_lo + ssm_state.shape[1])
+    x = x.reshape(B, H, P).to(torch.float32)[:, hs]
     rep = H // G
-    Bh = _repeat_heads(Bm.reshape(B, G, N).to(torch.float32), rep, 1)
-    Ch = _repeat_heads(Cm.reshape(B, G, N).to(torch.float32), rep, 1)
-    dt0 = dt[:, 0]                                           # [B,H]
-    dec = torch.exp(dt0 * A)
+    Bh = _repeat_heads(Bm.reshape(B, G, N).to(torch.float32), rep, 1)[:, hs]
+    Ch = _repeat_heads(Cm.reshape(B, G, N).to(torch.float32), rep, 1)[:, hs]
+    dt0 = dt[:, 0, hs]                                       # [B,h]
+    dec = torch.exp(dt0 * A[hs])
     s_new = (ssm_state * dec[:, :, None, None]
              + torch.einsum("bh,bhn,bhp->bhpn", dt0, Bh, x))
-    y = torch.einsum("bhn,bhpn->bhp", Ch, s_new) + x * p["D"][:, None]
+    y = torch.einsum("bhn,bhpn->bhp", Ch, s_new) + x * p["D"][hs, None]
+    if y.shape[1] < H:
+        y = gather(y, 1)
     out = _out(p, y.reshape(B, 1, di).to(h.dtype), gate)
-    return out, window[:, 1:], s_new
+    return out, window[:, 1 + tap_lo:1 + tap_lo + t], s_new
 
 
 # --------------------------------------------------------------------------
@@ -421,13 +432,14 @@ def check_prompt(cfg, S: int) -> None:
 
 
 def decode_mix(p: dict, cfg: Mamba2Config, x: Tensor, cache: dict,
-               i: int) -> Tensor:
+               i: int, **block) -> Tensor:
     """Layer ``i``'s norm and one-token mixer on ``x [B,1,d]``, its conv
-    window and SSM state updated in place in ``cache``; returns the
+    window and SSM state updated in place in ``cache`` (``block``: where
+    they are a rank's block, as :func:`mamba2_mix` takes it); returns the
     residual sum."""
     h = L.norm_apply(p["ln"], x, kind=cfg.norm)
     y, conv_s, ssm_s = mamba2_mix(p, cfg, h, cache["conv"][i],
-                                  cache["ssm"][i], decode=True)
+                                  cache["ssm"][i], decode=True, **block)
     cache["conv"][i].copy_(conv_s)
     cache["ssm"][i].copy_(ssm_s)
     return x + y

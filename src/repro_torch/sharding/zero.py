@@ -34,9 +34,10 @@ The fused step (``core/fused.py``) calls the seams:
     them.
 
 The sharded serving steps (``serve/sharded.py``) take the same gathers and
-rows, and a ring cache rests as ``rules.cache_pspecs`` places it
+rows, and a cache rests as ``rules.cache_pspecs`` places it
 (:meth:`Zero3.cache_block`, :meth:`Zero3.slot_block`): rows over ``pod`` ×
-``data`` and slots over ``model``.
+``data`` and dim 2 of every ``[L, B, X, ...]`` leaf (a ring's slots,
+mamba's SSM heads or conv taps, whisper's frames) over ``model``.
 
 Nothing here keeps a gathered tensor: a layer's whole weights live while
 its forward or its re-run does.
@@ -74,7 +75,7 @@ from repro_torch.core.tree import (pytree_leaves, pytree_unflatten,
                                    tree_map)
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding.act import ActPolicy
-from repro_torch.sharding.rules import (EXPERT_LEAF, MeshAxes,
+from repro_torch.sharding.rules import (EXPERT_LEAF, MeshAxes, P,
                                        cache_pspecs, data_dim,
                                        make_grad_constraint,
                                        make_param_constraint,
@@ -186,30 +187,38 @@ def _places(spec, path: str):
                  md is not None and bool(EXPERT_LEAF.search(path)))
 
 
-def _vectors_whole(places, shapes, lead: int):
-    """``places`` with every vector (one dim past the ``lead`` stacked
-    ones: mamba's conv bias) whole over ``model``: the optimizer rules'
-    sharded forms take matrices, and a vector is a few kB."""
-    return tree_map(lambda pl, shp: pl if pl.model is None
-                    or len(shp) - lead >= 2 else Place(pl.data, None, pl.ep),
-                    places, shapes)
+def rest_pspecs(params, axes: MeshAxes):
+    """``rules.param_pspecs`` with every vector (one dim past a stack's
+    leading one: mamba's conv bias) whole over ``model``: the optimizer
+    rules' sharded forms take matrices, and a vector is a few kB.  The
+    reference's ``param_pspecs`` splits such a vector over ``model``; the
+    port rests it whole (``launch/dryrun.py`` reckons with this too)."""
+    specs = param_pspecs(params, axes)
+
+    def whole(ax):
+        if isinstance(ax, tuple):
+            ax = tuple(a for a in ax if a != "model") or None
+        return None if ax == "model" else ax
+
+    return {key: tree_map(
+        lambda sp, t, lead=int(key == "stacks"): sp
+        if len(t.shape) - lead >= 2 else P(*map(whole, sp)),
+        specs[key], params[key]) for key in specs}
 
 
 def rest_places(params, axes: MeshAxes):
     """The :class:`Place` every param leaf rests at on the mesh of
-    ``axes``: the rules' places, where a model axis of 1 splits nothing
-    (the data axis' plan alone), nor does a data axis of 1 beside a model
-    axis (its gathers and sums would be copies; a mesh of data alone keeps
-    its one-rank split, the sharded path on one card), and every vector
-    rests whole over ``model``."""
-    dims = param_places(params, axes)
+    ``axes``: those of :func:`rest_pspecs`, where a model axis of 1 splits
+    nothing (the data axis' plan alone), nor does a data axis of 1 beside
+    a model axis (its gathers and sums would be copies; a mesh of data
+    alone keeps its one-rank split, the sharded path on one card)."""
+    specs = rest_pspecs(params, axes)
+    dims = {k: _places(specs[k], k) for k in specs}
     if axes.size(axes.tp) == 1:
         dims = tree_map(lambda pl: Place(pl.data), dims)
     elif axes.size(axes.fsdp) == 1:
         dims = tree_map(lambda pl: Place(None, pl.model, pl.ep), dims)
-    shapes = tree_map(lambda t: tuple(t.shape), params)
-    return {key: _vectors_whole(dims[key], shapes[key], int(key == "stacks"))
-            for key in dims}
+    return dims
 
 
 def leaf_places(places, shapes, opt_state) -> list:
@@ -494,8 +503,9 @@ class Zero3:
         empty.  An encoder's ``frames [B, F, d]`` are a sequence of their
         own, tiled along their own length: tile ``i`` is frames
         ``[iF/tp, (i+1)F/tp)``; where ``tp`` does not divide ``F`` (whisper's
-        1500 frames on a model axis of 16) every rank keeps them whole.  A
-        1-D leaf (``prefix_len``) keeps its rows only.  Raises
+        1500 frames on a model axis of 16) every rank keeps them whole; a
+        batch of frames alone (an encoder-decoder's prefill) sets no
+        ``tile``.  A 1-D leaf (``prefix_len``) keeps its rows only.  Raises
         ``ValueError``, naming the leaf, where ``tp`` does not divide
         ``prefix + S``, or a ``prefix_embed`` is not ``prefix`` rows
         long."""
@@ -510,10 +520,13 @@ class Zero3:
                 f"a batch's prefix_embed "
                 f"{None if pre is None else tuple(pre.shape)} does not hold "
                 f"the {P} prefix rows the plan tiles")
-        tokens, frames = out["tokens"].shape, out.get("frames")
-        lo, hi = self._span(P + tokens[1], "tokens", tokens,
-                            f"their sequence of P + S = {P} + {tokens[1]} "
-                            f"= {P + tokens[1]} rows")
+        tokens, frames = out.get("tokens"), out.get("frames")
+        lo = hi = 0
+        if tokens is not None:
+            n = tokens.shape[1]
+            lo, hi = self._span(P + n, "tokens", tokens.shape,
+                                f"their sequence of P + S = {P} + {n} "
+                                f"= {P + n} rows")
         if frames is not None:
             flo, fhi = ((0, frames.shape[1]) if frames.shape[1] % self.tp
                         else self._span(frames.shape[1], "frames",
@@ -526,25 +539,27 @@ class Zero3:
                 out[k] = x[:, flo:fhi]
             elif x.ndim >= 2:
                 out[k] = x[:, max(lo - P, 0):max(hi - P, 0)]
-        self.tile = (tokens[0], hi - lo)
-        self.frame_tile = None if frames is None else (tokens[0], fhi - flo)
+        self.tile = None if tokens is None else (tokens.shape[0], hi - lo)
+        self.frame_tile = (None if frames is None
+                           else (frames.shape[0], fhi - flo))
         return out
 
     def slot_block(self, W: int) -> tuple:
-        """``(lo, hi)``: this rank's slots of a ring of ``W`` slots, split
-        over ``model`` where the axis divides ``W`` (``rules.cache_pspecs``),
-        else all of them."""
+        """``(lo, hi)``: this rank's block of dim 2 of a cache leaf ``[L,
+        B, W, ...]`` (a ring's ``W`` slots, mamba's ``W`` heads or conv
+        taps, whisper's ``W`` frames), split over ``model`` where the axis
+        divides ``W`` (``rules.cache_pspecs``), else all of it."""
         if self.tp > 1 and W % self.tp == 0 and W > 1:
             n = W // self.tp
             return self.mesh.tile_index * n, (self.mesh.tile_index + 1) * n
         return 0, W
 
     def cache_block(self, cache: dict, batch_size: int) -> dict:
-        """This rank's block of a whole ring cache of ``batch_size`` rows
-        (the ``[L, B, W, ...]`` tensors, ``pos [W]``, ``cur``), where
+        """This rank's block of a whole cache of ``batch_size`` rows (the
+        ``[L, B, X, ...]`` tensors, ``pos [W]``, ``cur``), where
         ``rules.cache_pspecs`` places it: the rows (dim 1) over ``pod`` ×
-        ``data`` and the slots (dim 2) over ``model``, each where it
-        divides; ``pos`` and ``cur`` whole.  A split leaf's block is a
+        ``data`` and dim 2 over ``model``, each where it divides; ``pos``
+        and ``cur`` whole.  A split leaf's block is a
         tensor of its own."""
         specs = cache_pspecs(cache, self.axes, batch_size)
         out = {}

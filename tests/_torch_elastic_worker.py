@@ -520,39 +520,46 @@ def _dry_vs_live_case(case, rank):
 
 def _serve_case(case, rank):
     """The sharded serving steps (``serve/sharded.py``) of ``case["arch"]``'s
-    smoke config on ``case["shape"]`` (the baseline plan with
-    ``case["optimized"]`` False), from the weights at ``case["init"]``:
-    the prefill of the global prompt at ``case["prompt"]`` (an ``.npz``)
-    and ``case["steps"]`` greedy decode steps, each step's next tokens
-    those of the rows' logits gathered over the batch ranks (outside the
-    steps), live in this world under the collectives' log; then this
-    rank's dry trace of the same steps.  Each rank writes its rows' logits
-    a step, the greedy tokens, its cache block after the prefill and after
-    the last step, its rows and slots, and both runs' counts a step (the
-    live run's plain partial attentions counted as the K4 partial launches
-    the card's path makes for them)."""
+    smoke config (with ``case["cfg"]``'s overrides) on ``case["shape"]``
+    (the baseline plan with ``case["optimized"]`` False), from the weights
+    at ``case["init"]``: the prefill (``case["prefill"]``: its keywords) of
+    the global prompt at ``case["prompt"]`` (an ``.npz``; an
+    encoder-decoder's frames, its ``tokens`` the first decode tokens) and
+    ``case["steps"]`` greedy decode steps, each step's next tokens those of
+    the rows' logits gathered over the batch ranks (outside the steps),
+    live in this world under the collectives' log; then this rank's dry
+    trace of the same steps.  Each rank writes its rows' logits a step (an
+    encoder-decoder's prefill output apart), the greedy tokens, its cache
+    block after the prefill and after the last step, its rows and ring
+    slots, and both runs' counts a step (the live run's plain attentions
+    counted as the K4 launches the card's path makes for them)."""
     import collections
 
     from repro_torch.kernels.decode_attention import ops
     from repro_torch.launch import dryrun as D
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models.registry import get_arch
     from repro_torch.serve.sharded import sharded_serving
     from repro_torch.sharding import collectives as C
-    arch = get_arch(case["arch"], smoke=True)
+    arch = cfg_arch(case["arch"], **case.get("cfg", {}))
     mesh = make_mesh(tuple(case["shape"]), "cpu")
     optimized = case.get("optimized", True)
-    srv = sharded_serving(arch, mesh, optimized=optimized)
+    kw = case.get("prefill", {})
+    srv = sharded_serving(arch, mesh, optimized=optimized, **kw)
     params = srv.zero.place_params(torch.load(case["init"]))
     prompt = {k: torch.from_numpy(v)
               for k, v in np.load(case["prompt"]).items()}
+    encdec = arch.family == "encdec"
+    batch = {"frames": prompt["frames"]} if encdec else prompt
     launches = collections.Counter()
-    partial = ops.decode_attention_partial
+    wrapped = {n: getattr(ops, n) for n in ("decode_attention",
+                                            "decode_attention_partial")}
     steps, log = [], []
 
-    def spy(*args, **kw):
-        launches["decode_attention_partial"] += 1
-        return partial(*args, **kw)
+    def spy(name):
+        def fn(*args, **kw):
+            launches[name] += 1
+            return wrapped[name](*args, **kw)
+        return fn
 
     def measured(fn, *args):
         C.reset_stats()
@@ -566,43 +573,53 @@ def _serve_case(case, rank):
     def block(cache):
         return {k: v.clone().numpy() for k, v in cache.items()}
 
-    ops.decode_attention_partial = spy
+    for name in wrapped:
+        setattr(ops, name, spy(name))
     try:
-        logits, cache = measured(srv.prefill_step, params, prompt)
-        got = {"logits": [logits.numpy()], "tokens": []}
+        out, cache = measured(srv.prefill_step, params, batch)
+        got = {"logits": [], "tokens": []}
+        if encdec:
+            got["enc_out"] = out.numpy()
+        else:
+            got["logits"].append(out.numpy())
         first = block(cache)
         cache_bytes = sum(v.numel() * v.element_size()
                           for v in cache.values())
-        for _ in range(case["steps"]):
-            tok = torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
-            if mesh.batch_size > 1:
-                tok = C.all_gather(tok, 0, srv.zero.batch)
+        for i in range(case["steps"]):
+            if encdec and i == 0:
+                tok = prompt["tokens"]
+            else:
+                tok = torch.argmax(out, dim=-1, keepdim=True).to(torch.int32)
+                if mesh.batch_size > 1:
+                    tok = C.all_gather(tok, 0, srv.zero.batch)
             got["tokens"].append(tok[:, 0].numpy())
-            logits, cache = measured(srv.decode_step, params, cache,
-                                     {"tokens": tok})
-            got["logits"].append(logits.numpy())
+            out, cache = measured(srv.decode_step, params, cache,
+                                  {"tokens": tok})
+            got["logits"].append(out.numpy())
     finally:
-        ops.decode_attention_partial = partial
-    rows = logits.shape[0]
-    W = cache["pos"].shape[0]
+        for name, fn in wrapped.items():
+            setattr(ops, name, fn)
+    rows = out.shape[0]
     live = {"log": log, "steps": steps, "resting": _storage_bytes(params),
             "cache": cache_bytes}
-    specs = {k: (tuple(v.shape), v.dtype) for k, v in prompt.items()}
+    specs = {k: (tuple(v.shape), v.dtype) for k, v in batch.items()}
     dry_block, tr = D.trace_serving(arch, tuple(case["shape"]), rank=rank,
                                     optimized=optimized, prompt=specs,
-                                    decode_steps=case["steps"])
+                                    decode_steps=case["steps"], **kw)
     dry = {"log": tr.log, "steps": tr.per_step, "resting": tr.resting_bytes,
            "cache": sum(t.numel() * t.element_size()
                         for t in dry_block.values())}
+    extra = {"enc_out": got["enc_out"]} if encdec else {}
     np.savez(f"{case['out']}.rank{rank}.npz",
              logits=np.stack(got["logits"]), tokens=np.stack(got["tokens"]),
-             **{f"first_{k}": v for k, v in first.items()},
+             **extra, **{f"first_{k}": v for k, v in first.items()},
              **{f"last_{k}": v for k, v in block(cache).items()})
     with open(f"{case['out']}.rank{rank}.json", "w") as f:
         json.dump({"live": live, "dry": dry,
                    "rows": [mesh.batch_index * rows,
                             (mesh.batch_index + 1) * rows],
-                   "slots": list(srv.zero.slot_block(W)),
+                   "slots": ("pos" in cache and list(
+                       srv.zero.slot_block(cache["pos"].shape[0]))) or None,
                    "tile": srv.zero.tile and list(srv.zero.tile)}, f)
 
 
