@@ -77,10 +77,14 @@ printing one JSON line:
            ``serve_1x2``'s block beside its bound and SDPA's time for o
            alone; the library call that computes the same (o, lse),
            flex_attention with enable_gqa and the log-sum-exp, compiled,
-           is timed at the end of the run, after every other phase.  The
-           ptxas
-           register and spill lines of the decode kernels at dh 16, 24 and
-           256 are reported per template instance.  Then
+           is timed at the end of the run, after every other phase.  Every
+           bf16 and fp32 instance of K3, K4 and the partial entry: its ptxas
+           registers and spill bytes, its dynamic shared memory and its
+           blocks an SM as the card reports them (each bf16 instance at
+           least the blocks its split aims at; at dh 256 at least two and
+           no spill), and ten launches back to back on the same tickets at
+           paligemma-3b's 8/1 heads, dh 256 (K4 4 x 4096, K3 8 x 1024),
+           bit-identical.  Then
            times kernel and plain version (CUDA events, after warm-up, inputs
            rotated so they are not served from the L2 cache) beside the least
            time the card could take, and, for K4,
@@ -464,6 +468,7 @@ import hashlib
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -984,6 +989,79 @@ def ptxas_by_entry(lines: list) -> dict:
     return out
 
 
+# K3's and K4's kernel instances in the ptxas log: (entry, dtype, dh) from a
+# mangled name (the partial entry's bf16 kernel writes fp32; its fp32 kernel
+# is K4's own)
+DECODE_INSTANCES = (
+    (re.compile(r"22ring_decode_kernel_mmaILi(\d+)E\d*__nv_bfloat16E"),
+     "ring", torch.bfloat16),
+    (re.compile(r"22ring_decode_kernel_mmaILi(\d+)EfE"), "partial",
+     torch.bfloat16),
+    (re.compile(r"18ring_decode_kernelILi(\d+)EE"), "ring", torch.float32),
+    (re.compile(r"19paged_decode_kernelI\d*__nv_bfloat16Li(\d+)EE"),
+     "paged", torch.bfloat16),
+    (re.compile(r"19paged_decode_kernelIfLi(\d+)EE"), "paged",
+     torch.float32))
+
+
+def decode_usage(by_entry: dict) -> dict:
+    """Every bf16 and fp32 instance of K3, K4 and K4's partial entry: its
+    ptxas registers and spill bytes (stores, loads; from the build log)
+    beside its blocks an SM, dynamic shared memory, registers and local
+    memory as the card reports them (``KD.kernel_usage``), emitted as a
+    line of its own.  Then asserts that each bf16 instance fits the blocks
+    an SM its split aims at (``KD.blocks_per_sm``: the grid in one wave)
+    and that at head dim 256 every instance fits two blocks an SM and
+    spills nothing."""
+    logged = {}
+    for name, lines in by_entry.items():
+        for pattern, entry, dtype in DECODE_INSTANCES:
+            hit = pattern.search(name)
+            if hit:
+                text = " ".join(lines)
+                regs = re.search(r"Used (\d+) registers", text)
+                spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                  r"spill loads", text)
+                logged[(entry, dtype, int(hit.group(1)))] = {
+                    "ptxas_registers": int(regs.group(1)) if regs else None,
+                    "ptxas_spill_bytes": ([int(spill.group(1)),
+                                           int(spill.group(2))]
+                                          if spill else None),
+                    "ptxas": lines}
+    out, failures = {}, []
+    for dh in KD.HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for entry in ("paged", "ring", "partial"):
+                # fp32: the partial entry launches K4's own kernel
+                key = ("ring" if entry == "partial" and
+                       dtype == torch.float32 else entry, dtype, dh)
+                row = dict(KD.kernel_usage(entry, dtype, dh))
+                row.update(logged.get(key, {"ptxas_registers": None,
+                                            "ptxas_spill_bytes": None}))
+                if dh != 256:
+                    row.pop("ptxas", None)
+                name = f"{entry} {str(dtype)[6:]} dh{dh}"
+                out[name] = row
+                if dtype == torch.bfloat16 and \
+                        row["blocks_per_sm"] < KD.blocks_per_sm(dh):
+                    failures.append(
+                        f"{name}: {row['blocks_per_sm']} blocks an SM on "
+                        f"the card, the split aims at "
+                        f"{KD.blocks_per_sm(dh)}")
+                if dh == 256 and (row["blocks_per_sm"] < 2 or
+                                  row["ptxas_spill_bytes"] != [0, 0]):
+                    failures.append(
+                        f"{name}: {row['blocks_per_sm']} blocks an SM, "
+                        f"{row['ptxas_spill_bytes']} bytes spilled (stores, "
+                        "loads; two blocks and none wanted)")
+    emit("kernels_decode_instances", instances=out,
+         blocks_per_sm_aimed={dh: KD.blocks_per_sm(dh)
+                              for dh in KD.HEAD_DIMS})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return out
+
+
 def phase_kernels() -> dict:
     t0 = time.time()
     libs = [(K.LIB_NAME, K.SOURCES), (KD.LIB_NAME, KD.SOURCES)]
@@ -1000,10 +1078,6 @@ def phase_kernels() -> dict:
         usage[name] = sorted({ln.split(":", 1)[-1].strip() for ln in lines
                               if "registers" in ln or "spill" in ln})
         by_entry.update(ptxas_by_entry(lines))
-    # the decode kernels at the head dims this slice adds: the register and
-    # spill lines of each template instance
-    new_dh = {k: v for k, v in by_entry.items() if "decode" in k
-              and any(f"Li{d}E" in k for d in (16, 24, 256))}
     errs = {"adalomo_stats": 0.0, "adalomo_update": 0.0,
             "adalomo_stats_sharded": 0.0, "adalomo_update_sharded": 0.0,
             "adalomo_stats_2d": 0.0,
@@ -1048,15 +1122,19 @@ def phase_kernels() -> dict:
     progress("kernels: timing K4's partial entry")
     partial_rows = time_k4_partial()
     totals["decode_attention_partial"] = partial_rows["float32"]
+    progress("kernels: K3/K4 instances on the card")
+    decode_instances = decode_usage(by_entry)
     emit("kernels", kernels=["adalomo_stats", "adalomo_update",
                              "paged_decode_attention", "decode_attention",
                              "decode_attention_partial"],
          build_seconds=build_s, ptxas=usage,
-         ptxas_decode_dh16_24_256=new_dh, cases=n_cases,
+         decode_instances=decode_instances, cases=n_cases,
          max_abs_err=errs, op_variants=variants,
          tolerances={"param_fp32": 1e-5, "param_bf16": 5e-3, "r_c": TOL_RC,
                      "paged_fp32": 1e-5, "paged_bf16": 3e-2,
-                     "ring_fp32": 1e-5, "ring_bf16": 3e-2},
+                     "ring_fp32": 1e-5, "ring_bf16": 3e-2,
+                     "dh256_bf16_vs_fp32_plain": WIDE_TIGHT},
+         dh256_bf16=WIDE_READINGS,
          timing_dtype="bf16 param, bf16 grad", per_shape=rows,
          per_step_of_170_tensors={k: totals[k] for k in
                                   ("adalomo_stats", "adalomo_update")},
@@ -1111,6 +1189,50 @@ K3_CASES = [
 # 3e-2, where the plain version rounds the probabilities to bf16 before the
 # weighted sum and the kernel keeps them in fp32.
 K3_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+# dh 256's bf16 cases (the wide loop and its combine) are held a second time,
+# against the plain version computed in fp32 from the same bf16 inputs: each
+# element within atol plus bf16's own rounding of the output (2**-8 of it),
+# and the error's RMS within `rms` of the output's (the partial entry's lse,
+# fp32 and never rounded: within atol alone).  A run or a 16-slot step
+# left out moves the RMS by about 6-20 % at paligemma-3b's rings, the
+# kernel's own roundings (the probabilities and the output to bf16) by about
+# 0.2 % (reckoned: the square root of the share of slots left out, and
+# bf16's 2**-9).
+WIDE_TIGHT = {"atol": 4e-3, "rtol": 2 ** -8, "rms": 1e-2}
+# entry -> the largest errors of its dh-256 bf16 cases: against the bf16
+# plain version (the 3e-2 check) and against the fp32 one (WIDE_TIGHT)
+WIDE_READINGS = {}
+
+
+def wide_close(entry, got, want, want_fp32, what, lse=False) -> None:
+    """A dh-256 bf16 case of ``entry`` (K3, K4 or the partial entry's o or,
+    with ``lse``, its log-sum-exp), already held against its bf16 plain
+    version ``want`` at ``K3_TOL``: held against ``want_fp32`` at
+    ``WIDE_TIGHT``; both readings go to ``WIDE_READINGS``."""
+    got, want_fp32 = got.float(), want_fp32.float()
+    err = (got - want_fp32).abs()
+    rms = float(err.pow(2).mean().sqrt() /
+                want_fp32.pow(2).mean().sqrt().clamp_min(1e-30))
+    row = WIDE_READINGS.setdefault(entry, {
+        "cases": 0, "vs_bf16_plain_max_abs_err": 0.0,
+        "vs_fp32_plain_max_abs_err": 0.0, "vs_fp32_plain_rms_ratio": 0.0})
+    row["cases"] += 1
+    row["vs_bf16_plain_max_abs_err"] = max(
+        row["vs_bf16_plain_max_abs_err"], max_err(got, want.float()))
+    row["vs_fp32_plain_max_abs_err"] = max(
+        row["vs_fp32_plain_max_abs_err"], float(err.max()))
+    row["vs_fp32_plain_rms_ratio"] = max(row["vs_fp32_plain_rms_ratio"], rms)
+    bound = WIDE_TIGHT["atol"] + (0.0 if lse else WIDE_TIGHT["rtol"] *
+                                  want_fp32.abs())
+    if not bool((err <= bound).all()) or (not lse and
+                                          rms > WIDE_TIGHT["rms"]):
+        raise AssertionError(
+            f"{what}: against the plain version in fp32, largest error "
+            f"{float(err.max()):.3e} (beyond atol + rtol * |want| at "
+            f"{int((err > bound).sum())} elements), error RMS {rms:.3e} of "
+            f"the output's; {WIDE_TIGHT} wanted")
+
+
 SERVE_WINDOW = 4096                 # h2o-danube-1.8b's sliding window
 # The other configs' heads (query, KV, head dim, window): the head dims 120
 # and 160 (not whole 16-wide k-steps; more than the dense path had seen), a
@@ -1201,6 +1323,12 @@ def check_k3(errs: dict) -> tuple:
             tol = K3_TOL[dtype]
             assert_close(got, want, rtol=tol, atol=tol,
                          what=f"paged_decode_attention case {i} {dtype}")
+            if dh == 256 and dtype == torch.bfloat16:
+                want_fp32 = paged_decode_attention_ref(
+                    q.float(), kp.float(), vp.float(), bt, sl,
+                    window=window)[live]
+                wide_close("paged_decode_attention", got, want, want_fp32,
+                           f"paged_decode_attention case {i} {dtype}")
             errs["paged_decode_attention"] = max(
                 errs["paged_decode_attention"], max_err(got, want))
             n += 1
@@ -1218,17 +1346,21 @@ def check_k3(errs: dict) -> tuple:
                     "same inputs did not give bit-identical outputs on a "
                     "re-run")
     # Ten launches back to back on the same ticket counters: each must find
-    # them at 0, as the last run of the launch before left them.
-    for B in (1, 8):
-        args = k3_inputs(B, 32, 8, 80, 16, 128, (2048,) * B, torch.bfloat16,
-                         20 + B)
-        outs = [KD.paged_decode_attention(*args, window=SERVE_WINDOW)
+    # them at 0, as the last run of the launch before left them; danube's
+    # heads and paligemma-3b's (8/1, dh 256: the wide loop) at 8 x 1024
+    for B, n_tok, P, (H, Kh, dh, window), seed in (
+            (1, 2048, 128, (32, 8, 80, SERVE_WINDOW), 21),
+            (8, 2048, 128, (32, 8, 80, SERVE_WINDOW), 28),
+            (8, 1024, 64, PALI_HEADS, 30)):
+        args = k3_inputs(B, H, Kh, dh, 16, P, (n_tok,) * B, torch.bfloat16,
+                         seed)
+        outs = [KD.paged_decode_attention(*args, window=window)
                 for _ in range(10)]
         torch.cuda.synchronize()
         if not all(torch.equal(outs[0], o) for o in outs[1:]):
-            raise AssertionError(f"paged_decode_attention B{B} n2048: ten "
-                                 "launches on reused counters were not "
-                                 "bit-identical")
+            raise AssertionError(f"paged_decode_attention B{B} n{n_tok} "
+                                 f"dh {dh}: ten launches on reused counters "
+                                 "were not bit-identical")
     return n, True
 
 
@@ -1306,7 +1438,8 @@ def time_k3() -> tuple:
                     for q, kp, vp, bt, _ in sets]
         library = time_graph_ms(k3_library, lib_sets, rounds)
         rows[name] = {"heads": [H, Kh, dh], "window": window,
-                      "seq_lens": list(lens), "S": paged_split_of(B, P, Kh),
+                      "seq_lens": list(lens),
+                      "S": paged_split_of(B, P, Kh, dh),
                       "ms": ms, "eager_ms": eager, "plain_ms": plain,
                       "library_ms": library,
                       "library_calls": "2 (page gather, then SDPA)",
@@ -1321,11 +1454,23 @@ def time_k3() -> tuple:
     return rows, total
 
 
-def paged_split_of(B, P, Kh=8):
-    """K3's runs a sequence at ``Kh`` KV heads and pages of 16, where the
-    tree under test has a split (None before it had one)."""
-    split = getattr(KD, "paged_split", None)
-    return split(B, Kh, P, 16) if split else None
+def paged_split_of(B, P, Kh, dh):
+    """K3's runs a sequence at ``Kh`` KV heads, head dim ``dh`` and pages of
+    16, as the tree under test splits them (a tree whose split reads no head
+    dim: without it)."""
+    try:
+        return KD.paged_split(B, Kh, P, 16, dh)
+    except TypeError:
+        return KD.paged_split(B, Kh, P, 16)
+
+
+def ring_split_of(B, W, Kh, dh):
+    """K4's ``(S, span)`` as the tree under test splits a ring (as
+    ``paged_split_of``)."""
+    try:
+        return tuple(KD.ring_split(B, Kh, W, dh))
+    except TypeError:
+        return tuple(KD.ring_split(B, Kh, W))
 
 
 # --------------------------------------------------------------------------
@@ -1407,6 +1552,12 @@ def check_k4(errs: dict) -> tuple:
             tol = K3_TOL[dtype]
             assert_close(got, want, rtol=tol, atol=tol,
                          what=f"decode_attention case {i} {dtype}")
+            if dh == 256 and dtype == torch.bfloat16:
+                want_fp32 = ring_decode_attention_ref(
+                    q.float(), kc.float(), vc.float(), pos, q_pos,
+                    window=window)
+                wide_close("decode_attention", got, want, want_fp32,
+                           f"decode_attention case {i} {dtype}")
             errs["decode_attention"] = max(errs["decode_attention"],
                                            max_err(got, want))
             n += 1
@@ -1436,16 +1587,21 @@ def check_k4(errs: dict) -> tuple:
                     "the same inputs did not give bit-identical outputs on "
                     "a re-run")
     # Ten launches back to back on the same ticket counters: each must find
-    # them at 0, as the last run of the launch before left them.
-    for B in (1, 4):
-        args = k4_inputs(B, 4096, 32, 8, 80, 6143, torch.bfloat16, 9 + B,
+    # them at 0, as the last run of the launch before left them; danube's
+    # heads and paligemma-3b's (8/1, dh 256: the wide loop) at 4 x 4096
+    for B, (H, Kh, dh, window), seed in (
+            (1, (32, 8, 80, SERVE_WINDOW), 10),
+            (4, (32, 8, 80, SERVE_WINDOW), 13),
+            (4, PALI_HEADS, 14)):
+        args = k4_inputs(B, 4096, H, Kh, dh, 6143, torch.bfloat16, seed,
                          True)
-        outs = [KD.decode_attention(*args, window=SERVE_WINDOW)
+        outs = [KD.decode_attention(*args, window=window)
                 for _ in range(10)]
         torch.cuda.synchronize()
         if not all(torch.equal(outs[0], o) for o in outs[1:]):
-            raise AssertionError(f"decode_attention B{B} W4096: ten launches "
-                                 "on reused counters were not bit-identical")
+            raise AssertionError(f"decode_attention B{B} W4096 dh {dh}: ten "
+                                 "launches on reused counters were not "
+                                 "bit-identical")
     return n, True
 
 
@@ -1507,6 +1663,7 @@ def time_k4() -> tuple:
                 q, k, v, attn_mask=m, enable_gqa=True), lib_sets, rounds)
         n_valid = int(valid.sum())
         rows[name] = {"heads": [H, Kh, dh], "window": window, "B": B, "W": W,
+                      "split": list(ring_split_of(B, W, Kh, dh)),
                       "valid_slots": n_valid, "ms": ms,
                       "eager_ms": eager, "plain_ms": plain,
                       "library_ms": library,
@@ -1573,6 +1730,16 @@ def check_k4_partial(errs: dict) -> dict:
                     partial_close(got, want, K3_TOL[dtype],
                                   f"decode_attention_partial case {i} "
                                   f"[{lo}, {hi}) {dtype}"))
+                fin = ~torch.isneginf(want[1])
+                if dh == 256 and dtype == torch.bfloat16 and fin.any():
+                    # the plain version is fp32 already
+                    for part, a, b in (("o", got[0], want[0]),
+                                       ("lse", got[1], want[1])):
+                        wide_close(f"decode_attention_partial {part}",
+                                   a[fin], b[fin], b[fin],
+                                   f"decode_attention_partial case {i} "
+                                   f"[{lo}, {hi}) {dtype} {part}",
+                                   lse=part == "lse")
                 empty += int(torch.isneginf(got[1]).all())
                 halves.append(got)
                 n += 1
@@ -1863,9 +2030,12 @@ def phase_timing() -> None:
     rows, totals, moe_rows = time_kernels()
     k3_rows, totals["paged_decode_attention"] = time_k3()
     k4_rows, totals["decode_attention"] = time_k4()
+    partial_rows = time_k4_partial()
     emit("timing", src=SRC, build_seconds=build_s, per_shape=rows,
          totals=totals, moe_per_call=moe_rows, paged_per_shape_bf16=k3_rows,
-         ring_per_shape_bf16=k4_rows, digests=output_digests())
+         ring_per_shape_bf16=k4_rows,
+         partial_per_launch_serve_1x2_block=partial_rows,
+         digests=output_digests())
 
 
 # --------------------------------------------------------------------------
@@ -7554,6 +7724,20 @@ PHASES = ("kernels", "train", "parity", "dist", "resume", "sentinel",
 EXTRA_PHASES = ("timing", "configs_lomo")
 
 
+# phase -> its wall seconds in this run (``timed``; the phase_seconds line)
+PHASE_SECONDS = {}
+
+
+def timed(name: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, its wall seconds kept under ``name`` in
+    ``PHASE_SECONDS``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kw)
+    finally:
+        PHASE_SECONDS[name] = time.perf_counter() - t0
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -7614,79 +7798,83 @@ def main() -> None:
          cudnn_allow_tf32=False, src=SRC)
 
     if "timing" in phases:
-        phase_timing()
+        timed("timing", phase_timing)
 
-    kern = phase_kernels() if "kernels" in phases else None
-    train = phase_train() if "train" in phases else None
+    kern = timed("kernels", phase_kernels) if "kernels" in phases else None
+    train = timed("train", phase_train) if "train" in phases else None
     torch.cuda.empty_cache()
     if "parity" in phases:
-        phase_parity()
+        timed("parity", phase_parity)
         torch.cuda.empty_cache()
     subs = [s for s in args.subs.split(",") if s]
     unknown = sorted(set(subs) - {"model_mla", *MODEL_RUN_SUBS})
     if unknown or (subs and "train" in phases):
         ap.error(f"--subs {args.subs}: unknown {unknown}, or with train")
-    dist_rec = (phase_dist(train, subs, warm_library=kern is not None)
+    dist_rec = (timed("dist", phase_dist, train, subs,
+                      warm_library=kern is not None)
                 if "dist" in phases else None)
     if train is not None:
         train.pop("params_cpu", None)
     gc.collect()
     torch.cuda.empty_cache()
     if "resume" in phases:
-        phase_resume()
+        timed("resume", phase_resume)
         # the process's first profiler start keeps its caller's frames (run
         # A's) in a reference cycle; free them before the serving phases
         gc.collect()
         torch.cuda.empty_cache()
     if "sentinel" in phases:
-        phase_sentinel(train)
+        timed("sentinel", phase_sentinel, train)
         gc.collect()
         torch.cuda.empty_cache()
     if "baselines" in phases:
-        phase_baselines()
+        timed("baselines", phase_baselines)
         torch.cuda.empty_cache()
     if "packed" in phases:
-        phase_packed()
+        timed("packed", phase_packed)
         gc.collect()
         torch.cuda.empty_cache()
-    serve = phase_serve() if "serve" in phases else None
+    serve = timed("serve", phase_serve) if "serve" in phases else None
     torch.cuda.empty_cache()
     if "serve_parity" in phases:
-        phase_serve_parity()
+        timed("serve_parity", phase_serve_parity)
         torch.cuda.empty_cache()
-    legacy = phase_legacy_serve() if "legacy_serve" in phases else None
+    legacy = (timed("legacy_serve", phase_legacy_serve)
+              if "legacy_serve" in phases else None)
     torch.cuda.empty_cache()
     if "legacy_parity" in phases:
-        phase_legacy_parity()
+        timed("legacy_parity", phase_legacy_parity)
     gc.collect()
     torch.cuda.empty_cache()
-    moe = phase_moe() if "moe" in phases else None
+    moe = timed("moe", phase_moe) if "moe" in phases else None
     gc.collect()
     torch.cuda.empty_cache()
-    configs = phase_configs() if "configs" in phases else None
+    configs = (timed("configs", phase_configs) if "configs" in phases
+               else None)
     gc.collect()
     torch.cuda.empty_cache()
-    mla = phase_mla() if "mla" in phases else None
+    mla = timed("mla", phase_mla) if "mla" in phases else None
     gc.collect()
     torch.cuda.empty_cache()
-    prefix = phase_prefix() if "prefix" in phases else None
+    prefix = timed("prefix", phase_prefix) if "prefix" in phases else None
     gc.collect()
     torch.cuda.empty_cache()
-    ssm = phase_ssm() if "ssm" in phases else None
+    ssm = timed("ssm", phase_ssm) if "ssm" in phases else None
     gc.collect()
     torch.cuda.empty_cache()
-    encdec = phase_encdec() if "encdec" in phases else None
+    encdec = timed("encdec", phase_encdec) if "encdec" in phases else None
     gc.collect()
     torch.cuda.empty_cache()
     if "sweep" in phases:
-        phase_sweep()
+        timed("sweep", phase_sweep)
     if "configs_lomo" in phases:
-        phase_configs_lomo()
+        timed("configs_lomo", phase_configs_lomo)
     if kern is not None:
         progress("kernels: the library call of K4's partial entry")
-        time_k4_partial_library(kern["rows"]["decode_attention_partial"],
-                                LIBRARY_WARMUP[0] if LIBRARY_WARMUP
-                                else None)
+        timed("kernels_library", time_k4_partial_library,
+              kern["rows"]["decode_attention_partial"],
+              LIBRARY_WARMUP[0] if LIBRARY_WARMUP else None)
+    emit("phase_seconds", **PHASE_SECONDS)
     if set(phases) != set(PHASES):
         print("chip_smoke: partial run (--phases); no result line")
         sys.exit(3)

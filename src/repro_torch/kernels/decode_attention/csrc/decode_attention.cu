@@ -22,25 +22,28 @@
 // empty or masked slot is never read, so its contents do not matter.
 //
 // Design: the W slots are split into S runs (the wrapper's `ring_split`, from
-// the shapes only, so that about two blocks sit on each SM: fewer, longer
-// runs measured faster than three or one at danube's shapes), one block of
-// four warps per (kh, b, run), and everything happens in ONE launch:
-// * bf16, the serving path: the warp loop of decode_mma.cuh (shared with
-//   K3): cp.async stages filled by each warp kStages - 1 steps ahead, the
-//   slot mask from one __ballot_sync read a step ahead, zero-filling copies
-//   for masked slots, scores and the weighted sum on the tensor cores
-//   (mma.sync m16n8k16, the query heads padded to 16 rows), the online
-//   softmax in the quad's lanes, the four warps combined in warp order.
+// the shapes and the blocks an SM the head dim's loop fits, so that about
+// two blocks sit on each SM in one wave: fewer, longer runs measured faster
+// than three or one at danube's shapes), one block of four warps per (kh, b,
+// run), and everything happens in ONE launch:
+// * bf16, the serving path: the warp loops of decode_mma.cuh (shared with
+//   K3): cp.async stages, the slot mask from one __ballot_sync read a step
+//   ahead, zero-filling copies for masked slots, scores and the weighted
+//   sum on the tensor cores (mma.sync m16n8k16), the online softmax in the
+//   quad's lanes; head dim 256 (paligemma-3b) takes the wide loop, all four
+//   warps on each step, two blocks an SM.
 // * fp32: the SIMT tile loop of decode_tiles.cuh (shared with K3) over the
 //   run, in full fp32 arithmetic.
 // Each block leaves its run's (m, l, acc) in an fp32 workspace, then draws a
 // ticket from an integer counter per (b, kh) (after a __threadfence); the
-// block that draws the last one combines the S states in run order (an
-// online softmax over the runs: out = sum_s acc_s e^(m_s - M) /
-// max(sum_s l_s e^(m_s - M), 1e-30), M = max_s m_s, in one pass) and sets
-// the counter back to 0 for the next launch (decode_mma.cuh's
-// last_run_done and combine_runs).  The atomic decides only which block
-// combines, never an order of float sums: a re-run is bit-identical.
+// block that draws the last one combines the S states in run order (out =
+// sum_s acc_s e^(m_s - M) / max(sum_s l_s e^(m_s - M), 1e-30), M = max_s
+// m_s; at dh 256 the states and the weights taken once into shared memory)
+// and sets the counter back to 0 for the next launch; at dh 256 past 8 runs
+// the runs are combined in groups of 8 first, each group's last run
+// combining it, on tickets of their own (decode_mma.cuh's finish_wide_run).
+// The atomic decides only which block combines, never an order of float
+// sums: a re-run is bit-identical.
 //
 // The partial entry (decode_attention_partial_launch) runs the same blocks
 // over one rank's block of a ring split over ranks, and returns o in fp32
@@ -56,9 +59,16 @@ struct RingRows {
   const int* kv_pos;
   int q_pos, window;
   size_t base, tok_stride;
-  __device__ __forceinline__ bool valid(int t) const {
-    const int p = __ldg(kv_pos + t);
+  // the wide loop reads a slot's word (its position) steps before it
+  // decides on it
+  __device__ __forceinline__ int word(int t) const {
+    return __ldg(kv_pos + t);
+  }
+  __device__ __forceinline__ bool valid_word(int, int p) const {
     return p >= 0 && p <= q_pos && !(window > 0 && q_pos - p >= window);
+  }
+  __device__ __forceinline__ bool valid(int t) const {
+    return valid_word(t, word(t));
   }
   __device__ __forceinline__ size_t off(int t) const {
     return base + (size_t)t * tok_stride;
@@ -104,13 +114,22 @@ ring_decode_kernel(const float* __restrict__ q,
   const RingRows rows = ring_rows(kv_pos, q_pos, window, b, kh, W, K, DH);
   const int t_lo = run * span;
   const size_t h_base = (size_t)b * H + (size_t)kh * G;
-  float* p0 = part + ((size_t)b * K + kh) * S * G * (DH + 2);
-  decode_tiles<DH>(q, k_cache, v_cache, h_base * DH, G, scale, t_lo,
-                   min(W, t_lo + span), rows,
-                   p0 + (size_t)run * G * (DH + 2));
-  if (last_run_done(counters + (size_t)b * K + kh, S))
-    combine_runs<float>(p0, out + h_base * DH, G, DH, S,
-                        lse == nullptr ? nullptr : lse + h_base);
+  if constexpr (kWide<DH>) {
+    decode_tiles<DH>(q, k_cache, v_cache, h_base * DH, G, scale, t_lo,
+                     min(W, t_lo + span), rows,
+                     run_state<DH>(part, K, S, b, kh, G, run));
+    finish_wide_run<DH, TilesShape<DH>::kSmemBytes>(
+        part, counters, gridDim.y, K, S, b, kh, G, run, out + h_base * DH,
+        lse == nullptr ? nullptr : lse + h_base);
+  } else {
+    float* p0 = part + ((size_t)b * K + kh) * S * G * (DH + 2);
+    decode_tiles<DH>(q, k_cache, v_cache, h_base * DH, G, scale, t_lo,
+                     min(W, t_lo + span), rows,
+                     p0 + (size_t)run * G * (DH + 2));
+    if (last_run_done(counters + (size_t)b * K + kh, S))
+      combine_runs<float>(p0, out + h_base * DH, G, DH, S,
+                          lse == nullptr ? nullptr : lse + h_base);
+  }
 }
 
 // ---- bf16: cp.async stages and tensor-core products ------------------------
@@ -132,12 +151,22 @@ ring_decode_kernel_mma(const __nv_bfloat16* __restrict__ q,
   const RingRows rows = ring_rows(kv_pos, q_pos, window, b, kh, W, K, DH);
   const int t_lo = run * span;
   const size_t h_base = (size_t)b * H + (size_t)kh * G;
-  float* p0 = part + ((size_t)b * K + kh) * S * G * (DH + 2);
-  decode_run_mma<DH>(q, k_cache, v_cache, rows, h_base * DH, G, scale, t_lo,
-                     min(W, t_lo + span), p0 + (size_t)run * G * (DH + 2));
-  if (last_run_done(counters + (size_t)b * K + kh, S))
-    combine_runs<TOut>(p0, out + h_base * DH, G, DH, S,
-                       lse == nullptr ? nullptr : lse + h_base);
+  if constexpr (kWide<DH>) {
+    decode_run_wide<DH>(q, k_cache, v_cache, rows, h_base * DH, G, scale,
+                        t_lo, min(W, t_lo + span),
+                        run_state<DH>(part, K, S, b, kh, G, run));
+    finish_wide_run<DH, bf16_smem_bytes<DH>()>(
+        part, counters, gridDim.y, K, S, b, kh, G, run, out + h_base * DH,
+        lse == nullptr ? nullptr : lse + h_base);
+  } else {
+    float* p0 = part + ((size_t)b * K + kh) * S * G * (DH + 2);
+    decode_run_mma<DH>(q, k_cache, v_cache, rows, h_base * DH, G, scale,
+                       t_lo, min(W, t_lo + span),
+                       p0 + (size_t)run * G * (DH + 2));
+    if (last_run_done(counters + (size_t)b * K + kh, S))
+      combine_runs<TOut>(p0, out + h_base * DH, G, DH, S,
+                         lse == nullptr ? nullptr : lse + h_base);
+  }
 }
 
 // static: the flags below must be this library's own (a function-local
@@ -167,7 +196,7 @@ static cudaError_t launch_bf16(dim3 grid, cudaStream_t s, const void* q,
                                float* part, int* counters, void* out,
                                float* lse, int H, int K, int G, int W,
                                int span, float scale, int window) {
-  constexpr size_t smem = MmaShape<DH>::kSmemBytes;
+  constexpr size_t smem = bf16_smem_bytes<DH>();
   static bool sized = false;   // the attribute is set once a process
   const cudaError_t err =
       size_smem_once(sized, ring_decode_kernel_mma<DH, TOut>, smem);
@@ -192,7 +221,8 @@ static int ring_launch(const void* q, const void* k_cache,
   if (B < 1 || B > 65535 || K < 1 || K > 65535 || H % K != 0 ||
       H / K > kMaxG || W < 1 || S < 1 || S > 65535 || span < 1 ||
       span % kBlockStep != 0 || (long long)S * span < W ||
-      (long long)(S - 1) * span >= W)
+      (long long)(S - 1) * span >= W ||
+      (wide_head_dim(dh) && S > kMaxWideRuns))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int G = H / K;
@@ -226,14 +256,60 @@ static int ring_launch(const void* q, const void* k_cache,
 // multiple of it.
 extern "C" int decode_attention_block_step() { return rda::kBlockStep; }
 
+// The runs a first-level combine takes (decode_mma.cuh's kGroupRuns): the
+// workspace and the counters grow with run_groups(S) at dh 256.
+extern "C" int decode_attention_group_runs() { return rda::kGroupRuns; }
+
+// The dynamic shared memory a block of the bf16 loop takes at head dim dh
+// (decode_mma.cuh's bf16_smem_bytes: the wrapper sizes its split by its own
+// copy, checked against this one), or -1 for a head dim the kernels do not
+// take.
+extern "C" int decode_attention_bf16_smem(int dh) {
+  int bytes = -1;
+  rda::with_head_dim(dh, [&](auto d) {
+    bytes = static_cast<int>(rda::bf16_smem_bytes<decltype(d)::value>());
+  });
+  return bytes;
+}
+
+// What the kernel of one entry (0: K4, 1: its partial entry; for float32
+// both launch the same kernel), dtype (0 = float32, 1 = bfloat16) and head
+// dim takes on this card: out[0] its blocks an SM, out[1] its dynamic shared
+// memory a block in bytes, out[2] its registers a thread, out[3] its local
+// memory a thread in bytes (decode_mma.cuh's kernel_usage).  Returns a
+// cudaError_t (0 = read).
+extern "C" int decode_attention_usage(int entry, int dtype, int dh,
+                                      int* out) {
+  using namespace rda;
+  if (entry < 0 || entry > 1 || (dtype != kFloat32 && dtype != kBFloat16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t got = cudaSuccess;
+  const cudaError_t err = with_head_dim(dh, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    if (dtype == kFloat32)
+      got = kernel_usage(ring_decode_kernel<D>, TilesShape<D>::kSmemBytes,
+                         out);
+    else if (entry == 0)
+      got = kernel_usage(ring_decode_kernel_mma<D, __nv_bfloat16>,
+                         bf16_smem_bytes<D>(), out);
+    else
+      got = kernel_usage(ring_decode_kernel_mma<D, float>,
+                         bf16_smem_bytes<D>(), out);
+  });
+  return static_cast<int>(err == cudaSuccess ? got : err);
+}
+
 // q [B, H, dh]; k_cache, v_cache [B, W, K, dh]; out [B, H, dh], all of one
 // dtype (0 = float32, 1 = bfloat16), contiguous, 16-byte aligned; kv_pos [W]
 // int32; q_pos one int32; window <= 0 means none.  The slots are split into
 // S runs of span slots (span a multiple of 64, S * span >= W > (S - 1) *
-// span); part is an fp32 workspace of B * K * S * (H / K) * (dh + 2) floats;
-// counters B * K int32, all 0 before the launch and left at 0 after it (one
-// launch at a time may use them).  dh in {16, 24, 32, 64, 80, 120, 128,
-// 160, 256}, H / K <= 8.
+// span); part is an fp32 workspace of B * K * (S + NG) states of
+// state_floats(H / K) = (H / K) * (dh + 2) floats (at dh 256 rounded up to
+// a multiple of 4), NG = run_groups (ceil(S / 8) at dh 256 where S > 8,
+// else 0; S <= 64 at dh 256);
+// counters B * K * (1 + NG) int32, all 0 before the launch and left at 0
+// after it (one launch at a time may use them).  dh in {16, 24, 32, 64, 80,
+// 120, 128, 160, 256}, H / K <= 8.
 // Returns the launch's cudaError_t (0 = launched).
 extern "C" int decode_attention_launch(const void* q, const void* k_cache,
                                        const void* v_cache,

@@ -25,13 +25,15 @@
 // [lo, n), lo = max(0, n - window), is cut into S runs of whole 16-slot
 // steps (aligned to multiples of 16, so with ps % 16 == 0 a step is one
 // page), S from the shapes only (the wrapper's `paged_split`: about two
-// blocks a SM over B * K * S blocks); block (kh, b, run) computes its own
+// blocks a SM over B * K * S blocks, or as many as the head dim's loop
+// fits); block (kh, b, run) computes its own
 // run from seq_lens[b] on the device (`paged_run`, mirrored by the
 // wrapper's `paged_runs`), so a short sequence leaves no block idle and the
 // host reads nothing back.
-// * bf16, the serving path: the warp loop of decode_mma.cuh (shared with
-//   K4): cp.async stages, zero-filling copies for masked slots, scores and
-//   weighted sums on the tensor cores.  The lane that owns slot t of a step
+// * bf16, the serving path: the warp loops of decode_mma.cuh (shared with
+//   K4; the wide one at head dim 256): cp.async stages, zero-filling copies
+//   for masked slots, scores and weighted sums on the tensor cores.  The
+//   lane that owns slot t of a step
 //   loads the page id block_tables[b, t / ps] one step ahead, with the slot
 //   mask, and the copying lanes get the row by __shfl_sync, so the table
 //   load's latency overlaps the current step.
@@ -40,9 +42,11 @@
 // Each run's (m, l, acc) goes to an fp32 workspace; a run with no live slot
 // writes the neutral state and still draws its ticket.  The block that draws
 // the last ticket of (b, kh) (K3's own counters) combines the runs in run
-// order and resets the ticket.  A page id outside [0, N) stops the kernel
-// (__trap: the launch then reports an error), as the plain version's gather
-// fails on it.  No float atomics: a re-run is bit-identical.
+// order and resets the ticket (at dh 256 past 8 runs in groups of 8 first,
+// as K4: decode_mma.cuh's finish_wide_run).  A page id outside [0, N)
+// stops the kernel (__trap: the launch then reports an error), as the plain
+// version's gather fails on it.  No float atomics: a re-run is
+// bit-identical.
 #include "decode_mma.cuh"
 
 namespace pda {
@@ -59,10 +63,20 @@ struct PagedRows {
   __device__ __forceinline__ bool valid(int t) const {
     return t >= lo && t < n;
   }
-  __device__ __forceinline__ int row_of(int t) const {
-    const int page = __ldg(bt + t / ps);
+  // the wide loop reads a slot's word (its page id) steps before it
+  // decides on it
+  __device__ __forceinline__ int word(int t) const {
+    return __ldg(bt + t / ps);
+  }
+  __device__ __forceinline__ bool valid_word(int t, int) const {
+    return valid(t);
+  }
+  __device__ __forceinline__ int row_word(int t, int page) const {
     if (page < 0 || page >= N) __trap();
     return page * ps + t % ps;
+  }
+  __device__ __forceinline__ int row_of(int t) const {
+    return row_word(t, word(t));
   }
   __device__ __forceinline__ size_t off_of(int row) const {
     return (size_t)row * tok_stride + head_off;
@@ -99,6 +113,14 @@ __device__ __forceinline__ PagedRun paged_run(int n_all, int window, int cap,
 }
 
 template <typename T, int DH>
+__host__ __device__ constexpr size_t paged_smem_bytes() {
+  if constexpr (std::is_same<T, float>::value)
+    return TilesShape<DH>::kSmemBytes;
+  else
+    return bf16_smem_bytes<DH>();
+}
+
+template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                     const T* __restrict__ v_pages,
@@ -113,15 +135,24 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const PagedRows rows{block_tables + (size_t)b * P, span.lo, span.n, ps, N,
                        (size_t)K * DH, (size_t)kh * DH};
   const size_t q_base = ((size_t)b * H + (size_t)kh * G) * DH;
+  constexpr bool kWideDH = kWide<DH>;
   float* p0 = part + ((size_t)b * K + kh) * S * G * (DH + 2);
-  float* state = p0 + (size_t)run * G * (DH + 2);
+  float* state = kWideDH ? run_state<DH>(part, K, S, b, kh, G, run)
+                         : p0 + (size_t)run * G * (DH + 2);
   if constexpr (std::is_same<T, float>::value)
     decode_tiles<DH>(q, k_pages, v_pages, q_base, G, scale, span.t_lo,
                      span.t_hi, rows, state);
+  else if constexpr (kWideDH)
+    decode_run_wide<DH>(q, k_pages, v_pages, rows, q_base, G, scale,
+                        span.t_lo, span.t_hi, state);
   else
     decode_run_mma<DH>(q, k_pages, v_pages, rows, q_base, G, scale,
                        span.t_lo, span.t_hi, state);
-  if (last_run_done(counters + (size_t)b * K + kh, S))
+  if constexpr (kWideDH)
+    finish_wide_run<DH, paged_smem_bytes<T, DH>()>(
+        part, counters, gridDim.y, K, S, b, kh, G, run, out + q_base,
+        nullptr);
+  else if (last_run_done(counters + (size_t)b * K + kh, S))
     combine_runs<T>(p0, out + q_base, G, DH, S);
 }
 
@@ -133,9 +164,7 @@ static cudaError_t launch_paged(dim3 grid, cudaStream_t s, const void* q,
                                 const int* sl, float* part, int* counters,
                                 void* out, int H, int K, int G, int N, int ps,
                                 int P, float scale, int window) {
-  constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
-  constexpr size_t smem =
-      kMma ? MmaShape<DH>::kSmemBytes : TilesShape<DH>::kSmemBytes;
+  constexpr size_t smem = paged_smem_bytes<T, DH>();
   static bool sized = false;   // the attribute is set once a process
   const cudaError_t err =
       size_smem_once(sized, paged_decode_kernel<T, DH>, smem);
@@ -154,14 +183,35 @@ extern "C" int paged_decode_max_group() { return pda::kMaxG; }
 // The slots of one step: runs are whole multiples of it.
 extern "C" int paged_decode_step() { return pda::kStep; }
 
+// What the kernel of one dtype (0 = float32, 1 = bfloat16) and head dim
+// takes on this card, as decode_attention_usage reports it.  Returns a
+// cudaError_t (0 = read).
+extern "C" int paged_decode_attention_usage(int dtype, int dh, int* out) {
+  using namespace pda;
+  if (dtype != kFloat32 && dtype != kBFloat16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t got = cudaSuccess;
+  const cudaError_t err = with_head_dim(dh, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    if (dtype == kFloat32)
+      got = kernel_usage(paged_decode_kernel<float, D>,
+                         paged_smem_bytes<float, D>(), out);
+    else
+      got = kernel_usage(paged_decode_kernel<__nv_bfloat16, D>,
+                         paged_smem_bytes<__nv_bfloat16, D>(), out);
+  });
+  return static_cast<int>(err == cudaSuccess ? got : err);
+}
+
 // q [B, H, dh]; k_pages, v_pages [N, ps, K, dh]; out [B, H, dh], all of one
 // dtype (0 = float32, 1 = bfloat16), contiguous, 16-byte aligned;
 // block_tables [B, P] int32; seq_lens [B] int32 (this token included);
 // window <= 0 means none.  Each sequence's live tokens are split into S runs
-// on the device; part is an fp32 workspace of B * K * S * (H / K) * (dh + 2)
-// floats; counters B * K int32, all 0 before the launch and left at 0 after
-// it (one launch at a time may use them).  dh in {16, 24, 32, 64, 80, 120,
-// 128, 160, 256}, H / K <= 8.  Returns the launch's cudaError_t (0 = launched).
+// on the device; part and counters as decode_attention_launch's (S runs
+// over B * K pairs, S <= 64 at dh 256), left at 0 after the launch (one
+// launch at a time may use them).  dh in {16, 24, 32, 64, 80, 120, 128,
+// 160, 256}, H / K <= 8.  Returns the launch's cudaError_t (0 =
+// launched).
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* k_pages, const void* v_pages,
     const void* block_tables, const void* seq_lens, void* part,
@@ -170,6 +220,7 @@ extern "C" int paged_decode_attention_launch(
   using namespace pda;
   if (B < 1 || B > 65535 || K < 1 || K > 65535 || H % K != 0 ||
       H / K > kMaxG || N < 1 || ps < 1 || P < 1 || S < 1 || S > 65535 ||
+      (wide_head_dim(dh) && S > kMaxWideRuns) ||
       (long long)P * ps > (1 << 30) || (long long)N * ps > (1 << 30))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -21,11 +21,14 @@ one library built at first use by ``kernels/build.py``, one ``nvcc`` per
 source).  Bound by bytes: the valid K/V rows must be read once, and only they
 are read.  Both kernels split each (sequence, KV head) into runs of slots
 (K4: ``ring_split``; K3: ``paged_split``, each block cutting its own run of
-the sequence's live tokens on the device, as ``paged_runs`` does), stream
+the sequence's live tokens on the device, as ``paged_runs`` does), sized by
+the blocks an SM the head dim's bf16 loop fits (``blocks_per_sm``), stream
 them through shared memory with ``cp.async`` and (bf16) tensor-core
 products, and the last run to finish combines the runs' states in a fixed
-order, all in one launch; K3's lanes load the page ids a step ahead.  No
-float atomics: the same inputs give bit-identical outputs.
+order (each run's weight taken once, then sums of FMAs), all in one launch;
+K3's lanes load the page ids a step ahead.  Head dim 256 takes the wide
+loop, all four warps of a block on each step.  No float atomics: the same
+inputs give bit-identical outputs.
 
 A CUDA tensor launches the kernel or raises; only a CPU tensor takes the
 plain version.  A meta tensor takes the CUDA tensor's path up to the launch
@@ -57,21 +60,90 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 24, 32, 64, 80, 120, 128, 160, 256)
 _STEP = 16                  # slots a warp takes in one step
 _RING_STEP = 64             # slots a K4 block's four warps take in one round
-_BLOCKS = 132 * 2           # K3 and K4 aim at about two blocks on each SM
+_SMS = 132                  # the H100's streaming multiprocessors
+_AIM = 2                    # K3 and K4 aim at about two blocks on each SM
+_SM_SMEM = 233_472          # shared memory an SM (228 KB), and
+_BLOCK_RESERVE = 1_024      # what the runtime keeps of it a block
+WIDE_HEAD_DIMS = (256,)     # the bf16 wide loop's (csrc/decode_mma.cuh)
+GROUP_RUNS = 8              # runs a first-level combine takes (kGroupRuns)
+# the most runs a (sequence, KV head) the wide loop's split makes (the
+# kernels take up to GROUP_RUNS ** 2): past 32 its two-level combine costs
+# more than the blocks it adds buy (chip_smoke.py --phases timing on an
+# H100: 4 x 4096 at dh 256, 64 runs 0.0209-0.0210 ms, 32 runs 0.0194-0.0195)
+WIDE_MAX_RUNS = 32
 # the largest query group a KV head the kernels take (kMaxG of
 # csrc/decode_tiles.cuh, read from the library on the card; the meta
 # device's dry launches use this copy)
 MAX_GROUP = 8
 
 
-def ring_split(B: int, K: int, W: int) -> tuple:
+def bf16_smem_bytes(dh: int) -> int:
+    """The dynamic shared memory a block of K3's and K4's bf16 loop takes
+    at head dim ``dh`` (``bf16_smem_bytes`` of csrc/decode_mma.cuh): the wide
+    loop's four stages of 16 K and 16 V rows, padded by 8 elements, its
+    quarter scores and slot masks; the narrow loop's three stages a warp,
+    rows rounded up to whole 16-wide k-steps."""
+    if dh in WIDE_HEAD_DIMS:
+        return 4 * 2 * _STEP * (dh + 8) * 2 + 2 * 4 * MAX_GROUP * 20 * 4 + 16
+    return 4 * 3 * 2 * _STEP * (-(-dh // 16) * 16 + 8) * 2
+
+
+def blocks_per_sm(dh: int) -> int:
+    """The blocks an SM that K3 and K4 aim at, at head dim ``dh``: two, or
+    one where the bf16 loop's shared memory lets only one sit on an SM
+    (``chip_smoke.py`` holds it against the card's occupancy)."""
+    fits = _SM_SMEM // (bf16_smem_bytes(dh) + _BLOCK_RESERVE)
+    return max(1, min(_AIM, fits))
+
+
+def _rounds_per_run(rounds: int, B: int, K: int, dh: int) -> int:
+    """The rounds of ``_RING_STEP`` slots a run takes when each of B * K
+    (sequence, KV head) pairs has ``rounds`` of them: near one wave of
+    ``blocks_per_sm(dh)`` blocks on each SM, and at the wide loop's head dim
+    no more than ``WIDE_MAX_RUNS`` runs a pair."""
+    per_run = max(1, -(-rounds * B * K // (_SMS * blocks_per_sm(dh))))
+    if dh in WIDE_HEAD_DIMS:
+        per_run = max(per_run, -(-rounds // WIDE_MAX_RUNS))
+    return per_run
+
+
+def ring_split(B: int, K: int, W: int, dh: int) -> tuple:
     """(S, span): K4 splits the W slots into S runs of ``span`` slots (whole
-    rounds of ``_RING_STEP``), so that B * K * S blocks come near
-    ``_BLOCKS``.  Depends on the shapes only."""
+    rounds of ``_RING_STEP``; ``_rounds_per_run``).  Depends on the shapes
+    only."""
     rounds = -(-W // _RING_STEP)
-    per_run = max(1, -(-rounds * B * K // _BLOCKS))
-    S = -(-rounds // per_run)
-    return S, per_run * _RING_STEP
+    per_run = _rounds_per_run(rounds, B, K, dh)
+    return -(-rounds // per_run), per_run * _RING_STEP
+
+
+def run_groups(S: int, dh: int) -> int:
+    """The group states of one (sequence, KV head) split into S runs
+    (``run_groups`` of csrc/decode_mma.cuh): at the wide loop's head dim,
+    past ``GROUP_RUNS`` runs, the runs are combined in groups of
+    ``GROUP_RUNS`` first."""
+    return (-(-S // GROUP_RUNS)
+            if dh in WIDE_HEAD_DIMS and S > GROUP_RUNS else 0)
+
+
+def state_floats(G: int, dh: int) -> int:
+    """The floats of one run's state (``state_floats`` of
+    csrc/decode_mma.cuh): ``G * (dh + 2)``, at the wide loop's head dim
+    rounded up to whole 16-byte pieces."""
+    if dh in WIDE_HEAD_DIMS:
+        return -(-G * (dh + 2) // 4) * 4
+    return G * (dh + 2)
+
+
+def _workspace(B: int, K: int, S: int, G: int, dh: int, device,
+               counters) -> tuple:
+    """``(part, counters)`` of one launch: the fp32 run and group states,
+    ``B * K * (S + run_groups(S, dh))`` of ``state_floats(G, dh)``, and
+    the kernel's tickets (``counters``: ``ring_counters`` or
+    ``paged_counters``), ``1 + run_groups(S, dh)`` a (sequence, KV head)."""
+    NG = run_groups(S, dh)
+    part = torch.empty(B * K * (S + NG) * state_floats(G, dh),
+                       dtype=torch.float32, device=device)
+    return part, counters(device, B * K * (1 + NG))
 
 
 def ring_counters(device, n: int) -> Tensor:
@@ -80,15 +152,14 @@ def ring_counters(device, n: int) -> Tensor:
     return ticket_counters("decode_attention", device, n)
 
 
-def paged_split(B: int, K: int, P: int, ps: int) -> int:
+def paged_split(B: int, K: int, P: int, ps: int, dh: int) -> int:
     """S: K3 splits each sequence's live tokens into S runs, with S from the
-    shapes only (the table's P * ps slots in rounds of ``_RING_STEP``, as
-    ``ring_split`` cuts a ring), so that B * K * S blocks come near
-    ``_BLOCKS`` when the sequences fill their tables.  A shorter sequence
-    gets the same S runs, each shorter."""
+    shapes only (the table's P * ps slots in rounds of ``_RING_STEP``, cut
+    as ``ring_split`` cuts a ring, so that the runs fill about one wave when
+    the sequences fill their tables).  A shorter sequence gets the same S
+    runs, each shorter."""
     rounds = -(-P * ps // _RING_STEP)
-    per_run = max(1, -(-rounds * B * K // _BLOCKS))
-    return -(-rounds // per_run)
+    return -(-rounds // _rounds_per_run(rounds, B, K, dh))
 
 
 def paged_runs(n_all: int, window: Optional[int], cap: int, S: int) -> list:
@@ -148,9 +219,48 @@ def _library() -> ctypes.CDLL:
         raise RuntimeError("paged_decode_attention: the kernel's step of "
                            f"{lib.paged_decode_step()} slots is not the "
                            f"wrapper's {_STEP}")
+    lib.decode_attention_usage.argtypes = [ci, ci, ci, vp]
+    lib.decode_attention_usage.restype = ci
+    lib.paged_decode_attention_usage.argtypes = [ci, ci, vp]
+    lib.paged_decode_attention_usage.restype = ci
+    lib.decode_attention_group_runs.argtypes = []
+    lib.decode_attention_group_runs.restype = ci
+    if lib.decode_attention_group_runs() != GROUP_RUNS:
+        raise RuntimeError("decode_attention: the kernel's groups of "
+                           f"{lib.decode_attention_group_runs()} runs are "
+                           f"not the wrapper's {GROUP_RUNS}")
+    lib.decode_attention_bf16_smem.argtypes = [ci]
+    lib.decode_attention_bf16_smem.restype = ci
+    for dh in HEAD_DIMS:
+        got = lib.decode_attention_bf16_smem(dh)
+        if got != bf16_smem_bytes(dh):
+            raise RuntimeError(
+                f"decode_attention: the bf16 loop's {got} bytes of shared "
+                f"memory at dh {dh} are not the wrapper's "
+                f"{bf16_smem_bytes(dh)}")
     lib.max_group = lib.paged_decode_max_group()
     lib._pda_bound = True
     return lib
+
+
+def kernel_usage(entry: str, dtype: torch.dtype, dh: int) -> dict:
+    """What the card gives one kernel instance, read through the library:
+    ``entry`` ``"paged"`` (K3), ``"ring"`` (K4) or ``"partial"`` (K4's
+    partial entry) at ``dtype`` and head dim ``dh`` -> its blocks an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), dynamic shared
+    memory a block, registers and local memory a thread.  Needs the card."""
+    lib = _library()
+    out = (ctypes.c_int * 4)()
+    if entry == "paged":
+        err = lib.paged_decode_attention_usage(_DTYPE_CODE[dtype], dh, out)
+    else:
+        err = lib.decode_attention_usage(int(entry == "partial"),
+                                         _DTYPE_CODE[dtype], dh, out)
+    if err != 0:
+        raise RuntimeError(f"kernel_usage({entry}, {dtype}, {dh}): CUDA "
+                           f"error {err}")
+    return dict(zip(("blocks_per_sm", "smem_bytes", "registers",
+                     "local_bytes"), out))
 
 
 def _check(name: str, t: Tensor, shape: tuple, dtypes: tuple, device) -> None:
@@ -206,10 +316,8 @@ def paged_decode_attention(q: Tensor, k_pages: Tensor, v_pages: Tensor,
         raise ValueError(f"{H} query heads over {K} KV heads: the kernel "
                          f"takes groups of 1..{max_group}")
     scale = scale if scale is not None else dh ** -0.5
-    S = paged_split(B, K, P, ps)
-    part = torch.empty(B * K * S * (H // K) * (dh + 2), dtype=torch.float32,
-                       device=dev)
-    counters = paged_counters(dev, B * K)
+    S = paged_split(B, K, P, ps, dh)
+    part, counters = _workspace(B, K, S, H // K, dh, dev, paged_counters)
     out = torch.empty_like(q)
     if dry.is_dry(q):
         dry.paged(q, k_pages, block_tables)
@@ -259,11 +367,9 @@ def _ring_args(q: Tensor, k_cache: Tensor, v_cache: Tensor, kv_pos: Tensor,
         raise ValueError(f"{H} query heads over {K} KV heads: the kernel "
                          f"takes groups of 1..{max_group}")
     scale = scale if scale is not None else dh ** -0.5
-    S, span = ring_split(B, K, W)
-    part = torch.empty(B * K * S * (H // K) * (dh + 2), dtype=torch.float32,
-                       device=dev)
-    return (B, H, dh, K, W, S, span, scale, q_pos, part,
-            ring_counters(dev, B * K))
+    S, span = ring_split(B, K, W, dh)
+    part, counters = _workspace(B, K, S, H // K, dh, dev, ring_counters)
+    return (B, H, dh, K, W, S, span, scale, q_pos, part, counters)
 
 
 def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,

@@ -314,8 +314,8 @@ def test_ring_split_covers_the_ring_in_whole_tiles(B, K, W):
     32 for the fp32 loop), every slot in exactly one run, no empty run, about
     two blocks a SM once the ring is long enough; at danube's timing shapes
     (32/8 heads) one wave that reaches every SM.  The tickets: at least B * K
-    zeros, allocated once."""
-    S, span = KD.ring_split(B, K, W)
+    zeros, allocated once.  danube's head dim, 80."""
+    S, span = KD.ring_split(B, K, W, 80)
     assert span % 64 == 0 and S * span >= W > (S - 1) * span
     assert B * K * S <= 2 * 132 * 2 or span == 64
     if (B, K, W) in ((4, 8, 4096), (8, 8, 1024), (1, 8, 4096)):

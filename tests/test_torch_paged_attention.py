@@ -23,7 +23,7 @@ from repro_torch.kernels.decode_attention import ops
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, paged_decode_attention_ref)
 from repro_torch.models import layers as L
-from torch_parity import np_f32
+from torch_parity import combine_runs_model, np_f32, run_state_model
 
 # B, H, K, dh, page_size, P, window, seq_lens — tests/serve/test_paged_attention.py
 CASES = [
@@ -187,10 +187,10 @@ def test_paged_split_covers_live_tokens_once(ps, window):
     in runs of whole steps of 16 from lo rounded down, each live token in
     exactly one run, empty runs carrying no slot; lengths past the table's
     P * ps slots read only those.  ``paged_split`` depends on the shapes
-    only and comes near two blocks a SM at danube's serving shapes."""
+    only and comes near two blocks a SM at danube's serving shapes (dh 80)."""
     P = 19
     cap = P * ps
-    S = KD.paged_split(5, 8, P, ps)
+    S = KD.paged_split(5, 8, P, ps, 80)
     assert S >= 1
     for n_all in (0, 1, 5, 15, 16, 17, 33, 100, cap - 1, cap, cap + 7,
                   5000):
@@ -208,7 +208,7 @@ def test_paged_split_covers_live_tokens_once(ps, window):
             live += range(max(t_lo, lo), t_hi)
         assert live == list(range(lo, n))
     for B, P_, want in ((8, 64, 4), (8, 128, 4), (1, 128, 32)):
-        S = KD.paged_split(B, 8, P_, 16)
+        S = KD.paged_split(B, 8, P_, 16, 80)
         assert S == want and 132 <= B * 8 * S <= 2 * 132
     counters = KD.paged_counters(torch.device("cpu"), 40)
     assert counters.dtype == torch.int32 and counters.numel() >= 40
@@ -220,12 +220,12 @@ def test_paged_split_covers_live_tokens_once(ps, window):
 def _split_model(q, kp, vp, bt, sl, window):
     """K3's arithmetic in plain PyTorch, fp32: each run of ``paged_runs``
     leaves its softmax state (m, l, acc) over its live slots (an empty run
-    the neutral state), and the runs are combined in run order as the
-    kernel's ``combine_runs`` does."""
+    the neutral state), and the runs are combined as the kernel's
+    ``combine_runs`` does (``torch_parity.combine_runs_model``)."""
     B, H, dh = q.shape
     N, ps, K, _ = kp.shape
     P, G = bt.shape[1], H // K
-    S = KD.paged_split(B, K, P, ps)
+    S = KD.paged_split(B, K, P, ps, dh)
     k_rows, v_rows = kp.reshape(N * ps, K, dh), vp.reshape(N * ps, K, dh)
     out = torch.zeros_like(q)
     for b in range(B):
@@ -233,26 +233,16 @@ def _split_model(q, kp, vp, bt, sl, window):
         lo = max(0, n_all - window) if window else 0
         for kh in range(K):
             qg = q[b, kh * G:(kh + 1) * G]
-            m_all = torch.full((G,), -1e30)
-            l_all, a_all = torch.zeros(G), torch.zeros(G, dh)
+            states = []
             for t_lo, t_hi in KD.paged_runs(n_all, window, P * ps, S):
-                t = torch.arange(max(t_lo, lo), max(t_hi, lo))
-                if t.numel() == 0:
-                    ms, ls, acc = torch.full((G,), -1e30), torch.zeros(G), \
-                        torch.zeros(G, dh)
-                else:
-                    rows = bt[b, t // ps].long() * ps + t % ps
-                    s = (qg @ k_rows[rows, kh].T) * dh ** -0.5
-                    ms = s.max(dim=-1).values
-                    p = torch.exp(s - ms[:, None])
-                    ls, acc = p.sum(dim=-1), p @ v_rows[rows, kh]
-                mn = torch.maximum(m_all, ms)
-                c_old, c_new = torch.exp(m_all - mn), torch.exp(ms - mn)
-                l_all = l_all * c_old + ls * c_new
-                a_all = a_all * c_old[:, None] + acc * c_new[:, None]
-                m_all = mn
-            out[b, kh * G:(kh + 1) * G] = a_all / torch.clamp_min(
-                l_all, 1e-30)[:, None]
+                t = torch.arange(t_lo, t_hi)
+                rows = bt[b, t // ps].long() * ps + t % ps
+                states.append(run_state_model(qg, k_rows[rows, kh],
+                                              v_rows[rows, kh], t >= lo,
+                                              dh ** -0.5))
+            acc, m, l = (torch.stack(x) for x in zip(*states))
+            out[b, kh * G:(kh + 1) * G] = combine_runs_model(
+                acc, m, l, tree=KD.run_groups(S, dh) > 0)[0]
     return out
 
 

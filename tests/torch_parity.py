@@ -6,6 +6,7 @@ the tests import both packages; the port imports neither ``jax`` nor
 ``repro``.
 """
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -188,3 +189,55 @@ __all__ = ["CPU", "ARCH_ID", "np_f32", "jax_flat", "port_flat",
            "ref_params_and_copy", "patch_attention_thresholds",
            "convert_opt_state", "make_batch", "jax_batch", "torch_batch",
            "to_numpy", "plan_mesh"]
+
+
+def _combine_states(acc, m, l):
+    """n states combined as the kernel's ``combine_states`` orders it: each
+    head's maximum M, each state's weight ``e^(m_s - M)``, then the sums in
+    state order.  Returns the combined state ``(A, M, L)``."""
+    M = m.max(dim=0).values
+    w = torch.exp(m - M)
+    L = torch.zeros_like(M)
+    a = torch.zeros_like(acc[0])
+    for s in range(acc.shape[0]):
+        L = L + l[s] * w[s]
+        a = a + acc[s] * w[s][:, None]
+    return a, M, L
+
+
+def combine_runs_model(acc, m, l, group: int = 8, tree: bool = True):
+    """K3's and K4's combine of S run states (``csrc/decode_mma.cuh``'s
+    ``finish_wide_run`` and ``combine_runs``) in plain PyTorch, in the
+    kernel's order: with ``tree`` (the kernel's ``run_groups`` > 0: the
+    wide loop's head dim) and past ``group`` runs, each group of ``group``
+    runs is combined into a group state first and the group states are
+    combined after; each combine takes the heads' maximum and the states'
+    weights first, then sums in order.  ``acc [S, G, dh]`` (unnormalised),
+    ``m``, ``l`` ``[S, G]``; a run with no valid slot holds ``m = -1e30,
+    l = 0, acc = 0``.  Returns ``(out [G, dh], lse [G])``: ``A / max(L,
+    1e-30)`` and ``M + log L``; a head with no valid slot gets 0 and
+    -inf."""
+    if tree and acc.shape[0] > group:
+        states = [_combine_states(acc[i:i + group], m[i:i + group],
+                                  l[i:i + group])
+                  for i in range(0, acc.shape[0], group)]
+        acc, m, l = (torch.stack(x) for x in zip(*states))
+    a, M, L = _combine_states(acc, m, l)
+    out = a / torch.clamp_min(L, 1e-30)[:, None]
+    lse = torch.where(L > 0, M + torch.log(L), torch.full_like(L, -math.inf))
+    return out, lse
+
+
+def run_state_model(q, k, v, valid, scale):
+    """One run's state as a block of K3 or K4 leaves it: ``q [G, dh]`` over
+    the run's rows ``k, v [n, dh]`` with ``valid [n]`` -> ``(acc [G, dh],
+    m [G], l [G])``, unnormalised; the neutral state where no slot is
+    valid."""
+    G, dh = q.shape
+    if not bool(valid.any()):
+        return (torch.zeros(G, dh), torch.full((G,), -1e30),
+                torch.zeros(G))
+    s = (q @ k[valid].T) * scale
+    m = s.max(dim=-1).values
+    p = torch.exp(s - m[:, None])
+    return p @ v[valid], m, p.sum(dim=-1)
